@@ -7,16 +7,27 @@ Needs one CUDA device and the CUDA toolkit (nvcc); it builds every
 kernel from the sources in this checkout.  Phases, each fatal:
 
 1. environment: card, power limit, versions, TF32 off, kernel build;
-2. every CUDA kernel against its plain PyTorch version on the card, at
-   the shapes the serving path gives it, with times and bounds;
-3. a small model on the card against the same model on the CPU;
+2. the paged-decode kernel against its plain PyTorch version on the
+   card, at the shapes the serving path gives it, with times and bounds;
+3. a small serving model on the card against the same model on the CPU;
 4. full-width serving: ``PagedDecoderLM`` at the GPT ``1b`` widths of
    ``bench.py`` (vocab 50257, hidden 1792, 24 layers, 14 heads, ffn
    7168; random weights from a seed) behind ``GenerationEngine`` and
    ``ServingServer``, answering 16 ``/generate`` requests over HTTP;
 5. anatomy of one full-width decode step (8 slots at context 600): its
    time on the host's clock, and the card's busy time by kernel from
-   ``torch.profiler``.
+   ``torch.profiler``;
+6. the three flash-attention kernels (forward, dQ, dK/dV) against their
+   plain versions through the autograd Function: f32 and bf16, causal
+   and not, dropout 0 and 0.1, at BERT-base's attention shape and a
+   D=128 and a ragged case; the dropout mask's kept fraction; times
+   beside the bound, the plain version and SDPA's flash backend;
+7. a small BERT (``bench_bert``'s CPU widths, f32, dropout 0) trained 3
+   ``TrainStep``s on the card and on the CPU from the same weights;
+8. full-width training: ``bench_bert``'s chip config (BERT-base, batch
+   64, seq 512, dropout 0.1, O2 bf16 with f32 master weights, AdamW,
+   global-norm clip) for 2 warm-up and 10 timed steps;
+9. anatomy of one training step from ``torch.profiler``.
 
 The last lines are the kernels JSON object, the card's name and power
 limit as ``nvidia-smi`` reports them, and ``{"ok": true, ...}``.  Any
@@ -38,6 +49,26 @@ GPT_1B = dict(vocab_size=50257, hidden=1792, num_layers=24, num_heads=14,
 PAGE, SLOTS, MAX_CONTEXT = 16, 8, 1024
 PROMPT_BUCKETS = [32, 64, 128, 256, 512]
 TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+# bench.py:159-168, bench_bert's chip and CPU configurations
+BERT_CHIP = dict(vocab=30522, hidden=768, layers=12, heads=12, ffn=3072,
+                 seq=512, batch=64, dropout=0.1)
+BERT_CPU = dict(vocab=1000, hidden=128, layers=2, heads=4, ffn=512,
+                seq=128, batch=8, dropout=0.0)
+FLASH = "paddle_tpu/ops/pallas/flash_attention.py"
+FLASH_KERNELS = {"flash_attention_fwd": f"{FLASH}:128",      # _fwd_kernel
+                 "flash_attention_bwd_dq": f"{FLASH}:220",   # _bwd_dq_kernel
+                 "flash_attention_bwd_dkv": f"{FLASH}:255"}  # _bwd_dkv_kernel
+# kernel vs plain, as max |a - b| / max(1, max |b|): f32 sums taken in
+# another order; bf16 probabilities and dS rounded to bf16 before the
+# tensor-core products (the TPU kernel rounds them the same way)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# small BERT, card vs CPU, after 3 AdamW steps at lr 1e-4: Adam's step
+# is lr * m / (sqrt(v) + eps), so the two sides agree to lr times the
+# gradients' relative difference (f32 sums in other orders); 2e-5 is a
+# fifth of one step.  The key projections' biases are held apart: their
+# gradient is zero but for rounding (softmax ignores a shift shared by
+# every key), so Adam moves them by up to lr a step on either side
+BERT_PARAM_ATOL = 2e-5
 
 
 def log(*a):
@@ -359,22 +390,400 @@ def phase_anatomy(model, kv):
     log("ANATOMY " + json.dumps(out))
 
 
+# ---------------------------------------------------------------- phase 6
+def _flash_bound(B, H, Lq, Lk, D, es, dtype_name, causal, kernel):
+    """Least time for one flash kernel: each input read once, each
+    output written once; the tensor-core products over the visible
+    (query, key) pairs (2 D operations per pair and product)."""
+    if causal:
+        pairs = sum(min(Lk, i + 1) for i in range(Lq))
+    else:
+        pairs = Lq * Lk
+    q_bytes, k_bytes = B * H * Lq * D * es, B * H * Lk * D * es
+    row_bytes = B * H * Lq * 4                   # lse or delta, f32
+    nbytes, products = {
+        # q k v -> out lse
+        "flash_attention_fwd": (2 * q_bytes + 2 * k_bytes + row_bytes, 2),
+        # q k v do lse delta -> dq: S, dP, dQ
+        "flash_attention_bwd_dq": (3 * q_bytes + 2 * k_bytes
+                                   + 2 * row_bytes, 3),
+        # q k v do lse delta -> dk dv: S, dP, dV, dK
+        "flash_attention_bwd_dkv": (2 * q_bytes + 4 * k_bytes
+                                    + 2 * row_bytes, 4),
+    }[kernel]
+    ops = 2 * D * pairs * B * H * products
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype_name] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
+
+
+def _flash_case(torch, gen, B, L, H, D, dtype, causal, p, seed, plain_b):
+    """Forward and the three gradients through the autograd Function on
+    the card, against the plain versions on the first ``plain_b``
+    batch rows; errors as max |a - b| / max(1, max |b|)."""
+    from paddle_tpu_torch.ops.cuda import flash_attention_fwd
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_reference_bwd,
+        flash_attention_reference_fwd)
+    q, k, v, do = (torch.randn((B, L, H, D), generator=gen,
+                               device="cuda").to(dtype) for _ in range(4))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    scale = 1.0 / math.sqrt(D)
+    out = flash_attention(qg, kg, vg, causal=causal, dropout_p=p, seed=seed)
+    grads = torch.autograd.grad(out, (qg, kg, vg), do)
+    _, lse = flash_attention_fwd(q, k, v, scale=scale, causal=causal,
+                                 dropout_p=p, seed=seed)
+    torch.cuda.synchronize()
+    t = lambda x: x[:plain_b].transpose(1, 2)            # noqa: E731
+    kw = dict(causal=causal, scale=scale, dropout_p=p, seed=seed)
+    ro, rlse = flash_attention_reference_fwd(t(q), t(k), t(v), **kw)
+    refs = flash_attention_reference_bwd(t(q), t(k), t(v), ro, rlse, t(do),
+                                         **kw)
+    errs = {}
+    for name, got, ref in [("out", t(out), ro), ("lse", lse[:plain_b], rlse),
+                           ("dq", t(grads[0]), refs[0]),
+                           ("dk", t(grads[1]), refs[1]),
+                           ("dv", t(grads[2]), refs[2])]:
+        got, ref = got.float(), ref.float()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"flash {name}: non-finite values")
+        errs[name] = ((got - ref).abs().max()
+                      / ref.abs().max().clamp_min(1.0)).item()
+    return errs
+
+
+def _sdpa_ms(torch, q, k, v, do, p, causal):
+    """SDPA's flash backend on the same inputs ([B, H, L, D] copies):
+    ms of the forward, of one autograd backward (dq, dk, dv together),
+    and of forward + backward."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        fwd = cuda_ms(lambda i: sdpa(qt, kt, vt, dropout_p=p,
+                                     is_causal=causal), 20)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+        out = sdpa(qg, kg, vg, dropout_p=p, is_causal=causal)
+        bwd = cuda_ms(lambda i: torch.autograd.grad(
+            out, (qg, kg, vg), dot, retain_graph=True), 20)
+        both = cuda_ms(lambda i: torch.autograd.grad(
+            sdpa(qg, kg, vg, dropout_p=p, is_causal=causal), (qg, kg, vg),
+            dot), 20)
+    return fwd, bwd, both
+
+
+def phase_flash_kernels():
+    """The flash kernels against their plain versions on the card, then
+    timed at the training path's shape (BERT-base attention: B 64, H 12,
+    L 512, D 64, bf16, dropout 0.1, not causal)."""
+    import torch
+    from paddle_tpu_torch.core.rng import dropout_threshold
+    from paddle_tpu_torch.ops.cuda import (flash_attention_bwd_dkv,
+                                           flash_attention_bwd_dq,
+                                           flash_attention_fwd)
+    from paddle_tpu_torch.ops.flash_attention import (
+        attention_delta, dropout_keep_mask, flash_attention,
+        flash_attention_reference_bwd, flash_attention_reference_fwd)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    B, H, L = BERT_CHIP["batch"], BERT_CHIP["heads"], BERT_CHIP["seq"]
+    D = BERT_CHIP["hidden"] // H
+    seed = 1234
+    cases = [(B, L, H, D, dt, causal, p, 8)
+             for dt in (torch.float32, torch.bfloat16)
+             for causal in (False, True) for p in (0.0, 0.1)]
+    cases += [(4, 512, 14, 128, torch.bfloat16, True, 0.1, 4),   # GPT 1b
+              (4, 512, 14, 128, torch.float32, False, 0.0, 4),
+              (3, 200, 5, 32, torch.float32, True, 0.1, 3),      # ragged
+              (3, 200, 5, 32, torch.bfloat16, False, 0.1, 3)]
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for (b, l, h, d, dt, causal, p, plain_b) in cases:
+        dname = str(dt).replace("torch.", "")
+        errs = _flash_case(torch, gen, b, l, h, d, dt, causal, p, seed,
+                           plain_b)
+        err = max(errs.values())
+        worst[dname] = max(worst[dname], err)
+        row = {"case": f"B={b} L={l} H={h} D={d} {dname} causal={causal} "
+                       f"dropout={p}", "errors": errs,
+               "tol": FLASH_TOL[dname]}
+        log("FLASH_CHECK " + json.dumps(row))
+        if not err <= FLASH_TOL[dname]:
+            raise AssertionError(f"flash kernels disagree with the plain "
+                                 f"version: {row}")
+    # the mask itself: kept fraction within 4 sigma of 1 - p, and two
+    # seeds give other masks
+    p = BERT_CHIP["dropout"]
+    t, _ = dropout_threshold(p)
+    keep = dropout_keep_mask(seed, 8, H, L, L, p, "cuda")
+    other = dropout_keep_mask(seed + 1, 8, H, L, L, p, "cuda")
+    n = keep.numel()
+    kept = keep.float().mean().item()
+    want = 1.0 - t / 65536.0
+    sigma = math.sqrt(want * (1.0 - want) / n)
+    differ = (keep != other).float().mean().item()
+    mask = {"elements": n, "kept": kept, "expected": want, "sigma": sigma,
+            "differ_across_seeds": differ}
+    log("FLASH_MASK " + json.dumps(mask))
+    if abs(kept - want) > 4 * sigma or differ < 0.1:
+        raise AssertionError(f"dropout mask: {mask}")
+    del keep, other
+    # times at the training path's shape
+    dt = torch.bfloat16
+    q, k, v, do = (torch.randn((B, L, H, D), generator=gen,
+                               device="cuda").to(dt) for _ in range(4))
+    scale = 1.0 / math.sqrt(D)
+    kw = dict(scale=scale, causal=False, dropout_p=p)
+    out, lse = flash_attention_fwd(q, k, v, seed=seed, **kw)
+    delta = attention_delta(do.transpose(1, 2), out.transpose(1, 2))
+    ms = {
+        "flash_attention_fwd": cuda_ms(lambda i: flash_attention_fwd(
+            q, k, v, seed=i, **kw), 20),
+        "flash_attention_bwd_dq": cuda_ms(lambda i: flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, seed=seed, **kw), 20),
+        "flash_attention_bwd_dkv": cuda_ms(
+            lambda i: flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                              seed=seed, **kw), 20)}
+    tq, tk, tv, tdo = (x.transpose(1, 2) for x in (q, k, v, do))
+    pkw = dict(causal=False, scale=scale, dropout_p=p, seed=seed)
+    plain_fwd = cuda_ms(lambda i: flash_attention_reference_fwd(
+        tq, tk, tv, **pkw), 2, warmup=1)
+    tout, tlse = out.transpose(1, 2), lse
+    plain_bwd = cuda_ms(lambda i: flash_attention_reference_bwd(
+        tq, tk, tv, tout, tlse, tdo, **pkw), 2, warmup=1)
+    torch.cuda.empty_cache()
+    lib_fwd, lib_bwd, lib_both = _sdpa_ms(torch, q, k, v, do, p, False)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    ours_both = cuda_ms(lambda i: torch.autograd.grad(
+        flash_attention(qg, kg, vg, dropout_p=p, seed=i), (qg, kg, vg), do),
+        20)
+    log("FLASH_FWD_BWD " + json.dumps({
+        "case": f"B={B} L={L} H={H} D={D} bfloat16 dropout={p}",
+        "kernels_ms": ours_both, "sdpa_flash_ms": lib_both}))
+    rows = {}
+    for name in FLASH_KERNELS:
+        bound_ms, bound_by, nbytes, ops = _flash_bound(
+            B, H, L, L, D, q.element_size(), "bfloat16", False, name)
+        fwd = name == "flash_attention_fwd"
+        row = {"kernel": name, "case": f"B={B} L={L} H={H} D={D} bfloat16 "
+                                       f"causal=False dropout={p}",
+               "ms": ms[name], "plain_ms": plain_fwd if fwd else plain_bwd,
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+               "operations": ops,
+               "library_ms": lib_fwd if fwd else lib_bwd,
+               "library_call": ("scaled_dot_product_attention, flash "
+                                "backend" if fwd else "autograd backward "
+                                "of it (dq, dk, dv together)"),
+               "max_abs_err": worst["float32"],
+               "max_abs_err_bf16": worst["bfloat16"]}
+        if not fwd:
+            row["plain_computes"] = "dq, dk and dv together"
+        log("KERNEL " + json.dumps(row))
+        rows[name] = row
+    del q, k, v, do, out, lse, delta, qg, kg, vg
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------- phase 7
+def _bert_trainer(torch, cfg, device, bf16):
+    from paddle_tpu_torch import amp, jit, optimizer
+    from paddle_tpu_torch.testing.models import build_model, mlm_loss
+    model = build_model(cfg["vocab"], cfg["hidden"], cfg["layers"],
+                        cfg["heads"], cfg["ffn"], cfg["seq"],
+                        cfg["dropout"], device=device)
+    opt = optimizer.AdamW(learning_rate=1e-4,
+                          parameters=model.parameters(), weight_decay=0.01,
+                          grad_clip=optimizer.ClipGradByGlobalNorm(1.0),
+                          multi_precision=bf16)
+    if bf16:
+        model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    return model, jit.TrainStep(model, mlm_loss(model), opt, n_inputs=1,
+                                donate=True)
+
+
+def _bert_batch(torch, cfg, device):
+    """bench.py:197-201: ids and labels from RandomState(0)."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    shape = (cfg["batch"], cfg["seq"])
+    x = rng.randint(0, cfg["vocab"], shape, dtype=np.int32)
+    y = rng.randint(0, cfg["vocab"], shape, dtype=np.int32)
+    return torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+
+
+def phase_small_bert_parity():
+    """bench_bert's CPU config (f32, dropout 0) trained 3 steps on the
+    card and on the CPU from the same weights: losses within rtol 1e-5,
+    every parameter within BERT_PARAM_ATOL, and the flash kernels
+    launched once per layer and step on the card."""
+    import torch
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.ops.cuda import support
+    cfg, steps = BERT_CPU, 3
+    seed(7)
+    cpu, cpu_step = _bert_trainer(torch, cfg, "cpu", False)
+    gpu, gpu_step = _bert_trainer(torch, cfg, "cuda", False)
+    gpu.load_state_dict({k: v.cuda() for k, v in cpu.state_dict().items()})
+    losses = {}
+    for dev, step in (("cpu", cpu_step), ("cuda", gpu_step)):
+        x, y = _bert_batch(torch, cfg, dev)
+        support.reset_launch_counts()
+        losses[dev] = [float(step(x, y)) for _ in range(steps)]
+        counts = dict(support.launch_counts)
+        if dev == "cuda":
+            want = cfg["layers"] * steps
+            if any(counts.get(n, 0) != want for n in FLASH_KERNELS):
+                raise AssertionError(f"small BERT: launches {counts}, "
+                                     f"want {want} of each flash kernel")
+    gp = dict(gpu.named_parameters())
+    diffs = {n: (gp[n].detach().cpu() - p.detach()).abs().max().item()
+             for n, p in cpu.named_parameters()}
+    k_bias = {n: d for n, d in diffs.items()
+              if n.endswith("self_attn.k_proj.bias")}
+    rest = {n: d for n, d in diffs.items() if n not in k_bias}
+    worst = max(rest, key=rest.get)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                      losses["cpu"]))
+    out = {"losses_cpu": losses["cpu"], "losses_cuda": losses["cuda"],
+           "loss_max_rel_err": loss_err, "param_max_abs_err": rest[worst],
+           "param_worst": worst, "k_proj_bias_max_abs_err":
+           max(k_bias.values()), "loss_rtol": 1e-5,
+           "param_atol": BERT_PARAM_ATOL, "k_proj_bias_atol": 2e-4 * steps}
+    log("BERT_PARITY " + json.dumps(out))
+    if (not loss_err <= 1e-5 or not rest[worst] <= BERT_PARAM_ATOL
+            or not max(k_bias.values()) <= 2e-4 * steps):
+        raise AssertionError(f"small BERT card vs CPU: {out}")
+
+
+# ---------------------------------------------------------------- phase 8
+def phase_bert_training(warmup=2, steps=10):
+    """bench_bert's chip config on the card: every loss finite, the
+    first near ln(vocab), each flash kernel launched 12 times a step."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.testing.models import bench_flops_per_step
+    cfg = BERT_CHIP
+    seed(2024)
+    t0 = time.perf_counter()
+    model, step = _bert_trainer(torch, cfg, "cuda", True)
+    x, y = _bert_batch(torch, cfg, "cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    support.reset_launch_counts()
+    losses, step_ms = [], []
+    for i in range(warmup + steps):
+        t0 = time.perf_counter()
+        loss = step(x, y)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    counts = {n: support.launch_counts.get(n, 0) for n in FLASH_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    timed = step_ms[warmup:]
+    flops = bench_flops_per_step(model, cfg["vocab"], cfg["hidden"],
+                                 cfg["layers"], cfg["seq"], cfg["batch"])
+    mean_ms = sum(timed) / len(timed)
+    tokens = cfg["batch"] * cfg["seq"]
+    out = {"config": cfg, "dtype": "bfloat16 O2, f32 master weights",
+           "params": sum(p.numel() for p in model.parameters()),
+           "setup_s": setup_s, "warmup_steps": warmup, "timed_steps": steps,
+           "losses": losses, "step_ms": timed,
+           "step_ms_p50": float(np.median(timed)), "step_ms_mean": mean_ms,
+           "first_steps_ms": step_ms[:warmup],
+           "tokens_per_s": tokens / (mean_ms / 1e3),
+           "model_flops_per_step": flops,
+           "mfu": flops / (mean_ms / 1e3) / PEAK_OPS["bfloat16"],
+           "peak_bound_ms": flops / PEAK_OPS["bfloat16"] * 1e3,
+           "max_memory_allocated": peak, "flash_launches": counts}
+    log("TRAIN " + json.dumps(out))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if abs(losses[0] - math.log(cfg["vocab"])) > 0.5:
+        raise AssertionError(f"first loss {losses[0]} is not near "
+                             f"ln({cfg['vocab']}) = "
+                             f"{math.log(cfg['vocab'])}")
+    want = cfg["layers"] * (warmup + steps)
+    if any(c != want for c in counts.values()):
+        raise AssertionError(f"flash launches {counts}, want {want} each")
+    return counts, model, step, (x, y)
+
+
+# ---------------------------------------------------------------- phase 9
+def phase_train_anatomy(step, batch, steps=2):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x, y = batch
+    step_ms = cuda_ms(lambda i: step(x, y), 3, warmup=1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(x, y)
+        torch.cuda.synchronize()
+    groups = {"gemm": 0.0, "flash_fwd": 0.0, "flash_bwd": 0.0,
+              "other": 0.0}
+    top = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        name = e.key.lower()
+        g = ("flash_fwd" if "flash_fwd_kernel" in name else
+             "flash_bwd" if "flash_bwd_" in name else
+             "gemm" if any(w in name for w in ("gemm", "xmma", "cutlass",
+                                               "splitk", "nvjet"))
+             else "other")
+        ms = e.self_device_time_total / 1e3 / steps
+        groups[g] += ms
+        top.append((ms, e.key[:80]))
+    busy = sum(groups.values())
+    if not busy > 0:
+        raise AssertionError("the profiler saw no device time")
+    top.sort(reverse=True)
+    out = {"step_ms_host": step_ms, "device_busy_ms": busy,
+           "device_idle_share": max(0.0, 1.0 - busy / step_ms),
+           "device_ms_by_group": groups,
+           "top_kernels_ms": [[round(m, 4), n] for m, n in top[:24]]}
+    log("TRAIN_ANATOMY " + json.dumps(out))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    phase_environment()
-    kernel_rows = phase_kernels()
-    phase_small_model_parity()
-    launches, model, kv = phase_serving()
-    phase_anatomy(model, kv)
+    seconds = {}
+    t0 = time.perf_counter()
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    timed("environment", phase_environment)
+    kernel_rows = timed("paged_kernel", phase_kernels)
+    timed("small_model", phase_small_model_parity)
+    launches, model, kv = timed("serving", phase_serving)
+    timed("decode_anatomy", phase_anatomy, model, kv)
     del model, kv
+    torch.cuda.empty_cache()
+    flash_rows = timed("flash_kernels", phase_flash_kernels)
+    timed("small_bert", phase_small_bert_parity)
+    flash_launches, bert, step, batch = timed("bert_training",
+                                              phase_bert_training)
+    timed("train_anatomy", phase_train_anatomy, step, batch)
+    del bert, step, batch
+    seconds["total"] = time.perf_counter() - t0
+    log("PHASE_SECONDS " + json.dumps(seconds))
     f32_err = max(r["max_abs_err"] for r in kernel_rows
                   if r["case"].endswith("float32"))
     head = next(r for r in kernel_rows
                 if r["case"].endswith("P=64 L=24 float32"))
-    kernels = {"kernels": [{
+    kernels = [{
         "name": "paged_attention_decode", "route": "cuda",
         "source": "paddle_tpu_torch/ops/cuda/csrc/paged_attention.cu",
         "replaces": "paddle_tpu/ops/pallas/paged_attention.py:63",
@@ -384,8 +793,19 @@ def main():
                                 if r["case"].endswith("bfloat16")),
         "shape": head["case"], "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"], "library_ms": None}]}
-    log(json.dumps(kernels))
+        "bound_by": head["bound_by"], "library_ms": None}]
+    for name, site in FLASH_KERNELS.items():
+        r = flash_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",
+            "replaces": site, "launches": flash_launches[name],
+            "max_abs_err": r["max_abs_err"],
+            "max_abs_err_bf16": r["max_abs_err_bf16"], "shape": r["case"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+    log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,105 @@
+"""Seeding and random draws (the counterpart of ``paddle_tpu.core.rng``).
+
+- :func:`seed` sets the one global seed; :func:`generator` hands out a
+  ``torch.Generator`` per device, seeded from it, for the random ops
+  that draw on the device (``F.dropout``).  The streams differ from the
+  JAX package's threefry keys: the same seed gives other masks.
+- :func:`next_seed` draws the int32 seed of one flash-attention dropout
+  call from a host generator, so a training step never waits on the
+  card for it.  Every call draws anew, so dropout differs from step to
+  step.
+- :func:`mul32` / :func:`fmix32`: uint32 arithmetic emulated exactly in
+  int64, for the counter-based hashes whose CUDA versions work in
+  uint32 (the serving sampler, the flash-attention dropout mask).
+- :func:`dropout_threshold`: the 16-bit quantised dropout rule shared by
+  ``F.dropout`` and the flash-attention kernels.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+
+__all__ = ["seed", "get_rng_state", "set_rng_state", "generator",
+           "next_seed", "mul32", "fmix32", "dropout_threshold"]
+
+M32 = 0xFFFFFFFF
+
+_lock = threading.Lock()
+_seed = 0
+_draws = 0                       # next_seed calls since the last seed()
+_host: Optional[torch.Generator] = None
+_devices: Dict[torch.device, torch.Generator] = {}
+
+
+def seed(s: int) -> int:
+    """``paddle.seed`` parity: reseed every generator of this module."""
+    global _seed, _draws, _host
+    with _lock:
+        _seed, _draws, _host = int(s), 0, None
+        _devices.clear()
+    return _seed
+
+
+def get_rng_state() -> Tuple[int, int]:
+    """(seed, host draws so far); the device generators are not part of
+    it."""
+    return _seed, _draws
+
+
+def set_rng_state(state: Tuple[int, int]) -> None:
+    s, draws = state
+    seed(s)
+    for _ in range(int(draws)):
+        next_seed()
+
+
+def generator(device: Union[str, torch.device]) -> torch.Generator:
+    """The generator of ``device``, created and seeded at first use."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    with _lock:
+        gen = _devices.get(dev)
+        if gen is None:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(_seed)
+            _devices[dev] = gen
+        return gen
+
+
+def next_seed() -> int:
+    """A fresh int32 seed, drawn on the host."""
+    global _draws, _host
+    with _lock:
+        if _host is None:
+            _host = torch.Generator()
+            _host.manual_seed(_seed + 0x5EED)
+        _draws += 1
+        return int(torch.randint(-2 ** 31, 2 ** 31 - 1, (1,),
+                                 generator=_host).item())
+
+
+def mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """``(a * c) mod 2**32`` for int64 ``a`` in [0, 2**32): the product
+    is split at 16 bits so no intermediate leaves int64's range."""
+    return ((a & 0xFFFF) * c + ((a >> 16) * (c & 0xFFFF) << 16)) & M32
+
+
+def fmix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finaliser on int64 tensors holding uint32."""
+    x = x ^ (x >> 16)
+    x = mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def dropout_threshold(p: float) -> Tuple[int, float]:
+    """``p`` quantised to 1/65536: ``(t, scale)``.  A 16-bit draw is
+    kept iff it is ``>= t``, and kept values are scaled by ``scale`` so
+    the expectation is unchanged exactly.  ``t == 0`` keeps everything
+    (scale 1), ``t == 65536`` drops everything (scale 0)."""
+    t = min(max(int(round(float(p) * 65536.0)), 0), 65536)
+    return t, (0.0 if t >= 65536 else 65536.0 / (65536 - t))

@@ -1,0 +1,235 @@
+"""nn.functional: the subset of ``paddle_tpu.nn.functional`` the BERT
+training path runs, in PyTorch.
+
+Layouts and semantics are paddle_tpu's: ``linear`` takes its weight as
+``[in, out]``, attention takes ``[B, L, H, D]``, dropout keeps a value
+iff a 16-bit draw is ``>= round(p * 65536)`` (``_u16_dropout_mask``).
+:func:`scaled_dot_product_attention` sends every shape the flash gate
+takes to :func:`~paddle_tpu_torch.ops.flash_attention.flash_attention`
+(the CUDA kernels on the card, their plain versions on the CPU); a mask
+or ``return_weights`` takes the unfused path, as in paddle_tpu.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as TF
+
+from ...core import rng
+from ...ops.flash_attention import flash_attention, flash_attention_supported
+
+__all__ = ["linear", "embedding", "layer_norm", "gelu", "relu", "dropout",
+           "scaled_dot_product_attention", "cross_entropy",
+           "linear_cross_entropy"]
+
+
+def relu(x, name=None):
+    return torch.relu(x)
+
+
+def gelu(x, approximate=False, name=None):
+    """Exact (erf) GELU by default, tanh form with ``approximate``."""
+    return TF.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def linear(x, weight, bias=None, name=None):
+    """``x @ weight + bias``; ``weight`` is ``[in, out]``."""
+    if bias is None:
+        return torch.matmul(x, weight)
+    y = torch.addmm(bias, x.reshape(-1, x.shape[-1]), weight)
+    return y.reshape(*x.shape[:-1], weight.shape[-1])
+
+
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """Rows of ``weight`` at ``x``; rows at ``padding_idx`` are zero (in
+    the output, as in paddle_tpu)."""
+    if sparse:
+        raise NotImplementedError("sparse (SelectedRows) embedding "
+                                  "gradients are not ported")
+    out = TF.embedding(x, weight)
+    if padding_idx is not None:
+        out = out * (x != padding_idx).unsqueeze(-1).to(out.dtype)
+    return out
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+               name=None):
+    if isinstance(normalized_shape, int):
+        normalized_shape = (normalized_shape,)
+    return TF.layer_norm(x, tuple(normalized_shape), weight, bias, epsilon)
+
+
+def _u16_keep(shape, p, x, upscale=True):
+    """paddle_tpu's ``_u16_dropout_mask``: None keeps everything, 0.0
+    drops everything, else a mask in ``x``'s dtype (scaled when
+    ``upscale``) drawn from the device's generator."""
+    t, scale = rng.dropout_threshold(p)
+    if t <= 0:
+        return None
+    if t >= 65536:
+        return 0.0
+    bits = torch.randint(0, 65536, tuple(shape), dtype=torch.int32,
+                         device=x.device, generator=rng.generator(x.device))
+    keep = (bits >= t).to(x.dtype)
+    return keep * scale if upscale else keep
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None):
+    if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training:
+            return x * (1.0 - p)
+        return x
+    shape = list(x.shape)
+    if axis is not None:
+        axes = axis if isinstance(axis, (list, tuple)) else [axis]
+        shape = [s if i in axes else 1 for i, s in enumerate(shape)]
+    mask = _u16_keep(shape, p, x, upscale=(mode == "upscale_in_train"))
+    if mask is None:
+        return x
+    return x * mask
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, name=None,
+                                 return_weights=False):
+    """``[B, L, H, D]`` attention.  ``return_weights=True`` takes the
+    unfused path and returns ``(out, weights [B, H, Lq, Lk])``, the
+    post-dropout probabilities in training mode."""
+    eff = dropout_p if training else 0.0
+    if not return_weights and flash_attention_supported(
+            tuple(query.shape), tuple(key.shape), query.dtype, attn_mask,
+            eff):
+        seed = rng.next_seed() if eff > 0.0 else None
+        return flash_attention(query, key, value, causal=is_causal,
+                               dropout_p=eff, seed=seed)
+    B, Lq, H, D = query.shape
+    s = torch.einsum("blhd,bshd->bhls", query, key) * (1.0 / math.sqrt(D))
+    if is_causal:
+        causal = torch.ones((Lq, key.shape[1]), dtype=torch.bool,
+                            device=s.device).tril()
+        s = s.masked_fill(~causal, float("-inf"))
+    if attn_mask is not None:
+        if attn_mask.dtype == torch.bool:
+            s = s.masked_fill(~attn_mask, float("-inf"))
+        else:
+            s = s + attn_mask
+    w = torch.softmax(s, dim=-1)
+    if eff > 0.0:
+        mask = _u16_keep(w.shape, eff, w)
+        if mask is not None:
+            w = w * mask
+    out = torch.einsum("bhls,bshd->blhd", w, value)
+    return (out, w) if return_weights else out
+
+
+def _reduce(out, reduction):
+    if reduction == "mean":
+        return out.mean()
+    if reduction == "sum":
+        return out.sum()
+    return out
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0, name=None):
+    """paddle_tpu's cross entropy: hard or soft labels, class weights,
+    ``ignore_index`` and label smoothing; the mean over hard labels
+    divides by the (weighted) count of rows not ignored."""
+    if use_softmax:
+        logp = torch.log_softmax(input, dim=axis)
+    else:
+        logp = torch.log(input.clamp_min(1e-30))
+    nclass = input.shape[axis]
+    lab = label
+    if not soft_label and lab.dim() == logp.dim() and lab.shape[axis] == 1:
+        lab = lab.squeeze(axis)
+    if soft_label:
+        tgt = lab
+    else:
+        safe = torch.where(lab == ignore_index, 0, lab).long()
+        tgt = TF.one_hot(safe, nclass).to(logp.dtype).movedim(-1, axis)
+    if label_smoothing > 0.0:
+        tgt = tgt * (1.0 - label_smoothing) + label_smoothing / nclass
+    loss = -(tgt * logp).sum(dim=axis)
+    if soft_label:
+        return _reduce(loss, reduction)
+    w_row = None
+    if weight is not None:
+        w_row = weight[torch.where(lab == ignore_index, 0, lab).long()]
+        loss = loss * w_row
+    mask = (lab != ignore_index).to(loss.dtype)
+    loss = loss * mask
+    if reduction == "mean":
+        denom = (mask * w_row).sum() if w_row is not None else mask.sum()
+        return loss.sum() / denom.clamp_min(1e-12)
+    return _reduce(loss, reduction)
+
+
+def _chunk_logits(h, w, b):
+    logits = torch.matmul(h, w)
+    if b is not None:
+        logits = logits + b
+    return logits.float()
+
+
+class _LinearCrossEntropy(torch.autograd.Function):
+    """Mean NLL of ``h @ w + b`` over labels not ignored, one row chunk
+    at a time: a chunk's logits live only inside the loop, in the
+    forward and again (recomputed) in the backward, as the JAX
+    package's ``jax.checkpoint`` per chunk does."""
+
+    @staticmethod
+    def forward(ctx, h, w, b, label, per, ignore_index):
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c0 in range(0, h.shape[0], per):
+            logits = _chunk_logits(h[c0:c0 + per], w, b)
+            lc = label[c0:c0 + per]
+            keep = lc != ignore_index
+            tgt = logits.gather(1, torch.where(keep, lc, 0).long()[:, None])
+            nll = torch.logsumexp(logits, dim=-1) - tgt[:, 0]
+            total = total + (nll * keep).sum()
+        count = (label != ignore_index).sum().clamp_min(1).float()
+        ctx.save_for_backward(h, w, b, label, count)
+        ctx.per, ctx.ignore_index = per, ignore_index
+        return total / count
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, b, label, count = ctx.saved_tensors
+        per, ignore_index = ctx.per, ctx.ignore_index
+        coef = g.float() / count
+        dh = torch.empty_like(h)
+        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        db = (torch.zeros(b.shape, dtype=torch.float32, device=b.device)
+              if b is not None else None)
+        for c0 in range(0, h.shape[0], per):
+            hc, lc = h[c0:c0 + per], label[c0:c0 + per]
+            keep = lc != ignore_index
+            dl = torch.softmax(_chunk_logits(hc, w, b), dim=-1)
+            rows = torch.arange(dl.shape[0], device=dl.device)
+            dl[rows, torch.where(keep, lc, 0).long()] -= 1.0
+            dl = (dl * (keep[:, None] * coef)).to(h.dtype)
+            dh[c0:c0 + per] = torch.matmul(dl, w.t())
+            dw += torch.matmul(hc.t(), dl).float()
+            if db is not None:
+                db += dl.float().sum(dim=0)
+        return (dh, dw.to(w.dtype), None if db is None else db.to(b.dtype),
+                None, None, None)
+
+
+def linear_cross_entropy(hidden, weight, bias, label, chunk: int = 1024,
+                         ignore_index: int = -100, name=None):
+    """``cross_entropy(hidden @ weight + bias, label)`` (mean) without
+    the ``[T, vocab]`` logits ever existing whole: ``hidden`` [T, H],
+    ``weight`` [H, vocab], ``label`` [T].  Rows are cut into
+    ``ceil(T / chunk)`` equal chunks, as paddle_tpu's ``_linear_ce_fn``
+    cuts them."""
+    T = hidden.shape[0]
+    n = max(1, -(-T // chunk))
+    per = -(-T // n)
+    return _LinearCrossEntropy.apply(hidden, weight, bias, label, per,
+                                     int(ignore_index))

@@ -1,0 +1,91 @@
+"""Linear, Embedding and Dropout (paddle_tpu.nn.layer.common).
+
+Initial weights are drawn on the layer's device from
+``core.rng.generator(device)``: Linear XavierNormal over ``[in, out]``
+with zero bias, Embedding N(0, 1).  ``device=None`` is the current CUDA
+device (raising when there is none); pass ``device="cpu"`` for the
+CPU."""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ...core import rng
+from ...core.placement import device as _resolve_device
+from .. import functional as F
+
+__all__ = ["Linear", "Embedding", "Dropout"]
+
+
+def _normal(shape, std, dev):
+    return nn.Parameter(torch.randn(tuple(shape), device=dev,
+                                    generator=rng.generator(dev)) * std)
+
+
+class Linear(nn.Module):
+    """y = x W + b, W: [in_features, out_features]."""
+
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, device=None):
+        super().__init__()
+        if weight_attr is not None:
+            raise NotImplementedError("Linear: weight_attr is not ported")
+        dev = _resolve_device(device)
+        self.in_features = in_features
+        self.out_features = out_features
+        self.weight = _normal((in_features, out_features),
+                              math.sqrt(2.0 / (in_features + out_features)),
+                              dev)
+        self.bias = (None if bias_attr is False else
+                     nn.Parameter(torch.zeros(out_features, device=dev)))
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
+
+    def extra_repr(self):
+        return (f"in_features={self.in_features}, "
+                f"out_features={self.out_features}")
+
+
+class Embedding(nn.Module):
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None, device=None):
+        super().__init__()
+        if weight_attr is not None:
+            raise NotImplementedError("Embedding: weight_attr is not ported")
+        dev = _resolve_device(device)
+        self._num_embeddings = num_embeddings
+        self._embedding_dim = embedding_dim
+        self._padding_idx = (None if padding_idx is None else
+                             padding_idx if padding_idx >= 0 else
+                             num_embeddings + padding_idx)
+        self._sparse = sparse
+        self.weight = _normal((num_embeddings, embedding_dim), 1.0, dev)
+        if self._padding_idx is not None:
+            with torch.no_grad():
+                self.weight[self._padding_idx] = 0.0
+
+    def forward(self, x):
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx,
+                           sparse=self._sparse)
+
+    def extra_repr(self):
+        return f"{self._num_embeddings}, {self._embedding_dim}"
+
+
+class Dropout(nn.Module):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train",
+                 name=None):
+        super().__init__()
+        self.p = p
+        self.axis = axis
+        self.mode = mode
+
+    def forward(self, x):
+        return F.dropout(x, self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)
+
+    def extra_repr(self):
+        return f"p={self.p}"

@@ -1,0 +1,128 @@
+"""MultiHeadAttention, TransformerEncoderLayer and TransformerEncoder
+(paddle_tpu.nn.layer.transformer).
+
+Attention goes through ``F.scaled_dot_product_attention``, which sends
+every shape the flash gate takes to the flash-attention kernels on the
+card.  Not ported yet: the encoder-side ``cache`` (incremental
+decoding) and the decoder family (the GPT slice)."""
+from __future__ import annotations
+
+import copy
+
+from torch import nn
+
+from .. import functional as F
+from .common import Dropout, Linear
+from .container import LayerList
+from .norm import LayerNorm
+
+__all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
+           "TransformerEncoder"]
+
+
+def _no_cache(cache):
+    if cache is not None:
+        raise NotImplementedError("the attention cache is not ported yet")
+
+
+class MultiHeadAttention(nn.Module):
+    def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
+                 vdim=None, need_weights=False, weight_attr=None,
+                 bias_attr=None, device=None):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.kdim = kdim or embed_dim
+        self.vdim = vdim or embed_dim
+        self.num_heads = num_heads
+        self.head_dim = embed_dim // num_heads
+        if self.head_dim * num_heads != embed_dim:
+            raise ValueError("embed_dim must be divisible by num_heads")
+        self.dropout = dropout
+        self.need_weights = need_weights
+        kw = dict(weight_attr=weight_attr, bias_attr=bias_attr, device=device)
+        self.q_proj = Linear(embed_dim, embed_dim, **kw)
+        self.k_proj = Linear(self.kdim, embed_dim, **kw)
+        self.v_proj = Linear(self.vdim, embed_dim, **kw)
+        self.out_proj = Linear(embed_dim, embed_dim, **kw)
+
+    def forward(self, query, key=None, value=None, attn_mask=None,
+                cache=None):
+        _no_cache(cache)
+        key = query if key is None else key
+        value = key if value is None else value
+        B, H, Dh = query.shape[0], self.num_heads, self.head_dim
+        q = self.q_proj(query).reshape(B, -1, H, Dh)
+        k = self.k_proj(key).reshape(B, -1, H, Dh)
+        v = self.v_proj(value).reshape(B, -1, H, Dh)
+        if self.need_weights:
+            out, weights = F.scaled_dot_product_attention(
+                q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
+                training=self.training, return_weights=True)
+        else:
+            out = F.scaled_dot_product_attention(
+                q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
+                training=self.training)
+        out = self.out_proj(out.reshape(B, -1, self.embed_dim))
+        return (out, weights) if self.need_weights else out
+
+
+class TransformerEncoderLayer(nn.Module):
+    def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 device=None):
+        super().__init__()
+        attn_dropout = dropout if attn_dropout is None else attn_dropout
+        act_dropout = dropout if act_dropout is None else act_dropout
+        kw = dict(weight_attr=weight_attr, bias_attr=bias_attr, device=device)
+        self.normalize_before = normalize_before
+        self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                            **kw)
+        self.linear1 = Linear(d_model, dim_feedforward, **kw)
+        self.dropout = Dropout(act_dropout)
+        self.linear2 = Linear(dim_feedforward, d_model, **kw)
+        self.norm1 = LayerNorm(d_model, device=device)
+        self.norm2 = LayerNorm(d_model, device=device)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+        self.activation = getattr(F, activation)
+
+    def forward(self, src, src_mask=None, cache=None):
+        _no_cache(cache)
+        residual = src
+        if self.normalize_before:
+            src = self.norm1(src)
+        src = residual + self.dropout1(self.self_attn(src, src, src,
+                                                      src_mask))
+        if not self.normalize_before:
+            src = self.norm1(src)
+        residual = src
+        if self.normalize_before:
+            src = self.norm2(src)
+        src = self.linear2(self.dropout(self.activation(self.linear1(src))))
+        src = residual + self.dropout2(src)
+        if not self.normalize_before:
+            src = self.norm2(src)
+        return src
+
+
+class TransformerEncoder(nn.Module):
+    """``num_layers`` copies of ``encoder_layer`` (deep copies, so all
+    start from its weights, as in paddle_tpu)."""
+
+    def __init__(self, encoder_layer, num_layers, norm=None):
+        super().__init__()
+        self.layers = LayerList(
+            [encoder_layer if i == 0 else copy.deepcopy(encoder_layer)
+             for i in range(num_layers)])
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, src, src_mask=None, cache=None):
+        _no_cache(cache)
+        output = src
+        for mod in self.layers:
+            output = mod(output, src_mask)
+        if self.norm is not None:
+            output = self.norm(output)
+        return output

@@ -1,15 +1,19 @@
 """Shared plumbing for the CUDA kernel tier.
 
-- **build**: every ``csrc/*.cu`` file is compiled by ``nvcc`` for
-  ``sm_90a`` into one shared library with a plain C interface, at first
-  use, into ``build/paddle_tpu_torch_kernels/`` at the repository root
-  (listed in ``.gitignore``).  The library's name carries a hash of the
+- **build**: every ``csrc/*.cu`` file is compiled by its own ``nvcc``
+  for ``sm_90a`` (all started together), and the objects are linked
+  into one shared library with a plain C interface, at first use, into
+  ``build/paddle_tpu_torch_kernels/`` at the repository root (listed in
+  ``.gitignore``).  The library's name carries a hash of the
   sources and flags, so an edited source rebuilds and an unchanged one
   is loaded as it is.  Python binds it with ``ctypes``: no PyTorch
   header is compiled, which keeps the build to seconds.  Nothing here
   builds or imports a compiler when the module is imported.
 - **gates**: :func:`dtype_ok` — f32 and bf16, the two types every
   kernel accumulates from in f32.
+- **entry points**: ``ptt_paged_decode`` (``paged_attention.cu``) and
+  ``ptt_flash_fwd`` / ``ptt_flash_bwd_dq`` / ``ptt_flash_bwd_dkv``
+  (``flash_attention.cu``), declared for ``ctypes`` in :func:`_declare`.
 - **launch counts**: every wrapper adds one to
   ``launch_counts[<kernel>]`` where it launches its kernel, and nowhere
   else, so a run can show that its main path went through the kernels.
@@ -34,8 +38,9 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))))
 BUILD_DIR = os.path.join(_REPO, "build", "paddle_tpu_torch_kernels")
-NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-lineinfo", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC"]
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+NVCC_FLAGS = [ARCH, "-std=c++17", "-O3", "-lineinfo", "-Xptxas=-v",
+              "-Xcompiler", "-fPIC"]
 
 launch_counts: Dict[str, int] = {}
 # what the last load did: library path, seconds spent building (0.0 when
@@ -73,6 +78,51 @@ def _declare(lib: ctypes.CDLL) -> None:
                    i32, i32, i32, i32, i32, i32, i32,  # S H Hkv D P page N
                    ctypes.c_float, i32, vp]      # scale dtype stream
     fn.restype = i32
+    # flash attention: pointers, then B H Lq Lk D, the (b, h, l) strides
+    # of the query and key families, scale causal q_off k_off seed
+    # drop_t dtype stream
+    i64 = ctypes.c_longlong
+    tail = [i32] * 5 + [i64] * 6 + [ctypes.c_float, i32, i32, i32,
+                                    ctypes.c_uint, i32, i32, vp]
+    for name, n_ptr in (("ptt_flash_fwd", 5), ("ptt_flash_bwd_dq", 7),
+                        ("ptt_flash_bwd_dkv", 8)):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp] * n_ptr + tail
+        fn.restype = i32
+
+
+def _build(so: str, sources) -> str:
+    """One ``nvcc -c`` per source, all running at once, then one link;
+    returns the compilers' report."""
+    nvcc, tag = _nvcc(), f"{so}.{os.getpid()}"
+    objs = [f"{tag}.{i}.o" for i in range(len(sources))]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    try:
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        failed = [(src, p.returncode) for src, p in zip(sources, procs)
+                  if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        link = subprocess.run([nvcc, ARCH, "-shared", "-o", f"{tag}.tmp",
+                               *objs], capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{log}")
+        os.replace(f"{tag}.tmp", so)   # atomic: concurrent builds agree
+        return log
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
 
 
 def load_library() -> ctypes.CDLL:
@@ -93,17 +143,9 @@ def load_library() -> ctypes.CDLL:
                           f"libpaddle_tpu_torch_{h.hexdigest()[:16]}.so")
         seconds, log = 0.0, ""
         if not os.path.exists(so):
-            tmp = f"{so}.{os.getpid()}.tmp"
             t0 = time.perf_counter()
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                                   *sources], capture_output=True,
-                                  text=True)
+            log = _build(so, sources)
             seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{log}")
-            os.replace(tmp, so)       # atomic: concurrent builds agree
         lib = ctypes.CDLL(so)
         _declare(lib)
         build_info.update(path=so, build_seconds=seconds, nvcc_log=log)

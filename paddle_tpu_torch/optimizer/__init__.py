@@ -1,0 +1,8 @@
+"""Optimizers (paddle_tpu.optimizer): Adam and AdamW with f32 master
+weights, and global-norm gradient clipping."""
+from . import clip, lr  # noqa: F401
+from .clip import ClipGradBase, ClipGradByGlobalNorm  # noqa: F401
+from .optimizer import Adam, AdamW, Optimizer  # noqa: F401
+
+__all__ = ["Optimizer", "Adam", "AdamW", "ClipGradBase",
+           "ClipGradByGlobalNorm"]

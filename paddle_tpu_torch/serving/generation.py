@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from ..core import flags, obs_hook
+from ..core.rng import M32, mul32
 from ..core.placement import device as _resolve_device
 from ..testing import fault
 from ..utils import monitor
@@ -71,13 +72,6 @@ class GenerationError(ServingError):
 
 
 _DONE = object()        # stream sentinel: clean end of tokens
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
-    """``(a * c) mod 2**32`` for int64 ``a`` in [0, 2**32): the product
-    is split at 16 bits so no intermediate leaves int64's range."""
-    return ((a & 0xFFFF) * c + ((a >> 16) * (c & 0xFFFF) << 16)) & _M32
 
 
 def gumbel_uniforms(keys: torch.Tensor, vocab: int) -> torch.Tensor:
@@ -87,13 +81,13 @@ def gumbel_uniforms(keys: torch.Tensor, vocab: int) -> torch.Tensor:
     int64, masked after every multiply)."""
     idx = torch.arange(1, vocab + 1, dtype=torch.int64,
                        device=keys.device)[None, :]
-    x = (_mul32(keys[:, 0:1], 0x9E3779B1)
-         ^ _mul32(keys[:, 1:2], 0x85EBCA77)
-         ^ _mul32(idx, 0xC2B2AE3D))
+    x = (mul32(keys[:, 0:1], 0x9E3779B1)
+         ^ mul32(keys[:, 1:2], 0x85EBCA77)
+         ^ mul32(idx, 0xC2B2AE3D))
     x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
+    x = mul32(x, 0x7FEB352D)
     x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
+    x = mul32(x, 0x846CA68B)
     x = x ^ (x >> 16)
     return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
@@ -642,7 +636,7 @@ class GenerationEngine:
     def _sample_key(self, seq: _Sequence) -> np.ndarray:
         # (seed, position): depends only on request-local state — never
         # on slot index or batch composition
-        return np.array([seq.seed & _M32, seq.position], np.int64)
+        return np.array([seq.seed & M32, seq.position], np.int64)
 
     def _run_step(self, kind: str, bucket: int, step) -> torch.Tensor:
         """Run one prefill/decode step with decode-retry semantics.

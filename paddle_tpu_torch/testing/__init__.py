@@ -1,1 +1,1 @@
-from . import fault  # noqa: F401
+from . import fault, models  # noqa: F401

@@ -11,7 +11,11 @@ PKG = os.path.join(ROOT, "paddle_tpu_torch")
 
 def test_import_leaves_jax_and_paddle_tpu_out():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
-            "paddle_tpu_torch.ops.cuda\n"
+            "paddle_tpu_torch.ops.cuda, paddle_tpu_torch.ops.flash_attention, "
+            "paddle_tpu_torch.nn, paddle_tpu_torch.nn.functional, "
+            "paddle_tpu_torch.optimizer, paddle_tpu_torch.amp, "
+            "paddle_tpu_torch.jit, paddle_tpu_torch.framework_io, "
+            "paddle_tpu_torch.testing.models, paddle_tpu_torch.core.rng\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'paddle_tpu.')) "
             "or m == 'paddle_tpu')\n"
