@@ -27,7 +27,20 @@ kernel from the sources in this checkout.  Phases, each fatal:
 8. full-width training: ``bench_bert``'s chip config (BERT-base, batch
    64, seq 512, dropout 0.1, O2 bf16 with f32 master weights, AdamW,
    global-norm clip) for 2 warm-up and 10 timed steps;
-9. anatomy of one training step from ``torch.profiler``.
+9. anatomy of one training step from ``torch.profiler``;
+10. the fused matmul-epilogue kernels (forward; backward as two
+    launches) against their plain versions at the three chains of a
+    BERT-base layer (M 8192), f32 and bf16, and three small recipes; the
+    fused Adam kernel against its plain version over the static BERT's
+    parameters for 5 steps; times beside the bound, the plain version
+    and a library call where one computes the same function;
+11. a small static BERT (``bench.build_bert_static`` at bench_pallas's
+    CPU widths) trained 3 ``Executor.run``s on the card and on the CPU
+    from the same weights;
+12. the full-width static BERT (bench_pallas's chip config: BERT-base,
+    seq 512, batch 16, f32, Adam) through ``static.Executor``: 2 warm-up
+    and 8 timed runs, asserting every kernel's launches per step;
+13. anatomy of one static training step from ``torch.profiler``.
 
 The last lines are the kernels JSON object, the card's name and power
 limit as ``nvidia-smi`` reports them, and ``{"ok": true, ...}``.  Any
@@ -69,6 +82,27 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # gradient is zero but for rounding (softmax ignores a shift shared by
 # every key), so Adam moves them by up to lr a step on either side
 BERT_PARAM_ATOL = 2e-5
+# bench.py:1108-1109 and :1114-1115, bench_pallas's static BERT
+STATIC_CHIP = dict(vocab=30522, hidden=768, layers=12, heads=12, ffn=3072,
+                   seq=512, batch=16)
+STATIC_CPU = dict(vocab=1000, hidden=128, layers=2, heads=4, ffn=512,
+                  seq=128, batch=8)
+EPI = "paddle_tpu/ops/pallas/fused_epilogue.py"
+EPI_KERNELS = {"fused_epilogue_fwd": f"{EPI}:195",         # _fwd
+               "fused_epilogue_bwd": f"{EPI}:284",         # _bwd_call
+               "fused_epilogue_bwd_grads": f"{EPI}:284"}
+ADAM_SITE = "paddle_tpu/ops/pallas/fused_adam.py:65"     # fused_adam_update
+# kernel vs plain, as max |a - b| / max(1, max |b|): f32 products and
+# row sums taken in another order (K up to 3072, dw over 8192 rows);
+# bf16 outputs and g rounded to bf16 on both sides, one rounding apart
+EPI_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+ADAM_TOL = 1e-6
+# per static step at BERT-base: 3 fused chains a layer, one flash call a
+# layer, one Adam launch
+STATIC_PER_STEP = {"fused_epilogue_fwd": 36, "fused_epilogue_bwd": 36,
+                   "fused_epilogue_bwd_grads": 36, "fused_adam": 1,
+                   "flash_attention_fwd": 12, "flash_attention_bwd_dq": 12,
+                   "flash_attention_bwd_dkv": 12}
 
 
 def log(*a):
@@ -750,6 +784,425 @@ def phase_train_anatomy(step, batch, steps=2):
     log("TRAIN_ANATOMY " + json.dumps(out))
 
 
+# --------------------------------------------------------------- phase 10
+def _epi_chains(cfg):
+    """The three fused chains of a BERT-base layer: (label, K, N,
+    stages after the bias, residual?)."""
+    h, f = cfg["hidden"], cfg["ffn"]
+    ln = ("layer_norm", 1e-5, True, True)
+    return [("proj", h, h, (("add",), ln)),
+            ("fc1", h, f, (("gelu", True),)),
+            ("fc2", f, h, (("add",), ln))]
+
+
+def _epi_case(torch, gen, M, K, N, stages, dtype):
+    """x, w and the operands (bias first, as fused_linear_epilogue lays
+    them out) and dy, on the card."""
+    from paddle_tpu_torch.ops.fused_epilogue import ops_per_stage
+    r = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                   device="cuda")
+    x = r(M, K)
+    w = r(K, N) * math.sqrt(2.0 / (K + N))
+    ops = [r(1, N) * 0.1]
+    for st in stages:
+        if st[0] == "add":
+            ops.append(r(M, N))
+        elif st[0] == "layer_norm":
+            ops += [1.0 + 0.1 * r(1, N), 0.1 * r(1, N)][:ops_per_stage(st)]
+    dy = r(M, N)
+    return [t.to(dtype) for t in (x, w, dy)] + [[o.to(dtype) for o in ops]]
+
+
+def _rel_err(got, ref):
+    got, ref = got.float(), ref.float()
+    if not bool(got.isfinite().all()):
+        raise AssertionError("non-finite kernel output")
+    return ((got - ref).abs().max() / ref.abs().max().clamp_min(1.0)).item()
+
+
+def _epi_bounds(M, K, N, stages, es, dtype_name):
+    """Least times of the three launches of one chain (each input read
+    once, each output written once; the products' 2 M K N operations a
+    product at the dtype's peak)."""
+    n_res = sum(st[0] == "add" for st in stages)
+    n_vec = 1 + sum(2 for st in stages if st[0] == "layer_norm")
+    mk, kn, mn = M * K * es, K * N * es, M * N * es
+    vec = n_vec * N * es
+    ops1 = 2 * M * K * N
+    launches = {
+        # x w ops -> out
+        "fused_epilogue_fwd": (mk + kn + vec + n_res * mn + mn, ops1),
+        # x w dy ops -> g, d-residual, partial sums
+        "fused_epilogue_bwd": (mk + kn + 2 * mn + vec + 2 * n_res * mn
+                               + math.ceil(M / 32) * 2 * n_vec * N * 4,
+                               ops1),
+        # x w g partials -> dx dw(f32) dvec
+        "fused_epilogue_bwd_grads": (2 * mk + kn + mn + K * N * 4
+                                     + math.ceil(M / 32) * 2 * n_vec * N * 4
+                                     + n_vec * N * 4, 2 * ops1)}
+    out = {}
+    for name, (nbytes, ops) in launches.items():
+        t_b = nbytes / HBM_BYTES_PER_S * 1e3
+        t_o = ops / PEAK_OPS[dtype_name] * 1e3
+        out[name] = (max(t_b, t_o), "bytes" if t_b >= t_o else "operations",
+                     nbytes, ops)
+    return out
+
+
+def _epi_check(torch, x, w, dy, ops, stages):
+    """K2f and K2b against the plain versions on the same inputs: the
+    error of each output."""
+    from paddle_tpu_torch.ops.cuda import fused_epilogue as cuda_epi
+    from paddle_tpu_torch.ops.fused_epilogue import (
+        epilogue_backward_reference, epilogue_forward_reference)
+    full = (("bias",),) + tuple(stages)
+    out = cuda_epi.fused_epilogue_fwd(x, w, ops, full)
+    dx, dw, dops = cuda_epi.fused_epilogue_bwd(x, w, ops, full, dy)
+    torch.cuda.synchronize()
+    ref = epilogue_forward_reference(x, w, ops, full)
+    rdx, rdw, rdops = epilogue_backward_reference(x, w, ops, full, dy)
+    errs = {"out": _rel_err(out, ref), "dx": _rel_err(dx, rdx),
+            "dw": _rel_err(dw, rdw)}
+    names = ["d_bias"]
+    for st in stages:
+        if st[0] == "add":
+            names.append("d_residual")
+        elif st[0] == "layer_norm":
+            names += ["d_ln_weight", "d_ln_bias"]
+    for name, a, b in zip(names, dops, rdops):
+        errs[name] = _rel_err(a, b)
+    # determinism: a second backward agrees bit for bit
+    dx2, dw2, dops2 = cuda_epi.fused_epilogue_bwd(x, w, ops, full, dy)
+    same = (torch.equal(dx, dx2) and torch.equal(dw, dw2)
+            and all(torch.equal(a, b) for a, b in zip(dops, dops2)))
+    if not same:
+        raise AssertionError("two fused_epilogue_bwd runs differ")
+    return errs
+
+
+def _static_param_shapes(cfg):
+    """program.parameters() of build_bert_static, in order."""
+    h, f, v = cfg["hidden"], cfg["ffn"], cfg["vocab"]
+    layer = [(h, h), (h,)] * 4 + [(h,), (h,), (h, f), (f,), (f, h), (h,),
+                                  (h,), (h,)]
+    return [(v, h)] + layer * cfg["layers"] + [(h, v), (v,)]
+
+
+def _adam_phase(torch, gen):
+    """K3 over the full-width static BERT's parameters: 5 steps against
+    the plain version, then times; torch._fused_adam_ timed beside it."""
+    from paddle_tpu_torch.ops.fused_adam import (FusedAdam,
+                                                 fused_adam_reference_)
+    shapes = _static_param_shapes(STATIC_CHIP)
+    numel = sum(math.prod(s) for s in shapes)
+    ps = [torch.randn(s, generator=gen, device="cuda") * 0.02
+          for s in shapes]
+    sides = {}
+    for side in ("kernel", "plain"):
+        sides[side] = ([p.clone() for p in ps],
+                       [torch.zeros_like(p) for p in ps],
+                       [torch.zeros_like(p) for p in ps],
+                       [torch.zeros_like(p) for p in ps])
+    lr = torch.full((), 1e-4, device="cuda")
+    step = torch.zeros((), device="cuda")
+    kern = FusedAdam(*sides["kernel"])
+    for _ in range(5):
+        step += 1
+        grads = [torch.randn(s, generator=gen, device="cuda")
+                 for s in shapes]
+        for side in ("kernel", "plain"):
+            torch._foreach_copy_(sides[side][1], grads)
+        kern(lr, step)
+        fused_adam_reference_(*sides["plain"], lr, step)
+    torch.cuda.synchronize()
+    err = max(max((a - b).abs().max().item() for a, b in zip(la, lb))
+              for la, lb in zip(sides["kernel"], sides["plain"]))
+    if not err <= ADAM_TOL:
+        raise AssertionError(f"fused_adam: max abs err {err} > {ADAM_TOL}")
+    ms = cuda_ms(lambda i: kern(lr, step), 20)
+    plain_ms = cuda_ms(lambda i: fused_adam_reference_(*sides["plain"], lr,
+                                                        step), 5)
+    lp, lg, lm, lv = sides["plain"]
+    steps = [torch.full((), 6.0, device="cuda") for _ in lp]
+    lib_ms = cuda_ms(lambda i: torch._fused_adam_(
+        lp, lg, lm, lv, [], steps, lr=1e-4, beta1=0.9, beta2=0.999,
+        weight_decay=0.0, eps=1e-8, amsgrad=False, maximize=False), 20)
+    nbytes = 28 * numel
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = 15 * numel / PEAK_OPS["float32"] * 1e3
+    row = {"kernel": "fused_adam", "tensors": len(shapes), "numel": numel,
+           "max_abs_err": err, "tol": ADAM_TOL, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": max(t_b, t_o),
+           "bound_by": "bytes" if t_b >= t_o else "operations",
+           "bytes": nbytes, "achieved_GBps": nbytes / (ms * 1e-3) / 1e9,
+           "library_ms": lib_ms,
+           "library_call": "torch._fused_adam_ over the same lists"}
+    log("KERNEL " + json.dumps(row))
+    del sides, ps, grads, steps, kern
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_epilogue_adam_kernels():
+    """K2f and K2b against their plain versions: the three BERT-base
+    chains at M 8192 in f32 and bf16, three small recipes (bias only,
+    relu, gelu-erf) at a ragged shape; times of the f32 chains (the main
+    path's dtype); then K3."""
+    import torch
+    from paddle_tpu_torch.ops.cuda import fused_epilogue as cuda_epi
+    from paddle_tpu_torch.ops.fused_epilogue import (
+        epilogue_backward_reference, epilogue_forward_reference)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    M = STATIC_CHIP["batch"] * STATIC_CHIP["seq"]
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    cases = [(label, M, K, N, st, dt)
+             for label, K, N, st in _epi_chains(STATIC_CHIP)
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(name, 200, 72, 256, st, dt)
+              for name, st in (("bias_only", ()), ("relu", (("relu",),)),
+                               ("gelu_erf", (("gelu", False),)))
+              for dt in (torch.float32, torch.bfloat16)]
+    for label, m, k, n, stages, dt in cases:
+        dname = str(dt).replace("torch.", "")
+        x, w, dy, ops = _epi_case(torch, gen, m, k, n, stages, dt)
+        errs = _epi_check(torch, x, w, dy, ops, stages)
+        err = max(errs.values())
+        worst[dname] = max(worst[dname], err)
+        row = {"case": f"{label} M={m} K={k} N={n} {dname}",
+               "errors": errs, "tol": EPI_TOL[dname]}
+        log("EPILOGUE_CHECK " + json.dumps(row))
+        if not err <= EPI_TOL[dname]:
+            raise AssertionError(f"fused epilogue kernels disagree with "
+                                 f"the plain versions: {row}")
+        del x, w, dy, ops
+    # times at the main path's shapes, f32
+    rows = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                   "bytes": 0, "operations": 0, "chains": {}}
+            for name in EPI_KERNELS}
+    for label, K, N, stages in _epi_chains(STATIC_CHIP):
+        x, w, dy, ops = _epi_case(torch, gen, M, K, N, stages, torch.float32)
+        full = (("bias",),) + tuple(stages)
+        g, partial, _ = cuda_epi.fused_epilogue_bwd_rows(x, w, ops, full, dy)
+        ms = {"fused_epilogue_fwd": cuda_ms(
+                  lambda i: cuda_epi.fused_epilogue_fwd(x, w, ops, full), 10),
+              "fused_epilogue_bwd": cuda_ms(
+                  lambda i: cuda_epi.fused_epilogue_bwd_rows(x, w, ops, full,
+                                                             dy), 10),
+              "fused_epilogue_bwd_grads": cuda_ms(
+                  lambda i: cuda_epi.fused_epilogue_bwd_grads(x, w, ops, g,
+                                                              partial), 10)}
+        plain_fwd = cuda_ms(lambda i: epilogue_forward_reference(
+            x, w, ops, full), 5)
+        plain_bwd = cuda_ms(lambda i: epilogue_backward_reference(
+            x, w, ops, full, dy), 5)
+        lib = None
+        if label == "fc1":
+            lib = cuda_ms(lambda i: torch._addmm_activation(
+                ops[0][0], x, w, use_gelu=True), 10)
+        bounds = _epi_bounds(M, K, N, stages, 4, "float32")
+        for name in EPI_KERNELS:
+            b_ms, b_by, nbytes, nops = bounds[name]
+            fwd = name == "fused_epilogue_fwd"
+            chain = {"ms": ms[name], "plain_ms": plain_fwd if fwd
+                     else plain_bwd, "bound_ms": b_ms, "bound_by": b_by,
+                     "bytes": nbytes, "operations": nops,
+                     "library_ms": lib if fwd else None}
+            rows[name]["chains"][label] = chain
+            for key in ("ms", "bound_ms", "bytes", "operations"):
+                rows[name][key] += chain[key]
+            rows[name]["plain_ms"] += chain["plain_ms"]
+            log("KERNEL " + json.dumps(dict(
+                kernel=name, case=f"{label} M={M} K={K} N={N} float32",
+                **chain)))
+        del x, w, dy, ops, g, partial
+        torch.cuda.empty_cache()
+    for name, row in rows.items():
+        row["bound_by"] = ("bytes" if all(c["bound_by"] == "bytes"
+                                          for c in row["chains"].values())
+                           else "operations")
+        row["max_abs_err"] = worst["float32"]
+        row["max_abs_err_bf16"] = worst["bfloat16"]
+        row["case"] = (f"one BERT-base layer: proj, fc1 and fc2 chains at "
+                       f"M={M}, float32, times summed")
+        if name != "fused_epilogue_fwd":
+            row["plain_computes"] = "the whole backward of the chain"
+        log("KERNEL_LAYER " + json.dumps(dict(kernel=name, **row)))
+    rows["fused_adam"] = _adam_phase(torch, gen)
+    return rows
+
+
+# --------------------------------------------------------------- phase 11
+def phase_static_small_parity():
+    """bench_pallas's CPU widths, 3 runs on the CPU and on the card from
+    the same weights and constants: losses within rtol 1e-5, parameters
+    within BERT_PARAM_ATOL (the key projections' biases within lr a
+    step), the same realized kernels, and the kernels' launches on the
+    card."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.framework_io import program_state_from_paddle_tpu
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.testing.models import build_bert_static
+    cfg, runs = STATIC_CPU, 3
+    built = {dev: build_bert_static(**cfg, device=dev)
+             for dev in ("cpu", "cuda")}
+    cpu_main = built["cpu"][0]
+    program_state_from_paddle_tpu(
+        built["cuda"][0], [p.detach().numpy() for p in cpu_main.parameters()],
+        [v.numpy() for node in cpu_main.nodes for tag, v in node.in_specs
+         if tag == "c"])
+    losses, kernels = {}, {}
+    for dev, (main, loss, feeds) in built.items():
+        exe = static.Executor(dev)
+        feed = {k: torch.from_numpy(v).to(dev)
+                for k, v in feeds(np.random.RandomState(0)).items()}
+        support.reset_launch_counts()
+        losses[dev] = [float(exe.run(main, feed=feed, fetch_list=[loss])[0])
+                       for _ in range(runs)]
+        kernels[dev] = next(iter(exe._cache.values())).kernels
+    counts = dict(support.launch_counts)
+    want = {k: v // STATIC_CHIP["layers"] * cfg["layers"] * runs
+            for k, v in STATIC_PER_STEP.items() if k != "fused_adam"}
+    want["fused_adam"] = runs
+    if any(counts.get(k, 0) != v for k, v in want.items()):
+        raise AssertionError(f"small static BERT launches {counts}, want "
+                             f"{want}")
+    if (kernels["cpu"] != kernels["cuda"]
+            or len(kernels["cuda"]) != 3 * cfg["layers"] + 1):
+        raise AssertionError(f"realized kernels differ: {kernels}")
+    diffs = [(p.detach().cpu() - q.detach()).abs().max().item()
+             for p, q in zip(built["cuda"][0].parameters(),
+                             cpu_main.parameters())]
+    # parameters: tok, then 16 a layer (wq.w, wq.b, wk.w, wk.b, ...)
+    k_bias = {1 + 16 * layer + 3 for layer in range(cfg["layers"])}
+    rest = max(d for i, d in enumerate(diffs) if i not in k_bias)
+    kb = max(diffs[i] for i in k_bias)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                      losses["cpu"]))
+    out = {"losses_cpu": losses["cpu"], "losses_cuda": losses["cuda"],
+           "loss_max_rel_err": loss_err, "param_max_abs_err": rest,
+           "k_proj_bias_max_abs_err": kb, "loss_rtol": 1e-5,
+           "param_atol": BERT_PARAM_ATOL, "k_proj_bias_atol": 2e-4 * runs,
+           "kernels": kernels["cuda"], "launches": counts}
+    log("STATIC_PARITY " + json.dumps(out))
+    if (not loss_err <= 1e-5 or not rest <= BERT_PARAM_ATOL
+            or not kb <= 2e-4 * runs):
+        raise AssertionError(f"small static BERT card vs CPU: {out}")
+
+
+# --------------------------------------------------------------- phase 12
+def phase_static_training(warmup=2, steps=8):
+    """bench_pallas's static BERT at its chip config on the card: losses
+    finite and near ln(vocab), every kernel launched as often a step as
+    the program has chains, flash calls and optimizers."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.testing.models import (build_bert_static,
+                                                 palm_flops_per_step)
+    cfg = STATIC_CHIP
+    t0 = time.perf_counter()
+    main, loss, feeds = build_bert_static(**cfg, device="cuda")
+    exe = static.Executor("cuda")
+    feed = {k: torch.from_numpy(v).cuda()
+            for k, v in feeds(np.random.RandomState(0)).items()}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    support.reset_launch_counts()
+    losses, step_ms = [], []
+    for i in range(warmup + steps):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], return_numpy=False)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out[0]))
+    counts = dict(support.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in main.parameters())
+    timed = step_ms[warmup:]
+    mean_ms = sum(timed) / len(timed)
+    tokens = cfg["batch"] * cfg["seq"]
+    # the PaLM count; the token embedding is a lookup and the position
+    # embedding a constant of the program
+    flops = palm_flops_per_step(n_params - cfg["vocab"] * cfg["hidden"],
+                                cfg["layers"], cfg["seq"], cfg["batch"],
+                                cfg["hidden"])
+    kernels = next(iter(exe._cache.values())).kernels
+    out = {"config": cfg, "dtype": "float32", "optimizer": "Adam(1e-4)",
+           "params_trained": n_params, "setup_s": setup_s,
+           "warmup_runs": warmup, "timed_runs": steps, "losses": losses,
+           "step_ms": timed, "step_ms_p50": float(np.median(timed)),
+           "step_ms_mean": mean_ms, "first_runs_ms": step_ms[:warmup],
+           "tokens_per_s": tokens / (mean_ms / 1e3),
+           "model_flops_per_step": flops,
+           "mfu_f32": flops / (mean_ms / 1e3) / PEAK_OPS["float32"],
+           "mfu_peak": "67 TFLOP/s, f32 on the CUDA cores",
+           "peak_bound_ms": flops / PEAK_OPS["float32"] * 1e3,
+           "max_memory_allocated": peak, "launches": counts,
+           "realized_kernels": kernels, "compile_count": exe.compile_count}
+    log("STATIC_TRAIN " + json.dumps(out))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if abs(losses[0] - math.log(cfg["vocab"])) > 1.0:
+        raise AssertionError(f"first loss {losses[0]} is not near "
+                             f"ln({cfg['vocab']}) = "
+                             f"{math.log(cfg['vocab'])}")
+    runs = warmup + steps
+    want = {k: v * runs for k, v in STATIC_PER_STEP.items()}
+    if any(counts.get(k, 0) != v for k, v in want.items()):
+        raise AssertionError(f"static launches {counts}, want {want}")
+    if exe.compile_count != 1:
+        raise AssertionError(f"{exe.compile_count} builds, want 1")
+    return counts, (exe, main, loss, feed)
+
+
+# --------------------------------------------------------------- phase 13
+def phase_static_anatomy(run, steps=2):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    exe, main, loss, feed = run
+
+    def one(i):
+        exe.run(main, feed=feed, fetch_list=[loss], return_numpy=False)
+
+    step_ms = cuda_ms(one, 3, warmup=1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            one(0)
+        torch.cuda.synchronize()
+    groups = {"fused_epilogue": 0.0, "fused_adam": 0.0, "flash": 0.0,
+              "cublas": 0.0, "other": 0.0}
+    top = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        name = e.key.lower()
+        g = ("fused_epilogue" if "epilogue_" in name else
+             "fused_adam" if "adam_kernel" in name else
+             "flash" if "flash_" in name else
+             "cublas" if any(w in name for w in ("gemm", "xmma", "cutlass",
+                                                 "splitk", "nvjet"))
+             else "other")
+        ms = e.self_device_time_total / 1e3 / steps
+        groups[g] += ms
+        top.append((ms, e.key[:80]))
+    busy = sum(groups.values())
+    if not busy > 0:
+        raise AssertionError("the profiler saw no device time")
+    top.sort(reverse=True)
+    out = {"step_ms_host": step_ms, "device_busy_ms": busy,
+           "device_idle_share": max(0.0, 1.0 - busy / step_ms),
+           "device_ms_by_group": groups,
+           "top_kernels_ms": [[round(m, 4), n] for m, n in top[:24]]}
+    log("STATIC_ANATOMY " + json.dumps(out))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -777,6 +1230,12 @@ def main():
                                               phase_bert_training)
     timed("train_anatomy", phase_train_anatomy, step, batch)
     del bert, step, batch
+    torch.cuda.empty_cache()
+    epi_rows = timed("epilogue_adam_kernels", phase_epilogue_adam_kernels)
+    timed("static_small", phase_static_small_parity)
+    static_launches, run = timed("static_training", phase_static_training)
+    timed("static_anatomy", phase_static_anatomy, run)
+    del run
     seconds["total"] = time.perf_counter() - t0
     log("PHASE_SECONDS " + json.dumps(seconds))
     f32_err = max(r["max_abs_err"] for r in kernel_rows
@@ -805,6 +1264,22 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    for name, site in list(EPI_KERNELS.items()) + [("fused_adam",
+                                                    ADAM_SITE)]:
+        r = epi_rows[name]
+        src = ("fused_adam.cu" if name == "fused_adam"
+               else "fused_epilogue.cu")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"paddle_tpu_torch/ops/cuda/csrc/{src}",
+            "replaces": site, "launches": static_launches.get(name, 0),
+            "max_abs_err": r["max_abs_err"],
+            "max_abs_err_bf16": r.get("max_abs_err_bf16"),
+            "shape": r.get("case", f"{r.get('tensors')} tensors, "
+                                   f"{r.get('numel')} elements, float32"),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"] if name == "fused_adam" else None})
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu for NVIDIA
 Hopper.
 
-Two slices are in:
+Three slices are in:
 
 - generative serving: the paged KV cache, the continuous-batching
   :class:`~.serving.GenerationEngine`, the reference
@@ -12,16 +12,44 @@ Two slices are in:
   they call), :mod:`.optimizer` (Adam, AdamW, global-norm clip, f32
   master weights), :func:`.amp.decorate` (O2), :class:`.jit.TrainStep`,
   and the hand-written CUDA flash-attention kernels, forward and
-  backward.
+  backward;
+- static-graph training: :func:`enable_static`, :mod:`.static`
+  (Program, ``data``, ``program_guard``, Executor with the
+  epilogue-fusion pass), ``Optimizer.minimize``, and the hand-written
+  CUDA fused matmul-epilogue (forward and backward) and fused Adam
+  kernels.
 
-Models, pools and engines go to the current CUDA device unless the
-caller passes ``device=`` (e.g. ``"cpu"``); with no GPU and no
-``device=`` they raise.
+Models, pools, engines and static parameters go to the current CUDA
+device unless the caller passes ``device=`` (e.g. ``"cpu"``) or calls
+``set_device``; with no GPU and neither, they raise.
 """
 from . import (amp, core, framework_io, jit, nn, ops,  # noqa: F401
-               optimizer, serving, testing, utils)
+               optimizer, serving, static, testing, utils)
 from .core.placement import device  # noqa: F401
 from .core.rng import seed  # noqa: F401
+from .device import get_device, set_device  # noqa: F401
+from .ops.creation import arange  # noqa: F401
 
 __all__ = ["amp", "core", "framework_io", "jit", "nn", "ops", "optimizer",
-           "serving", "testing", "utils", "device", "seed"]
+           "serving", "static", "testing", "utils", "device", "seed",
+           "set_device", "get_device", "arange", "enable_static",
+           "disable_static", "in_dynamic_mode"]
+
+_static_mode = False
+
+
+def enable_static():
+    """Static mode, as paddle_tpu has it: layer code run on
+    ``static.data`` Variables records into the current Program (the
+    recording itself keys on the Variables, in either mode)."""
+    global _static_mode
+    _static_mode = True
+
+
+def disable_static(place=None):
+    global _static_mode
+    _static_mode = False
+
+
+def in_dynamic_mode() -> bool:
+    return not _static_mode

@@ -1,0 +1,34 @@
+"""The record-or-run point (``paddle_tpu.core.dispatch.apply`` and the
+static hooks it consults).
+
+Every paddle op of the port's ``nn.functional`` (and the static
+``Variable``'s operators) goes through :func:`apply`: on tensors it
+calls the op's function, and when any input is a static ``Variable`` it
+records one node, under the op's paddle name, into that Variable's
+Program instead.  Recording happens at the level of paddle ops, not of
+torch's: the nodes carry paddle_tpu's op names (``linear``, ``add``,
+``gelu``, ``layer_norm``, ...) and their parameters as explicit
+``attrs``, which is what the static Executor's fusion matcher reads.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+__all__ = ["Symbolic", "apply"]
+
+
+class Symbolic:
+    """Base of the static ``Variable``: a symbolic input that makes
+    :func:`apply` record instead of run.  Subclasses carry ``program``."""
+
+    __slots__ = ()
+
+
+def apply(fn: Callable, *inputs, op_name: str,
+          attrs: Optional[dict] = None):
+    """``fn(*inputs, **attrs)``, or, when an input is a static Variable,
+    a node recorded into its Program (returns the output Variable(s))."""
+    for x in inputs:
+        if isinstance(x, Symbolic):
+            return x.program.record(fn, inputs, op_name, attrs or {})
+    return fn(*inputs, **attrs) if attrs else fn(*inputs)

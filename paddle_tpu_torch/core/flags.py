@@ -1,5 +1,5 @@
 """Global flags registry (the subset of ``paddle_tpu.core.flags`` that
-the generative-serving slice reads).
+the ported slices read).
 
 Flags may be seeded from the environment with the ``FLAGS_`` prefix,
 as in the reference's gflags passthrough.
@@ -65,6 +65,11 @@ def set_flags(flags: Dict[str, Any]) -> None:
             _values[k] = v
 
 
+define_flag("use_pallas_kernels", True,
+            "The hand-written kernel tier (the name is paddle_tpu's, so "
+            "scripts and FLAGS_ environment variables carry across): the "
+            "static Executor's epilogue-fusion pass and fused Adam.  On "
+            "the CPU the tier runs the kernels' plain versions.")
 define_flag("serving_decode_retries", 2,
             "GenerationEngine: decode-step attempts after a failure "
             "before the in-flight sequences are failed (injected faults "

@@ -2,17 +2,19 @@
 
 paddle_tpu's layers and the port's share parameter names and layouts
 (``Linear.weight`` is ``[in, out]`` in both), so a paddle_tpu state
-dict maps onto the port's one-to-one: a name check and a copy."""
+dict maps onto the port's one-to-one: a name check and a copy.  A static
+Program's parameters map by position: both packages list them in
+first-use order."""
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Union
+from typing import Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from .core.placement import device as _resolve_device
 
-__all__ = ["state_dict_from_paddle_tpu"]
+__all__ = ["state_dict_from_paddle_tpu", "program_state_from_paddle_tpu"]
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
@@ -44,3 +46,32 @@ def state_dict_from_paddle_tpu(
                                  f"model has {tuple(own[k].shape)}")
     dev = _resolve_device(device)
     return {k: _tensor(v).to(dev) for k, v in np_state.items()}
+
+
+def program_state_from_paddle_tpu(program, arrays: Sequence[np.ndarray],
+                                  constants: Sequence[np.ndarray] = ()
+                                  ) -> None:
+    """Load a paddle_tpu Program's parameters into the port's ``program``
+    (the same model recorded by both packages): ``arrays`` in
+    ``program.parameters()`` order, e.g. ``[np.asarray(p.data) for p in
+    jax_program.parameters()]``.  ``constants``, when given, are the
+    tensors the paddle_tpu Program recorded as constants, in node order
+    (a layer called eagerly while the program was built, such as the
+    position embedding of ``bench.build_bert_static``); the port's are
+    overwritten with them.  Every count and shape is checked first."""
+    params = program.parameters()
+    consts = [v for node in program.nodes for tag, v in node.in_specs
+              if tag == "c"] if len(constants) else []
+    for kind, own, new in (("parameters", params, list(arrays)),
+                           ("constants", consts, list(constants))):
+        if len(own) != len(new):
+            raise ValueError(f"{len(new)} {kind} given, the program has "
+                             f"{len(own)}")
+        for i, (t, a) in enumerate(zip(own, new)):
+            if tuple(np.shape(a)) != tuple(t.shape):
+                raise ValueError(f"{kind} {i}: shape {tuple(np.shape(a))}, "
+                                 f"the program has {tuple(t.shape)}")
+    with torch.no_grad():
+        for own, new in ((params, arrays), (consts, constants)):
+            for t, a in zip(own, new):
+                t.copy_(_tensor(a))

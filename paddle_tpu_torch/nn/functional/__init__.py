@@ -1,13 +1,19 @@
 """nn.functional: the subset of ``paddle_tpu.nn.functional`` the BERT
-training path runs, in PyTorch.
+training paths run, in PyTorch.
 
 Layouts and semantics are paddle_tpu's: ``linear`` takes its weight as
 ``[in, out]``, attention takes ``[B, L, H, D]``, dropout keeps a value
 iff a 16-bit draw is ``>= round(p * 65536)`` (``_u16_dropout_mask``).
 :func:`scaled_dot_product_attention` sends every shape the flash gate
 takes to :func:`~paddle_tpu_torch.ops.flash_attention.flash_attention`
-(the CUDA kernels on the card, their plain versions on the CPU); a mask
-or ``return_weights`` takes the unfused path, as in paddle_tpu.
+(the CUDA kernels on the card, their plain versions on the CPU) while
+``FLAGS_use_pallas_kernels`` is on; a mask or ``return_weights`` takes
+the unfused path, as in paddle_tpu.
+
+Each public function is one paddle op: it goes through
+:func:`~paddle_tpu_torch.core.dispatch.apply` under paddle_tpu's op
+name, with its parameters as attrs, so that on a static ``Variable`` it
+records a node the static Executor's fusion pass can read.
 """
 from __future__ import annotations
 
@@ -17,28 +23,52 @@ import torch
 import torch.nn.functional as TF
 
 from ...core import rng
+from ...core.dispatch import apply
+from ...core.flags import get_flag
 from ...ops.flash_attention import flash_attention, flash_attention_supported
 
 __all__ = ["linear", "embedding", "layer_norm", "gelu", "relu", "dropout",
-           "scaled_dot_product_attention", "cross_entropy",
+           "scaled_dot_product_attention", "cross_entropy", "mse_loss",
            "linear_cross_entropy"]
 
 
-def relu(x, name=None):
+def _relu(x):
     return torch.relu(x)
+
+
+def relu(x, name=None):
+    return apply(_relu, x, op_name="relu")
+
+
+def _gelu(x, approximate):
+    return TF.gelu(x, approximate="tanh" if approximate else "none")
 
 
 def gelu(x, approximate=False, name=None):
     """Exact (erf) GELU by default, tanh form with ``approximate``."""
-    return TF.gelu(x, approximate="tanh" if approximate else "none")
+    return apply(_gelu, x, op_name="gelu",
+                 attrs={"approximate": bool(approximate)})
+
+
+def _linear(x, weight, bias=None):
+    if bias is None:
+        return torch.matmul(x, weight)
+    y = torch.addmm(bias, x.reshape(-1, x.shape[-1]), weight)
+    return y.reshape(*x.shape[:-1], weight.shape[-1])
 
 
 def linear(x, weight, bias=None, name=None):
     """``x @ weight + bias``; ``weight`` is ``[in, out]``."""
     if bias is None:
-        return torch.matmul(x, weight)
-    y = torch.addmm(bias, x.reshape(-1, x.shape[-1]), weight)
-    return y.reshape(*x.shape[:-1], weight.shape[-1])
+        return apply(_linear, x, weight, op_name="linear")
+    return apply(_linear, x, weight, bias, op_name="linear")
+
+
+def _embedding(x, weight, padding_idx):
+    out = TF.embedding(x, weight)
+    if padding_idx is not None:
+        out = out * (x != padding_idx).unsqueeze(-1).to(out.dtype)
+    return out
 
 
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
@@ -47,17 +77,31 @@ def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     if sparse:
         raise NotImplementedError("sparse (SelectedRows) embedding "
                                   "gradients are not ported")
-    out = TF.embedding(x, weight)
-    if padding_idx is not None:
-        out = out * (x != padding_idx).unsqueeze(-1).to(out.dtype)
-    return out
+    return apply(_embedding, x, weight, op_name="embedding",
+                 attrs={"padding_idx": padding_idx})
+
+
+def _layer_norm(x, *wb, n, epsilon):
+    return TF.layer_norm(x, tuple(x.shape[x.dim() - n:]),
+                         wb[0] if wb else None,
+                         wb[1] if len(wb) > 1 else None, epsilon)
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
                name=None):
+    """LayerNorm over the last ``len(normalized_shape)`` dims; ``n`` and
+    ``epsilon`` ride the node as attrs.  As in paddle_tpu, a bias
+    without a weight is dropped."""
     if isinstance(normalized_shape, int):
         normalized_shape = (normalized_shape,)
-    return TF.layer_norm(x, tuple(normalized_shape), weight, bias, epsilon)
+    args = [x]
+    if weight is not None:
+        args.append(weight)
+        if bias is not None:
+            args.append(bias)
+    return apply(_layer_norm, *args, op_name="layer_norm",
+                 attrs={"n": len(tuple(normalized_shape)),
+                        "epsilon": float(epsilon)})
 
 
 def _u16_keep(shape, p, x, upscale=True):
@@ -75,33 +119,34 @@ def _u16_keep(shape, p, x, upscale=True):
     return keep * scale if upscale else keep
 
 
+def _dropout(x, p, axis, mode):
+    shape = list(x.shape)
+    if axis is not None:
+        shape = [s if i in axis else 1 for i, s in enumerate(shape)]
+    mask = _u16_keep(shape, p, x, upscale=(mode == "upscale_in_train"))
+    return x if mask is None else x * mask
+
+
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
             name=None):
     if not training or p == 0.0:
         if mode == "downscale_in_infer" and not training:
             return x * (1.0 - p)
         return x
-    shape = list(x.shape)
     if axis is not None:
-        axes = axis if isinstance(axis, (list, tuple)) else [axis]
-        shape = [s if i in axes else 1 for i, s in enumerate(shape)]
-    mask = _u16_keep(shape, p, x, upscale=(mode == "upscale_in_train"))
-    if mask is None:
-        return x
-    return x * mask
+        axis = tuple(axis) if isinstance(axis, (list, tuple)) else (axis,)
+    return apply(_dropout, x, op_name="dropout",
+                 attrs={"p": p, "axis": axis, "mode": mode})
 
 
-def scaled_dot_product_attention(query, key, value, attn_mask=None,
-                                 dropout_p=0.0, is_causal=False,
-                                 training=True, name=None,
-                                 return_weights=False):
-    """``[B, L, H, D]`` attention.  ``return_weights=True`` takes the
-    unfused path and returns ``(out, weights [B, H, Lq, Lk])``, the
-    post-dropout probabilities in training mode."""
+def _sdpa(query, key, value, *mask, dropout_p, is_causal, training,
+          return_weights):
+    attn_mask = mask[0] if mask else None
     eff = dropout_p if training else 0.0
-    if not return_weights and flash_attention_supported(
-            tuple(query.shape), tuple(key.shape), query.dtype, attn_mask,
-            eff):
+    if (get_flag("use_pallas_kernels") and not return_weights
+            and flash_attention_supported(tuple(query.shape),
+                                          tuple(key.shape), query.dtype,
+                                          attn_mask, eff)):
         seed = rng.next_seed() if eff > 0.0 else None
         return flash_attention(query, key, value, causal=is_causal,
                                dropout_p=eff, seed=seed)
@@ -118,11 +163,25 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             s = s + attn_mask
     w = torch.softmax(s, dim=-1)
     if eff > 0.0:
-        mask = _u16_keep(w.shape, eff, w)
-        if mask is not None:
-            w = w * mask
+        keep = _u16_keep(w.shape, eff, w)
+        if keep is not None:
+            w = w * keep
     out = torch.einsum("bhls,bshd->blhd", w, value)
     return (out, w) if return_weights else out
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, name=None,
+                                 return_weights=False):
+    """``[B, L, H, D]`` attention.  ``return_weights=True`` takes the
+    unfused path and returns ``(out, weights [B, H, Lq, Lk])``, the
+    post-dropout probabilities in training mode."""
+    args = (query, key, value) + (() if attn_mask is None else (attn_mask,))
+    return apply(_sdpa, *args, op_name="scaled_dot_product_attention",
+                 attrs={"dropout_p": dropout_p, "is_causal": is_causal,
+                        "training": training,
+                        "return_weights": return_weights})
 
 
 def _reduce(out, reduction):
@@ -133,12 +192,9 @@ def _reduce(out, reduction):
     return out
 
 
-def cross_entropy(input, label, weight=None, ignore_index=-100,
-                  reduction="mean", soft_label=False, axis=-1,
-                  use_softmax=True, label_smoothing=0.0, name=None):
-    """paddle_tpu's cross entropy: hard or soft labels, class weights,
-    ``ignore_index`` and label smoothing; the mean over hard labels
-    divides by the (weighted) count of rows not ignored."""
+def _cross_entropy(input, label, *weight, ignore_index, reduction,
+                   soft_label, axis, use_softmax, label_smoothing):
+    weight = weight[0] if weight else None
     if use_softmax:
         logp = torch.log_softmax(input, dim=axis)
     else:
@@ -147,14 +203,20 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     lab = label
     if not soft_label and lab.dim() == logp.dim() and lab.shape[axis] == 1:
         lab = lab.squeeze(axis)
-    if soft_label:
-        tgt = lab
+    if soft_label or label_smoothing > 0.0:
+        if soft_label:
+            tgt = lab
+        else:
+            safe = torch.where(lab == ignore_index, 0, lab).long()
+            tgt = TF.one_hot(safe, nclass).to(logp.dtype).movedim(-1, axis)
+        if label_smoothing > 0.0:
+            tgt = tgt * (1.0 - label_smoothing) + label_smoothing / nclass
+        loss = -(tgt * logp).sum(dim=axis)
     else:
+        # the one-hot sum picks one term exactly: a gather is the same
+        # value without the [rows, classes] target
         safe = torch.where(lab == ignore_index, 0, lab).long()
-        tgt = TF.one_hot(safe, nclass).to(logp.dtype).movedim(-1, axis)
-    if label_smoothing > 0.0:
-        tgt = tgt * (1.0 - label_smoothing) + label_smoothing / nclass
-    loss = -(tgt * logp).sum(dim=axis)
+        loss = -logp.gather(axis, safe.unsqueeze(axis)).squeeze(axis)
     if soft_label:
         return _reduce(loss, reduction)
     w_row = None
@@ -167,6 +229,29 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
         denom = (mask * w_row).sum() if w_row is not None else mask.sum()
         return loss.sum() / denom.clamp_min(1e-12)
     return _reduce(loss, reduction)
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0, name=None):
+    """paddle_tpu's cross entropy: hard or soft labels, class weights,
+    ``ignore_index`` and label smoothing; the mean over hard labels
+    divides by the (weighted) count of rows not ignored."""
+    args = (input, label) + (() if weight is None else (weight,))
+    return apply(_cross_entropy, *args, op_name="cross_entropy",
+                 attrs={"ignore_index": ignore_index,
+                        "reduction": reduction, "soft_label": soft_label,
+                        "axis": axis, "use_softmax": use_softmax,
+                        "label_smoothing": float(label_smoothing)})
+
+
+def _mse_loss(input, label, reduction):
+    return _reduce((input - label) ** 2, reduction)
+
+
+def mse_loss(input, label, reduction="mean", name=None):
+    return apply(_mse_loss, input, label, op_name="mse_loss",
+                 attrs={"reduction": reduction})
 
 
 def _chunk_logits(h, w, b):

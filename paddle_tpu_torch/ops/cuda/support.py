@@ -11,9 +11,12 @@
   builds or imports a compiler when the module is imported.
 - **gates**: :func:`dtype_ok` — f32 and bf16, the two types every
   kernel accumulates from in f32.
-- **entry points**: ``ptt_paged_decode`` (``paged_attention.cu``) and
+- **entry points**: ``ptt_paged_decode`` (``paged_attention.cu``),
   ``ptt_flash_fwd`` / ``ptt_flash_bwd_dq`` / ``ptt_flash_bwd_dkv``
-  (``flash_attention.cu``), declared for ``ctypes`` in :func:`_declare`.
+  (``flash_attention.cu``), ``ptt_epilogue_fwd`` / ``ptt_epilogue_bwd``
+  / ``ptt_epilogue_grads`` (``fused_epilogue.cu``) and
+  ``ptt_fused_adam`` / ``ptt_adam_chunk`` (``fused_adam.cu``), declared
+  for ``ctypes`` in :func:`_declare`.
 - **launch counts**: every wrapper adds one to
   ``launch_counts[<kernel>]`` where it launches its kernel, and nowhere
   else, so a run can show that its main path went through the kernels.
@@ -89,6 +92,26 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [vp] * n_ptr + tail
         fn.restype = i32
+    # fused epilogue: tensors, M K N, then the recipe (codes, eps,
+    # n_stages, operand pointers[, grad pointers], op_info, n_ops), dtype
+    # and stream
+    recipe = [vp, vp, i32, vp]
+    fn = lib.ptt_epilogue_fwd
+    fn.argtypes = [vp] * 3 + [i32] * 3 + recipe + [vp, i32, i32, vp]
+    fn.restype = i32
+    fn = lib.ptt_epilogue_bwd
+    fn.argtypes = [vp] * 5 + [i32] * 3 + recipe + [vp, vp, i32, i32, vp]
+    fn.restype = i32
+    fn = lib.ptt_epilogue_grads
+    fn.argtypes = [vp] * 7 + [i32] * 3 + [vp, i32, i32, vp]
+    fn.restype = i32
+    # fused Adam: table, block maps, n_blocks, lr, step, seven floats,
+    # stream
+    fn = lib.ptt_fused_adam
+    fn.argtypes = [vp, vp, vp, i32, vp, vp] + [ctypes.c_float] * 7 + [vp]
+    fn.restype = i32
+    lib.ptt_adam_chunk.argtypes = []
+    lib.ptt_adam_chunk.restype = i64
 
 
 def _build(so: str, sources) -> str:

@@ -168,19 +168,20 @@ def _bhld(t):
 
 class FlashAttention(torch.autograd.Function):
     """Flash attention over ``[B, L, H, D]`` with the kernels' backward:
-    the CUDA kernels for CUDA tensors, the plain versions for CPU ones.
+    the CUDA kernels for CUDA tensors, the plain versions for the others
+    (CPU tensors, and ``meta`` ones when a static program infers shapes).
     Saves ``(q, k, v, out, lse)``; the seed rides on ``ctx``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, dropout_p, seed):
         kw = dict(causal=causal, scale=scale, dropout_p=dropout_p, seed=seed)
-        if q.device.type == "cpu":
+        if q.device.type == "cuda":
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            out, lse = _cuda.flash_attention_fwd(q, k, v, **kw)
+        else:
             out, lse = flash_attention_reference_fwd(_bhld(q), _bhld(k),
                                                      _bhld(v), **kw)
             out = _bhld(out).contiguous()
-        else:
-            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-            out, lse = _cuda.flash_attention_fwd(q, k, v, **kw)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = kw
         return out
@@ -189,18 +190,18 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         kw = ctx.kw
-        if q.device.type == "cpu":
-            grads = flash_attention_reference_bwd(
-                _bhld(q), _bhld(k), _bhld(v), _bhld(out), lse, _bhld(dout),
-                **kw)
-            dq, dk, dv = (_bhld(g).contiguous() for g in grads)
-        else:
+        if q.device.type == "cuda":
             dout = dout.contiguous()
             delta = attention_delta(_bhld(dout), _bhld(out))
             dq = _cuda.flash_attention_bwd_dq(q, k, v, dout, lse, delta,
                                               **kw)
             dk, dv = _cuda.flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
                                                    **kw)
+        else:
+            grads = flash_attention_reference_bwd(
+                _bhld(q), _bhld(k), _bhld(v), _bhld(out), lse, _bhld(dout),
+                **kw)
+            dq, dk, dv = (_bhld(g).contiguous() for g in grads)
         return dq, dk, dv, None, None, None, None
 
 

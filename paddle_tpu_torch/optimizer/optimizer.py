@@ -8,8 +8,9 @@ paddle_tpu: ``init_slots`` and the list-wise ``update``, shared by
 - the eager :meth:`Optimizer.step` (reads ``param.grad``).
 
 The update runs as PyTorch's multi-tensor ``_foreach`` ops over all
-parameters at once, in plain arithmetic.  It is not a fused optimizer
-kernel: that is K3's job (``fused_adam_update``) in a later slice.
+parameters at once, in plain arithmetic.  The fused kernel (K3,
+``ops.fused_adam``) takes over from it only in the static Executor, for
+a plain f32 Adam, as in paddle_tpu.
 
 ``multi_precision``: a bf16/f16 parameter keeps an f32 master copy in
 its slots; the update runs on the master, and the parameter is its
@@ -109,6 +110,19 @@ class Optimizer:
             new_ps.append(w)
             new_ss.append(ns)
         return new_ps, new_ss
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """Static mode: attach this optimizer to the loss's Program (the
+        static Executor computes the gradients and applies the update
+        in each run).  Eager: backward, then step."""
+        from ..static.program import Variable
+        if isinstance(loss, Variable):
+            loss.program._optimizer = (self, loss, parameters, no_grad_set)
+            return None, None
+        loss.backward()
+        self.step()
+        return None, [(p, p.grad) for p in (self._parameter_list or [])]
 
     # -- eager step --------------------------------------------------------
     @torch.no_grad()

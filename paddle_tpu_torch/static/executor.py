@@ -1,0 +1,300 @@
+"""Static-graph Executor (the counterpart of
+``paddle_tpu/static/executor.py``).
+
+``run`` interprets a recorded Program.  A step is built once per key,
+``(program serial, version, feed names/shapes/dtypes, fetch names, has
+optimizer, kernel tier on)``, and cached; :attr:`Executor.compile_count`
+counts the builds.  Building a step:
+
+- with ``FLAGS_use_pallas_kernels`` on, runs the epilogue-fusion pass
+  under the run's feed shapes (:mod:`.analysis.fusion`): matched chains
+  become one node calling the fused epilogue kernels (K2f, K2b);
+- for a training program, picks the update: the fused Adam kernel (K3,
+  one launch over a device table built here, once) when
+  ``ops.fused_adam.fused_update_for`` takes the optimizer, else the
+  optimizer's ``functional_update``;
+- records the realized kernel list as ``step.kernels`` (paddle_tpu's
+  ``compiled._pallas_kernels``).
+
+A training run interprets the (rewritten) node list with the live
+parameters, takes ``torch.autograd.grad`` of the loss with respect to
+the trainable ones (``requires_grad``, ``minimize``'s ``parameters=``
+and ``no_grad_set=``), and updates parameters and the Executor-held
+optimizer slots in place under ``no_grad``: the counterpart of
+paddle_tpu's donated state.  The fused update reads its gradients from
+buffers the table points at (the autograd result is copied there), and
+``lr`` and the step count from device scalars, so a steady loop does
+no host-to-device upload; ``return_numpy=False`` returns the fetches as
+tensors without a sync.
+
+``Executor(place)`` names the device (``set_device``'s choice, else the
+current CUDA device, when None); parameters elsewhere raise.
+
+Not ported: the ``_ExecState`` binding and escape machinery (torch
+tensors update in place), GSPMD plans, ``grad_comm``, the anomaly
+sentry, ``_run_legacy``, the persistent compile cache, and the fault
+and trace hooks.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core import rng
+from ..core.flags import get_flag
+from ..core.placement import device as _resolve_device
+from ..ops.fused_adam import fused_adam_eligible, fused_update_for
+from .program import Program, Variable, default_main_program
+
+__all__ = ["Executor", "global_scope"]
+
+
+class _Scope:
+    """Name -> value map (the reference's Scope shim)."""
+
+    def __init__(self):
+        self.vars: Dict[str, object] = {}
+
+    def find_var(self, name):
+        return self.vars.get(name)
+
+
+_global_scope = _Scope()
+
+
+def global_scope() -> _Scope:
+    return _global_scope
+
+
+def _interp(nodes, env: Dict[int, torch.Tensor], pmap: Dict[int, object]):
+    """Run the node list; ``env`` maps id(Variable) -> tensor and
+    ``pmap`` id(Parameter) -> the tensor standing in for it."""
+    for node in nodes:
+        args = []
+        for tag, v in node.in_specs:
+            if tag == "v":
+                args.append(env[id(v)])
+            elif tag == "p":
+                args.append(pmap[id(v)])
+            else:
+                args.append(v)
+        out = node.fn(*args, **node.attrs)
+        for var, o in zip(node.out_vars, out if node.multi else [out]):
+            env[id(var)] = o
+    return env
+
+
+class _Step:
+    """One built step: the node list it runs and what it updates."""
+
+    def __init__(self, nodes, feed_vars, fetch_vars, kernels):
+        self.nodes = nodes
+        self.feed_vars = feed_vars
+        self.fetch_vars = fetch_vars
+        self.kernels: List[str] = kernels
+        self.t_idx: List[int] = []
+        self.loss_var: Optional[Variable] = None
+        self.fused = None            # ops.fused_adam.FusedAdam or None
+
+
+class _State:
+    """Per-program training state held by the Executor: optimizer slots
+    and gradient buffers by parameter, and the device scalars."""
+
+    def __init__(self, dev, step_count):
+        self.slots: Dict[int, dict] = {}
+        self.gbufs: Dict[int, torch.Tensor] = {}
+        self.step = torch.full((), float(step_count), dtype=torch.float32,
+                               device=dev)
+        self.lr = torch.zeros((), dtype=torch.float32, device=dev)
+        self.lr_value: Optional[float] = None
+
+
+class Executor:
+    def __init__(self, place=None):
+        self.place = _resolve_device(place)
+        self._cache: Dict[tuple, _Step] = {}
+        self._states: Dict[int, _State] = {}
+        self._compile_count = 0
+
+    @property
+    def compile_count(self) -> int:
+        """Steps built (one per key: program version, feed signature,
+        fetch set, optimizer, tier)."""
+        return self._compile_count
+
+    def close(self):
+        """Drop the built steps and the per-program state (optimizer
+        slots); parameters keep their values."""
+        self._cache.clear()
+        self._states.clear()
+
+    # -- main entry --------------------------------------------------------
+    def run(self, program: Optional[Program] = None, feed=None,
+            fetch_list: Optional[Sequence] = None, return_numpy=True,
+            seed=None):
+        if program is None:
+            program = default_main_program()
+        if not program.nodes:
+            return []          # a startup program: parameters exist already
+        feed = feed or {}
+        fetch_names = []
+        for f in fetch_list or []:
+            if isinstance(f, Variable):
+                fetch_names.append(f.name)
+            elif isinstance(f, str):
+                fetch_names.append(f)
+            else:
+                raise TypeError(f"fetch_list entry {f!r} is not a Variable "
+                                f"or a name")
+        params = program.parameters()
+        for p in params:
+            if p.device != self.place:
+                raise ValueError(f"Executor(place={self.place}): a "
+                                 f"parameter of shape {tuple(p.shape)} is on "
+                                 f"{p.device}")
+        feed_items = sorted(feed.items())
+        feeds = [self._feed_tensor(a) for _, a in feed_items]
+        feed_names = tuple(n for n, _ in feed_items)
+        tier = bool(get_flag("use_pallas_kernels"))
+        key = (program._serial, program._version, feed_names,
+               tuple((tuple(t.shape), t.dtype) for t in feeds),
+               tuple(fetch_names), program._optimizer is not None, tier)
+        step = self._cache.get(key)
+        if step is None:
+            # a new version makes the steps of older ones unreachable
+            for k in [k for k in self._cache
+                      if k[0] == program._serial and k[1] != key[1]]:
+                del self._cache[k]
+            step = self._build(program, params, feed_names, feeds,
+                               fetch_names, tier)
+            self._cache[key] = step
+            self._compile_count += 1
+        if seed is not None:
+            rng.generator(self.place).manual_seed(int(seed))
+        env = {id(v): t for v, t in zip(step.feed_vars, feeds)}
+        if program._optimizer is None:
+            with torch.no_grad():
+                _interp(step.nodes, env, {id(p): p for p in params})
+        else:
+            self._train(program, params, step, env)
+        fetches = [env[id(v)].detach() for v in step.fetch_vars]
+        if return_numpy:
+            return [f.cpu().numpy() for f in fetches]
+        return fetches
+
+    def _feed_tensor(self, a) -> torch.Tensor:
+        if isinstance(a, torch.Tensor):
+            return a if a.device == self.place else a.to(self.place)
+        return torch.tensor(np.asarray(a), device=self.place)
+
+    # -- training ----------------------------------------------------------
+    def _state_for(self, program, opt) -> _State:
+        state = self._states.get(program._serial)
+        if state is None:
+            state = self._states[program._serial] = _State(
+                self.place, opt._step_count)
+        return state
+
+    def _slots(self, state, opt, tparams):
+        fresh = [p for p in tparams if id(p) not in state.slots]
+        for p, s in zip(fresh, opt.functional_init(
+                [p.detach() for p in fresh])):
+            state.slots[id(p)] = s
+        return [state.slots[id(p)] for p in tparams]
+
+    def _train(self, program, params, step: _Step, env):
+        opt = program._optimizer[0]
+        state = self._state_for(program, opt)
+        tparams = [params[i] for i in step.t_idx]
+        t_ids = {id(p) for p in tparams}
+        pmap = {id(p): (p if id(p) in t_ids else p.detach()) for p in params}
+        with torch.enable_grad():
+            _interp(step.nodes, env, pmap)
+            loss = env[id(step.loss_var)]
+            grads = torch.autograd.grad(loss, tparams, allow_unused=True)
+        opt._step_count += 1
+        lr = float(opt.get_lr())
+        with torch.no_grad():
+            if step.fused is not None:
+                if lr != state.lr_value:     # uploaded when it moves
+                    state.lr.fill_(lr)
+                    state.lr_value = lr
+                state.step.add_(1.0)
+                gbufs = [state.gbufs[id(p)] for p in tparams]
+                for b, g in zip(gbufs, grads):
+                    if g is None:
+                        b.zero_()
+                torch._foreach_copy_(
+                    [b for b, g in zip(gbufs, grads) if g is not None],
+                    [g for g in grads if g is not None])
+                step.fused(state.lr, state.step)
+            else:
+                state.step.add_(1.0)
+                slots = self._slots(state, opt, tparams)
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(tparams, grads)]
+                new_p, new_s = opt.functional_update(
+                    [p.detach() for p in tparams], grads, slots, lr,
+                    opt._step_count, params_meta=tparams)
+                torch._foreach_copy_([p.detach() for p in tparams], new_p)
+                for old, new in zip(slots, new_s):
+                    for k, t in new.items():
+                        old[k].copy_(t)
+
+    # -- building ----------------------------------------------------------
+    def _build(self, program, params, feed_names, feeds, fetch_names,
+               tier) -> _Step:
+        from .analysis.graph import DefUseGraph
+        graph = DefUseGraph(program)
+        feed_vars = []
+        for name in feed_names:
+            if name not in program.feed_vars:
+                raise KeyError(f"feed {name!r} is not a static.data of the "
+                               f"program")
+            feed_vars.append(program.feed_vars[name])
+        fetch_vars = []
+        for name in fetch_names:
+            v = graph.resolve_fetch(name)
+            if v is None:
+                raise KeyError(f"fetch {name!r} names no Variable of the "
+                               f"program")
+            fetch_vars.append(v)
+        nodes, kernels = list(program.nodes), []
+        if tier:
+            from .analysis import fusion
+            # the loss, like a fetch, must survive the rewrite
+            loss = ([] if program._optimizer is None
+                    else [program._optimizer[1]])
+            plans = fusion.plan_fusions(
+                program, fetch_list=fetch_vars + loss,
+                feed_shapes={n: tuple(t.shape)
+                             for n, t in zip(feed_names, feeds)})
+            if plans:
+                nodes = fusion.apply_plans(nodes, plans)
+                kernels.extend(f"fused_epilogue[{p.label}]" for p in plans)
+        step = _Step(nodes, feed_vars, fetch_vars, kernels)
+        if program._optimizer is None:
+            return step
+        opt, loss_var, param_filter, no_grad_set = program._optimizer
+        allow = (None if param_filter is None
+                 else {id(p) for p in param_filter})
+        deny = {id(p) for p in (no_grad_set or ())}
+        step.t_idx = [i for i, p in enumerate(params)
+                      if p.requires_grad and id(p) not in deny
+                      and (allow is None or id(p) in allow)]
+        step.loss_var = loss_var
+        tparams = [params[i] for i in step.t_idx]
+        if tier and tparams and fused_adam_eligible(opt, tparams):
+            state = self._state_for(program, opt)
+            slots = self._slots(state, opt, tparams)
+            for p in tparams:
+                if id(p) not in state.gbufs:
+                    state.gbufs[id(p)] = torch.zeros_like(p.detach())
+            step.fused = fused_update_for(
+                opt, [p.detach() for p in tparams],
+                [state.gbufs[id(p)] for p in tparams], slots)
+            kernels.append("fused_adam")
+        return step

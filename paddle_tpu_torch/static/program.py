@@ -1,0 +1,260 @@
+"""Static-graph IR: Program, Variable and op recording (the counterpart
+of ``paddle_tpu/static/program.py``).
+
+A Program is an ordered list of :class:`_OpNode` (the op's function,
+its attrs, references to its inputs and its output Variables), recorded
+through the dispatch point :func:`~paddle_tpu_torch.core.dispatch.apply`
+whenever an input is a symbolic :class:`Variable`.  The static
+``Executor`` interprets the list.
+
+Shapes are inferred at record time by running the op on ``meta``
+tensors (torch's counterpart of ``jax.eval_shape``): a Variable holds a
+``meta`` tensor of its shape and dtype.  ``data(shape=[None, ...])``
+declares dynamic dims; they record as 1 and take the feed's size at run
+time.
+
+Input references (``_OpNode.in_specs``): ``("v", Variable)``, ``("p",
+Parameter)`` (an ``nn.Parameter``, read live at run time), ``("c",
+tensor)`` (a tensor computed while recording, held as a constant) and
+``("l", literal)``.
+
+Not ported: the control-flow replay scopes (``cond`` / ``while_loop``
+record one node that re-runs user closures) and the verifier's source
+anchors.
+"""
+from __future__ import annotations
+
+import itertools
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..core.dispatch import Symbolic, apply
+from ..core.dtype import convert_dtype
+
+__all__ = ["Program", "Variable", "data", "program_guard",
+           "default_main_program", "default_startup_program",
+           "reset_default_programs"]
+
+_var_counter = itertools.count(0)
+# monotonic program identity: id(program) can be recycled after GC, the
+# serial never repeats within a process (it keys the Executor's state)
+_program_serial = itertools.count(0)
+
+
+def _add(a, b):
+    return a + b
+
+
+def _subtract(a, b):
+    return a - b
+
+
+def _multiply(a, b):
+    return a * b
+
+
+def _reshape(x, shape):
+    return x.reshape(shape)
+
+
+def _unsqueeze(x, axis):
+    for a in sorted(axis):
+        x = x.unsqueeze(a)
+    return x
+
+
+class Variable(Symbolic):
+    """Symbolic tensor inside a Program.  ``meta`` is a ``meta``-device
+    tensor of its recorded shape and dtype."""
+
+    __slots__ = ("meta", "program", "name", "desc_shape")
+
+    def __init__(self, meta: torch.Tensor, program: "Program", name=None,
+                 desc_shape=None):
+        self.meta = meta
+        self.program = program
+        self.name = name or f"var_{next(_var_counter)}"
+        self.desc_shape = list(desc_shape) if desc_shape is not None else None
+
+    @property
+    def shape(self) -> List[int]:
+        return (list(self.desc_shape) if self.desc_shape is not None
+                else list(self.meta.shape))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.meta.dtype
+
+    def __bool__(self):
+        raise TypeError(
+            "[operator < bool > error] Python `if`/`while` tested a "
+            "symbolic static.Variable while building a Program; the "
+            "branch cannot be resolved at build time")
+
+    def __repr__(self):
+        return (f"Variable(name={self.name}, shape={self.shape}, "
+                f"dtype={self.dtype})")
+
+    # -- Tensor sugar: recorded paddle ops --------------------------------
+    def __add__(self, other):
+        return apply(_add, self, other, op_name="add")
+
+    def __radd__(self, other):
+        return apply(_add, other, self, op_name="add")
+
+    def __sub__(self, other):
+        return apply(_subtract, self, other, op_name="subtract")
+
+    def __rsub__(self, other):
+        return apply(_subtract, other, self, op_name="subtract")
+
+    def __mul__(self, other):
+        return apply(_multiply, self, other, op_name="multiply")
+
+    def __rmul__(self, other):
+        return apply(_multiply, other, self, op_name="multiply")
+
+    def reshape(self, *shape):
+        if len(shape) == 1 and isinstance(shape[0], (list, tuple)):
+            shape = shape[0]
+        return apply(_reshape, self, op_name="reshape",
+                     attrs={"shape": tuple(int(s) for s in shape)})
+
+    def unsqueeze(self, axis):
+        axes = axis if isinstance(axis, (list, tuple)) else [axis]
+        return apply(_unsqueeze, self, op_name="unsqueeze",
+                     attrs={"axis": tuple(int(a) for a in axes)})
+
+
+class _OpNode:
+    """One recorded op."""
+
+    __slots__ = ("fn", "attrs", "op_name", "in_specs", "out_vars", "multi")
+
+    def __init__(self, fn, attrs, op_name, in_specs, out_vars, multi):
+        self.fn = fn
+        self.attrs = attrs
+        self.op_name = op_name
+        self.in_specs = in_specs
+        self.out_vars = out_vars
+        self.multi = multi
+
+
+def _spec(x) -> Tuple[str, object]:
+    if isinstance(x, Variable):
+        return ("v", x)
+    if isinstance(x, torch.nn.Parameter):
+        return ("p", x)
+    if isinstance(x, torch.Tensor):
+        return ("c", x.detach())
+    return ("l", x)
+
+
+def to_meta(x):
+    """A ``meta`` stand-in for a record-time input."""
+    if isinstance(x, Variable):
+        return x.meta
+    if isinstance(x, torch.Tensor):
+        return torch.empty(x.shape, dtype=x.dtype, device="meta")
+    return x
+
+
+class Program:
+    """An ordered op list plus feed metadata and the attached optimizer.
+    Built by running layer code on ``static.data`` Variables; executed
+    by ``static.Executor``."""
+
+    def __init__(self):
+        self.nodes: List[_OpNode] = []
+        self.feed_vars: Dict[str, Variable] = {}
+        # (optimizer, loss Variable, parameters, no_grad_set)
+        self._optimizer = None
+        self._version = 0
+        self._serial = next(_program_serial)
+        self._params_cache = None      # (version, [Parameter])
+
+    def record(self, fn: Callable, inputs: Sequence, op_name: str,
+               attrs: dict):
+        with torch.no_grad():
+            out = fn(*[to_meta(x) for x in inputs], **attrs)
+        multi = isinstance(out, (tuple, list))
+        out_vars = [Variable(o, self) for o in (out if multi else [out])]
+        self.nodes.append(_OpNode(fn, attrs, op_name,
+                                  [_spec(x) for x in inputs], out_vars,
+                                  multi))
+        self._version += 1
+        return tuple(out_vars) if multi else out_vars[0]
+
+    def parameters(self) -> List[torch.nn.Parameter]:
+        """Parameters the program reads, in first-use order (cached per
+        version: the Executor calls this every run)."""
+        cached = self._params_cache
+        if cached is not None and cached[0] == self._version:
+            return cached[1]
+        seen, out = set(), []
+        for node in self.nodes:
+            for tag, v in node.in_specs:
+                if tag == "p" and id(v) not in seen:
+                    seen.add(id(v))
+                    out.append(v)
+        self._params_cache = (self._version, out)
+        return out
+
+    def __repr__(self):
+        lines = [f"Program({len(self.nodes)} ops)"]
+        for n in self.nodes[:20]:
+            ins = ", ".join(v.name if tag == "v" else tag
+                            for tag, v in n.in_specs)
+            outs = ", ".join(v.name for v in n.out_vars)
+            lines.append(f"  {n.op_name}({ins}) -> {outs}")
+        if len(self.nodes) > 20:
+            lines.append(f"  ... {len(self.nodes) - 20} more")
+        return "\n".join(lines)
+
+
+_default_main = Program()
+_default_startup = Program()
+_guard_stack: List[Tuple[Program, Program]] = []
+
+
+def default_main_program() -> Program:
+    return _guard_stack[-1][0] if _guard_stack else _default_main
+
+
+def default_startup_program() -> Program:
+    return _guard_stack[-1][1] if _guard_stack else _default_startup
+
+
+class program_guard:
+    def __init__(self, main_program: Program,
+                 startup_program: Optional[Program] = None):
+        self._pair = (main_program, startup_program or Program())
+
+    def __enter__(self):
+        _guard_stack.append(self._pair)
+        return self._pair[0]
+
+    def __exit__(self, *exc):
+        _guard_stack.pop()
+        return False
+
+
+def reset_default_programs():
+    global _default_main, _default_startup
+    _default_main = Program()
+    _default_startup = Program()
+
+
+def data(name: str, shape: Sequence[Optional[int]], dtype="float32",
+         lod_level=0) -> Variable:
+    """Declare a feed placeholder; ``None`` or a negative size is a
+    dynamic dim (recorded as 1)."""
+    concrete = tuple(1 if (s is None or s < 0) else int(s) for s in shape)
+    prog = default_main_program()
+    v = Variable(torch.empty(concrete, dtype=convert_dtype(dtype),
+                             device="meta"), prog, name=name,
+                 desc_shape=[-1 if (s is None or s < 0) else int(s)
+                             for s in shape])
+    prog.feed_vars[name] = v
+    return v

@@ -1,5 +1,7 @@
 """paddle_tpu_torch stands alone: importing it pulls in neither JAX nor
-the JAX package, and no module of it imports either."""
+the JAX package (nor Triton, nor a kernel build), and no module of it
+imports either.  Without a GPU, what is placed by default raises unless
+``set_device("cpu")`` asked for the CPU."""
 import os
 import re
 import subprocess
@@ -15,12 +17,23 @@ def test_import_leaves_jax_and_paddle_tpu_out():
             "paddle_tpu_torch.nn, paddle_tpu_torch.nn.functional, "
             "paddle_tpu_torch.optimizer, paddle_tpu_torch.amp, "
             "paddle_tpu_torch.jit, paddle_tpu_torch.framework_io, "
-            "paddle_tpu_torch.testing.models, paddle_tpu_torch.core.rng\n"
+            "paddle_tpu_torch.testing.models, paddle_tpu_torch.core.rng, "
+            "paddle_tpu_torch.static, paddle_tpu_torch.static.executor, "
+            "paddle_tpu_torch.static.analysis.fusion, "
+            "paddle_tpu_torch.static.analysis.cost, "
+            "paddle_tpu_torch.static.analysis.graph, "
+            "paddle_tpu_torch.static.nn, paddle_tpu_torch.core.dispatch, "
+            "paddle_tpu_torch.device, paddle_tpu_torch.ops.fused_epilogue, "
+            "paddle_tpu_torch.ops.fused_adam, paddle_tpu_torch.ops.creation, "
+            "paddle_tpu_torch.ops.cuda.fused_epilogue, "
+            "paddle_tpu_torch.ops.cuda.fused_adam\n"
+            "from paddle_tpu_torch.ops.cuda import support\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
-            "or m.startswith(('jax.', 'jaxlib', 'paddle_tpu.')) "
+            "or m.startswith(('jax.', 'jaxlib', 'paddle_tpu.', 'triton')) "
             "or m == 'paddle_tpu')\n"
             "print(bad)\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+            "assert support._lib is None and not support.build_info\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
@@ -43,3 +56,32 @@ def test_no_module_imports_jax_or_paddle_tpu():
     assert pat.search("import jax.numpy as jnp")
     assert pat.search("from paddle_tpu.serving import x")
     assert not pat.search("from paddle_tpu_torch.serving import x")
+
+
+def test_static_placement_without_a_gpu():
+    """``static.Executor()`` and ``build_bert_static()`` with no device
+    raise on a machine without a GPU; after ``set_device("cpu")`` both
+    take the CPU."""
+    code = ("import torch, pytest\n"
+            "import paddle_tpu_torch as pt\n"
+            "from paddle_tpu_torch import static\n"
+            "from paddle_tpu_torch.testing.models import build_bert_static\n"
+            "assert not torch.cuda.is_available()\n"
+            "cfg = dict(vocab=64, hidden=128, layers=1, heads=2, ffn=256, "
+            "seq=8, batch=2)\n"
+            "for fn in (static.Executor, lambda: build_bert_static(**cfg)):\n"
+            "    with pytest.raises(RuntimeError, match='CUDA'):\n"
+            "        fn()\n"
+            "assert pt.set_device('cpu') == torch.device('cpu')\n"
+            "assert pt.get_device() == 'cpu'\n"
+            "assert static.Executor().place == torch.device('cpu')\n"
+            "main, loss, _ = build_bert_static(**cfg)\n"
+            "assert all(p.device.type == 'cpu' for p in main.parameters())\n"
+            "assert pt.arange(3).device.type == 'cpu'\n"
+            "with pytest.raises(RuntimeError, match='CUDA'):\n"
+            "    pt.set_device('gpu')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
