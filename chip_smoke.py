@@ -40,7 +40,27 @@ kernel from the sources in this checkout.  Phases, each fatal:
 12. the full-width static BERT (bench_pallas's chip config: BERT-base,
     seq 512, batch 16, f32, Adam) through ``static.Executor``: 2 warm-up
     and 8 timed runs, asserting every kernel's launches per step;
-13. anatomy of one static training step from ``torch.profiler``.
+13. anatomy of one static training step from ``torch.profiler``;
+14. the chunk matmul kernel (K6) against its plain version at the chunk
+    shapes of the full-width hybrid step and two ragged shapes at the
+    gate's edges, f32 and bf16; its column blocks bitwise equal to K6 on
+    the whole weight; times of one layer's six products beside the
+    bound, the plain version and ``torch.matmul``;
+15. the flash kernels through ``flash_attention_block``, forward and
+    backward with a nonzero lse cotangent, at the ring's four offset
+    cases (diagonal, visible, fully masked, non-causal), f32 and bf16;
+    the ring's rounds and merges composed over 2 and 4 virtual shards
+    against ``flash_attention`` on the whole sequence; times;
+16. one rank over a process group with gloo (CPU) and NCCL (card): the
+    small hybrid GPT trained 3 ``SpmdTrainStep``s on the card and on the
+    CPU from the same weights;
+17. the hybrid GPT at the ``1b`` widths (bench.py:318; batch 8, seq
+    1024, dropout 0.1, O2 bf16, AdamW, global-norm clip) at world size
+    1 over NCCL: 2 warm-up and 8 timed steps asserting 144 K6 launches
+    and 24 of each flash kernel (block entry) a step, then its anatomy;
+18. with two cards or more, NCCL ranks on {"mp": 2, "sp": n / 2} train
+    2 layers at the ``1b`` widths against a world-size-1 run; on one
+    card it prints that it did not run and why.
 
 The last lines are the kernels JSON object, the card's name and power
 limit as ``nvidia-smi`` reports them, and ``{"ok": true, ...}``.  Any
@@ -99,6 +119,21 @@ EPI_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ADAM_TOL = 1e-6
 # per static step at BERT-base: 3 fused chains a layer, one flash call a
 # layer, one Adam launch
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# bench.py:318-319 (_GPT_PRESETS["1b"]) at batch 8, and the tests' small
+# widths of the same model
+GPT_TRAIN = dict(vocab=50257, hidden=1792, layers=24, heads=14, ffn=7168,
+                 seq=1024, batch=8, dropout=0.1)
+GPT_SMALL = dict(vocab=1000, hidden=128, layers=2, heads=4, ffn=512,
+                 seq=64, batch=4, dropout=0.0)
+CMM_SITE = "paddle_tpu/ops/pallas/collective_matmul.py:44"  # _mm_kernel
+# K6 vs plain, as max |a - b| / max(1, max |b|), outputs ~N(0, 1): f32
+# sums over K taken in another order; bf16 rounded once on either side
+CMM_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# per hybrid GPT step at world size 1: six chunk products a layer (q, k,
+# v, proj, fc1, fc2) and one attention call a layer
+GPT_PER_STEP = {"chunk_matmul": 144, "flash_attention_fwd": 24,
+                "flash_attention_bwd_dq": 24, "flash_attention_bwd_dkv": 24}
 STATIC_PER_STEP = {"fused_epilogue_fwd": 36, "fused_epilogue_bwd": 36,
                    "fused_epilogue_bwd_grads": 36, "fused_adam": 1,
                    "flash_attention_fwd": 12, "flash_attention_bwd_dq": 12,
@@ -1203,6 +1238,503 @@ def phase_static_anatomy(run, steps=2):
     log("STATIC_ANATOMY " + json.dumps(out))
 
 
+# --------------------------------------------------------------- phase 14
+def _cmm_bound(M, K, N, es, dtype_name):
+    """Least time of one chunk product: x, w read once, out written
+    once; 2 M K N operations at the dtype's peak."""
+    nbytes = (M * K + K * N + M * N) * es
+    ops = 2 * M * K * N
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = ops / PEAK_OPS[dtype_name] * 1e3
+    return (max(t_b, t_o), "bytes" if t_b >= t_o else "operations", nbytes,
+            ops)
+
+
+def _gpt_layer_chunks(cfg):
+    """The six chunk products of one hybrid GPT layer at world size 1:
+    (label, K, N)."""
+    h, f = cfg["hidden"], cfg["ffn"]
+    return [("q", h, h), ("k", h, h), ("v", h, h), ("proj", h, h),
+            ("fc1", h, f), ("fc2", f, h)]
+
+
+def phase_chunk_matmul():
+    """K6 against its plain version: the chunk shapes of the full-width
+    step (M 8192; K, N from 1792 and 7168 and their halves, the shards of
+    mp 2) and two ragged shapes at the gate's edges, f32 and bf16; the
+    column blocks bitwise against K6 on the whole weight; times of one
+    layer's six products at bf16 (the main path's dtype) beside the
+    bound, the plain version and torch.matmul."""
+    import torch
+    from paddle_tpu_torch.ops.chunk_matmul import chunk_matmul_reference
+    from paddle_tpu_torch.ops.cuda import chunk_matmul as k6
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    cfg = GPT_TRAIN
+    M, h, f = cfg["batch"] * cfg["seq"], cfg["hidden"], cfg["ffn"]
+    r = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    shapes = [(M, K, N) for K, N in ((h, h), (h, f), (f, h), (h, h // 2),
+                                     (h, f // 2), (h // 2, h), (f // 2, h))]
+    # the gate's edges: the smallest M; an M off the 128-row tile
+    shapes += [(8, 128, 128), (1000, 384, 640)]
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for m, k, n in shapes:
+        x, w = r(m, k), r(k, n) / math.sqrt(k)
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).replace("torch.", "")
+            xd, wd = x.to(dt), w.to(dt)
+            err = _rel_err(k6.chunk_matmul(xd, wd),
+                           chunk_matmul_reference(xd, wd))
+            worst[dname] = max(worst[dname], err)
+            row = {"case": f"M={m} K={k} N={n} {dname}", "error": err,
+                   "tol": CMM_TOL[dname]}
+            log("CHUNK_MATMUL_CHECK " + json.dumps(row))
+            if not err <= CMM_TOL[dname]:
+                raise AssertionError(f"chunk_matmul disagrees with the "
+                                     f"plain version: {row}")
+        del x, w, xd, wd
+    # the column blocks of the ring form: each chunk written in place
+    # into its block equals K6 on the whole weight, bit for bit
+    x, w = r(M, h), r(h, f) / math.sqrt(h)
+    for dt in (torch.float32, torch.bfloat16):
+        xd, wd = x.to(dt), w.to(dt)
+        whole = k6.chunk_matmul(xd, wd)
+        out = torch.full_like(whole, float("nan"))
+        for j in range(f // h):
+            k6.chunk_matmul(xd, wd[:, j * h:(j + 1) * h].contiguous(),
+                            out[:, j * h:(j + 1) * h])
+        torch.cuda.synchronize()
+        if not torch.equal(out, whole):
+            raise AssertionError(f"chunk_matmul column blocks differ from "
+                                 f"the whole product ({dt})")
+    log("CHUNK_MATMUL_BITWISE " + json.dumps({
+        "case": f"M={M} K={h} N={f}: {f // h} chunks of {h} columns",
+        "dtypes": ["float32", "bfloat16"], "equal": True}))
+    del x, w, xd, wd, whole, out
+    # times at the main path's shapes: one layer's six products, bf16
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+             "bytes": 0, "operations": 0}
+    chunks = {}
+    for label, K, N in _gpt_layer_chunks(cfg):
+        x = r(M, K).to(torch.bfloat16)
+        w = (r(K, N) / math.sqrt(K)).to(torch.bfloat16)
+        out = torch.empty(M, N, device="cuda", dtype=torch.bfloat16)
+        ms = cuda_ms(lambda i: k6.chunk_matmul(x, w, out), 20)
+        plain = cuda_ms(lambda i: chunk_matmul_reference(x, w), 5)
+        lib = cuda_ms(lambda i: torch.matmul(x, w, out=out), 20)
+        b_ms, b_by, nbytes, ops = _cmm_bound(M, K, N, 2, "bfloat16")
+        c = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": lib, "bytes": nbytes, "operations": ops,
+             "tflops": ops / (ms * 1e-3) / 1e12}
+        chunks[label] = c
+        for key in total:
+            total[key] += c[key]
+        log("KERNEL " + json.dumps(dict(kernel="chunk_matmul",
+                                        case=f"{label} M={M} K={K} N={N} "
+                                             f"bfloat16", **c)))
+        del x, w, out
+    # f32 at one shape, for the record (no f32 chunk on the main path)
+    x, w = r(M, h), r(h, h) / math.sqrt(h)
+    f32 = {"ms": cuda_ms(lambda i: k6.chunk_matmul(x, w), 10),
+           "library_ms": cuda_ms(lambda i: torch.matmul(x, w), 10),
+           "bound_ms": _cmm_bound(M, h, h, 4, "float32")[0]}
+    log("KERNEL " + json.dumps(dict(kernel="chunk_matmul",
+                                    case=f"M={M} K={h} N={h} float32",
+                                    **f32)))
+    del x, w
+    torch.cuda.empty_cache()
+    row = dict(total, bound_by="operations" if all(
+        c["bound_by"] == "operations" for c in chunks.values()) else "bytes",
+        case=f"one GPT-1b layer's six chunk products (q, k, v, proj, fc1, "
+             f"fc2) at M={M}, bfloat16, times summed",
+        max_abs_err=worst["float32"], max_abs_err_bf16=worst["bfloat16"],
+        library_call="torch.matmul (cuBLAS), bf16", chunks=chunks,
+        float32_1792=f32)
+    log("KERNEL_LAYER " + json.dumps(dict(kernel="chunk_matmul", **row)))
+    return row
+
+
+# --------------------------------------------------------------- phase 15
+def phase_flash_block():
+    """flash_attention_block against the plain version, forward and
+    backward with a nonzero dlse, at the ring's four offset cases (f32
+    and bf16, D 128, the 1b step's shard at sp 2: L 512, H 14) and at
+    the main path's call (B 8, L 1024, H 14, D 128, causal at offsets 0,
+    the one call phase 17 makes at world size 1); the per-round merge
+    composed over S = 2 and 4 virtual shards in one process against
+    flash_attention over the whole sequence; times of the main path's
+    call at bf16 beside the bound, the plain version and SDPA."""
+    import torch
+    from paddle_tpu_torch.ops.cuda import (flash_attention_bwd_dkv,
+                                           flash_attention_bwd_dq,
+                                           flash_attention_fwd)
+    from paddle_tpu_torch.ops.flash_attention import (
+        NEG_INF, attention_delta, flash_attention, flash_attention_block,
+        flash_attention_reference_bwd, flash_attention_reference_fwd)
+    from paddle_tpu_torch.parallel.ring_attention import merge_blocks
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    cfg = GPT_TRAIN
+    H = cfg["heads"]
+    D = cfg["hidden"] // H
+    Ls, B = cfg["seq"] // 2, 2
+    r = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    t = lambda x: x.transpose(1, 2)                              # noqa: E731
+    L, Bt = cfg["seq"], cfg["batch"]
+    # name: (batch, block length, q_off, k_off, causal)
+    cases = {"diagonal": (B, Ls, Ls, Ls, True),
+             "visible": (B, Ls, Ls, 0, True),
+             "masked": (B, Ls, 0, Ls, True),
+             "noncausal": (B, Ls, Ls, 0, False),
+             "main_path": (Bt, L, 0, 0, True)}
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).replace("torch.", "")
+        for name, (Bc, Lc, q_off, k_off, causal) in cases.items():
+            q, k, v, do = (r(Bc, Lc, H, D).to(dt) for _ in range(4))
+            dlse = r(Bc, H, Lc)
+            a = [x.clone().requires_grad_() for x in (q, k, v)]
+            out, lse = flash_attention_block(*a, q_off, k_off, None, causal)
+            grads = torch.autograd.grad((out, lse), a, (do, dlse))
+            kw = dict(causal=causal, q_off=q_off, k_off=k_off)
+            ro, rlse = flash_attention_reference_fwd(t(q), t(k), t(v), **kw)
+            refs = flash_attention_reference_bwd(t(q), t(k), t(v), ro, rlse,
+                                                 t(do), dlse, **kw)
+            torch.cuda.synchronize()
+            errs = {n: _rel_err(g, ref) for n, g, ref in [
+                ("out", t(out), ro), ("lse", lse, rlse),
+                ("dq", t(grads[0]), refs[0]), ("dk", t(grads[1]), refs[1]),
+                ("dv", t(grads[2]), refs[2])]}
+            err = max(errs.values())
+            worst[dname] = max(worst[dname], err)
+            row = {"case": f"{name} B={Bc} L={Lc} H={H} D={D} {dname} "
+                           f"q_off={q_off} k_off={k_off} causal={causal}",
+                   "errors": errs, "tol": FLASH_TOL[dname]}
+            if name == "masked":
+                row["masked_rows_zero"] = bool(
+                    (lse == NEG_INF).all() and (out == 0).all()
+                    and all((g == 0).all() for g in grads))
+                if not row["masked_rows_zero"]:
+                    raise AssertionError(f"fully masked block: {row}")
+            log("FLASH_BLOCK_CHECK " + json.dumps(row))
+            if not err <= FLASH_TOL[dname]:
+                raise AssertionError(f"flash block entry disagrees with the "
+                                     f"plain version: {row}")
+            del q, k, v, do, dlse, a, out, lse, grads, ro, rlse, refs
+        torch.cuda.empty_cache()
+    # the ring's rounds and merges, S virtual shards in one process
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).replace("torch.", "")
+        q, k, v, w = (r(B, L, H, D).to(dt) for _ in range(4))
+        b = [x.clone().requires_grad_() for x in (q, k, v)]
+        ref = flash_attention(*b, causal=True)
+        rgrads = torch.autograd.grad((ref.float() * w.float()).sum(), b)
+        for S in (2, 4):
+            n = L // S
+            a = [x.clone().requires_grad_() for x in (q, k, v)]
+            outs = []
+            for my in range(S):
+                o = lse = None
+                for rnd in range(S):
+                    src = (my - rnd) % S
+                    o_b, lse_b = flash_attention_block(
+                        a[0][:, my * n:(my + 1) * n],
+                        a[1][:, src * n:(src + 1) * n],
+                        a[2][:, src * n:(src + 1) * n], my * n, src * n,
+                        None, True)
+                    if o is None:
+                        o, lse = o_b.float(), lse_b
+                    else:
+                        o, lse = merge_blocks(o, lse, o_b, lse_b)
+                outs.append(o.to(dt))
+            out = torch.cat(outs, dim=1)
+            grads = torch.autograd.grad((out.float() * w.float()).sum(), a)
+            torch.cuda.synchronize()
+            errs = {n_: _rel_err(g, rr) for n_, g, rr in [
+                ("out", out, ref), ("dq", grads[0], rgrads[0]),
+                ("dk", grads[1], rgrads[1]), ("dv", grads[2], rgrads[2])]}
+            row = {"case": f"S={S} virtual shards of L={L}, B={B} H={H} "
+                           f"D={D} {dname} causal", "errors": errs,
+                   "tol": FLASH_TOL[dname]}
+            log("RING_COMPOSE_CHECK " + json.dumps(row))
+            if not max(errs.values()) <= FLASH_TOL[dname]:
+                raise AssertionError(f"composed ring rounds disagree with "
+                                     f"flash_attention: {row}")
+        del q, k, v, w, b, ref, rgrads, a, out, grads
+    torch.cuda.empty_cache()
+    # times at the main path's call
+    q, k, v, do = (r(Bt, L, H, D).to(torch.bfloat16) for _ in range(4))
+    kw = dict(scale=1.0 / math.sqrt(D), causal=True)
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    delta = attention_delta(t(do), t(out))
+    ms = {"flash_attention_fwd": cuda_ms(
+              lambda i: flash_attention_fwd(q, k, v, **kw), 20),
+          "flash_attention_bwd_dq": cuda_ms(
+              lambda i: flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                               **kw), 20),
+          "flash_attention_bwd_dkv": cuda_ms(
+              lambda i: flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                **kw), 20)}
+    pkw = dict(causal=True, scale=kw["scale"])
+    plain_fwd = cuda_ms(lambda i: flash_attention_reference_fwd(
+        t(q), t(k), t(v), **pkw), 2, warmup=1)
+    plain_bwd = cuda_ms(lambda i: flash_attention_reference_bwd(
+        t(q), t(k), t(v), t(out), lse, t(do), **pkw), 2, warmup=1)
+    torch.cuda.empty_cache()
+    lib_fwd, lib_bwd, _ = _sdpa_ms(torch, q, k, v, do, 0.0, True)
+    rows = {}
+    for name in FLASH_KERNELS:
+        bound_ms, bound_by, nbytes, ops = _flash_bound(
+            Bt, H, L, L, D, 2, "bfloat16", True, name)
+        fwd = name == "flash_attention_fwd"
+        row = {"kernel": name, "entry": "flash_attention_block",
+               "case": f"B={Bt} L={L} H={H} D={D} bfloat16 causal, "
+                       f"q_off=k_off=0", "ms": ms[name],
+               "plain_ms": plain_fwd if fwd else plain_bwd,
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+               "operations": ops, "library_ms": lib_fwd if fwd else lib_bwd,
+               "max_abs_err": worst["float32"],
+               "max_abs_err_bf16": worst["bfloat16"]}
+        log("KERNEL " + json.dumps(row))
+        rows[name] = row
+    del q, k, v, do, out, lse, delta
+    torch.cuda.empty_cache()
+    return rows
+
+
+# --------------------------------------------------------------- phase 16
+def phase_small_gpt_parity(steps=3):
+    """One rank over a process group that carries both backends (gloo
+    for CPU tensors, NCCL for CUDA tensors); the small hybrid GPT (the
+    tests' widths, f32, dropout 0) trained 3 SpmdTrainSteps on the card
+    and on the CPU from the same weights: losses rtol 1e-5, parameters
+    within BERT_PARAM_ATOL (the key projections' biases within lr a
+    step, as phase 7), and K6 and the flash block entry launched as
+    often as the model has chunk products and attention calls."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.distributed import init_parallel_env
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.testing.models import build_gpt_hybrid
+    from paddle_tpu_torch.testing.parallel_cases import gpt_run
+    init_parallel_env(backend="cpu:gloo,cuda:nccl")
+    for dev in ("cpu", "cuda"):           # both backends answer
+        one = torch.ones(1, device=dev)
+        dist.all_reduce(one)
+        if one.item() != 1.0:
+            raise AssertionError(f"one-rank all_reduce on {dev}: {one}")
+    cfg = GPT_SMALL
+    rng.seed(7)
+    state = {k: v.numpy() for k, v in build_gpt_hybrid(
+        cfg["vocab"], cfg["hidden"], cfg["layers"], cfg["heads"],
+        cfg["ffn"], cfg["seq"], 0.0, device="cpu").state_dict().items()}
+    data = np.random.RandomState(0)
+    batch = tuple(data.randint(0, cfg["vocab"], (cfg["batch"], cfg["seq"]))
+                  for _ in range(2))
+    losses, models = {}, {}
+    for dev in ("cpu", "cuda"):
+        support.reset_launch_counts()
+        losses[dev], models[dev] = gpt_run(cfg, state, batch, steps,
+                                           {"dp": 1}, dev)
+        counts = dict(support.launch_counts)
+    # ring attention reaches the flash kernels only through the block
+    # entry, so every flash launch here is one of its
+    want = {"chunk_matmul": 6 * cfg["layers"] * steps}
+    want.update({k: cfg["layers"] * steps for k in FLASH_KERNELS})
+    if any(counts.get(k, 0) != n for k, n in want.items()):
+        raise AssertionError(f"small GPT launches {counts}, want {want}")
+    gp = dict(models["cuda"].named_parameters())
+    diffs = {n: (gp[n].detach().cpu() - p.detach()).abs().max().item()
+             for n, p in models["cpu"].named_parameters()}
+    k_bias = {n: d for n, d in diffs.items() if n.endswith(".k.bias")}
+    rest = {n: d for n, d in diffs.items() if n not in k_bias}
+    worst = max(rest, key=rest.get)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                      losses["cpu"]))
+    out = {"config": cfg, "losses_cpu": losses["cpu"],
+           "losses_cuda": losses["cuda"], "loss_max_rel_err": loss_err,
+           "param_max_abs_err": rest[worst], "param_worst": worst,
+           "k_bias_max_abs_err": max(k_bias.values()), "loss_rtol": 1e-5,
+           "param_atol": BERT_PARAM_ATOL, "k_bias_atol": 2e-4 * steps,
+           "launches": counts, "backend": dist.get_backend()}
+    log("GPT_PARITY " + json.dumps(out))
+    if (not loss_err <= 1e-5 or not rest[worst] <= BERT_PARAM_ATOL
+            or not max(k_bias.values()) <= 2e-4 * steps):
+        raise AssertionError(f"small hybrid GPT card vs CPU: {out}")
+
+
+# --------------------------------------------------------------- phase 17
+def phase_gpt_training(warmup=2, steps=8):
+    """The hybrid GPT at the 1b widths, uncut (batch 8, seq 1024,
+    dropout 0.1, O2 bf16 with f32 masters, AdamW, global-norm clip 1.0)
+    through SpmdTrainStep at world size 1: losses finite, the first near
+    ln(vocab), and per step 144 K6 launches (6 a layer) and 24 of each
+    flash kernel, all through the block entry."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.distributed import init_mesh
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.parallel import SpmdTrainStep
+    from paddle_tpu_torch.testing.models import (build_gpt_hybrid, gpt_loss,
+                                                 gpt_flops_per_step)
+    cfg = GPT_TRAIN
+    t0 = time.perf_counter()
+    mesh = init_mesh({"dp": 1})
+    rng.seed(2024)
+    model = build_gpt_hybrid(cfg["vocab"], cfg["hidden"], cfg["layers"],
+                             cfg["heads"], cfg["ffn"], cfg["seq"],
+                             cfg["dropout"], device="cuda")
+    opt = optimizer.AdamW(learning_rate=2e-4, parameters=model.parameters(),
+                          weight_decay=0.01,
+                          grad_clip=optimizer.ClipGradByGlobalNorm(1.0),
+                          multi_precision=True)
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    step = SpmdTrainStep(model, gpt_loss(model), opt, mesh=mesh)
+    data = np.random.RandomState(0)
+    x, y = (torch.from_numpy(data.randint(0, cfg["vocab"],
+                                          (cfg["batch"], cfg["seq"])))
+            .cuda() for _ in range(2))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    support.reset_launch_counts()
+    losses, step_ms = [], []
+    for i in range(warmup + steps):
+        t0 = time.perf_counter()
+        loss = step(x, y)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    counts = dict(support.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    timed = step_ms[warmup:]
+    mean_ms = sum(timed) / len(timed)
+    tokens = cfg["batch"] * cfg["seq"]
+    flops = gpt_flops_per_step(cfg["vocab"], cfg["hidden"], cfg["layers"],
+                               cfg["seq"], cfg["batch"], cfg["ffn"])
+    out = {"config": cfg, "mesh": mesh.shape,
+           "dtype": "bfloat16 O2, f32 master weights",
+           "params": sum(p.numel() for p in model.parameters()),
+           "setup_s": setup_s, "warmup_steps": warmup, "timed_steps": steps,
+           "losses": losses, "step_ms": timed,
+           "step_ms_p50": float(np.median(timed)), "step_ms_mean": mean_ms,
+           "first_steps_ms": step_ms[:warmup],
+           "tokens_per_s": tokens / (mean_ms / 1e3),
+           "model_flops_per_step": flops,
+           "mfu": flops / (mean_ms / 1e3) / PEAK_OPS["bfloat16"],
+           "peak_bound_ms": flops / PEAK_OPS["bfloat16"] * 1e3,
+           "max_memory_allocated": peak, "launches": counts}
+    log("GPT_TRAIN " + json.dumps(out))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if abs(losses[0] - math.log(cfg["vocab"])) > 1.0:
+        raise AssertionError(f"first loss {losses[0]} is not near "
+                             f"ln({cfg['vocab']}) = "
+                             f"{math.log(cfg['vocab'])}")
+    runs = warmup + steps
+    want = {k: n * runs for k, n in GPT_PER_STEP.items()}
+    if any(counts.get(k, 0) != n for k, n in want.items()):
+        raise AssertionError(f"hybrid GPT launches {counts}, want {want}")
+    return counts, step, (x, y)
+
+
+def phase_gpt_anatomy(step, batch, steps=2):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x, y = batch
+    step_ms = cuda_ms(lambda i: step(x, y), 3, warmup=1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(x, y)
+        torch.cuda.synchronize()
+    groups = {"chunk_matmul": 0.0, "flash_fwd": 0.0, "flash_bwd": 0.0,
+              "cublas": 0.0, "nccl": 0.0, "other": 0.0}
+    top = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        name = e.key.lower()
+        g = ("chunk_matmul" if "chunk_mm" in name else
+             "flash_fwd" if "flash_fwd_kernel" in name else
+             "flash_bwd" if "flash_bwd_" in name else
+             "nccl" if "nccl" in name else
+             "cublas" if any(w in name for w in ("gemm", "xmma", "cutlass",
+                                                 "splitk", "nvjet"))
+             else "other")
+        ms = e.self_device_time_total / 1e3 / steps
+        groups[g] += ms
+        top.append((ms, e.key[:80]))
+    busy = sum(groups.values())
+    if not busy > 0:
+        raise AssertionError("the profiler saw no device time")
+    top.sort(reverse=True)
+    out = {"step_ms_host": step_ms, "device_busy_ms": busy,
+           "device_idle_share": max(0.0, 1.0 - busy / step_ms),
+           "device_ms_by_group": groups,
+           "top_kernels_ms": [[round(m, 4), n] for m, n in top[:24]]}
+    log("GPT_ANATOMY " + json.dumps(out))
+
+
+# --------------------------------------------------------------- phase 18
+def phase_multicard(steps=3):
+    """Where the machine shows two cards or more: min(4, count) NCCL
+    ranks (spawned, one card each) on {"mp": 2, "sp": n / 2} (or {"sp":
+    2} on two cards) train the hybrid GPT at the 1b widths with 2 layers
+    (f32, dropout 0, batch 4) for 3 steps from seeded weights; their
+    losses against a world-size-1 run of the same model and weights on
+    this process's card, rtol 1e-4 (f32 sums over shards in other
+    orders, then 3 AdamW steps).  On one card it says it did not run."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed.launch import free_port, spawn
+    from paddle_tpu_torch.testing import parallel_cases
+    count = torch.cuda.device_count()
+    if count < 2:
+        log("MULTICARD " + json.dumps({
+            "ran": False, "device_count": count,
+            "why": "needs two CUDA devices or more: NCCL refuses two ranks "
+                   "on one card (Duplicate GPU detected)"}))
+        return None
+    n = 4 if count >= 4 else 2
+    shape = {"mp": 2, "sp": n // 2} if n == 4 else {"sp": 2}
+    cfg = dict(GPT_TRAIN, layers=2, dropout=0.0, batch=4)
+    outdir = os.path.join(ROOT, "build", "chip_smoke_multicard")
+    os.makedirs(outdir, exist_ok=True)
+    data = np.random.RandomState(18)
+    gx, gy = (data.randint(0, cfg["vocab"], (cfg["batch"], cfg["seq"]))
+              for _ in range(2))
+    inputs = {f"cfg.{k}": np.asarray(cfg[k]) for k in
+              ("vocab", "hidden", "layers", "heads", "ffn", "seq")}
+    inputs.update(mesh_axes=np.asarray(",".join(shape)),
+                  mesh_sizes=np.asarray(list(shape.values())), gx=gx, gy=gy,
+                  steps=np.asarray(steps))
+    np.savez(os.path.join(outdir, "inputs.npz"), **inputs)
+    t0 = time.perf_counter()
+    spawn(parallel_cases.run, (outdir, ["gpt_multicard"], "cuda"),
+          nprocs=n, init_method=f"tcp://localhost:{free_port()}",
+          timeout=600)
+    spawn_s = time.perf_counter() - t0
+    ref, _ = parallel_cases.gpt_run(cfg, None, (gx, gy), steps, {"dp": 1},
+                                    "cuda")
+    ranks = [np.load(os.path.join(outdir, f"rank{r}.npz"))[
+        "gpt_multicard/losses"].tolist() for r in range(n)]
+    err = max(abs(a - b) / abs(b) for lr in ranks for a, b in zip(lr, ref))
+    out = {"ran": True, "ranks": n, "mesh": shape, "config": cfg,
+           "losses_world_1": ref, "losses_by_rank": ranks,
+           "loss_max_rel_err": err, "rtol": 1e-4, "spawn_s": spawn_s}
+    log("MULTICARD " + json.dumps(out))
+    if not err <= 1e-4:
+        raise AssertionError(f"multi-card losses disagree: {out}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1236,6 +1768,15 @@ def main():
     static_launches, run = timed("static_training", phase_static_training)
     timed("static_anatomy", phase_static_anatomy, run)
     del run
+    torch.cuda.empty_cache()
+    cmm_row = timed("chunk_matmul_kernel", phase_chunk_matmul)
+    block_rows = timed("flash_block", phase_flash_block)
+    timed("small_gpt", phase_small_gpt_parity)
+    gpt_launches, gstep, gbatch = timed("gpt_training", phase_gpt_training)
+    timed("gpt_anatomy", phase_gpt_anatomy, gstep, gbatch)
+    del gstep, gbatch
+    torch.cuda.empty_cache()
+    timed("multicard", phase_multicard)
     seconds["total"] = time.perf_counter() - t0
     log("PHASE_SECONDS " + json.dumps(seconds))
     f32_err = max(r["max_abs_err"] for r in kernel_rows
@@ -1254,16 +1795,23 @@ def main():
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": None}]
     for name, site in FLASH_KERNELS.items():
-        r = flash_rows[name]
+        r, b = flash_rows[name], block_rows[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",
-            "replaces": site, "launches": flash_launches[name],
+            "replaces": site,
+            "launches": flash_launches[name] + gpt_launches[name],
+            "launches_by_entry": {"flash_attention": flash_launches[name],
+                                  "flash_attention_block":
+                                      gpt_launches[name]},
             "max_abs_err": r["max_abs_err"],
             "max_abs_err_bf16": r["max_abs_err_bf16"], "shape": r["case"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            "block_entry": {k: b[k] for k in (
+                "case", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err", "max_abs_err_bf16")}})
     for name, site in list(EPI_KERNELS.items()) + [("fused_adam",
                                                     ADAM_SITE)]:
         r = epi_rows[name]
@@ -1280,11 +1828,22 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"] if name == "fused_adam" else None})
+    kernels.append({
+        "name": "chunk_matmul", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/cuda/csrc/chunk_matmul.cu",
+        "replaces": CMM_SITE, "launches": gpt_launches["chunk_matmul"],
+        "max_abs_err": cmm_row["max_abs_err"],
+        "max_abs_err_bf16": cmm_row["max_abs_err_bf16"],
+        "shape": cmm_row["case"], "ms": cmm_row["ms"],
+        "plain_ms": cmm_row["plain_ms"], "bound_ms": cmm_row["bound_ms"],
+        "bound_by": cmm_row["bound_by"],
+        "library_ms": cmm_row["library_ms"]})
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+    torch.distributed.destroy_process_group()
     return 0
 
 

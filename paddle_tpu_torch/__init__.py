@@ -1,7 +1,7 @@
 """paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu for NVIDIA
 Hopper.
 
-Three slices are in:
+Four slices are in:
 
 - generative serving: the paged KV cache, the continuous-batching
   :class:`~.serving.GenerationEngine`, the reference
@@ -17,21 +17,27 @@ Three slices are in:
   (Program, ``data``, ``program_guard``, Executor with the
   epilogue-fusion pass), ``Optimizer.minimize``, and the hand-written
   CUDA fused matmul-epilogue (forward and backward) and fused Adam
-  kernels.
+  kernels;
+- hybrid-parallel training over ``torch.distributed``: :mod:`.distributed`
+  (process group, mesh, collectives, launcher, strategy) and
+  :mod:`.parallel` (tensor-parallel layers on the fused collective
+  matmuls, ring attention, DataParallel, SpmdTrainStep), with the
+  hand-written CUDA chunk matmul and the flash kernels' block entry.
 
 Models, pools, engines and static parameters go to the current CUDA
 device unless the caller passes ``device=`` (e.g. ``"cpu"``) or calls
 ``set_device``; with no GPU and neither, they raise.
 """
-from . import (amp, core, framework_io, jit, nn, ops,  # noqa: F401
-               optimizer, serving, static, testing, utils)
+from . import (amp, core, distributed, framework_io, jit, nn,  # noqa: F401
+               ops, optimizer, parallel, serving, static, testing, utils)
 from .core.placement import device  # noqa: F401
 from .core.rng import seed  # noqa: F401
 from .device import get_device, set_device  # noqa: F401
 from .ops.creation import arange  # noqa: F401
 
-__all__ = ["amp", "core", "framework_io", "jit", "nn", "ops", "optimizer",
-           "serving", "static", "testing", "utils", "device", "seed",
+__all__ = ["amp", "core", "distributed", "framework_io", "jit", "nn", "ops",
+           "optimizer", "parallel", "serving", "static", "testing", "utils",
+           "device", "seed",
            "set_device", "get_device", "arange", "enable_static",
            "disable_static", "in_dynamic_mode"]
 

@@ -4,7 +4,9 @@ paddle_tpu's layers and the port's share parameter names and layouts
 (``Linear.weight`` is ``[in, out]`` in both), so a paddle_tpu state
 dict maps onto the port's one-to-one: a name check and a copy.  A static
 Program's parameters map by position: both packages list them in
-first-use order."""
+first-use order.  A tensor-parallel model holds shards:
+:func:`shard_state_from_paddle_tpu` cuts the full arrays to this rank's
+shards first."""
 from __future__ import annotations
 
 from typing import Dict, Mapping, Optional, Sequence, Union
@@ -14,7 +16,8 @@ import torch
 
 from .core.placement import device as _resolve_device
 
-__all__ = ["state_dict_from_paddle_tpu", "program_state_from_paddle_tpu"]
+__all__ = ["state_dict_from_paddle_tpu", "program_state_from_paddle_tpu",
+           "shard_state_from_paddle_tpu"]
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
@@ -75,3 +78,36 @@ def program_state_from_paddle_tpu(program, arrays: Sequence[np.ndarray],
         for own, new in ((params, arrays), (consts, constants)):
             for t, a in zip(own, new):
                 t.copy_(_tensor(a))
+
+
+def shard_state_from_paddle_tpu(np_state: Mapping[str, np.ndarray],
+                                model: torch.nn.Module, mesh=None
+                                ) -> Dict[str, np.ndarray]:
+    """Full ``{name: np.ndarray}`` (e.g. the JAX model's) -> this rank's
+    shards for ``model`` on ``mesh`` (default: the installed one), ready
+    for :func:`state_dict_from_paddle_tpu`.  A parameter with a
+    ``placement`` (the tensor-parallel layers set one) is cut along each
+    dim named by a mesh axis, at this rank's index on that axis; a dim
+    the axis does not divide is zero-padded to the next multiple first,
+    as the layers pad (``VocabParallelEmbedding``).  The rest is copied
+    whole."""
+    from .distributed.mesh import get_mesh
+    mesh = mesh or get_mesh()
+    params = dict(model.named_parameters())
+    out = {}
+    for name, full in np_state.items():
+        a = np.asarray(full)
+        spec = getattr(params.get(name), "placement", None) or ()
+        for dim, axis in enumerate(spec):
+            n = 1 if mesh is None or axis is None else mesh.axis_size(axis)
+            if n == 1:
+                continue
+            per = -(-a.shape[dim] // n)
+            if per * n != a.shape[dim]:
+                pad = [(0, 0)] * a.ndim
+                pad[dim] = (0, per * n - a.shape[dim])
+                a = np.pad(a, pad)
+            i = mesh.axis_index(axis)
+            a = np.take(a, np.arange(i * per, (i + 1) * per), axis=dim)
+        out[name] = a
+    return out

@@ -62,6 +62,7 @@ class TrainStep:
         if len(batch) < self.n_inputs:
             raise ValueError(f"TrainStep expects at least {self.n_inputs} "
                              "input(s)")
+        batch = self._prepare_batch(batch)
         inputs, labels = batch[:self.n_inputs], batch[self.n_inputs:]
         params = self._params
         if self._opt_state is None:
@@ -69,8 +70,8 @@ class TrainStep:
                 [p.detach() for p in params])
         loss = self.loss_fn(self.model(*inputs), *labels)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
+        grads = self._reduce_grads([torch.zeros_like(p) if g is None else g
+                                    for p, g in zip(params, grads)])
         self.optimizer._step_count += 1
         with torch.no_grad():
             new_p, self._opt_state = self.optimizer.functional_update(
@@ -78,4 +79,14 @@ class TrainStep:
                 self.optimizer.get_lr(), self.optimizer._step_count,
                 params_meta=params)
             torch._foreach_copy_([p.detach() for p in params], new_p)
-        return loss.detach()
+        return self._reduce_loss(loss.detach())
+
+    # -- hooks of the distributed step (parallel.SpmdTrainStep) ----------
+    def _prepare_batch(self, batch):
+        return batch
+
+    def _reduce_grads(self, grads):
+        return grads
+
+    def _reduce_loss(self, loss):
+        return loss

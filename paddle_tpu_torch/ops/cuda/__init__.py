@@ -1,5 +1,5 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), built at first use."""
-from . import support  # noqa: F401
+from . import chunk_matmul, support  # noqa: F401
 from .flash_attention import (flash_attention_bwd_dkv,  # noqa: F401
                               flash_attention_bwd_dq, flash_attention_fwd)
 from .fused_adam import AdamTable  # noqa: F401

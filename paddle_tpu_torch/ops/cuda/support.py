@@ -14,9 +14,10 @@
 - **entry points**: ``ptt_paged_decode`` (``paged_attention.cu``),
   ``ptt_flash_fwd`` / ``ptt_flash_bwd_dq`` / ``ptt_flash_bwd_dkv``
   (``flash_attention.cu``), ``ptt_epilogue_fwd`` / ``ptt_epilogue_bwd``
-  / ``ptt_epilogue_grads`` (``fused_epilogue.cu``) and
-  ``ptt_fused_adam`` / ``ptt_adam_chunk`` (``fused_adam.cu``), declared
-  for ``ctypes`` in :func:`_declare`.
+  / ``ptt_epilogue_grads`` (``fused_epilogue.cu``),
+  ``ptt_fused_adam`` / ``ptt_adam_chunk`` (``fused_adam.cu``) and
+  ``ptt_chunk_matmul`` (``chunk_matmul.cu``), declared for ``ctypes`` in
+  :func:`_declare`.
 - **launch counts**: every wrapper adds one to
   ``launch_counts[<kernel>]`` where it launches its kernel, and nowhere
   else, so a run can show that its main path went through the kernels.
@@ -112,6 +113,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.restype = i32
     lib.ptt_adam_chunk.argtypes = []
     lib.ptt_adam_chunk.restype = i64
+    # chunk matmul: x w out, M K N, ldx ldw ldo, dtype, stream
+    fn = lib.ptt_chunk_matmul
+    fn.argtypes = [vp] * 3 + [i32] * 3 + [i64] * 3 + [i32, vp]
+    fn.restype = i32
 
 
 def _build(so: str, sources) -> str:

@@ -17,6 +17,12 @@ layout, differentiable through :class:`FlashAttention` (a
 dropout seed).  On the card the kernels read and write that layout in
 place: no transposes around them.
 
+:func:`flash_attention_block` is the ring-attention building block (JAX:
+``flash_attention_block``, through ``_flash_with_lse``): attention of a
+query block against a key block at global offsets, returning ``(out,
+lse)`` with both differentiable (:class:`FlashAttentionBlock`; the lse
+cotangent enters the backward as ``delta = rowsum(dO * O) - dlse``).
+
 Dropout acts on the probabilities with the denominator undropped, so
 E[out] is the undropped out.  The mask is a counter-based hash of
 ``(seed, b * H + h, query index, key index)``
@@ -38,7 +44,8 @@ from .cuda.flash_attention import SUPPORTED_HEAD_DIMS
 __all__ = ["flash_attention", "flash_attention_supported",
            "flash_attention_reference_fwd", "flash_attention_reference_bwd",
            "attention_delta", "dropout_keep_mask", "mha_reference",
-           "FlashAttention", "NEG_INF"]
+           "FlashAttention", "flash_attention_block", "FlashAttentionBlock",
+           "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -203,6 +210,68 @@ class FlashAttention(torch.autograd.Function):
                 **kw)
             dq, dk, dv = (_bhld(g).contiguous() for g in grads)
         return dq, dk, dv, None, None, None, None
+
+
+class FlashAttentionBlock(torch.autograd.Function):
+    """``(out, lse)`` of one query block against one key block, both
+    differentiable: the CUDA kernels for CUDA tensors, the plain versions
+    for the others.
+    Saves ``(q, k, v, out, lse)``; a missing cotangent counts as zero."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_off, k_off, scale, causal):
+        kw = dict(causal=causal, scale=scale, q_off=q_off, k_off=k_off)
+        if q.device.type == "cuda":
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            out, lse = _cuda.flash_attention_fwd(q, k, v, **kw)
+        else:
+            out, lse = flash_attention_reference_fwd(_bhld(q), _bhld(k),
+                                                     _bhld(v), **kw)
+            out = _bhld(out).contiguous()
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        kw = ctx.kw
+        if dout is None:
+            dout = torch.zeros_like(out)
+        if q.device.type == "cuda":
+            dout = dout.contiguous()
+            delta = attention_delta(_bhld(dout), _bhld(out), dlse)
+            dq = _cuda.flash_attention_bwd_dq(q, k, v, dout, lse, delta,
+                                              **kw)
+            dk, dv = _cuda.flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
+                                                   **kw)
+        else:
+            grads = flash_attention_reference_bwd(
+                _bhld(q), _bhld(k), _bhld(v), _bhld(out), lse, _bhld(dout),
+                dlse, **kw)
+            dq, dk, dv = (_bhld(g).contiguous() for g in grads)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_block(q, k, v, q_off: int = 0, k_off: int = 0,
+                          scale: Optional[float] = None,
+                          causal: bool = True):
+    """The ring-attention block: q ``[B, Lq, H, D]``, k/v ``[B, Lk, H,
+    D]`` (the port's kernels' layout; the JAX entry takes ``[B, H, L,
+    D]``) -> ``(out [B, Lq, H, D], lse [B, H, Lq] f32)``.
+
+    ``causal``: key j is visible from query i iff ``q_off + i >= k_off +
+    j`` (int offsets; the JAX entry takes f32 ``[1, 1]`` arrays and is
+    always causal, reaching "every key visible" with ``k_off = -1e9``:
+    here ``causal=False`` says it).  A row that sees no key gives out 0
+    and lse -1e30 (:data:`NEG_INF`; the JAX kernel's rows give about
+    -inf).  No dropout: rounds merge by lse, which needs undropped
+    weights."""
+    D = q.shape[-1]
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+    return FlashAttentionBlock.apply(q, k, v, int(q_off), int(k_off), scale,
+                                     bool(causal))
 
 
 def flash_attention(q, k, v, causal: bool = False,

@@ -9,6 +9,11 @@ vocab]`` logits never exist whole).  Parameter names are paddle_tpu's.
 :func:`build_bert_static` records ``bench.build_bert_static``'s static
 training program: the same layers in the same order, so parameter order
 matches paddle_tpu's.
+
+:func:`build_gpt_hybrid` is ``bench.build_gpt``'s causal decoder made
+tensor- and sequence-parallel (q, k, v and fc1 column-parallel, proj and
+fc2 row-parallel, ring attention over 'sp'); :func:`gpt_loss` is
+``bench_gpt``'s tied head through ``F.linear_cross_entropy``.
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ from ..core.placement import device as _resolve_device
 from ..nn import functional as F
 
 __all__ = ["BertMLM", "build_model", "mlm_loss", "bench_flops_per_step",
-           "palm_flops_per_step", "build_bert_static"]
+           "palm_flops_per_step", "build_bert_static", "GPTHybrid",
+           "build_gpt_hybrid", "gpt_loss", "gpt_flops_per_step"]
 
 
 class BertMLM(nn.Module):
@@ -129,3 +135,91 @@ def build_bert_static(vocab, hidden, layers, heads, ffn, seq, batch,
                 "labels": r.randint(0, vocab, (batch, seq), dtype=np.int64)}
 
     return main, loss, feeds
+
+
+class _GPTBlock(nn.Module):
+    """``bench.build_gpt``'s pre-norm block with the linears
+    tensor-parallel over 'mp' and ring attention over 'sp' (no attention
+    dropout: ring rounds merge undropped weights)."""
+
+    def __init__(self, hidden, heads, ffn, dropout, dev):
+        super().__init__()
+        from ..parallel import ColumnParallelLinear, RowParallelLinear
+        self.hidden, self.heads = hidden, heads
+        self.ln1 = pnn.LayerNorm(hidden, device=dev)
+        self.q = ColumnParallelLinear(hidden, hidden, device=dev)
+        self.k = ColumnParallelLinear(hidden, hidden, device=dev)
+        self.v = ColumnParallelLinear(hidden, hidden, device=dev)
+        self.proj = RowParallelLinear(hidden, hidden, device=dev)
+        self.ln2 = pnn.LayerNorm(hidden, device=dev)
+        self.fc1 = ColumnParallelLinear(hidden, ffn, device=dev)
+        self.fc2 = RowParallelLinear(ffn, hidden, device=dev)
+        self.drop = pnn.Dropout(dropout)
+
+    def forward(self, x):
+        from ..parallel import ring_attention
+        B, S = x.shape[0], x.shape[1]
+        hd = self.hidden // self.heads
+        h = self.ln1(x)
+        q = self.q(h).reshape(B, S, self.heads, hd)
+        k = self.k(h).reshape(B, S, self.heads, hd)
+        v = self.v(h).reshape(B, S, self.heads, hd)
+        a = ring_attention(q, k, v, is_causal=True)
+        x = x + self.drop(self.proj(a.reshape(B, S, self.hidden)))
+        h = self.ln2(x)
+        return x + self.drop(self.fc2(F.gelu(self.fc1(h), approximate=True)))
+
+
+class GPTHybrid(nn.Module):
+    def __init__(self, vocab, hidden, layers, heads, ffn, seq, dropout,
+                 device=None):
+        super().__init__()
+        dev = _resolve_device(device)
+        self.hidden = hidden
+        # GPT-2 init, as bench.build_gpt: N(0, 0.02) embeddings
+        self.tok = pnn.Embedding(vocab, hidden, device=dev)
+        self.pos = pnn.Embedding(seq, hidden, device=dev)
+        with torch.no_grad():
+            self.tok.weight.mul_(0.02)
+            self.pos.weight.mul_(0.02)
+        self.drop = pnn.Dropout(dropout)
+        self.blocks = pnn.LayerList([_GPTBlock(hidden, heads, ffn, dropout,
+                                               dev) for _ in range(layers)])
+        self.ln_f = pnn.LayerNorm(hidden, device=dev)
+
+    def forward(self, ids):
+        pos_ids = torch.arange(ids.shape[1], device=ids.device)[None, :]
+        x = self.drop(self.tok(ids) + self.pos(pos_ids))
+        for blk in self.blocks:
+            x = blk(x)
+        return self.ln_f(x)
+
+
+def build_gpt_hybrid(vocab, hidden, layers, heads, ffn, seq, dropout,
+                     device=None) -> GPTHybrid:
+    """``bench.build_gpt`` (bench.py:239-300) over the installed mesh:
+    parameter names are paddle_tpu's, the TP layers hold this rank's
+    shards.  No per-block recompute (not ported yet)."""
+    return GPTHybrid(vocab, hidden, layers, heads, ffn, seq, dropout,
+                     device=device)
+
+
+def gpt_loss(model: GPTHybrid):
+    """``bench_gpt``'s ``loss_fn(out, labels)``: the tied head (``out @
+    tok.weight^T``, zero bias) through the fused, chunked
+    ``linear_cross_entropy``."""
+    def loss_fn(out, labels):
+        return F.linear_cross_entropy(out.reshape(-1, model.hidden),
+                                      model.tok.weight.t(), None,
+                                      labels.reshape(-1))
+    return loss_fn
+
+
+def gpt_flops_per_step(vocab, hidden, layers, seq, batch, ffn) -> int:
+    """``bench_gpt``'s model FLOPs per step (bench.py:380-388): 6 N T
+    over the matmul parameters (the blocks' and the tied vocab
+    projection) plus 6 L B S^2 H for causal attention."""
+    per_layer = 4 * hidden * hidden + 2 * hidden * ffn + 9 * hidden + ffn
+    n_matmul = layers * per_layer + 2 * hidden + vocab * hidden
+    return (6 * n_matmul * batch * seq
+            + 6 * layers * batch * seq ** 2 * hidden)

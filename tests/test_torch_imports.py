@@ -26,14 +26,30 @@ def test_import_leaves_jax_and_paddle_tpu_out():
             "paddle_tpu_torch.device, paddle_tpu_torch.ops.fused_epilogue, "
             "paddle_tpu_torch.ops.fused_adam, paddle_tpu_torch.ops.creation, "
             "paddle_tpu_torch.ops.cuda.fused_epilogue, "
-            "paddle_tpu_torch.ops.cuda.fused_adam\n"
+            "paddle_tpu_torch.ops.cuda.fused_adam, "
+            "paddle_tpu_torch.ops.chunk_matmul, "
+            "paddle_tpu_torch.ops.cuda.chunk_matmul, "
+            "paddle_tpu_torch.ops.collective_matmul, "
+            "paddle_tpu_torch.distributed, paddle_tpu_torch.distributed.env, "
+            "paddle_tpu_torch.distributed.mesh, "
+            "paddle_tpu_torch.distributed.collective, "
+            "paddle_tpu_torch.distributed.grad_comm, "
+            "paddle_tpu_torch.distributed.launch, "
+            "paddle_tpu_torch.distributed.strategy, "
+            "paddle_tpu_torch.parallel, paddle_tpu_torch.parallel.tp_layers, "
+            "paddle_tpu_torch.parallel.ring_attention, "
+            "paddle_tpu_torch.parallel.data_parallel, "
+            "paddle_tpu_torch.parallel.spmd_train_step, "
+            "paddle_tpu_torch.testing.parallel_cases\n"
             "from paddle_tpu_torch.ops.cuda import support\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'paddle_tpu.', 'triton')) "
             "or m == 'paddle_tpu')\n"
             "print(bad)\n"
             "assert not bad, bad\n"
-            "assert support._lib is None and not support.build_info\n")
+            "assert support._lib is None and not support.build_info\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized()\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
