@@ -30,10 +30,13 @@ kernel from the sources in this checkout.  Phases, each fatal:
 9. anatomy of one training step from ``torch.profiler``;
 10. the fused matmul-epilogue kernels (forward; backward as two
     launches) against their plain versions at the three chains of a
-    BERT-base layer (M 8192), f32 and bf16, and three small recipes; the
-    fused Adam kernel against its plain version over the static BERT's
-    parameters for 5 steps; times beside the bound, the plain version
-    and a library call where one computes the same function;
+    BERT-base layer (M 8192), f32 and bf16, three small recipes, and
+    layer_norm recipes at N 640, 1152 and 1536 (the f32 forward's
+    clusters of 5, 9 and 12 blocks); the f32 forward with a zero bias
+    bit for bit against K6's f32 product; the fused Adam kernel against
+    its plain version over the static BERT's parameters for 5 steps;
+    times beside the bound, the plain version and a library call where
+    one computes the same function;
 11. a small static BERT (``bench.build_bert_static`` at bench_pallas's
     CPU widths) trained 3 ``Executor.run``s on the card and on the CPU
     from the same weights;
@@ -42,10 +45,11 @@ kernel from the sources in this checkout.  Phases, each fatal:
     and 8 timed runs, asserting every kernel's launches per step;
 13. anatomy of one static training step from ``torch.profiler``;
 14. the chunk matmul kernel (K6) against its plain version at the chunk
-    shapes of the full-width hybrid step and two ragged shapes at the
-    gate's edges, f32 and bf16; its column blocks bitwise equal to K6 on
-    the whole weight; times of one layer's six products beside the
-    bound, the plain version and ``torch.matmul``;
+    shapes of the full-width hybrid step, three ragged shapes at the
+    gate's edges (M 8, M 1000, K 96) and a row-strided x written into a
+    column block of a wider out, f32 and bf16; its column blocks bitwise
+    equal to K6 on the whole weight; times of one layer's six products
+    beside the bound, the plain version and ``torch.matmul``;
 15. the flash kernels through ``flash_attention_block``, forward and
     backward with a nonzero lse cotangent, at the ring's four offset
     cases (diagonal, visible, fully masked, non-causal), f32 and bf16;
@@ -915,6 +919,27 @@ def _epi_check(torch, x, w, dy, ops, stages):
     return errs
 
 
+def _epi_bitwise_k6(torch, gen, M):
+    """K2f at f32 with a zero bias equals K6's f32 product bit for bit:
+    both sum every element as one FMA chain over k in order (fc1's
+    shape)."""
+    from paddle_tpu_torch.ops.cuda import chunk_matmul as k6
+    from paddle_tpu_torch.ops.cuda import fused_epilogue as cuda_epi
+    K, N = STATIC_CHIP["hidden"], STATIC_CHIP["ffn"]
+    x = torch.randn((M, K), generator=gen, device="cuda")
+    w = torch.randn((K, N), generator=gen, device="cuda") / math.sqrt(K)
+    zero = torch.zeros((1, N), device="cuda")
+    out = cuda_epi.fused_epilogue_fwd(x, w, [zero], (("bias",),))
+    ref = k6.chunk_matmul(x, w)
+    torch.cuda.synchronize()
+    equal = torch.equal(out, ref)
+    log("EPILOGUE_BITWISE_K6 " + json.dumps({
+        "case": f"bias 0, M={M} K={K} N={N} float32", "equal": equal}))
+    if not equal:
+        raise AssertionError("K2f f32 with a zero bias differs from K6's "
+                             "f32 product")
+
+
 def _static_param_shapes(cfg):
     """program.parameters() of build_bert_static, in order."""
     h, f, v = cfg["hidden"], cfg["ffn"], cfg["vocab"]
@@ -981,8 +1006,9 @@ def _adam_phase(torch, gen):
 def phase_epilogue_adam_kernels():
     """K2f and K2b against their plain versions: the three BERT-base
     chains at M 8192 in f32 and bf16, three small recipes (bias only,
-    relu, gelu-erf) at a ragged shape; times of the f32 chains (the main
-    path's dtype); then K3."""
+    relu, gelu-erf) at a ragged shape, layer_norm recipes over clusters
+    of 5, 9 and 12 blocks; K2f bitwise against K6 at f32; times of the
+    f32 chains (the main path's dtype); then K3."""
     import torch
     from paddle_tpu_torch.ops.cuda import fused_epilogue as cuda_epi
     from paddle_tpu_torch.ops.fused_epilogue import (
@@ -998,6 +1024,13 @@ def phase_epilogue_adam_kernels():
               for name, st in (("bias_only", ()), ("relu", (("relu",),)),
                                ("gelu_erf", (("gelu", False),)))
               for dt in (torch.float32, torch.bfloat16)]
+    # layer_norm rows joined over clusters of 5, 9 and 12 blocks (the f32
+    # forward), at a depth off the 128 tile and rows off the 128 tile
+    ln = ("layer_norm", 1e-5, True, True)
+    cases += [(f"add+layer_norm cluster {n // 128}", 1000, 264, n,
+               (("add",), ln), dt)
+              for n in (640, 1152, 1536)
+              for dt in (torch.float32, torch.bfloat16)]
     for label, m, k, n, stages, dt in cases:
         dname = str(dt).replace("torch.", "")
         x, w, dy, ops = _epi_case(torch, gen, m, k, n, stages, dt)
@@ -1011,6 +1044,7 @@ def phase_epilogue_adam_kernels():
             raise AssertionError(f"fused epilogue kernels disagree with "
                                  f"the plain versions: {row}")
         del x, w, dy, ops
+    _epi_bitwise_k6(torch, gen, M)
     # times at the main path's shapes, f32
     rows = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                    "bytes": 0, "operations": 0, "chains": {}}
@@ -1261,8 +1295,9 @@ def _gpt_layer_chunks(cfg):
 def phase_chunk_matmul():
     """K6 against its plain version: the chunk shapes of the full-width
     step (M 8192; K, N from 1792 and 7168 and their halves, the shards of
-    mp 2) and two ragged shapes at the gate's edges, f32 and bf16; the
-    column blocks bitwise against K6 on the whole weight; times of one
+    mp 2), three ragged shapes at the gate's edges and strided views,
+    f32 and bf16; the column blocks bitwise against K6 on the whole
+    weight; times of one
     layer's six products at bf16 (the main path's dtype) beside the
     bound, the plain version and torch.matmul."""
     import torch
@@ -1275,8 +1310,9 @@ def phase_chunk_matmul():
     r = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
     shapes = [(M, K, N) for K, N in ((h, h), (h, f), (f, h), (h, h // 2),
                                      (h, f // 2), (h // 2, h), (f // 2, h))]
-    # the gate's edges: the smallest M; an M off the 128-row tile
-    shapes += [(8, 128, 128), (1000, 384, 640)]
+    # the gate's edges: the smallest M; an M off the 128-row tile; a K
+    # off the 64-deep tile
+    shapes += [(8, 128, 128), (1000, 384, 640), (1000, 96, 640)]
     worst = {"float32": 0.0, "bfloat16": 0.0}
     for m, k, n in shapes:
         x, w = r(m, k), r(k, n) / math.sqrt(k)
@@ -1293,6 +1329,23 @@ def phase_chunk_matmul():
                 raise AssertionError(f"chunk_matmul disagrees with the "
                                      f"plain version: {row}")
         del x, w, xd, wd
+    # x a row-strided view (ldx > K) and out a column block (ldo > N)
+    xw, w = r(1000, 384), r(96, 640) / math.sqrt(96)
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).replace("torch.", "")
+        xs, wd = xw.to(dt)[:, 64:160], w.to(dt)
+        out = torch.full((1000, 1280), float("nan"), device="cuda", dtype=dt)
+        k6.chunk_matmul(xs, wd, out[:, 640:])
+        torch.cuda.synchronize()
+        err = _rel_err(out[:, 640:], chunk_matmul_reference(xs, wd))
+        worst[dname] = max(worst[dname], err)
+        row = {"case": f"M=1000 K=96 N=640 ldx=384 ldo=1280 {dname}",
+               "error": err, "tol": CMM_TOL[dname]}
+        log("CHUNK_MATMUL_CHECK " + json.dumps(row))
+        if not err <= CMM_TOL[dname] or not bool(
+                out[:, :640].float().isnan().all()):
+            raise AssertionError(f"chunk_matmul on strided views: {row}")
+    del xw, w, xs, wd, out
     # the column blocks of the ring form: each chunk written in place
     # into its block equals K6 on the whole weight, bit for bit
     x, w = r(M, h), r(h, f) / math.sqrt(h)

@@ -8,6 +8,12 @@
   call from a host generator, so a training step never waits on the
   card for it.  Every call draws anew, so dropout differs from step to
   step.
+- :func:`fold_in` switches every draw (both kinds above) to a stream of
+  its own, one per key and seed, for the duration of a ``with`` block;
+  the stream carries on where it stopped at the next entry.  The data
+  parallel step draws from the stream of its 'dp' rank (the JAX
+  package folds ``axis_index('dp')`` into its dropout key), so the dp
+  ranks' masks differ and the ranks of one dp group share theirs.
 - :func:`mul32` / :func:`fmix32`: uint32 arithmetic emulated exactly in
   int64, for the counter-based hashes whose CUDA versions work in
   uint32 (the serving sampler, the flash-attention dropout mask).
@@ -16,35 +22,41 @@
 """
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Iterator, Optional, Tuple, Union
 
 import torch
 
 __all__ = ["seed", "get_rng_state", "set_rng_state", "generator",
-           "next_seed", "mul32", "fmix32", "dropout_threshold"]
+           "next_seed", "fold_in", "mul32", "fmix32", "dropout_threshold"]
 
 M32 = 0xFFFFFFFF
 
 _lock = threading.Lock()
 _seed = 0
-_draws = 0                       # next_seed calls since the last seed()
+# the stream draws come from: its seed (``_seed`` itself outside any
+# fold_in), next_seed calls since the last seed(), and its generators
+_active = 0
+_draws = 0
 _host: Optional[torch.Generator] = None
 _devices: Dict[torch.device, torch.Generator] = {}
+_stash: Dict[int, tuple] = {}    # fold_in key -> its stream while unused
 
 
 def seed(s: int) -> int:
     """``paddle.seed`` parity: reseed every generator of this module."""
-    global _seed, _draws, _host
+    global _seed, _active, _draws, _host, _devices
     with _lock:
-        _seed, _draws, _host = int(s), 0, None
-        _devices.clear()
+        _seed = _active = int(s)
+        _draws, _host, _devices = 0, None, {}
+        _stash.clear()
     return _seed
 
 
 def get_rng_state() -> Tuple[int, int]:
-    """(seed, host draws so far); the device generators are not part of
-    it."""
+    """(seed, host draws so far); the device generators and the fold_in
+    streams are not part of it."""
     return _seed, _draws
 
 
@@ -64,7 +76,7 @@ def generator(device: Union[str, torch.device]) -> torch.Generator:
         gen = _devices.get(dev)
         if gen is None:
             gen = torch.Generator(device=dev)
-            gen.manual_seed(_seed)
+            gen.manual_seed(_active)
             _devices[dev] = gen
         return gen
 
@@ -75,10 +87,33 @@ def next_seed() -> int:
     with _lock:
         if _host is None:
             _host = torch.Generator()
-            _host.manual_seed(_seed + 0x5EED)
+            _host.manual_seed(_active + 0x5EED)
         _draws += 1
         return int(torch.randint(-2 ** 31, 2 ** 31 - 1, (1,),
                                  generator=_host).item())
+
+
+@contextlib.contextmanager
+def fold_in(key: int) -> Iterator[None]:
+    """Inside the block, :func:`generator` and :func:`next_seed` draw
+    from stream ``key`` of the current seed: deterministic per (seed,
+    key), distinct across keys and from the seed's own stream, and
+    continued where it stopped at the next entry with the same key."""
+    global _active, _draws, _host, _devices
+    key = int(key)
+    with _lock:
+        outer = (_active, _draws, _host, _devices)
+        inner = _stash.pop(key, None)
+        if inner is None:
+            mixed = _seed * 0x9E3779B97F4A7C15 + (key + 1) * 0xBF58476D1CE4E5B9
+            inner = (mixed % (2 ** 63 - 1), 0, None, {})
+        _active, _draws, _host, _devices = inner
+    try:
+        yield
+    finally:
+        with _lock:
+            _stash[key] = (_active, _draws, _host, _devices)
+            _active, _draws, _host, _devices = outer
 
 
 def mul32(a: torch.Tensor, c: int) -> torch.Tensor:

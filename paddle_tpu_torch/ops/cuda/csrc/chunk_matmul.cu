@@ -18,14 +18,15 @@
 // The summation order of every output element is fixed and does not
 // depend on N or on the column block the element lies in: at f32 one
 // thread sums k = 0, 1, ..., K-1 by FMA into one register; at bf16 one
-// mma.sync accumulator takes the K steps of 16 in ascending order.  No
-// split-K.  So a chunk computed alone equals, bit for bit, the same
-// columns of the product with the whole weight: the ring form of the
-// column-parallel matmul is bitwise equal to gathering w first.
+// wgmma accumulator takes the K steps of 16 in ascending order, on one
+// instruction shape (m64n128k16).  No split-K.  So a chunk computed alone
+// equals, bit for bit, the same columns of the product with the whole
+// weight: the ring form of the column-parallel matmul is bitwise equal to
+// gathering w first.
 //
 // f32 stays exact f32 on the CUDA cores (paddle_tpu asks the TPU for
-// Precision.HIGHEST, so no TF32); bf16 runs on the tensor cores
-// (mma.sync m16n8k16, f32 accumulation).
+// Precision.HIGHEST, so no TF32); bf16 runs on the tensor cores (wgmma,
+// f32 accumulation).
 //
 // Bound on this card: operations.  The GPT 1b step's chunks (M 8192;
 // K, N from 1792 and 7168) are 53-210 GFLOP each against 65-172 MB of
@@ -33,99 +34,49 @@
 // 53-213 us and the bytes (3.35 TB/s) 19-51 us; at f32 (67 TFLOP/s) the
 // products dominate by far more.
 // What the design does about it:
-//   * one block of 256 threads owns a 128 x 128 output tile and walks K;
-//   * f32: the x tile (transposed) and the w tile, 8 deep, go through
-//     shared memory, the next ones loaded into registers while the
-//     current ones are multiplied; each thread owns 8 x 8 outputs (rows
-//     and columns split in two halves of 4, so the float4 reads from
-//     shared memory are free of bank conflicts): 64 FMA per 16 values
-//     read;
-//   * bf16: 32-deep tiles of x and w stream through shared memory by
-//     cp.async, four tiles in flight (74 KB; rows padded by 16 bytes so
-//     ldmatrix is free of bank conflicts), one barrier a tile; 8 warps
-//     each own 64 x 32 outputs as 4 x 4 mma.sync tiles, with x
-//     fragments from ldmatrix and w fragments from ldmatrix.trans.
-// Not done yet (later work): wgmma, TMA, a persistent schedule.
+//   * f32 (not on the main path): f32_tile.cuh's mainloop, one block of
+//     256 threads a 128 x 128 tile, 8 x 8 outputs a thread;
+//   * bf16: wgmma, the only way to the tensor cores' full rate on this
+//     card, fed by TMA.  A persistent grid (one block an SM) walks the
+//     128 x 128 output tiles; in each block one producer thread issues
+//     the TMA loads of 64-deep x and w tiles (128-byte swizzle) into a
+//     ring of 6 stages of shared memory (32 KB each), each guarded by a
+//     full and an empty mbarrier, and two consumer warpgroups each own
+//     64 rows of the tile (wgmma.mma_async m64n128k16, x K-major, w
+//     MN-major through the transpose flag, f32 accumulators in
+//     registers, one wgmma group kept in flight).  setmaxnreg moves
+//     registers from the producer's warpgroup to the consumers.  The
+//     producer runs ahead into the next tile while the consumers store
+//     the last one: rounded to bf16 into a swizzled tile of shared
+//     memory, then out by TMA stores that run on while the next tile is
+//     multiplied.  TMA's out-of-bounds zero fill covers the rows past M
+//     and a K that is not a multiple of 64 (each zero adds +0 to the
+//     sum); its stores skip the rows past M.  The tensor maps are built
+//     on the host for each launch from the pointers and ldx / ldw / ldo;
+//     cuTensorMapEncodeTiled is looked up in libcuda at run time through
+//     cudaGetDriverEntryPoint, so nothing links against libcuda.
 
+#include <cuda.h>           // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "f32_tile.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBM = 128;             // rows of a block tile
-constexpr int kBN = 128;             // columns of a block tile
-constexpr int kBK32 = 8;             // depth of an f32 step
-constexpr int kBK16 = 32;            // depth of a bf16 step
-constexpr int kSA = kBK16 + 8;       // bf16 x tile row stride (elements)
-constexpr int kSB = kBN + 8;         // bf16 w tile row stride (elements)
-
 // ------------------------------------------------------------------ f32
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(f32_tile::kThreads)
 chunk_mm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                     float* __restrict__ out, int M, int K, long long ldx,
                     long long ldw, long long ldo) {
-  __shared__ __align__(16) float As[2][kBK32][kBM];   // x tile, [k][m]
-  __shared__ __align__(16) float Bs[2][kBK32][kBN];   // w tile, [k][n]
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  // loads: x row tid / 2, depth (tid % 2) * 4; w depth tid / 32,
-  // columns (tid % 32) * 4: one float4 each per step
-  const int ar = tid >> 1, ak = (tid & 1) * 4;
-  const int bk = tid >> 5, bn = (tid & 31) * 4;
-  const bool arow = m0 + ar < M;
-  const float* xp = x + (long long)(arow ? m0 + ar : 0) * ldx + ak;
-  const float* wp = w + (long long)bk * ldw + n0 + bn;
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 ra = arow ? *reinterpret_cast<const float4*>(xp) : zero4;
-  float4 rb = *reinterpret_cast<const float4*>(wp);
-  auto put = [&](int buf) {
-    As[buf][ak + 0][ar] = ra.x;
-    As[buf][ak + 1][ar] = ra.y;
-    As[buf][ak + 2][ar] = ra.z;
-    As[buf][ak + 3][ar] = ra.w;
-    *reinterpret_cast<float4*>(&Bs[buf][bk][bn]) = rb;
-  };
-  put(0);
-  __syncthreads();
+  const int m0 = blockIdx.y * f32_tile::kBM, n0 = blockIdx.x * f32_tile::kBN;
   float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  const int nk = K / kBK32;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    const bool more = kt + 1 < nk;
-    if (more) {
-      const int k0 = (kt + 1) * kBK32;
-      ra = arow ? *reinterpret_cast<const float4*>(xp + k0) : zero4;
-      rb = *reinterpret_cast<const float4*>(wp + (long long)k0 * ldw);
-    }
-#pragma unroll
-    for (int k = 0; k < kBK32; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][k][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[cur][k][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][k][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[cur][k][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    // the other buffer was last read in step kt - 1, which ended with a
-    // barrier
-    if (more) put(cur ^ 1);
-    __syncthreads();
-  }
+  f32_tile::mainloop(x, w, M, K, ldx, ldw, m0, n0, acc);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    const int row = m0 + f32_tile::row_of(ty, i);
     if (row >= M) continue;
     float* o = out + (long long)row * ldo + n0;
     *reinterpret_cast<float4*>(o + tx * 4) =
@@ -136,146 +87,353 @@ chunk_mm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 // ----------------------------------------------------------------- bf16
+constexpr int kTile = 128;                      // rows and columns of a tile
+constexpr int kDepth = 64;                      // k of a stage (128 bytes)
+constexpr int kStages = 6;
+constexpr int kBytesA = kTile * kDepth * 2;     // x tile: 128 rows of 128 B
+constexpr int kBytesB = kDepth * kTile * 2;     // w tile: two 64 x 64 boxes
+constexpr int kStageBytes = kBytesA + kBytesB;
+constexpr int kConsumers = 2;                   // warpgroups of wgmma
+constexpr int kThreadsBf16 = 128 * (kConsumers + 1);
+constexpr int kBytesC = 64 * kTile * 2;         // a warpgroup's out rows
+// the stages and each consumer's out tile (1024-byte aligned for the
+// 128-byte swizzle), then the barriers, plus the slack to align the base
+constexpr size_t kSmemBf16 = (size_t)kStages * kStageBytes +
+                             (size_t)kConsumers * kBytesC +
+                             2 * kStages * sizeof(uint64_t) + 1024;
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, asynchronously; zeros when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+// until the phase of parity ``parity`` has completed.  A wait of more
+// than ~2^34 cycles (seconds) can only be a fault: it traps, so the
+// launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (true) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+// a 2-D box of ``map`` at (c0 innermost, c1) into shared memory; its
+// bytes complete a transaction on ``bar``
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, uint32_t bar) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1)
+      : "memory");
 }
 
-// C fragment: lane (g = lane / 4, t = lane % 4) holds c[0..1] at row g,
-// cols 2t, 2t + 1 and c[2..3] at row g + 8
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// a 2-D box of shared memory into ``map`` at (c0 innermost, c1); rows and
+// columns past the map's bounds are not written
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int c0, int c1) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until the committed stores have read their shared memory
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// the 128 threads of warpgroup ``wg`` (named barrier 1 + wg)
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor, 128-byte swizzle; the offsets
+// in 16-byte units
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)lbo << 16) |
+         ((uint64_t)sbo << 32) | (1ull << 62);
+}
+
+// d += a . b: a 64 x 16 K-major, b 16 x 128 MN-major (transposed)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-constexpr int kStages = 4;           // bf16 tiles in flight
-constexpr int kStageA = kBM * kSA;   // elements of one stage's x tile
-constexpr int kStageB = kBK16 * kSB; // elements of one stage's w tile
-constexpr size_t kSmemBf16 =
-    (size_t)kStages * (kStageA + kStageB) * sizeof(__nv_bfloat16);
+__global__ void __launch_bounds__(kThreadsBf16, 1)
+chunk_mm_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
+                     const __grid_constant__ CUtensorMap map_w,
+                     const __grid_constant__ CUtensorMap map_o, int M, int K,
+                     int N) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;   // stage s at base + s * 32 KB
+  const uint32_t tile_c = base + kStages * kStageBytes;  // out tiles
+  const uint32_t full = tile_c + kConsumers * kBytesC;   // mbarriers
+  const uint32_t empty = full + kStages * sizeof(uint64_t);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);             // the producer's expect_tx
+      mbar_init(empty + 8 * s, kConsumers);   // one arrive per warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int tiles_n = N / kTile;
+  const int tiles = (M + kTile - 1) / kTile * tiles_n;
+  const int nk = (K + kDepth - 1) / kDepth;
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // ---------------------------------------------------- the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x % 128 != 0) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = t / tiles_n * kTile, n0 = t % tiles_n * kTile;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(empty + 8 * stage, phase ^ 1);
+        const uint32_t bar = full + 8 * stage;
+        const uint32_t dst = base + stage * kStageBytes;
+        mbar_expect_tx(bar, kStageBytes);
+        tma_load(dst, &map_x, kt * kDepth, m0, bar);
+        tma_load(dst + kBytesA, &map_w, n0, kt * kDepth, bar);
+        tma_load(dst + kBytesA + kBytesB / 2, &map_w, n0 + 64, kt * kDepth,
+                 bar);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    // stay until the consumers have released every stage
+    for (int s = 0; s < kStages; ++s) {
+      mbar_wait(empty + 8 * stage, phase ^ 1);
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  } else {
+    // ------------------------------------------- the consumers: 64 rows
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const bool lead = threadIdx.x % 128 == 0;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = t / tiles_n * kTile, n0 = t % tiles_n * kTile;
+      float d[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) d[i] = 0.f;
+      int prev = 0;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(full + 8 * stage, phase);
+        const uint32_t a = base + stage * kStageBytes + wg * (kBytesA / 2);
+        const uint32_t b = base + stage * kStageBytes + kBytesA;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kDepth / 16; ++kk) {
+          // x: +32 bytes a k step inside the 128-byte rows; SBO: 8 rows
+          // (1024 B).  w: +16 rows (2048 B) a k step; LBO: the second
+          // 64-column box (8192 B), SBO: 8 rows of k (1024 B)
+          wgmma_m64n128k16(d, wgmma_desc(a + kk * 32, 1, 64),
+                           wgmma_desc(b + kk * 2048, 512, 64));
+        }
+        wgmma_commit();
+        // the group of step kt - 1 is done: release its stage
+        wgmma_wait<1>();
+        if (kt > 0 && lead) mbar_arrive(empty + 8 * prev);
+        prev = stage;
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      if (lead) mbar_arrive(empty + 8 * prev);
+      // the accumulator, rounded to bf16, into this warpgroup's out tile
+      // (two 64 x 64 boxes in the 128-byte swizzle, so the 4-byte stores
+      // of a warp hit 32 distinct banks), then out by TMA.  Fragment:
+      // warp w holds rows 16 w .. 16 w + 15; per 8 columns j, d[4j],
+      // d[4j+1] at row lane / 4, columns 2 (lane % 4) and + 1; d[4j+2],
+      // d[4j+3] eight rows below.  The stores of the last tile must have
+      // read the tile before it is written again.
+      const uint32_t c = tile_c + wg * kBytesC;
+      if (lead) tma_store_wait_read();
+      warpgroup_sync(wg);
+      const int r = warp * 16 + lane / 4;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const uint32_t at = c + (j / 8) * (kBytesC / 2) + r * 128 +
+                            (((j % 8) ^ (r % 8)) * 16) + (lane % 4) * 4;
+        __nv_bfloat162 lo = __floats2bfloat162_rn(d[4 * j], d[4 * j + 1]);
+        __nv_bfloat162 hi =
+            __floats2bfloat162_rn(d[4 * j + 2], d[4 * j + 3]);
+        asm volatile("st.shared.b32 [%0], %1;\n"
+                     :: "r"(at), "r"(*reinterpret_cast<uint32_t*>(&lo)));
+        asm volatile("st.shared.b32 [%0], %1;\n"
+                     :: "r"(at + 8 * 128),
+                        "r"(*reinterpret_cast<uint32_t*>(&hi)));
+      }
+      // the generic proxy's writes, visible to TMA's
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      warpgroup_sync(wg);
+      if (lead) {
+        tma_store(&map_o, c, n0, m0 + wg * 64);
+        tma_store(&map_o, c + kBytesC / 2, n0 + 64, m0 + wg * 64);
+        tma_store_commit();
+      }
+    }
+    if (lead) tma_store_wait();
+  }
+}
 
-__global__ void __launch_bounds__(kThreads)
-chunk_mm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                     const __nv_bfloat16* __restrict__ w,
-                     __nv_bfloat16* __restrict__ out, int M, int K,
-                     long long ldx, long long ldw, long long ldo) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);  // [m][k]
-  __nv_bfloat16* Bs = As + kStages * kStageA;                   // [k][n]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;   // warp tile: 64 rows, 32 cols
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int nk = K / kBK16;
-  // k tile kt -> stage kt % kStages, by cp.async; rows past M are zero
-  auto load = [&](int kt) {
-    if (kt >= nk) return;
-    const int k0 = kt * kBK16, st = kt % kStages;
-    __nv_bfloat16* a = As + st * kStageA;
-    __nv_bfloat16* b = Bs + st * kStageB;
-    // x: 128 rows of 32 values = 4 vectors of 8 a row
-    for (int i = tid; i < kBM * 4; i += kThreads) {
-      const int r = i >> 2, c = (i & 3) * 8;
-      const bool ok = m0 + r < M;
-      cp_async16(a + r * kSA + c,
-                 ok ? x + (long long)(m0 + r) * ldx + k0 + c : x, ok);
-    }
-    // w: 32 rows of 128 values = 16 vectors a row
-    for (int i = tid; i < kBK16 * 16; i += kThreads) {
-      const int r = i >> 4, c = (i & 15) * 8;
-      cp_async16(b + r * kSB + c, w + (long long)(k0 + r) * ldw + n0 + c,
-                 true);
-    }
-  };
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-  // one commit group per k tile (empty past the end), so that "all but
-  // the newest kStages - 2 groups done" means tile kt has landed
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    load(s);
-    cp_async_commit();
+// ---------------------------------------------------------- tensor maps
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up in the libcuda the runtime loaded
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();
-    // tile kt is visible to every thread, and every thread is done with
-    // tile kt - 1, whose stage the next load refills
-    __syncthreads();
-    load(kt + kStages - 1);
-    cp_async_commit();
-    const int st = kt % kStages;
-    const __nv_bfloat16* A = As + st * kStageA +
-                             (wm * 64 + (lane & 15)) * kSA + (lane >> 4) * 8;
-    const __nv_bfloat16* B = Bs + st * kStageB + (lane & 15) * kSB +
-                             wn * 32 + (lane >> 4) * 8;
-#pragma unroll
-    for (int kk = 0; kk < kBK16; kk += 16) {
-      uint32_t af[4][4], bf[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) ldsm_x4(af[mt], A + mt * 16 * kSA + kk);
-#pragma unroll
-      for (int np = 0; np < 2; ++np)
-        ldsm_x4_t(bf[np], B + kk * kSB + np * 16);
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_bf16(acc[mt][nt], af[mt], bf[nt >> 1][(nt & 1) * 2],
-                   bf[nt >> 1][(nt & 1) * 2 + 1]);
-    }
-  }
-  cp_async_wait<0>();
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-    const int row = m0 + wm * 64 + mt * 16 + g;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = n0 + wn * 32 + nt * 8 + 2 * t;
-      if (row < M)
-        *reinterpret_cast<__nv_bfloat162*>(out + (long long)row * ldo + col) =
-            __floats2bfloat162_rn(acc[mt][nt][0], acc[mt][nt][1]);
-      if (row + 8 < M)
-        *reinterpret_cast<__nv_bfloat162*>(out + (long long)(row + 8) * ldo +
-                                           col) =
-            __floats2bfloat162_rn(acc[mt][nt][2], acc[mt][nt][3]);
-    }
-  }
+  return fn;
+}
+
+// a row-major bf16 [rows, cols] matrix with leading dimension ld, moved
+// in boxes of box_rows x box_cols (box_cols * 2 = 128 bytes, swizzled);
+// out-of-bounds elements read as 0 and are not written
+bool bf16_map(CUtensorMap* map, const void* base, long long rows,
+              long long cols, long long ld, int box_rows, int box_cols) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t steps[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+            const_cast<void*>(base), dims, strides, box, steps,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_bf16(const void* x, const void* w, void* out, int M, int K, int N,
+                long long ldx, long long ldw, long long ldo,
+                cudaStream_t st) {
+  CUtensorMap map_x, map_w, map_o;
+  if (!bf16_map(&map_x, x, M, K, ldx, kTile, kDepth) ||
+      !bf16_map(&map_w, w, K, N, ldw, kDepth, 64) ||
+      !bf16_map(&map_o, out, M, N, ldo, 64, 64))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(chunk_mm_bf16_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kSmemBf16);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = (M + kTile - 1) / kTile * (N / kTile);
+  chunk_mm_bf16_kernel<<<tiles < sms ? tiles : sms, kThreadsBf16, kSmemBf16,
+                         st>>>(map_x, map_w, map_o, M, K, N);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -284,29 +442,20 @@ chunk_mm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
 // (paddle_tpu_torch/ops/cuda/chunk_matmul.py).  dtype: 0 = float32,
 // 1 = bfloat16.  Leading dimensions in elements.  Returns 0, -1 for a
 // dtype or shape this file does not take, or the cudaError_t of the
-// launch.
+// launch (cudaErrorInvalidValue when no tensor map could be built).
 extern "C" int ptt_chunk_matmul(const void* x, const void* w, void* out,
                                 int M, int K, int N, long long ldx,
                                 long long ldw, long long ldo, int dtype,
                                 void* stream) {
-  if (M < 1 || K < kBK16 || K % kBK16 || N < kBN || N % kBN) return -1;
+  if (M < 1 || K < 32 || K % 32 || N < kTile || N % kTile) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(N / kBN, (M + kBM - 1) / kBM);
   if (dtype == 0) {
-    chunk_mm_f32_kernel<<<grid, kThreads, 0, st>>>(
+    const dim3 grid(N / f32_tile::kBN, (M + f32_tile::kBM - 1) / f32_tile::kBM);
+    chunk_mm_f32_kernel<<<grid, f32_tile::kThreads, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),
         static_cast<float*>(out), M, K, ldx, ldw, ldo);
-  } else if (dtype == 1) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        chunk_mm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kSmemBf16);
-    if (e != cudaSuccess) return (int)e;
-    chunk_mm_bf16_kernel<<<grid, kThreads, kSmemBf16, st>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w),
-        static_cast<__nv_bfloat16*>(out), M, K, ldx, ldw, ldo);
-  } else {
-    return -1;
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  if (dtype == 1) return launch_bf16(x, w, out, M, K, N, ldx, ldw, ldo, st);
+  return -1;
 }

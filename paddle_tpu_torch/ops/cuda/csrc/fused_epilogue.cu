@@ -1,7 +1,9 @@
 // Fused matmul epilogue for Hopper (sm_90a): forward and backward.
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/fused_epilogue.py:
-//   _fwd (body from _make_fwd_kernel)       -> epilogue_fwd_kernel
+//   _fwd (body from _make_fwd_kernel)       -> epilogue_fwd_f32_kernel
+//                                              (f32), epilogue_fwd_kernel
+//                                              (bf16)
 //   _bwd_call (body from _make_bwd_kernel)  -> epilogue_bwd_kernel and
 //                                              epilogue_grads_kernel
 //
@@ -24,18 +26,29 @@
 // an M.N epilogue; at f32 the products bound it (fc1: 38.65 GFLOP,
 // 0.58 ms at 67 TFLOP/s, against 47 MB moved, 0.014 ms).
 // What the design does about it:
-//   * one block of 256 threads owns 64 rows (32 with a layer_norm); it
-//     computes the f32 accumulator one rows x 128 tile at a time (k
-//     steps of 32, 16 for 32 rows, through shared memory, the next
-//     step's tiles loaded into registers while the current one is
-//     multiplied; at f32 a thread owns rows/8 x 4 outputs) into a
-//     shared-memory staging area;
-//   * chains without layer_norm give each block one 128-column tile (a
-//     2-D grid) and apply the epilogue straight from the staging tile;
-//   * the layer_norm stage needs whole rows: the block then walks all N
-//     columns and keeps the 32 x N pre-normalisation rows in shared
-//     memory (N <= 1536: 197 KB; two blocks an SM at N = 768), so the
-//     [M, N] intermediates never reach device memory;
+//   * the f32 forward (the main path's dtype) runs f32_tile.cuh's
+//     mainloop: one block of 256 threads a 128 x 128 tile, 8 x 8 outputs
+//     a thread, float4 loads, one barrier an 8-deep step; every element
+//     is one FMA chain over k = 0..K-1, bit for bit K6's f32 product.
+//     The stages run on the accumulators in registers and the results
+//     are stored from there.  A layer_norm needs whole rows: the blocks
+//     of one 128-row band then form one thread-block cluster along N
+//     (N / 128 blocks, up to 12 at N = 1536), and the row statistics
+//     take two rounds over distributed shared memory (the per-block row
+//     sums give the mean, then the sums of squared deviations give
+//     rstd; each block sums the cluster's partials in rank order, so
+//     every block gets the same statistics).  The [M, N] pre-norm
+//     values never reach device memory;
+//   * the bf16 forward (not on the main path) and the backward keep the
+//     TileGemm tiles below: one block of 256 threads owns 64 rows (32
+//     with a layer_norm); it computes the f32 accumulator one rows x 128
+//     tile at a time (k steps of 32, 16 for 32 rows, through shared
+//     memory, the next step's tiles loaded into registers while the
+//     current one is multiplied) into a shared-memory staging area;
+//     chains without layer_norm give each block one 128-column tile (a
+//     2-D grid); with a layer_norm the block walks all N columns and
+//     keeps the 32 x N pre-normalisation rows in shared memory (N <=
+//     1536: 197 KB; two blocks an SM at N = 768);
 //   * the backward is deterministic (no atomics: two runs agree bit for
 //     bit).  epilogue_bwd_kernel recomputes the accumulator for its rows,
 //     replays the stages, walks them back and writes g (rounded to w's
@@ -44,12 +57,18 @@
 //     epilogue_grads_kernel then computes 64 x 128 dx and dw tiles (each
 //     output element summed by one block in a fixed order) and sums the
 //     partials in row-block order.  Unlike the TPU kernel it writes g to
-//     device memory once and reads it back for the two products.
-// Not done yet (later work): wgmma/TMA, ldmatrix, a persistent schedule.
+//     device memory once and reads it back for the two products.  Its
+//     f32 tile sums each element in the same order as the forward's, so
+//     it replays the same accumulator.
+// Not done yet (later work): wgmma/TMA for bf16 and the backward, a
+// persistent schedule.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "f32_tile.cuh"
 
 namespace {
 
@@ -462,7 +481,7 @@ __device__ void accumulate_rows(const T* x, const T* w, long long row0,
   __syncthreads();
 }
 
-// ------------------------------------------------------------- forward
+// -------------------------------------------------------- forward, bf16
 // BM rows a block: 32 with a layer_norm (whole rows in shared memory),
 // 64 without
 template <typename T, int BM>
@@ -511,6 +530,194 @@ __global__ void __launch_bounds__(kThreads)
       z = fwd_stages(z, r, s + 1, r.n, row, j, N);
       out[row * N + j] = cvt<T>(z);
     }
+  }
+}
+
+// --------------------------------------------------------- forward, f32
+// Four consecutive values of operand ``slot`` at (row, col), as f32
+// (col a multiple of 4; the [N] vectors ignore the row).
+__device__ __forceinline__ float4 op4(const Recipe& r, int slot,
+                                      long long row, int col, int N) {
+  const long long i = r.full[slot] ? row * N + col : col;
+  if (r.bf16[slot]) {
+    const uint2 u = *reinterpret_cast<const uint2*>(
+        static_cast<const __nv_bfloat16*>(r.ops[slot]) + i);
+    const float2 lo =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 hi =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  return *reinterpret_cast<const float4*>(
+      static_cast<const float*>(r.ops[slot]) + i);
+}
+
+__device__ __forceinline__ void add4(float* v, float4 o) {
+  v[0] += o.x;
+  v[1] += o.y;
+  v[2] += o.z;
+  v[3] += o.w;
+}
+
+__device__ __forceinline__ void put4(float* v, float4 o) {
+  v[0] = o.x;
+  v[1] = o.y;
+  v[2] = o.z;
+  v[3] = o.w;
+}
+
+// stages [from, to) (none of them a layer_norm) on a thread's 8 x 8
+// values: rows m0 + row_of(ty, i), columns c[0] + 0..3 and c[1] + 0..3.
+// The same arithmetic as fwd_stages, element by element.
+__device__ void tile_stages(float (&v)[8][8], const Recipe& r, int from,
+                            int to, int m0, int ty, const int (&c)[2], int M,
+                            int N) {
+  for (int s = from; s < to; ++s) {
+    const int kind = r.kind[s];
+    if (kind == kRelu) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[i][j] = fmaxf(v[i][j], 0.f);
+    } else if (kind == kGelu) {
+      const int approx = r.approx[s];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[i][j] = gelu_f(v[i][j], approx);
+    } else if (kind == kBias || kind == kAdd) {
+      const int k = r.op0[s];
+      if (!r.full[k]) {
+        const float4 a = op4(r, k, 0, c[0], N), b = op4(r, k, 0, c[1], N);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          add4(v[i], a);
+          add4(v[i] + 4, b);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int row = m0 + f32_tile::row_of(ty, i);
+          if (row >= M) continue;
+          add4(v[i], op4(r, k, row, c[0], N));
+          add4(v[i] + 4, op4(r, k, row, c[1], N));
+        }
+      }
+    }
+  }
+}
+
+// a thread's 8 row values summed over the 16 threads of its row group
+// (one half-warp), into part[row]
+__device__ __forceinline__ void row_partials(float (&p)[8], int tx, int ty,
+                                             float* part) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float s = p[i];
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (tx == 0) part[f32_tile::row_of(ty, i)] = s;
+  }
+}
+
+// The cluster's sum of part[row] over its blocks, in rank order.
+__device__ __forceinline__ float cluster_sum(
+    cooperative_groups::cluster_group& cluster, float* part, int row) {
+  float t = 0.f;
+  const int n = (int)cluster.num_blocks();
+  for (int q = 0; q < n; ++q) t += cluster.map_shared_rank(part, q)[row];
+  return t;
+}
+
+// Block (bx, by) computes out's 128 x 128 tile at rows 128 by, columns
+// 128 bx; two blocks an SM (at most 128 registers a thread).  With LN
+// the launch makes the N / 128 blocks of a row band one cluster, which
+// joins the layer_norm rows.
+template <bool LN>
+__global__ void __launch_bounds__(f32_tile::kThreads, 2)
+    epilogue_fwd_f32_kernel(const float* __restrict__ x,
+                            const float* __restrict__ w,
+                            float* __restrict__ out, int M, int K, int N,
+                            Recipe r) {
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * f32_tile::kBM, n0 = blockIdx.x * f32_tile::kBN;
+  const int c[2] = {n0 + tx * 4, n0 + 64 + tx * 4};
+  float v[8][8];
+  f32_tile::mainloop(x, w, M, K, K, N, m0, n0, v);
+  tile_stages(v, r, 0, LN ? r.ln : r.n, m0, ty, c, M, N);
+  if constexpr (LN) {
+    __shared__ float sums[f32_tile::kBM], squares[f32_tile::kBM];
+    __shared__ float mean_s[f32_tile::kBM], rstd_s[f32_tile::kBM];
+    cooperative_groups::cluster_group cluster =
+        cooperative_groups::this_cluster();
+    const int s = r.ln;
+    // round 1: the row sums give the mean
+    float p[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      p[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) p[i] += v[i][j];
+    }
+    row_partials(p, tx, ty, sums);
+    cluster.sync();
+    if (tid < f32_tile::kBM)
+      mean_s[tid] = cluster_sum(cluster, sums, tid) / N;
+    __syncthreads();
+    float mu[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) mu[i] = mean_s[f32_tile::row_of(ty, i)];
+    // round 2: the sums of squared deviations give rstd
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      p[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float d = v[i][j] - mu[i];
+        p[i] += d * d;
+      }
+    }
+    row_partials(p, tx, ty, squares);
+    cluster.sync();
+    if (tid < f32_tile::kBM)
+      rstd_s[tid] =
+          rsqrtf(cluster_sum(cluster, squares, tid) / N + r.eps[s]);
+    // no block leaves (or reuses its partials) while another reads them
+    cluster.sync();
+    // the affine: weight and bias at the thread's 8 columns
+    const bool has_g = r.op0[s] >= 0, has_b = r.op1[s] >= 0;
+    float gv[8], bv[8];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 g = has_g ? op4(r, r.op0[s], 0, c[h], N)
+                             : make_float4(1.f, 1.f, 1.f, 1.f);
+      const float4 b = has_b ? op4(r, r.op1[s], 0, c[h], N)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      put4(gv + 4 * h, g);
+      put4(bv + 4 * h, b);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float rstd = rstd_s[f32_tile::row_of(ty, i)];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float z = (v[i][j] - mu[i]) * rstd;
+        if (has_g) z *= gv[j];
+        if (has_b) z += bv[j];
+        v[i][j] = z;
+      }
+    }
+    tile_stages(v, r, s + 1, r.n, m0, ty, c, M, N);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + f32_tile::row_of(ty, i);
+    if (row >= M) continue;
+    float* o = out + (long long)row * N;
+    *reinterpret_cast<float4*>(o + c[0]) =
+        make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
+    *reinterpret_cast<float4*>(o + c[1]) =
+        make_float4(v[i][4], v[i][5], v[i][6], v[i][7]);
   }
 }
 
@@ -716,6 +923,43 @@ int launch(Kern kern, dim3 grid, size_t smem, cudaStream_t st,
   return (int)cudaGetLastError();
 }
 
+// The f32 forward: one block a 128 x 128 tile, a 2-D grid (columns,
+// rows); with a layer_norm the N / 128 blocks of a row band form one
+// cluster (more than 8 only as a non-portable size, up to 12 at
+// MAX_LN_N = 1536).
+int launch_fwd_f32(const float* x, const float* w, float* out, int M, int K,
+                   int N, const Recipe& r, cudaStream_t st) {
+  if (K % f32_tile::kBK) return (int)cudaErrorInvalidValue;
+  const dim3 grid(N / f32_tile::kBN, (M + f32_tile::kBM - 1) / f32_tile::kBM);
+  if (r.ln < 0) {
+    epilogue_fwd_f32_kernel<false><<<grid, f32_tile::kThreads, 0, st>>>(
+        x, w, out, M, K, N, r);
+    return (int)cudaGetLastError();
+  }
+  const unsigned cluster = grid.x;
+  if (cluster > 8) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        epilogue_fwd_f32_kernel<true>,
+        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(f32_tile::kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, epilogue_fwd_f32_kernel<true>, x, w, out, M, K, N, r);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 f32, 1 bf16 (x, w, dy, out, g, dx)
@@ -729,33 +973,23 @@ extern "C" int ptt_epilogue_fwd(const void* x, const void* w, void* out,
                        n_ops);
   if (rc) return rc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (r.ln >= 0) {
-    const dim3 grid((M + kBM - 1) / kBM, 1);
-    const size_t smem = tile_bytes<kBM>() + span_bytes(r, N, kBM);
-    if (dtype == 0)
-      return launch(epilogue_fwd_kernel<float, kBM>, grid, smem, st,
-                    static_cast<const float*>(x),
-                    static_cast<const float*>(w), static_cast<float*>(out),
-                    M, K, N, r);
-    if (dtype == 1)
-      return launch(epilogue_fwd_kernel<__nv_bfloat16, kBM>, grid, smem, st,
-                    static_cast<const __nv_bfloat16*>(x),
-                    static_cast<const __nv_bfloat16*>(w),
-                    static_cast<__nv_bfloat16*>(out), M, K, N, r);
-    return (int)cudaErrorInvalidValue;
-  }
-  const dim3 grid((M + kGM - 1) / kGM, N / kBN);
-  const size_t smem = tile_bytes<kGM>() + span_bytes(r, N, kGM);
   if (dtype == 0)
-    return launch(epilogue_fwd_kernel<float, kGM>, grid, smem, st,
-                  static_cast<const float*>(x), static_cast<const float*>(w),
-                  static_cast<float*>(out), M, K, N, r);
-  if (dtype == 1)
-    return launch(epilogue_fwd_kernel<__nv_bfloat16, kGM>, grid, smem, st,
-                  static_cast<const __nv_bfloat16*>(x),
-                  static_cast<const __nv_bfloat16*>(w),
-                  static_cast<__nv_bfloat16*>(out), M, K, N, r);
-  return (int)cudaErrorInvalidValue;
+    return launch_fwd_f32(static_cast<const float*>(x),
+                          static_cast<const float*>(w),
+                          static_cast<float*>(out), M, K, N, r, st);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(w);
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
+  if (r.ln >= 0)
+    return launch(epilogue_fwd_kernel<__nv_bfloat16, kBM>,
+                  dim3((M + kBM - 1) / kBM, 1),
+                  tile_bytes<kBM>() + span_bytes(r, N, kBM), st, xb, wb, ob,
+                  M, K, N, r);
+  return launch(epilogue_fwd_kernel<__nv_bfloat16, kGM>,
+                dim3((M + kGM - 1) / kGM, N / kBN),
+                tile_bytes<kGM>() + span_bytes(r, N, kGM), st, xb, wb, ob, M,
+                K, N, r);
 }
 
 // partial: [ceil(M / 32) * 2][n_ops][N] f32 (see ptt_epilogue_partials)

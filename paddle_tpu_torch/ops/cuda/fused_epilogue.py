@@ -19,12 +19,14 @@ accumulator, ``("bias",)``, ``("relu",)``, ``("gelu", approximate)``,
 ``("add",)``, ``("layer_norm", eps, has_w, has_b)``, with ``ops`` the
 operands they consume in order (``[1, N]`` vectors, ``[M, N]``
 residuals).  On this card a recipe takes at most one ``layer_norm``,
-and a ``layer_norm`` recipe at most :data:`MAX_LN_N` columns (the block
-keeps its rows whole in shared memory).
+and a ``layer_norm`` recipe at most :data:`MAX_LN_N` columns: at f32 the
+forward joins a row over a cluster of N / 128 blocks (12 at most), at
+bf16 and in the backward one block keeps its rows whole in shared
+memory.
 
-Every tensor must be a contiguous CUDA tensor the kernels take (x and w
-of one dtype, f32 or bf16; N a multiple of 128); anything else raises
-``ValueError``.
+Every tensor must be a contiguous, 16-byte aligned CUDA tensor the
+kernels take (x and w of one dtype, f32 or bf16; K a multiple of 8 and
+N of 128, as the gate asks); anything else raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -41,7 +43,8 @@ __all__ = ["fused_epilogue_fwd", "fused_epilogue_bwd",
 
 KERNELS = ("fused_epilogue_fwd", "fused_epilogue_bwd",
            "fused_epilogue_bwd_grads")
-# the widest layer_norm row a block keeps in shared memory (32 x 1536 f32)
+# the widest layer_norm row: a cluster of 12 blocks (f32 forward), or
+# 32 x 1536 f32 rows in one block's shared memory (bf16, backward)
 MAX_LN_N = 1536
 _MAX_STAGES = 8
 _CODES = {"bias": 0, "relu": 1, "gelu": 2, "add": 3, "layer_norm": 4}
@@ -63,7 +66,10 @@ def _check(fn, x, w, ops, stages, dy=None):
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"{fn}: x must be [M, K] and w [K, N], got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
-    m, n = x.shape[0], w.shape[1]
+    m, k, n = x.shape[0], x.shape[1], w.shape[1]
+    if m < 1 or k < 8 or k % 8 or n % 128 or n < 128:
+        raise ValueError(f"{fn}: needs M >= 1, K a multiple of 8 and N a "
+                         f"multiple of 128 (M={m} K={k} N={n})")
     named = [("x", x), ("w", w)] + ([("dy", dy)] if dy is not None else [])
     for name, t in named + [(f"operand {i}", o) for i, o in enumerate(ops)]:
         if t.device.type != "cuda" or t.device != x.device:
@@ -72,16 +78,14 @@ def _check(fn, x, w, ops, stages, dy=None):
         if not support.dtype_ok(t.dtype):
             raise ValueError(f"{fn}: {name} dtype {t.dtype} (f32 or bf16 "
                              f"only)")
-        if not t.is_contiguous():
-            raise ValueError(f"{fn}: {name} must be contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} must be contiguous and 16-byte "
+                             f"aligned")
     if w.dtype != x.dtype or (dy is not None and dy.dtype != x.dtype):
         raise ValueError(f"{fn}: x, w and dy must share one dtype")
     if dy is not None and tuple(dy.shape) != (m, n):
         raise ValueError(f"{fn}: dy has shape {tuple(dy.shape)}, expected "
                          f"{(m, n)}")
-    if m < 1 or x.shape[1] < 1 or n % 128 or n < 128:
-        raise ValueError(f"{fn}: needs M, K >= 1 and N a multiple of 128 "
-                         f"(M={m} K={x.shape[1]} N={n})")
     if len(stages) > _MAX_STAGES or len(ops) > _MAX_STAGES:
         raise ValueError(f"{fn}: at most {_MAX_STAGES} stages and operands")
     n_ln = sum(st[0] == "layer_norm" for st in stages)

@@ -5,10 +5,16 @@
   into one shared library with a plain C interface, at first use, into
   ``build/paddle_tpu_torch_kernels/`` at the repository root (listed in
   ``.gitignore``).  The library's name carries a hash of the
-  sources and flags, so an edited source rebuilds and an unchanged one
-  is loaded as it is.  Python binds it with ``ctypes``: no PyTorch
-  header is compiled, which keeps the build to seconds.  Nothing here
-  builds or imports a compiler when the module is imported.
+  sources, the headers they share (``csrc/*.cuh``) and the flags, so an
+  edited source rebuilds and an unchanged one is loaded as it is.
+  Python binds it with ``ctypes``: no PyTorch header is compiled, which
+  keeps the build to seconds.  Nothing links against libcuda (no
+  ``-lcuda``): the one libcuda function a kernel needs,
+  ``cuTensorMapEncodeTiled`` (K6's TMA descriptors), is fetched at run
+  time through ``cudaGetDriverEntryPoint``.  Thread-block clusters (K2f's
+  layer_norm chains) are launched with ``cudaLaunchKernelEx``, from the
+  runtime too.  Nothing here builds or imports a compiler when the
+  module is imported.
 - **gates**: :func:`dtype_ok` — f32 and bf16, the two types every
   kernel accumulates from in f32.
 - **entry points**: ``ptt_paged_decode`` (``paged_attention.cu``),
@@ -162,8 +168,9 @@ def load_library() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         sources = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+        headers = sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in sources:
+        for src in sources + headers:
             with open(src, "rb") as f:
                 h.update(f.read())
         os.makedirs(BUILD_DIR, exist_ok=True)

@@ -8,7 +8,14 @@ Every rank runs the same step on the same global batch:
 - forward and backward run with the tensor-parallel layers and ring
   attention writing out their own collectives over 'mp' and 'sp';
 - every gradient is averaged over 'dp' (:func:`.data_parallel.
-  allreduce_gradients`), and so is the returned loss.
+  allreduce_gradients`), and so is the returned loss;
+- at dp > 1 every random draw of the step (dropout masks, the flash
+  kernels' dropout seeds) comes from the 'dp' rank's own stream
+  (``core.rng.fold_in``), as the JAX package folds ``axis_index('dp')``
+  into its dropout key: each dp shard of the batch gets its own masks,
+  deterministic per (seed, dp rank), while the 'mp' and 'sp' ranks of
+  one dp group draw the same masks, as their replicated activations
+  need.
 
 Parameters replicated over 'mp' and 'sp' need no further reduction: the
 computation that feeds them is replicated there too (each TP layer's
@@ -23,6 +30,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+from ..core import rng
 from ..distributed.collective import ReduceOp, all_reduce, axis_group
 from ..distributed.mesh import DP_AXIS, ensure_mesh
 from ..distributed.strategy import DistributedStrategy, validate_toggles
@@ -47,6 +55,12 @@ class SpmdTrainStep(TrainStep):
         self.mesh = mesh or ensure_mesh()
         self.strategy = strategy
         self.dp = axis_group(DP_AXIS, self.mesh)
+
+    def __call__(self, *batch):
+        if self.dp.nranks == 1:
+            return super().__call__(*batch)
+        with rng.fold_in(self.dp.rank):
+            return super().__call__(*batch)
 
     def _prepare_batch(self, batch):
         n, r = self.dp.nranks, self.dp.rank

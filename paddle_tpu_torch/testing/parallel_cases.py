@@ -289,6 +289,40 @@ def case_gpt(data, device):
     return out
 
 
+def case_dp_dropout(data, device):
+    """The small hybrid GPT at dropout 0.5 on {"dp": 2, "mp": 2}, fed a
+    batch whose two dp halves are identical: each rank's own loss (before
+    the 'dp' average) over 2 SpmdTrainSteps.  Equal losses across dp
+    would mean equal masks."""
+    from .. import optimizer
+    from ..core import rng
+    from ..distributed.mesh import init_mesh
+    from ..parallel import SpmdTrainStep
+    from .models import build_gpt_hybrid, gpt_loss
+    cfg = {k: int(data[f"cfg.{k}"]) for k in
+           ("vocab", "hidden", "layers", "heads", "ffn", "seq")}
+    mesh = init_mesh({"dp": 2, "mp": 2})
+    rng.seed(2024)
+    model = build_gpt_hybrid(cfg["vocab"], cfg["hidden"], cfg["layers"],
+                             cfg["heads"], cfg["ffn"], cfg["seq"], 0.5,
+                             device=device)
+    local = []
+
+    class Step(SpmdTrainStep):
+        def _reduce_loss(self, loss):
+            local.append(float(loss))
+            return super()._reduce_loss(loss)
+
+    step = Step(model, gpt_loss(model), optimizer.AdamW(
+        learning_rate=2e-4, parameters=model.parameters()), mesh=mesh)
+    half = len(data["gx"]) // 2
+    x, y = (_t(np.concatenate([data[k][:half]] * 2), device)
+            for k in ("gx", "gy"))
+    for _ in range(2):
+        step(x, y)
+    return {"local_losses": np.asarray(local)}
+
+
 def case_gpt_multicard(data, device):
     """The multi-card phase of ``chip_smoke.py``: the hybrid GPT at the
     mesh and widths ``data`` names, from seeded weights, for ``steps``
@@ -316,7 +350,8 @@ CASES = {"collectives": case_collectives, "two_card": case_two_card,
          "gpt_multicard": case_gpt_multicard,
          "collective_matmul": case_collective_matmul,
          "ring_attention": case_ring_attention,
-         "tp_layers": case_tp_layers, "gpt": case_gpt}
+         "tp_layers": case_tp_layers, "gpt": case_gpt,
+         "dp_dropout": case_dp_dropout}
 
 
 def exit_on_rank(rank: int, code: int, wait_s: float):

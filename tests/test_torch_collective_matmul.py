@@ -7,9 +7,9 @@ to paddle_tpu's.
 - The fused collective matmuls at axis size 1 (one chunk product).
   Their multi-rank cases run in ``test_torch_distributed.py``, inside
   the one spawn of gloo ranks that all multi-rank tests share.
-- K6 on the card (``-m cuda``): ragged shapes at the gate's edges, f32
-  and bf16, and its column blocks bitwise equal to K6 on the whole
-  weight.
+- K6 on the card (``-m cuda``): ragged M and K at the gate's edges, a
+  row-strided x written into a column block of a wider out, f32 and
+  bf16, and its column blocks bitwise equal to K6 on the whole weight.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -112,10 +112,12 @@ def _cuda():
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("m,k,n", [(8, 128, 128), (1000, 384, 640),
-                                   (264, 1792, 896)])
+                                   (264, 1792, 896), (1000, 96, 640),
+                                   (8, 32, 256)])
 def test_cuda_kernel_matches_the_plain_version(dtype, tol, m, k, n):
     """K6 at the gate's edges (M 8, the smallest; M not a multiple of the
-    128-row tile), against the plain version, as max |a - b| / max(1,
+    128-row tile; K 96 and 32, not multiples of the 64-deep bf16 tile),
+    against the plain version, as max |a - b| / max(1,
     max |b|): f32 summed in another order, bf16 rounded once either
     side.  Its column blocks are bitwise equal to K6 on the whole
     weight, written in place into a wider output."""
@@ -139,6 +141,29 @@ def test_cuda_kernel_matches_the_plain_version(dtype, tol, m, k, n):
     assert torch.equal(out[:, n:], got)
     assert torch.isnan(out[:, :n].float()).all()
     assert support.launch_counts["chunk_matmul"] == before + 1 + n // 128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_cuda_kernel_reads_strided_x_and_writes_a_column_block(dtype, tol):
+    """x a row-strided view (ldx 384 > K 96, the row-parallel form's
+    slice) and out a column block of a wider output (ldo 1280 > N 640):
+    the product lands in its block and nothing else is written."""
+    _cuda()
+    from paddle_tpu_torch.ops.cuda import chunk_matmul as kernel
+    g = torch.Generator(device="cuda").manual_seed(4)
+    wide = torch.randn(1000, 384, device="cuda", generator=g).to(dtype)
+    w = torch.randn(96, 640, device="cuda", generator=g).to(dtype)
+    x = wide[:, 64:160]
+    out = torch.full((1000, 1280), float("nan"), device="cuda", dtype=dtype)
+    kernel.chunk_matmul(x, w, out[:, 640:])
+    ref = cm.chunk_matmul_reference(x, w)
+    torch.cuda.synchronize()
+    err = (out[:, 640:].float() - ref.float()).abs().max() / ref.float(
+    ).abs().max().clamp_min(1)
+    assert err.item() <= tol, err.item()
+    assert torch.isnan(out[:, :640].float()).all()
 
 
 @pytest.mark.cuda

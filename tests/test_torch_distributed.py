@@ -37,7 +37,12 @@ tests:
   ``TrainStep`` over ``bench.build_gpt`` (the same composition on one
   device) from the same weights and batch: losses rtol 2e-5 (f32
   forward and backward in other orders, then AdamW), and the replicated
-  parameters bit-identical across the mp and sp ranks.
+  parameters bit-identical across the mp and sp ranks;
+- dropout across 'dp': the same model at dropout 0.5 on {"dp": 2,
+  "mp": 2}, both dp halves of the batch identical: the dp ranks' own
+  losses differ (each dp rank draws its own masks, as the JAX package
+  folds the dp index into its dropout key) and the mp ranks of each dp
+  group agree bit for bit (one dp group draws one set of masks).
 
 Single-process tests cover the strategy toggles, the launcher's
 failure handling and the device defaults.
@@ -77,7 +82,7 @@ CMM_TOL = dict(rtol=1e-5, atol=1e-4)
 RING = dict(B=2, L=32, H=2)                # ring inputs [B, L, H, D]
 RING_TOL = dict(rtol=1e-5, atol=5e-6)
 CASES = ["collectives", "data_parallel", "tp_layers", "gpt",
-         "collective_matmul", "ring_attention"]
+         "collective_matmul", "ring_attention", "dp_dropout"]
 
 
 def _bench():
@@ -431,6 +436,17 @@ def test_hybrid_gpt_trajectory_matches_the_jax_train_step(ranks):
     for name in ("tok.weight", "blocks.1.ln2.weight", "ln_f.bias"):
         np.testing.assert_allclose(res[0][f"gpt/param.{name}"], jw[name],
                                    rtol=0, atol=2e-5, err_msg=name)
+
+
+def test_dropout_masks_differ_across_dp_and_agree_across_mp(ranks):
+    """Rank 2 dp + mp.  Both dp halves of the batch are the same tokens,
+    so only the masks can tell the dp ranks' losses apart."""
+    _, _, _, res = ranks
+    losses = [rr["dp_dropout/local_losses"] for rr in res]
+    assert all(len(l) == 2 and np.isfinite(l).all() for l in losses)
+    for dp in range(2):
+        np.testing.assert_array_equal(losses[2 * dp], losses[2 * dp + 1])
+    assert (losses[0] != losses[2]).all()
 
 
 # -------------------------------------------------- single process

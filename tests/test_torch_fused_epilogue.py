@@ -7,7 +7,8 @@
   max(1, max |ref|) (f32 sums in another order).
 - bf16, and the gate against paddle_tpu's on its cases.
 - ``cuda``-marked: the CUDA kernels (K2f, K2b) against the plain
-  versions on the card.
+  versions on the card; the f32 forward's layer_norm over clusters of
+  1-12 blocks, and its zero-bias product bit for bit against K6's.
 """
 import jax
 import jax.numpy as jnp
@@ -232,6 +233,50 @@ def test_cuda_kernels_match_the_plain_versions(stages, dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("blocks", range(1, 13))
+def test_cuda_forward_joins_layer_norm_rows_over_a_cluster(blocks):
+    """The f32 forward of an add + layer_norm recipe at N = 128 x blocks:
+    a cluster of 1-12 blocks joins each row's statistics.  Ragged rows
+    (200) and a depth off the 128 tile (72); f32 sums in another order,
+    as above."""
+    _cuda()
+    stages = RECIPES[5]
+    x, w, b, ops = _case(stages, seed=5, M=(8, 25), K=72, N=128 * blocks)
+    dev = [torch.from_numpy(a).cuda() for a in (x, w, b, *ops)]
+    before = torch_cuda.support.launch_counts.get("fused_epilogue_fwd", 0)
+    got = fe.fused_linear_epilogue(dev[0], dev[1], dev[2], stages, dev[3:])
+    ref = fe.fused_linear_epilogue(*(t.cpu() for t in dev[:3]), stages,
+                                   [t.cpu() for t in dev[3:]])
+    torch.cuda.synchronize()
+    assert _rel(got.cpu().numpy(), ref.numpy()) <= 2e-5
+    assert torch_cuda.support.launch_counts["fused_epilogue_fwd"] == \
+        before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(200, 72, 256), (8, 8, 128),
+                                   (1000, 264, 640)])
+def test_cuda_forward_sums_as_k6_does(m, k, n):
+    """The f32 forward with a zero bias equals K6's f32 product bit for
+    bit: one FMA chain over k in order for every element."""
+    _cuda()
+    from paddle_tpu_torch.ops.cuda import chunk_matmul as k6
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(m, k, device="cuda", generator=g)
+    w = torch.randn(k, n, device="cuda", generator=g)
+    k32 = -(-k // 32) * 32     # K6 takes K % 32: zeros add +0 to the chain
+    xp = torch.zeros(m, k32, device="cuda")
+    wp = torch.zeros(k32, n, device="cuda")
+    xp[:, :k], wp[:k] = x, w
+    out = cuda_epi.fused_epilogue_fwd(x, w, [torch.zeros(1, n,
+                                                         device="cuda")],
+                                      (("bias",),))
+    ref = k6.chunk_matmul(xp, wp)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
 def test_cuda_kernel_rejects_what_it_does_not_take():
     _cuda()
     x, w = torch.zeros(8, 16, device="cuda"), torch.zeros(16, 100,
@@ -241,3 +286,8 @@ def test_cuda_kernel_rejects_what_it_does_not_take():
     w = torch.zeros(16, 128, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="one dtype"):
         cuda_epi.fused_epilogue_fwd(x, w, [], ())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        cuda_epi.fused_epilogue_fwd(x[:, :12], w[:12].float(), [], ())
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_epi.fused_epilogue_fwd(torch.zeros(8 * 16 + 1, device="cuda")[
+            1:].view(8, 16), w.float(), [], ())

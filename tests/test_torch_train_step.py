@@ -234,6 +234,37 @@ def test_rng_seed_state_and_per_call_seeds():
     assert rng.next_seed() == nxt
 
 
+def _draws(rng):
+    """3 host seeds and 3 device draws (the CPU's generator)."""
+    bits = torch.randint(0, 2 ** 16, (3,), generator=rng.generator("cpu"))
+    return [rng.next_seed() for _ in range(3)], bits.tolist()
+
+
+def test_rng_fold_in_streams_are_per_key_and_resume():
+    """The data-parallel step's streams: one per (seed, key), each apart
+    from the others and from the seed's own, continued at the next
+    entry; the seed's own stream is untouched by them."""
+    from paddle_tpu_torch.core import rng
+    rng.seed(11)
+    own = _draws(rng)
+    rng.seed(11)
+    with rng.fold_in(0):
+        k0 = _draws(rng)
+    with rng.fold_in(1):
+        k1 = _draws(rng)
+    assert _draws(rng) == own
+    with rng.fold_in(0):
+        k0_next = _draws(rng)
+    assert k0 != k1 and k0 != k0_next and k0 != own
+    rng.seed(11)
+    with rng.fold_in(0):
+        assert _draws(rng) == k0
+        assert _draws(rng) == k0_next
+    rng.seed(12)
+    with rng.fold_in(0):
+        assert _draws(rng) != k0
+
+
 def test_clip_of_bf16_grads_sums_the_norm_in_f32():
     """A difference from paddle_tpu, at bf16 only: paddle_tpu squares and
     sums bf16 grads in bf16 and returns bf16 clipped grads; the port sums
