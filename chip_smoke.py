@@ -9,7 +9,10 @@ kernel from the sources in this checkout.  Phases, each fatal:
 1. environment: card, power limit, versions, TF32 off, kernel build;
 2. the paged-decode kernel against its plain PyTorch version on the
    card, at the shapes the serving path gives it, with times and bounds;
-3. a small serving model on the card against the same model on the CPU;
+3. a small serving model on the card against the same model on the CPU,
+   and the GPT ``760m`` widths (head dim 96) at 2 layers, served on the
+   card by the plain paged attention (no kernel instance, no launch)
+   against the CPU, then 4 requests through the engine;
 4. full-width serving: ``PagedDecoderLM`` at the GPT ``1b`` widths of
    ``bench.py`` (vocab 50257, hidden 1792, 24 layers, 14 heads, ffn
    7168; random weights from a seed) behind ``GenerationEngine`` and
@@ -18,10 +21,13 @@ kernel from the sources in this checkout.  Phases, each fatal:
    time on the host's clock, and the card's busy time by kernel from
    ``torch.profiler``;
 6. the three flash-attention kernels (forward, dQ, dK/dV) against their
-   plain versions through the autograd Function: f32 and bf16, causal
-   and not, dropout 0 and 0.1, at BERT-base's attention shape and a
-   D=128 and a ragged case; the dropout mask's kept fraction; times
-   beside the bound, the plain version and SDPA's flash backend;
+   plain versions through the autograd Function: every head dim (32,
+   64, 96, 128), f32 and bf16, causal and not, dropout 0 and 0.1, at
+   BERT-base's attention shape (D 64) and smaller ones, the GPT shapes
+   and a ragged case; the dropout mask's kept fraction; times beside the
+   bound, the plain version and one SDPA call at BERT-base's shape
+   (bf16), the GPT 760m preset's (D 96, bf16) and the static step's
+   (f32, against SDPA's memory-efficient backend);
 7. a small BERT (``bench_bert``'s CPU widths, f32, dropout 0) trained 3
    ``TrainStep``s on the card and on the CPU from the same weights;
 8. full-width training: ``bench_bert``'s chip config (BERT-base, batch
@@ -52,7 +58,8 @@ kernel from the sources in this checkout.  Phases, each fatal:
     beside the bound, the plain version and ``torch.matmul``;
 15. the flash kernels through ``flash_attention_block``, forward and
     backward with a nonzero lse cotangent, at the ring's four offset
-    cases (diagonal, visible, fully masked, non-causal), f32 and bf16;
+    cases (diagonal, visible, fully masked, non-causal), f32 and bf16,
+    at every head dim;
     the ring's rounds and merges composed over 2 and 4 virtual shards
     against ``flash_attention`` on the whole sequence; times;
 16. one rank over a process group with gloo (CPU) and NCCL (card): the
@@ -115,6 +122,12 @@ EPI = "paddle_tpu/ops/pallas/fused_epilogue.py"
 EPI_KERNELS = {"fused_epilogue_fwd": f"{EPI}:195",         # _fwd
                "fused_epilogue_bwd": f"{EPI}:284",         # _bwd_call
                "fused_epilogue_bwd_grads": f"{EPI}:284"}
+EPI_LIBRARY_CALLS = {
+    "fused_epilogue_fwd": "torch._addmm_activation(bias, x, w, "
+                          "use_gelu=True), fc1 chain only",
+    "fused_epilogue_bwd": "torch.matmul(x, w): the product only",
+    "fused_epilogue_bwd_grads": "torch.matmul(g, w.t()) + "
+                                "torch.matmul(x.t(), g)"}
 ADAM_SITE = "paddle_tpu/ops/pallas/fused_adam.py:65"     # fused_adam_update
 # kernel vs plain, as max |a - b| / max(1, max |b|): f32 products and
 # row sums taken in another order (K up to 3072, dw over 8192 rows);
@@ -128,6 +141,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # widths of the same model
 GPT_TRAIN = dict(vocab=50257, hidden=1792, layers=24, heads=14, ffn=7168,
                  seq=1024, batch=8, dropout=0.1)
+# bench.py:317 (_GPT_PRESETS["760m"]): head dim 96
+GPT_760M = dict(vocab=50257, hidden=1536, layers=24, heads=16, ffn=6144,
+                seq=1024, dropout=0.1)
 GPT_SMALL = dict(vocab=1000, hidden=128, layers=2, heads=4, ffn=512,
                  seq=64, batch=4, dropout=0.0)
 CMM_SITE = "paddle_tpu/ops/pallas/collective_matmul.py:44"  # _mm_kernel
@@ -170,6 +186,24 @@ def cuda_ms(fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _kernel_name(key):
+    """A flash kernel's name in a profiler key (mangled or not), without
+    namespace, template arguments and parameters."""
+    import re
+    m = re.search(r"flash_(fwd|bwd_dq|bwd_dkv)(_wgmma)?_kernel", key)
+    return m.group(0) if m else key[:80]
+
+
+def _assert_wgmma_flash(flash):
+    """A bf16 step's flash launches ran the wgmma + TMA kernels: the
+    profiler names these three and no other flash kernel."""
+    names = sorted(flash)
+    want = ["flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+            "flash_fwd_wgmma_kernel"]
+    if names != want:
+        raise AssertionError(f"flash kernels seen {names}, want {want}")
 
 
 # ---------------------------------------------------------------- phase 1
@@ -281,24 +315,23 @@ def phase_kernels():
 
 
 # ---------------------------------------------------------------- phase 3
-def phase_small_model_parity():
-    """The same small model (head_dim 128, GQA 4/2) on the card and on
-    the CPU: prefill and three decode steps, logits rtol/atol 1e-4 (f32
-    products summed in other orders by cuBLAS, the kernel and the CPU)."""
-    import torch
+def _card_vs_cpu_logits(torch, geom, head_dim):
+    """The same PagedDecoderLM (weights from the CPU copy) on the card
+    and on the CPU: prefill of 37 tokens and three decode steps; the
+    logits of every call, as f32 CPU tensors, per device."""
     from paddle_tpu_torch.serving import KVCacheConfig, PagedDecoderLM
     from paddle_tpu_torch.serving.kv_cache import PagePool
-    geom = dict(vocab_size=512, hidden=512, num_layers=2, num_heads=4,
-                num_kv_heads=2, seed=5)
     cpu = PagedDecoderLM(device="cpu", **geom)
     gpu = PagedDecoderLM(device="cuda", **geom)
     gpu.load_state_dict({k: v.cuda() for k, v in cpu.state_dict().items()})
     outs = {}
     for dev, lm in (("cpu", cpu), ("cuda", gpu)):
-        cfg = KVCacheConfig(2, 2, 128, page_size=PAGE, num_pages=16,
+        cfg = KVCacheConfig(geom["num_layers"], geom["num_kv_heads"],
+                            head_dim, page_size=PAGE, num_pages=16,
                             max_context=128)
         kv = PagePool(cfg, device=dev).kv
-        toks = torch.arange(40, dtype=torch.int32, device=dev) * 7 % 512
+        toks = (torch.arange(40, dtype=torch.int32, device=dev) * 7
+                % geom["vocab_size"])
         table = torch.arange(1, 9, dtype=torch.int32, device=dev)
         logits, _ = lm.prefill(toks, 37, kv, table)
         seq = [logits]
@@ -310,13 +343,65 @@ def phase_small_model_parity():
             logits, _ = lm.decode(tok, positions, kv, tables)
             seq.append(logits[0])
         outs[dev] = [t.float().cpu() for t in seq]
+    return outs, gpu
+
+
+def phase_small_model_parity():
+    """The same small model (head_dim 128, GQA 4/2) on the card and on
+    the CPU: prefill and three decode steps, logits rtol/atol 1e-4 (f32
+    products summed in other orders by cuBLAS, the kernel and the CPU).
+    Then the GPT 760m preset's widths (bench.py:317: vocab 50257, hidden
+    1536, 16 heads of 96, ffn 6144) at 2 layers: no paged-decode kernel
+    is built for head dim 96, so the gate serves it by the plain version
+    on the card, as the JAX package's gate serves it by its reference:
+    card vs CPU logits (max |a - b| / max(1, max |b|) <= 1e-4), then 4
+    requests through GenerationEngine on the card, every one finished,
+    with no paged_attention launch."""
+    import torch
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.serving import GenerationEngine
+    outs, _ = _card_vs_cpu_logits(torch, dict(
+        vocab_size=512, hidden=512, num_layers=2, num_heads=4,
+        num_kv_heads=2, seed=5), 128)
     err = max((a - b).abs().max().item()
               for a, b in zip(outs["cpu"], outs["cuda"]))
     for a, b in zip(outs["cpu"], outs["cuda"]):
         if not torch.allclose(b, a, rtol=1e-4, atol=1e-4):
             raise AssertionError(f"small model: card vs CPU err {err}")
-    log("PARITY " + json.dumps({"small_model_max_abs_err": err,
-                                "rtol": 1e-4, "atol": 1e-4}))
+    geom = dict(vocab_size=GPT_760M["vocab"], hidden=GPT_760M["hidden"],
+                num_layers=2, num_heads=GPT_760M["heads"],
+                num_kv_heads=GPT_760M["heads"], ffn=GPT_760M["ffn"], seed=7)
+    support.reset_launch_counts()
+    outs, gpu = _card_vs_cpu_logits(torch, geom, 96)
+    err96 = max(((a - b).abs().max() / a.abs().max().clamp_min(1.0)).item()
+                for a, b in zip(outs["cpu"], outs["cuda"]))
+    if not err96 <= 1e-4:
+        raise AssertionError(f"760m widths: card vs CPU err {err96}")
+    eng = GenerationEngine(gpu, num_slots=4, page_size=PAGE,
+                           max_context=256, prompt_buckets=[64],
+                           device="cuda")
+    try:
+        rng = __import__("numpy").random.RandomState(96)
+        reqs = [dict(prompt=rng.randint(0, geom["vocab_size"],
+                                        int(rng.randint(8, 65))).tolist(),
+                     max_new_tokens=12, seed=i) for i in range(4)]
+        streams = [eng.generate(**r) for r in reqs]
+        toks = [st.result(600) for st in streams]
+    finally:
+        eng.close()
+    launches = support.launch_counts.get("paged_attention", 0)
+    if any(len(t) != r["max_new_tokens"] for t, r in zip(toks, reqs)):
+        raise AssertionError(f"760m widths: tokens {[len(t) for t in toks]}")
+    if launches != 0:
+        raise AssertionError(f"760m widths (head dim 96): {launches} "
+                             f"paged_attention launches, want 0")
+    log("PARITY " + json.dumps({
+        "small_model_max_abs_err": err, "rtol": 1e-4, "atol": 1e-4,
+        "gpt_760m_2_layers_max_rel_err": err96, "rel_tol": 1e-4,
+        "gpt_760m_2_layers_requests_finished": len(toks),
+        "gpt_760m_2_layers_paged_attention_launches": launches}))
+    del gpu
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- phase 4
@@ -526,14 +611,15 @@ def _flash_case(torch, gen, B, L, H, D, dtype, causal, p, seed, plain_b):
     return errs
 
 
-def _sdpa_ms(torch, q, k, v, do, p, causal):
-    """SDPA's flash backend on the same inputs ([B, H, L, D] copies):
-    ms of the forward, of one autograd backward (dq, dk, dv together),
-    and of forward + backward."""
+def _sdpa_ms(torch, q, k, v, do, p, causal, backend=None):
+    """One PyTorch SDPA backend (flash by default; the memory-efficient
+    one for f32, which flash refuses) on the same inputs ([B, H, L, D]
+    copies): ms of the forward, of one autograd backward (dq, dk, dv
+    together), and of forward + backward."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
-    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+    with sdpa_kernel(backend or SDPBackend.FLASH_ATTENTION):
         fwd = cuda_ms(lambda i: sdpa(qt, kt, vt, dropout_p=p,
                                      is_causal=causal), 20)
         qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
@@ -546,28 +632,96 @@ def _sdpa_ms(torch, q, k, v, do, p, causal):
     return fwd, bwd, both
 
 
-def phase_flash_kernels():
-    """The flash kernels against their plain versions on the card, then
-    timed at the training path's shape (BERT-base attention: B 64, H 12,
-    L 512, D 64, bf16, dropout 0.1, not causal)."""
-    import torch
-    from paddle_tpu_torch.core.rng import dropout_threshold
+def _flash_time_rows(torch, gen, B, L, H, D, dtype, causal, p, seed,
+                     entry="flash_attention"):
+    """The three flash kernels timed at one shape, each beside its bound,
+    the plain version and one SDPA call (flash backend at bf16, the
+    memory-efficient one at f32): {kernel: row}."""
+    from torch.nn.attention import SDPBackend
     from paddle_tpu_torch.ops.cuda import (flash_attention_bwd_dkv,
                                            flash_attention_bwd_dq,
                                            flash_attention_fwd)
     from paddle_tpu_torch.ops.flash_attention import (
-        attention_delta, dropout_keep_mask, flash_attention,
-        flash_attention_reference_bwd, flash_attention_reference_fwd)
+        attention_delta, flash_attention_reference_bwd,
+        flash_attention_reference_fwd)
+    dname = str(dtype).replace("torch.", "")
+    q, k, v, do = (torch.randn((B, L, H, D), generator=gen,
+                               device="cuda").to(dtype) for _ in range(4))
+    scale = 1.0 / math.sqrt(D)
+    kw = dict(scale=scale, causal=causal, dropout_p=p)
+    out, lse = flash_attention_fwd(q, k, v, seed=seed, **kw)
+    delta = attention_delta(do.transpose(1, 2), out.transpose(1, 2))
+    ms = {
+        "flash_attention_fwd": cuda_ms(lambda i: flash_attention_fwd(
+            q, k, v, seed=i, **kw), 20),
+        "flash_attention_bwd_dq": cuda_ms(lambda i: flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, seed=seed, **kw), 20),
+        "flash_attention_bwd_dkv": cuda_ms(
+            lambda i: flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                              seed=seed, **kw), 20)}
+    tq, tk, tv, tdo = (x.transpose(1, 2) for x in (q, k, v, do))
+    pkw = dict(causal=causal, scale=scale, dropout_p=p, seed=seed)
+    plain_fwd = cuda_ms(lambda i: flash_attention_reference_fwd(
+        tq, tk, tv, **pkw), 2, warmup=1)
+    plain_bwd = cuda_ms(lambda i: flash_attention_reference_bwd(
+        tq, tk, tv, out.transpose(1, 2), lse, tdo, **pkw), 2, warmup=1)
+    torch.cuda.empty_cache()
+    f32 = dtype == torch.float32
+    backend = SDPBackend.EFFICIENT_ATTENTION if f32 else None
+    lib_fwd, lib_bwd, lib_both = _sdpa_ms(torch, q, k, v, do, p, causal,
+                                          backend)
+    lib_name = ("scaled_dot_product_attention, memory-efficient backend"
+                if f32 else "scaled_dot_product_attention, flash backend")
+    case = (f"B={B} L={L} H={H} D={D} {dname} causal={causal} "
+            f"dropout={p}")
+    rows = {}
+    for name in FLASH_KERNELS:
+        bound_ms, bound_by, nbytes, ops = _flash_bound(
+            B, H, L, L, D, q.element_size(), dname, causal, name)
+        fwd = name == "flash_attention_fwd"
+        row = {"kernel": name, "entry": entry, "case": case,
+               "ms": ms[name], "plain_ms": plain_fwd if fwd else plain_bwd,
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+               "operations": ops,
+               "library_ms": lib_fwd if fwd else lib_bwd,
+               "library_call": lib_name if fwd else
+               f"autograd backward of {lib_name} (dq, dk, dv together)",
+               "library_fwd_bwd_ms": lib_both}
+        if not fwd:
+            row["plain_computes"] = "dq, dk and dv together"
+        log("KERNEL " + json.dumps(row))
+        rows[name] = row
+    del q, k, v, do, out, lse, delta
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_flash_kernels():
+    """The flash kernels against their plain versions on the card at
+    every head dim they are built for (32, 64, 96, 128), f32 and bf16,
+    causal and not, dropout 0 and 0.1; then timed at the training path's
+    shape (BERT-base attention: B 64, H 12, L 512, D 64, bf16, dropout
+    0.1, not causal), at the GPT 760m preset's (B 16, L 1024, H 16, D
+    96, bf16, causal, dropout 0.1) and at the static BERT step's (B 16,
+    L 512, H 12, D 64, f32)."""
+    import torch
+    from paddle_tpu_torch.core.rng import dropout_threshold
+    from paddle_tpu_torch.ops.cuda.flash_attention import SUPPORTED_HEAD_DIMS
+    from paddle_tpu_torch.ops.flash_attention import (dropout_keep_mask,
+                                                      flash_attention)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     B, H, L = BERT_CHIP["batch"], BERT_CHIP["heads"], BERT_CHIP["seq"]
     D = BERT_CHIP["hidden"] // H
     seed = 1234
-    cases = [(B, L, H, D, dt, causal, p, 8)
+    # BERT-base's shape at its head dim, a smaller ragged one at the others
+    cases = [(B, L, H, d, dt, causal, p, 8) if d == D else
+             (4, 320, 6, d, dt, causal, p, 4)
+             for d in SUPPORTED_HEAD_DIMS
              for dt in (torch.float32, torch.bfloat16)
              for causal in (False, True) for p in (0.0, 0.1)]
     cases += [(4, 512, 14, 128, torch.bfloat16, True, 0.1, 4),   # GPT 1b
-              (4, 512, 14, 128, torch.float32, False, 0.0, 4),
+              (2, 1024, 16, 96, torch.bfloat16, True, 0.1, 2),   # GPT 760m
               (3, 200, 5, 32, torch.float32, True, 0.1, 3),      # ragged
               (3, 200, 5, 32, torch.bfloat16, False, 0.1, 3)]
     worst = {"float32": 0.0, "bfloat16": 0.0}
@@ -601,60 +755,35 @@ def phase_flash_kernels():
     if abs(kept - want) > 4 * sigma or differ < 0.1:
         raise AssertionError(f"dropout mask: {mask}")
     del keep, other
-    # times at the training path's shape
-    dt = torch.bfloat16
+    # times at the training path's shape, forward + backward beside SDPA
+    rows = _flash_time_rows(torch, gen, B, L, H, D, torch.bfloat16, False,
+                            p, seed)
     q, k, v, do = (torch.randn((B, L, H, D), generator=gen,
-                               device="cuda").to(dt) for _ in range(4))
-    scale = 1.0 / math.sqrt(D)
-    kw = dict(scale=scale, causal=False, dropout_p=p)
-    out, lse = flash_attention_fwd(q, k, v, seed=seed, **kw)
-    delta = attention_delta(do.transpose(1, 2), out.transpose(1, 2))
-    ms = {
-        "flash_attention_fwd": cuda_ms(lambda i: flash_attention_fwd(
-            q, k, v, seed=i, **kw), 20),
-        "flash_attention_bwd_dq": cuda_ms(lambda i: flash_attention_bwd_dq(
-            q, k, v, do, lse, delta, seed=seed, **kw), 20),
-        "flash_attention_bwd_dkv": cuda_ms(
-            lambda i: flash_attention_bwd_dkv(q, k, v, do, lse, delta,
-                                              seed=seed, **kw), 20)}
-    tq, tk, tv, tdo = (x.transpose(1, 2) for x in (q, k, v, do))
-    pkw = dict(causal=False, scale=scale, dropout_p=p, seed=seed)
-    plain_fwd = cuda_ms(lambda i: flash_attention_reference_fwd(
-        tq, tk, tv, **pkw), 2, warmup=1)
-    tout, tlse = out.transpose(1, 2), lse
-    plain_bwd = cuda_ms(lambda i: flash_attention_reference_bwd(
-        tq, tk, tv, tout, tlse, tdo, **pkw), 2, warmup=1)
-    torch.cuda.empty_cache()
-    lib_fwd, lib_bwd, lib_both = _sdpa_ms(torch, q, k, v, do, p, False)
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
     ours_both = cuda_ms(lambda i: torch.autograd.grad(
         flash_attention(qg, kg, vg, dropout_p=p, seed=i), (qg, kg, vg), do),
         20)
     log("FLASH_FWD_BWD " + json.dumps({
         "case": f"B={B} L={L} H={H} D={D} bfloat16 dropout={p}",
-        "kernels_ms": ours_both, "sdpa_flash_ms": lib_both}))
-    rows = {}
-    for name in FLASH_KERNELS:
-        bound_ms, bound_by, nbytes, ops = _flash_bound(
-            B, H, L, L, D, q.element_size(), "bfloat16", False, name)
-        fwd = name == "flash_attention_fwd"
-        row = {"kernel": name, "case": f"B={B} L={L} H={H} D={D} bfloat16 "
-                                       f"causal=False dropout={p}",
-               "ms": ms[name], "plain_ms": plain_fwd if fwd else plain_bwd,
-               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-               "operations": ops,
-               "library_ms": lib_fwd if fwd else lib_bwd,
-               "library_call": ("scaled_dot_product_attention, flash "
-                                "backend" if fwd else "autograd backward "
-                                "of it (dq, dk, dv together)"),
-               "max_abs_err": worst["float32"],
-               "max_abs_err_bf16": worst["bfloat16"]}
-        if not fwd:
-            row["plain_computes"] = "dq, dk and dv together"
-        log("KERNEL " + json.dumps(row))
-        rows[name] = row
-    del q, k, v, do, out, lse, delta, qg, kg, vg
+        "kernels_ms": ours_both,
+        "sdpa_flash_ms": rows["flash_attention_fwd"]["library_fwd_bwd_ms"]}))
+    del q, k, v, do, qg, kg, vg
     torch.cuda.empty_cache()
+    g = GPT_760M
+    d96 = _flash_time_rows(torch, gen, 16, g["seq"], g["heads"],
+                           g["hidden"] // g["heads"], torch.bfloat16, True,
+                           g["dropout"], seed)
+    s = STATIC_CHIP
+    static = _flash_time_rows(torch, gen, s["batch"], s["seq"], s["heads"],
+                              s["hidden"] // s["heads"], torch.float32,
+                              False, 0.0, seed)
+    for name, row in rows.items():
+        row["max_abs_err"] = worst["float32"]
+        row["max_abs_err_bf16"] = worst["bfloat16"]
+        row["gpt_760m"] = d96[name]
+        row["static_f32"] = static[name]
     return rows
 
 
@@ -786,41 +915,58 @@ def phase_bert_training(warmup=2, steps=10):
 
 
 # ---------------------------------------------------------------- phase 9
-def phase_train_anatomy(step, batch, steps=2):
+def _step_anatomy(tag, one_step, steps, classify, wgmma_flash=False):
+    """One training step's anatomy: its time on the host clock (CUDA
+    events over 3 steps), then ``torch.profiler`` over ``steps`` steps:
+    device ms a step by ``classify``'s groups (a function of the lower-case
+    kernel name), the flash kernels by name, the top kernels and the
+    device's idle share.  With ``wgmma_flash`` the flash launches must
+    have run the wgmma + TMA kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    x, y = batch
-    step_ms = cuda_ms(lambda i: step(x, y), 3, warmup=1)
+    step_ms = cuda_ms(lambda i: one_step(), 3, warmup=1)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            step(x, y)
+            one_step()
         torch.cuda.synchronize()
-    groups = {"gemm": 0.0, "flash_fwd": 0.0, "flash_bwd": 0.0,
-              "other": 0.0}
-    top = []
+    groups, top, flash = {}, [], {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.is_user_annotation:
             continue
         name = e.key.lower()
-        g = ("flash_fwd" if "flash_fwd_kernel" in name else
-             "flash_bwd" if "flash_bwd_" in name else
-             "gemm" if any(w in name for w in ("gemm", "xmma", "cutlass",
-                                               "splitk", "nvjet"))
-             else "other")
         ms = e.self_device_time_total / 1e3 / steps
-        groups[g] += ms
+        g = classify(name)
+        groups[g] = groups.get(g, 0.0) + ms
         top.append((ms, e.key[:80]))
+        if "flash_" in name:
+            k = _kernel_name(e.key)
+            flash[k] = flash.get(k, 0.0) + ms
     busy = sum(groups.values())
     if not busy > 0:
         raise AssertionError("the profiler saw no device time")
     top.sort(reverse=True)
     out = {"step_ms_host": step_ms, "device_busy_ms": busy,
            "device_idle_share": max(0.0, 1.0 - busy / step_ms),
-           "device_ms_by_group": groups,
+           "device_ms_by_group": groups, "flash_kernels_ms": flash,
            "top_kernels_ms": [[round(m, 4), n] for m, n in top[:24]]}
-    log("TRAIN_ANATOMY " + json.dumps(out))
+    log(tag + " " + json.dumps(out))
+    if wgmma_flash:
+        _assert_wgmma_flash(flash)
+
+
+def _is_gemm(name):
+    return any(w in name for w in ("gemm", "xmma", "cutlass", "splitk",
+                                   "nvjet"))
+
+
+def phase_train_anatomy(step, batch, steps=2):
+    x, y = batch
+    _step_anatomy("TRAIN_ANATOMY", lambda: step(x, y), steps, lambda n: (
+        "flash_fwd" if "flash_fwd_" in n else
+        "flash_bwd" if "flash_bwd_" in n else
+        "gemm" if _is_gemm(n) else "other"), wgmma_flash=True)
 
 
 # --------------------------------------------------------------- phase 10
@@ -1065,10 +1211,20 @@ def phase_epilogue_adam_kernels():
             x, w, ops, full), 5)
         plain_bwd = cuda_ms(lambda i: epilogue_backward_reference(
             x, w, ops, full, dy), 5)
-        lib = None
+        # yardsticks, f32 with TF32 off: for the forward of fc1 the one
+        # call that fuses its bias and GELU; for the first backward launch
+        # the product it replays (x . w), for the second the two products
+        # it computes (dx = g . w^T, dw = x^T . g)
+        lib = {"fused_epilogue_fwd": None,
+               "fused_epilogue_bwd": cuda_ms(lambda i: torch.matmul(x, w),
+                                             10),
+               "fused_epilogue_bwd_grads": cuda_ms(
+                   lambda i: (torch.matmul(g, w.t()),
+                              torch.matmul(x.t(), g)), 10)}
         if label == "fc1":
-            lib = cuda_ms(lambda i: torch._addmm_activation(
-                ops[0][0], x, w, use_gelu=True), 10)
+            lib["fused_epilogue_fwd"] = cuda_ms(
+                lambda i: torch._addmm_activation(ops[0][0], x, w,
+                                                  use_gelu=True), 10)
         bounds = _epi_bounds(M, K, N, stages, 4, "float32")
         for name in EPI_KERNELS:
             b_ms, b_by, nbytes, nops = bounds[name]
@@ -1076,10 +1232,14 @@ def phase_epilogue_adam_kernels():
             chain = {"ms": ms[name], "plain_ms": plain_fwd if fwd
                      else plain_bwd, "bound_ms": b_ms, "bound_by": b_by,
                      "bytes": nbytes, "operations": nops,
-                     "library_ms": lib if fwd else None}
+                     "library_ms": lib[name],
+                     "library_call": EPI_LIBRARY_CALLS[name]}
             rows[name]["chains"][label] = chain
             for key in ("ms", "bound_ms", "bytes", "operations"):
                 rows[name][key] += chain[key]
+            if not fwd:
+                rows[name]["library_ms"] = (rows[name].get("library_ms", 0.0)
+                                            + chain["library_ms"])
             rows[name]["plain_ms"] += chain["plain_ms"]
             log("KERNEL " + json.dumps(dict(
                 kernel=name, case=f"{label} M={M} K={K} N={N} float32",
@@ -1087,6 +1247,8 @@ def phase_epilogue_adam_kernels():
         del x, w, dy, ops, g, partial
         torch.cuda.empty_cache()
     for name, row in rows.items():
+        row.setdefault("library_ms", None)
+        row["library_call"] = EPI_LIBRARY_CALLS[name]
         row["bound_by"] = ("bytes" if all(c["bound_by"] == "bytes"
                                           for c in row["chains"].values())
                            else "operations")
@@ -1231,45 +1393,13 @@ def phase_static_training(warmup=2, steps=8):
 
 # --------------------------------------------------------------- phase 13
 def phase_static_anatomy(run, steps=2):
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     exe, main, loss, feed = run
-
-    def one(i):
-        exe.run(main, feed=feed, fetch_list=[loss], return_numpy=False)
-
-    step_ms = cuda_ms(one, 3, warmup=1)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            one(0)
-        torch.cuda.synchronize()
-    groups = {"fused_epilogue": 0.0, "fused_adam": 0.0, "flash": 0.0,
-              "cublas": 0.0, "other": 0.0}
-    top = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
-            continue
-        name = e.key.lower()
-        g = ("fused_epilogue" if "epilogue_" in name else
-             "fused_adam" if "adam_kernel" in name else
-             "flash" if "flash_" in name else
-             "cublas" if any(w in name for w in ("gemm", "xmma", "cutlass",
-                                                 "splitk", "nvjet"))
-             else "other")
-        ms = e.self_device_time_total / 1e3 / steps
-        groups[g] += ms
-        top.append((ms, e.key[:80]))
-    busy = sum(groups.values())
-    if not busy > 0:
-        raise AssertionError("the profiler saw no device time")
-    top.sort(reverse=True)
-    out = {"step_ms_host": step_ms, "device_busy_ms": busy,
-           "device_idle_share": max(0.0, 1.0 - busy / step_ms),
-           "device_ms_by_group": groups,
-           "top_kernels_ms": [[round(m, 4), n] for m, n in top[:24]]}
-    log("STATIC_ANATOMY " + json.dumps(out))
+    _step_anatomy("STATIC_ANATOMY", lambda: exe.run(
+        main, feed=feed, fetch_list=[loss], return_numpy=False), steps,
+        lambda n: ("fused_epilogue" if "epilogue_" in n else
+                   "fused_adam" if "adam_kernel" in n else
+                   "flash" if "flash_" in n else
+                   "cublas" if _is_gemm(n) else "other"))
 
 
 # --------------------------------------------------------------- phase 14
@@ -1411,18 +1541,17 @@ def phase_chunk_matmul():
 def phase_flash_block():
     """flash_attention_block against the plain version, forward and
     backward with a nonzero dlse, at the ring's four offset cases (f32
-    and bf16, D 128, the 1b step's shard at sp 2: L 512, H 14) and at
+    and bf16, D 128, the 1b step's shard at sp 2: L 512, H 14; and at L
+    192 for every other head dim the kernels are built for) and at
     the main path's call (B 8, L 1024, H 14, D 128, causal at offsets 0,
     the one call phase 17 makes at world size 1); the per-round merge
     composed over S = 2 and 4 virtual shards in one process against
     flash_attention over the whole sequence; times of the main path's
     call at bf16 beside the bound, the plain version and SDPA."""
     import torch
-    from paddle_tpu_torch.ops.cuda import (flash_attention_bwd_dkv,
-                                           flash_attention_bwd_dq,
-                                           flash_attention_fwd)
+    from paddle_tpu_torch.ops.cuda.flash_attention import SUPPORTED_HEAD_DIMS
     from paddle_tpu_torch.ops.flash_attention import (
-        NEG_INF, attention_delta, flash_attention, flash_attention_block,
+        NEG_INF, flash_attention, flash_attention_block,
         flash_attention_reference_bwd, flash_attention_reference_fwd)
     from paddle_tpu_torch.parallel.ring_attention import merge_blocks
     gen = torch.Generator(device="cuda")
@@ -1440,11 +1569,20 @@ def phase_flash_block():
              "masked": (B, Ls, 0, Ls, True),
              "noncausal": (B, Ls, Ls, 0, False),
              "main_path": (Bt, L, 0, 0, True)}
+    # the ring's cases at every other head dim, smaller
+    for d in SUPPORTED_HEAD_DIMS:
+        if d != D:
+            cases.update({f"{name} D={d}": (B, 192, 192 * o_q // Ls,
+                                             192 * o_k // Ls, c, d)
+                          for name, (_, _, o_q, o_k, c) in list(
+                              cases.items())[:4]})
     worst = {"float32": 0.0, "bfloat16": 0.0}
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).replace("torch.", "")
-        for name, (Bc, Lc, q_off, k_off, causal) in cases.items():
-            q, k, v, do = (r(Bc, Lc, H, D).to(dt) for _ in range(4))
+        for name, case in cases.items():
+            Bc, Lc, q_off, k_off, causal = case[:5]
+            Dc = case[5] if len(case) > 5 else D
+            q, k, v, do = (r(Bc, Lc, H, Dc).to(dt) for _ in range(4))
             dlse = r(Bc, H, Lc)
             a = [x.clone().requires_grad_() for x in (q, k, v)]
             out, lse = flash_attention_block(*a, q_off, k_off, None, causal)
@@ -1460,10 +1598,10 @@ def phase_flash_block():
                 ("dv", t(grads[2]), refs[2])]}
             err = max(errs.values())
             worst[dname] = max(worst[dname], err)
-            row = {"case": f"{name} B={Bc} L={Lc} H={H} D={D} {dname} "
+            row = {"case": f"{name} B={Bc} L={Lc} H={H} D={Dc} {dname} "
                            f"q_off={q_off} k_off={k_off} causal={causal}",
                    "errors": errs, "tol": FLASH_TOL[dname]}
-            if name == "masked":
+            if name.startswith("masked"):
                 row["masked_rows_zero"] = bool(
                     (lse == NEG_INF).all() and (out == 0).all()
                     and all((g == 0).all() for g in grads))
@@ -1516,42 +1654,11 @@ def phase_flash_block():
         del q, k, v, w, b, ref, rgrads, a, out, grads
     torch.cuda.empty_cache()
     # times at the main path's call
-    q, k, v, do = (r(Bt, L, H, D).to(torch.bfloat16) for _ in range(4))
-    kw = dict(scale=1.0 / math.sqrt(D), causal=True)
-    out, lse = flash_attention_fwd(q, k, v, **kw)
-    delta = attention_delta(t(do), t(out))
-    ms = {"flash_attention_fwd": cuda_ms(
-              lambda i: flash_attention_fwd(q, k, v, **kw), 20),
-          "flash_attention_bwd_dq": cuda_ms(
-              lambda i: flash_attention_bwd_dq(q, k, v, do, lse, delta,
-                                               **kw), 20),
-          "flash_attention_bwd_dkv": cuda_ms(
-              lambda i: flash_attention_bwd_dkv(q, k, v, do, lse, delta,
-                                                **kw), 20)}
-    pkw = dict(causal=True, scale=kw["scale"])
-    plain_fwd = cuda_ms(lambda i: flash_attention_reference_fwd(
-        t(q), t(k), t(v), **pkw), 2, warmup=1)
-    plain_bwd = cuda_ms(lambda i: flash_attention_reference_bwd(
-        t(q), t(k), t(v), t(out), lse, t(do), **pkw), 2, warmup=1)
-    torch.cuda.empty_cache()
-    lib_fwd, lib_bwd, _ = _sdpa_ms(torch, q, k, v, do, 0.0, True)
-    rows = {}
-    for name in FLASH_KERNELS:
-        bound_ms, bound_by, nbytes, ops = _flash_bound(
-            Bt, H, L, L, D, 2, "bfloat16", True, name)
-        fwd = name == "flash_attention_fwd"
-        row = {"kernel": name, "entry": "flash_attention_block",
-               "case": f"B={Bt} L={L} H={H} D={D} bfloat16 causal, "
-                       f"q_off=k_off=0", "ms": ms[name],
-               "plain_ms": plain_fwd if fwd else plain_bwd,
-               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-               "operations": ops, "library_ms": lib_fwd if fwd else lib_bwd,
-               "max_abs_err": worst["float32"],
-               "max_abs_err_bf16": worst["bfloat16"]}
-        log("KERNEL " + json.dumps(row))
-        rows[name] = row
-    del q, k, v, do, out, lse, delta
-    torch.cuda.empty_cache()
+    rows = _flash_time_rows(torch, gen, Bt, L, H, D, torch.bfloat16, True,
+                            0.0, 0, entry="flash_attention_block")
+    for row in rows.values():
+        row["max_abs_err"] = worst["float32"]
+        row["max_abs_err_bf16"] = worst["bfloat16"]
     return rows
 
 
@@ -1696,42 +1803,13 @@ def phase_gpt_training(warmup=2, steps=8):
 
 
 def phase_gpt_anatomy(step, batch, steps=2):
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     x, y = batch
-    step_ms = cuda_ms(lambda i: step(x, y), 3, warmup=1)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step(x, y)
-        torch.cuda.synchronize()
-    groups = {"chunk_matmul": 0.0, "flash_fwd": 0.0, "flash_bwd": 0.0,
-              "cublas": 0.0, "nccl": 0.0, "other": 0.0}
-    top = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
-            continue
-        name = e.key.lower()
-        g = ("chunk_matmul" if "chunk_mm" in name else
-             "flash_fwd" if "flash_fwd_kernel" in name else
-             "flash_bwd" if "flash_bwd_" in name else
-             "nccl" if "nccl" in name else
-             "cublas" if any(w in name for w in ("gemm", "xmma", "cutlass",
-                                                 "splitk", "nvjet"))
-             else "other")
-        ms = e.self_device_time_total / 1e3 / steps
-        groups[g] += ms
-        top.append((ms, e.key[:80]))
-    busy = sum(groups.values())
-    if not busy > 0:
-        raise AssertionError("the profiler saw no device time")
-    top.sort(reverse=True)
-    out = {"step_ms_host": step_ms, "device_busy_ms": busy,
-           "device_idle_share": max(0.0, 1.0 - busy / step_ms),
-           "device_ms_by_group": groups,
-           "top_kernels_ms": [[round(m, 4), n] for m, n in top[:24]]}
-    log("GPT_ANATOMY " + json.dumps(out))
+    _step_anatomy("GPT_ANATOMY", lambda: step(x, y), steps, lambda n: (
+        "chunk_matmul" if "chunk_mm" in n else
+        "flash_fwd" if "flash_fwd_" in n else
+        "flash_bwd" if "flash_bwd_" in n else
+        "nccl" if "nccl" in n else
+        "cublas" if _is_gemm(n) else "other"), wgmma_flash=True)
 
 
 # --------------------------------------------------------------- phase 18
@@ -1864,7 +1942,11 @@ def main():
             "library_ms": r["library_ms"],
             "block_entry": {k: b[k] for k in (
                 "case", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "max_abs_err", "max_abs_err_bf16")}})
+                "library_ms", "max_abs_err", "max_abs_err_bf16")},
+            **{extra: {k: r[extra][k] for k in (
+                "case", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_call")}
+               for extra in ("gpt_760m", "static_f32")}})
     for name, site in list(EPI_KERNELS.items()) + [("fused_adam",
                                                     ADAM_SITE)]:
         r = epi_rows[name]
@@ -1880,7 +1962,8 @@ def main():
                                    f"{r.get('numel')} elements, float32"),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"] if name == "fused_adam" else None})
+            "library_ms": r["library_ms"],
+            "library_call": r.get("library_call")})
     kernels.append({
         "name": "chunk_matmul", "route": "cuda",
         "source": "paddle_tpu_torch/ops/cuda/csrc/chunk_matmul.cu",

@@ -68,8 +68,10 @@ def set_flags(flags: Dict[str, Any]) -> None:
 define_flag("use_pallas_kernels", True,
             "The hand-written kernel tier (the name is paddle_tpu's, so "
             "scripts and FLAGS_ environment variables carry across): the "
-            "static Executor's epilogue-fusion pass and fused Adam.  On "
-            "the CPU the tier runs the kernels' plain versions.")
+            "static Executor's epilogue-fusion pass and fused Adam, "
+            "flash attention, the chunk matmul and the paged decode "
+            "kernel.  On the CPU the tier runs the kernels' plain "
+            "versions.")
 define_flag("serving_decode_retries", 2,
             "GenerationEngine: decode-step attempts after a failure "
             "before the in-flight sequences are failed (injected faults "

@@ -13,9 +13,14 @@ Two versions of one function, chosen by where the tensors lie:
   mask positions ``>= length``, dense softmax attention.  The CPU path
   and the oracle the CUDA kernel is held to.
 - :func:`paddle_tpu_torch.ops.cuda.paged_attention_decode`, the
-  hand-written CUDA kernel.  :func:`paged_attention_select` sends every
-  CUDA tensor there; shapes the kernel does not take raise rather than
-  fall back to the plain version.
+  hand-written CUDA kernel, which raises on shapes it does not take.
+
+:func:`paged_attention_select` is the serving decode step's dispatch, as
+in the JAX package: the kernel where :func:`paged_attention_supported`
+takes the call (``FLAGS_use_pallas_kernels`` on, CUDA tensors, a dtype
+and shapes the kernel was built for), the plain version for everything
+else, on the card too.  The TPU's own gates (head dim % 128, page % 8)
+are its tiling; the card's gate is the kernel's instance set.
 """
 from __future__ import annotations
 
@@ -23,9 +28,12 @@ import math
 
 import torch
 
-from .cuda.paged_attention import paged_attention_decode
+from ..core.flags import get_flag
+from .cuda.paged_attention import (SUPPORTED_GROUPS, SUPPORTED_HEAD_DIMS,
+                                   paged_attention_decode)
 
-__all__ = ["paged_attention_reference", "paged_attention_select"]
+__all__ = ["paged_attention_reference", "paged_attention_select",
+           "paged_attention_supported"]
 
 _NEG = -1e30
 
@@ -69,13 +77,39 @@ def paged_attention_reference(q, k_pool, v_pool, page_table, lengths,
     return out.to(q.dtype)
 
 
+def paged_attention_supported(q_shape, pool_shape, dtype, page_size,
+                              device) -> bool:
+    """Capability gate of the CUDA decode kernel (not profitability):
+    ``FLAGS_use_pallas_kernels`` on, tensors on CUDA, f32 or bf16, q
+    ``[S, H, D]`` over a 4-D ``[N, page, Hkv, D]`` or 5-D ``[L, N, page,
+    Hkv, D]`` pool, ``D`` in the kernel's head dims and ``H / Hkv`` in its
+    GQA groups.  ``page_size`` is any: the kernel walks pages of any
+    length."""
+    del page_size
+    if not get_flag("use_pallas_kernels"):
+        return False
+    if torch.device(device).type != "cuda":
+        return False
+    if dtype not in (torch.float32, torch.bfloat16):
+        return False
+    if len(q_shape) != 3 or len(pool_shape) not in (4, 5):
+        return False
+    H, D = q_shape[1], q_shape[2]
+    hkv = pool_shape[-2]
+    if D != pool_shape[-1] or D not in SUPPORTED_HEAD_DIMS:
+        return False
+    return hkv > 0 and H % hkv == 0 and H // hkv in SUPPORTED_GROUPS
+
+
 def paged_attention_select(q, k_pool, v_pool, page_table, lengths, *,
                            scale, layer=None):
-    """The serving decode step's attention: the plain version for CPU
-    tensors, the CUDA kernel for CUDA tensors (which raises on shapes
-    it does not take)."""
-    if q.device.type == "cpu":
-        return paged_attention_reference(q, k_pool, v_pool, page_table,
-                                         lengths, scale=scale, layer=layer)
-    return paged_attention_decode(q, k_pool, v_pool, page_table, lengths,
-                                  scale=scale, layer=layer)
+    """The serving decode step's attention: the CUDA kernel where
+    :func:`paged_attention_supported` takes the call, else the plain
+    version (the CPU, the flag off, or a head dim or GQA group the
+    kernel was not built for)."""
+    if paged_attention_supported(tuple(q.shape), tuple(k_pool.shape),
+                                 q.dtype, int(k_pool.shape[-3]), q.device):
+        return paged_attention_decode(q, k_pool, v_pool, page_table,
+                                      lengths, scale=scale, layer=layer)
+    return paged_attention_reference(q, k_pool, v_pool, page_table,
+                                     lengths, scale=scale, layer=layer)

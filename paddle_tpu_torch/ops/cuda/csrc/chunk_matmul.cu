@@ -54,7 +54,9 @@
 //     sum); its stores skip the rows past M.  The tensor maps are built
 //     on the host for each launch from the pointers and ldx / ldw / ldo;
 //     cuTensorMapEncodeTiled is looked up in libcuda at run time through
-//     cudaGetDriverEntryPoint, so nothing links against libcuda.
+//     cudaGetDriverEntryPoint, so nothing links against libcuda.  The
+//     mbarrier, TMA, wgmma and setmaxnreg plumbing lives in hopper.cuh,
+//     shared with the flash attention kernels.
 
 #include <cuda.h>           // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
@@ -62,8 +64,11 @@
 #include <stdint.h>
 
 #include "f32_tile.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 // ------------------------------------------------------------------ f32
 __global__ void __launch_bounds__(f32_tile::kThreads)
@@ -102,143 +107,6 @@ constexpr size_t kSmemBf16 = (size_t)kStages * kStageBytes +
                              (size_t)kConsumers * kBytesC +
                              2 * kStages * sizeof(uint64_t) + 1024;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// until the phase of parity ``parity`` has completed.  A wait of more
-// than ~2^34 cycles (seconds) can only be a fault: it traps, so the
-// launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long t0 = clock64();
-  while (true) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
-
-// a 2-D box of ``map`` at (c0 innermost, c1) into shared memory; its
-// bytes complete a transaction on ``bar``
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-         "r"(c1)
-      : "memory");
-}
-
-// a 2-D box of shared memory into ``map`` at (c0 innermost, c1); rows and
-// columns past the map's bounds are not written
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          uint32_t src, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3}], [%1];\n"
-      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// until the committed stores have read their shared memory
-__device__ __forceinline__ void tma_store_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void tma_store_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// the 128 threads of warpgroup ``wg`` (named barrier 1 + wg)
-__device__ __forceinline__ void warpgroup_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
-}
-
-// wgmma's shared-memory matrix descriptor, 128-byte swizzle; the offsets
-// in 16-byte units
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)lbo << 16) |
-         ((uint64_t)sbo << 32) | (1ull << 62);
-}
-
-// d += a . b: a 64 x 16 K-major, b 16 x 128 MN-major (transposed)
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
 __global__ void __launch_bounds__(kThreadsBf16, 1)
 chunk_mm_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
                      const __grid_constant__ CUtensorMap map_w,
@@ -255,7 +123,7 @@ chunk_mm_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
       mbar_init(full + 8 * s, 1);             // the producer's expect_tx
       mbar_init(empty + 8 * s, kConsumers);   // one arrive per warpgroup
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
   const int tiles_n = N / kTile;
@@ -264,7 +132,7 @@ chunk_mm_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
   const int wg = threadIdx.x / 128;
   if (wg == kConsumers) {
     // ---------------------------------------------------- the producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    reg_dealloc<40>();
     if (threadIdx.x % 128 != 0) return;
     int stage = 0;
     uint32_t phase = 0;
@@ -295,7 +163,7 @@ chunk_mm_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
     }
   } else {
     // ------------------------------------------- the consumers: 64 rows
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    reg_alloc<232>();
     const bool lead = threadIdx.x % 128 == 0;
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     int stage = 0;
@@ -316,8 +184,8 @@ chunk_mm_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
           // x: +32 bytes a k step inside the 128-byte rows; SBO: 8 rows
           // (1024 B).  w: +16 rows (2048 B) a k step; LBO: the second
           // 64-column box (8192 B), SBO: 8 rows of k (1024 B)
-          wgmma_m64n128k16(d, wgmma_desc(a + kk * 32, 1, 64),
-                           wgmma_desc(b + kk * 2048, 512, 64));
+          wgmma_m64n128k16<1>(d, wgmma_desc(a + kk * 32, 1, 64),
+                              wgmma_desc(b + kk * 2048, 512, 64), 1);
         }
         wgmma_commit();
         // the group of step kt - 1 is done: release its stage
@@ -356,7 +224,7 @@ chunk_mm_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
                         "r"(*reinterpret_cast<uint32_t*>(&hi)));
       }
       // the generic proxy's writes, visible to TMA's
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      fence_proxy_async();
       warpgroup_sync(wg);
       if (lead) {
         tma_store(&map_o, c, n0, m0 + wg * 64);
@@ -369,32 +237,6 @@ chunk_mm_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
 }
 
 // ---------------------------------------------------------- tensor maps
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up in the libcuda the runtime loaded
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // a row-major bf16 [rows, cols] matrix with leading dimension ld, moved
 // in boxes of box_rows x box_cols (box_cols * 2 = 128 bytes, swizzled);
 // out-of-bounds elements read as 0 and are not written

@@ -2,12 +2,16 @@
 // kernels (dQ; dK and dV).
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
-//   _fwd (body _fwd_kernel)          -> flash_fwd_kernel
-//   _bwd (body _bwd_dq_kernel)       -> flash_bwd_dq_kernel
-//   _bwd (body _bwd_dkv_kernel)      -> flash_bwd_dkv_kernel
+//   _fwd (body _fwd_kernel)       -> flash_fwd_wgmma_kernel (bf16)
+//                                    flash_fwd_kernel (f32)
+//   _bwd (body _bwd_dq_kernel)    -> flash_bwd_dq_wgmma_kernel (bf16)
+//                                    flash_bwd_dq_kernel (f32)
+//   _bwd (body _bwd_dkv_kernel)   -> flash_bwd_dkv_wgmma_kernel (bf16)
+//                                    flash_bwd_dkv_kernel (f32)
 //
-//   q [B, Lq, H, D] or [B, H, Lq, D]; k, v the same with Lk (the strides
-//   of each family are arguments, so both layouts are read in place)
+//   q [B, Lq, H, D]; k, v [B, Lk, H, D] (the strides of each family are
+//   arguments: the f32 kernels read them directly, the bf16 kernels give
+//   them to TMA's tensor maps)
 //   out = softmax(q.k^T * scale) . v, lse [B, H, Lq] f32 (natural log)
 //   causal: key j is visible from query i iff q_off + i >= k_off + j
 //   dropout on the probabilities with the denominator undropped:
@@ -15,6 +19,7 @@
 //     kept values scaled by 65536 / (65536 - t); t = 0 keeps everything
 //     (bit-equal to no dropout), t = 65536 drops everything
 //   fully masked rows give out = 0 and lse = -1e30, as on the TPU.
+//   D in {32, 64, 96, 128}.
 //
 // The dropout bits are a counter-based hash of the element's indices
 // (murmur3's finaliser, two 16-bit draws per 32-bit hash: keys 2j and
@@ -31,40 +36,59 @@
 // split into a dQ and a dK/dV kernel recomputes S and dP in both, seven
 // products.  Dropout adds ~10 integer operations per hash, one hash
 // per two elements (forward, dQ) or per element (dK/dV).
-// What the design does about it:
-//   * one block of 4 warps per (b, h, 64-row tile); each warp owns 16
-//     rows and keeps its scores, online-softmax state and f32
-//     accumulators in registers in the mma.sync C-fragment layout, so
-//     the [L, L] matrices never reach device memory;
-//   * bf16 products run on the tensor cores (mma.sync m16n8k16, f32
-//     accumulation); the probabilities and dS are fed to the next
-//     product straight from registers (C fragment -> A fragment);
-//   * f32 inputs take the same code with the products done by FMA on
-//     the CUDA cores (exact f32; reads its operands from shared memory);
-//   * the other operand streams through shared memory one 64-row tile
-//     at a time, double-buffered: cp.async brings tile j + 1 while the
-//     warps compute on tile j (rows padded by 16 bytes, so ldmatrix
-//     reads them without bank conflicts); causal blocks stop at the
-//     diagonal (forward, dQ) or start there (dK/dV);
-//   * bf16 operand fragments come from shared memory by ldmatrix (with
-//     .trans for the operand stored [k][n]);
-//   * the row max, exp2 with log2(e) folded into the scale, and the
-//     row sum over a quad of lanes by shuffles.
-// Not done yet (later work): TMA, wgmma, warp specialisation.
+//
+// What the bf16 design does about it: wgmma, the only way to the tensor
+// cores' full rate, fed by TMA, one block a tile of 128 rows in two
+// warpgroups (256 threads: a thread may hold 255 registers, which dK and
+// dV at D 128 need; a separate producer warp would cap it at 168):
+//   * thread 0 loads the block's resident operand once and streams the
+//     other through a ring of 3 stages in shared memory, each guarded by
+//     full mbarriers (TMA completes them) and an empty one (each warp
+//     arrives when done with it); it refills a stage as soon as both
+//     warpgroups have let it go, two tiles ahead of the compute;
+//   * the two warpgroups own 64 rows each.  The score products
+//     take both operands from shared memory (wgmma m64nNk16, K-major),
+//     the scores stay in the f32 accumulator registers through the mask,
+//     softmax (branch-free, exp2 on the special-function unit) and
+//     dropout, and the probabilities (or dS) feed the next
+//     product straight from registers, rounded to bf16, as wgmma's A
+//     operand, with the streamed tile read MN-major (the transpose flag)
+//     as B:
+//       forward  S = Q.K^T (128 keys a tile), O += P.V;
+//       dQ       S = Q.K^T, dP = dO.V^T (64 keys a tile), dQ += dS.K;
+//       dK, dV   S^T = K.Q^T, dP^T = V.dO^T (64 queries a tile),
+//                dV += U^T.dO, dK += dS^T.Q;
+//   * TMA reads the [B, L, H, D] tensors in place through rank-4 tensor
+//     maps (D, H, L, B) with boxes of (W, 1, rows, 1): each box lands as a
+//     plain [rows][W] tile, W = 64 (128-byte swizzle) where D is a
+//     multiple of 64, else 32 (64-byte swizzle), so every head dim is a
+//     whole number of boxes (D 96 is three of 32) and no column is
+//     padded.  A ragged L reads TMA's zero fill, and the masks drop those
+//     rows.
+//   * causal blocks stop at the diagonal (forward, dQ; their tiles run
+//     heaviest first) or start there (dK/dV); only the tiles that cross
+//     the diagonal or the ragged end evaluate the mask;
+//   * the backward has no atomics: each output element is summed by one
+//     block in a fixed order, so it is bitwise deterministic.
+// f32 inputs stay exact f32 on the CUDA cores (no TF32): one block of 4
+// warps per (b, h, 64-row tile), each warp 16 rows in the mma.sync
+// C-fragment layout, the streamed operand double-buffered by cp.async,
+// products by FMA.
 
+#include <cuda.h>           // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 16 * kWarps;   // rows one block owns
-constexpr int kTile = 64;            // rows of a streamed tile
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
@@ -88,12 +112,6 @@ struct Params {
   unsigned seed;
   int drop_t;            // 0 (no dropout) .. 65536 (drop everything)
   float drop_scale;      // 65536 / (65536 - t), 0 when t = 65536
-};
-
-// smem row stride in elements: rows padded by 16 bytes
-template <typename T, int D>
-struct Smem {
-  static constexpr int S = D + 16 / (int)sizeof(T);
 };
 
 // ------------------------------------------------------------ the hash
@@ -127,6 +145,14 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(kFull, x, 2);
 }
 
+// 2^x by the special-function unit (max relative error ~2^-22, flushes
+// subnormals): the bf16 kernels' probabilities, rounded to bf16 next
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -139,22 +165,49 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ bool visible(const Params& p, int qi, int kj) {
+  return kj < p.Lk && qi < p.Lq && (!p.causal || kj + p.k_off <= qi + p.q_off);
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+__device__ __forceinline__ float keep_factor(const Params& p, uint32_t bits) {
+  return (int)bits >= p.drop_t ? p.drop_scale : 0.f;
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+// 1 where a 16-bit draw keeps its element
+__device__ __forceinline__ uint32_t keep_bit(const Params& p, uint32_t bits) {
+  return (int)bits >= p.drop_t ? 1u : 0u;
 }
+
+// the factor of element i of a keep mask: 1 / (1 - p) kept, 0 dropped
+__device__ __forceinline__ float kept_factor(const Params& p, uint32_t mask,
+                                             int i) {
+  return (mask >> i) & 1u ? p.drop_scale : 0.f;
+}
+
+// number of key tiles of `tile` rows a query block [q0, q0 + rows) needs
+__device__ __forceinline__ int key_tiles(const Params& p, int q0, int rows,
+                                         int tile) {
+  int n = (p.Lk + tile - 1) / tile;
+  if (p.causal) {
+    const int last = min(p.Lq, q0 + rows) - 1 + p.q_off - p.k_off;
+    n = min(n, last < 0 ? 0 : last / tile + 1);
+  }
+  return n;
+}
+
+// ================================================ f32: FMA, CUDA cores
+namespace f32 {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = 16 * kWarps;   // rows one block owns
+constexpr int kTile = 64;            // rows of a streamed tile
+
+// smem row stride in elements: rows padded by 16 bytes
+template <int D>
+struct Smem {
+  static constexpr int S = D + 4;
+};
 
 // 16 bytes global -> shared, asynchronously; zeros when !valid
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -179,13 +232,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // rows [row0, row0 + rows) of one (b, h) slice -> smem, asynchronously;
 // rows at or past `valid` are zero.  Every thread of the block takes
 // part; the caller commits the group.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* sm, const T* g,
+template <int D>
+__device__ __forceinline__ void load_tile(float* sm, const float* g,
                                           long long row_stride, int row0,
                                           int valid, int rows) {
-  constexpr int E = 16 / sizeof(T);   // elements per 16-byte vector
+  constexpr int E = 4;                 // elements per 16-byte vector
   constexpr int VPR = D / E;
-  constexpr int S = Smem<T, D>::S;
+  constexpr int S = Smem<D>::S;
   for (int i = threadIdx.x; i < rows * VPR; i += kThreads) {
     const int r = i / VPR, c = (i % VPR) * E;
     const bool ok = row0 + r < valid;
@@ -194,47 +247,12 @@ __device__ __forceinline__ void load_tile(T* sm, const T* g,
   }
 }
 
-// -------------------------------------------------------- warp products
 // The accumulators are mma.sync m16n8 C fragments: lane (g = lane / 4,
 // t = lane % 4) holds c[n][0..1] at row g, cols 8n + 2t + {0, 1} and
 // c[n][2..3] at row g + 8, the same cols.
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 // C[16 x 8NT] += A[16 x KD] . B[8NT x KD]^T, A and B row-major in smem
-// with row stride S (A: this warp's 16 rows).  NT is even.
-template <int NT, int KD, int S>
-__device__ __forceinline__ void gemm_nt(float (&c)[NT][4],
-                                        const __nv_bfloat16* A,
-                                        const __nv_bfloat16* B, int lane) {
-  // ldmatrix row addresses: A as four 8x8 blocks (rows 0-7 / 8-15, cols
-  // k0 / k0 + 8); B as two n-tiles of (cols k0, k0 + 8)
-  const __nv_bfloat16* a = A + (lane & 15) * S + (lane >> 4) * 8;
-  const __nv_bfloat16* b =
-      B + ((lane & 7) + ((lane >> 4) << 3)) * S + ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int k0 = 0; k0 < KD; k0 += 16) {
-    uint32_t af[4];
-    ldsm_x4(af, a + k0);
-#pragma unroll
-    for (int n = 0; n < NT; n += 2) {
-      uint32_t bf[4];
-      ldsm_x4(bf, b + n * 8 * S + k0);
-      mma_bf16(c[n], af[0], af[1], af[2], af[3], bf[0], bf[1]);
-      mma_bf16(c[n + 1], af[0], af[1], af[2], af[3], bf[2], bf[3]);
-    }
-  }
-}
-
+// with row stride S (A: this warp's 16 rows)
 template <int NT, int KD, int S>
 __device__ __forceinline__ void gemm_nt(float (&c)[NT][4], const float* A,
                                         const float* B, int lane) {
@@ -263,31 +281,7 @@ __device__ __forceinline__ void gemm_nt(float (&c)[NT][4], const float* A,
 }
 
 // C[16 x 8NT] += P[16 x 8KT] . B[8KT x 8NT]: P is this warp's C fragment
-// of an earlier product (held in registers), B row-major in smem.  NT
-// is even.
-template <int NT, int KT, int S>
-__device__ __forceinline__ void gemm_nn(float (&c)[NT][4],
-                                        const float (&p)[KT][4],
-                                        const __nv_bfloat16* B, int lane) {
-  // B is stored [k][n]: ldmatrix.trans of the 8x8 blocks (k0 / k0 + 8,
-  // n0 / n0 + 8) gives the column-major fragments
-  const __nv_bfloat16* b = B + (lane & 15) * S + (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < KT / 2; ++kk) {
-    const uint32_t a0 = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    const uint32_t a1 = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    const uint32_t a2 = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    const uint32_t a3 = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-#pragma unroll
-    for (int n = 0; n < NT; n += 2) {
-      uint32_t bf[4];
-      ldsm_x4_t(bf, b + 16 * kk * S + n * 8);
-      mma_bf16(c[n], a0, a1, a2, a3, bf[0], bf[1]);
-      mma_bf16(c[n + 1], a0, a1, a2, a3, bf[2], bf[3]);
-    }
-  }
-}
-
+// of an earlier product (held in registers), B row-major in smem
 template <int NT, int KT, int S>
 __device__ __forceinline__ void gemm_nn(float (&c)[NT][4],
                                         const float (&p)[KT][4],
@@ -319,44 +313,29 @@ __device__ __forceinline__ void zero(float (&c)[NT][4]) {
   for (int n = 0; n < NT; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
 }
 
-// number of key tiles a query tile [q0, q0 + kRows) needs
-__device__ __forceinline__ int key_tiles(const Params& p, int q0) {
-  int n = (p.Lk + kTile - 1) / kTile;
-  if (p.causal) {
-    const int last = min(p.Lq, q0 + kRows) - 1 + p.q_off - p.k_off;
-    n = min(n, last < 0 ? 0 : last / kTile + 1);
-  }
-  return n;
-}
+}  // namespace f32
 
-__device__ __forceinline__ bool visible(const Params& p, int qi, int kj) {
-  return kj < p.Lk && qi < p.Lq && (!p.causal || kj + p.k_off <= qi + p.q_off);
-}
-
-__device__ __forceinline__ float keep_factor(const Params& p, uint32_t bits) {
-  return (int)bits >= p.drop_t ? p.drop_scale : 0.f;
-}
-
-// ------------------------------------------------------------- forward
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+// ------------------------------------------------------- f32 forward
+template <int D>
+__global__ void __launch_bounds__(f32::kThreads)
 flash_fwd_kernel(const Params p) {
-  constexpr int S = Smem<T, D>::S, NK = kTile / 8, ND = D / 8;
+  using namespace f32;
+  constexpr int S = Smem<D>::S, NK = kTile / 8, ND = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* Kb = Qs + kRows * S;              // two K tiles, then two V tiles
-  T* Vb = Kb + 2 * kTile * S;
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Kb = Qs + kRows * S;          // two K tiles, then two V tiles
+  float* Vb = Kb + 2 * kTile * S;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const T* q = static_cast<const T*>(p.q) + b * p.qb + h * p.qh;
-  const T* k = static_cast<const T*>(p.k) + b * p.kb + h * p.kh;
-  const T* v = static_cast<const T*>(p.v) + b * p.kb + h * p.kh;
-  const int nkt = key_tiles(p, q0);
-  load_tile<T, D>(Qs, q, p.ql, q0, p.Lq, kRows);
+  const float* q = static_cast<const float*>(p.q) + b * p.qb + h * p.qh;
+  const float* k = static_cast<const float*>(p.k) + b * p.kb + h * p.kh;
+  const float* v = static_cast<const float*>(p.v) + b * p.kb + h * p.kh;
+  const int nkt = key_tiles(p, q0, kRows, kTile);
+  load_tile<D>(Qs, q, p.ql, q0, p.Lq, kRows);
   if (nkt > 0) {
-    load_tile<T, D>(Kb, k, p.kl, 0, p.Lk, kTile);
-    load_tile<T, D>(Vb, v, p.kl, 0, p.Lk, kTile);
+    load_tile<D>(Kb, k, p.kl, 0, p.Lk, kTile);
+    load_tile<D>(Vb, v, p.kl, 0, p.Lk, kTile);
   }
   cp_async_commit();
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
@@ -373,14 +352,14 @@ flash_fwd_kernel(const Params p) {
   for (int kt = 0; kt < nkt; ++kt) {
     if (kt + 1 < nkt) {                // the next tile, while this one runs
       const int nb = ((kt + 1) & 1) * kTile * S;
-      load_tile<T, D>(Kb + nb, k, p.kl, (kt + 1) * kTile, p.Lk, kTile);
-      load_tile<T, D>(Vb + nb, v, p.kl, (kt + 1) * kTile, p.Lk, kTile);
+      load_tile<D>(Kb + nb, k, p.kl, (kt + 1) * kTile, p.Lk, kTile);
+      load_tile<D>(Vb + nb, v, p.kl, (kt + 1) * kTile, p.Lk, kTile);
     }
     cp_async_commit();
     cp_async_wait_one();
     __syncthreads();
-    const T* Ks = Kb + (kt & 1) * kTile * S;
-    const T* Vs = Vb + (kt & 1) * kTile * S;
+    const float* Ks = Kb + (kt & 1) * kTile * S;
+    const float* Vs = Vb + (kt & 1) * kTile * S;
     float s[NK][4];
     zero(s);
     gemm_nt<NK, D, S>(s, Qs + warp * 16 * S, Ks, lane);
@@ -430,13 +409,13 @@ flash_fwd_kernel(const Params p) {
     __syncthreads();                   // this buffer is refilled next
   }
   cp_async_wait_all();
-  T* out = static_cast<T*>(p.out) + b * p.qb + h * p.qh;
+  float* out = static_cast<float*>(p.out) + b * p.qb + h * p.qh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float lr = quad_sum(l[r]);
     if (row[r] >= p.Lq) continue;
     const float inv = 1.f / fmaxf(lr, 1e-30f);
-    T* o = out + (long long)row[r] * p.ql + 2 * t;
+    float* o = out + (long long)row[r] * p.ql + 2 * t;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       store2(o + n * 8, acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
@@ -446,30 +425,31 @@ flash_fwd_kernel(const Params p) {
   }
 }
 
-// --------------------------------------------------------- backward: dQ
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------- f32 backward: dQ
+template <int D>
+__global__ void __launch_bounds__(f32::kThreads)
 flash_bwd_dq_kernel(const Params p) {
-  constexpr int S = Smem<T, D>::S, NK = kTile / 8, ND = D / 8;
+  using namespace f32;
+  constexpr int S = Smem<D>::S, NK = kTile / 8, ND = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* dOs = Qs + kRows * S;
-  T* Kb = dOs + kRows * S;             // two K tiles, then two V tiles
-  T* Vb = Kb + 2 * kTile * S;
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* dOs = Qs + kRows * S;
+  float* Kb = dOs + kRows * S;         // two K tiles, then two V tiles
+  float* Vb = Kb + 2 * kTile * S;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const long long qoff = b * p.qb + h * p.qh, koff = b * p.kb + h * p.kh;
-  const T* k = static_cast<const T*>(p.k) + koff;
-  const T* v = static_cast<const T*>(p.v) + koff;
-  const int nkt = key_tiles(p, q0);
-  load_tile<T, D>(Qs, static_cast<const T*>(p.q) + qoff, p.ql, q0, p.Lq,
-                  kRows);
-  load_tile<T, D>(dOs, static_cast<const T*>(p.dout) + qoff, p.ql, q0, p.Lq,
-                  kRows);
+  const float* k = static_cast<const float*>(p.k) + koff;
+  const float* v = static_cast<const float*>(p.v) + koff;
+  const int nkt = key_tiles(p, q0, kRows, kTile);
+  load_tile<D>(Qs, static_cast<const float*>(p.q) + qoff, p.ql, q0, p.Lq,
+               kRows);
+  load_tile<D>(dOs, static_cast<const float*>(p.dout) + qoff, p.ql, q0,
+               p.Lq, kRows);
   if (nkt > 0) {
-    load_tile<T, D>(Kb, k, p.kl, 0, p.Lk, kTile);
-    load_tile<T, D>(Vb, v, p.kl, 0, p.Lk, kTile);
+    load_tile<D>(Kb, k, p.kl, 0, p.Lk, kTile);
+    load_tile<D>(Vb, v, p.kl, 0, p.Lk, kTile);
   }
   cp_async_commit();
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
@@ -490,14 +470,14 @@ flash_bwd_dq_kernel(const Params p) {
   for (int kt = 0; kt < nkt; ++kt) {
     if (kt + 1 < nkt) {
       const int nb = ((kt + 1) & 1) * kTile * S;
-      load_tile<T, D>(Kb + nb, k, p.kl, (kt + 1) * kTile, p.Lk, kTile);
-      load_tile<T, D>(Vb + nb, v, p.kl, (kt + 1) * kTile, p.Lk, kTile);
+      load_tile<D>(Kb + nb, k, p.kl, (kt + 1) * kTile, p.Lk, kTile);
+      load_tile<D>(Vb + nb, v, p.kl, (kt + 1) * kTile, p.Lk, kTile);
     }
     cp_async_commit();
     cp_async_wait_one();
     __syncthreads();
-    const T* Ks = Kb + (kt & 1) * kTile * S;
-    const T* Vs = Vb + (kt & 1) * kTile * S;
+    const float* Ks = Kb + (kt & 1) * kTile * S;
+    const float* Vs = Vb + (kt & 1) * kTile * S;
     float s[NK][4], dp[NK][4];
     zero(s);
     zero(dp);
@@ -528,39 +508,40 @@ flash_bwd_dq_kernel(const Params p) {
     __syncthreads();                   // this buffer is refilled next
   }
   cp_async_wait_all();
-  T* out = static_cast<T*>(p.dq) + qoff;
+  float* out = static_cast<float*>(p.dq) + qoff;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= p.Lq) continue;
-    T* o = out + (long long)row[r] * p.ql + 2 * t;
+    float* o = out + (long long)row[r] * p.ql + 2 * t;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       store2(o + n * 8, dq[n][2 * r], dq[n][2 * r + 1]);
   }
 }
 
-// ------------------------------------------------------ backward: dK, dV
+// ------------------------------------------------ f32 backward: dK, dV
 // One block per (b, h, 64-key tile); the warps own key rows and loop
 // over query tiles of BQ rows, so the products are taken transposed:
 // S^T = K.Q^T, dV += U^T.dO, dP^T = V.dO^T, dK += dS^T.Q.
-template <typename T, int D, int BQ>
-__global__ void __launch_bounds__(kThreads)
+template <int D, int BQ>
+__global__ void __launch_bounds__(f32::kThreads)
 flash_bwd_dkv_kernel(const Params p) {
-  constexpr int S = Smem<T, D>::S, NQ = BQ / 8, ND = D / 8;
+  using namespace f32;
+  constexpr int S = Smem<D>::S, NQ = BQ / 8, ND = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = Ks + kRows * S;
-  T* Qb = Vs + kRows * S;              // two Q tiles, then two dO tiles
-  T* dOb = Qb + 2 * BQ * S;
-  float* lse_b = reinterpret_cast<float*>(dOb + 2 * BQ * S);   // [2][BQ]
+  float* Ks = reinterpret_cast<float*>(smem);
+  float* Vs = Ks + kRows * S;
+  float* Qb = Vs + kRows * S;          // two Q tiles, then two dO tiles
+  float* dOb = Qb + 2 * BQ * S;
+  float* lse_b = dOb + 2 * BQ * S;                             // [2][BQ]
   float* delta_b = lse_b + 2 * BQ;                             // [2][BQ]
   uint32_t* rk_b = reinterpret_cast<uint32_t*>(delta_b + 2 * BQ);
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const long long qoff = b * p.qb + h * p.qh, koff = b * p.kb + h * p.kh;
-  const T* q = static_cast<const T*>(p.q) + qoff;
-  const T* dout = static_cast<const T*>(p.dout) + qoff;
+  const float* q = static_cast<const float*>(p.q) + qoff;
+  const float* dout = static_cast<const float*>(p.dout) + qoff;
   const bool drop = p.drop_t > 0;
   const uint32_t bh = (uint32_t)(b * p.H + h);
   const int nqt = (p.Lq + BQ - 1) / BQ;
@@ -572,8 +553,8 @@ flash_bwd_dkv_kernel(const Params p) {
   // query tile qt -> buffer `buf`: Q and dO by cp.async, the per-row
   // lse (log2 units), delta and dropout row keys by plain stores
   auto stage = [&](int qt, int buf) {
-    load_tile<T, D>(Qb + buf * BQ * S, q, p.ql, qt * BQ, p.Lq, BQ);
-    load_tile<T, D>(dOb + buf * BQ * S, dout, p.ql, qt * BQ, p.Lq, BQ);
+    load_tile<D>(Qb + buf * BQ * S, q, p.ql, qt * BQ, p.Lq, BQ);
+    load_tile<D>(dOb + buf * BQ * S, dout, p.ql, qt * BQ, p.Lq, BQ);
     for (int i = threadIdx.x; i < BQ; i += kThreads) {
       const int qi = qt * BQ + i;
       const bool ok = qi < p.Lq;
@@ -583,10 +564,10 @@ flash_bwd_dkv_kernel(const Params p) {
       if (drop) rk_b[buf * BQ + i] = row_key(p.seed, bh, qi);
     }
   };
-  load_tile<T, D>(Ks, static_cast<const T*>(p.k) + koff, p.kl, k0, p.Lk,
-                  kRows);
-  load_tile<T, D>(Vs, static_cast<const T*>(p.v) + koff, p.kl, k0, p.Lk,
-                  kRows);
+  load_tile<D>(Ks, static_cast<const float*>(p.k) + koff, p.kl, k0, p.Lk,
+               kRows);
+  load_tile<D>(Vs, static_cast<const float*>(p.v) + koff, p.kl, k0, p.Lk,
+               kRows);
   if (start < nqt) stage(start, 0);
   cp_async_commit();
   const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
@@ -601,8 +582,8 @@ flash_bwd_dkv_kernel(const Params p) {
     cp_async_commit();
     cp_async_wait_one();
     __syncthreads();
-    const T* Qs = Qb + buf * BQ * S;
-    const T* dOs = dOb + buf * BQ * S;
+    const float* Qs = Qb + buf * BQ * S;
+    const float* dOs = dOb + buf * BQ * S;
     const float* lse_s = lse_b + buf * BQ;
     const float* delta_s = delta_b + buf * BQ;
     const uint32_t* rk_s = rk_b + buf * BQ;
@@ -631,8 +612,8 @@ flash_bwd_dkv_kernel(const Params p) {
     __syncthreads();                   // this buffer is refilled next
   }
   cp_async_wait_all();
-  T* dko = static_cast<T*>(p.dk) + koff;
-  T* dvo = static_cast<T*>(p.dv) + koff;
+  float* dko = static_cast<float*>(p.dk) + koff;
+  float* dvo = static_cast<float*>(p.dv) + koff;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (key[r] >= p.Lk) continue;
@@ -645,52 +626,793 @@ flash_bwd_dkv_kernel(const Params p) {
   }
 }
 
+// ======================================== bf16: wgmma, TMA, warpgroups
+namespace wg {
+
+// two warpgroups of 64 rows: 8 warps, two on each of the SM's four
+// register files, so a thread may hold up to 255 registers (a ninth warp
+// would put three on one file and cap every thread at 168)
+constexpr int kThreads = 256;
+// a stage is released by each warp once its wgmma.wait_group has seen
+// the products that read it: the wait speaks for the warp's rows
+constexpr int kReleasers = 8;
+
+// A [rows][D] tile in shared memory is D / W boxes of [rows][W], one after
+// the other: W = 64 columns (128-byte rows, 128-byte swizzle) where D is
+// a multiple of 64, else 32 (64-byte rows, 64-byte swizzle), so every
+// head dim is a whole number of boxes (D 96 is three) and no column is
+// padded.
+template <int D>
+struct Tile {
+  static constexpr int kCols = D % 64 == 0 ? 64 : 32;
+  static constexpr int kRowBytes = kCols * 2;
+  static constexpr int kBoxes = D / kCols;
+  static constexpr int kSteps = kCols / 16;          // k steps a box
+  static constexpr uint64_t kSwizzle = kCols == 64 ? kSwizzle128
+                                                   : kSwizzle64;
+  static constexpr uint32_t kGroup = 8 * kRowBytes;  // 8 rows
+  static constexpr uint32_t bytes(int rows) {
+    return (uint32_t)rows * D * 2;
+  }
+};
+
+// the tensor maps of q, k, v and dout over [B, L, H, D]
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
+
+// K-major operand: rows [row0, row0 + 64 or N) of a [rows][D] tile at
+// `tile`, k step kk (16 columns) of the head dim
+template <int D>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int rows, int row0,
+                                           int kk) {
+  using T = Tile<D>;
+  return wgmma_desc(tile + (kk / T::kSteps) * rows * T::kRowBytes +
+                        row0 * T::kRowBytes + (kk % T::kSteps) * 32,
+                    1, T::kGroup >> 4, T::kSwizzle);
+}
+
+// MN-major B operand: rows 16 kk .. 16 kk + 15 of a [rows][D] tile (the k
+// of the product), all D columns (its N): one column block a box
+template <int D>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows, int kk) {
+  using T = Tile<D>;
+  return wgmma_desc(tile + kk * 16 * T::kRowBytes,
+                    (uint32_t)(rows * T::kRowBytes) >> 4, T::kGroup >> 4,
+                    T::kSwizzle);
+}
+
+// d += a . b for b MN-major, N = D
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (D == 32) wgmma_rs_m64n32k16(d, a, b);
+  else if constexpr (D == 64) wgmma_rs_m64n64k16(d, a, b);
+  else if constexpr (D == 96) wgmma_rs_m64n96k16(d, a, b);
+  else wgmma_rs_m64n128k16(d, a, b);
+}
+
+// 4 bytes global -> shared by cp.async; zeros when !valid
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// one arrival on `bar` once this thread's cp.async copies have landed
+// (counted in the barrier's arrivals: .noinc)
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// rows [l0, l0 + rows) of head h, batch b of a [B, L, H, D] map into the
+// tile at `dst`, completing on `bar`
+template <int D>
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map,
+                                          int b, int h, int l0, int rows,
+                                          uint32_t bar) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int c = 0; c < T::kBoxes; ++c)
+    tma_load_4d(dst + c * rows * T::kRowBytes, map, c * T::kCols, h, l0, b,
+                bar);
+}
+
+__device__ __forceinline__ void advance(int& stage, uint32_t& phase,
+                                        int stages) {
+  if (++stage == stages) {
+    stage = 0;
+    phase ^= 1;
+  }
+}
+
+// an accumulator's 16 columns 16 kk .. 16 kk + 15, as wgmma's A operand
+template <int N>
+__device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4],
+                                     const float (&d)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+}
+
+}  // namespace wg
+
+// ------------------------------------------------------ bf16 forward
+// One block per (b, h, 128 query rows); 128-key tiles stream through the
+// ring.  Shared memory: Q, then each stage's K and V tiles, then the
+// mbarriers (q_full, then k_full, v_full, empty a stage).
+template <int D>
+struct FwdWg {
+  static constexpr int BM = 128, BN = 128, kStages = 3;
+  static constexpr uint32_t kQ = wg::Tile<D>::bytes(BM);
+  static constexpr uint32_t kKV = wg::Tile<D>::bytes(BN);
+  static constexpr uint32_t kBars = kQ + kStages * 2 * kKV;
+  static constexpr size_t kSmem = kBars + (1 + 3 * kStages) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ wg::Maps maps,
+                       const Params p) {
+  using C = FwdWg<D>;
+  constexpr int BM = C::BM, BN = C::BN, kStages = C::kStages;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_full = base + C::kBars;
+  const uint32_t k_full = q_full + 8, v_full = k_full + 8 * kStages;
+  const uint32_t empty = v_full + 8 * kStages;
+  const int b = blockIdx.z, h = blockIdx.y;
+  // causal blocks run the longest first
+  const int qt = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * BM;
+  const int nkt = key_tiles(p, q0, BM, BN);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, wg::kReleasers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int role = threadIdx.x / 128;     // the warpgroup: rows 64 role..
+  const uint32_t kv0 = base + C::kQ;
+  // key tile n into its stage (n % kStages): thread 0 issues every load
+  auto issue = [&](int n) {
+    const int st = n % kStages;
+    const uint32_t kd = kv0 + st * 2 * C::kKV;
+    mbar_expect_tx(k_full + 8 * st, C::kKV);
+    wg::load_rows<D>(kd, &maps.k, b, h, n * BN, BN, k_full + 8 * st);
+    mbar_expect_tx(v_full + 8 * st, C::kKV);
+    wg::load_rows<D>(kd + C::kKV, &maps.v, b, h, n * BN, BN,
+                     v_full + 8 * st);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(q_full, C::kQ);
+    wg::load_rows<D>(base, &maps.q, b, h, q0, BM, q_full);
+    for (int n = 0; n < kStages && n < nkt; ++n) issue(n);
+  }
+  // ------------------------------------------- the consumers: 64 rows
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wrow0 = q0 + role * 64;               // this warpgroup's rows
+  const int row[2] = {wrow0 + warp * 16 + g, wrow0 + warp * 16 + g + 8};
+  const bool drop = p.drop_t > 0;
+  const uint32_t bh = (uint32_t)(b * p.H + h);
+  uint32_t rk[2] = {0u, 0u};
+  if (drop) {
+    rk[0] = row_key(p.seed, bh, row[0]);
+    rk[1] = row_key(p.seed, bh, row[1]);
+  }
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  mbar_wait(q_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int kt = 0; kt < nkt; ++kt) {
+    // the stage tile kt - 1 used takes tile kt - 1 + kStages, once both
+    // warpgroups have let it go
+    if (threadIdx.x == 0 && kt > 0 && kt - 1 + kStages < nkt) {
+      mbar_wait(empty + 8 * ((kt - 1) % kStages), ((kt - 1) / kStages) & 1);
+      issue(kt - 1 + kStages);
+    }
+    __syncwarp();
+    const uint32_t kd = base + C::kQ + stage * 2 * C::kKV;
+    mbar_wait(k_full + 8 * stage, phase);
+    float s[BN / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n128k16<0>(s, wg::kmajor<D>(base, BM, role * 64, kk),
+                          wg::kmajor<D>(kd, BN, 0, kk), kk > 0);
+    wgmma_commit();
+    const int k0 = kt * BN;
+    // the dropout draws need no score: hashed while the product runs,
+    // element 4j + e of the tile at bit (4j + e) % 32 of keep[j / 8]
+    uint32_t keep[BN / 64] = {};
+    if (drop) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const uint32_t kp = (uint32_t)(k0 + 8 * j + 2 * t) >> 1;
+        const uint32_t x0 = pair_bits(rk[0], kp), x1 = pair_bits(rk[1], kp);
+        keep[j / 8] |= (keep_bit(p, x0 & 0xFFFFu) |
+                        keep_bit(p, x0 >> 16) << 1 |
+                        keep_bit(p, x1 & 0xFFFFu) << 2 |
+                        keep_bit(p, x1 >> 16) << 3) << (4 * (j % 8));
+      }
+    }
+    wgmma_wait<0>();
+    // the mask only where the tile crosses the diagonal or the ragged end
+    const bool edge = k0 + BN > p.Lk ||
+        (p.causal && k0 + BN - 1 + p.k_off > wrow0 + p.q_off);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] *= p.scale_log2;
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[4 * j + e] = visible(p, row[e >> 1], k0 + 8 * j + 2 * t + (e & 1))
+                             ? s[4 * j + e] : kNeg;
+    }
+    float mx[2] = {kNeg, kNeg};
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    float alpha[2], base2[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mn = fmaxf(m[r], quad_max(mx[r]));
+      alpha[r] = fast_exp2(m[r] - mn);
+      m[r] = mn;
+      l[r] *= alpha[r];
+      // a row that sees no key yet keeps m = -1e30: its masked scores
+      // then give 2^(-1e30) = 0, not 2^0
+      base2[r] = mn > 0.5f * kNeg ? mn : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pr = fast_exp2(s[4 * j + e] - base2[e >> 1]);
+        l[e >> 1] += pr;     // the denominator is undropped
+        s[4 * j + e] = pr;
+      }
+      if (drop) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[4 * j + e] *= kept_factor(p, keep[j / 8], 4 * (j % 8) + e);
+      }
+    }
+    uint32_t pa[BN / 16][4];
+    wg::to_a<BN>(pa, s);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= alpha[0]; o[4 * j + 1] *= alpha[0];
+      o[4 * j + 2] *= alpha[1]; o[4 * j + 3] *= alpha[1];
+    }
+    mbar_wait(v_full + 8 * stage, phase);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wg::wgmma_rs<D>(o, pa[kk], wg::mnmajor<D>(kd + C::kKV, BN, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(empty + 8 * stage);
+    wg::advance(stage, phase, kStages);
+  }
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + b * p.qb +
+                       h * p.qh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lr = quad_sum(l[r]);
+    if (row[r] >= p.Lq) continue;
+    const float inv = 1.f / fmaxf(lr, 1e-30f);
+    __nv_bfloat16* dst = out + (long long)row[r] * p.ql + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(dst + 8 * j, o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    if (t == 0)
+      p.lse_out[(long long)bh * p.Lq + row[r]] =
+          lr > 0.f ? m[r] * kLn2 + logf(lr) : kNeg;
+  }
+}
+
+// --------------------------------------------------- bf16 backward: dQ
+// One block per (b, h, 128 query rows); 64-key tiles of K and V stream
+// through the ring.  Shared memory: Q, dO, each stage's K and V, then
+// the mbarriers (q_full, then kv_full, empty a stage).
+template <int D>
+struct DqWg {
+  static constexpr int BM = 128, BN = 64, kStages = 3;
+  static constexpr uint32_t kQ = wg::Tile<D>::bytes(BM);
+  static constexpr uint32_t kKV = wg::Tile<D>::bytes(BN);
+  static constexpr uint32_t kBars = 2 * kQ + kStages * 2 * kKV;
+  static constexpr size_t kSmem = kBars + (1 + 2 * kStages) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ wg::Maps maps,
+                          const Params p) {
+  using C = DqWg<D>;
+  constexpr int BM = C::BM, BN = C::BN, kStages = C::kStages;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_full = base + C::kBars;
+  const uint32_t kv_full = q_full + 8, empty = kv_full + 8 * kStages;
+  const uint32_t do_tile = base + C::kQ, kv0 = base + 2 * C::kQ;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int qt = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * BM;
+  const int nkt = key_tiles(p, q0, BM, BN);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(kv_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, wg::kReleasers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int role = threadIdx.x / 128;     // the warpgroup: rows 64 role..
+  // key tile n into its stage (n % kStages): thread 0 issues every load
+  auto issue = [&](int n) {
+    const int st = n % kStages;
+    const uint32_t kd = kv0 + st * 2 * C::kKV, bar = kv_full + 8 * st;
+    mbar_expect_tx(bar, 2 * C::kKV);
+    wg::load_rows<D>(kd, &maps.k, b, h, n * BN, BN, bar);
+    wg::load_rows<D>(kd + C::kKV, &maps.v, b, h, n * BN, BN, bar);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(q_full, 2 * C::kQ);
+    wg::load_rows<D>(base, &maps.q, b, h, q0, BM, q_full);
+    wg::load_rows<D>(do_tile, &maps.dout, b, h, q0, BM, q_full);
+    for (int n = 0; n < kStages && n < nkt; ++n) issue(n);
+  }
+  // ------------------------------------------- the consumers: 64 rows
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wrow0 = q0 + role * 64;
+  const int row[2] = {wrow0 + warp * 16 + g, wrow0 + warp * 16 + g + 8};
+  const bool drop = p.drop_t > 0;
+  const uint32_t bh = (uint32_t)(b * p.H + h);
+  uint32_t rk[2] = {0u, 0u};
+  float lse2[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] < p.Lq) {
+      lse2[r] = p.lse[(long long)bh * p.Lq + row[r]] * kLog2e;
+      delta[r] = p.delta[(long long)bh * p.Lq + row[r]];
+    }
+    if (drop) rk[r] = row_key(p.seed, bh, row[r]);
+  }
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  mbar_wait(q_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (threadIdx.x == 0 && kt > 0 && kt - 1 + kStages < nkt) {
+      mbar_wait(empty + 8 * ((kt - 1) % kStages), ((kt - 1) / kStages) & 1);
+      issue(kt - 1 + kStages);
+    }
+    __syncwarp();
+    const uint32_t kd = kv0 + stage * 2 * C::kKV;
+    mbar_wait(kv_full + 8 * stage, phase);
+    float s[BN / 2], dp[BN / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n64k16<0>(s, wg::kmajor<D>(base, BM, role * 64, kk),
+                         wg::kmajor<D>(kd, BN, 0, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n64k16<0>(dp, wg::kmajor<D>(do_tile, BM, role * 64, kk),
+                         wg::kmajor<D>(kd + C::kKV, BN, 0, kk), kk > 0);
+    wgmma_commit();
+    const int k0 = kt * BN;
+    // the dropout draws, hashed while the products run (bit 4j + e)
+    uint32_t keep = 0;
+    if (drop) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const uint32_t kp = (uint32_t)(k0 + 8 * j + 2 * t) >> 1;
+        const uint32_t x0 = pair_bits(rk[0], kp), x1 = pair_bits(rk[1], kp);
+        keep |= (keep_bit(p, x0 & 0xFFFFu) | keep_bit(p, x0 >> 16) << 1 |
+                 keep_bit(p, x1 & 0xFFFFu) << 2 |
+                 keep_bit(p, x1 >> 16) << 3) << (4 * j);
+      }
+    }
+    wgmma_wait<0>();
+    const bool edge = k0 + BN > p.Lk ||
+        (p.causal && k0 + BN - 1 + p.k_off > wrow0 + p.q_off);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i)
+      s[i] = fast_exp2(s[i] * p.scale_log2 - lse2[(i >> 1) & 1]);
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[4 * j + e] = visible(p, row[e >> 1], k0 + 8 * j + 2 * t + (e & 1))
+                             ? s[4 * j + e] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float kf = drop ? kept_factor(p, keep, 4 * j + e) : 1.f;
+        // dS = (u . dP - P . delta) * scale, u = P * keep * 1/(1-p)
+        const float pr = s[4 * j + e];
+        s[4 * j + e] =
+            (pr * kf * dp[4 * j + e] - pr * delta[e >> 1]) * p.scale;
+      }
+    }
+    uint32_t da[BN / 16][4];
+    wg::to_a<BN>(da, s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wg::wgmma_rs<D>(dq, da[kk], wg::mnmajor<D>(kd, BN, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(empty + 8 * stage);
+    wg::advance(stage, phase, kStages);
+  }
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.dq) + b * p.qb +
+                       h * p.qh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= p.Lq) continue;
+    __nv_bfloat16* dst = out + (long long)row[r] * p.ql + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(dst + 8 * j, dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+  }
+}
+
+// ----------------------------------------------- bf16 backward: dK, dV
+// One block per (b, h, 128 key rows); 64-query tiles of Q and dO stream
+// through the ring, and the products are taken transposed (keys along
+// the rows): S^T = K.Q^T, dP^T = V.dO^T, dV += U^T.dO, dK += dS^T.Q.
+// Warp 0's lanes bring each tile's per-query lse, delta (cp.async) and
+// dropout row keys into the stage's rows of shared memory, beside the TMA
+// loads of Q and dO, and arrive on the stage's full barrier.  Shared
+// memory: K, V, each stage's Q and dO, each stage's rows, then the
+// mbarriers (kv_full, then q_full, empty a stage).
+template <int D>
+struct DkvWg {
+  static constexpr int BM = 128, BQ = 64, kStages = 3;
+  static constexpr uint32_t kKV = wg::Tile<D>::bytes(BM);
+  static constexpr uint32_t kQ = wg::Tile<D>::bytes(BQ);
+  static constexpr uint32_t kRowBuf = 2 * kKV + kStages * 2 * kQ;
+  // [stage][lse, delta, row key][BQ]
+  static constexpr uint32_t kBars = kRowBuf + kStages * 3 * BQ * 4;
+  static constexpr size_t kSmem = kBars + (1 + 2 * kStages) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ wg::Maps maps,
+                           const Params p) {
+  using C = DkvWg<D>;
+  constexpr int BM = C::BM, BQ = C::BQ, kStages = C::kStages;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - smem_addr(smem_raw));
+  const uint32_t kv_full = base + C::kBars;
+  const uint32_t q_full = kv_full + 8, empty = q_full + 8 * kStages;
+  const uint32_t v_tile = base + C::kKV, q0s = base + 2 * C::kKV;
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BM;
+  const int nqt = (p.Lq + BQ - 1) / BQ;
+  int start = 0;
+  if (p.causal) {        // the first query that sees key k0
+    const int first = k0 + p.k_off - p.q_off;
+    start = first <= 0 ? 0 : min(first / BQ, nqt);
+  }
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      // expect_tx, then each loader lane twice: its copies, its stores
+      mbar_init(q_full + 8 * s, 1 + 2 * 32);
+      mbar_init(empty + 8 * s, wg::kReleasers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int role = threadIdx.x / 128;     // the warpgroup: keys 64 role..
+  float* const rows0 = reinterpret_cast<float*>(gbase + C::kRowBuf);
+  const bool drop = p.drop_t > 0;
+  const uint32_t bh = (uint32_t)(b * p.H + h);
+  const int ntiles = nqt - start;
+  const bool loader = threadIdx.x < 32;   // warp 0 issues every load
+  // query tile start + n into its stage (n % kStages): Q and dO by TMA
+  // (lane 0), the tile's lse and delta by cp.async and its dropout row
+  // keys by plain stores (each lane); the stage's full barrier completes
+  // when all of them have landed
+  auto issue = [&](int n) {
+    const int st = n % kStages, qt = start + n, lane = threadIdx.x;
+    const uint32_t qd = q0s + st * 2 * C::kQ, bar = q_full + 8 * st;
+    if (lane == 0) {
+      mbar_expect_tx(bar, 2 * C::kQ);
+      wg::load_rows<D>(qd, &maps.q, b, h, qt * BQ, BQ, bar);
+      wg::load_rows<D>(qd + C::kQ, &maps.dout, b, h, qt * BQ, BQ, bar);
+    }
+    float* lse_s = rows0 + st * 3 * BQ;
+    float* delta_s = lse_s + BQ;
+    uint32_t* rk_s = reinterpret_cast<uint32_t*>(delta_s + BQ);
+    for (int i = lane; i < BQ; i += 32) {
+      const int qi = qt * BQ + i;
+      const bool ok = qi < p.Lq;
+      const long long at = ok ? (long long)bh * p.Lq + qi : 0;
+      wg::cp_async4(lse_s + i, p.lse + at, ok);
+      wg::cp_async4(delta_s + i, p.delta + at, ok);
+      if (drop) rk_s[i] = row_key(p.seed, bh, qi);
+    }
+    wg::cp_async_arrive(bar);       // when this lane's copies have landed
+    mbar_arrive(bar);               // releases this lane's row keys
+  };
+  if (loader) {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * C::kKV);
+      wg::load_rows<D>(base, &maps.k, b, h, k0, BM, kv_full);
+      wg::load_rows<D>(v_tile, &maps.v, b, h, k0, BM, kv_full);
+    }
+    for (int n = 0; n < kStages && n < ntiles; ++n) issue(n);
+  }
+  // ------------------------------------------- the consumers: 64 keys
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wkey0 = k0 + role * 64;               // this warpgroup's keys
+  const int key[2] = {wkey0 + warp * 16 + g, wkey0 + warp * 16 + g + 8};
+  const uint32_t kp[2] = {(uint32_t)key[0] >> 1, (uint32_t)key[1] >> 1};
+  const int hi = key[0] & 1;          // key[1] = key[0] + 8: same parity
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  mbar_wait(kv_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int qt = start; qt < nqt; ++qt) {
+    const int n = qt - start;
+    if (loader && n > 0 && n - 1 + kStages < ntiles) {
+      mbar_wait(empty + 8 * ((n - 1) % kStages), ((n - 1) / kStages) & 1);
+      issue(n - 1 + kStages);
+    }
+    __syncwarp();
+    const uint32_t qd = q0s + stage * 2 * C::kQ, dod = qd + C::kQ;
+    mbar_wait(q_full + 8 * stage, phase);
+    // this tile's per-query rows, as warp 0 brought them
+    const float* lse_s = rows0 + stage * 3 * BQ;
+    const float* delta_s = lse_s + BQ;
+    const uint32_t* rk_s = reinterpret_cast<const uint32_t*>(delta_s + BQ);
+    float s[BQ / 2], dp[BQ / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n64k16<0>(s, wg::kmajor<D>(base, BM, role * 64, kk),
+                         wg::kmajor<D>(qd, BQ, 0, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n64k16<0>(dp, wg::kmajor<D>(v_tile, BM, role * 64, kk),
+                         wg::kmajor<D>(dod, BQ, 0, kk), kk > 0);
+    wgmma_commit();
+    // the dropout draws, hashed while the products run (bit 4j + e).
+    // Keys 2m and 2m + 1 share a hash and sit in lanes 4 apart: each lane
+    // hashes its own row pair `hi` for both columns and takes the other
+    // pair's from its partner
+    uint32_t keep = 0;
+    if (drop) {
+      const uint32_t kmine = hi ? kp[1] : kp[0];
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const int cj = 8 * j + 2 * t;
+        const uint32_t m0 = pair_bits(rk_s[cj], kmine);
+        const uint32_t m1 = pair_bits(rk_s[cj + 1], kmine);
+        const uint32_t o0 = __shfl_xor_sync(kFull, m0, 4);
+        const uint32_t o1 = __shfl_xor_sync(kFull, m1, 4);
+        const uint32_t x[4] = {hi ? o0 : m0, hi ? o1 : m1,
+                               hi ? m0 : o0, hi ? m1 : o1};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          keep |= keep_bit(p, hi ? x[e] >> 16 : x[e] & 0xFFFFu)
+                  << (4 * j + e);
+      }
+    }
+    wgmma_wait<0>();
+    const int c0 = qt * BQ;
+    const bool edge = c0 + BQ > p.Lq ||
+        (p.causal && wkey0 + 63 + p.k_off > c0 + p.q_off);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[4 * j + e] = fast_exp2(s[4 * j + e] * p.scale_log2 -
+                                 lse_s[8 * j + 2 * t + (e & 1)] * kLog2e);
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[4 * j + e] = visible(p, c0 + 8 * j + 2 * t + (e & 1), key[e >> 1])
+                             ? s[4 * j + e] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ci = 8 * j + 2 * t + (e & 1);
+        const float pr = s[4 * j + e];
+        const float u = drop ? pr * kept_factor(p, keep, 4 * j + e) : pr;
+        s[4 * j + e] = u;
+        dp[4 * j + e] = (u * dp[4 * j + e] - pr * delta_s[ci]) * p.scale;
+      }
+    uint32_t ua[BQ / 16][4], da[BQ / 16][4];
+    wg::to_a<BQ>(ua, s);
+    wg::to_a<BQ>(da, dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wg::wgmma_rs<D>(dv, ua[kk], wg::mnmajor<D>(dod, BQ, kk));
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wg::wgmma_rs<D>(dk, da[kk], wg::mnmajor<D>(qd, BQ, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(empty + 8 * stage);
+    wg::advance(stage, phase, kStages);
+  }
+  const long long koff = b * p.kb + h * p.kh;
+  __nv_bfloat16* dko = static_cast<__nv_bfloat16*>(p.dk) + koff;
+  __nv_bfloat16* dvo = static_cast<__nv_bfloat16*>(p.dv) + koff;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (key[r] >= p.Lk) continue;
+    const long long o = (long long)key[r] * p.kl + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      store2(dko + o + 8 * j, dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+      store2(dvo + o + 8 * j, dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
 // ------------------------------------------------------------ launches
 template <typename Kern>
-int launch(Kern kern, dim3 grid, size_t smem, const Params& p,
-           cudaStream_t st) {
+int launch_f32(Kern kern, dim3 grid, size_t smem, const Params& p,
+               cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<grid, kThreads, smem, st>>>(p);
+  kern<<<grid, f32::kThreads, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int fwd(const Params& p, cudaStream_t st) {
-  const size_t smem = (size_t)(kRows + 4 * kTile) * Smem<T, D>::S * sizeof(T);
-  return launch(flash_fwd_kernel<T, D>,
-                dim3((p.Lq + kRows - 1) / kRows, p.H, p.B), smem, p, st);
+template <int D>
+int fwd_f32(const Params& p, cudaStream_t st) {
+  using namespace f32;
+  const size_t smem = (size_t)(kRows + 4 * kTile) * Smem<D>::S * 4;
+  return launch_f32(flash_fwd_kernel<D>,
+                    dim3((p.Lq + kRows - 1) / kRows, p.H, p.B), smem, p, st);
 }
 
-template <typename T, int D>
-int bwd_dq(const Params& p, cudaStream_t st) {
-  const size_t smem = (size_t)(2 * kRows + 4 * kTile) * Smem<T, D>::S *
-                      sizeof(T);
-  return launch(flash_bwd_dq_kernel<T, D>,
-                dim3((p.Lq + kRows - 1) / kRows, p.H, p.B), smem, p, st);
+template <int D>
+int bwd_dq_f32(const Params& p, cudaStream_t st) {
+  using namespace f32;
+  const size_t smem = (size_t)(2 * kRows + 4 * kTile) * Smem<D>::S * 4;
+  return launch_f32(flash_bwd_dq_kernel<D>,
+                    dim3((p.Lq + kRows - 1) / kRows, p.H, p.B), smem, p, st);
 }
 
-template <typename T, int D>
-int bwd_dkv(const Params& p, cudaStream_t st) {
-  // fewer query rows per step at D = 128 keeps dK and dV in registers
+template <int D>
+int bwd_dkv_f32(const Params& p, cudaStream_t st) {
+  using namespace f32;
+  // fewer query rows per step above D = 64 keeps dK and dV in registers
   constexpr int BQ = D > 64 ? 32 : 64;
-  const size_t smem = (size_t)(2 * kRows + 4 * BQ) * Smem<T, D>::S *
-                      sizeof(T) + 6 * BQ * sizeof(float);
-  return launch(flash_bwd_dkv_kernel<T, D, BQ>,
-                dim3((p.Lk + kRows - 1) / kRows, p.H, p.B), smem, p, st);
+  const size_t smem = (size_t)(2 * kRows + 4 * BQ) * Smem<D>::S * 4 +
+                      6 * BQ * sizeof(float);
+  return launch_f32(flash_bwd_dkv_kernel<D, BQ>,
+                    dim3((p.Lk + kRows - 1) / kRows, p.H, p.B), smem, p, st);
 }
 
-#define PTT_DISPATCH(FN, dtype, D, p, st)                       \
+// a [B, L, H, D] bf16 tensor with element strides (sb, sl, sh) as a rank-4
+// map (D, H, L, B), moved in boxes of (cols, 1, rows, 1), swizzled as
+// wg::Tile lays them out; out-of-bounds rows read as 0
+template <int D>
+bool map4(CUtensorMap* map, const void* ptr, int B, int H, int L,
+          long long sb, long long sh, long long sl, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  constexpr int cols = wg::Tile<D>::kCols;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sl * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t steps[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                       : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// q and dout at q_rows a box, k and v at k_rows
+template <int D>
+bool make_maps(wg::Maps* m, const Params& p, int q_rows, int k_rows) {
+  return map4<D>(&m->q, p.q, p.B, p.H, p.Lq, p.qb, p.qh, p.ql, q_rows) &&
+         map4<D>(&m->k, p.k, p.B, p.H, p.Lk, p.kb, p.kh, p.kl, k_rows) &&
+         map4<D>(&m->v, p.v, p.B, p.H, p.Lk, p.kb, p.kh, p.kl, k_rows) &&
+         (p.dout == nullptr ||
+          map4<D>(&m->dout, p.dout, p.B, p.H, p.Lq, p.qb, p.qh, p.ql,
+                  q_rows));
+}
+
+template <typename Kern>
+int launch_wg(Kern kern, dim3 grid, size_t smem, const wg::Maps& maps,
+              const Params& p, cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<grid, wg::kThreads, smem, st>>>(maps, p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int fwd_bf16(const Params& p, cudaStream_t st) {
+  using C = FwdWg<D>;
+  wg::Maps maps = {};
+  if (!make_maps<D>(&maps, p, C::BM, C::BN))
+    return (int)cudaErrorInvalidValue;
+  return launch_wg(flash_fwd_wgmma_kernel<D>,
+                   dim3((p.Lq + C::BM - 1) / C::BM, p.H, p.B), C::kSmem,
+                   maps, p, st);
+}
+
+template <int D>
+int bwd_dq_bf16(const Params& p, cudaStream_t st) {
+  using C = DqWg<D>;
+  wg::Maps maps = {};
+  if (!make_maps<D>(&maps, p, C::BM, C::BN))
+    return (int)cudaErrorInvalidValue;
+  return launch_wg(flash_bwd_dq_wgmma_kernel<D>,
+                   dim3((p.Lq + C::BM - 1) / C::BM, p.H, p.B), C::kSmem,
+                   maps, p, st);
+}
+
+template <int D>
+int bwd_dkv_bf16(const Params& p, cudaStream_t st) {
+  using C = DkvWg<D>;
+  wg::Maps maps = {};
+  if (!make_maps<D>(&maps, p, C::BQ, C::BM))
+    return (int)cudaErrorInvalidValue;
+  return launch_wg(flash_bwd_dkv_wgmma_kernel<D>,
+                   dim3((p.Lk + C::BM - 1) / C::BM, p.H, p.B), C::kSmem,
+                   maps, p, st);
+}
+
+#define PTT_DISPATCH(F32, BF16, dtype, D, p, st)                \
   do {                                                          \
     if (dtype == 0) {                                           \
-      if (D == 32) return FN<float, 32>(p, st);                 \
-      if (D == 64) return FN<float, 64>(p, st);                 \
-      if (D == 128) return FN<float, 128>(p, st);               \
+      if (D == 32) return F32<32>(p, st);                       \
+      if (D == 64) return F32<64>(p, st);                       \
+      if (D == 96) return F32<96>(p, st);                       \
+      if (D == 128) return F32<128>(p, st);                     \
     } else if (dtype == 1) {                                    \
-      if (D == 32) return FN<__nv_bfloat16, 32>(p, st);         \
-      if (D == 64) return FN<__nv_bfloat16, 64>(p, st);         \
-      if (D == 128) return FN<__nv_bfloat16, 128>(p, st);       \
+      if (D == 32) return BF16<32>(p, st);                      \
+      if (D == 64) return BF16<64>(p, st);                      \
+      if (D == 96) return BF16<96>(p, st);                      \
+      if (D == 128) return BF16<128>(p, st);                    \
     }                                                           \
     return -1;                                                  \
   } while (0)
@@ -719,11 +1441,12 @@ Params make_params(const void* q, const void* k, const void* v, int B,
 
 // Plain C entry points, bound from Python with ctypes
 // (paddle_tpu_torch/ops/cuda/flash_attention.py).  dtype: 0 = float32,
-// 1 = bfloat16; D in {32, 64, 128}.  Strides are in elements: (b, h, l)
-// of the query family (q, out, dout, dq) and of the key family (k, v,
-// dk, dv); the last dimension is contiguous.  Return 0, -1 for a
-// (dtype, D) this file has no instance for, or the cudaError_t of the
-// launch.
+// 1 = bfloat16; D in {32, 64, 96, 128}.  Strides are in elements: (b, h,
+// l) of the query family (q, out, dout, dq) and of the key family (k, v,
+// dk, dv); the last dimension is contiguous (and, at bf16, every stride
+// a multiple of 8 elements, for TMA).  Return 0, -1 for a (dtype, D) this
+// file has no instance for, or the cudaError_t of the launch
+// (cudaErrorInvalidValue when no tensor map could be built).
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, float* lse, int B, int H, int Lq,
                              int Lk, int D, long long qb, long long qh,
@@ -736,7 +1459,7 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
   p.out = out;
   p.lse_out = lse;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  PTT_DISPATCH(fwd, dtype, D, p, st);
+  PTT_DISPATCH(fwd_f32, fwd_bf16, dtype, D, p, st);
 }
 
 extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -755,7 +1478,7 @@ extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
   p.delta = delta;
   p.dq = dq;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  PTT_DISPATCH(bwd_dq, dtype, D, p, st);
+  PTT_DISPATCH(bwd_dq_f32, bwd_dq_bf16, dtype, D, p, st);
 }
 
 extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k,
@@ -775,5 +1498,5 @@ extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k,
   p.dk = dk;
   p.dv = dv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  PTT_DISPATCH(bwd_dkv, dtype, D, p, st);
+  PTT_DISPATCH(bwd_dkv_f32, bwd_dkv_bf16, dtype, D, p, st);
 }

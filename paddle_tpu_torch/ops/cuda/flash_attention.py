@@ -12,8 +12,14 @@ and ``_bwd_dkv_kernel``).  Three kernels, three launch counts:
 
 **Layout.** The wrappers take JAX's public ``[B, L, H, D]``, each
 tensor contiguous: the projections' outputs as they are.  The kernels
-read and write through strides, so there are no transposes around
+read and write through strides (at bf16, TMA reads through rank-4
+tensor maps over the same layout), so there are no transposes around
 them; ``lse`` and ``delta`` are ``[B, H, Lq]`` f32.
+
+**Two designs, one per dtype.** bf16 runs on the tensor cores: wgmma
+fed by TMA, a producer warp and two consumer warpgroups a block
+(``flash_*_wgmma_kernel``).  f32 stays exact f32 on the CUDA cores
+(``flash_*_kernel``; wgmma has no exact f32 mode).
 
 **Causal masking** uses global offsets: key ``j`` is visible from query
 ``i`` iff ``q_off + i >= k_off + j`` (the JAX kernel's float offsets
@@ -41,8 +47,8 @@ __all__ = ["flash_attention_fwd", "flash_attention_bwd_dq",
 
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv")
-# the head dims csrc/flash_attention.cu compiles
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
+# the head dims csrc/flash_attention.cu compiles, at f32 and bf16
+SUPPORTED_HEAD_DIMS = (32, 64, 96, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -9,7 +9,8 @@ the two-method contract :class:`~.generation.GenerationEngine` drives:
 - ``decode(tokens, positions, kv, page_tables)`` — one token per slot,
   K/V scattered into pages, attention through
   :func:`~paddle_tpu_torch.ops.attention.paged_attention_select` (the
-  CUDA paged-decode kernel on the card).
+  CUDA paged-decode kernel on the card where its gate takes the shapes,
+  else the plain version).
 
 Both take an optional ``params`` dict (name -> tensor) that replaces
 the module's own parameters for the call: the engine passes its serving

@@ -140,6 +140,60 @@ def test_causal_offsets_and_cross_lengths_match_the_ring_block(offsets):
         assert (out[:, :, :k_off - q_off] == 0).all()
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_head_dim_96_forward_and_gradients_match_the_pallas_kernel(causal):
+    """Head dim 96 (the GPT 760m preset's, 1536 / 16): the plain
+    versions against the Pallas kernel in interpret mode, forward and
+    lse, and the gradients against jax.grad of it; tolerances as
+    above."""
+    q, k, v, w = _qkv(15, B=1, Lq=64, D=96, n=4)
+    scale = 1 / math.sqrt(96)
+    zero = jnp.zeros((1, 1), jnp.float32)
+    jout, jlse = jax_fwd(*(jnp.asarray(_bhld(a)) for a in (q, k, v)), zero,
+                         zero, jnp.zeros((1, 1), jnp.int32), scale, causal,
+                         32, 32, True)
+    out, lse = fa.flash_attention_reference_fwd(
+        *_t(_bhld(q), _bhld(k), _bhld(v)), causal=causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=ATOL,
+                               rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=ATOL,
+                               rtol=1e-6)
+
+    def jloss(q, k, v):
+        o = jax_flash(q, k, v, causal=causal, block_q=32, block_k=32)
+        return jnp.sum(o * w)
+
+    jg = jax.grad(jloss, (0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = _t(q, k, v, grad=True)
+    got = fa.flash_attention(tq, tk, tv, causal=causal)
+    tg = torch.autograd.grad((got * torch.from_numpy(w)).sum(),
+                             (tq, tk, tv))
+    for a, b in zip(tg, jg):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_head_dim_96_causal_offsets_match_the_ring_block():
+    """Global-offset masking at head dim 96 with Lq != Lk, rows that see
+    no key included, against the JAX block entry."""
+    q_off, k_off = 0, 48
+    q, k, v = (_bhld(a) for a in _qkv(16, B=1, Lq=64, Lk=32, D=96))
+    scale = 1 / math.sqrt(96)
+    jout, jlse = flash_attention_block(
+        *(jnp.asarray(a) for a in (q, k, v)),
+        jnp.full((1, 1), q_off, jnp.float32),
+        jnp.full((1, 1), k_off, jnp.float32), scale, 32, 32)
+    out, lse = fa.flash_attention_reference_fwd(*_t(q, k, v), causal=True,
+                                                scale=scale, q_off=q_off,
+                                                k_off=k_off)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=ATOL,
+                               rtol=0)
+    assert (lse[..., :k_off - q_off] == fa.NEG_INF).all()
+    np.testing.assert_allclose(lse[..., k_off:].numpy(),
+                               np.asarray(jlse)[..., k_off:], atol=ATOL,
+                               rtol=1e-6)
+
+
 def test_supported_is_a_capability_gate():
     shape = (2, 512, 12, 64)
     for dt in (torch.float32, torch.bfloat16):
@@ -150,6 +204,10 @@ def test_supported_is_a_capability_gate():
     assert not fa.flash_attention_supported(shape, shape, torch.float16)
     assert not fa.flash_attention_supported(shape, shape, torch.float32,
                                             attn_mask=torch.ones(1))
+    for dt in (torch.float32, torch.bfloat16):      # every built head dim
+        for d in (32, 64, 96, 128):
+            assert fa.flash_attention_supported((2, 512, 16, d),
+                                                (2, 512, 16, d), dt)
     assert not fa.flash_attention_supported((2, 512, 12, 48),
                                             (2, 512, 12, 48), torch.float32)
     assert not fa.flash_attention_supported((2, 512, 64), (2, 512, 64),
@@ -371,3 +429,58 @@ def test_cuda_kernels_take_causal_offsets(offsets):
     if k_off > q_off:
         assert (lse[..., :k_off - q_off] == fa.NEG_INF).all()
         assert (out[:, :k_off - q_off] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_backward_is_bitwise_deterministic(dtype):
+    """No atomics: two backward runs on the same inputs give bitwise
+    equal dq, dk and dv, at every built head dim, with dropout."""
+    _cuda()
+    for D in torch_cuda.flash_attention.SUPPORTED_HEAD_DIMS:
+        q, k, v, do = (torch.from_numpy(a).cuda().to(dtype)
+                       for a in _qkv(17, B=2, Lq=300, H=3, D=D, n=4))
+        kw = dict(scale=1 / math.sqrt(D), causal=True, dropout_p=0.1,
+                  seed=11)
+        out, lse = torch_cuda.flash_attention_fwd(q, k, v, **kw)
+        delta = fa.attention_delta(do.transpose(1, 2), out.transpose(1, 2))
+        runs = [(torch_cuda.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                   **kw),
+                 *torch_cuda.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                     **kw))
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        for a, b in zip(*runs):
+            assert torch.equal(a, b), D
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_ragged_keys_with_causal_offsets(dtype, tol):
+    """Lk 200 (not a multiple of any tile) against Lq 130 at causal
+    offsets, at every built head dim: the three kernels against the
+    plain versions (max |a - b| / max(1, max |b|))."""
+    _cuda()
+    for D in torch_cuda.flash_attention.SUPPORTED_HEAD_DIMS:
+        q, do = (torch.from_numpy(a).cuda().to(dtype)
+                 for a in _qkv(18, B=2, Lq=130, H=2, D=D, n=2))
+        k, v = (torch.from_numpy(a).cuda().to(dtype)
+                for a in _qkv(19, B=2, Lq=200, H=2, D=D, n=2))
+        kw = dict(scale=1 / math.sqrt(D), causal=True, dropout_p=0.1,
+                  seed=3, q_off=100, k_off=40)
+        out, lse = torch_cuda.flash_attention_fwd(q, k, v, **kw)
+        delta = fa.attention_delta(do.transpose(1, 2), out.transpose(1, 2))
+        dq = torch_cuda.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = torch_cuda.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                    **kw)
+        b = lambda x: x.transpose(1, 2)                # noqa: E731
+        ro, rlse = fa.flash_attention_reference_fwd(b(q), b(k), b(v), **kw)
+        refs = fa.flash_attention_reference_bwd(b(q), b(k), b(v), ro, rlse,
+                                                b(do), **kw)
+        torch.cuda.synchronize()
+        for got, ref in [(b(out), ro), (lse, rlse), (b(dq), refs[0]),
+                         (b(dk), refs[1]), (b(dv), refs[2])]:
+            got, ref = got.float(), ref.float()
+            err = (got - ref).abs().max() / ref.abs().max().clamp_min(1)
+            assert err.item() <= tol, (D, err.item())

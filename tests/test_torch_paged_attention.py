@@ -12,9 +12,12 @@ import torch
 
 import jax.numpy as jnp
 
+from paddle_tpu import serving as jax_serving
 from paddle_tpu.ops import attention as jax_attention
 from paddle_tpu.ops.pallas.paged_attention import \
     paged_attention_decode as pallas_decode
+from paddle_tpu_torch import serving as torch_serving
+from paddle_tpu_torch.core.flags import set_flags
 from paddle_tpu_torch.ops import attention as torch_attention
 from paddle_tpu_torch.ops import cuda as torch_cuda
 
@@ -99,6 +102,78 @@ def test_select_routes_cpu_tensors_to_the_plain_version():
     assert torch_cuda.support.launch_counts == before
 
 
+@pytest.mark.parametrize("case", ["d128_group2", "d96", "flag_off",
+                                  "group3", "cpu"])
+def test_supported_is_the_kernels_capability_gate(case):
+    """The decode kernel takes the call only where its gates agree: the
+    flag on, CUDA, f32/bf16, a built head dim and GQA group; everything
+    else is served by the plain version (the reference's dispatch)."""
+    H, Hkv, D, device, flag = 8, 4, 128, "cuda", True
+    if case == "d96":
+        D = 96
+    elif case == "flag_off":
+        flag = False
+    elif case == "group3":
+        H, Hkv = 6, 2
+    elif case == "cpu":
+        device = "cpu"
+    set_flags({"use_pallas_kernels": flag})
+    try:
+        got = torch_attention.paged_attention_supported(
+            (4, H, D), (2, 12, 16, Hkv, D), torch.bfloat16, 16,
+            torch.device(device))
+    finally:
+        set_flags({"use_pallas_kernels": True})
+    assert got is (case == "d128_group2")
+    # the same call at f32, and a dtype no kernel takes
+    if case == "d128_group2":
+        assert torch_attention.paged_attention_supported(
+            (4, H, D), (12, 16, Hkv, D), torch.float32, 16, "cuda")
+        assert not torch_attention.paged_attention_supported(
+            (4, H, D), (12, 16, Hkv, D), torch.float16, 16, "cuda")
+
+
+def _decoder_logits_head_dim_96(lm, zeros, tensor):
+    """Prefill one prompt, then three decode steps, on a 2-layer model
+    with head dim 96; the logits of every call."""
+    L, N, page, Hkv, D = 2, 9, 4, 1, 96
+    kv = (zeros((L, N, page, Hkv, D)), zeros((L, N, page, Hkv, D)))
+    table = tensor(np.arange(1, 5, dtype=np.int32))
+    toks = tensor((np.arange(8, dtype=np.int32) * 5) % 64)
+    logits, kv = lm.prefill(toks, 6, kv, table)
+    out = [np.asarray(logits)]
+    tables = tensor(np.stack([np.arange(1, 5), np.arange(5, 9)])
+                    .astype(np.int32))
+    for pos in (6, 7, 8):
+        tok = tensor(np.asarray([pos * 3 % 64, 1], np.int32))
+        positions = tensor(np.asarray([pos, 0], np.int32))
+        logits, kv = lm.decode(tok, positions, kv, tables)
+        out.append(np.asarray(logits)[0])
+    return out
+
+
+def test_decoder_at_head_dim_96_gives_the_jax_logits():
+    """A PagedDecoderLM at head dim 96 (no kernel instance) decodes
+    through paged_attention_select's plain path and gives the JAX
+    package's logits (the same dyadic weights; f32 sums in other
+    orders)."""
+    geom = dict(vocab_size=64, hidden=192, num_layers=2, num_heads=2,
+                num_kv_heads=1)
+    jlm = jax_serving.PagedDecoderLM(seed=6, dyadic=True, **geom)
+    tlm = torch_serving.PagedDecoderLM(device="cpu", **geom)
+    tlm.load_state_dict(torch_serving.params_from_paddle_tpu(
+        {k: np.asarray(v) for k, v in jlm.params.items()}, "cpu"))
+    assert tlm.head_dim == 96
+    before = dict(torch_cuda.support.launch_counts)
+    got = _decoder_logits_head_dim_96(
+        tlm, lambda s: torch.zeros(s), torch.from_numpy)
+    want = _decoder_logits_head_dim_96(
+        jlm, lambda s: jnp.zeros(s, jnp.float32), jnp.asarray)
+    assert torch_cuda.support.launch_counts == before
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-4)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     c = _case(5)
     t = {k: torch.from_numpy(v) for k, v in c.items()}
@@ -129,6 +204,35 @@ def test_cuda_kernel_matches_plain_version(dtype, atol):
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
         assert err <= atol, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,launches", [(96, 0), (128, 1)])
+def test_cuda_select_launches_the_kernel_only_where_it_is_built(D,
+                                                                launches):
+    """On the card, paged_attention_select serves a head dim the kernel
+    has no instance for (96) by the plain version, with no launch, and
+    a built one (128) by one launch; both agree with the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    c = _case(11, H=4, Hkv=2, D=D, layers=2)
+    t = {k: torch.from_numpy(v).cuda() for k, v in c.items()}
+    torch_cuda.support.reset_launch_counts()
+    got = torch_attention.paged_attention_select(
+        t["q"], t["k"], t["v"], t["table"], t["lengths"],
+        scale=1 / np.sqrt(D), layer=1)
+    n = torch_cuda.support.launch_counts.get("paged_attention", 0)
+    ref = torch_attention.paged_attention_reference(
+        t["q"], t["k"], t["v"], t["table"], t["lengths"],
+        scale=1 / np.sqrt(D), layer=1)
+    torch.cuda.synchronize()
+    assert n == launches
+    assert (got - ref).abs().max().item() <= 2e-5
+    if D == 96:            # the kernel's wrapper still refuses it
+        with pytest.raises(ValueError, match="head_dim"):
+            torch_cuda.paged_attention_decode(
+                t["q"], t["k"], t["v"], t["table"], t["lengths"], layer=1)
 
 
 @pytest.mark.cuda

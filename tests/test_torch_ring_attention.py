@@ -88,6 +88,38 @@ def test_block_entry_and_dlse_match_the_pallas_block(case):
         assert all((g == 0).all() for g in tg)
 
 
+@pytest.mark.parametrize("case", ["diagonal", "visible"])
+def test_block_entry_at_head_dim_96_matches_the_pallas_block(case):
+    """The block entry and its gradients with dlse at head dim 96 (the
+    GPT 760m preset's) against the Pallas block in interpret mode."""
+    q_off, k_off, causal = BLOCKS[case]
+    B, L, H, D = 1, 32, 2, 96
+    q, k, v, do = _rand(10, *[(B, L, H, D)] * 4)
+    dlse = _rand(11, (B, H, L))[0]
+    scale = 1 / math.sqrt(D)
+
+    def jfn(q, k, v):
+        return jax_block(q, k, v, jnp.full((1, 1), q_off, jnp.float32),
+                         jnp.full((1, 1), k_off, jnp.float32), scale, 32,
+                         32)
+
+    (jout, jlse), vjp = jax.vjp(jfn, *(jnp.asarray(_bhld(a))
+                                       for a in (q, k, v)))
+    jg = vjp((jnp.asarray(_bhld(do)), jnp.asarray(dlse)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out, lse = fa.flash_attention_block(tq, tk, tv, q_off, k_off, scale,
+                                        causal)
+    np.testing.assert_allclose(_bhld(out.detach().numpy()), np.asarray(jout),
+                               atol=2e-6, rtol=0)
+    np.testing.assert_allclose(lse.detach().numpy(), np.asarray(jlse),
+                               atol=2e-6, rtol=1e-6)
+    tg = torch.autograd.grad((out, lse), (tq, tk, tv),
+                             (torch.from_numpy(do), torch.from_numpy(dlse)))
+    for a, b in zip(tg, jg):
+        np.testing.assert_allclose(_bhld(a.numpy()), np.asarray(b),
+                                   rtol=1e-4, atol=1e-5)
+
+
 def test_block_entry_without_an_lse_cotangent_is_flash_attention():
     q, k, v, w = (torch.from_numpy(a)
                   for a in _rand(9, *[(2, 40, 2, 32)] * 4))
@@ -178,6 +210,41 @@ def test_cuda_block_entry_matches_the_plain_version(dtype, tol, case):
     for kern in ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):
         assert support.launch_counts.get(kern, 0) == before.get(kern, 0) + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_block_entry_at_every_head_dim(dtype, tol):
+    """The block entry at the diagonal and visible cases with dlse, at
+    every built head dim, against the plain version."""
+    _cuda()
+    from paddle_tpu_torch.ops.cuda.flash_attention import SUPPORTED_HEAD_DIMS
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for D in SUPPORTED_HEAD_DIMS:
+        for case in ("diagonal", "visible"):
+            q_off, k_off, causal = BLOCKS[case]
+            q, k, v, do = (torch.randn(2, 96, 3, D, device="cuda",
+                                       generator=g).to(dtype)
+                           for _ in range(4))
+            dlse = torch.randn(2, 3, 96, device="cuda", generator=g)
+            a = [t.clone().requires_grad_() for t in (q, k, v)]
+            out, lse = fa.flash_attention_block(*a, q_off, k_off, None,
+                                                causal)
+            grads = torch.autograd.grad((out, lse), a, (do, dlse))
+            t = [x.transpose(1, 2) for x in (q, k, v)]
+            ro, rlse = fa.flash_attention_reference_fwd(
+                *t, causal=causal, q_off=q_off, k_off=k_off)
+            refs = fa.flash_attention_reference_bwd(
+                *t, ro, rlse, do.transpose(1, 2), dlse, causal=causal,
+                q_off=q_off, k_off=k_off)
+            torch.cuda.synchronize()
+            pairs = [(out.transpose(1, 2), ro), (lse, rlse)] + [
+                (x.transpose(1, 2), y) for x, y in zip(grads, refs)]
+            for got, ref in pairs:
+                got, ref = got.float(), ref.float()
+                err = (got - ref).abs().max() / ref.abs().max().clamp_min(1)
+                assert err.item() <= tol, (D, case, err.item())
 
 
 @pytest.mark.cuda
