@@ -27,7 +27,9 @@ kernel from the sources in this checkout.  Phases, each fatal:
    and a ragged case; the dropout mask's kept fraction; times beside the
    bound, the plain version and one SDPA call at BERT-base's shape
    (bf16), the GPT 760m preset's (D 96, bf16) and the static step's
-   (f32, against SDPA's memory-efficient backend);
+   (f32, against SDPA's memory-efficient backend); the f32 backward
+   bitwise across two runs, and the kernels SDPA's f32 path runs, by
+   name;
 7. a small BERT (``bench_bert``'s CPU widths, f32, dropout 0) trained 3
    ``TrainStep``s on the card and on the CPU from the same weights;
 8. full-width training: ``bench_bert``'s chip config (BERT-base, batch
@@ -38,8 +40,10 @@ kernel from the sources in this checkout.  Phases, each fatal:
     launches) against their plain versions at the three chains of a
     BERT-base layer (M 8192), f32 and bf16, three small recipes, and
     layer_norm recipes at N 640, 1152 and 1536 (the f32 forward's
-    clusters of 5, 9 and 12 blocks); the f32 forward with a zero bias
-    bit for bit against K6's f32 product; the fused Adam kernel against
+    clusters of 5, 9 and 12 blocks), two backward runs bit for bit; the
+    f32 forward with a zero bias bit for bit against K6's f32 product;
+    the f32 backward's g with bias + relu bit for bit dy where the
+    forward's output is positive; the fused Adam kernel against
     its plain version over the static BERT's parameters for 5 steps;
     times beside the bound, the plain version and a library call where
     one computes the same function;
@@ -49,7 +53,8 @@ kernel from the sources in this checkout.  Phases, each fatal:
 12. the full-width static BERT (bench_pallas's chip config: BERT-base,
     seq 512, batch 16, f32, Adam) through ``static.Executor``: 2 warm-up
     and 8 timed runs, asserting every kernel's launches per step;
-13. anatomy of one static training step from ``torch.profiler``;
+13. anatomy of one static training step from ``torch.profiler``, its
+    f32 kernels named with their launches a step;
 14. the chunk matmul kernel (K6) against its plain version at the chunk
     shapes of the full-width hybrid step, three ragged shapes at the
     gate's edges (M 8, M 1000, K 96) and a row-strided x written into a
@@ -189,10 +194,11 @@ def cuda_ms(fn, iters, warmup=3):
 
 
 def _kernel_name(key):
-    """A flash kernel's name in a profiler key (mangled or not), without
-    namespace, template arguments and parameters."""
+    """A flash or fused-epilogue kernel's name in a profiler key (mangled
+    or not), without namespace, template arguments and parameters."""
     import re
-    m = re.search(r"flash_(fwd|bwd_dq|bwd_dkv)(_wgmma)?_kernel", key)
+    m = re.search(r"(flash_(fwd|bwd_dq|bwd_dkv)(_wgmma|_f32)?|"
+                  r"epilogue_\w*?)_kernel", key)
     return m.group(0) if m else key[:80]
 
 
@@ -696,6 +702,54 @@ def _flash_time_rows(torch, gen, B, L, H, D, dtype, causal, p, seed,
     return rows
 
 
+def _flash_f32_bitwise(torch, gen, B, L, H, D):
+    """Two runs of the f32 backward kernels (dQ, dK/dV) agree bit for
+    bit, with dropout, causal and not: no atomics, fixed sum orders."""
+    from paddle_tpu_torch.ops.cuda import (flash_attention_bwd_dkv,
+                                           flash_attention_bwd_dq,
+                                           flash_attention_fwd)
+    from paddle_tpu_torch.ops.flash_attention import attention_delta
+    q, k, v, do = (torch.randn((B, L, H, D), generator=gen, device="cuda")
+                   for _ in range(4))
+    out = {}
+    for causal in (False, True):
+        kw = dict(scale=1.0 / math.sqrt(D), causal=causal, dropout_p=0.1,
+                  seed=7)
+        o, lse = flash_attention_fwd(q, k, v, **kw)
+        delta = attention_delta(do.transpose(1, 2), o.transpose(1, 2))
+        runs = [(flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
+                 *flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        out[f"causal={causal}"] = all(torch.equal(a, b)
+                                      for a, b in zip(*runs))
+    log("FLASH_F32_BITWISE " + json.dumps({
+        "case": f"B={B} L={L} H={H} D={D} float32 dropout=0.1", **out}))
+    if not all(out.values()):
+        raise AssertionError(f"two f32 flash backward runs differ: {out}")
+
+
+def _sdpa_f32_kernels(torch, gen, B, L, H, D):
+    """The kernels SDPA's memory-efficient backend runs for one f32
+    forward + backward, by name from the profiler (does its f32 run on
+    the tensor cores, as 3xTF32?)."""
+    from torch.autograd import DeviceType
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, do = (torch.randn((B, H, L, D), generator=gen, device="cuda")
+                   for _ in range(4))
+    qg, kg, vg = (x.requires_grad_() for x in (q, k, v))
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION), profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg)
+        torch.autograd.grad(out, (qg, kg, vg), do)
+        torch.cuda.synchronize()
+    names = sorted({e.key[:160] for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA})
+    log("SDPA_F32_KERNELS " + json.dumps({
+        "case": f"B={B} L={L} H={H} D={D} float32", "kernels": names}))
+
+
 def phase_flash_kernels():
     """The flash kernels against their plain versions on the card at
     every head dim they are built for (32, 64, 96, 128), f32 and bf16,
@@ -779,6 +833,10 @@ def phase_flash_kernels():
     static = _flash_time_rows(torch, gen, s["batch"], s["seq"], s["heads"],
                               s["hidden"] // s["heads"], torch.float32,
                               False, 0.0, seed)
+    _flash_f32_bitwise(torch, gen, s["batch"], s["seq"], s["heads"],
+                       s["hidden"] // s["heads"])
+    _sdpa_f32_kernels(torch, gen, s["batch"], s["seq"], s["heads"],
+                      s["hidden"] // s["heads"])
     for name, row in rows.items():
         row["max_abs_err"] = worst["float32"]
         row["max_abs_err_bf16"] = worst["bfloat16"]
@@ -931,7 +989,7 @@ def _step_anatomy(tag, one_step, steps, classify, wgmma_flash=False):
         for _ in range(steps):
             one_step()
         torch.cuda.synchronize()
-    groups, top, flash = {}, [], {}
+    groups, top, flash, epi, launches = {}, [], {}, {}, {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.is_user_annotation:
             continue
@@ -940,9 +998,11 @@ def _step_anatomy(tag, one_step, steps, classify, wgmma_flash=False):
         g = classify(name)
         groups[g] = groups.get(g, 0.0) + ms
         top.append((ms, e.key[:80]))
-        if "flash_" in name:
+        if "flash_" in name or "epilogue_" in name:
             k = _kernel_name(e.key)
-            flash[k] = flash.get(k, 0.0) + ms
+            named = flash if "flash_" in name else epi
+            named[k] = named.get(k, 0.0) + ms
+            launches[k] = launches.get(k, 0) + e.count / steps
     busy = sum(groups.values())
     if not busy > 0:
         raise AssertionError("the profiler saw no device time")
@@ -950,10 +1010,12 @@ def _step_anatomy(tag, one_step, steps, classify, wgmma_flash=False):
     out = {"step_ms_host": step_ms, "device_busy_ms": busy,
            "device_idle_share": max(0.0, 1.0 - busy / step_ms),
            "device_ms_by_group": groups, "flash_kernels_ms": flash,
+           "epilogue_kernels_ms": epi, "launches_per_step": launches,
            "top_kernels_ms": [[round(m, 4), n] for m, n in top[:24]]}
     log(tag + " " + json.dumps(out))
     if wgmma_flash:
         _assert_wgmma_flash(flash)
+    return launches
 
 
 def _is_gemm(name):
@@ -1017,13 +1079,13 @@ def _epi_bounds(M, K, N, stages, es, dtype_name):
     launches = {
         # x w ops -> out
         "fused_epilogue_fwd": (mk + kn + vec + n_res * mn + mn, ops1),
-        # x w dy ops -> g, d-residual, partial sums
+        # x w dy ops -> g, d-residual, partial sums (one row per
+        # 128-row block at f32)
         "fused_epilogue_bwd": (mk + kn + 2 * mn + vec + 2 * n_res * mn
-                               + math.ceil(M / 32) * 2 * n_vec * N * 4,
-                               ops1),
+                               + math.ceil(M / 128) * n_vec * N * 4, ops1),
         # x w g partials -> dx dw(f32) dvec
         "fused_epilogue_bwd_grads": (2 * mk + kn + mn + K * N * 4
-                                     + math.ceil(M / 32) * 2 * n_vec * N * 4
+                                     + math.ceil(M / 128) * n_vec * N * 4
                                      + n_vec * N * 4, 2 * ops1)}
     out = {}
     for name, (nbytes, ops) in launches.items():
@@ -1056,13 +1118,35 @@ def _epi_check(torch, x, w, dy, ops, stages):
             names += ["d_ln_weight", "d_ln_bias"]
     for name, a, b in zip(names, dops, rdops):
         errs[name] = _rel_err(a, b)
-    # determinism: a second backward agrees bit for bit
+    # determinism: a second backward agrees bit for bit, g included
     dx2, dw2, dops2 = cuda_epi.fused_epilogue_bwd(x, w, ops, full, dy)
+    g1 = cuda_epi.fused_epilogue_bwd_rows(x, w, ops, full, dy)[0]
+    g2 = cuda_epi.fused_epilogue_bwd_rows(x, w, ops, full, dy)[0]
     same = (torch.equal(dx, dx2) and torch.equal(dw, dw2)
+            and torch.equal(g1, g2)
             and all(torch.equal(a, b) for a, b in zip(dops, dops2)))
     if not same:
         raise AssertionError("two fused_epilogue_bwd runs differ")
     return errs
+
+
+def _epi_relu_replay(torch, gen):
+    """K2b at f32 replays K2f's accumulator bit for bit: with bias + relu
+    its g is dy where K2f's output is positive and 0 elsewhere, exactly
+    (ragged rows and depth, a cluster-free grid of 5 column blocks)."""
+    from paddle_tpu_torch.ops.cuda import fused_epilogue as cuda_epi
+    stages = (("bias",), ("relu",))
+    x, w, dy, ops = _epi_case(torch, gen, 1000, 264, 640, (("relu",),),
+                              torch.float32)
+    out = cuda_epi.fused_epilogue_fwd(x, w, ops, stages)
+    g, _, _ = cuda_epi.fused_epilogue_bwd_rows(x, w, ops, stages, dy)
+    torch.cuda.synchronize()
+    equal = torch.equal(g, torch.where(out > 0, dy, torch.zeros_like(dy)))
+    log("EPILOGUE_RELU_REPLAY " + json.dumps({
+        "case": "bias+relu M=1000 K=264 N=640 float32",
+        "g_equals_dy_where_out_positive": equal}))
+    if not equal:
+        raise AssertionError("K2b's g differs from dy * (K2f's out > 0)")
 
 
 def _epi_bitwise_k6(torch, gen, M):
@@ -1191,6 +1275,7 @@ def phase_epilogue_adam_kernels():
                                  f"the plain versions: {row}")
         del x, w, dy, ops
     _epi_bitwise_k6(torch, gen, M)
+    _epi_relu_replay(torch, gen)
     # times at the main path's shapes, f32
     rows = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                    "bytes": 0, "operations": 0, "chains": {}}
@@ -1392,14 +1477,26 @@ def phase_static_training(warmup=2, steps=8):
 
 
 # --------------------------------------------------------------- phase 13
+# the f32 static step's kernels by name, and their launches a step: the
+# register-tiled backward kernels of K2b and K1b
+STATIC_NAMED = {"epilogue_fwd_f32_kernel": 36,
+                "epilogue_bwd_f32_kernel": 36,
+                "epilogue_grads_f32_kernel": 36, "flash_fwd_kernel": 12,
+                "flash_bwd_dq_f32_kernel": 12, "flash_bwd_dkv_f32_kernel": 12}
+
+
 def phase_static_anatomy(run, steps=2):
     exe, main, loss, feed = run
-    _step_anatomy("STATIC_ANATOMY", lambda: exe.run(
+    launches = _step_anatomy("STATIC_ANATOMY", lambda: exe.run(
         main, feed=feed, fetch_list=[loss], return_numpy=False), steps,
         lambda n: ("fused_epilogue" if "epilogue_" in n else
                    "fused_adam" if "adam_kernel" in n else
                    "flash" if "flash_" in n else
                    "cublas" if _is_gemm(n) else "other"))
+    seen = {k: launches.get(k, 0) for k in STATIC_NAMED}
+    if seen != STATIC_NAMED:
+        raise AssertionError(f"static step kernels {seen}, want "
+                             f"{STATIC_NAMED}")
 
 
 # --------------------------------------------------------------- phase 14

@@ -70,10 +70,23 @@
 //     the diagonal or the ragged end evaluate the mask;
 //   * the backward has no atomics: each output element is summed by one
 //     block in a fixed order, so it is bitwise deterministic.
-// f32 inputs stay exact f32 on the CUDA cores (no TF32): one block of 4
-// warps per (b, h, 64-row tile), each warp 16 rows in the mma.sync
-// C-fragment layout, the streamed operand double-buffered by cp.async,
-// products by FMA.
+// f32 inputs stay exact f32 on the CUDA cores (no TF32, no 3xTF32).  The
+// forward (flash_fwd_kernel): one block of 4 warps per (b, h, 64-row
+// tile), each warp 16 rows in the mma.sync C-fragment layout, the
+// streamed operand double-buffered by cp.async, products by FMA.  The
+// backward (flash_bwd_dq_f32_kernel, flash_bwd_dkv_f32_kernel): one block
+// of 256 threads per (b, h, 128-row tile; 64 rows at D 96 and 128, where
+// dK and dV fill the registers), every product an outer product of
+// register tiles (8 x 4 a thread at D 64: 48 values read from shared
+// memory as float4 for 128 FMAs), P, U and dS through shared memory in
+// the layout the next product reads, the streamed tiles double-buffered
+// by cp.async.  dQ: S = Q.K^T and dP = dO.V^T over 64-key tiles, dQ +=
+// dS.K; dK/dV: S^T = K.Q^T and dP^T = V.dO^T over 64-query tiles (32
+// above D 64), dV += U^T.dO, dK += dS^T.Q.  Each output sums in a fixed
+// order, no atomics.  What bounds them: the FMA pipe and the shared
+// memory reads beside it, and the element-wise work (exp2, mask,
+// dropout hash) between barriers that one block an SM does not overlap
+// with products (PERF.md).
 
 #include <cuda.h>           // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
@@ -146,7 +159,8 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // 2^x by the special-function unit (max relative error ~2^-22, flushes
-// subnormals): the bf16 kernels' probabilities, rounded to bf16 next
+// subnormals): the bf16 kernels' probabilities, rounded to bf16 next, and
+// the f32 backward's (within its 2e-5 tolerance)
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -425,120 +439,279 @@ flash_fwd_kernel(const Params p) {
   }
 }
 
-// ---------------------------------------------------- f32 backward: dQ
+// ================================ f32 backward: register-tiled FMA
+// One block of 256 threads, (ty, tx) = (tid / 16, tid % 16).  Each
+// product is an outer product of register tiles: thread (ty, tx) owns
+// rows ty * RM + i of a block's resident rows and, in a score tile, the
+// streamed rows tx + 16 j (NT products, both operands read as float4
+// along the head dim), or, in an output tile, the head-dim columns
+// tx * RD + c (NN products: the first operand read as float4 along its
+// depth, the second as float4 / float2 along the columns).  P, U and dS
+// go to shared memory in the layout the next product reads.
+namespace rt {
+
+constexpr int kThreads = 256;
+
+// tile sizes by head dim: BM resident rows (queries in dQ, keys in
+// dK/dV), BK keys a dQ step, BQ queries a dK/dV step; rows padded by 16
+// bytes in shared memory
 template <int D>
-__global__ void __launch_bounds__(f32::kThreads)
-flash_bwd_dq_kernel(const Params p) {
-  using namespace f32;
-  constexpr int S = Smem<D>::S, NK = kTile / 8, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* dOs = Qs + kRows * S;
-  float* Kb = dOs + kRows * S;         // two K tiles, then two V tiles
-  float* Vb = Kb + 2 * kTile * S;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const long long qoff = b * p.qb + h * p.qh, koff = b * p.kb + h * p.kh;
-  const float* k = static_cast<const float*>(p.k) + koff;
-  const float* v = static_cast<const float*>(p.v) + koff;
-  const int nkt = key_tiles(p, q0, kRows, kTile);
-  load_tile<D>(Qs, static_cast<const float*>(p.q) + qoff, p.ql, q0, p.Lq,
-               kRows);
-  load_tile<D>(dOs, static_cast<const float*>(p.dout) + qoff, p.ql, q0,
-               p.Lq, kRows);
-  if (nkt > 0) {
-    load_tile<D>(Kb, k, p.kl, 0, p.Lk, kTile);
-    load_tile<D>(Vb, v, p.kl, 0, p.Lk, kTile);
-  }
-  cp_async_commit();
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  const bool drop = p.drop_t > 0;
-  const uint32_t bh = (uint32_t)(b * p.H + h);
-  uint32_t rk[2] = {0u, 0u};
-  float lse2[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row[r] < p.Lq) {
-      lse2[r] = p.lse[(long long)bh * p.Lq + row[r]] * kLog2e;
-      delta[r] = p.delta[(long long)bh * p.Lq + row[r]];
-    }
-    if (drop) rk[r] = row_key(p.seed, bh, row[r]);
-  }
-  float dq[ND][4];
-  zero(dq);
-  for (int kt = 0; kt < nkt; ++kt) {
-    if (kt + 1 < nkt) {
-      const int nb = ((kt + 1) & 1) * kTile * S;
-      load_tile<D>(Kb + nb, k, p.kl, (kt + 1) * kTile, p.Lk, kTile);
-      load_tile<D>(Vb + nb, v, p.kl, (kt + 1) * kTile, p.Lk, kTile);
-    }
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    const float* Ks = Kb + (kt & 1) * kTile * S;
-    const float* Vs = Vb + (kt & 1) * kTile * S;
-    float s[NK][4], dp[NK][4];
-    zero(s);
-    zero(dp);
-    gemm_nt<NK, D, S>(s, Qs + warp * 16 * S, Ks, lane);
-    gemm_nt<NK, D, S>(dp, dOs + warp * 16 * S, Vs, lane);
-#pragma unroll
-    for (int n = 0; n < NK; ++n) {
-      const int col0 = kt * kTile + n * 8 + 2 * t;
-      float kf[4] = {1.f, 1.f, 1.f, 1.f};
-      if (drop) {
-        const uint32_t x0 = pair_bits(rk[0], (uint32_t)col0 >> 1);
-        const uint32_t x1 = pair_bits(rk[1], (uint32_t)col0 >> 1);
-        kf[0] = keep_factor(p, x0 & 0xFFFFu);
-        kf[1] = keep_factor(p, x0 >> 16);
-        kf[2] = keep_factor(p, x1 & 0xFFFFu);
-        kf[3] = keep_factor(p, x1 >> 16);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const float pr = visible(p, row[r], col0 + (e & 1))
-            ? exp2f(s[n][e] * p.scale_log2 - lse2[r]) : 0.f;
-        // dS = (u . dP - P . delta) * scale, u = P * keep * 1/(1-p)
-        s[n][e] = (pr * kf[e] * dp[n][e] - pr * delta[r]) * p.scale;
-      }
-    }
-    gemm_nn<ND, NK, S>(dq, s, Ks, lane);
-    __syncthreads();                   // this buffer is refilled next
-  }
-  cp_async_wait_all();
-  float* out = static_cast<float*>(p.dq) + qoff;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row[r] >= p.Lq) continue;
-    float* o = out + (long long)row[r] * p.ql + 2 * t;
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-      store2(o + n * 8, dq[n][2 * r], dq[n][2 * r + 1]);
+struct Bwd {
+  static constexpr int BM = D <= 64 ? 128 : 64;
+  static constexpr int BK = 64;
+  static constexpr int BQ = D <= 64 ? 64 : 32;
+  static constexpr int S = D + 4;
+  static constexpr int RM = BM / 16;
+  static constexpr int RD = D / 16;
+  static constexpr size_t kDqSmem =
+      (size_t)(2 * BM * S + 4 * BK * S + BM * (BK + 4)) * 4;
+  static constexpr size_t kDkvSmem =
+      (size_t)(2 * BM * S + 4 * BQ * S + 2 * BM * (BQ + 4) + 6 * BQ) * 4;
+};
+
+// rows [row0, row0 + rows) of one (b, h) slice -> sm (stride D + 4),
+// asynchronously; rows at or past `valid` are zero.  Every thread of the
+// block takes part; the caller commits the group.
+template <int D>
+__device__ __forceinline__ void load_rows(float* sm, const float* g,
+                                          long long row_stride, int row0,
+                                          int valid, int rows) {
+  constexpr int VPR = D / 4;
+  for (int i = threadIdx.x; i < rows * VPR; i += kThreads) {
+    const int r = i / VPR, c = (i % VPR) * 4;
+    const bool ok = row0 + r < valid;
+    f32::cp_async16(sm + r * (D + 4) + c,
+                    ok ? g + (long long)(row0 + r) * row_stride + c : g, ok);
   }
 }
 
+// acc[i][j] += sum_d a[i * SA + d] * b[16 j * SB + d], d < KD (a at the
+// thread's first row, b at its first streamed row)
+template <int RM, int RN, int KD, int SA, int SB>
+__device__ __forceinline__ void nt(float (&acc)[RM][RN],
+                                   const float* __restrict__ a,
+                                   const float* __restrict__ b) {
+#pragma unroll 2
+  for (int d = 0; d < KD; d += 4) {
+    float4 x[RM], y[RN];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+      x[i] = *reinterpret_cast<const float4*>(a + i * SA + d);
+#pragma unroll
+    for (int j = 0; j < RN; ++j)
+      y[j] = *reinterpret_cast<const float4*>(b + 16 * j * SB + d);
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < RN; ++j) {
+        float c = acc[i][j];
+        c = fmaf(x[i].x, y[j].x, c);
+        c = fmaf(x[i].y, y[j].y, c);
+        c = fmaf(x[i].z, y[j].z, c);
+        c = fmaf(x[i].w, y[j].w, c);
+        acc[i][j] = c;
+      }
+  }
+}
+
+// RN consecutive floats (RN a multiple of 2; 16-byte loads where RN is a
+// multiple of 4)
+template <int RN>
+__device__ __forceinline__ void load_cols(float (&y)[RN], const float* p) {
+  if constexpr (RN % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < RN; c += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + c);
+      y[c] = v.x; y[c + 1] = v.y; y[c + 2] = v.z; y[c + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < RN; c += 2) {
+      const float2 v = *reinterpret_cast<const float2*>(p + c);
+      y[c] = v.x; y[c + 1] = v.y;
+    }
+  }
+}
+
+// acc[i][c] += sum_k a[i * SA + k] * b[k * SB + c], k < KD (a at the
+// thread's first row, b at its first column)
+template <int RM, int RN, int KD, int SA, int SB>
+__device__ __forceinline__ void nn(float (&acc)[RM][RN],
+                                   const float* __restrict__ a,
+                                   const float* __restrict__ b) {
+#pragma unroll 2
+  for (int k = 0; k < KD; k += 4) {
+    float4 x[RM];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+      x[i] = *reinterpret_cast<const float4*>(a + i * SA + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float y[RN];
+      load_cols<RN>(y, b + (k + kk) * SB);
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const float xv = kk == 0 ? x[i].x : kk == 1 ? x[i].y
+                         : kk == 2 ? x[i].z : x[i].w;
+#pragma unroll
+        for (int c = 0; c < RN; ++c) acc[i][c] = fmaf(xv, y[c], acc[i][c]);
+      }
+    }
+  }
+}
+
+template <int RM, int RN>
+__device__ __forceinline__ void zero(float (&c)[RM][RN]) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) c[i][j] = 0.f;
+}
+
+// a thread's RM x RN outputs at rows row0 + i (< valid), columns
+// col0 + c, row stride ld
+template <int RM, int RN>
+__device__ __forceinline__ void store_rows(float* o, const float (&c)[RM][RN],
+                                           long long ld, int row0,
+                                           int valid, int col0) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    if (row0 + i >= valid) continue;
+    float* p = o + (long long)(row0 + i) * ld + col0;
+#pragma unroll
+    for (int k = 0; k < RN; k += 2) store2(p + k, c[i][k], c[i][k + 1]);
+  }
+}
+
+}  // namespace rt
+
+// ---------------------------------------------------- f32 backward: dQ
+// One block per (b, h, BM-query tile); the key and value tiles (BK rows)
+// stream through a double buffer by cp.async.  Per tile: S = Q.K^T and
+// dP = dO.V^T (thread: RM queries x 4 keys, keys tx + 16 j), dS into
+// shared memory, dQ += dS.K (thread: RM queries x RD columns).
+template <int D>
+__global__ void __launch_bounds__(rt::kThreads, 1)
+flash_bwd_dq_f32_kernel(const Params p) {
+  using C = rt::Bwd<D>;
+  constexpr int BM = C::BM, BK = C::BK, S = C::S, RM = C::RM, RD = C::RD;
+  constexpr int RK = BK / 16, SP = BK + 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* dOs = Qs + BM * S;
+  float* Kb = dOs + BM * S;            // two K tiles, then two V tiles
+  float* Vb = Kb + 2 * BK * S;
+  float* dSs = Vb + 2 * BK * S;        // [BM][SP]
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BM;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const long long qoff = b * p.qb + h * p.qh, koff = b * p.kb + h * p.kh;
+  const float* k = static_cast<const float*>(p.k) + koff;
+  const float* v = static_cast<const float*>(p.v) + koff;
+  const int nkt = key_tiles(p, q0, BM, BK);
+  rt::load_rows<D>(Qs, static_cast<const float*>(p.q) + qoff, p.ql, q0, p.Lq,
+                   BM);
+  rt::load_rows<D>(dOs, static_cast<const float*>(p.dout) + qoff, p.ql, q0,
+                   p.Lq, BM);
+  if (nkt > 0) {
+    rt::load_rows<D>(Kb, k, p.kl, 0, p.Lk, BK);
+    rt::load_rows<D>(Vb, v, p.kl, 0, p.Lk, BK);
+  }
+  f32::cp_async_commit();
+  const int r0 = q0 + ty * RM;         // the thread's first query
+  const bool drop = p.drop_t > 0;
+  const uint32_t bh = (uint32_t)(b * p.H + h);
+  const int odd = tx & 1;              // its keys' parity
+  float lse2[RM], dl[RM];
+  uint32_t rk[RM];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const bool ok = r0 + i < p.Lq;
+    lse2[i] = ok ? p.lse[(long long)bh * p.Lq + r0 + i] * kLog2e : 0.f;
+    dl[i] = ok ? p.delta[(long long)bh * p.Lq + r0 + i] : 0.f;
+    rk[i] = drop ? row_key(p.seed, bh, r0 + i) : 0u;
+  }
+  float dq[RM][RD];
+  rt::zero(dq);
+  for (int kt = 0; kt < nkt; ++kt) {
+    f32::cp_async_wait_all();
+    __syncthreads();                   // tile kt is in; tile kt-1 is done
+    if (kt + 1 < nkt) {
+      const int nb = ((kt + 1) & 1) * BK * S;
+      rt::load_rows<D>(Kb + nb, k, p.kl, (kt + 1) * BK, p.Lk, BK);
+      rt::load_rows<D>(Vb + nb, v, p.kl, (kt + 1) * BK, p.Lk, BK);
+    }
+    f32::cp_async_commit();
+    const float* Ks = Kb + (kt & 1) * BK * S;
+    const float* Vs = Vb + (kt & 1) * BK * S;
+    float s[RM][RK], dp[RM][RK];
+    rt::zero(s);
+    rt::zero(dp);
+    rt::nt<RM, RK, D, S, S>(s, Qs + ty * RM * S, Ks + tx * S);
+    rt::nt<RM, RK, D, S, S>(dp, dOs + ty * RM * S, Vs + tx * S);
+    const int key0 = kt * BK;
+    // only tiles that cross the ragged ends or the diagonal test masks
+    const bool edge = key0 + BK > p.Lk || q0 + BM > p.Lq ||
+                      (p.causal && key0 + BK - 1 + p.k_off > q0 + p.q_off);
+#pragma unroll
+    for (int j = 0; j < RK; ++j) {
+      const int key = key0 + tx + 16 * j;
+#pragma unroll
+      for (int i2 = 0; i2 < RM; i2 += 2) {
+        // keys 2m and 2m + 1 sit in lanes tx and tx ^ 1 and share a
+        // hash: each lane hashes one of the two rows and swaps
+        float kf[2] = {1.f, 1.f};
+        if (drop) {
+          const uint32_t mine = pair_bits(odd ? rk[i2 + 1] : rk[i2],
+                                          (uint32_t)key >> 1);
+          const uint32_t other = __shfl_xor_sync(kFull, mine, 1);
+          const uint32_t x0 = odd ? other : mine, x1 = odd ? mine : other;
+          kf[0] = keep_factor(p, odd ? x0 >> 16 : x0 & 0xFFFFu);
+          kf[1] = keep_factor(p, odd ? x1 >> 16 : x1 & 0xFFFFu);
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = i2 + e;
+          float pr = fast_exp2(s[i][j] * p.scale_log2 - lse2[i]);
+          if (edge && !visible(p, r0 + i, key)) pr = 0.f;
+          // dS = (u . dP - P . delta) * scale, u = P * keep / (1 - p)
+          dSs[(ty * RM + i) * SP + tx + 16 * j] =
+              (pr * kf[e] * dp[i][j] - pr * dl[i]) * p.scale;
+        }
+      }
+    }
+    __syncthreads();
+    rt::nn<RM, RD, BK, SP, S>(dq, dSs + ty * RM * SP, Ks + tx * RD);
+  }
+  f32::cp_async_wait_all();
+  rt::store_rows(static_cast<float*>(p.dq) + qoff, dq, p.ql, r0, p.Lq,
+                 tx * RD);
+}
+
 // ------------------------------------------------ f32 backward: dK, dV
-// One block per (b, h, 64-key tile); the warps own key rows and loop
-// over query tiles of BQ rows, so the products are taken transposed:
-// S^T = K.Q^T, dV += U^T.dO, dP^T = V.dO^T, dK += dS^T.Q.
-template <int D, int BQ>
-__global__ void __launch_bounds__(f32::kThreads)
-flash_bwd_dkv_kernel(const Params p) {
-  using namespace f32;
-  constexpr int S = Smem<D>::S, NQ = BQ / 8, ND = D / 8;
+// One block per (b, h, BM-key tile); the query, dO, lse, delta and
+// dropout-row-key tiles (BQ rows) stream through a double buffer.  The
+// products are taken transposed: S^T = K.Q^T and dP^T = V.dO^T (thread:
+// RM keys x BQ / 16 queries, queries tx + 16 j), U^T and dS^T into
+// shared memory, dV += U^T.dO and dK += dS^T.Q (thread: RM keys x RD
+// columns).  A thread's keys come in pairs (2m, 2m + 1), one hash each.
+template <int D>
+__global__ void __launch_bounds__(rt::kThreads, 1)
+flash_bwd_dkv_f32_kernel(const Params p) {
+  using C = rt::Bwd<D>;
+  constexpr int BM = C::BM, BQ = C::BQ, S = C::S, RM = C::RM, RD = C::RD;
+  constexpr int RQ = BQ / 16, SP = BQ + 4;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Ks = reinterpret_cast<float*>(smem);
-  float* Vs = Ks + kRows * S;
-  float* Qb = Vs + kRows * S;          // two Q tiles, then two dO tiles
+  float* Vs = Ks + BM * S;
+  float* Qb = Vs + BM * S;             // two Q tiles, then two dO tiles
   float* dOb = Qb + 2 * BQ * S;
-  float* lse_b = dOb + 2 * BQ * S;                             // [2][BQ]
-  float* delta_b = lse_b + 2 * BQ;                             // [2][BQ]
+  float* Us = dOb + 2 * BQ * S;        // [BM][SP]
+  float* dSs = Us + BM * SP;           // [BM][SP]
+  float* lse_b = dSs + BM * SP;        // [2][BQ]
+  float* delta_b = lse_b + 2 * BQ;     // [2][BQ]
   uint32_t* rk_b = reinterpret_cast<uint32_t*>(delta_b + 2 * BQ);
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BM;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const long long qoff = b * p.qb + h * p.qh, koff = b * p.kb + h * p.kh;
   const float* q = static_cast<const float*>(p.q) + qoff;
   const float* dout = static_cast<const float*>(p.dout) + qoff;
@@ -553,9 +726,9 @@ flash_bwd_dkv_kernel(const Params p) {
   // query tile qt -> buffer `buf`: Q and dO by cp.async, the per-row
   // lse (log2 units), delta and dropout row keys by plain stores
   auto stage = [&](int qt, int buf) {
-    load_tile<D>(Qb + buf * BQ * S, q, p.ql, qt * BQ, p.Lq, BQ);
-    load_tile<D>(dOb + buf * BQ * S, dout, p.ql, qt * BQ, p.Lq, BQ);
-    for (int i = threadIdx.x; i < BQ; i += kThreads) {
+    rt::load_rows<D>(Qb + buf * BQ * S, q, p.ql, qt * BQ, p.Lq, BQ);
+    rt::load_rows<D>(dOb + buf * BQ * S, dout, p.ql, qt * BQ, p.Lq, BQ);
+    for (int i = tid; i < BQ; i += rt::kThreads) {
       const int qi = qt * BQ + i;
       const bool ok = qi < p.Lq;
       lse_b[buf * BQ + i] =
@@ -564,66 +737,65 @@ flash_bwd_dkv_kernel(const Params p) {
       if (drop) rk_b[buf * BQ + i] = row_key(p.seed, bh, qi);
     }
   };
-  load_tile<D>(Ks, static_cast<const float*>(p.k) + koff, p.kl, k0, p.Lk,
-               kRows);
-  load_tile<D>(Vs, static_cast<const float*>(p.v) + koff, p.kl, k0, p.Lk,
-               kRows);
+  rt::load_rows<D>(Ks, static_cast<const float*>(p.k) + koff, p.kl, k0, p.Lk,
+                   BM);
+  rt::load_rows<D>(Vs, static_cast<const float*>(p.v) + koff, p.kl, k0, p.Lk,
+                   BM);
   if (start < nqt) stage(start, 0);
-  cp_async_commit();
-  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  const uint32_t kp[2] = {(uint32_t)key[0] >> 1, (uint32_t)key[1] >> 1};
-  const int hi = key[0] & 1;          // key[1] = key[0] + 8: same parity
-  float dk[ND][4], dv[ND][4];
-  zero(dk);
-  zero(dv);
+  f32::cp_async_commit();
+  const int key0 = k0 + ty * RM;       // the thread's first key (even)
+  float dk[RM][RD], dv[RM][RD];
+  rt::zero(dk);
+  rt::zero(dv);
   for (int qt = start; qt < nqt; ++qt) {
     const int buf = (qt - start) & 1;
+    f32::cp_async_wait_all();
+    __syncthreads();                   // tile qt is in; tile qt-1 is done
     if (qt + 1 < nqt) stage(qt + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
+    f32::cp_async_commit();
     const float* Qs = Qb + buf * BQ * S;
     const float* dOs = dOb + buf * BQ * S;
     const float* lse_s = lse_b + buf * BQ;
     const float* delta_s = delta_b + buf * BQ;
     const uint32_t* rk_s = rk_b + buf * BQ;
-    float s[NQ][4], dp[NQ][4];
-    zero(s);
-    zero(dp);
-    gemm_nt<NQ, D, S>(s, Ks + warp * 16 * S, Qs, lane);
-    gemm_nt<NQ, D, S>(dp, Vs + warp * 16 * S, dOs, lane);
+    float s[RM][RQ], dp[RM][RQ];
+    rt::zero(s);
+    rt::zero(dp);
+    rt::nt<RM, RQ, D, S, S>(s, Ks + ty * RM * S, Qs + tx * S);
+    rt::nt<RM, RQ, D, S, S>(dp, Vs + ty * RM * S, dOs + tx * S);
+    const int qb0 = qt * BQ;
+    const bool edge = k0 + BM > p.Lk || qb0 + BQ > p.Lq ||
+                      (p.causal && k0 + BM - 1 + p.k_off > qb0 + p.q_off);
 #pragma unroll
-    for (int n = 0; n < NQ; ++n)
+    for (int j = 0; j < RQ; ++j) {
+      const int c = tx + 16 * j, qi = qb0 + c;
+      const float lq = lse_s[c], dq = delta_s[c];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, ci = n * 8 + 2 * t + (e & 1);
-        const float pr = visible(p, qt * BQ + ci, key[r])
-            ? exp2f(s[n][e] * p.scale_log2 - lse_s[ci]) : 0.f;
-        float u = pr;
-        if (drop) {
-          const uint32_t x = pair_bits(rk_s[ci], kp[r]);
-          u *= keep_factor(p, hi ? x >> 16 : x & 0xFFFFu);
+      for (int i2 = 0; i2 < RM; i2 += 2) {
+        const uint32_t x = drop ? pair_bits(rk_s[c],
+                                            (uint32_t)(key0 + i2) >> 1)
+                                : 0u;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = i2 + e;
+          float pr = fast_exp2(s[i][j] * p.scale_log2 - lq);
+          if (edge && !visible(p, qi, key0 + i)) pr = 0.f;
+          const float u =
+              drop ? pr * keep_factor(p, e ? x >> 16 : x & 0xFFFFu) : pr;
+          Us[(ty * RM + i) * SP + c] = u;
+          dSs[(ty * RM + i) * SP + c] = (u * dp[i][j] - pr * dq) * p.scale;
         }
-        s[n][e] = u;
-        dp[n][e] = (u * dp[n][e] - pr * delta_s[ci]) * p.scale;
       }
-    gemm_nn<ND, NQ, S>(dv, s, dOs, lane);
-    gemm_nn<ND, NQ, S>(dk, dp, Qs, lane);
-    __syncthreads();                   // this buffer is refilled next
-  }
-  cp_async_wait_all();
-  float* dko = static_cast<float*>(p.dk) + koff;
-  float* dvo = static_cast<float*>(p.dv) + koff;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (key[r] >= p.Lk) continue;
-    const long long o = (long long)key[r] * p.kl + 2 * t;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      store2(dko + o + n * 8, dk[n][2 * r], dk[n][2 * r + 1]);
-      store2(dvo + o + n * 8, dv[n][2 * r], dv[n][2 * r + 1]);
     }
+    __syncthreads();
+    rt::nn<RM, RD, BQ, SP, S>(dv, Us + ty * RM * SP, dOs + tx * RD);
+    rt::nn<RM, RD, BQ, SP, S>(dk, dSs + ty * RM * SP, Qs + tx * RD);
   }
+  f32::cp_async_wait_all();
+  rt::store_rows(static_cast<float*>(p.dk) + koff, dk, p.kl, key0, p.Lk,
+                 tx * RD);
+  rt::store_rows(static_cast<float*>(p.dv) + koff, dv, p.kl, key0, p.Lk,
+                 tx * RD);
 }
 
 // ======================================== bf16: wgmma, TMA, warpgroups
@@ -1297,6 +1469,16 @@ int launch_f32(Kern kern, dim3 grid, size_t smem, const Params& p,
   return (int)cudaGetLastError();
 }
 
+template <typename Kern>
+int launch_rt(Kern kern, dim3 grid, size_t smem, const Params& p,
+              cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<grid, rt::kThreads, smem, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int fwd_f32(const Params& p, cudaStream_t st) {
   using namespace f32;
@@ -1307,21 +1489,18 @@ int fwd_f32(const Params& p, cudaStream_t st) {
 
 template <int D>
 int bwd_dq_f32(const Params& p, cudaStream_t st) {
-  using namespace f32;
-  const size_t smem = (size_t)(2 * kRows + 4 * kTile) * Smem<D>::S * 4;
-  return launch_f32(flash_bwd_dq_kernel<D>,
-                    dim3((p.Lq + kRows - 1) / kRows, p.H, p.B), smem, p, st);
+  using C = rt::Bwd<D>;
+  return launch_rt(flash_bwd_dq_f32_kernel<D>,
+                   dim3((p.Lq + C::BM - 1) / C::BM, p.H, p.B), C::kDqSmem, p,
+                   st);
 }
 
 template <int D>
 int bwd_dkv_f32(const Params& p, cudaStream_t st) {
-  using namespace f32;
-  // fewer query rows per step above D = 64 keeps dK and dV in registers
-  constexpr int BQ = D > 64 ? 32 : 64;
-  const size_t smem = (size_t)(2 * kRows + 4 * BQ) * Smem<D>::S * 4 +
-                      6 * BQ * sizeof(float);
-  return launch_f32(flash_bwd_dkv_kernel<D, BQ>,
-                    dim3((p.Lk + kRows - 1) / kRows, p.H, p.B), smem, p, st);
+  using C = rt::Bwd<D>;
+  return launch_rt(flash_bwd_dkv_f32_kernel<D>,
+                   dim3((p.Lk + C::BM - 1) / C::BM, p.H, p.B), C::kDkvSmem,
+                   p, st);
 }
 
 // a [B, L, H, D] bf16 tensor with element strides (sb, sl, sh) as a rank-4

@@ -4,8 +4,12 @@
 //   _fwd (body from _make_fwd_kernel)       -> epilogue_fwd_f32_kernel
 //                                              (f32), epilogue_fwd_kernel
 //                                              (bf16)
-//   _bwd_call (body from _make_bwd_kernel)  -> epilogue_bwd_kernel and
-//                                              epilogue_grads_kernel
+//   _bwd_call (body from _make_bwd_kernel)  -> two launches:
+//                                              epilogue_bwd_f32_kernel and
+//                                              epilogue_grads_f32_kernel
+//                                              (f32), epilogue_bwd_kernel
+//                                              and epilogue_grads_kernel
+//                                              (bf16)
 //
 //   x [M, K], w [K, N] (one dtype, f32 or bf16), out [M, N] in x's dtype
 //   out = epilogue(x @ w) on the f32 accumulator, the stages in order:
@@ -23,45 +27,58 @@
 //
 // Bound on this card, at BERT-base (M 8192; K, N = 768, 768 | 768, 3072
 // | 3072, 768): every chain is a matrix product of 2.MKN operations on
-// an M.N epilogue; at f32 the products bound it (fc1: 38.65 GFLOP,
-// 0.58 ms at 67 TFLOP/s, against 47 MB moved, 0.014 ms).
-// What the design does about it:
-//   * the f32 forward (the main path's dtype) runs f32_tile.cuh's
-//     mainloop: one block of 256 threads a 128 x 128 tile, 8 x 8 outputs
-//     a thread, float4 loads, one barrier an 8-deep step; every element
-//     is one FMA chain over k = 0..K-1, bit for bit K6's f32 product.
-//     The stages run on the accumulators in registers and the results
-//     are stored from there.  A layer_norm needs whole rows: the blocks
-//     of one 128-row band then form one thread-block cluster along N
-//     (N / 128 blocks, up to 12 at N = 1536), and the row statistics
-//     take two rounds over distributed shared memory (the per-block row
-//     sums give the mean, then the sums of squared deviations give
-//     rstd; each block sums the cluster's partials in rank order, so
-//     every block gets the same statistics).  The [M, N] pre-norm
-//     values never reach device memory;
-//   * the bf16 forward (not on the main path) and the backward keep the
-//     TileGemm tiles below: one block of 256 threads owns 64 rows (32
-//     with a layer_norm); it computes the f32 accumulator one rows x 128
-//     tile at a time (k steps of 32, 16 for 32 rows, through shared
-//     memory, the next step's tiles loaded into registers while the
-//     current one is multiplied) into a shared-memory staging area;
-//     chains without layer_norm give each block one 128-column tile (a
-//     2-D grid); with a layer_norm the block walks all N columns and
-//     keeps the 32 x N pre-normalisation rows in shared memory (N <=
-//     1536: 197 KB; two blocks an SM at N = 768);
-//   * the backward is deterministic (no atomics: two runs agree bit for
-//     bit).  epilogue_bwd_kernel recomputes the accumulator for its rows,
-//     replays the stages, walks them back and writes g (rounded to w's
-//     dtype, as the TPU kernel rounds it before its products), the
-//     d-residual, and per-block partial sums of d-bias and d-affine;
-//     epilogue_grads_kernel then computes 64 x 128 dx and dw tiles (each
-//     output element summed by one block in a fixed order) and sums the
-//     partials in row-block order.  Unlike the TPU kernel it writes g to
-//     device memory once and reads it back for the two products.  Its
-//     f32 tile sums each element in the same order as the forward's, so
-//     it replays the same accumulator.
-// Not done yet (later work): wgmma/TMA for bf16 and the backward, a
-// persistent schedule.
+// an M.N epilogue (two products in the second backward launch); at f32
+// the products bound it (fc1: 38.65 GFLOP, 0.58 ms at 67 TFLOP/s,
+// against 47 MB moved, 0.014 ms).
+// What the design does about it (f32, the main path's dtype): every
+// product runs f32_tile.cuh's mainloop, one block of 256 threads a 128 x
+// 128 tile, 8 x 8 outputs a thread, float4 loads, one barrier an 8-deep
+// step; every element is one FMA chain in a fixed order.
+//   * forward: the stages run on the accumulators in registers and the
+//     results are stored from there.  A layer_norm needs whole rows: the
+//     blocks of one 128-row band then form one thread-block cluster
+//     along N (N / 128 blocks, up to 12 at N = 1536), and the row
+//     statistics take two rounds over distributed shared memory (the
+//     per-block row sums give the mean, then the sums of squared
+//     deviations give rstd; each block sums the cluster's partials in
+//     rank order, so every block gets the same statistics).  The [M, N]
+//     pre-norm values never reach device memory; K2f's zero-bias product
+//     is bit for bit K6's f32 product;
+//   * backward, first launch: the forward's grid and clusters.  The
+//     block replays the product (bit for bit the forward's accumulator,
+//     so relu and gelu see the forward's values), parks it in shared
+//     memory, and walks the stages back in registers: a relu or gelu
+//     recomputes its input element by element from the replay; with a
+//     layer_norm the forward's two rounds give the statistics and a
+//     third gives its backward's row means (of g.gamma and
+//     g.gamma.xhat).  It writes g, the d-residuals and one row of
+//     partial column sums (d-bias, d-affine) per 128-row block;
+//   * backward, second launch: dx = g . w^T (w read n-major, transposed
+//     into shared memory) over depth N, and dw = x^T . g (x read k-major:
+//     a plain row load) with each 128 x 128 tile of dw split over up to
+//     8 slices of ~2048 rows of M, one block each.  The blocks of a dw
+//     tile form one cluster and sum their partial tiles over
+//     distributed shared memory in slice order, so the 36 dw tiles of
+//     the proj chain give 144 blocks instead of 36.  The deeper kind of
+//     block is scheduled first.  Then the operand sums over the partial
+//     rows, in row-block order;
+//   * the backward is deterministic: no atomics, and every sum is taken
+//     in a fixed order, so two runs agree bit for bit.  g is written to
+//     device memory once and read back for the two products (the TPU
+//     kernel keeps it in VMEM).
+// bf16 (not on a main path) keeps the TileGemm tiles below: one block of
+// 256 threads owns 64 rows (32 with a layer_norm); it computes the f32
+// accumulator one rows x 128 tile at a time into a shared-memory staging
+// area; with a layer_norm the block walks all N columns and keeps the 32
+// x N pre-normalisation rows in shared memory (N <= 1536: 197 KB); its
+// backward writes g rounded to bf16 (as the TPU kernel rounds it before
+// its products) and computes 64 x 128 dx and dw tiles, each over all of
+// its depth.
+// What bounds the f32 backward (H100, PERF.md): the first launch's
+// element-wise walk after the product (fc1's gelu, spills at 128
+// registers), the second's products at ~58 % of the FMA peak against
+// cuBLAS's ~72 %.  Not done yet: wgmma/TMA for bf16, a persistent
+// schedule.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -116,18 +133,12 @@ constexpr float kSqrt2OverPi = 0.7978845608028654f;
 constexpr float kInvSqrt2 = 0.7071067811865476f;
 constexpr float kInvSqrt2Pi = 0.3989422804014327f;
 
-__device__ __forceinline__ float ld(const float* p, long long i) {
-  return p[i];
-}
+// the bf16 kernels' loads and stores of their own dtype
 __device__ __forceinline__ float ld(const __nv_bfloat16* p, long long i) {
   return __bfloat162float(p[i]);
 }
 template <typename T>
 __device__ __forceinline__ T cvt(float v);
-template <>
-__device__ __forceinline__ float cvt<float>(float v) {
-  return v;
-}
 template <>
 __device__ __forceinline__ __nv_bfloat16 cvt<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
@@ -235,107 +246,6 @@ __device__ float bwd_stages(float z, float g, const Recipe& r, int from,
 // tile in C; the caller synchronises before reading it.
 template <typename T, int BM>
 struct TileGemm;
-
-// f32: thread (ty, tx) of the 8 x 32 grid owns rows ty * BM/8 .. and
-// columns 4 tx ..; per k it reads BM/8 + 4 values from shared memory as
-// float4 for 4 BM/8 FMAs (the 64-row tile halves the reads per FMA).
-template <int BM>
-struct TileGemm<float, BM> {
-  static constexpr int kBK = depth<BM>();
-  static constexpr int kLa = BM + 4;    // As[k][m]
-  static constexpr int kLb = kBN + 4;   // Bs[k][n]
-  static constexpr int kRM = BM / 8;    // rows a thread owns
-  static constexpr int kNa = BM * kBK / kThreads;
-  static constexpr int kNb = kBK * kBN / kThreads;
-
-  __device__ static void run(const float* __restrict__ A, long long sai,
-                             long long sak, int rows,
-                             const float* __restrict__ B, long long sbk,
-                             long long sbj, int cols, int K, float* C,
-                             int ldc, char* smem) {
-    float* As = reinterpret_cast<float*>(smem);
-    float* Bs = As + kBK * kLa;
-    const int tid = threadIdx.x, ty = tid >> 5, tx = tid & 31;
-    float acc[kRM][4];
-#pragma unroll
-    for (int i = 0; i < kRM; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    float ra[kNa], rb[kNb];
-    auto load = [&](int k0) {
-#pragma unroll
-      for (int t = 0; t < kNa; ++t) {
-        const int e = tid + t * kThreads;
-        const int i = sak == 1 ? e / kBK : e % BM;
-        const int k = sak == 1 ? e % kBK : e / BM;
-        ra[t] = (i < rows && k0 + k < K)
-                    ? A[i * sai + (long long)(k0 + k) * sak] : 0.f;
-      }
-#pragma unroll
-      for (int t = 0; t < kNb; ++t) {
-        const int e = tid + t * kThreads;
-        const int k = sbj == 1 ? e / kBN : e % kBK;
-        const int j = sbj == 1 ? e % kBN : e / kBK;
-        rb[t] = (j < cols && k0 + k < K)
-                    ? B[(long long)(k0 + k) * sbk + j * sbj] : 0.f;
-      }
-    };
-    auto store = [&]() {
-#pragma unroll
-      for (int t = 0; t < kNa; ++t) {
-        const int e = tid + t * kThreads;
-        const int i = sak == 1 ? e / kBK : e % BM;
-        const int k = sak == 1 ? e % kBK : e / BM;
-        As[k * kLa + i] = ra[t];
-      }
-#pragma unroll
-      for (int t = 0; t < kNb; ++t) {
-        const int e = tid + t * kThreads;
-        const int k = sbj == 1 ? e / kBN : e % kBK;
-        const int j = sbj == 1 ? e % kBN : e / kBK;
-        Bs[k * kLb + j] = rb[t];
-      }
-    };
-    load(0);
-    store();
-    __syncthreads();
-    for (int k0 = 0; k0 < K; k0 += kBK) {
-      const bool more = k0 + kBK < K;
-      if (more) load(k0 + kBK);
-#pragma unroll
-      for (int k = 0; k < kBK; ++k) {
-        float av[kRM];
-#pragma unroll
-        for (int r = 0; r < kRM; r += 4) {
-          const float4 a = *reinterpret_cast<const float4*>(
-              &As[k * kLa + ty * kRM + r]);
-          av[r] = a.x;
-          av[r + 1] = a.y;
-          av[r + 2] = a.z;
-          av[r + 3] = a.w;
-        }
-        const float4 b = *reinterpret_cast<const float4*>(&Bs[k * kLb +
-                                                              tx * 4]);
-        const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < kRM; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j],
-                                                       acc[i][j]);
-      }
-      __syncthreads();
-      if (more) {
-        store();
-        __syncthreads();
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kRM; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) C[(ty * kRM + i) * ldc + tx * 4 + j] =
-                                      acc[i][j];
-  }
-};
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t* a,
                                          const uint32_t* b) {
@@ -566,23 +476,24 @@ __device__ __forceinline__ void put4(float* v, float4 o) {
   v[3] = o.w;
 }
 
-// stages [from, to) (none of them a layer_norm) on a thread's 8 x 8
-// values: rows m0 + row_of(ty, i), columns c[0] + 0..3 and c[1] + 0..3.
-// The same arithmetic as fwd_stages, element by element.
-__device__ void tile_stages(float (&v)[8][8], const Recipe& r, int from,
+// stages [from, to) (none of them a layer_norm) on R rows of a thread's
+// 8 x 8 values: rows m0 + row_of(ty, i0 + i), columns c[0] + 0..3 and
+// c[1] + 0..3.  The same arithmetic as fwd_stages, element by element.
+template <int R>
+__device__ void tile_stages(float (&v)[R][8], const Recipe& r, int from,
                             int to, int m0, int ty, const int (&c)[2], int M,
-                            int N) {
+                            int N, int i0 = 0) {
   for (int s = from; s < to; ++s) {
     const int kind = r.kind[s];
     if (kind == kRelu) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) v[i][j] = fmaxf(v[i][j], 0.f);
     } else if (kind == kGelu) {
       const int approx = r.approx[s];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) v[i][j] = gelu_f(v[i][j], approx);
     } else if (kind == kBias || kind == kAdd) {
@@ -590,14 +501,14 @@ __device__ void tile_stages(float (&v)[8][8], const Recipe& r, int from,
       if (!r.full[k]) {
         const float4 a = op4(r, k, 0, c[0], N), b = op4(r, k, 0, c[1], N);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
+        for (int i = 0; i < R; ++i) {
           add4(v[i], a);
           add4(v[i] + 4, b);
         }
       } else {
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int row = m0 + f32_tile::row_of(ty, i);
+        for (int i = 0; i < R; ++i) {
+          const int row = m0 + f32_tile::row_of(ty, i0 + i);
           if (row >= M) continue;
           add4(v[i], op4(r, k, row, c[0], N));
           add4(v[i] + 4, op4(r, k, row, c[1], N));
@@ -721,7 +632,409 @@ __global__ void __launch_bounds__(f32_tile::kThreads, 2)
   }
 }
 
-// ------------------------------------------------------------ backward
+// ------------------------------------------------------ backward, f32
+// Four d-residual values at (row, col..col + 3) of operand ``slot``'s
+// gradient, in the operand's dtype.
+__device__ __forceinline__ void put_grad4(const Recipe& r, int slot,
+                                          long long row, int col, int N,
+                                          const float* v) {
+  const long long i = row * N + col;
+  if (r.bf16[slot]) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 u;
+    u.x = *reinterpret_cast<const uint32_t*>(&lo);
+    u.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(r.grad[slot]) +
+                              i) = u;
+  } else {
+    *reinterpret_cast<float4*>(static_cast<float*>(r.grad[slot]) + i) =
+        make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// column j of a thread's 8 x 8 values, local to the 128-column tile
+__device__ __forceinline__ int col_of(int tx, int j) {
+  return j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4;
+}
+
+// The block's column sums of val(i, j) over its 128 rows, into
+// out[0..127]: each thread sums its 8 rows in order, the two row groups
+// of a warp are added by one shuffle, and the 8 warps' sums are added in
+// warp order (red: 8 x 128 floats of shared memory).  Every thread of
+// the block calls it.
+template <typename Val>
+__device__ __forceinline__ void column_sums(Val val, float* red,
+                                            float* out) {
+  const int tid = threadIdx.x, tx = tid & 15, warp = tid >> 5;
+  float cs[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float t = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) t += val(i, j);
+    cs[j] = t + __shfl_xor_sync(0xffffffffu, t, 16);
+  }
+  if ((tid & 31) < 16) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      red[warp * f32_tile::kBN + col_of(tx, j)] = cs[j];
+  }
+  __syncthreads();
+  if (tid < f32_tile::kBN) {
+    float t = 0.f;
+#pragma unroll
+    for (int q = 0; q < f32_tile::kThreads / 32; ++q)
+      t += red[q * f32_tile::kBN + tid];
+    out[tid] = t;
+  }
+  __syncthreads();
+}
+
+// Stages [from, to) backward on a thread's 8 x 8 gradients g (none of
+// them a layer_norm): base(i, j) is the input of stage ``from`` at the
+// element; a relu or gelu recomputes its own input from it with
+// tile_stages (the forward's arithmetic), four rows at a time.  d-bias goes into
+// this block's row of partial sums (prow, [n_ops][N]), d-residual into
+// the operand's gradient.  Every thread of the block calls it.
+template <typename Base>
+__device__ __forceinline__ void tile_stages_bwd(
+    float (&g)[8][8], const Recipe& r, int from, int to, Base base, int m0,
+    int n0, const int (&c)[2], int M, int N, float* red, float* prow) {
+  const int ty = threadIdx.x >> 4;
+  for (int s = to - 1; s >= from; --s) {
+    const int kind = r.kind[s];
+    if (kind == kRelu || kind == kGelu) {
+      // the stage's input, recomputed from base four rows at a time by
+      // the forward's arithmetic
+      const int approx = r.approx[s];
+#pragma unroll
+      for (int i0 = 0; i0 < 8; i0 += 4) {
+        float h[4][8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) h[i][j] = base(i0 + i, j);
+        tile_stages(h, r, from, s, m0, ty, c, M, N, i0);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            g[i0 + i][j] = kind == kRelu
+                               ? (h[i][j] > 0.f ? g[i0 + i][j] : 0.f)
+                               : g[i0 + i][j] * dgelu_f(h[i][j], approx);
+      }
+    } else if (kind == kAdd) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int row = m0 + f32_tile::row_of(ty, i);
+        if (row >= M) continue;
+        put_grad4(r, r.op0[s], row, c[0], N, g[i]);
+        put_grad4(r, r.op0[s], row, c[1], N, g[i] + 4);
+      }
+    } else if (kind == kBias) {
+      column_sums([&](int i, int j) { return g[i][j]; }, red,
+                  prow + (long long)r.op0[s] * N + n0);
+    }
+  }
+}
+
+// The first backward launch at f32.  Block (bx, by) owns the 128 x 128
+// tile at rows 128 by, columns 128 bx: it replays z = x . w on
+// f32_tile's mainloop (bit for bit K2f's accumulator), keeps z in shared
+// memory, walks the stages back from dy to g in registers and writes g,
+// the d-residuals and its row of partial column sums, partial[by]
+// [n_ops][N].  With LN the N / 128 blocks of a row band are one cluster:
+// the row statistics take the forward's two rounds over distributed
+// shared memory, and layer_norm's backward one more (the row means of
+// g.gamma and g.gamma.xhat), each summed in rank order.
+template <bool LN>
+__global__ void __launch_bounds__(f32_tile::kThreads, 1)
+    epilogue_bwd_f32_kernel(const float* __restrict__ x,
+                            const float* __restrict__ w,
+                            const float* __restrict__ dy,
+                            float* __restrict__ gout,
+                            float* __restrict__ partial, int M, int K, int N,
+                            Recipe r) {
+  // z, thread-major: zs[(2 i + h) * 256 + tid] holds the thread's row i,
+  // columns c[h]..c[h] + 3 (conflict-free float4 accesses)
+  extern __shared__ __align__(16) float4 zs[];
+  __shared__ float red[f32_tile::kThreads / 32 * f32_tile::kBN];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * f32_tile::kBM, n0 = blockIdx.x * f32_tile::kBN;
+  const int c[2] = {n0 + tx * 4, n0 + 64 + tx * 4};
+  float* prow = partial + (long long)blockIdx.y * r.n_ops * N;
+  float v[8][8];
+  f32_tile::mainloop(x, w, M, K, K, N, m0, n0, v);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      zs[(2 * i + h) * f32_tile::kThreads + tid] =
+          make_float4(v[i][4 * h], v[i][4 * h + 1], v[i][4 * h + 2],
+                      v[i][4 * h + 3]);
+  auto z_at = [&](int i, int j) {
+    const float4 q = zs[(2 * i + (j >> 2)) * f32_tile::kThreads + tid];
+    const int e = j & 3;
+    return e == 0 ? q.x : e == 1 ? q.y : e == 2 ? q.z : q.w;
+  };
+  // g = dy (0 on rows past M, so they add nothing to the sums)
+  float g[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + f32_tile::row_of(ty, i);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 d = row < M ? *reinterpret_cast<const float4*>(
+                                     dy + (long long)row * N + c[h])
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+      put4(g[i] + 4 * h, d);
+    }
+  }
+  if constexpr (!LN) {
+    tile_stages_bwd(g, r, 0, r.n, z_at, m0, n0, c, M, N, red, prow);
+  } else {
+    __shared__ float sums[f32_tile::kBM], squares[f32_tile::kBM];
+    __shared__ float gsum[f32_tile::kBM], gxsum[f32_tile::kBM];
+    __shared__ float mean_s[f32_tile::kBM], rstd_s[f32_tile::kBM];
+    __shared__ float s1_s[f32_tile::kBM], s2_s[f32_tile::kBM];
+    cooperative_groups::cluster_group cluster =
+        cooperative_groups::this_cluster();
+    const int s = r.ln;
+    tile_stages(v, r, 0, s, m0, ty, c, M, N);
+    // round 1: the row sums give the mean (the forward's arithmetic)
+    float p[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      p[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) p[i] += v[i][j];
+    }
+    row_partials(p, tx, ty, sums);
+    cluster.sync();
+    if (tid < f32_tile::kBM)
+      mean_s[tid] = cluster_sum(cluster, sums, tid) / N;
+    __syncthreads();
+    float mu[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) mu[i] = mean_s[f32_tile::row_of(ty, i)];
+    // round 2: the sums of squared deviations give rstd
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      p[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float d = v[i][j] - mu[i];
+        p[i] += d * d;
+      }
+    }
+    row_partials(p, tx, ty, squares);
+    cluster.sync();
+    if (tid < f32_tile::kBM)
+      rstd_s[tid] =
+          rsqrtf(cluster_sum(cluster, squares, tid) / N + r.eps[s]);
+    __syncthreads();
+    // v becomes xhat
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float rstd = rstd_s[f32_tile::row_of(ty, i)];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[i][j] = (v[i][j] - mu[i]) * rstd;
+    }
+    const bool has_g = r.op0[s] >= 0, has_b = r.op1[s] >= 0;
+    float gv[8], bv[8];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      put4(gv + 4 * h, has_g ? op4(r, r.op0[s], 0, c[h], N)
+                             : make_float4(1.f, 1.f, 1.f, 1.f));
+      put4(bv + 4 * h, has_b ? op4(r, r.op1[s], 0, c[h], N)
+                             : make_float4(0.f, 0.f, 0.f, 0.f));
+    }
+    // the stages after the layer_norm, from its output y
+    auto y_at = [&](int i, int j) {
+      float y = v[i][j];
+      if (has_g) y *= gv[j];
+      if (has_b) y += bv[j];
+      return y;
+    };
+    tile_stages_bwd(g, r, s + 1, r.n, y_at, m0, n0, c, M, N, red, prow);
+    // the affine's gradients, then g at xhat
+    if (has_b)
+      column_sums([&](int i, int j) { return g[i][j]; }, red,
+                  prow + (long long)r.op1[s] * N + n0);
+    if (has_g) {
+      column_sums([&](int i, int j) { return g[i][j] * v[i][j]; }, red,
+                  prow + (long long)r.op0[s] * N + n0);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) g[i][j] *= gv[j];
+    }
+    // round 3: the row means of g and g . xhat
+    float q[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      p[i] = 0.f;
+      q[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        p[i] += g[i][j];
+        q[i] += g[i][j] * v[i][j];
+      }
+    }
+    row_partials(p, tx, ty, gsum);
+    row_partials(q, tx, ty, gxsum);
+    cluster.sync();
+    if (tid < f32_tile::kBM) {
+      s1_s[tid] = cluster_sum(cluster, gsum, tid) / N;
+      s2_s[tid] = cluster_sum(cluster, gxsum, tid) / N;
+    }
+    // no block leaves (or reuses its partials) while another reads them
+    cluster.sync();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = f32_tile::row_of(ty, i);
+      const float rstd = rstd_s[row], s1 = s1_s[row], s2 = s2_s[row];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        g[i][j] = rstd * (g[i][j] - s1 - v[i][j] * s2);
+    }
+    // the stages before the layer_norm, from z
+    tile_stages_bwd(g, r, 0, s, z_at, m0, n0, c, M, N, red, prow);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + f32_tile::row_of(ty, i);
+    if (row >= M) continue;
+    float* o = gout + (long long)row * N;
+    *reinterpret_cast<float4*>(o + c[0]) =
+        make_float4(g[i][0], g[i][1], g[i][2], g[i][3]);
+    *reinterpret_cast<float4*>(o + c[1]) =
+        make_float4(g[i][4], g[i][5], g[i][6], g[i][7]);
+  }
+}
+
+// The second backward launch at f32: dw = x^T . g and dx = g . w^T on
+// f32_tile's mainloop, then the vector operands' sums.  One launch, three
+// kinds of block, the deeper of dw and dx first (dx_first):
+//   * dw tiles.  Each 128 x 128 tile of dw is split
+//     over ``slices`` consecutive slices of M rows, one block each; the
+//     blocks of one tile form one cluster, park their partial tiles in
+//     shared memory, and each block sums a 1 / slices share of the tile
+//     over the cluster's ranks in rank order (distributed shared memory)
+//     and stores it.  No atomics: dw is the sum of the slices in slice
+//     order, the same in every run;
+//   * dx tiles over depth N;
+//   * the operand sums over the partials' rows, in row-block order.
+__global__ void __launch_bounds__(f32_tile::kThreads, 2)
+    epilogue_grads_f32_kernel(const float* __restrict__ x,
+                              const float* __restrict__ w,
+                              const float* __restrict__ g,
+                              float* __restrict__ dx, float* __restrict__ dw,
+                              const float* __restrict__ partial,
+                              float* __restrict__ dvec, int M, int K, int N,
+                              int n_partials, int slices, int slice_rows,
+                              int dw_blocks, int dx_blocks, int dx_first,
+                              Recipe r) {
+  extern __shared__ __align__(16) float4 part[];   // [16][256], thread-major
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  // block order: [dw][dx][sums], or [dx][dw][sums] with dx_blocks padded
+  // to a whole number of clusters
+  int b = blockIdx.x;
+  if (dx_first) {
+    const int dx_span = (dx_blocks + slices - 1) / slices * slices;
+    b = b < dx_span ? (b < dx_blocks ? dw_blocks + b : -1)
+        : b < dx_span + dw_blocks ? b - dx_span : b - dx_span + dx_blocks;
+    if (b < 0) return;
+  }
+  float acc[8][8];
+  if (b < dw_blocks) {              // dw[K, N]: rows k0.., columns n0..
+    const int t = b / slices, sl = b % slices, tn = N / f32_tile::kBN;
+    const int k0 = (t / tn) * f32_tile::kBM, n0 = (t % tn) * f32_tile::kBN;
+    const long long r0 = (long long)sl * slice_rows;
+    const int depth = (int)min((long long)slice_rows, (long long)M - r0);
+    f32_tile::mainloop_t<f32_tile::kKMajor, f32_tile::kRowMajor, true>(
+        x + r0 * K, g + r0 * N, K, N, depth, K, N, k0, n0, acc);
+    if (slices == 1) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int row = k0 + f32_tile::row_of(ty, i);
+        if (row >= K) continue;
+        float* o = dw + (long long)row * N + n0;
+        *reinterpret_cast<float4*>(o + tx * 4) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        *reinterpret_cast<float4*>(o + 64 + tx * 4) =
+            make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+      }
+      return;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        part[(2 * i + h) * f32_tile::kThreads + tid] =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                        acc[i][4 * h + 3]);
+    cooperative_groups::cluster_group cluster =
+        cooperative_groups::this_cluster();
+    cluster.sync();
+    // this rank's share: float4 slots [sl * share, (sl + 1) * share)
+    const int share = 16 * f32_tile::kThreads / slices;
+    for (int e = tid; e < share; e += f32_tile::kThreads) {
+      const int idx = sl * share + e;
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int q = 0; q < slices; ++q) {
+        const float4 u = cluster.map_shared_rank(part, q)[idx];
+        sum.x += u.x;
+        sum.y += u.y;
+        sum.z += u.z;
+        sum.w += u.w;
+      }
+      // slot idx = (2 i + h) * 256 + owner: row_of(owner / 16, i),
+      // columns 64 h + 4 (owner % 16)
+      const int owner = idx % f32_tile::kThreads;
+      const int ih = idx / f32_tile::kThreads;
+      const int row = k0 + f32_tile::row_of(owner >> 4, ih >> 1);
+      if (row < K)
+        *reinterpret_cast<float4*>(dw + (long long)row * N + n0 +
+                                   (ih & 1) * 64 + (owner & 15) * 4) = sum;
+    }
+    // no block leaves while another reads its tile
+    cluster.sync();
+    return;
+  }
+  b -= dw_blocks;
+  if (b < dx_blocks) {              // dx[M, K]: rows m0.., columns c0..
+    const int tk = (K + f32_tile::kBN - 1) / f32_tile::kBN;
+    const int m0 = (b / tk) * f32_tile::kBM, c0 = (b % tk) * f32_tile::kBN;
+    f32_tile::mainloop_t<f32_tile::kRowMajor, f32_tile::kNMajor, false>(
+        g, w, M, K, N, N, N, m0, c0, acc);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = m0 + f32_tile::row_of(ty, i);
+      if (row >= M) continue;
+      float* o = dx + (long long)row * K + c0;
+      if (c0 + tx * 4 < K)
+        *reinterpret_cast<float4*>(o + tx * 4) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      if (c0 + 64 + tx * 4 < K)
+        *reinterpret_cast<float4*>(o + 64 + tx * 4) =
+            make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    }
+    return;
+  }
+  b -= dx_blocks;                   // operand sums, in row-block order
+  const long long e = (long long)b * f32_tile::kThreads + tid;
+  if (e >= (long long)r.n_ops * N) return;
+  const int k = (int)(e / N), col = (int)(e % N);
+  if (r.full[k]) return;
+  float sum = 0.f;
+  for (int p = 0; p < n_partials; ++p)
+    sum += partial[((long long)p * r.n_ops + k) * N + col];
+  dvec[(long long)k * N + col] = sum;
+}
+
+// ------------------------------------------------------ backward, bf16
 // g (w's dtype) [M, N], the d-residuals, and partial [gridDim.x *
 // kRowGroups][n_ops][N] column sums of the vector operands' gradients.
 template <typename T>
@@ -923,10 +1236,37 @@ int launch(Kern kern, dim3 grid, size_t smem, cudaStream_t st,
   return (int)cudaGetLastError();
 }
 
+// kern<<<grid, 256, smem, st>>> with the blocks grouped in clusters of
+// ``cluster`` along x (none when 1; more than 8 only as a non-portable
+// size, up to 12 at MAX_LN_N = 1536)
+template <typename Kern, typename... Args>
+int launch_cluster(Kern kern, dim3 grid, unsigned cluster, size_t smem,
+                   cudaStream_t st, Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess && cluster > 8)
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(f32_tile::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, kern, args...);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
 // The f32 forward: one block a 128 x 128 tile, a 2-D grid (columns,
 // rows); with a layer_norm the N / 128 blocks of a row band form one
-// cluster (more than 8 only as a non-portable size, up to 12 at
-// MAX_LN_N = 1536).
+// cluster.
 int launch_fwd_f32(const float* x, const float* w, float* out, int M, int K,
                    int N, const Recipe& r, cudaStream_t st) {
   if (K % f32_tile::kBK) return (int)cudaErrorInvalidValue;
@@ -936,28 +1276,50 @@ int launch_fwd_f32(const float* x, const float* w, float* out, int M, int K,
         x, w, out, M, K, N, r);
     return (int)cudaGetLastError();
   }
-  const unsigned cluster = grid.x;
-  if (cluster > 8) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        epilogue_fwd_f32_kernel<true>,
-        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return (int)e;
-  }
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(f32_tile::kThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, epilogue_fwd_f32_kernel<true>, x, w, out, M, K, N, r);
-  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+  return launch_cluster(epilogue_fwd_f32_kernel<true>, grid, grid.x, 0, st,
+                        x, w, out, M, K, N, r);
+}
+
+// the f32 backward's thread-major 128 x 128 tile in shared memory
+constexpr size_t kTileBytes = (size_t)f32_tile::kBM * f32_tile::kBN * 4;
+
+// The f32 first backward launch: the forward's grid and clusters, z in
+// dynamic shared memory.  partial: [ceil(M / 128)][n_ops][N].
+int launch_bwd_f32(const float* x, const float* w, const float* dy,
+                   float* g, float* partial, int M, int K, int N,
+                   const Recipe& r, cudaStream_t st) {
+  if (K % f32_tile::kBK) return (int)cudaErrorInvalidValue;
+  const dim3 grid(N / f32_tile::kBN, (M + f32_tile::kBM - 1) / f32_tile::kBM);
+  if (r.ln < 0)
+    return launch_cluster(epilogue_bwd_f32_kernel<false>, grid, 1,
+                          kTileBytes, st, x, w, dy, g, partial, M, K, N, r);
+  return launch_cluster(epilogue_bwd_f32_kernel<true>, grid, grid.x,
+                        kTileBytes, st, x, w, dy, g, partial, M, K, N, r);
+}
+
+// The f32 second backward launch: dw blocks (clusters of ``slices``: 1,
+// 2, 4 or 8 slices of ``rows`` rows of M), dx blocks and operand-sum
+// blocks in one 1-D grid, padded to a whole number of clusters.
+int launch_grads_f32(const float* x, const float* w, const float* g,
+                     float* dx, float* dw, const float* partial, float* dvec,
+                     int M, int K, int N, int n_partials, int slices,
+                     int rows, const Recipe& r, cudaStream_t st) {
+  if (N % f32_tile::kBK || (slices & (slices - 1)) || slices < 1 ||
+      slices > 8 || (long long)slices * rows < M)
+    return (int)cudaErrorInvalidValue;
+  const int tk = (K + f32_tile::kBM - 1) / f32_tile::kBM;
+  const int dw_blocks = tk * (N / f32_tile::kBN) * slices;
+  const int dx_blocks = (M + f32_tile::kBM - 1) / f32_tile::kBM * tk;
+  const int sum_blocks = (int)(((long long)r.n_ops * N + f32_tile::kThreads -
+                                1) / f32_tile::kThreads);
+  // the deeper kind of block first: dx's depth is N, dw's a slice
+  const int dx_first = N > rows;
+  const int blocks = ((dx_blocks + slices - 1) / slices * slices +
+                      dw_blocks + sum_blocks + slices - 1) / slices * slices;
+  return launch_cluster(epilogue_grads_f32_kernel, dim3(blocks), slices,
+                        kTileBytes, st, x, w, g, dx, dw, partial, dvec, M, K,
+                        N, n_partials, slices, rows, dw_blocks, dx_blocks,
+                        dx_first, r);
 }
 
 }  // namespace
@@ -992,7 +1354,8 @@ extern "C" int ptt_epilogue_fwd(const void* x, const void* w, void* out,
                 K, N, r);
 }
 
-// partial: [ceil(M / 32) * 2][n_ops][N] f32 (see ptt_epilogue_partials)
+// partial: f32 [ceil(M / 128)][n_ops][N] at f32 (one row a 128-row
+// block), [ceil(M / 32) * 2][n_ops][N] at bf16 (two a 32-row block)
 extern "C" int ptt_epilogue_bwd(const void* x, const void* w, const void* dy,
                                 void* g, float* partial, int M, int K, int N,
                                 const int* codes, const float* eps,
@@ -1003,54 +1366,54 @@ extern "C" int ptt_epilogue_bwd(const void* x, const void* w, const void* dy,
   int rc = make_recipe(&r, codes, eps, n_stages, ops, grads, op_info,
                        n_ops);
   if (rc) return rc;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_bwd_f32(static_cast<const float*>(x),
+                          static_cast<const float*>(w),
+                          static_cast<const float*>(dy),
+                          static_cast<float*>(g), partial, M, K, N, r, st);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
   const dim3 grid((M + kBM - 1) / kBM, r.ln >= 0 ? 1 : N / kBN);
   const size_t smem = tile_bytes<kBM>() + span_bytes(r, N, kBM) +
                       4 * kBM * sizeof(float);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch(epilogue_bwd_kernel<float>, grid, smem, st,
-                  static_cast<const float*>(x), static_cast<const float*>(w),
-                  static_cast<const float*>(dy), static_cast<float*>(g),
-                  partial, M, K, N, r);
-  if (dtype == 1)
-    return launch(epilogue_bwd_kernel<__nv_bfloat16>, grid, smem, st,
-                  static_cast<const __nv_bfloat16*>(x),
-                  static_cast<const __nv_bfloat16*>(w),
-                  static_cast<const __nv_bfloat16*>(dy),
-                  static_cast<__nv_bfloat16*>(g), partial, M, K, N, r);
-  return (int)cudaErrorInvalidValue;
+  return launch(epilogue_bwd_kernel<__nv_bfloat16>, grid, smem, st,
+                static_cast<const __nv_bfloat16*>(x),
+                static_cast<const __nv_bfloat16*>(w),
+                static_cast<const __nv_bfloat16*>(dy),
+                static_cast<__nv_bfloat16*>(g), partial, M, K, N, r);
 }
 
+// n_partials: the rows of partial; slices, slice_rows: dw's split over M
+// at f32 (ops/cuda/fused_epilogue.py: partial_rows, dw_slices)
 extern "C" int ptt_epilogue_grads(const void* x, const void* w,
                                   const void* g, void* dx, float* dw,
                                   const float* partial, float* dvec, int M,
                                   int K, int N, const int* op_info, int n_ops,
+                                  int n_partials, int slices, int slice_rows,
                                   int dtype, void* stream) {
   Recipe r;
   int rc = make_recipe(&r, nullptr, nullptr, 0, nullptr, nullptr, op_info,
                        n_ops);
   if (rc) return rc;
-  const int n_partials = (M + kBM - 1) / kBM * kRowGroups;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_grads_f32(static_cast<const float*>(x),
+                            static_cast<const float*>(w),
+                            static_cast<const float*>(g),
+                            static_cast<float*>(dx), dw, partial, dvec, M, K,
+                            N, n_partials, slices, slice_rows, r, st);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
   const int dw_blocks = (K + kGM - 1) / kGM * (N / kBN);
   const int dx_blocks = (M + kGM - 1) / kGM * ((K + kBN - 1) / kBN);
   const int sum_blocks = (int)(((long long)n_ops * N + kThreads - 1) /
                                kThreads);
   const size_t smem = tile_bytes<kGM>() + (size_t)kGM * (kBN + 4) *
                       sizeof(float);
-  const dim3 grid(dw_blocks + dx_blocks + sum_blocks);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch(epilogue_grads_kernel<float>, grid, smem, st,
-                  static_cast<const float*>(x), static_cast<const float*>(w),
-                  static_cast<const float*>(g), static_cast<float*>(dx), dw,
-                  partial, dvec, M, K, N, n_partials, dw_blocks, dx_blocks,
-                  r);
-  if (dtype == 1)
-    return launch(epilogue_grads_kernel<__nv_bfloat16>, grid, smem, st,
-                  static_cast<const __nv_bfloat16*>(x),
-                  static_cast<const __nv_bfloat16*>(w),
-                  static_cast<const __nv_bfloat16*>(g),
-                  static_cast<__nv_bfloat16*>(dx), dw, partial, dvec, M, K,
-                  N, n_partials, dw_blocks, dx_blocks, r);
-  return (int)cudaErrorInvalidValue;
+  return launch(epilogue_grads_kernel<__nv_bfloat16>,
+                dim3(dw_blocks + dx_blocks + sum_blocks), smem, st,
+                static_cast<const __nv_bfloat16*>(x),
+                static_cast<const __nv_bfloat16*>(w),
+                static_cast<const __nv_bfloat16*>(g),
+                static_cast<__nv_bfloat16*>(dx), dw, partial, dvec, M, K, N,
+                n_partials, dw_blocks, dx_blocks, r);
 }

@@ -17,9 +17,11 @@ tensor maps over the same layout), so there are no transposes around
 them; ``lse`` and ``delta`` are ``[B, H, Lq]`` f32.
 
 **Two designs, one per dtype.** bf16 runs on the tensor cores: wgmma
-fed by TMA, a producer warp and two consumer warpgroups a block
-(``flash_*_wgmma_kernel``).  f32 stays exact f32 on the CUDA cores
-(``flash_*_kernel``; wgmma has no exact f32 mode).
+fed by TMA, two warpgroups a block (``flash_*_wgmma_kernel``).  f32
+stays exact f32 on the CUDA cores (wgmma has no exact f32 mode): the
+forward in the ``mma.sync`` fragment layout by FMA (``flash_fwd_kernel``),
+the backward on register tiles of outer products
+(``flash_bwd_{dq,dkv}_f32_kernel``).
 
 **Causal masking** uses global offsets: key ``j`` is visible from query
 ``i`` iff ``q_off + i >= k_off + j`` (the JAX kernel's float offsets

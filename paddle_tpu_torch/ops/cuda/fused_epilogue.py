@@ -10,9 +10,11 @@ Replaces the TPU kernels of ``paddle_tpu/ops/pallas/fused_epilogue.py``:
 - :func:`fused_epilogue_bwd` -> ``(dx, dw, dops)``: two launches,
   :func:`fused_epilogue_bwd_rows` (counted under ``fused_epilogue_bwd``:
   recompute, walk the stages back, write g, the d-residuals and
-  per-block sums) and :func:`fused_epilogue_bwd_grads`
-  (``fused_epilogue_bwd_grads``: dx = g.w^T, dw = x^T.g and the sums of
-  the vector operands' gradients).
+  per-block sums, :func:`partial_rows` rows of them) and
+  :func:`fused_epilogue_bwd_grads` (``fused_epilogue_bwd_grads``: dx =
+  g.w^T, dw = x^T.g, at f32 split over :func:`dw_slices` slices of M
+  summed in slice order, and the sums of the vector operands'
+  gradients).
 
 A recipe is paddle_tpu's: a tuple of stages applied in order to the f32
 accumulator, ``("bias",)``, ``("relu",)``, ``("gelu", approximate)``,
@@ -20,9 +22,9 @@ accumulator, ``("bias",)``, ``("relu",)``, ``("gelu", approximate)``,
 operands they consume in order (``[1, N]`` vectors, ``[M, N]``
 residuals).  On this card a recipe takes at most one ``layer_norm``,
 and a ``layer_norm`` recipe at most :data:`MAX_LN_N` columns: at f32 the
-forward joins a row over a cluster of N / 128 blocks (12 at most), at
-bf16 and in the backward one block keeps its rows whole in shared
-memory.
+forward and the first backward launch join a row over a cluster of N /
+128 blocks (12 at most), at bf16 one block keeps its rows whole in
+shared memory.
 
 Every tensor must be a contiguous, 16-byte aligned CUDA tensor the
 kernels take (x and w of one dtype, f32 or bf16; K a multiple of 8 and
@@ -39,7 +41,8 @@ from . import support
 
 __all__ = ["fused_epilogue_fwd", "fused_epilogue_bwd",
            "fused_epilogue_bwd_rows", "fused_epilogue_bwd_grads",
-           "ops_per_stage", "MAX_LN_N", "KERNELS"]
+           "ops_per_stage", "partial_rows", "dw_slices", "MAX_LN_N",
+           "KERNELS"]
 
 KERNELS = ("fused_epilogue_fwd", "fused_epilogue_bwd",
            "fused_epilogue_bwd_grads")
@@ -49,7 +52,8 @@ MAX_LN_N = 1536
 _MAX_STAGES = 8
 _CODES = {"bias": 0, "relu": 1, "gelu": 2, "add": 3, "layer_norm": 4}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ROWS, _ROW_GROUPS = 32, 2          # csrc: kBM, kRowGroups
+_TILE = 128                         # csrc: f32_tile::kBM
+_ROWS, _ROW_GROUPS = 32, 2          # csrc: kBM, kRowGroups (bf16)
 
 
 def ops_per_stage(stage) -> int:
@@ -60,6 +64,26 @@ def ops_per_stage(stage) -> int:
     if kind == "layer_norm":
         return int(bool(stage[2])) + int(bool(stage[3]))
     return 0
+
+
+def partial_rows(m: int, dtype) -> int:
+    """Rows of the first backward launch's partial sums: one per
+    128-row block at f32 (the register tile), two row groups per 32-row
+    block at bf16."""
+    if dtype == torch.float32:
+        return -(-m // _TILE)
+    return -(-m // _ROWS) * _ROW_GROUPS
+
+
+def dw_slices(m: int) -> Tuple[int, int]:
+    """dw's split over the M rows at f32 -> ``(slices, rows)``: 1, 2, 4
+    or 8 slices of about 2048 rows (a multiple of 8; the last slice may be
+    shorter), one block each per 128 x 128 tile of dw, summed in slice
+    order."""
+    s = 1
+    while s < 8 and 2 * s * 2048 <= m:
+        s *= 2
+    return s, (-(-m // s) + 7) // 8 * 8
 
 
 def _check(fn, x, w, ops, stages, dy=None):
@@ -182,8 +206,8 @@ def fused_epilogue_bwd_rows(x, w, ops, stages, dy):
     n = w.shape[1]
     dev = x.device
     g = torch.empty((m, n), dtype=w.dtype, device=dev)
-    partial = torch.empty((-(-m // _ROWS) * _ROW_GROUPS, max(len(ops), 1),
-                           n), dtype=torch.float32, device=dev)
+    partial = torch.empty((partial_rows(m, x.dtype), max(len(ops), 1), n),
+                          dtype=torch.float32, device=dev)
     dres = [torch.empty_like(o) if o.shape[0] != 1 else None for o in ops]
     codes, eps, n_st, ptrs, info, n_ops = _recipe(stages, ops)
     grads = (ctypes.c_void_p * len(ops))(
@@ -207,7 +231,7 @@ def fused_epilogue_bwd_grads(x, w, ops, g, partial):
     m, k = x.shape
     n = w.shape[1]
     dev = x.device
-    want = (-(-m // _ROWS) * _ROW_GROUPS, max(len(ops), 1), n)
+    want = (partial_rows(m, x.dtype), max(len(ops), 1), n)
     if dev.type != "cuda" or any(t.device != dev for t in (w, g, partial)):
         raise ValueError(f"{fn}: x, w, g and partial must be on one CUDA "
                          f"device")
@@ -223,8 +247,8 @@ def fused_epilogue_bwd_grads(x, w, ops, g, partial):
     rc = lib.ptt_epilogue_grads(x.data_ptr(), w.data_ptr(), g.data_ptr(),
                                 dx.data_ptr(), dw.data_ptr(),
                                 partial.data_ptr(), dvec.data_ptr(), m, k, n,
-                                _op_info(ops), len(ops),
-                                _DTYPE_CODE[x.dtype],
+                                _op_info(ops), len(ops), want[0],
+                                *dw_slices(m), _DTYPE_CODE[x.dtype],
                                 torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, fn)
     support.count_launch(fn)

@@ -109,8 +109,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.ptt_epilogue_bwd
     fn.argtypes = [vp] * 5 + [i32] * 3 + recipe + [vp, vp, i32, i32, vp]
     fn.restype = i32
+    # grads: tensors, M K N, op_info, n_ops, the partials' rows, dw's
+    # slices and rows a slice, dtype, stream
     fn = lib.ptt_epilogue_grads
-    fn.argtypes = [vp] * 7 + [i32] * 3 + [vp, i32, i32, vp]
+    fn.argtypes = [vp] * 7 + [i32] * 3 + [vp] + [i32] * 5 + [vp]
     fn.restype = i32
     # fused Adam: table, block maps, n_blocks, lr, step, seven floats,
     # stream

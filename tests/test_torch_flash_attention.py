@@ -484,3 +484,36 @@ def test_cuda_ragged_keys_with_causal_offsets(dtype, tol):
             got, ref = got.float(), ref.float()
             err = (got - ref).abs().max() / ref.abs().max().clamp_min(1)
             assert err.item() <= tol, (D, err.item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_cuda_f32_backward_on_whole_tiles(causal):
+    """The f32 dQ and dK/dV kernels (register tiles of 128 or 64 rows)
+    at L 256, where every tile is whole and off the diagonal takes the
+    unmasked path, with dropout, at every built head dim: against the
+    plain version (f32 summed in another order, 2e-5 of max(1, |ref|)),
+    and two runs bit for bit."""
+    _cuda()
+    for D in torch_cuda.flash_attention.SUPPORTED_HEAD_DIMS:
+        q, k, v, do = (torch.from_numpy(a).cuda()
+                       for a in _qkv(20, B=2, Lq=256, H=2, D=D, n=4))
+        kw = dict(scale=1 / math.sqrt(D), causal=causal, dropout_p=0.1,
+                  seed=21)
+        out, lse = torch_cuda.flash_attention_fwd(q, k, v, **kw)
+        delta = fa.attention_delta(do.transpose(1, 2), out.transpose(1, 2))
+        runs = [(torch_cuda.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                   **kw),
+                 *torch_cuda.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                     **kw))
+                for _ in range(2)]
+        b = lambda x: x.transpose(1, 2)                # noqa: E731
+        ro, rlse = fa.flash_attention_reference_fwd(b(q), b(k), b(v), **kw)
+        refs = fa.flash_attention_reference_bwd(b(q), b(k), b(v), ro, rlse,
+                                                b(do), **kw)
+        torch.cuda.synchronize()
+        for got, ref in zip(runs[0], refs):
+            err = (b(got) - ref).abs().max() / ref.abs().max().clamp_min(1)
+            assert err.item() <= 2e-5, (D, err.item())
+        for a, c in zip(*runs):
+            assert torch.equal(a, c), D

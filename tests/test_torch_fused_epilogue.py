@@ -291,3 +291,100 @@ def test_cuda_kernel_rejects_what_it_does_not_take():
     with pytest.raises(ValueError, match="aligned"):
         cuda_epi.fused_epilogue_fwd(torch.zeros(8 * 16 + 1, device="cuda")[
             1:].view(8, 16), w.float(), [], ())
+
+
+# ----------------------------------- the f32 backward's layout (CPU)
+@pytest.mark.parametrize("m,want", [(8192, (4, 2048)), (1000, (1, 1000)),
+                                    (4095, (1, 4096)), (4096, (2, 2048)),
+                                    (5000, (2, 2504)), (16384, (8, 2048)),
+                                    (1, (1, 8)), (100000, (8, 12504))])
+def test_dw_slices_cover_the_rows_once(m, want):
+    """dw's split over M: 1, 2, 4 or 8 slices of about 2048 rows, a
+    multiple of 8 each; together they cover the M rows, and no slice but
+    the last is short."""
+    slices, rows = cuda_epi.dw_slices(m)
+    assert (slices, rows) == want
+    assert slices in (1, 2, 4, 8) and rows % 8 == 0
+    assert slices * rows >= m > (slices - 1) * rows
+
+
+@pytest.mark.parametrize("m", [1, 127, 128, 129, 8192])
+def test_partial_rows_follow_the_kernels_row_blocks(m):
+    """One row of partial sums per 128-row block at f32 (the register
+    tile), two per 32-row block at bf16."""
+    assert cuda_epi.partial_rows(m, torch.float32) == -(-m // 128)
+    assert cuda_epi.partial_rows(m, torch.bfloat16) == -(-m // 32) * 2
+
+
+@pytest.mark.cuda
+def test_cuda_backward_replays_the_forwards_relu_mask():
+    """bias + relu at f32: the first backward launch replays K2f's
+    accumulator bit for bit, so its g is dy where K2f's output is
+    positive and 0 elsewhere, exactly."""
+    _cuda()
+    stages = (("bias",), ("relu",))
+    x, w, b, _ = _case((), seed=7, M=(1, 1000), K=264, N=640)
+    dy = np.random.RandomState(8).randn(1000, 640).astype(np.float32)
+    x, w, b, dy = (torch.from_numpy(a).cuda() for a in (x[0], w, b, dy))
+    ops = [b.view(1, -1)]
+    out = cuda_epi.fused_epilogue_fwd(x, w, ops, stages)
+    g, _, _ = cuda_epi.fused_epilogue_bwd_rows(x, w, ops, stages, dy)
+    torch.cuda.synchronize()
+    assert torch.equal(g, torch.where(out > 0, dy, torch.zeros_like(dy)))
+
+
+@pytest.mark.cuda
+def test_cuda_dw_is_the_slices_summed_in_order():
+    """At f32 dw = x^T . g is split over dw_slices(M) slices of rows; the
+    kernel's dw equals, bit for bit, the slices' products (each a
+    launch of its own) added in slice order, and two runs agree."""
+    _cuda()
+    m, k, n = 5000, 264, 256
+    r = np.random.RandomState(9)
+    x, g = (torch.from_numpy(r.randn(*s).astype(np.float32)).cuda()
+            for s in ((m, k), (m, n)))
+    w = torch.from_numpy(r.randn(k, n).astype(np.float32)).cuda()
+    slices, rows = cuda_epi.dw_slices(m)
+    assert slices == 2
+
+    def grads(xs, gs):
+        part = torch.zeros(cuda_epi.partial_rows(xs.shape[0], torch.float32),
+                           1, n, device="cuda")
+        return cuda_epi.fused_epilogue_bwd_grads(xs, w, [], gs, part)
+
+    _, dw, _ = grads(x, g)
+    _, dw2, _ = grads(x, g)
+    want = torch.zeros(k, n, device="cuda")
+    for s in range(slices):
+        lo, hi = s * rows, min(m, (s + 1) * rows)
+        want = want + grads(x[lo:hi].contiguous(), g[lo:hi].contiguous())[1]
+    torch.cuda.synchronize()
+    assert torch.equal(dw, dw2)
+    assert torch.equal(dw, want)
+    assert _rel(dw.cpu().numpy(), (x.t() @ g).cpu().numpy()) <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [5, 9, 12])
+def test_cuda_backward_joins_layer_norm_rows_over_a_cluster(blocks):
+    """The f32 backward of an add + layer_norm recipe at N = 128 x blocks:
+    the first launch joins each row's statistics and layer_norm's row
+    means over a cluster of 5, 9 or 12 blocks.  Gradients of every input
+    against the plain version (ragged rows and depth, as above), and two
+    runs bit for bit."""
+    _cuda()
+    stages = RECIPES[5]
+    x, w, b, ops = _case(stages, seed=6, M=(8, 25), K=72, N=128 * blocks)
+    dev = [torch.from_numpy(a).cuda().requires_grad_()
+           for a in (x, w, b, *ops)]
+    cpu = [t.detach().cpu().requires_grad_() for t in dev]
+    grads = []
+    for ts in (dev, cpu, dev):
+        out = fe.fused_linear_epilogue(ts[0], ts[1], ts[2], stages, ts[3:])
+        grads.append([gr.cpu() for gr in torch.autograd.grad(
+            (out ** 2).sum(), ts)])
+    torch.cuda.synchronize()
+    for a, r in zip(grads[0], grads[1]):
+        assert _rel(a.numpy(), r.numpy()) <= 2e-5
+    for a, r in zip(grads[0], grads[2]):
+        assert torch.equal(a, r)
