@@ -8,7 +8,9 @@ kernel from the sources in this checkout.  Phases, each fatal:
 
 1. environment: card, power limit, versions, TF32 off, kernel build;
 2. the paged-decode kernel against its plain PyTorch version on the
-   card, at the shapes the serving path gives it, with times and bounds;
+   card, at the shapes the serving path gives it (table widths 1, 8 and
+   64 pages, GQA, bf16, and the decode anatomy's 8 slots at 600), two
+   runs bit for bit, with times, bounds and the cluster size;
 3. a small serving model on the card against the same model on the CPU,
    and the GPT ``760m`` widths (head dim 96) at 2 layers, served on the
    card by the plain paged attention (no kernel instance, no launch)
@@ -27,9 +29,9 @@ kernel from the sources in this checkout.  Phases, each fatal:
    and a ragged case; the dropout mask's kept fraction; times beside the
    bound, the plain version and one SDPA call at BERT-base's shape
    (bf16), the GPT 760m preset's (D 96, bf16) and the static step's
-   (f32, against SDPA's memory-efficient backend); the f32 backward
-   bitwise across two runs, and the kernels SDPA's f32 path runs, by
-   name;
+   (f32, against SDPA's memory-efficient backend), each with its share
+   of the bound; the f32 forward and backward bitwise across two runs,
+   and the kernels SDPA's f32 forward and backward run, by name;
 7. a small BERT (``bench_bert``'s CPU widths, f32, dropout 0) trained 3
    ``TrainStep``s on the card and on the CPU from the same weights;
 8. full-width training: ``bench_bert``'s chip config (BERT-base, batch
@@ -46,7 +48,8 @@ kernel from the sources in this checkout.  Phases, each fatal:
     forward's output is positive; the fused Adam kernel against
     its plain version over the static BERT's parameters for 5 steps;
     times beside the bound, the plain version and a library call where
-    one computes the same function;
+    one computes the same function, at f32 (the main path's) and, for
+    K2f and K2b, at bf16 beside cuBLAS's bf16 products;
 11. a small static BERT (``bench.build_bert_static`` at bench_pallas's
     CPU widths) trained 3 ``Executor.run``s on the card and on the CPU
     from the same weights;
@@ -89,6 +92,9 @@ import subprocess
 import sys
 import threading
 import time
+
+from paddle_tpu_torch.testing import kernel_times
+from paddle_tpu_torch.testing.kernel_times import cuda_ms
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12,       # CUDA-core f32
@@ -178,21 +184,6 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters, warmup=3):
-    import torch
-    for i in range(warmup):
-        fn(i)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fn(i)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def _kernel_name(key):
     """A flash or fused-epilogue kernel's name in a profiler key (mangled
     or not), without namespace, template arguments and parameters."""
@@ -235,18 +226,6 @@ def phase_environment():
 
 
 # ---------------------------------------------------------------- phase 2
-def _paged_case(torch, gen, S, H, Hkv, D, P, L, N, dtype, lengths):
-    dev = "cuda"
-    q = torch.randn((S, H, D), generator=gen, device=dev)
-    k = torch.randn((L, N, PAGE, Hkv, D), generator=gen, device=dev)
-    v = torch.randn((L, N, PAGE, Hkv, D), generator=gen, device=dev)
-    # each slot owns distinct physical pages, as the engine allocates
-    perm = torch.randperm(N - 1, generator=gen, device=dev)[:S * P] + 1
-    table = perm.reshape(S, P).to(torch.int32)
-    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    return (q.to(dtype), k.to(dtype), v.to(dtype), table, lens)
-
-
 def _paged_bound(S, H, Hkv, D, lengths, es, dtype_name):
     live = sum(lengths)
     pages = sum(-(-n // PAGE) for n in lengths)
@@ -261,28 +240,21 @@ def _paged_bound(S, H, Hkv, D, lengths, es, dtype_name):
 
 
 def phase_kernels():
-    """paged_attention_decode vs paged_attention_reference on the card."""
+    """paged_attention_decode vs paged_attention_reference on the card,
+    two runs bit for bit, then timed beside its bound and the plain
+    version; the last case is the decode anatomy's shape (phase 5)."""
     import torch
     from paddle_tpu_torch.ops.attention import paged_attention_reference
     from paddle_tpu_torch.ops.cuda import paged_attention_decode
+    from paddle_tpu_torch.ops.cuda.paged_attention import (cluster_blocks,
+                                                          clusters_for)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    L, N = GPT_1B["num_layers"], SLOTS * (MAX_CONTEXT // PAGE) + 1
-    cases = []
-    for P in (1, 8, 64):
-        full = P * PAGE
-        lens = [1, full] + [int(x) for x in torch.randint(
-            1, full + 1, (SLOTS - 2,), generator=gen, device="cuda")]
-        cases.append(("mha", 14, 14, P, torch.float32, lens))
-    cases.append(("gqa", 16, 4, 8, torch.float32,
-                  [1, 128, 77, 3, 64, 100, 17, 128]))
-    cases.append(("mha", 14, 14, 64, torch.bfloat16,
-                  [1, 1024, 700, 512, 33, 999, 256, 640]))
+    L, D = kernel_times.LAYERS, kernel_times.HEAD_DIM
     results = []
-    for label, H, Hkv, P, dtype, lens in cases:
-        D = 128
-        q, k, v, table, lengths = _paged_case(torch, gen, SLOTS, H, Hkv, D,
-                                              P, L, N, dtype, lens)
+    for label, H, Hkv, P, dtype, lens in kernel_times.paged_cases(gen):
+        q, k, v, table, lengths = kernel_times.paged_inputs(gen, H, Hkv, P,
+                                                            dtype, lens)
         scale = 1.0 / math.sqrt(D)
         err = 0.0
         for layer in (0, L // 2, L - 1):
@@ -298,10 +270,17 @@ def phase_kernels():
         if not err <= TOL[dname]:
             raise AssertionError(f"paged_attention {label} P={P} {dname}: "
                                  f"max abs err {err} > {TOL[dname]}")
-        # cycle through the layers so consecutive launches read other
-        # memory, as the decode step's 24 calls do
-        ms = cuda_ms(lambda i: paged_attention_decode(
-            q, k, v, table, lengths, scale=scale, layer=i % L), 48)
+        # no atomics: the cluster's partials merge in rank order
+        a, b = (paged_attention_decode(q, k, v, table, lengths, scale=scale,
+                                       layer=L // 2) for _ in range(2))
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"paged_attention {label} P={P} {dname}: "
+                                 f"two runs differ")
+        # event time, as every kernel's ms; the device time beside it
+        # (the wrapper's host time bounds the event time of short calls)
+        ms, dev_ms = kernel_times.time_paged(paged_attention_decode, q, k, v,
+                                             table, lengths, scale)
         plain_ms = cuda_ms(lambda i: paged_attention_reference(
             q, k, v, table, lengths, scale=scale, layer=i % L), 12)
         bound_ms, bound_by, nbytes = _paged_bound(
@@ -309,13 +288,17 @@ def phase_kernels():
         row = {"case": f"{label} S={SLOTS} H={H} Hkv={Hkv} D={D} "
                        f"page={PAGE} P={P} L={L} {dname}",
                "lengths": lens, "max_abs_err": err, "tol": TOL[dname],
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bitwise_repeat": True, "split": clusters_for(q, k),
+               "clusters": cluster_blocks(clusters_for(q, k), P, PAGE),
+               "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "share_of_bound": bound_ms / ms,
+               "device_share_of_bound": bound_ms / dev_ms,
                "bound_by": bound_by, "bytes": nbytes,
                "achieved_GBps": nbytes / (ms * 1e-3) / 1e9,
                "library_ms": None}
         log("KERNEL " + json.dumps(row))
         results.append(row)
-        del q, k, v, table, lengths
+        del q, k, v, table, lengths, a, b
     torch.cuda.empty_cache()
     return results
 
@@ -687,7 +670,8 @@ def _flash_time_rows(torch, gen, B, L, H, D, dtype, causal, p, seed,
         fwd = name == "flash_attention_fwd"
         row = {"kernel": name, "entry": entry, "case": case,
                "ms": ms[name], "plain_ms": plain_fwd if fwd else plain_bwd,
-               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+               "bound_ms": bound_ms, "share_of_bound": bound_ms / ms[name],
+               "bound_by": bound_by, "bytes": nbytes,
                "operations": ops,
                "library_ms": lib_fwd if fwd else lib_bwd,
                "library_call": lib_name if fwd else
@@ -703,8 +687,9 @@ def _flash_time_rows(torch, gen, B, L, H, D, dtype, causal, p, seed,
 
 
 def _flash_f32_bitwise(torch, gen, B, L, H, D):
-    """Two runs of the f32 backward kernels (dQ, dK/dV) agree bit for
-    bit, with dropout, causal and not: no atomics, fixed sum orders."""
+    """Two runs of the f32 kernels (forward out and lse, dQ, dK/dV) agree
+    bit for bit, with dropout, causal and not: no atomics, fixed sum
+    orders."""
     from paddle_tpu_torch.ops.cuda import (flash_attention_bwd_dkv,
                                            flash_attention_bwd_dq,
                                            flash_attention_fwd)
@@ -717,7 +702,8 @@ def _flash_f32_bitwise(torch, gen, B, L, H, D):
                   seed=7)
         o, lse = flash_attention_fwd(q, k, v, **kw)
         delta = attention_delta(do.transpose(1, 2), o.transpose(1, 2))
-        runs = [(flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
+        runs = [(*flash_attention_fwd(q, k, v, **kw),
+                 flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
                  *flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
                 for _ in range(2)]
         torch.cuda.synchronize()
@@ -726,28 +712,44 @@ def _flash_f32_bitwise(torch, gen, B, L, H, D):
     log("FLASH_F32_BITWISE " + json.dumps({
         "case": f"B={B} L={L} H={H} D={D} float32 dropout=0.1", **out}))
     if not all(out.values()):
-        raise AssertionError(f"two f32 flash backward runs differ: {out}")
+        raise AssertionError(f"two f32 flash runs differ: {out}")
 
 
 def _sdpa_f32_kernels(torch, gen, B, L, H, D):
     """The kernels SDPA's memory-efficient backend runs for one f32
-    forward + backward, by name from the profiler (does its f32 run on
-    the tensor cores, as 3xTF32?)."""
+    forward, and for the backward after it, by name from the profiler
+    (does its f32 run on the tensor cores, as 3xTF32?)."""
     from torch.autograd import DeviceType
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from torch.profiler import ProfilerActivity, profile
     q, k, v, do = (torch.randn((B, H, L, D), generator=gen, device="cuda")
                    for _ in range(4))
     qg, kg, vg = (x.requires_grad_() for x in (q, k, v))
-    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION), profile(
-            activities=[ProfilerActivity.CUDA]) as prof:
-        out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg)
-        torch.autograd.grad(out, (qg, kg, vg), do)
-        torch.cuda.synchronize()
-    names = sorted({e.key[:160] for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA})
+
+    def traced(fn):
+        """fn's result and the CUDA kernels it ran, by name; a trace
+        that caught no kernel (the tracer at times misses a whole
+        session) is taken again, up to three times."""
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                res = fn()
+                torch.cuda.synchronize()
+            names = sorted({e.key[:160] for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA})
+            if names:
+                break
+        return res, names
+
+    names = {}
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        out, names["forward"] = traced(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qg, kg, vg))
+        _, names["backward"] = traced(
+            lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                        retain_graph=True))
     log("SDPA_F32_KERNELS " + json.dumps({
-        "case": f"B={B} L={L} H={H} D={D} float32", "kernels": names}))
+        "case": f"B={B} L={L} H={H} D={D} float32", **names}))
 
 
 def phase_flash_kernels():
@@ -833,6 +835,10 @@ def phase_flash_kernels():
     static = _flash_time_rows(torch, gen, s["batch"], s["seq"], s["heads"],
                               s["hidden"] // s["heads"], torch.float32,
                               False, 0.0, seed)
+    fwd = static["flash_attention_fwd"]
+    log("FLASH_F32_FWD " + json.dumps({k: fwd[k] for k in (
+        "case", "ms", "bound_ms", "share_of_bound", "library_ms",
+        "library_call")}))
     _flash_f32_bitwise(torch, gen, s["batch"], s["seq"], s["heads"],
                        s["hidden"] // s["heads"])
     _sdpa_f32_kernels(torch, gen, s["batch"], s["seq"], s["heads"],
@@ -1233,6 +1239,57 @@ def _adam_phase(torch, gen):
     return row
 
 
+def _epi_bf16_times(torch, gen, M):
+    """The bf16 instances of K2f and K2b (on no main path) timed over
+    the three BERT-base chains, beside the bound and cuBLAS's bf16
+    products: {kernel: row}."""
+    from paddle_tpu_torch.ops.cuda import fused_epilogue as cuda_epi
+    rows = {name: {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                   "chains": {}} for name in EPI_KERNELS}
+    calls = {"fused_epilogue_fwd": "torch.matmul(x, w): the product only",
+             "fused_epilogue_bwd": "torch.matmul(x, w): the product only",
+             "fused_epilogue_bwd_grads": EPI_LIBRARY_CALLS[
+                 "fused_epilogue_bwd_grads"]}
+    for label, K, N, stages in _epi_chains(STATIC_CHIP):
+        x, w, dy, ops = _epi_case(torch, gen, M, K, N, stages,
+                                  torch.bfloat16)
+        full = (("bias",),) + tuple(stages)
+        g, partial, _ = cuda_epi.fused_epilogue_bwd_rows(x, w, ops, full, dy)
+        ms = {"fused_epilogue_fwd": cuda_ms(
+                  lambda i: cuda_epi.fused_epilogue_fwd(x, w, ops, full), 10),
+              "fused_epilogue_bwd": cuda_ms(
+                  lambda i: cuda_epi.fused_epilogue_bwd_rows(x, w, ops, full,
+                                                             dy), 10),
+              "fused_epilogue_bwd_grads": cuda_ms(
+                  lambda i: cuda_epi.fused_epilogue_bwd_grads(x, w, ops, g,
+                                                              partial), 10)}
+        product = cuda_ms(lambda i: torch.matmul(x, w), 10)
+        lib = {"fused_epilogue_fwd": product, "fused_epilogue_bwd": product,
+               "fused_epilogue_bwd_grads": cuda_ms(
+                   lambda i: (torch.matmul(g, w.t()),
+                              torch.matmul(x.t(), g)), 10)}
+        bounds = _epi_bounds(M, K, N, stages, 2, "bfloat16")
+        for name in EPI_KERNELS:
+            b_ms, b_by, _, _ = bounds[name]
+            rows[name]["chains"][label] = {"ms": ms[name], "bound_ms": b_ms,
+                                           "bound_by": b_by,
+                                           "library_ms": lib[name]}
+            for key in ("ms", "bound_ms", "library_ms"):
+                rows[name][key] += rows[name]["chains"][label][key]
+        del x, w, dy, ops, g, partial
+        torch.cuda.empty_cache()
+    for name, row in rows.items():
+        row["bound_by"] = ("bytes" if all(c["bound_by"] == "bytes"
+                                          for c in row["chains"].values())
+                           else "operations")
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["library_call"] = calls[name]
+        row["case"] = (f"one BERT-base layer: proj, fc1 and fc2 chains at "
+                       f"M={M}, bfloat16, times summed")
+        log("KERNEL_BF16 " + json.dumps(dict(kernel=name, **row)))
+    return rows
+
+
 def phase_epilogue_adam_kernels():
     """K2f and K2b against their plain versions: the three BERT-base
     chains at M 8192 in f32 and bf16, three small recipes (bias only,
@@ -1344,6 +1401,8 @@ def phase_epilogue_adam_kernels():
         if name != "fused_epilogue_fwd":
             row["plain_computes"] = "the whole backward of the chain"
         log("KERNEL_LAYER " + json.dumps(dict(kernel=name, **row)))
+    for name, row in _epi_bf16_times(torch, gen, M).items():
+        rows[name]["bf16"] = row
     rows["fused_adam"] = _adam_phase(torch, gen)
     return rows
 
@@ -1478,10 +1537,10 @@ def phase_static_training(warmup=2, steps=8):
 
 # --------------------------------------------------------------- phase 13
 # the f32 static step's kernels by name, and their launches a step: the
-# register-tiled backward kernels of K2b and K1b
+# register-tiled kernels of K2 and K1 (forward and backward)
 STATIC_NAMED = {"epilogue_fwd_f32_kernel": 36,
                 "epilogue_bwd_f32_kernel": 36,
-                "epilogue_grads_f32_kernel": 36, "flash_fwd_kernel": 12,
+                "epilogue_grads_f32_kernel": 36, "flash_fwd_f32_kernel": 12,
                 "flash_bwd_dq_f32_kernel": 12, "flash_bwd_dkv_f32_kernel": 12}
 
 
@@ -2019,9 +2078,16 @@ def main():
         "max_abs_err": f32_err, "max_err": f32_err,
         "max_abs_err_bf16": max(r["max_abs_err"] for r in kernel_rows
                                 if r["case"].endswith("bfloat16")),
-        "shape": head["case"], "ms": head["ms"],
-        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"], "library_ms": None}]
+        "shape": head["case"], "split": head["split"],
+        "clusters": head["clusters"],
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None,
+        "device_ms": head["device_ms"],
+        "other_cases": [{k: r[k] for k in ("case", "split", "clusters",
+                                           "ms", "device_ms", "bound_ms",
+                                           "plain_ms")}
+                        for r in kernel_rows if r is not head]}]
     for name, site in FLASH_KERNELS.items():
         r, b = flash_rows[name], block_rows[name]
         kernels.append({
@@ -2060,7 +2126,10 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            "library_call": r.get("library_call")})
+            "library_call": r.get("library_call"),
+            **({"bf16": {k: r["bf16"][k] for k in (
+                "case", "ms", "bound_ms", "bound_by", "library_ms",
+                "library_call")}} if "bf16" in r else {})})
     kernels.append({
         "name": "chunk_matmul", "route": "cuda",
         "source": "paddle_tpu_torch/ops/cuda/csrc/chunk_matmul.cu",

@@ -3,11 +3,11 @@
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
 //   _fwd (body _fwd_kernel)       -> flash_fwd_wgmma_kernel (bf16)
-//                                    flash_fwd_kernel (f32)
+//                                    flash_fwd_f32_kernel (f32)
 //   _bwd (body _bwd_dq_kernel)    -> flash_bwd_dq_wgmma_kernel (bf16)
-//                                    flash_bwd_dq_kernel (f32)
+//                                    flash_bwd_dq_f32_kernel (f32)
 //   _bwd (body _bwd_dkv_kernel)   -> flash_bwd_dkv_wgmma_kernel (bf16)
-//                                    flash_bwd_dkv_kernel (f32)
+//                                    flash_bwd_dkv_f32_kernel (f32)
 //
 //   q [B, Lq, H, D]; k, v [B, Lk, H, D] (the strides of each family are
 //   arguments: the f32 kernels read them directly, the bf16 kernels give
@@ -70,23 +70,30 @@
 //     the diagonal or the ragged end evaluate the mask;
 //   * the backward has no atomics: each output element is summed by one
 //     block in a fixed order, so it is bitwise deterministic.
-// f32 inputs stay exact f32 on the CUDA cores (no TF32, no 3xTF32).  The
-// forward (flash_fwd_kernel): one block of 4 warps per (b, h, 64-row
-// tile), each warp 16 rows in the mma.sync C-fragment layout, the
-// streamed operand double-buffered by cp.async, products by FMA.  The
-// backward (flash_bwd_dq_f32_kernel, flash_bwd_dkv_f32_kernel): one block
-// of 256 threads per (b, h, 128-row tile; 64 rows at D 96 and 128, where
-// dK and dV fill the registers), every product an outer product of
-// register tiles (8 x 4 a thread at D 64: 48 values read from shared
-// memory as float4 for 128 FMAs), P, U and dS through shared memory in
-// the layout the next product reads, the streamed tiles double-buffered
-// by cp.async.  dQ: S = Q.K^T and dP = dO.V^T over 64-key tiles, dQ +=
-// dS.K; dK/dV: S^T = K.Q^T and dP^T = V.dO^T over 64-query tiles (32
-// above D 64), dV += U^T.dO, dK += dS^T.Q.  Each output sums in a fixed
-// order, no atomics.  What bounds them: the FMA pipe and the shared
-// memory reads beside it, and the element-wise work (exp2, mask,
-// dropout hash) between barriers that one block an SM does not overlap
-// with products (PERF.md).
+// f32 inputs stay exact f32 on the CUDA cores (no TF32, no 3xTF32), all
+// three kernels on register tiles (namespace rt): every product an outer
+// product of a thread's register tile, P, U and dS through shared memory
+// in the layout the next product reads, each output summed in a fixed
+// order, no atomics.
+//   * forward (flash_fwd_f32_kernel, rt::Fwd): at D <= 64 a block of 128
+//     threads owns 128 queries, an 8 x 8 tile a thread in S = Q.K^T and
+//     in O += P.V (64 values read from shared memory as float4 for 256
+//     FMAs), two blocks an SM; at D 96 and 128, 256 threads own 64
+//     queries, 4 x 4 a thread.  Keys stream in 64-key tiles through one K
+//     and one V buffer refilled in turn (V_kt loads during S, K_kt+1
+//     during the softmax and P.V).  The online softmax runs on the
+//     register tile: row max over the row band's lanes, exp2 by
+//     ex2.approx, lse by logf;
+//   * dQ (flash_bwd_dq_f32_kernel) and dK/dV (flash_bwd_dkv_f32_kernel,
+//     rt::Bwd): 256 threads per (b, h, 128-row tile; 64 rows at D 96
+//     and 128), an 8 x 4 tile a thread at D 64 (48 values for 128 FMAs),
+//     the streamed tiles double-buffered by cp.async.  dQ: S = Q.K^T and
+//     dP = dO.V^T over 64-key tiles, dQ += dS.K; dK/dV: S^T = K.Q^T and
+//     dP^T = V.dO^T over 64-query tiles (32 above D 64), dV += U^T.dO,
+//     dK += dS^T.Q.
+// What bounds them: the FMA pipe and the shared memory reads beside it,
+// and the element-wise work (exp2, mask, row max, dropout hash) between
+// barriers (PERF.md).
 
 #include <cuda.h>           // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
@@ -160,7 +167,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 // 2^x by the special-function unit (max relative error ~2^-22, flushes
 // subnormals): the bf16 kernels' probabilities, rounded to bf16 next, and
-// the f32 backward's (within its 2e-5 tolerance)
+// the f32 kernels' (within their 2e-5 tolerance; lse keeps logf)
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -209,252 +216,23 @@ __device__ __forceinline__ int key_tiles(const Params& p, int q0, int rows,
   return n;
 }
 
-// ================================================ f32: FMA, CUDA cores
-namespace f32 {
-
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 16 * kWarps;   // rows one block owns
-constexpr int kTile = 64;            // rows of a streamed tile
-
-// smem row stride in elements: rows padded by 16 bytes
-template <int D>
-struct Smem {
-  static constexpr int S = D + 4;
-};
-
-// 16 bytes global -> shared, asynchronously; zeros when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most one committed group is still in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-// rows [row0, row0 + rows) of one (b, h) slice -> smem, asynchronously;
-// rows at or past `valid` are zero.  Every thread of the block takes
-// part; the caller commits the group.
-template <int D>
-__device__ __forceinline__ void load_tile(float* sm, const float* g,
-                                          long long row_stride, int row0,
-                                          int valid, int rows) {
-  constexpr int E = 4;                 // elements per 16-byte vector
-  constexpr int VPR = D / E;
-  constexpr int S = Smem<D>::S;
-  for (int i = threadIdx.x; i < rows * VPR; i += kThreads) {
-    const int r = i / VPR, c = (i % VPR) * E;
-    const bool ok = row0 + r < valid;
-    cp_async16(sm + r * S + c,
-               ok ? g + (long long)(row0 + r) * row_stride + c : g, ok);
-  }
-}
-
-// The accumulators are mma.sync m16n8 C fragments: lane (g = lane / 4,
-// t = lane % 4) holds c[n][0..1] at row g, cols 8n + 2t + {0, 1} and
-// c[n][2..3] at row g + 8, the same cols.
-
-// C[16 x 8NT] += A[16 x KD] . B[8NT x KD]^T, A and B row-major in smem
-// with row stride S (A: this warp's 16 rows)
-template <int NT, int KD, int S>
-__device__ __forceinline__ void gemm_nt(float (&c)[NT][4], const float* A,
-                                        const float* B, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll 2
-  for (int k = 0; k < KD; k += 4) {
-    const float4 x0 = *reinterpret_cast<const float4*>(A + g * S + k);
-    const float4 x1 = *reinterpret_cast<const float4*>(A + (g + 8) * S + k);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const float* b = B + (n * 8 + 2 * t) * S + k;
-      const float4 y0 = *reinterpret_cast<const float4*>(b);
-      const float4 y1 = *reinterpret_cast<const float4*>(b + S);
-      float c0 = c[n][0], c1 = c[n][1], c2 = c[n][2], c3 = c[n][3];
-      c0 = fmaf(x0.x, y0.x, c0); c0 = fmaf(x0.y, y0.y, c0);
-      c0 = fmaf(x0.z, y0.z, c0); c0 = fmaf(x0.w, y0.w, c0);
-      c1 = fmaf(x0.x, y1.x, c1); c1 = fmaf(x0.y, y1.y, c1);
-      c1 = fmaf(x0.z, y1.z, c1); c1 = fmaf(x0.w, y1.w, c1);
-      c2 = fmaf(x1.x, y0.x, c2); c2 = fmaf(x1.y, y0.y, c2);
-      c2 = fmaf(x1.z, y0.z, c2); c2 = fmaf(x1.w, y0.w, c2);
-      c3 = fmaf(x1.x, y1.x, c3); c3 = fmaf(x1.y, y1.y, c3);
-      c3 = fmaf(x1.z, y1.z, c3); c3 = fmaf(x1.w, y1.w, c3);
-      c[n][0] = c0; c[n][1] = c1; c[n][2] = c2; c[n][3] = c3;
-    }
-  }
-}
-
-// C[16 x 8NT] += P[16 x 8KT] . B[8KT x 8NT]: P is this warp's C fragment
-// of an earlier product (held in registers), B row-major in smem
-template <int NT, int KT, int S>
-__device__ __forceinline__ void gemm_nn(float (&c)[NT][4],
-                                        const float (&p)[KT][4],
-                                        const float* B, int lane) {
-  const int t = lane & 3, quad = lane & ~3;
-#pragma unroll
-  for (int j = 0; j < KT; ++j) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      // column 8j + e of rows g and g + 8 lives in lane quad + e / 2
-      const float ag = __shfl_sync(kFull, p[j][e & 1], quad | (e >> 1));
-      const float ag8 = __shfl_sync(kFull, p[j][2 + (e & 1)], quad | (e >> 1));
-      const float* b = B + (8 * j + e) * S + 2 * t;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const float2 y = *reinterpret_cast<const float2*>(b + 8 * n);
-        c[n][0] = fmaf(ag, y.x, c[n][0]);
-        c[n][1] = fmaf(ag, y.y, c[n][1]);
-        c[n][2] = fmaf(ag8, y.x, c[n][2]);
-        c[n][3] = fmaf(ag8, y.y, c[n][3]);
-      }
-    }
-  }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&c)[NT][4]) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
-}
-
-}  // namespace f32
-
-// ------------------------------------------------------- f32 forward
-template <int D>
-__global__ void __launch_bounds__(f32::kThreads)
-flash_fwd_kernel(const Params p) {
-  using namespace f32;
-  constexpr int S = Smem<D>::S, NK = kTile / 8, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* Kb = Qs + kRows * S;          // two K tiles, then two V tiles
-  float* Vb = Kb + 2 * kTile * S;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const float* q = static_cast<const float*>(p.q) + b * p.qb + h * p.qh;
-  const float* k = static_cast<const float*>(p.k) + b * p.kb + h * p.kh;
-  const float* v = static_cast<const float*>(p.v) + b * p.kb + h * p.kh;
-  const int nkt = key_tiles(p, q0, kRows, kTile);
-  load_tile<D>(Qs, q, p.ql, q0, p.Lq, kRows);
-  if (nkt > 0) {
-    load_tile<D>(Kb, k, p.kl, 0, p.Lk, kTile);
-    load_tile<D>(Vb, v, p.kl, 0, p.Lk, kTile);
-  }
-  cp_async_commit();
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  const bool drop = p.drop_t > 0;
-  const uint32_t bh = (uint32_t)(b * p.H + h);
-  uint32_t rk[2] = {0u, 0u};
-  if (drop) {
-    rk[0] = row_key(p.seed, bh, row[0]);
-    rk[1] = row_key(p.seed, bh, row[1]);
-  }
-  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
-  float acc[ND][4];
-  zero(acc);
-  for (int kt = 0; kt < nkt; ++kt) {
-    if (kt + 1 < nkt) {                // the next tile, while this one runs
-      const int nb = ((kt + 1) & 1) * kTile * S;
-      load_tile<D>(Kb + nb, k, p.kl, (kt + 1) * kTile, p.Lk, kTile);
-      load_tile<D>(Vb + nb, v, p.kl, (kt + 1) * kTile, p.Lk, kTile);
-    }
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    const float* Ks = Kb + (kt & 1) * kTile * S;
-    const float* Vs = Vb + (kt & 1) * kTile * S;
-    float s[NK][4];
-    zero(s);
-    gemm_nt<NK, D, S>(s, Qs + warp * 16 * S, Ks, lane);
-    float mx[2] = {kNeg, kNeg};
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = kt * kTile + n * 8 + 2 * t + (e & 1);
-        const float x = visible(p, row[e >> 1], col)
-                            ? s[n][e] * p.scale_log2 : kNeg;
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float mn = fmaxf(m[r], quad_max(mx[r]));
-      alpha[r] = exp2f(m[r] - mn);
-      m[r] = mn;
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int n = 0; n < NK; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = s[n][e];
-        const float pr = x > 0.5f * kNeg ? exp2f(x - m[e >> 1]) : 0.f;
-        l[e >> 1] += pr;     // the denominator is undropped
-        s[n][e] = pr;
-      }
-      if (drop) {
-        const uint32_t kp = (uint32_t)(kt * kTile + n * 8 + 2 * t) >> 1;
-        const uint32_t x0 = pair_bits(rk[0], kp), x1 = pair_bits(rk[1], kp);
-        s[n][0] *= keep_factor(p, x0 & 0xFFFFu);
-        s[n][1] *= keep_factor(p, x0 >> 16);
-        s[n][2] *= keep_factor(p, x1 & 0xFFFFu);
-        s[n][3] *= keep_factor(p, x1 >> 16);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      acc[n][0] *= alpha[0]; acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1]; acc[n][3] *= alpha[1];
-    }
-    gemm_nn<ND, NK, S>(acc, s, Vs, lane);
-    __syncthreads();                   // this buffer is refilled next
-  }
-  cp_async_wait_all();
-  float* out = static_cast<float*>(p.out) + b * p.qb + h * p.qh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float lr = quad_sum(l[r]);
-    if (row[r] >= p.Lq) continue;
-    const float inv = 1.f / fmaxf(lr, 1e-30f);
-    float* o = out + (long long)row[r] * p.ql + 2 * t;
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-      store2(o + n * 8, acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
-    if (t == 0)
-      p.lse_out[(long long)bh * p.Lq + row[r]] =
-          lr > 0.f ? m[r] * kLn2 + logf(lr) : kNeg;
-  }
-}
-
-// ================================ f32 backward: register-tiled FMA
-// One block of 256 threads, (ty, tx) = (tid / 16, tid % 16).  Each
-// product is an outer product of register tiles: thread (ty, tx) owns
-// rows ty * RM + i of a block's resident rows and, in a score tile, the
-// streamed rows tx + 16 j (NT products, both operands read as float4
-// along the head dim), or, in an output tile, the head-dim columns
+// ====================================== f32: register-tiled FMA
+// The backward: one block of 256 threads, (ty, tx) = (tid / 16, tid %
+// 16).  Each product is an outer product of register tiles: thread (ty,
+// tx) owns rows ty * RM + i of a block's resident rows and, in a score
+// tile, the streamed rows tx + 16 j (NT products, both operands read as
+// float4 along the head dim), or, in an output tile, the head-dim columns
 // tx * RD + c (NN products: the first operand read as float4 along its
 // depth, the second as float4 / float2 along the columns).  P, U and dS
-// go to shared memory in the layout the next product reads.
+// go to shared memory in the layout the next product reads.  The
+// forward's tiles (rt::Fwd) are laid out as its kernel says.
 namespace rt {
 
 constexpr int kThreads = 256;
 
-// tile sizes by head dim: BM resident rows (queries in dQ, keys in
-// dK/dV), BK keys a dQ step, BQ queries a dK/dV step; rows padded by 16
-// bytes in shared memory
+// The backward's tile sizes by head dim: BM resident rows (queries in
+// dQ, keys in dK/dV), BK keys a dQ step, BQ queries a dK/dV step; rows
+// padded by 16 bytes in shared memory
 template <int D>
 struct Bwd {
   static constexpr int BM = D <= 64 ? 128 : 64;
@@ -469,20 +247,99 @@ struct Bwd {
       (size_t)(2 * BM * S + 4 * BQ * S + 2 * BM * (BQ + 4) + 6 * BQ) * 4;
 };
 
+// 16 bytes global -> shared, asynchronously; zeros when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// wait until at most one committed group is still in flight
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// The forward's tiles.  NX threads share a row band (a query's scores
+// and output), NY = NT / NX bands a block; a thread owns RM queries and,
+// in a score tile, RK keys (an RM x RK register tile), and RD columns of
+// the output.  At D <= 64 the tile is 8 x 8 (64 values read from shared
+// memory for 256 FMAs) in blocks of 128 threads, two an SM; above, the
+// output rows would not fit the registers at 8, so 4 x 4 in blocks of 256.
+template <int D>
+struct Fwd {
+  static constexpr bool kWide = D <= 64;
+  static constexpr int NX = kWide ? 8 : 16;
+  static constexpr int kThreads = kWide ? 128 : 256;
+  static constexpr int kBlocksPerSm = kWide ? 2 : 1;
+  static constexpr int NY = kThreads / NX;
+  static constexpr int RM = kWide ? 8 : 4;
+  static constexpr int RK = kWide ? 8 : 4;
+  static constexpr int BM = NY * RM;
+  static constexpr int BK = NX * RK;
+  static constexpr int S = D + 4;
+  static constexpr int SP = BK + 4;
+  static constexpr int RD = D / NX;
+  // output columns in groups of W (a float4 or float2 each): column c of
+  // group g is W tx + W NX g + c, so a row band's lanes read neighbouring
+  // 16- or 8-byte words of a V row
+  static constexpr int W = RD % 4 == 0 ? 4 : 2;
+  // Q, one K and one V tile, P
+  static constexpr size_t kSmem =
+      (size_t)(BM * S + 2 * BK * S + BM * SP) * 4;
+};
+
 // rows [row0, row0 + rows) of one (b, h) slice -> sm (stride D + 4),
 // asynchronously; rows at or past `valid` are zero.  Every thread of the
-// block takes part; the caller commits the group.
-template <int D>
+// block (NT of them) takes part; the caller commits the group.
+template <int D, int NT = kThreads>
 __device__ __forceinline__ void load_rows(float* sm, const float* g,
                                           long long row_stride, int row0,
                                           int valid, int rows) {
   constexpr int VPR = D / 4;
-  for (int i = threadIdx.x; i < rows * VPR; i += kThreads) {
+  for (int i = threadIdx.x; i < rows * VPR; i += NT) {
     const int r = i / VPR, c = (i % VPR) * 4;
     const bool ok = row0 + r < valid;
-    f32::cp_async16(sm + r * (D + 4) + c,
-                    ok ? g + (long long)(row0 + r) * row_stride + c : g, ok);
+    cp_async16(sm + r * (D + 4) + c,
+               ok ? g + (long long)(row0 + r) * row_stride + c : g, ok);
   }
+}
+
+// x reduced over the NX threads of a row band (neighbouring lanes)
+template <int NX>
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = NX / 2; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+template <int NX>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = NX / 2; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+// The keep factors of keys 2m and 2m + 1 (lanes tx and tx ^ 1, `odd` =
+// tx & 1) for two rows whose row keys are rk0 and rk1: the two keys share
+// a hash, so each lane hashes one of the two rows and swaps.  kf[e] is
+// this lane's key's factor in row e.
+__device__ __forceinline__ void pair_keep(const Params& p, uint32_t rk0,
+                                          uint32_t rk1, int key, int odd,
+                                          float (&kf)[2]) {
+  const uint32_t mine = pair_bits(odd ? rk1 : rk0, (uint32_t)key >> 1);
+  const uint32_t other = __shfl_xor_sync(kFull, mine, 1);
+  const uint32_t x0 = odd ? other : mine, x1 = odd ? mine : other;
+  kf[0] = keep_factor(p, odd ? x0 >> 16 : x0 & 0xFFFFu);
+  kf[1] = keep_factor(p, odd ? x1 >> 16 : x1 & 0xFFFFu);
 }
 
 // acc[i][j] += sum_d a[i * SA + d] * b[16 j * SB + d], d < KD (a at the
@@ -583,7 +440,200 @@ __device__ __forceinline__ void store_rows(float* o, const float (&c)[RM][RN],
   }
 }
 
+// The forward's S += Q.K^T on an RM x RK tile: acc[i][j] += sum_d
+// a[i SA + d] b[NX j SB + d] (a at the thread's first query, b at its
+// first key); K's float4s are held across the rows, Q's one at a time
+template <int RM, int RK, int NX, int KD, int SA, int SB>
+__device__ __forceinline__ void fwd_nt(float (&acc)[RM][RK],
+                                       const float* __restrict__ a,
+                                       const float* __restrict__ b) {
+#pragma unroll 2
+  for (int d = 0; d < KD; d += 4) {
+    float4 y[RK];
+#pragma unroll
+    for (int j = 0; j < RK; ++j)
+      y[j] = *reinterpret_cast<const float4*>(b + NX * j * SB + d);
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const float4 x = *reinterpret_cast<const float4*>(a + i * SA + d);
+#pragma unroll
+      for (int j = 0; j < RK; ++j) {
+        float c = acc[i][j];
+        c = fmaf(x.x, y[j].x, c);
+        c = fmaf(x.y, y[j].y, c);
+        c = fmaf(x.z, y[j].z, c);
+        c = fmaf(x.w, y[j].w, c);
+        acc[i][j] = c;
+      }
+    }
+  }
+}
+
+// The forward's O += P.V on an RM x RD tile in column groups of W:
+// acc[i][W g + c] += sum_k a[i SA + k] b[k SB + W NX g + c], k < KD (a at
+// the thread's first query row of P, b at V's column W tx)
+template <int RM, int RD, int W, int NX, int KD, int SA, int SB>
+__device__ __forceinline__ void fwd_nn(float (&acc)[RM][RD],
+                                       const float* __restrict__ a,
+                                       const float* __restrict__ b) {
+#pragma unroll 2
+  for (int k = 0; k < KD; k += 4) {
+    float4 x[RM];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+      x[i] = *reinterpret_cast<const float4*>(a + i * SA + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float y[RD];
+#pragma unroll
+      for (int g = 0; g < RD / W; ++g) {
+        const float* src = b + (k + kk) * SB + W * NX * g;
+        if constexpr (W == 4) {
+          const float4 v = *reinterpret_cast<const float4*>(src);
+          y[4 * g] = v.x; y[4 * g + 1] = v.y;
+          y[4 * g + 2] = v.z; y[4 * g + 3] = v.w;
+        } else {
+          const float2 v = *reinterpret_cast<const float2*>(src);
+          y[2 * g] = v.x; y[2 * g + 1] = v.y;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const float xv = kk == 0 ? x[i].x : kk == 1 ? x[i].y
+                         : kk == 2 ? x[i].z : x[i].w;
+#pragma unroll
+        for (int c = 0; c < RD; ++c) acc[i][c] = fmaf(xv, y[c], acc[i][c]);
+      }
+    }
+  }
+}
+
 }  // namespace rt
+
+// ------------------------------------------------------- f32 forward
+// One block per (b, h, BM-query tile), rt::Fwd's tiles.  Thread (ty, tx)
+// owns queries ty + NY i and, in a score tile, keys tx + NX j: the lanes
+// of a warp then read Q and P rows one apart (4 banks) and K rows one
+// apart.  K and V have one buffer each, refilled in turn: V_kt is loaded
+// while S = Q.K_kt^T runs and K_kt+1 while the softmax and O += P.V_kt
+// run.  Per key tile: S (RM x RK a thread), the mask on edge tiles, the
+// online softmax on the register tile (row max over the band's NX lanes;
+// each thread keeps its own partial row sum, added up once at the end),
+// dropout, P into shared memory, O += P.V (RM x RD a thread).
+template <int D>
+__global__ void __launch_bounds__(rt::Fwd<D>::kThreads,
+                                  rt::Fwd<D>::kBlocksPerSm)
+flash_fwd_f32_kernel(const Params p) {
+  using C = rt::Fwd<D>;
+  constexpr int NT = C::kThreads, NX = C::NX, NY = C::NY, RM = C::RM;
+  constexpr int RK = C::RK, RD = C::RD, W = C::W, BM = C::BM, BK = C::BK;
+  constexpr int S = C::S, SP = C::SP;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Ks = Qs + BM * S;
+  float* Vs = Ks + BK * S;
+  float* Ps = Vs + BK * S;             // [BM][SP]
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BM;
+  const int tid = threadIdx.x, tx = tid % NX, ty = tid / NX;
+  const long long qoff = b * p.qb + h * p.qh, koff = b * p.kb + h * p.kh;
+  const float* k = static_cast<const float*>(p.k) + koff;
+  const float* v = static_cast<const float*>(p.v) + koff;
+  const int nkt = key_tiles(p, q0, BM, BK);
+  rt::load_rows<D, NT>(Qs, static_cast<const float*>(p.q) + qoff, p.ql, q0,
+                       p.Lq, BM);
+  if (nkt > 0) rt::load_rows<D, NT>(Ks, k, p.kl, 0, p.Lk, BK);
+  rt::cp_async_commit();
+  const int r0 = q0 + ty;              // query i of the thread: r0 + NY i
+  const bool drop = p.drop_t > 0;
+  const uint32_t bh = (uint32_t)(b * p.H + h);
+  const int odd = tx & 1;              // its keys' parity
+  uint32_t rk[RM];
+  float m[RM], l[RM];                  // row max (log2 units), own sum
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    rk[i] = drop ? row_key(p.seed, bh, r0 + NY * i) : 0u;
+    m[i] = kNeg;
+    l[i] = 0.f;
+  }
+  float acc[RM][RD];
+  rt::zero(acc);
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int key0 = kt * BK;
+    rt::cp_async_wait_all();
+    __syncthreads();                   // K_kt is in; P and V are free
+    rt::load_rows<D, NT>(Vs, v, p.kl, key0, p.Lk, BK);
+    rt::cp_async_commit();
+    float s[RM][RK];
+    rt::zero(s);
+    rt::fwd_nt<RM, RK, NX, D, NY * S, S>(s, Qs + ty * S, Ks + tx * S);
+    __syncthreads();                   // K is free
+    if (kt + 1 < nkt) rt::load_rows<D, NT>(Ks, k, p.kl, key0 + BK, p.Lk, BK);
+    rt::cp_async_commit();
+    // only tiles that cross the ragged ends or the diagonal test masks
+    const bool edge = key0 + BK > p.Lk || q0 + BM > p.Lq ||
+                      (p.causal && key0 + BK - 1 + p.k_off > q0 + p.q_off);
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      float mx = kNeg;
+#pragma unroll
+      for (int j = 0; j < RK; ++j) {
+        float x = s[i][j] * p.scale_log2;
+        if (edge && !visible(p, r0 + NY * i, key0 + tx + NX * j)) x = kNeg;
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      const float mn = fmaxf(m[i], rt::row_max<NX>(mx));
+      const float alpha = fast_exp2(m[i] - mn);
+      m[i] = mn;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < RK; ++j) {
+        // a masked key of a row that has seen no key yet would give 1
+        float pr = fast_exp2(s[i][j] - mn);
+        if (edge && s[i][j] <= 0.5f * kNeg) pr = 0.f;
+        s[i][j] = pr;
+        sum += pr;                     // the denominator is undropped
+      }
+      l[i] = l[i] * alpha + sum;
+#pragma unroll
+      for (int c = 0; c < RD; ++c) acc[i][c] *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < RK; ++j) {
+      const int key = key0 + tx + NX * j;
+#pragma unroll
+      for (int i2 = 0; i2 < RM; i2 += 2) {
+        float kf[2] = {1.f, 1.f};
+        if (drop) rt::pair_keep(p, rk[i2], rk[i2 + 1], key, odd, kf);
+        Ps[(ty + NY * i2) * SP + tx + NX * j] = s[i2][j] * kf[0];
+        Ps[(ty + NY * i2 + NY) * SP + tx + NX * j] = s[i2 + 1][j] * kf[1];
+      }
+    }
+    rt::cp_async_wait_one();
+    __syncthreads();                   // V_kt and P are in
+    rt::fwd_nn<RM, RD, W, NX, BK, NY * SP, S>(acc, Ps + ty * SP,
+                                              Vs + W * tx);
+  }
+  rt::cp_async_wait_all();
+  float* out = static_cast<float*>(p.out) + qoff;
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const float lr = rt::row_sum<NX>(l[i]);
+    const int row = r0 + NY * i;
+    if (row >= p.Lq) continue;
+    const float inv = 1.f / fmaxf(lr, 1e-30f);
+    float* o = out + (long long)row * p.ql + W * tx;
+#pragma unroll
+    for (int g = 0; g < RD / W; ++g)
+#pragma unroll
+      for (int c = 0; c < W; c += 2)
+        store2(o + W * NX * g + c, acc[i][W * g + c] * inv,
+               acc[i][W * g + c + 1] * inv);
+    if (tx == 0)
+      p.lse_out[(long long)bh * p.Lq + row] =
+          lr > 0.f ? m[i] * kLn2 + logf(lr) : kNeg;
+  }
+}
 
 // ---------------------------------------------------- f32 backward: dQ
 // One block per (b, h, BM-query tile); the key and value tiles (BK rows)
@@ -616,7 +666,7 @@ flash_bwd_dq_f32_kernel(const Params p) {
     rt::load_rows<D>(Kb, k, p.kl, 0, p.Lk, BK);
     rt::load_rows<D>(Vb, v, p.kl, 0, p.Lk, BK);
   }
-  f32::cp_async_commit();
+  rt::cp_async_commit();
   const int r0 = q0 + ty * RM;         // the thread's first query
   const bool drop = p.drop_t > 0;
   const uint32_t bh = (uint32_t)(b * p.H + h);
@@ -633,14 +683,14 @@ flash_bwd_dq_f32_kernel(const Params p) {
   float dq[RM][RD];
   rt::zero(dq);
   for (int kt = 0; kt < nkt; ++kt) {
-    f32::cp_async_wait_all();
+    rt::cp_async_wait_all();
     __syncthreads();                   // tile kt is in; tile kt-1 is done
     if (kt + 1 < nkt) {
       const int nb = ((kt + 1) & 1) * BK * S;
       rt::load_rows<D>(Kb + nb, k, p.kl, (kt + 1) * BK, p.Lk, BK);
       rt::load_rows<D>(Vb + nb, v, p.kl, (kt + 1) * BK, p.Lk, BK);
     }
-    f32::cp_async_commit();
+    rt::cp_async_commit();
     const float* Ks = Kb + (kt & 1) * BK * S;
     const float* Vs = Vb + (kt & 1) * BK * S;
     float s[RM][RK], dp[RM][RK];
@@ -660,14 +710,7 @@ flash_bwd_dq_f32_kernel(const Params p) {
         // keys 2m and 2m + 1 sit in lanes tx and tx ^ 1 and share a
         // hash: each lane hashes one of the two rows and swaps
         float kf[2] = {1.f, 1.f};
-        if (drop) {
-          const uint32_t mine = pair_bits(odd ? rk[i2 + 1] : rk[i2],
-                                          (uint32_t)key >> 1);
-          const uint32_t other = __shfl_xor_sync(kFull, mine, 1);
-          const uint32_t x0 = odd ? other : mine, x1 = odd ? mine : other;
-          kf[0] = keep_factor(p, odd ? x0 >> 16 : x0 & 0xFFFFu);
-          kf[1] = keep_factor(p, odd ? x1 >> 16 : x1 & 0xFFFFu);
-        }
+        if (drop) rt::pair_keep(p, rk[i2], rk[i2 + 1], key, odd, kf);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int i = i2 + e;
@@ -682,7 +725,7 @@ flash_bwd_dq_f32_kernel(const Params p) {
     __syncthreads();
     rt::nn<RM, RD, BK, SP, S>(dq, dSs + ty * RM * SP, Ks + tx * RD);
   }
-  f32::cp_async_wait_all();
+  rt::cp_async_wait_all();
   rt::store_rows(static_cast<float*>(p.dq) + qoff, dq, p.ql, r0, p.Lq,
                  tx * RD);
 }
@@ -742,17 +785,17 @@ flash_bwd_dkv_f32_kernel(const Params p) {
   rt::load_rows<D>(Vs, static_cast<const float*>(p.v) + koff, p.kl, k0, p.Lk,
                    BM);
   if (start < nqt) stage(start, 0);
-  f32::cp_async_commit();
+  rt::cp_async_commit();
   const int key0 = k0 + ty * RM;       // the thread's first key (even)
   float dk[RM][RD], dv[RM][RD];
   rt::zero(dk);
   rt::zero(dv);
   for (int qt = start; qt < nqt; ++qt) {
     const int buf = (qt - start) & 1;
-    f32::cp_async_wait_all();
+    rt::cp_async_wait_all();
     __syncthreads();                   // tile qt is in; tile qt-1 is done
     if (qt + 1 < nqt) stage(qt + 1, buf ^ 1);
-    f32::cp_async_commit();
+    rt::cp_async_commit();
     const float* Qs = Qb + buf * BQ * S;
     const float* dOs = dOb + buf * BQ * S;
     const float* lse_s = lse_b + buf * BQ;
@@ -791,7 +834,7 @@ flash_bwd_dkv_f32_kernel(const Params p) {
     rt::nn<RM, RD, BQ, SP, S>(dv, Us + ty * RM * SP, dOs + tx * RD);
     rt::nn<RM, RD, BQ, SP, S>(dk, dSs + ty * RM * SP, Qs + tx * RD);
   }
-  f32::cp_async_wait_all();
+  rt::cp_async_wait_all();
   rt::store_rows(static_cast<float*>(p.dk) + koff, dk, p.kl, key0, p.Lk,
                  tx * RD);
   rt::store_rows(static_cast<float*>(p.dv) + koff, dv, p.kl, key0, p.Lk,
@@ -1460,31 +1503,21 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ wg::Maps maps,
 
 // ------------------------------------------------------------ launches
 template <typename Kern>
-int launch_f32(Kern kern, dim3 grid, size_t smem, const Params& p,
-               cudaStream_t st) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<grid, f32::kThreads, smem, st>>>(p);
-  return (int)cudaGetLastError();
-}
-
-template <typename Kern>
 int launch_rt(Kern kern, dim3 grid, size_t smem, const Params& p,
-              cudaStream_t st) {
+              cudaStream_t st, int threads = rt::kThreads) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<grid, rt::kThreads, smem, st>>>(p);
+  kern<<<grid, threads, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int fwd_f32(const Params& p, cudaStream_t st) {
-  using namespace f32;
-  const size_t smem = (size_t)(kRows + 4 * kTile) * Smem<D>::S * 4;
-  return launch_f32(flash_fwd_kernel<D>,
-                    dim3((p.Lq + kRows - 1) / kRows, p.H, p.B), smem, p, st);
+  using C = rt::Fwd<D>;
+  return launch_rt(flash_fwd_f32_kernel<D>,
+                   dim3((p.Lq + C::BM - 1) / C::BM, p.H, p.B), C::kSmem, p,
+                   st, C::kThreads);
 }
 
 template <int D>

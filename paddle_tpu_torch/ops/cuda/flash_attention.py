@@ -18,10 +18,9 @@ them; ``lse`` and ``delta`` are ``[B, H, Lq]`` f32.
 
 **Two designs, one per dtype.** bf16 runs on the tensor cores: wgmma
 fed by TMA, two warpgroups a block (``flash_*_wgmma_kernel``).  f32
-stays exact f32 on the CUDA cores (wgmma has no exact f32 mode): the
-forward in the ``mma.sync`` fragment layout by FMA (``flash_fwd_kernel``),
-the backward on register tiles of outer products
-(``flash_bwd_{dq,dkv}_f32_kernel``).
+stays exact f32 on the CUDA cores (wgmma has no exact f32 mode): all
+three on register tiles of outer products by FMA
+(``flash_{fwd,bwd_dq,bwd_dkv}_f32_kernel``).
 
 **Causal masking** uses global offsets: key ``j`` is visible from query
 ``i`` iff ``q_off + i >= k_off + j`` (the JAX kernel's float offsets

@@ -7,9 +7,17 @@ per sequence slot attends over a page-table-indexed K/V pool, with an
 online softmax in f32, positions ``>= lengths[s]`` masked, and each KV
 head serving ``H / Hkv`` query heads (GQA).  The TPU kernel's grid
 (slot, page) carried its (m, l, acc) state in VMEM from one page step
-to the next; here one thread block per (slot, KV head) walks the slot's
-live pages itself, reading ``page_table[s, p]`` and ``lengths[s]`` on
-the card, and keeps that state in registers.
+to the next; here a slot's live pages are split over up to C thread
+blocks (C from :func:`clusters_for`: as many as keep the grid resident,
+fixed per (S, H, Hkv, D, dtype) and card), launched as a thread-block
+cluster of :func:`cluster_blocks` of them per (slot, KV head).  Each
+block reads ``page_table[s, p]`` and ``lengths[s]`` on the card and
+keeps its state in registers, and the cluster's first block merges the
+partial states over distributed shared memory in a fixed order (no
+atomics: two runs agree bit for bit).  A slot's result depends on its
+own length and C only, not on the other slots or the table width.
+Each warp keeps its next step's K and V rows in flight while it
+consumes this step's.
 
 **Bound:** HBM bytes.  Each slot reads ``len x Hkv x D x 2 x
 sizeof(dtype)`` bytes of K/V per layer and does 4 flops per element
@@ -31,20 +39,74 @@ type before its MXU dots).  The output has ``q``'s dtype.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
 from . import support
 
-__all__ = ["paged_attention_decode", "SUPPORTED_HEAD_DIMS",
-           "SUPPORTED_GROUPS"]
+__all__ = ["paged_attention_decode", "cluster_size", "clusters_for",
+           "cluster_blocks", "SUPPORTED_HEAD_DIMS", "SUPPORTED_GROUPS",
+           "MAX_CLUSTER", "MIN_TOKENS"]
 
 KERNEL = "paged_attention"
 # the (head_dim, H / Hkv) instances csrc/paged_attention.cu compiles
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
 SUPPORTED_GROUPS = (1, 2, 4, 8)
+MAX_CLUSTER = 8           # the portable thread-block cluster size
+MIN_TOKENS = 32           # a block's share holds at least these (kMinTokens)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def cluster_size(work_blocks: int, resident: Sequence[int]) -> int:
+    """The blocks C a slot may be split over, 1 to :data:`MAX_CLUSTER`:
+    the most that keep the whole grid (S x Hkv = ``work_blocks``
+    clusters of C) resident on the card at once, where ``resident[c -
+    1]`` is how many clusters of c blocks the card holds at once; 1
+    where none does.  Each block takes ``ceil(live pages / C)`` pages of
+    its slot (at least :data:`MIN_TOKENS` tokens' worth), so the longest
+    slot is walked by up to C blocks at once."""
+    for c in range(MAX_CLUSTER, 1, -1):
+        if resident[c - 1] >= work_blocks:
+            return c
+    return 1
+
+
+def cluster_blocks(clusters: int, table_pages: int, page: int) -> int:
+    """The blocks the kernel launches as one cluster for a slot split
+    over ``clusters``: no more than a slot of ``table_pages`` pages can
+    have shares of :data:`MIN_TOKENS` tokens (``cluster_blocks`` in
+    ``csrc/paged_attention.cu``), so a narrow table launches no idle
+    blocks; the split, and so the result, does not depend on it."""
+    min_pages = -(-MIN_TOKENS // max(page, 1))
+    return max(1, min(clusters, -(-table_pages // min_pages)))
+
+
+_clusters: Dict[tuple, int] = {}
+
+
+def clusters_for(q: torch.Tensor, k_pool: torch.Tensor) -> int:
+    """The blocks C :func:`paged_attention_decode` may split a slot over
+    for q [S, H, D] and a pool [..., page, Hkv, D] on the card: from the
+    occupancy calculator's clusters of each size on q's card, worked out
+    once per (card, dtype, S, H, Hkv, D) and cached (host queries, no
+    sync)."""
+    S, H, D = q.shape
+    hkv = k_pool.shape[-2]
+    key = (q.get_device(), q.dtype, S, H, hkv, D)
+    c = _clusters.get(key)
+    if c is None:
+        lib = support.load_library()
+        with torch.cuda.device(q.device):
+            resident = [lib.ptt_paged_decode_max_clusters(
+                D, H // hkv, _DTYPE_CODE[q.dtype], n)
+                for n in range(1, MAX_CLUSTER + 1)]
+        if resident[0] <= 0 or min(resident) < 0:
+            raise RuntimeError(f"paged_attention_decode: no occupancy for "
+                               f"D={D} G={H // hkv} {q.dtype} "
+                               f"(codes {resident})")
+        c = _clusters[key] = cluster_size(S * hkv, resident)
+    return c
 
 
 def _check(q, k_pool, v_pool, page_table, lengths, layer):
@@ -111,12 +173,14 @@ def paged_attention_decode(q: torch.Tensor, k_pool: torch.Tensor,
     """Gather-free decode attention on the card; the same array contract
     as ``ops.attention.paged_attention_reference``: q [S, H, D], pools
     [N, page, Hkv, D] — or [L, N, page, Hkv, D] with ``layer`` —
-    page_table [S, P] int32, lengths [S] int32 -> out [S, H, D].
+    page_table [S, P] int32, lengths [S] int32 -> out [S, H, D].  The
+    blocks a slot is split over are :func:`clusters_for` q and the pool.
 
     Every tensor must be a contiguous CUDA tensor; anything the kernel
     does not take raises ``ValueError``.  Page ids must lie in [0, N):
     a slot whose live pages name another id gets NaN."""
     _check(q, k_pool, v_pool, page_table, lengths, layer)
+    clusters = clusters_for(q, k_pool)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     S, H, D = q.shape
@@ -126,12 +190,14 @@ def paged_attention_decode(q: torch.Tensor, k_pool: torch.Tensor,
         offset = int(layer) * N * page * hkv * D * k_pool.element_size()
     lib = support.load_library()
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    # the raw handle, without a Stream object: the decode step is
+    # host-bound and calls this 24 times
+    stream = torch._C._cuda_getCurrentRawStream(q.get_device())
     rc = lib.ptt_paged_decode(
         q.data_ptr(), k_pool.data_ptr() + offset,
         v_pool.data_ptr() + offset, page_table.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), S, H, hkv, D,
-        page_table.shape[1], page, N, float(scale),
+        page_table.shape[1], page, N, float(scale), int(clusters),
         _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention_decode: launch failed "

@@ -17,7 +17,8 @@
   module is imported.
 - **gates**: :func:`dtype_ok` — f32 and bf16, the two types every
   kernel accumulates from in f32.
-- **entry points**: ``ptt_paged_decode`` (``paged_attention.cu``),
+- **entry points**: ``ptt_paged_decode`` and
+  ``ptt_paged_decode_max_clusters`` (``paged_attention.cu``),
   ``ptt_flash_fwd`` / ``ptt_flash_bwd_dq`` / ``ptt_flash_bwd_dkv``
   (``flash_attention.cu``), ``ptt_epilogue_fwd`` / ``ptt_epilogue_bwd``
   / ``ptt_epilogue_grads`` (``fused_epilogue.cu``),
@@ -86,7 +87,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.ptt_paged_decode
     fn.argtypes = [vp, vp, vp, vp, vp, vp,       # q k v table lengths out
                    i32, i32, i32, i32, i32, i32, i32,  # S H Hkv D P page N
-                   ctypes.c_float, i32, vp]      # scale dtype stream
+                   ctypes.c_float, i32, i32, vp]  # scale C dtype stream
+    fn.restype = i32
+    fn = lib.ptt_paged_decode_max_clusters
+    fn.argtypes = [i32, i32, i32, i32]           # D G dtype C
     fn.restype = i32
     # flash attention: pointers, then B H Lq Lk D, the (b, h, l) strides
     # of the query and key families, scale causal q_off k_off seed

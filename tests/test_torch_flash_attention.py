@@ -517,3 +517,62 @@ def test_cuda_f32_backward_on_whole_tiles(causal):
             assert err.item() <= 2e-5, (D, err.item())
         for a, c in zip(*runs):
             assert torch.equal(a, c), D
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_cuda_f32_forward_is_bitwise_deterministic(causal):
+    """The f32 forward (register tiles, one block a query tile, keys in a
+    fixed order): two runs give bitwise equal out and lse at every built
+    head dim, with dropout."""
+    _cuda()
+    for D in torch_cuda.flash_attention.SUPPORTED_HEAD_DIMS:
+        q, k, v = (torch.from_numpy(a).cuda()
+                   for a in _qkv(22, B=2, Lq=300, H=3, D=D))
+        kw = dict(scale=1 / math.sqrt(D), causal=causal, dropout_p=0.1,
+                  seed=23)
+        runs = [torch_cuda.flash_attention_fwd(q, k, v, **kw)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        for a, b in zip(*runs):
+            assert torch.equal(a, b), D
+
+
+# (Lq, Lk, causal, q_off, k_off): whole tiles, ragged ends, causal at
+# offsets either way
+_F32_FWD = {"whole_tiles": (256, 256, False, 0, 0),
+            "whole_tiles_causal": (256, 256, True, 0, 0),
+            "ragged": (130, 200, False, 0, 0),
+            "causal_q_ahead": (130, 200, True, 100, 40),
+            "causal_k_ahead": (200, 130, True, 0, 70)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_F32_FWD))
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_cuda_f32_forward_matches_the_plain_version(case, p):
+    """The f32 forward kernel alone (out and lse) against the plain
+    version at every built head dim: f32 summed in another order and the
+    probabilities by ex2.approx, 2e-5 of max(1, |ref|); rows that see no
+    key give out 0 and lse -1e30."""
+    _cuda()
+    Lq, Lk, causal, q_off, k_off = _F32_FWD[case]
+    for D in torch_cuda.flash_attention.SUPPORTED_HEAD_DIMS:
+        q, = (torch.from_numpy(a).cuda()
+              for a in _qkv(24, B=2, Lq=Lq, H=2, D=D, n=1))
+        k, v = (torch.from_numpy(a).cuda()
+                for a in _qkv(25, B=2, Lq=Lk, H=2, D=D, n=2))
+        kw = dict(scale=1 / math.sqrt(D), causal=causal, dropout_p=p,
+                  seed=26, q_off=q_off, k_off=k_off)
+        out, lse = torch_cuda.flash_attention_fwd(q, k, v, **kw)
+        b = lambda x: x.transpose(1, 2)                # noqa: E731
+        ro, rlse = fa.flash_attention_reference_fwd(b(q), b(k), b(v), **kw)
+        torch.cuda.synchronize()
+        seen = rlse > fa.NEG_INF / 2           # rows that see a key
+        assert torch.equal(lse[~seen], rlse[~seen])
+        for got, ref in ((b(out), ro), (lse[seen], rlse[seen])):
+            err = (got - ref).abs().max() / ref.abs().max().clamp_min(1)
+            assert err.item() <= 2e-5, (D, err.item())
+        if causal and k_off > q_off:
+            assert (lse[..., :k_off - q_off] == fa.NEG_INF).all()
+            assert (out[:, :k_off - q_off] == 0).all()

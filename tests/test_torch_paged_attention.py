@@ -20,6 +20,7 @@ from paddle_tpu_torch import serving as torch_serving
 from paddle_tpu_torch.core.flags import set_flags
 from paddle_tpu_torch.ops import attention as torch_attention
 from paddle_tpu_torch.ops import cuda as torch_cuda
+from paddle_tpu_torch.testing import kernel_times
 
 ATOL = 2e-6
 
@@ -253,3 +254,183 @@ def test_cuda_kernel_length_zero_and_bad_page_id():
     assert torch.count_nonzero(got[0]) == 0
     assert (got[1] - ref[1]).abs().max().item() <= 2e-5
     assert torch.isnan(got[2]).all()
+
+
+# clusters of 1..8 blocks an H100 holds at once for a small instance
+# (4 blocks an SM; a cluster's blocks share one GPC)
+_H100 = [528, 264, 176, 132, 105, 88, 75, 66]
+
+
+@pytest.mark.parametrize("work,resident,want", [
+    (112, _H100, 4),                # S 8 x Hkv 14: 4 x 112 in one wave
+    (112, [396, 198, 132, 99, 79, 66, 56, 49], 3),
+    (1000, _H100, 1),               # more slots than the card holds
+    (8, [10000] * 8, 8),            # the portable cluster size
+    (112, [600] + [0] * 7, 1),      # no cluster can be placed
+    (66, _H100, 8),                 # exactly resident
+    (67, _H100, 7)])
+def test_cluster_size_keeps_the_grid_resident(work, resident, want):
+    """The blocks a slot is split over come from what is fixed per engine
+    (S x Hkv and the card's resident clusters of each size), never from
+    the table width or the lengths: the most that keep the grid
+    resident, at most 8."""
+    assert torch_cuda.paged_attention.cluster_size(work, resident) == want
+
+
+@pytest.mark.parametrize("clusters,P,page,want", [
+    (4, 1, 16, 1),                  # one page: one share, no cluster
+    (4, 2, 16, 1),                  # 32 tokens: still one share
+    (4, 3, 16, 2),
+    (4, 8, 16, 4),
+    (4, 64, 16, 4),                 # the split bounds the cluster
+    (8, 16, 8, 4),                  # shares of 4 pages of 8 at least
+    (8, 1000, 1, 8)])
+def test_cluster_blocks_launch_no_block_a_slot_cannot_use(clusters, P, page,
+                                                         want):
+    """The cluster launched for a split of C is as wide as a slot of the
+    table's P pages can have shares of 32 tokens, at most C."""
+    assert torch_cuda.paged_attention.cluster_blocks(clusters, P,
+                                                     page) == want
+
+
+def test_kernel_times_cases_are_phase_2s():
+    """The paged-decode cases chip_smoke and the timing of other
+    checkouts share: table widths 1, 8 and 64 (lengths 1, full and
+    seeded draws in [1, full]), GQA, bf16, and 8 slots at 600."""
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    cases = kernel_times.paged_cases(gen)
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert [(c[0], c[1], c[2], c[3], c[4]) for c in cases] == [
+        ("mha", 14, 14, 1, f32), ("mha", 14, 14, 8, f32),
+        ("mha", 14, 14, 64, f32), ("gqa", 16, 4, 8, f32),
+        ("mha", 14, 14, 64, bf16), ("anatomy", 14, 14, 64, f32)]
+    for _, _, _, P, _, lens in cases:
+        full = P * kernel_times.PAGE
+        assert len(lens) == kernel_times.SLOTS
+        assert all(1 <= n <= full for n in lens)
+    for _, _, _, P, _, lens in cases[:3]:
+        assert lens[:2] == [1, P * kernel_times.PAGE]
+    assert cases[-1][-1] == [600] * kernel_times.SLOTS
+
+
+def test_kernel_times_inputs_give_each_slot_its_own_pages():
+    """Each slot's table rows name distinct pages of the pool, never page
+    0, as the engine allocates them; q and the pools in the case's
+    dtype, the plain version finite on them."""
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    S = kernel_times.SLOTS
+    q, k, v, table, lengths = kernel_times.paged_inputs(
+        gen, 4, 2, 8, torch.bfloat16, list(range(1, S + 1)), layers=2,
+        num_pages=S * 8 + 1)
+    assert q.shape == (S, 4, kernel_times.HEAD_DIM) and q.dtype == k.dtype \
+        == v.dtype == torch.bfloat16
+    assert k.shape == (2, S * 8 + 1, kernel_times.PAGE, 2,
+                       kernel_times.HEAD_DIM) == v.shape
+    assert table.shape == (S, 8) and table.dtype == torch.int32
+    assert sorted(table.flatten().tolist()) == list(range(1, S * 8 + 1))
+    assert lengths.tolist() == list(range(1, S + 1))
+    out = torch_attention.paged_attention_reference(q, k, v, table, lengths,
+                                                    layer=1)
+    assert torch.isfinite(out.float()).all()
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+# split edges over a cluster of 8 (S x Hkv is small, so the grid stays
+# resident at 8): page 8, a share at least 4 pages (32 tokens)
+_SPLITS = {
+    # 8 live pages: two shares of 4, the length on the second's end; 6:
+    # shares of 4 and 2; 2: one share
+    "rank_boundary": dict(P=16, lengths=(64, 48, 16)),
+    "length_one_c8": dict(P=32, lengths=(1, 1, 1)),
+    "ragged_pages": dict(P=32, lengths=(13, 77, 201)),
+    "gqa_g8": dict(P=32, H=8, Hkv=1, lengths=(100, 5, 256)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_SPLITS))
+def test_cuda_split_edges_match_plain_version(case):
+    """A slot's live pages split over a cluster of blocks: lengths on a
+    block boundary, a length of 1 over 8 blocks, lengths off the page,
+    GQA with 8 query heads a KV head; against the plain version within
+    2e-5 (f32 sums in another order)."""
+    _cuda()
+    c = _case(30, page=8, N=64, layers=2, **_SPLITS[case])
+    t = {k: torch.from_numpy(v).cuda() for k, v in c.items()}
+    assert torch_cuda.paged_attention.clusters_for(t["q"], t["k"]) == 8
+    got = torch_cuda.paged_attention_decode(
+        t["q"], t["k"], t["v"], t["table"], t["lengths"], layer=1)
+    ref = torch_attention.paged_attention_reference(
+        t["q"], t["k"], t["v"], t["table"], t["lengths"], layer=1)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= 2e-5
+
+
+@pytest.mark.cuda
+def test_cuda_split_is_bitwise_deterministic():
+    """No atomics: at P 64, split over the wrapper's cluster, the partials
+    merge in rank order, so two runs agree bit for bit (f32 and bf16)."""
+    _cuda()
+    c = _case(31, S=4, H=4, Hkv=4, page=16, P=64, N=300,
+              lengths=(1024, 600, 1, 333))
+    c["table"] = (np.arange(4 * 64, dtype=np.int32).reshape(4, 64) + 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        t = {k: torch.from_numpy(v).cuda() for k, v in c.items()}
+        q, k, v = (t[n].to(dtype) for n in ("q", "k", "v"))
+        runs = [torch_cuda.paged_attention_decode(
+            q, k, v, t["table"], t["lengths"]) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch_cuda.paged_attention.clusters_for(q, k) > 1
+        assert torch.equal(runs[0], runs[1]), dtype
+
+
+@pytest.mark.cuda
+def test_cuda_split_length_zero_and_bad_page_in_the_last_share():
+    """Over a cluster of 8: length 0 gives zeros, a bad page id among the
+    last block's pages gives NaN for that slot only, the others agree
+    with the plain version."""
+    _cuda()
+    c = _case(32, page=8, P=32, N=64, lengths=(0, 256, 256))
+    c["table"][2, 31] = 64                    # N = 64: one past the pool
+    t = {k: torch.from_numpy(v).cuda() for k, v in c.items()}
+    assert torch_cuda.paged_attention.clusters_for(t["q"], t["k"]) == 8
+    got = torch_cuda.paged_attention_decode(t["q"], t["k"], t["v"],
+                                            t["table"], t["lengths"])
+    ref = torch_attention.paged_attention_reference(
+        t["q"], t["k"], t["v"], t["table"].clamp(max=63), t["lengths"])
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(got[0]) == 0
+    assert (got[1] - ref[1]).abs().max().item() <= 2e-5
+    assert torch.isnan(got[2]).all()
+
+
+@pytest.mark.cuda
+def test_cuda_slot_result_does_not_depend_on_the_batch():
+    """A slot's split depends on its own length and the engine's shape
+    only: slot 0 at the same length and pages gives the same bits at
+    table widths 64 and 8, beside other slots of other lengths (f32 and
+    bf16)."""
+    _cuda()
+    c = _case(33, S=4, H=4, Hkv=4, page=16, P=64, N=300,
+              lengths=(100, 1024, 600, 333))
+    c["table"] = (np.arange(4 * 64, dtype=np.int32).reshape(4, 64) + 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        t = {k: torch.from_numpy(v).cuda() for k, v in c.items()}
+        q, k, v = (t[n].to(dtype) for n in ("q", "k", "v"))
+        narrow = (t["table"][:, :8].contiguous(),
+                  torch.tensor([100, 128, 5, 77], dtype=torch.int32,
+                               device="cuda"))
+        wide = torch_cuda.paged_attention_decode(q, k, v, t["table"],
+                                                 t["lengths"])
+        got = torch_cuda.paged_attention_decode(q, k, v, *narrow)
+        ref = torch_attention.paged_attention_reference(q, k, v, *narrow)
+        torch.cuda.synchronize()
+        assert torch.equal(wide[0], got[0]), dtype
+        tol = 2e-5 if dtype == torch.float32 else 1e-2
+        assert (got.float() - ref.float()).abs().max().item() <= tol
