@@ -76,15 +76,33 @@ kernel from the sources in this checkout.  Phases, each fatal:
 17. the hybrid GPT at the ``1b`` widths (bench.py:318; batch 8, seq
     1024, dropout 0.1, O2 bf16, AdamW, global-norm clip) at world size
     1 over NCCL: 2 warm-up and 8 timed steps asserting 144 K6 launches
-    and 24 of each flash kernel (block entry) a step, then its anatomy;
+    and 24 of each flash kernel (block entry) a step, then its anatomy
+    (the host-clocked steps beside the timed ones);
 18. with two cards or more, NCCL ranks on {"mp": 2, "sp": n / 2} train
     2 layers at the ``1b`` widths against a world-size-1 run; on one
-    card it prints that it did not run and why.
+    card it prints that it did not run and why;
+19. ``build_gpt`` (``bench.build_gpt``, per-block recompute) at
+    ``bench_gpt``'s CPU widths, f32, dropout 0, trained 3 ``TrainStep``s
+    on the card and on the CPU from the same weights, phase 7's
+    tolerances;
+20. the same small GPT at dropout 0.1 and O2 bf16: one forward and
+    backward with recompute and one without, from one seed and one set
+    of weights, loss and gradients within bf16 tolerance, and whether
+    they are equal bit for bit (the recomputed forward regenerates the
+    flash kernels' dropout mask from the replayed seed);
+21. ``bench_gpt``'s chip config: the ``760m`` preset (head dim 96),
+    batch 16, seq 1024, dropout 0.1, O2 bf16, AdamW, global-norm clip,
+    per-block recompute, 2 warm-up and 8 timed steps asserting 48 flash
+    forwards and 24 of each backward a step; then 2 + 3 steps without
+    recompute asserting 24 of each and a higher peak memory;
+22. anatomy of one 760m step, its flash launches by kernel name, with
+    the host-clocked steps beside the timed ones.
 
 The last lines are the kernels JSON object, the card's name and power
 limit as ``nvidia-smi`` reports them, and ``{"ok": true, ...}``.  Any
 failure prints a traceback and exits 1 without the result line.
 """
+import gc
 import json
 import math
 import os
@@ -157,6 +175,16 @@ GPT_760M = dict(vocab=50257, hidden=1536, layers=24, heads=16, ffn=6144,
                 seq=1024, dropout=0.1)
 GPT_SMALL = dict(vocab=1000, hidden=128, layers=2, heads=4, ffn=512,
                  seq=64, batch=4, dropout=0.0)
+# bench.py:341-343 and :334-336: bench_gpt's CPU config (at dropout 0)
+# and its chip config (the 760m preset at batch 16)
+GPT_BENCH_CPU = dict(vocab=1000, hidden=128, layers=2, heads=4, ffn=512,
+                     seq=128, batch=4, dropout=0.0)
+GPT_760M_TRAIN = dict(GPT_760M, batch=16)
+# per 760m step: one attention call a layer, its forward run again by
+# the block's recompute; without recompute once
+GPT760_PER_STEP = {"flash_attention_fwd": 48, "flash_attention_bwd_dq": 24,
+                   "flash_attention_bwd_dkv": 24}
+GPT760_PLAIN_PER_STEP = {k: 24 for k in GPT760_PER_STEP}
 CMM_SITE = "paddle_tpu/ops/pallas/collective_matmul.py:44"  # _mm_kernel
 # K6 vs plain, as max |a - b| / max(1, max |b|), outputs ~N(0, 1): f32
 # sums over K taken in another order; bf16 rounded once on either side
@@ -868,8 +896,9 @@ def _bert_trainer(torch, cfg, device, bf16):
                                 donate=True)
 
 
-def _bert_batch(torch, cfg, device):
-    """bench.py:197-201: ids and labels from RandomState(0)."""
+def _bench_batch(torch, cfg, device):
+    """bench.py:197-201 (and :365-368 for the GPT): ids and labels from
+    RandomState(0)."""
     import numpy as np
     rng = np.random.RandomState(0)
     shape = (cfg["batch"], cfg["seq"])
@@ -893,7 +922,7 @@ def phase_small_bert_parity():
     gpu.load_state_dict({k: v.cuda() for k, v in cpu.state_dict().items()})
     losses = {}
     for dev, step in (("cpu", cpu_step), ("cuda", gpu_step)):
-        x, y = _bert_batch(torch, cfg, dev)
+        x, y = _bench_batch(torch, cfg, dev)
         support.reset_launch_counts()
         losses[dev] = [float(step(x, y)) for _ in range(steps)]
         counts = dict(support.launch_counts)
@@ -923,31 +952,44 @@ def phase_small_bert_parity():
 
 
 # ---------------------------------------------------------------- phase 8
+def _clocked_step(torch, one_step):
+    """``one_step()`` run to a synchronise: its result and its ms on the
+    host clock."""
+    t0 = time.perf_counter()
+    out = one_step()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _train_steps(torch, step, batch, n):
+    """``n`` steps, each clocked by :func:`_clocked_step`: losses, step
+    ms and the launches counted over them."""
+    from paddle_tpu_torch.ops.cuda import support
+    x, y = batch
+    support.reset_launch_counts()
+    runs = [_clocked_step(torch, lambda: step(x, y)) for _ in range(n)]
+    return ([float(loss) for loss, _ in runs], [ms for _, ms in runs],
+            dict(support.launch_counts))
+
+
 def phase_bert_training(warmup=2, steps=10):
     """bench_bert's chip config on the card: every loss finite, the
     first near ln(vocab), each flash kernel launched 12 times a step."""
     import numpy as np
     import torch
     from paddle_tpu_torch import seed
-    from paddle_tpu_torch.ops.cuda import support
     from paddle_tpu_torch.testing.models import bench_flops_per_step
     cfg = BERT_CHIP
     seed(2024)
     t0 = time.perf_counter()
     model, step = _bert_trainer(torch, cfg, "cuda", True)
-    x, y = _bert_batch(torch, cfg, "cuda")
+    x, y = _bench_batch(torch, cfg, "cuda")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    support.reset_launch_counts()
-    losses, step_ms = [], []
-    for i in range(warmup + steps):
-        t0 = time.perf_counter()
-        loss = step(x, y)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(loss))
-    counts = {n: support.launch_counts.get(n, 0) for n in FLASH_KERNELS}
+    losses, step_ms, counts = _train_steps(torch, step, (x, y),
+                                                   warmup + steps)
+    counts = {n: counts.get(n, 0) for n in FLASH_KERNELS}
     peak = torch.cuda.max_memory_allocated()
     timed = step_ms[warmup:]
     flops = bench_flops_per_step(model, cfg["vocab"], cfg["hidden"],
@@ -979,41 +1021,74 @@ def phase_bert_training(warmup=2, steps=10):
 
 
 # ---------------------------------------------------------------- phase 9
-def _step_anatomy(tag, one_step, steps, classify, wgmma_flash=False):
-    """One training step's anatomy: its time on the host clock (CUDA
-    events over 3 steps), then ``torch.profiler`` over ``steps`` steps:
-    device ms a step by ``classify``'s groups (a function of the lower-case
-    kernel name), the flash kernels by name, the top kernels and the
-    device's idle share.  With ``wgmma_flash`` the flash launches must
-    have run the wgmma + TMA kernels."""
+def _step_anatomy(tag, one_step, steps, classify, wgmma_flash=False,
+                  timed_ms=None):
+    """One training step's anatomy: its time (CUDA events over 3
+    back-to-back steps, ``step_ms_host``), then 3 steps each on the host
+    clock (:func:`_clocked_step`) with the ms Python's cyclic GC paused
+    each, printed beside the training phase's timed steps
+    (``timed_ms``), then ``torch.profiler`` over ``steps``
+    steps: device ms a step by ``classify``'s groups (a function of the
+    lower-case kernel name), the flash kernels by name, the top kernels
+    and the device's idle share.  With ``wgmma_flash`` the flash
+    launches must have run the wgmma + TMA kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     step_ms = cuda_ms(lambda i: one_step(), 3, warmup=1)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            one_step()
-        torch.cuda.synchronize()
-    groups, top, flash, epi, launches = {}, [], {}, {}, {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
-            continue
-        name = e.key.lower()
-        ms = e.self_device_time_total / 1e3 / steps
-        g = classify(name)
-        groups[g] = groups.get(g, 0.0) + ms
-        top.append((ms, e.key[:80]))
-        if "flash_" in name or "epilogue_" in name:
-            k = _kernel_name(e.key)
-            named = flash if "flash_" in name else epi
-            named[k] = named.get(k, 0.0) + ms
-            launches[k] = launches.get(k, 0) + e.count / steps
+    pause = {"s": 0.0, "t0": None}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            pause["t0"] = time.perf_counter()
+        elif pause["t0"] is not None:
+            pause["s"] += time.perf_counter() - pause["t0"]
+            pause["t0"] = None
+
+    clocked, gc_ms = [], []
+    gc.callbacks.append(on_gc)
+    try:
+        for _ in range(3):
+            s0 = pause["s"]
+            clocked.append(_clocked_step(torch, one_step)[1])
+            gc_ms.append((pause["s"] - s0) * 1e3)
+    finally:
+        gc.callbacks.remove(on_gc)
+    # every step launches the same kernels, so a trace with no device
+    # time, or a named kernel's count that is no whole multiple of
+    # ``steps``, means the tracer dropped records: it is taken again, up
+    # to three times
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                one_step()
+            torch.cuda.synchronize()
+        groups, top, flash, epi, launches = {}, [], {}, {}, {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+                continue
+            name = e.key.lower()
+            ms = e.self_device_time_total / 1e3 / steps
+            g = classify(name)
+            groups[g] = groups.get(g, 0.0) + ms
+            top.append((ms, e.key[:80]))
+            if "flash_" in name or "epilogue_" in name:
+                k = _kernel_name(e.key)
+                named = flash if "flash_" in name else epi
+                named[k] = named.get(k, 0.0) + ms
+                launches[k] = launches.get(k, 0) + e.count / steps
+        del prof
+        gc.collect()
+        if groups and all(float(n).is_integer() for n in launches.values()):
+            break
     busy = sum(groups.values())
     if not busy > 0:
         raise AssertionError("the profiler saw no device time")
     top.sort(reverse=True)
-    out = {"step_ms_host": step_ms, "device_busy_ms": busy,
+    out = {"step_ms_host": step_ms,
+           "host_clocked_steps_ms": clocked, "host_clocked_gc_ms": gc_ms,
+           "timed_steps_ms": timed_ms, "device_busy_ms": busy,
            "device_idle_share": max(0.0, 1.0 - busy / step_ms),
            "device_ms_by_group": groups, "flash_kernels_ms": flash,
            "epilogue_kernels_ms": epi, "launches_per_step": launches,
@@ -1893,7 +1968,6 @@ def phase_gpt_training(warmup=2, steps=8):
     from paddle_tpu_torch import amp, optimizer
     from paddle_tpu_torch.core import rng
     from paddle_tpu_torch.distributed import init_mesh
-    from paddle_tpu_torch.ops.cuda import support
     from paddle_tpu_torch.parallel import SpmdTrainStep
     from paddle_tpu_torch.testing.models import (build_gpt_hybrid, gpt_loss,
                                                  gpt_flops_per_step)
@@ -1917,15 +1991,8 @@ def phase_gpt_training(warmup=2, steps=8):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    support.reset_launch_counts()
-    losses, step_ms = [], []
-    for i in range(warmup + steps):
-        t0 = time.perf_counter()
-        loss = step(x, y)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(loss))
-    counts = dict(support.launch_counts)
+    losses, step_ms, counts = _train_steps(torch, step, (x, y),
+                                                   warmup + steps)
     peak = torch.cuda.max_memory_allocated()
     timed = step_ms[warmup:]
     mean_ms = sum(timed) / len(timed)
@@ -1955,17 +2022,18 @@ def phase_gpt_training(warmup=2, steps=8):
     want = {k: n * runs for k, n in GPT_PER_STEP.items()}
     if any(counts.get(k, 0) != n for k, n in want.items()):
         raise AssertionError(f"hybrid GPT launches {counts}, want {want}")
-    return counts, step, (x, y)
+    return counts, step, (x, y), timed
 
 
-def phase_gpt_anatomy(step, batch, steps=2):
+def phase_gpt_anatomy(step, batch, timed_ms, steps=2):
     x, y = batch
     _step_anatomy("GPT_ANATOMY", lambda: step(x, y), steps, lambda n: (
         "chunk_matmul" if "chunk_mm" in n else
         "flash_fwd" if "flash_fwd_" in n else
         "flash_bwd" if "flash_bwd_" in n else
         "nccl" if "nccl" in n else
-        "cublas" if _is_gemm(n) else "other"), wgmma_flash=True)
+        "cublas" if _is_gemm(n) else "other"), wgmma_flash=True,
+        timed_ms=timed_ms)
 
 
 # --------------------------------------------------------------- phase 18
@@ -2022,6 +2090,261 @@ def phase_multicard(steps=3):
     return out
 
 
+# --------------------------------------------------------------- phase 19
+def _gpt_trainer(torch, cfg, device, bf16, lr):
+    """``bench_gpt``'s trainer (bench.py:345-363): ``build_gpt`` with
+    per-block recompute, AdamW (wd 0.01) with global-norm clip 1.0, O2
+    bf16 with f32 masters when ``bf16``, the tied head's loss."""
+    from paddle_tpu_torch import amp, jit, optimizer
+    from paddle_tpu_torch.testing.models import build_gpt, gpt_pretrain_loss
+    model = build_gpt(cfg["vocab"], cfg["hidden"], cfg["layers"],
+                      cfg["heads"], cfg["ffn"], cfg["seq"], cfg["dropout"],
+                      device=device)
+    opt = optimizer.AdamW(learning_rate=lr, parameters=model.parameters(),
+                          weight_decay=0.01,
+                          grad_clip=optimizer.ClipGradByGlobalNorm(1.0),
+                          multi_precision=bf16)
+    if bf16:
+        model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    return model, jit.TrainStep(model, gpt_pretrain_loss(model,
+                                                         cfg["vocab"]),
+                                opt, n_inputs=1, donate=True)
+
+
+def phase_small_gpt_recompute_parity(steps=3):
+    """``build_gpt`` at bench_gpt's CPU config (f32, dropout 0, per-block
+    recompute) trained 3 steps on the card and on the CPU from the same
+    weights at phase 7's lr (1e-4) and tolerances: losses rtol 1e-5,
+    parameters within BERT_PARAM_ATOL, the key projections' biases
+    within lr a step either way; the flash forward launched twice per
+    layer and step on the card (once recomputed), each backward once."""
+    import torch
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.ops.cuda import support
+    cfg = GPT_BENCH_CPU
+    seed(7)
+    cpu, cpu_step = _gpt_trainer(torch, cfg, "cpu", False, 1e-4)
+    gpu, gpu_step = _gpt_trainer(torch, cfg, "cuda", False, 1e-4)
+    gpu.load_state_dict({k: v.cuda() for k, v in cpu.state_dict().items()})
+    losses = {}
+    for dev, step in (("cpu", cpu_step), ("cuda", gpu_step)):
+        x, y = _bench_batch(torch, cfg, dev)
+        support.reset_launch_counts()
+        losses[dev] = [float(step(x, y)) for _ in range(steps)]
+        counts = dict(support.launch_counts)
+    want = {k: cfg["layers"] * steps * n
+            for k, n in zip(FLASH_KERNELS, (2, 1, 1))}
+    if any(counts.get(k, 0) != n for k, n in want.items()):
+        raise AssertionError(f"small GPT launches {counts}, want {want}")
+    gp = dict(gpu.named_parameters())
+    diffs = {n: (gp[n].detach().cpu() - p.detach()).abs().max().item()
+             for n, p in cpu.named_parameters()}
+    k_bias = {n: d for n, d in diffs.items() if n.endswith(".k.bias")}
+    rest = {n: d for n, d in diffs.items() if n not in k_bias}
+    worst = max(rest, key=rest.get)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                      losses["cpu"]))
+    out = {"config": cfg, "recompute": "per block", "losses_cpu":
+           losses["cpu"], "losses_cuda": losses["cuda"],
+           "loss_max_rel_err": loss_err, "param_max_abs_err": rest[worst],
+           "param_worst": worst, "k_bias_max_abs_err": max(k_bias.values()),
+           "loss_rtol": 1e-5, "param_atol": BERT_PARAM_ATOL,
+           "k_bias_atol": 2e-4 * steps, "launches": counts}
+    log("GPT1_PARITY " + json.dumps(out))
+    if (not loss_err <= 1e-5 or not rest[worst] <= BERT_PARAM_ATOL
+            or not max(k_bias.values()) <= 2e-4 * steps):
+        raise AssertionError(f"small GPT card vs CPU: {out}")
+
+
+# --------------------------------------------------------------- phase 20
+def _own_rel_err(got, ref):
+    """max |got - ref| over ref's own max |ref| (not floored at 1)."""
+    got, ref = got.float(), ref.float()
+    if not bool(got.isfinite().all()):
+        raise AssertionError("non-finite gradient or loss")
+    return ((got - ref).abs().max()
+            / ref.abs().max().clamp_min(1e-30)).item()
+
+
+def phase_gpt_recompute_masks():
+    """The small GPT at dropout 0.1, O2 bf16, on the card: one forward
+    and backward with per-block recompute and one without, from the same
+    seed and weights.  The recomputed forward must draw the first one's
+    masks (the flash kernels' seeds, ``F.dropout``'s device generator).
+    The loss comes from the first forward either way; the recomputed
+    one feeds only the gradients, so every gradient must agree within
+    TOL["bfloat16"] of its own largest entry and be equal bit for bit
+    (the same kernels on the same inputs and masks; a wrong mask can
+    move a gradient by less than the tolerance).  It prints the flash
+    launches of each (the forward twice a layer under recompute)."""
+    import torch
+    from paddle_tpu_torch import amp, seed
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.testing.models import build_gpt, gpt_pretrain_loss
+    cfg = dict(GPT_BENCH_CPU, dropout=0.1)
+    seed(11)
+    model = build_gpt(cfg["vocab"], cfg["hidden"], cfg["layers"],
+                      cfg["heads"], cfg["ffn"], cfg["seq"], cfg["dropout"],
+                      device="cuda")
+    amp.decorate(model, level="O2", dtype="bfloat16")
+    params = list(model.parameters())
+    loss_fn = gpt_pretrain_loss(model, cfg["vocab"])
+    x, y = _bench_batch(torch, cfg, "cuda")
+    runs, launches = {}, {}
+    for rc in (True, False):
+        model.recompute = rc
+        seed(5)
+        support.reset_launch_counts()
+        loss = loss_fn(model(x), y)
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        launches[rc] = {k: support.launch_counts.get(k, 0)
+                        for k in FLASH_KERNELS}
+        runs[rc] = (loss.detach(), grads)
+    (l_rc, g_rc), (l_off, g_off) = runs[True], runs[False]
+    names = [n for n, _ in model.named_parameters()]
+    errs = {n: _own_rel_err(a, b) for n, a, b in zip(names, g_rc, g_off)}
+    worst = max(errs, key=errs.get)
+    out = {"config": cfg, "dtype": "bfloat16 O2",
+           "loss_recompute": l_rc.item(), "loss_plain": l_off.item(),
+           "loss_rel_err": _own_rel_err(l_rc, l_off),
+           "grad_max_rel_err": errs[worst], "grad_worst": worst,
+           "tol": TOL["bfloat16"],
+           "loss_bitwise": bool(torch.equal(l_rc, l_off)),
+           "grads_bitwise": all(torch.equal(a, b)
+                                for a, b in zip(g_rc, g_off)),
+           "launches_recompute": launches[True],
+           "launches_plain": launches[False]}
+    log("GPT_RECOMPUTE_MASKS " + json.dumps(out))
+    want_rc = {k: cfg["layers"] * n for k, n in zip(FLASH_KERNELS,
+                                                     (2, 1, 1))}
+    want_off = {k: cfg["layers"] for k in FLASH_KERNELS}
+    if launches[True] != want_rc or launches[False] != want_off:
+        raise AssertionError(f"recompute launches {launches}, want "
+                             f"{want_rc} and {want_off}")
+    if not (out["loss_rel_err"] <= TOL["bfloat16"]
+            and errs[worst] <= TOL["bfloat16"]
+            and out["loss_bitwise"] and out["grads_bitwise"]):
+        raise AssertionError(f"recompute changed the step: {out}")
+
+
+# --------------------------------------------------------------- phase 21
+def _fwd_bwd_peak(torch, step, batch):
+    """Peak bytes one forward and backward of ``step``'s model and loss
+    allocate above what was allocated before it (the activations and
+    the gradients, without the optimizer's update)."""
+    x, y = batch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    loss = step.loss_fn(step.model(x), y)
+    grads = torch.autograd.grad(loss, step._params)
+    torch.cuda.synchronize()
+    del loss, grads
+    return torch.cuda.max_memory_allocated() - base
+
+
+def phase_gpt760_training(warmup=2, steps=8, plain_warmup=2, plain_steps=3):
+    """``bench_gpt``'s chip config: ``build_gpt`` at the ``760m`` preset
+    (bench.py:317), batch 16, seq 1024, dropout 0.1, O2 bf16 with f32
+    masters, AdamW(2e-4, wd 0.01), global-norm clip 1.0, per-block
+    recompute: 2 warm-up and 8 timed steps, every loss finite, the first
+    near ln(vocab), and per step 48 flash forwards (24 + 24 recomputed)
+    and 24 of each backward.  Then 2 + 3 steps with recompute off: 24
+    of each a step, and a higher peak memory than with it, over the
+    steps and over one forward and backward alone (no update)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.testing.models import gpt_flops_per_step
+    cfg = GPT_760M_TRAIN
+    t0 = time.perf_counter()
+    seed(2024)
+    model, step = _gpt_trainer(torch, cfg, "cuda", True, 2e-4)
+    batch = _bench_batch(torch, cfg, "cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, counts = _train_steps(torch, step, batch,
+                                                   warmup + steps)
+    peak_rc = torch.cuda.max_memory_allocated()
+    model.recompute = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    plain_losses, plain_ms, plain_counts = _train_steps(
+        torch, step, batch, plain_warmup + plain_steps)
+    peak_plain = torch.cuda.max_memory_allocated()
+    fwd_bwd_plain = _fwd_bwd_peak(torch, step, batch)
+    model.recompute = True
+    fwd_bwd_rc = _fwd_bwd_peak(torch, step, batch)
+    timed = step_ms[warmup:]
+    mean_ms = sum(timed) / len(timed)
+    tokens = cfg["batch"] * cfg["seq"]
+    flops = gpt_flops_per_step(cfg["vocab"], cfg["hidden"], cfg["layers"],
+                               cfg["seq"], cfg["batch"], cfg["ffn"])
+    plain_timed = plain_ms[plain_warmup:]
+    out = {"config": cfg, "dtype": "bfloat16 O2, f32 master weights",
+           "recompute": "per block",
+           "params": sum(p.numel() for p in model.parameters()),
+           "setup_s": setup_s, "warmup_steps": warmup, "timed_steps": steps,
+           "losses": losses, "step_ms": timed,
+           "step_ms_p50": float(np.median(timed)), "step_ms_mean": mean_ms,
+           "first_steps_ms": step_ms[:warmup],
+           "tokens_per_s": tokens / (mean_ms / 1e3),
+           "model_flops_per_step": flops,
+           "mfu": flops / (mean_ms / 1e3) / PEAK_OPS["bfloat16"],
+           "peak_bound_ms": flops / PEAK_OPS["bfloat16"] * 1e3,
+           "max_memory_allocated": peak_rc,
+           "fwd_bwd_peak_above_base": fwd_bwd_rc, "launches": counts,
+           "no_recompute": {
+               "losses": plain_losses, "step_ms": plain_timed,
+               "step_ms_mean": sum(plain_timed) / len(plain_timed),
+               "first_steps_ms": plain_ms[:plain_warmup],
+               "max_memory_allocated": peak_plain,
+               "fwd_bwd_peak_above_base": fwd_bwd_plain,
+               "launches": plain_counts}}
+    log("GPT760_TRAIN " + json.dumps(out))
+    every = losses + plain_losses
+    if not all(math.isfinite(v) for v in every):
+        raise AssertionError(f"non-finite loss: {every}")
+    if abs(losses[0] - math.log(cfg["vocab"])) > 1.0:
+        raise AssertionError(f"first loss {losses[0]} is not near "
+                             f"ln({cfg['vocab']}) = "
+                             f"{math.log(cfg['vocab'])}")
+    for got, per_step, n in ((counts, GPT760_PER_STEP, warmup + steps),
+                             (plain_counts, GPT760_PLAIN_PER_STEP,
+                              plain_warmup + plain_steps)):
+        want = {k: v * n for k, v in per_step.items()}
+        if any(got.get(k, 0) != v for k, v in want.items()):
+            raise AssertionError(f"760m launches {got}, want {want}")
+    if not (peak_rc < peak_plain and fwd_bwd_rc < fwd_bwd_plain):
+        raise AssertionError(
+            f"peak memory with recompute {peak_rc} (forward and backward "
+            f"{fwd_bwd_rc}) is not below the peak without it {peak_plain} "
+            f"({fwd_bwd_plain})")
+    return {k: counts[k] for k in FLASH_KERNELS}, step, batch, timed
+
+
+# --------------------------------------------------------------- phase 22
+def phase_gpt760_anatomy(step, batch, timed_ms, steps=2):
+    """The 760m step's anatomy, its flash launches by kernel name: the
+    wgmma forward 48 a step, each backward 24."""
+    x, y = batch
+    launches = _step_anatomy(
+        "GPT760_ANATOMY", lambda: step(x, y), steps, lambda n: (
+            "flash_fwd" if "flash_fwd_" in n else
+            "flash_bwd" if "flash_bwd_" in n else
+            "gemm" if _is_gemm(n) else "other"), wgmma_flash=True,
+        timed_ms=timed_ms)
+    flash = {k: v for k, v in launches.items() if k.startswith("flash_")}
+    want = {"flash_fwd_wgmma_kernel": 48, "flash_bwd_dq_wgmma_kernel": 24,
+            "flash_bwd_dkv_wgmma_kernel": 24}
+    if flash != want:
+        raise AssertionError(f"760m anatomy flash launches a step {flash}, "
+                             f"want {want}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2031,6 +2354,10 @@ def main():
     t0 = time.perf_counter()
 
     def timed(name, fn, *args):
+        # reclaim the cyclic garbage earlier phases left (a profiler
+        # trace's event trees): a full collection pauses the host for
+        # up to a second, and a step that pays it is stalled by as much
+        gc.collect()
         t = time.perf_counter()
         out = fn(*args)
         seconds[name] = time.perf_counter() - t
@@ -2059,11 +2386,19 @@ def main():
     cmm_row = timed("chunk_matmul_kernel", phase_chunk_matmul)
     block_rows = timed("flash_block", phase_flash_block)
     timed("small_gpt", phase_small_gpt_parity)
-    gpt_launches, gstep, gbatch = timed("gpt_training", phase_gpt_training)
-    timed("gpt_anatomy", phase_gpt_anatomy, gstep, gbatch)
+    gpt_launches, gstep, gbatch, gtimed = timed("gpt_training",
+                                                phase_gpt_training)
+    timed("gpt_anatomy", phase_gpt_anatomy, gstep, gbatch, gtimed)
     del gstep, gbatch
     torch.cuda.empty_cache()
     timed("multicard", phase_multicard)
+    timed("small_gpt_recompute", phase_small_gpt_recompute_parity)
+    timed("gpt_recompute_masks", phase_gpt_recompute_masks)
+    gpt760_launches, g7step, g7batch, g7timed = timed(
+        "gpt760_training", phase_gpt760_training)
+    timed("gpt760_anatomy", phase_gpt760_anatomy, g7step, g7batch, g7timed)
+    del g7step, g7batch
+    torch.cuda.empty_cache()
     seconds["total"] = time.perf_counter() - t0
     log("PHASE_SECONDS " + json.dumps(seconds))
     f32_err = max(r["max_abs_err"] for r in kernel_rows
@@ -2094,10 +2429,13 @@ def main():
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",
             "replaces": site,
-            "launches": flash_launches[name] + gpt_launches[name],
+            "launches": (flash_launches[name] + gpt_launches[name]
+                         + gpt760_launches[name]),
             "launches_by_entry": {"flash_attention": flash_launches[name],
                                   "flash_attention_block":
-                                      gpt_launches[name]},
+                                      gpt_launches[name],
+                                  "flash_attention (gpt)":
+                                      gpt760_launches[name]},
             "max_abs_err": r["max_abs_err"],
             "max_abs_err_bf16": r["max_abs_err_bf16"], "shape": r["case"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],

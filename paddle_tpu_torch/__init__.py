@@ -1,7 +1,7 @@
 """paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu for NVIDIA
 Hopper.
 
-Four slices are in:
+These slices are in:
 
 - generative serving: the paged KV cache, the continuous-batching
   :class:`~.serving.GenerationEngine`, the reference
@@ -22,7 +22,16 @@ Four slices are in:
   (process group, mesh, collectives, launcher, strategy) and
   :mod:`.parallel` (tensor-parallel layers on the fused collective
   matmuls, ring attention, DataParallel, SpmdTrainStep), with the
-  hand-written CUDA chunk matmul and the flash kernels' block entry.
+  hand-written CUDA chunk matmul and the flash kernels' block entry;
+- single-device GPT pretraining (``testing.models.build_gpt``, bench's
+  ``bench_gpt``) with per-block :func:`.parallel.recompute`, and the
+  whole-step training surface it stands on: ``jit.TrainStep``'s
+  ``recompute``, ``accumulate_steps``, ``scaler`` and ``amp_level``,
+  :mod:`.amp` (``auto_cast`` O1/O2, ``GradScaler``, ``decorate`` O1),
+  :mod:`.optimizer.lr` (the ``LRScheduler`` family), :mod:`.nn.
+  initializer`, :class:`ParamAttr`, :func:`zeros` and its siblings and
+  :func:`transpose`; its attention runs the flash kernels' causal entry
+  at head dim 96, forward twice a layer under recompute.
 
 Models, pools, engines and static parameters go to the current CUDA
 device unless the caller passes ``device=`` (e.g. ``"cpu"``) or calls
@@ -33,13 +42,17 @@ from . import (amp, core, distributed, framework_io, jit, nn,  # noqa: F401
 from .core.placement import device  # noqa: F401
 from .core.rng import seed  # noqa: F401
 from .device import get_device, set_device  # noqa: F401
-from .ops.creation import arange  # noqa: F401
+from .nn.layer_base import ParamAttr  # noqa: F401
+from .ops.creation import (arange, empty, empty_like, full,  # noqa: F401
+                           full_like, ones, ones_like, zeros, zeros_like)
+from .ops.manipulation import transpose  # noqa: F401
 
 __all__ = ["amp", "core", "distributed", "framework_io", "jit", "nn", "ops",
            "optimizer", "parallel", "serving", "static", "testing", "utils",
-           "device", "seed",
-           "set_device", "get_device", "arange", "enable_static",
-           "disable_static", "in_dynamic_mode"]
+           "device", "seed", "set_device", "get_device", "ParamAttr",
+           "arange", "zeros", "ones", "full", "empty", "zeros_like",
+           "ones_like", "full_like", "empty_like", "transpose",
+           "enable_static", "disable_static", "in_dynamic_mode"]
 
 _static_mode = False
 

@@ -9,10 +9,16 @@ Program instead.  Recording happens at the level of paddle ops, not of
 torch's: the nodes carry paddle_tpu's op names (``linear``, ``add``,
 ``gelu``, ``layer_norm``, ...) and their parameters as explicit
 ``attrs``, which is what the static Executor's fusion matcher reads.
+
+Under ``amp.auto_cast`` the tensor inputs are cast here, by the op's
+name, before the op runs (the JAX package's AMP hook sits at the same
+point); a recorded node is never cast.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
+
+from ..amp import amp_active, amp_cast_inputs
 
 __all__ = ["Symbolic", "apply"]
 
@@ -31,4 +37,6 @@ def apply(fn: Callable, *inputs, op_name: str,
     for x in inputs:
         if isinstance(x, Symbolic):
             return x.program.record(fn, inputs, op_name, attrs or {})
+    if amp_active():
+        inputs = amp_cast_inputs(op_name, inputs)
     return fn(*inputs, **attrs) if attrs else fn(*inputs)

@@ -9,11 +9,20 @@
   card for it.  Every call draws anew, so dropout differs from step to
   step.
 - :func:`fold_in` switches every draw (both kinds above) to a stream of
-  its own, one per key and seed, for the duration of a ``with`` block;
-  the stream carries on where it stopped at the next entry.  The data
-  parallel step draws from the stream of its 'dp' rank (the JAX
-  package folds ``axis_index('dp')`` into its dropout key), so the dp
-  ranks' masks differ and the ranks of one dp group share theirs.
+  its own, one per key and enclosing stream, for the duration of a
+  ``with`` block; the stream carries on where it stopped at the next
+  entry.  The data parallel step draws from the stream of its 'dp' rank
+  (the JAX package folds ``axis_index('dp')`` into its dropout key), so
+  the dp ranks' masks differ and the ranks of one dp group share
+  theirs; ``TrainStep``'s microbatches each draw from a stream of their
+  own inside it.
+- :func:`get_rng_state` / :func:`set_rng_state` take and put back every
+  draw's state: the active stream, the host generator's and every
+  device generator's state, and the fold_in streams not in use.
+  ``parallel.recompute`` runs its second forward between a
+  ``set_rng_state`` of the state taken before the first and one of the
+  state it found, so the recomputed forward draws the first one's
+  dropout (the counterpart of the JAX package's ``StableDraw``).
 - :func:`mul32` / :func:`fmix32`: uint32 arithmetic emulated exactly in
   int64, for the counter-based hashes whose CUDA versions work in
   uint32 (the serving sampler, the flash-attention dropout mask).
@@ -24,12 +33,13 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Iterator, Optional, Tuple, Union
+from typing import Dict, Iterator, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-__all__ = ["seed", "get_rng_state", "set_rng_state", "generator",
-           "next_seed", "fold_in", "mul32", "fmix32", "dropout_threshold"]
+__all__ = ["seed", "get_rng_state", "set_rng_state", "RngState",
+           "generator", "next_seed", "fold_in", "mul32", "fmix32",
+           "dropout_threshold"]
 
 M32 = 0xFFFFFFFF
 
@@ -41,7 +51,8 @@ _active = 0
 _draws = 0
 _host: Optional[torch.Generator] = None
 _devices: Dict[torch.device, torch.Generator] = {}
-_stash: Dict[int, tuple] = {}    # fold_in key -> its stream while unused
+# (enclosing stream's seed, fold_in key) -> that stream while unused
+_stash: Dict[Tuple[int, int], tuple] = {}
 
 
 def seed(s: int) -> int:
@@ -54,17 +65,59 @@ def seed(s: int) -> int:
     return _seed
 
 
-def get_rng_state() -> Tuple[int, int]:
-    """(seed, host draws so far); the device generators and the fold_in
-    streams are not part of it."""
-    return _seed, _draws
+class RngState(NamedTuple):
+    """Every draw's state (:func:`get_rng_state`): generator states are
+    copies (``torch.Generator.get_state()``), None where a generator
+    was not created yet."""
+    seed: int
+    active: int
+    draws: int
+    host: Optional[torch.Tensor]
+    devices: Dict[torch.device, torch.Tensor]
+    stash: Dict[Tuple[int, int], tuple]
 
 
-def set_rng_state(state: Tuple[int, int]) -> None:
-    s, draws = state
-    seed(s)
-    for _ in range(int(draws)):
-        next_seed()
+def _stream_state(host, devices):
+    return (None if host is None else host.get_state(),
+            {d: g.get_state() for d, g in devices.items()})
+
+
+def _generators(host_state, device_states):
+    def made(dev, state):
+        gen = torch.Generator(device=dev)
+        gen.set_state(state)
+        return gen
+    host = None if host_state is None else made("cpu", host_state)
+    return host, {d: made(d, st) for d, st in device_states.items()}
+
+
+def get_rng_state() -> RngState:
+    """The state of every draw this module hands out: the seed, the
+    active stream (its seed and host draws so far), the host generator
+    and every device generator, and the fold_in streams not in use.
+    Reads no device memory: a generator's state is its seed and offset,
+    kept on the host."""
+    with _lock:
+        stash = {k: (a, n) + _stream_state(h, ds)
+                 for k, (a, n, h, ds) in _stash.items()}
+        return RngState(_seed, _active, _draws,
+                        *_stream_state(_host, _devices), stash)
+
+
+def set_rng_state(state: RngState) -> None:
+    """Put back a :func:`get_rng_state`: the next draws are the ones
+    that followed it.  Fresh generators carry the states, so a state
+    can be put back any number of times."""
+    global _seed, _active, _draws, _host, _devices
+    host, devices = _generators(state.host, state.devices)
+    stash = {}
+    for k, (a, n, hs, ds) in state.stash.items():
+        stash[k] = (a, n) + _generators(hs, ds)
+    with _lock:
+        _seed, _active, _draws = state.seed, state.active, state.draws
+        _host, _devices = host, devices
+        _stash.clear()
+        _stash.update(stash)
 
 
 def generator(device: Union[str, torch.device]) -> torch.Generator:
@@ -96,23 +149,26 @@ def next_seed() -> int:
 @contextlib.contextmanager
 def fold_in(key: int) -> Iterator[None]:
     """Inside the block, :func:`generator` and :func:`next_seed` draw
-    from stream ``key`` of the current seed: deterministic per (seed,
-    key), distinct across keys and from the seed's own stream, and
-    continued where it stopped at the next entry with the same key."""
+    from stream ``key`` of the enclosing stream (the seed's own outside
+    any fold_in): deterministic per (seed, keys), distinct across keys
+    and from the enclosing stream, and continued where it stopped at
+    the next entry with the same key from the same enclosing stream."""
     global _active, _draws, _host, _devices
     key = int(key)
     with _lock:
         outer = (_active, _draws, _host, _devices)
-        inner = _stash.pop(key, None)
+        slot = (_active, key)
+        inner = _stash.pop(slot, None)
         if inner is None:
-            mixed = _seed * 0x9E3779B97F4A7C15 + (key + 1) * 0xBF58476D1CE4E5B9
+            mixed = (_active * 0x9E3779B97F4A7C15
+                     + (key + 1) * 0xBF58476D1CE4E5B9)
             inner = (mixed % (2 ** 63 - 1), 0, None, {})
         _active, _draws, _host, _devices = inner
     try:
         yield
     finally:
         with _lock:
-            _stash[key] = (_active, _draws, _host, _devices)
+            _stash[slot] = (_active, _draws, _host, _devices)
             _active, _draws, _host, _devices = outer
 
 

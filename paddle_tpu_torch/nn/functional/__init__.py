@@ -306,6 +306,14 @@ class _LinearCrossEntropy(torch.autograd.Function):
                 None, None, None)
 
 
+def _linear_ce(hidden, weight, bias, label, chunk, ignore_index):
+    T = hidden.shape[0]
+    n = max(1, -(-T // chunk))
+    per = -(-T // n)
+    return _LinearCrossEntropy.apply(hidden, weight, bias, label, per,
+                                     ignore_index)
+
+
 def linear_cross_entropy(hidden, weight, bias, label, chunk: int = 1024,
                          ignore_index: int = -100, name=None):
     """``cross_entropy(hidden @ weight + bias, label)`` (mean) without
@@ -313,8 +321,7 @@ def linear_cross_entropy(hidden, weight, bias, label, chunk: int = 1024,
     ``weight`` [H, vocab], ``label`` [T].  Rows are cut into
     ``ceil(T / chunk)`` equal chunks, as paddle_tpu's ``_linear_ce_fn``
     cuts them."""
-    T = hidden.shape[0]
-    n = max(1, -(-T // chunk))
-    per = -(-T // n)
-    return _LinearCrossEntropy.apply(hidden, weight, bias, label, per,
-                                     int(ignore_index))
+    return apply(_linear_ce, hidden, weight, bias, label,
+                 op_name="linear_cross_entropy",
+                 attrs={"chunk": int(chunk),
+                        "ignore_index": int(ignore_index)})

@@ -1,27 +1,23 @@
 """Linear, Embedding and Dropout (paddle_tpu.nn.layer.common).
 
-Initial weights are drawn on the layer's device from
-``core.rng.generator(device)``: Linear XavierNormal over ``[in, out]``
-with zero bias, Embedding N(0, 1).  ``device=None`` is the current CUDA
-device (raising when there is none); pass ``device="cpu"`` for the
-CPU."""
+Parameters are made by ``weight_attr`` / ``bias_attr`` (a
+:class:`~..layer_base.ParamAttr`, a name, an initializer, or False for
+no bias), drawn on the layer's device from
+``core.rng.generator(device)``.  The defaults: Linear XavierNormal over
+``[in, out]`` with zero bias, Embedding N(0, 1).  ``device=None`` is
+the current CUDA device (raising when there is none); pass
+``device="cpu"`` for the CPU."""
 from __future__ import annotations
-
-import math
 
 import torch
 from torch import nn
 
-from ...core import rng
 from ...core.placement import device as _resolve_device
 from .. import functional as F
+from .. import initializer as I
+from ..layer_base import create_parameter
 
 __all__ = ["Linear", "Embedding", "Dropout"]
-
-
-def _normal(shape, std, dev):
-    return nn.Parameter(torch.randn(tuple(shape), device=dev,
-                                    generator=rng.generator(dev)) * std)
 
 
 class Linear(nn.Module):
@@ -30,16 +26,13 @@ class Linear(nn.Module):
     def __init__(self, in_features, out_features, weight_attr=None,
                  bias_attr=None, name=None, device=None):
         super().__init__()
-        if weight_attr is not None:
-            raise NotImplementedError("Linear: weight_attr is not ported")
         dev = _resolve_device(device)
         self.in_features = in_features
         self.out_features = out_features
-        self.weight = _normal((in_features, out_features),
-                              math.sqrt(2.0 / (in_features + out_features)),
-                              dev)
-        self.bias = (None if bias_attr is False else
-                     nn.Parameter(torch.zeros(out_features, device=dev)))
+        self.weight = create_parameter((in_features, out_features),
+                                       weight_attr, device=dev)
+        self.bias = create_parameter((out_features,), bias_attr,
+                                     is_bias=True, device=dev)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -53,8 +46,6 @@ class Embedding(nn.Module):
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
                  sparse=False, weight_attr=None, name=None, device=None):
         super().__init__()
-        if weight_attr is not None:
-            raise NotImplementedError("Embedding: weight_attr is not ported")
         dev = _resolve_device(device)
         self._num_embeddings = num_embeddings
         self._embedding_dim = embedding_dim
@@ -62,7 +53,9 @@ class Embedding(nn.Module):
                              padding_idx if padding_idx >= 0 else
                              num_embeddings + padding_idx)
         self._sparse = sparse
-        self.weight = _normal((num_embeddings, embedding_dim), 1.0, dev)
+        self.weight = create_parameter(
+            (num_embeddings, embedding_dim), weight_attr,
+            default_initializer=I.Normal(0.0, 1.0), device=dev)
         if self._padding_idx is not None:
             with torch.no_grad():
                 self.weight[self._padding_idx] = 0.0

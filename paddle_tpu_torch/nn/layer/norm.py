@@ -1,11 +1,13 @@
-"""LayerNorm (paddle_tpu.nn.layer.norm): weight ones, bias zeros."""
+"""LayerNorm (paddle_tpu.nn.layer.norm): weight ones, bias zeros by
+default, or as ``weight_attr`` / ``bias_attr`` say (False: none)."""
 from __future__ import annotations
 
-import torch
 from torch import nn
 
 from ...core.placement import device as _resolve_device
 from .. import functional as F
+from .. import initializer as I
+from ..layer_base import create_parameter
 
 __all__ = ["LayerNorm"]
 
@@ -19,10 +21,11 @@ class LayerNorm(nn.Module):
         self._normalized_shape = tuple(normalized_shape)
         self._epsilon = epsilon
         dev = _resolve_device(device)
-        self.weight = (None if weight_attr is False else nn.Parameter(
-            torch.ones(self._normalized_shape, device=dev)))
-        self.bias = (None if bias_attr is False else nn.Parameter(
-            torch.zeros(self._normalized_shape, device=dev)))
+        self.weight = create_parameter(
+            self._normalized_shape, weight_attr,
+            default_initializer=I.Constant(1.0), device=dev)
+        self.bias = create_parameter(self._normalized_shape, bias_attr,
+                                     is_bias=True, device=dev)
 
     def forward(self, x):
         return F.layer_norm(x, self._normalized_shape, self.weight,

@@ -1,3 +1,326 @@
-"""Learning rates (paddle_tpu.optimizer.lr).  This slice takes a float
-learning rate only, read by ``Optimizer.get_lr()``; the ``LRScheduler``
-family is not ported yet (ROADMAP A3)."""
+"""Learning-rate schedules (paddle_tpu.optimizer.lr): ``LRScheduler``
+and its 15 schedules, in plain Python.
+
+A schedule is the learning rate of an optimizer built with it
+(``Adam(learning_rate=sched)``): ``Optimizer.get_lr()`` reads
+``sched()``, and ``jit.TrainStep`` reads ``get_lr()`` at every call.
+The training loop moves the schedule with ``sched.step()`` (and
+``ReduceOnPlateau`` with ``sched.step(metric)``)."""
+from __future__ import annotations
+
+import math
+
+
+__all__ = ["LRScheduler", "NoamDecay", "PiecewiseDecay", "NaturalExpDecay",
+           "InverseTimeDecay", "PolynomialDecay", "ExponentialDecay",
+           "MultiStepDecay", "StepDecay", "LambdaDecay", "MultiplicativeDecay",
+           "CosineAnnealingDecay", "LinearWarmup", "ReduceOnPlateau", "CyclicLR",
+           "OneCycleLR"]
+
+
+class LRScheduler:
+    def __init__(self, learning_rate=0.1, last_epoch=-1, verbose=False):
+        self.base_lr = float(learning_rate)
+        self.last_epoch = last_epoch
+        self.last_lr = self.base_lr
+        self.verbose = verbose
+        self.step()
+
+    def __call__(self):
+        return self.last_lr
+
+    def step(self, epoch=None):
+        if epoch is None:
+            self.last_epoch += 1
+        else:
+            self.last_epoch = epoch
+        self.last_lr = self.get_lr()
+        if self.verbose:
+            print(f"Epoch {self.last_epoch}: lr set to {self.last_lr}")
+
+    def get_lr(self):
+        raise NotImplementedError
+
+    def state_dict(self):
+        return {k: v for k, v in self.__dict__.items()
+                if isinstance(v, (int, float, bool, str, list))}
+
+    def set_state_dict(self, state):
+        self.__dict__.update(state)
+
+    set_dict = set_state_dict
+    state_keys = state_dict
+
+
+class NoamDecay(LRScheduler):
+    """lr = base * d_model^-0.5 * min(step^-0.5, step*warmup^-1.5)."""
+
+    def __init__(self, d_model, warmup_steps, learning_rate=1.0,
+                 last_epoch=-1, verbose=False):
+        self.d_model = d_model
+        self.warmup_steps = warmup_steps
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = max(self.last_epoch, 1)
+        return (self.base_lr * self.d_model ** -0.5 *
+                min(step ** -0.5, step * self.warmup_steps ** -1.5))
+
+
+class PiecewiseDecay(LRScheduler):
+    def __init__(self, boundaries, values, last_epoch=-1, verbose=False):
+        self.boundaries = list(boundaries)
+        self.values = list(values)
+        super().__init__(values[0], last_epoch, verbose)
+
+    def get_lr(self):
+        for b, v in zip(self.boundaries, self.values):
+            if self.last_epoch < b:
+                return v
+        return self.values[len(self.boundaries)]
+
+
+class NaturalExpDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * math.exp(-self.gamma * self.last_epoch)
+
+
+class InverseTimeDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr / (1 + self.gamma * self.last_epoch)
+
+
+class PolynomialDecay(LRScheduler):
+    def __init__(self, learning_rate, decay_steps, end_lr=0.0001, power=1.0,
+                 cycle=False, last_epoch=-1, verbose=False):
+        self.decay_steps = decay_steps
+        self.end_lr = end_lr
+        self.power = power
+        self.cycle = cycle
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = self.last_epoch
+        if self.cycle:
+            div = math.ceil(step / self.decay_steps) if step > 0 else 1
+            decay_steps = self.decay_steps * div
+        else:
+            decay_steps = self.decay_steps
+            step = min(step, decay_steps)
+        return ((self.base_lr - self.end_lr) *
+                (1 - step / decay_steps) ** self.power + self.end_lr)
+
+
+class ExponentialDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma ** self.last_epoch
+
+
+class MultiStepDecay(LRScheduler):
+    def __init__(self, learning_rate, milestones, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.milestones = list(milestones)
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        n = sum(1 for m in self.milestones if self.last_epoch >= m)
+        return self.base_lr * self.gamma ** n
+
+
+class StepDecay(LRScheduler):
+    def __init__(self, learning_rate, step_size, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.step_size = step_size
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma ** (self.last_epoch // self.step_size)
+
+
+class LambdaDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1,
+                 verbose=False):
+        self.lr_lambda = lr_lambda
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.lr_lambda(self.last_epoch)
+
+
+class MultiplicativeDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1,
+                 verbose=False):
+        self.lr_lambda = lr_lambda
+        self._cur = float(learning_rate)
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch > 0:
+            self._cur = self._cur * self.lr_lambda(self.last_epoch)
+        return self._cur
+
+
+class CosineAnnealingDecay(LRScheduler):
+    def __init__(self, learning_rate, T_max, eta_min=0, last_epoch=-1,
+                 verbose=False):
+        self.T_max = T_max
+        self.eta_min = eta_min
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return (self.eta_min + (self.base_lr - self.eta_min) *
+                (1 + math.cos(math.pi * self.last_epoch / self.T_max)) / 2)
+
+
+class LinearWarmup(LRScheduler):
+    """A linear ramp from ``start_lr`` to ``end_lr`` over ``warmup_steps``,
+    then ``learning_rate`` (a float, or a schedule it moves)."""
+
+    def __init__(self, learning_rate, warmup_steps, start_lr, end_lr,
+                 last_epoch=-1, verbose=False):
+        self.lr_sched = (learning_rate if isinstance(learning_rate,
+                                                     LRScheduler) else None)
+        self.warmup_steps = warmup_steps
+        self.start_lr = start_lr
+        self.end_lr = end_lr
+        base = (learning_rate.base_lr if self.lr_sched else
+                float(learning_rate))
+        super().__init__(base, last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch < self.warmup_steps:
+            return (self.start_lr + (self.end_lr - self.start_lr) *
+                    self.last_epoch / self.warmup_steps)
+        if self.lr_sched is not None:
+            self.lr_sched.last_epoch = self.last_epoch - self.warmup_steps
+            return self.lr_sched.get_lr()
+        return self.base_lr
+
+
+class ReduceOnPlateau(LRScheduler):
+    def __init__(self, learning_rate, mode="min", factor=0.1, patience=10,
+                 threshold=1e-4, threshold_mode="rel", cooldown=0, min_lr=0,
+                 epsilon=1e-8, verbose=False):
+        self.mode = mode
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.threshold_mode = threshold_mode
+        self.cooldown = cooldown
+        self.min_lr = min_lr
+        self.epsilon = epsilon
+        self.best = None
+        self.num_bad_epochs = 0
+        self.cooldown_counter = 0
+        self.base_lr = float(learning_rate)
+        self.last_lr = self.base_lr
+        self.last_epoch = 0
+        self.verbose = verbose
+
+    def get_lr(self):
+        return self.last_lr
+
+    def step(self, metrics=None, epoch=None):
+        if metrics is None:
+            return
+        cur = float(metrics) if not hasattr(metrics, "item") else float(
+            metrics.item() if callable(getattr(metrics, "item", None))
+            else metrics)
+        self.last_epoch += 1
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad_epochs = 0
+        better = False
+        if self.best is None:
+            better = True
+        elif self.mode == "min":
+            thr = (self.best * (1 - self.threshold)
+                   if self.threshold_mode == "rel"
+                   else self.best - self.threshold)
+            better = cur < thr
+        else:
+            thr = (self.best * (1 + self.threshold)
+                   if self.threshold_mode == "rel"
+                   else self.best + self.threshold)
+            better = cur > thr
+        if better:
+            self.best = cur
+            self.num_bad_epochs = 0
+        else:
+            self.num_bad_epochs += 1
+        if self.num_bad_epochs > self.patience:
+            new_lr = max(self.last_lr * self.factor, self.min_lr)
+            if self.last_lr - new_lr > self.epsilon:
+                self.last_lr = new_lr
+                if self.verbose:
+                    print(f"ReduceOnPlateau: lr -> {new_lr}")
+            self.cooldown_counter = self.cooldown
+            self.num_bad_epochs = 0
+
+
+class CyclicLR(LRScheduler):
+    def __init__(self, base_learning_rate, max_learning_rate, step_size_up,
+                 step_size_down=None, mode="triangular", exp_gamma=1.0,
+                 scale_fn=None, scale_mode="cycle", last_epoch=-1,
+                 verbose=False):
+        self.max_lr = max_learning_rate
+        self.step_size_up = step_size_up
+        self.step_size_down = step_size_down or step_size_up
+        self.mode = mode
+        self.exp_gamma = exp_gamma
+        super().__init__(base_learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        total = self.step_size_up + self.step_size_down
+        cycle = math.floor(1 + self.last_epoch / total)
+        x = self.last_epoch - (cycle - 1) * total
+        if x < self.step_size_up:
+            pct = x / self.step_size_up
+        else:
+            pct = 1 - (x - self.step_size_up) / self.step_size_down
+        lr = self.base_lr + (self.max_lr - self.base_lr) * pct
+        if self.mode == "triangular2":
+            lr = self.base_lr + (lr - self.base_lr) / (2 ** (cycle - 1))
+        elif self.mode == "exp_range":
+            lr = self.base_lr + (lr - self.base_lr) * (
+                self.exp_gamma ** self.last_epoch)
+        return lr
+
+
+class OneCycleLR(LRScheduler):
+    def __init__(self, max_learning_rate, total_steps, divide_factor=25.0,
+                 end_learning_rate=0.0001, phase_pct=0.3,
+                 anneal_strategy="cos", three_phase=False, last_epoch=-1,
+                 verbose=False):
+        self.max_lr = max_learning_rate
+        self.total_steps = total_steps
+        self.initial_lr = max_learning_rate / divide_factor
+        self.end_lr = end_learning_rate
+        self.phase_pct = phase_pct
+        super().__init__(self.initial_lr, last_epoch, verbose)
+
+    def get_lr(self):
+        up = int(self.total_steps * self.phase_pct)
+        step = min(self.last_epoch, self.total_steps)
+        if step <= up and up > 0:
+            pct = step / up
+            return (self.initial_lr
+                    + (self.max_lr - self.initial_lr)
+                    * (1 - math.cos(math.pi * pct)) / 2)
+        pct = (step - up) / max(self.total_steps - up, 1)
+        return (self.end_lr + (self.max_lr - self.end_lr)
+                * (1 + math.cos(math.pi * pct)) / 2)

@@ -15,6 +15,12 @@ a plain f32 Adam, as in paddle_tpu.
 ``multi_precision``: a bf16/f16 parameter keeps an f32 master copy in
 its slots; the update runs on the master, and the parameter is its
 cast.  AdamW's decoupled decay acts on the master before the update.
+
+``learning_rate`` is a float or an :class:`~.lr.LRScheduler`, read by
+:meth:`Optimizer.get_lr`.  ``step``, the update's count for Adam's bias
+corrections, is an int, or a 0-d device tensor where ``jit.TrainStep``
+keeps the count on the card (loss scaling skips steps there without a
+host read).
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from .clip import ClipGradBase
+from .lr import LRScheduler
 
 __all__ = ["Optimizer", "Adam", "AdamW"]
 
@@ -41,11 +48,10 @@ class Optimizer:
                                                        (int, float)):
             raise NotImplementedError("regularizer objects are not ported; "
                                       "pass a float")
-        if not isinstance(learning_rate, (int, float)):
-            raise NotImplementedError("LR schedulers are not ported yet; "
-                                      "pass a float learning rate")
+        if not isinstance(learning_rate, LRScheduler):
+            learning_rate = float(learning_rate)
         self._parameter_list: Optional[List[torch.nn.Parameter]] = parameters
-        self._learning_rate = float(learning_rate)
+        self._learning_rate = learning_rate
         self._grad_clip: Optional[ClipGradBase] = grad_clip
         self._weight_decay = (None if weight_decay is None
                               else float(weight_decay))
@@ -56,7 +62,15 @@ class Optimizer:
 
     # -- lr ---------------------------------------------------------------
     def get_lr(self) -> float:
+        if isinstance(self._learning_rate, LRScheduler):
+            return self._learning_rate()
         return self._learning_rate
+
+    def set_lr(self, value: float):
+        if isinstance(self._learning_rate, LRScheduler):
+            raise RuntimeError(
+                "cannot set_lr when learning rate is an LRScheduler")
+        self._learning_rate = float(value)
 
     # -- pure per-list update (override these) -----------------------------
     def init_slots(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -177,11 +191,18 @@ class Adam(Optimizer):
         v = torch._foreach_mul([s["v"] for s in slots], b2)
         torch._foreach_addcmul_(v, torch._foreach_mul(grads, 1.0 - b2),
                                 grads)
-        # bias correction 1 - beta ** step
-        bc1, bc2 = 1.0 - b1 ** step, 1.0 - b2 ** step
+        # bias correction 1 - beta ** step (a device step: in f64, then
+        # f32, the type a Python scalar takes in f32 arithmetic)
+        if isinstance(step, torch.Tensor):
+            st = step.double()
+            bc1, bc2 = 1.0 - b1 ** st, 1.0 - b2 ** st
+            m_scale, bc2 = (lr / bc1).float(), bc2.float()
+        else:
+            bc1, bc2 = 1.0 - b1 ** step, 1.0 - b2 ** step
+            m_scale = lr / bc1
         denom = torch._foreach_sqrt(torch._foreach_div(v, bc2))
         torch._foreach_add_(denom, eps)
-        upd = torch._foreach_div(torch._foreach_mul(m, lr / bc1), denom)
+        upd = torch._foreach_div(torch._foreach_mul(m, m_scale), denom)
         new_p = torch._foreach_sub(params, upd)
         return new_p, [{"m": a, "v": b} for a, b in zip(m, v)]
 

@@ -9,6 +9,10 @@ Every rank runs the same step on the same global batch:
   attention writing out their own collectives over 'mp' and 'sp';
 - every gradient is averaged over 'dp' (:func:`.data_parallel.
   allreduce_gradients`), and so is the returned loss;
+- with a ``scaler``, the overflow check reads the averaged gradients
+  and its flag is reduced (any) over every rank of the job, so all
+  ranks skip or apply a step together and keep one loss scale, as the
+  JAX step's check over global arrays does;
 - at dp > 1 every random draw of the step (dropout masks, the flash
   kernels' dropout seeds) comes from the 'dp' rank's own stream
   (``core.rng.fold_in``), as the JAX package folds ``axis_index('dp')``
@@ -29,6 +33,8 @@ gradients over 'mp' (:mod:`..optimizer.clip`), not each rank's share.
 from __future__ import annotations
 
 from typing import Optional
+
+import torch
 
 from ..core import rng
 from ..distributed.collective import ReduceOp, all_reduce, axis_group
@@ -80,3 +86,9 @@ class SpmdTrainStep(TrainStep):
 
     def _reduce_loss(self, loss):
         return all_reduce(loss.clone(), ReduceOp.AVG, self.dp)
+
+    def _reduce_found_inf(self, found_inf):
+        # each mp/sp rank checks only its own shards: skip the step on
+        # every rank of the job if any rank saw a non-finite gradient
+        flag = found_inf.to(torch.int32)
+        return all_reduce(flag, ReduceOp.MAX) > 0

@@ -23,6 +23,7 @@ package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -58,9 +59,10 @@ def device_ms(fn, iters, match, attempts=3):
     """Mean device time (ms) of one launch of the kernels whose profiler
     name holds ``match``, over ``iters`` calls of ``fn(i)``: the kernel's
     own time, where back-to-back launches through a Python wrapper would
-    leave the card idle between short kernels.  A trace that caught no
-    launch at all (the tracer at times misses a whole session) is taken
-    again, up to ``attempts`` times; any other count raises."""
+    leave the card idle between short kernels.  A trace that caught fewer
+    launches than were made (the tracer at times misses a whole session,
+    or one launch of it) is taken again, up to ``attempts`` times; more
+    launches than were made, or too few in every attempt, raise."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn(0)
@@ -75,7 +77,11 @@ def device_ms(fn, iters, match, attempts=3):
             if e.device_type == DeviceType.CUDA and match in e.key:
                 total += e.self_device_time_total
                 count += e.count
-        if count:
+        # the trace's event trees are cyclic garbage: reclaim them here,
+        # not in a Python GC pause inside a later timing
+        del prof
+        gc.collect()
+        if count >= iters:
             break
     if count != iters:
         raise AssertionError(f"{count} launches of {match}, want {iters}")

@@ -10,6 +10,10 @@ vocab]`` logits never exist whole).  Parameter names are paddle_tpu's.
 training program: the same layers in the same order, so parameter order
 matches paddle_tpu's.
 
+:func:`build_gpt` is ``bench.build_gpt``, the single-device causal
+decoder ``bench_gpt`` trains (per-block recompute, tied embeddings),
+with :data:`GPT_PRESETS` and :func:`gpt_pretrain_loss`.
+
 :func:`build_gpt_hybrid` is ``bench.build_gpt``'s causal decoder made
 tensor- and sequence-parallel (q, k, v and fc1 column-parallel, proj and
 fc2 row-parallel, ring attention over 'sp'); :func:`gpt_loss` is
@@ -24,10 +28,12 @@ from torch import nn
 from .. import nn as pnn
 from ..core.placement import device as _resolve_device
 from ..nn import functional as F
+from ..nn.layer_base import ParamAttr
 
 __all__ = ["BertMLM", "build_model", "mlm_loss", "bench_flops_per_step",
            "palm_flops_per_step", "build_bert_static", "GPTHybrid",
-           "build_gpt_hybrid", "gpt_loss", "gpt_flops_per_step"]
+           "build_gpt_hybrid", "gpt_loss", "gpt_flops_per_step", "GPT",
+           "GPT_PRESETS", "build_gpt", "gpt_pretrain_loss"]
 
 
 class BertMLM(nn.Module):
@@ -137,6 +143,107 @@ def build_bert_static(vocab, hidden, layers, heads, ffn, seq, batch,
     return main, loss, feeds
 
 
+class _Block(nn.Module):
+    """``bench.build_gpt``'s pre-norm block: causal attention (the flash
+    kernels, with their in-kernel dropout) and a tanh-GELU FFN."""
+
+    def __init__(self, hidden, heads, ffn, dropout, dev):
+        super().__init__()
+        self.hidden, self.heads, self.dropout = hidden, heads, dropout
+        self.ln1 = pnn.LayerNorm(hidden, device=dev)
+        self.q = pnn.Linear(hidden, hidden, device=dev)
+        self.k = pnn.Linear(hidden, hidden, device=dev)
+        self.v = pnn.Linear(hidden, hidden, device=dev)
+        self.proj = pnn.Linear(hidden, hidden, device=dev)
+        self.ln2 = pnn.LayerNorm(hidden, device=dev)
+        self.fc1 = pnn.Linear(hidden, ffn, device=dev)
+        self.fc2 = pnn.Linear(ffn, hidden, device=dev)
+        self.drop = pnn.Dropout(dropout)
+
+    def forward(self, x):
+        B, S = x.shape[0], x.shape[1]
+        hd = self.hidden // self.heads
+        h = self.ln1(x)
+        q = self.q(h).reshape(B, S, self.heads, hd)
+        k = self.k(h).reshape(B, S, self.heads, hd)
+        v = self.v(h).reshape(B, S, self.heads, hd)
+        a = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                           dropout_p=self.dropout,
+                                           training=self.training)
+        x = x + self.drop(self.proj(a.reshape(B, S, self.hidden)))
+        h = self.ln2(x)
+        return x + self.drop(self.fc2(F.gelu(self.fc1(h), approximate=True)))
+
+
+class GPT(nn.Module):
+    """``bench.build_gpt``'s model: token and position embeddings drawn
+    N(0, 0.02) (GPT-2's init: with the tied head it keeps the first
+    logits O(1)), embedding dropout, pre-norm blocks each run as a
+    recomputed segment (``parallel.recompute``: one block's internals
+    live at a time in the backward; ``recompute=False`` keeps them all,
+    as a baseline for memory and for the gradients), and a final
+    LayerNorm.  The vocab projection is the loss's
+    (:func:`gpt_pretrain_loss`), tied to ``tok.weight``."""
+
+    def __init__(self, vocab, hidden, layers, heads, ffn, seq, dropout,
+                 device=None, recompute=True):
+        super().__init__()
+        self.recompute = recompute
+        from .. import ParamAttr
+        dev = _resolve_device(device)
+        self.hidden = hidden
+        emb_attr = ParamAttr(initializer=pnn.initializer.Normal(0.0, 0.02))
+        self.tok = pnn.Embedding(vocab, hidden, weight_attr=emb_attr,
+                                 device=dev)
+        self.pos = pnn.Embedding(seq, hidden, weight_attr=emb_attr,
+                                 device=dev)
+        self.drop = pnn.Dropout(dropout)
+        self.blocks = pnn.LayerList([_Block(hidden, heads, ffn, dropout, dev)
+                                     for _ in range(layers)])
+        self.ln_f = pnn.LayerNorm(hidden, device=dev)
+
+    def forward(self, ids):
+        from ..parallel import recompute
+        pos_ids = torch.arange(ids.shape[1], device=ids.device)[None, :]
+        x = self.drop(self.tok(ids) + self.pos(pos_ids))
+        for blk in self.blocks:
+            x = recompute(blk, x) if self.recompute else blk(x)
+        return self.ln_f(x)
+
+
+# bench.py:316-321: the single-device presets of bench_gpt
+GPT_PRESETS = {
+    "760m": dict(vocab=50257, hidden=1536, layers=24, heads=16, ffn=6144,
+                 seq=1024, dropout=0.1),
+    "1b": dict(vocab=50257, hidden=1792, layers=24, heads=14, ffn=7168,
+               seq=1024, dropout=0.1),
+}
+
+
+def build_gpt(vocab, hidden, layers, heads, ffn, seq, dropout,
+              device=None, recompute=True) -> GPT:
+    """``bench.build_gpt`` with the same arguments, plus ``device`` (the
+    current CUDA device by default) and ``recompute``.  Parameter names
+    are paddle_tpu's, so the JAX model's state dict loads as it is."""
+    return GPT(vocab, hidden, layers, heads, ffn, seq, dropout,
+               device=device, recompute=recompute)
+
+
+def gpt_pretrain_loss(model: GPT, vocab: int):
+    """``bench_gpt``'s ``loss_fn(out, labels)`` (bench.py:357-363): the
+    tied head ``out @ tok.weight^T`` with a zero bias in the weight's
+    type, through the fused, chunked ``linear_cross_entropy`` (the
+    ``[tokens, vocab]`` logits never exist whole)."""
+    from .. import transpose, zeros
+
+    def loss_fn(out, labels):
+        w = transpose(model.tok.weight, [1, 0])
+        bias = zeros([vocab], dtype=w.dtype, device=w.device)
+        return F.linear_cross_entropy(out.reshape(-1, model.hidden), w, bias,
+                                      labels.reshape(-1))
+    return loss_fn
+
+
 class _GPTBlock(nn.Module):
     """``bench.build_gpt``'s pre-norm block with the linears
     tensor-parallel over 'mp' and ring attention over 'sp' (no attention
@@ -177,11 +284,11 @@ class GPTHybrid(nn.Module):
         dev = _resolve_device(device)
         self.hidden = hidden
         # GPT-2 init, as bench.build_gpt: N(0, 0.02) embeddings
-        self.tok = pnn.Embedding(vocab, hidden, device=dev)
-        self.pos = pnn.Embedding(seq, hidden, device=dev)
-        with torch.no_grad():
-            self.tok.weight.mul_(0.02)
-            self.pos.weight.mul_(0.02)
+        emb_attr = ParamAttr(initializer=pnn.initializer.Normal(0.0, 0.02))
+        self.tok = pnn.Embedding(vocab, hidden, weight_attr=emb_attr,
+                                 device=dev)
+        self.pos = pnn.Embedding(seq, hidden, weight_attr=emb_attr,
+                                 device=dev)
         self.drop = pnn.Dropout(dropout)
         self.blocks = pnn.LayerList([_GPTBlock(hidden, heads, ffn, dropout,
                                                dev) for _ in range(layers)])
@@ -199,7 +306,7 @@ def build_gpt_hybrid(vocab, hidden, layers, heads, ffn, seq, dropout,
                      device=None) -> GPTHybrid:
     """``bench.build_gpt`` (bench.py:239-300) over the installed mesh:
     parameter names are paddle_tpu's, the TP layers hold this rank's
-    shards.  No per-block recompute (not ported yet)."""
+    shards.  No per-block recompute (:func:`build_gpt` has it)."""
     return GPTHybrid(vocab, hidden, layers, heads, ffn, seq, dropout,
                      device=device)
 

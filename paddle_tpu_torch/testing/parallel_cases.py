@@ -235,6 +235,75 @@ def case_data_parallel(data, device):
             "losses": np.asarray([float(step(x, y)) for _ in range(3)])}
 
 
+def case_scaler_overflow(data, device):
+    """SpmdTrainStep with a GradScaler when one rank alone overflows.
+    {"dp": 4}: a small MLP whose first step has an inf in rank 0's
+    quarter of the labels, then a finite step, against one TrainStep on
+    the whole batch in this process.  {"dp": 2, "mp": 2}: a column- and
+    row-parallel MLP whose first step makes rank 0's column shard's
+    gradient inf (a hook), then a finite step.  Every rank must skip the
+    first step and apply the second, with one loss scale."""
+    import copy
+    from .. import amp, jit, optimizer
+    from ..core import rng
+    from ..distributed.mesh import init_mesh, set_mesh
+    from ..parallel import (ColumnParallelLinear, RowParallelLinear,
+                            SpmdTrainStep)
+    x, y = _t(data["dx"], device), _t(data["dy"], device)
+    bad = y.clone()
+    bad[0, 0] = float("inf")               # in rank 0's quarter only
+    loss_fn = torch.nn.functional.mse_loss
+    scaler = lambda: amp.GradScaler(init_loss_scaling=1024.0,  # noqa: E731
+                                    incr_every_n_steps=1)
+    flat = lambda m: torch.cat([p.detach().reshape(-1)  # noqa: E731
+                                for p in m.parameters()]).cpu().numpy()
+    torch.manual_seed(0)
+    net = torch.nn.Sequential(torch.nn.Linear(8, 16), torch.nn.Tanh(),
+                              torch.nn.Linear(16, 2)).to(device)
+    out = {"dp.init": flat(net)}
+    set_mesh(None)                         # the local oracle: one rank
+    whole = copy.deepcopy(net)
+    ostep = jit.TrainStep(whole, loss_fn, optimizer.Adam(learning_rate=1e-2),
+                          scaler=scaler())
+    ostep(x, bad)
+    ostep(x, y)
+    out["dp.oracle"], out["dp.oracle_scale"] = flat(whole), np.asarray(
+        ostep.loss_scale)
+    mesh = init_mesh({"dp": 4})
+    step = SpmdTrainStep(net, loss_fn, optimizer.Adam(learning_rate=1e-2),
+                         mesh=mesh, scaler=scaler())
+    for i, labels in enumerate((bad, y)):
+        step(x, labels)
+        out[f"dp.params{i}"] = flat(net)
+        out[f"dp.scale{i}"] = np.asarray(step.loss_scale)
+
+    init_mesh({"dp": 2, "mp": 2})
+    rng.seed(5)
+
+    class TP(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.col = ColumnParallelLinear(8, 16, device=device)
+            self.row = RowParallelLinear(16, 2, device=device)
+
+        def forward(self, t):
+            return self.row(torch.tanh(self.col(t)))
+
+    tp = TP()
+    out["mp.init"] = flat(tp)
+    blow = [torch.distributed.get_rank() == 0]
+    tp.col.weight.register_hook(
+        lambda g: g * float("inf") if blow[0] else g)
+    step = SpmdTrainStep(tp, loss_fn, optimizer.Adam(learning_rate=1e-2),
+                         scaler=scaler())
+    for i in range(2):
+        step(x, y)
+        blow[0] = False
+        out[f"mp.params{i}"] = flat(tp)
+        out[f"mp.scale{i}"] = np.asarray(step.loss_scale)
+    return out
+
+
 # ----------------------------------------------------------- hybrid GPT
 def gpt_run(cfg, state, batch, steps, mesh_shape, device, dtype=None,
             lr=2e-4, seed=2024):
@@ -351,7 +420,8 @@ CASES = {"collectives": case_collectives, "two_card": case_two_card,
          "collective_matmul": case_collective_matmul,
          "ring_attention": case_ring_attention,
          "tp_layers": case_tp_layers, "gpt": case_gpt,
-         "dp_dropout": case_dp_dropout}
+         "dp_dropout": case_dp_dropout,
+         "scaler_overflow": case_scaler_overflow}
 
 
 def exit_on_rank(rank: int, code: int, wait_s: float):

@@ -82,7 +82,8 @@ CMM_TOL = dict(rtol=1e-5, atol=1e-4)
 RING = dict(B=2, L=32, H=2)                # ring inputs [B, L, H, D]
 RING_TOL = dict(rtol=1e-5, atol=5e-6)
 CASES = ["collectives", "data_parallel", "tp_layers", "gpt",
-         "collective_matmul", "ring_attention", "dp_dropout"]
+         "collective_matmul", "ring_attention", "dp_dropout",
+         "scaler_overflow"]
 
 
 def _bench():
@@ -447,6 +448,33 @@ def test_dropout_masks_differ_across_dp_and_agree_across_mp(ranks):
     for dp in range(2):
         np.testing.assert_array_equal(losses[2 * dp], losses[2 * dp + 1])
     assert (losses[0] != losses[2]).all()
+
+
+def test_spmd_scaler_skips_an_overflow_on_every_rank(ranks):
+    """One rank's overflow (rank 0's labels at dp 4, rank 0's column
+    shard at dp 2 x mp 2) skips the step on all four ranks: every rank
+    keeps its parameters and halves the scale, then applies the next
+    step with the same scale; at dp 4 the result is the single-process
+    TrainStep's on the whole batch."""
+    _, _, _, res = ranks
+    sc = [_case(res, "scaler_overflow")[r] for r in range(4)]
+    for rr in sc:
+        for mesh in ("dp", "mp"):
+            np.testing.assert_array_equal(rr[f"{mesh}.params0"],
+                                          rr[f"{mesh}.init"], err_msg=mesh)
+            assert float(rr[f"{mesh}.scale0"]) == 512.0, mesh
+            assert float(rr[f"{mesh}.scale1"]) == 1024.0, mesh
+            assert not np.array_equal(rr[f"{mesh}.params1"],
+                                      rr[f"{mesh}.params0"]), mesh
+        np.testing.assert_allclose(rr["dp.params1"], rr["dp.oracle"],
+                                   rtol=1e-6, atol=1e-7)
+        assert float(rr["dp.oracle_scale"]) == 1024.0
+        np.testing.assert_array_equal(rr["dp.params1"], sc[0]["dp.params1"])
+    # the row layer's bias is replicated over 'mp': equal on all ranks
+    nb = 2
+    for rr in sc:
+        np.testing.assert_array_equal(rr["mp.params1"][-nb:],
+                                      sc[0]["mp.params1"][-nb:])
 
 
 # -------------------------------------------------- single process

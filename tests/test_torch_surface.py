@@ -20,7 +20,7 @@ SPEC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 # module -> the spec's module-level names the port lacks
 NOT_YET_PORTED = {
     "paddle_tpu": """
-        CPUPlace CUDAPinnedPlace CUDAPlace DataParallel Model ParamAttr
+        CPUPlace CUDAPinnedPlace CUDAPlace DataParallel Model
         Parameter TPUPlace Tensor XPUPlace abs acos acosh add add_n addmm all
         allclose amax amin angle annotations any apply argmax argmin argsort
         as_array as_strided asin asinh assign atan atan2 atanh bernoulli
@@ -29,10 +29,10 @@ NOT_YET_PORTED = {
         case cast ceil cholesky chunk clip clone complex complex128 complex64
         concat cond conj convert_dtype cos cosh count_nonzero create_parameter
         crop_tensor cross cummax cumprod cumsum deg2rad device_count diag
-        diagflat diff digamma disable_dygraph dist divide dot einsum empty
-        empty_like enable_dygraph enable_grad equal equal_all erf erfinv exp
+        diagflat diff digamma disable_dygraph dist divide dot einsum
+        enable_dygraph enable_grad equal equal_all erf erfinv exp
         expand expand_as expm1 exponential_ eye flatten flip float16 float32
-        float64 floor floor_divide floor_mod flops fmax fmin frac full full_like
+        float64 floor floor_divide floor_mod flops fmax fmin frac
         gather gather_nd get_cuda_rng_state get_cudnn_version get_default_dtype
         get_flags get_rng_state getitem grad greater_equal greater_than
         histogram hypot imag in1d in_dygraph_mode increment index_sample
@@ -44,8 +44,8 @@ NOT_YET_PORTED = {
         logsumexp masked_fill masked_select matmul max maximum mean median
         meshgrid min minimum mm mod mode monkey_patch_tensor moveaxis
         multinomial multiplex multiply mv nan_to_num nanmean nansum neg next_key
-        no_grad nonzero norm normal normal_ not_equal numel one_hot ones
-        ones_like outer pad paged_attention paged_attention_supported poisson
+        no_grad nonzero norm normal normal_ not_equal numel one_hot
+        outer pad paged_attention paged_attention_supported poisson
         pow prod put_along_axis rad2deg rand randint randint_like randn randperm
         rank real reciprocal register_paged_attention_kernel remainder
         repeat_interleave reshape reshape_ roll rot90 round rsqrt save scale
@@ -54,13 +54,12 @@ NOT_YET_PORTED = {
         set_rng_state setitem shape shard_index shuffle sigmoid sign sin sinh
         slice sort split sqrt square squeeze squeeze_ stack standard_normal
         stanh std strided_slice subtract sum summary swapaxes switch_case t
-        take_along_axis tan tanh tanh_ tile to_tensor topk trace transpose tril
+        take_along_axis tan tanh tanh_ tile to_tensor topk trace tril
         triu trunc uint8 unbind uniform uniform_ unique unsqueeze unsqueeze_
-        unstack var where while_loop zeros zeros_like
+        unstack var where while_loop
     """,
     "paddle_tpu.amp": """
-        BLACK_LIST GradScaler Tensor WHITE_LIST amp_active amp_cast_inputs
-        amp_guard auto_cast convert_dtype
+        Tensor
     """,
     "paddle_tpu.distributed": """
         AnomalyEscalation AnomalyPolicy Fleet ProcessSupervisor
@@ -88,7 +87,7 @@ NOT_YET_PORTED = {
         InstanceNorm1D InstanceNorm2D InstanceNorm3D KLDivLoss L1Loss LSTM
         LSTMCell Layer LayerDict LeakyReLU LocalResponseNorm LogSigmoid
         LogSoftmax MSELoss MarginRankingLoss MaxPool1D MaxPool2D MaxPool3D
-        Maxout Mish NLLLoss PReLU Pad1D Pad2D Pad3D PairwiseDistance ParamAttr
+        Maxout Mish NLLLoss PReLU Pad1D Pad2D Pad3D PairwiseDistance
         ParameterList PixelShuffle RNN RNNCellBase ReLU ReLU6 SELU Sequential
         Sigmoid Silu SimpleRNN SimpleRNNCell SmoothL1Loss Softmax Softplus
         Softshrink Softsign SpectralNorm Swish SyncBatchNorm Tanh Tanhshrink
@@ -121,12 +120,10 @@ NOT_YET_PORTED = {
         Lookahead LookaheadOptimizer ModelAverage Momentum ProximalAdagrad
         ProximalGD RMSProp SGD clip_grad_norm_
     """,
-    "paddle_tpu.optimizer.lr": """
-        CosineAnnealingDecay CyclicLR ExponentialDecay InverseTimeDecay
-        LRScheduler LambdaDecay LinearWarmup MultiStepDecay MultiplicativeDecay
-        NaturalExpDecay NoamDecay OneCycleLR PiecewiseDecay PolynomialDecay
-        ReduceOnPlateau StepDecay annotations
+    "paddle_tpu.nn.initializer": """
+        next_key
     """,
+    "paddle_tpu.optimizer.lr": "",
     "paddle_tpu.serving": """
         ElasticityController InferenceEngine ModelEntry ModelRegistry
         QuotaExceeded ReplicaSet UnknownModel WeightWatcher publish_weights

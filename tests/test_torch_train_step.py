@@ -123,17 +123,33 @@ def test_decorate_o2_casts_the_model_and_turns_on_master_weights():
     m2, opt2 = amp.decorate(m, opt, level="O2", dtype="bfloat16")
     assert m2 is m and opt2 is opt and opt._multi_precision
     assert all(p.dtype == torch.bfloat16 for p in m.parameters())
-    with pytest.raises(NotImplementedError):
-        amp.decorate(m, opt, level="O1")
+    # O1 casts nothing and only records the type; other levels raise
+    m1 = build_model(50, 16, 1, 2, 32, 8, 0.0, device="cpu")
+    assert amp.decorate(m1, level="O1") is m1
+    assert all(p.dtype == torch.float32 for p in m1.parameters())
+    assert m1._amp_dtype == torch.bfloat16
+    with pytest.raises(ValueError):
+        amp.decorate(m1, opt, level="O3")
 
 
 def test_train_step_raises_on_what_is_not_ported():
-    m = build_model(50, 16, 1, 2, 32, 8, 0.0, device="cpu")
-    opt = optimizer.AdamW(parameters=m.parameters())
-    for kw in ({"scaler": object()}, {"accumulate_steps": 2},
-               {"recompute": True}, {"amp_level": "O1"}):
-        with pytest.raises(NotImplementedError):
-            jit.TrainStep(m, mlm_loss(m), opt, **kw)
+    """``scaler``, ``accumulate_steps``, ``recompute`` and ``amp_level``
+    are ported: each trains the BERT a step to a finite loss.  What the
+    JAX step refuses, this one refuses too: an ``accumulate_steps``
+    below 1 or an ``amp_level`` other than O1 / O2."""
+    x = torch.randint(0, 50, (2, 8),
+                      generator=torch.Generator().manual_seed(0))
+    for kw in ({"scaler": amp.GradScaler(init_loss_scaling=8.0)},
+               {"accumulate_steps": 2}, {"recompute": True},
+               {"amp_level": "O1"}):
+        m = build_model(50, 16, 1, 2, 32, 8, 0.0, device="cpu")
+        step = jit.TrainStep(m, mlm_loss(m), optimizer.AdamW(
+            parameters=m.parameters()), **kw)
+        assert math.isfinite(float(step(x, x)))
+    for kw in ({"accumulate_steps": 0}, {"amp_level": "O3"}):
+        with pytest.raises(ValueError):
+            jit.TrainStep(m, mlm_loss(m), optimizer.AdamW(
+                parameters=m.parameters()), **kw)
 
 
 def test_train_step_draws_new_dropout_every_step():
