@@ -96,7 +96,26 @@ kernel from the sources in this checkout.  Phases, each fatal:
     forwards and 24 of each backward a step; then 2 + 3 steps without
     recompute asserting 24 of each and a higher peak memory;
 22. anatomy of one 760m step, its flash launches by kernel name, with
-    the host-clocked steps beside the timed ones.
+    the host-clocked steps beside the timed ones;
+23. the eager core: ``vision.models.LeNet`` from seeded numpy weights
+    (through ``state_dict_from_paddle_tpu``) on the card and on the CPU,
+    3 eager steps (``loss.backward(); opt.step(); opt.clear_grad()``)
+    with each of Adam(1e-3), SGD(0.01) and Momentum(0.01, 0.9, L2Decay
+    1e-4) at batch 64, losses within rtol 1e-4 (cuDNN sums in another
+    order than the CPU), every parameter and gradient a paddle Tensor on
+    the card;
+24. ``bench_lenet_dygraph``'s training half uncut (``paddle.seed(0)``,
+    ``LeNet()``, Adam 1e-3, batch 64 x 1 x 28 x 28, 3 warm-up and 30
+    timed steps each ending in ``float(loss)``): step ms, steps/s, the
+    final loss, the host's enqueue ms a step, the paddle ops and torch
+    ops dispatched a step, and the anatomy (device-busy share) from
+    ``torch.profiler``; it launches none of the hand-written kernels;
+25. the verify recipe's eager linear regression on the card
+    (``to_tensor``, ``matmul``, ``mean``, ``backward``, SGD) reaching the
+    known w and b within 1e-3;
+26. ``paddle.save``/``paddle.load`` on the card: a Layer's and an
+    optimizer's ``state_dict`` saved, loaded back onto the card (load
+    follows ``set_device``) and equal.
 
 The last lines are the kernels JSON object, the card's name and power
 limit as ``nvidia-smi`` reports them, and ``{"ok": true, ...}``.  Any
@@ -1316,11 +1335,14 @@ def _adam_phase(torch, gen):
 
 def _epi_bf16_times(torch, gen, M):
     """The bf16 instances of K2f and K2b (on no main path) timed over
-    the three BERT-base chains, beside the bound and cuBLAS's bf16
-    products: {kernel: row}."""
+    the three BERT-base chains, beside the bound, their plain versions
+    (the whole backward for both backward launches, as at f32) and
+    cuBLAS's bf16 products: {kernel: row}."""
     from paddle_tpu_torch.ops.cuda import fused_epilogue as cuda_epi
-    rows = {name: {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-                   "chains": {}} for name in EPI_KERNELS}
+    from paddle_tpu_torch.ops.fused_epilogue import (
+        epilogue_backward_reference, epilogue_forward_reference)
+    rows = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                   "library_ms": 0.0, "chains": {}} for name in EPI_KERNELS}
     calls = {"fused_epilogue_fwd": "torch.matmul(x, w): the product only",
              "fused_epilogue_bwd": "torch.matmul(x, w): the product only",
              "fused_epilogue_bwd_grads": EPI_LIBRARY_CALLS[
@@ -1338,6 +1360,10 @@ def _epi_bf16_times(torch, gen, M):
               "fused_epilogue_bwd_grads": cuda_ms(
                   lambda i: cuda_epi.fused_epilogue_bwd_grads(x, w, ops, g,
                                                               partial), 10)}
+        plain_fwd = cuda_ms(lambda i: epilogue_forward_reference(
+            x, w, ops, full), 5)
+        plain_bwd = cuda_ms(lambda i: epilogue_backward_reference(
+            x, w, ops, full, dy), 5)
         product = cuda_ms(lambda i: torch.matmul(x, w), 10)
         lib = {"fused_epilogue_fwd": product, "fused_epilogue_bwd": product,
                "fused_epilogue_bwd_grads": cuda_ms(
@@ -1346,10 +1372,12 @@ def _epi_bf16_times(torch, gen, M):
         bounds = _epi_bounds(M, K, N, stages, 2, "bfloat16")
         for name in EPI_KERNELS:
             b_ms, b_by, _, _ = bounds[name]
-            rows[name]["chains"][label] = {"ms": ms[name], "bound_ms": b_ms,
-                                           "bound_by": b_by,
-                                           "library_ms": lib[name]}
-            for key in ("ms", "bound_ms", "library_ms"):
+            rows[name]["chains"][label] = {
+                "ms": ms[name], "bound_ms": b_ms, "bound_by": b_by,
+                "plain_ms": (plain_fwd if name == "fused_epilogue_fwd"
+                             else plain_bwd),
+                "library_ms": lib[name]}
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
                 rows[name][key] += rows[name]["chains"][label][key]
         del x, w, dy, ops, g, partial
         torch.cuda.empty_cache()
@@ -2345,6 +2373,275 @@ def phase_gpt760_anatomy(step, batch, timed_ms, steps=2):
                              f"want {want}")
 
 
+# --------------------------------------------------------------- phase 23
+LENET_BATCH = 64
+LENET_RTOL = 1e-4
+
+
+def _lenet_batch(np):
+    rs = np.random.RandomState(0)
+    return (rs.randn(LENET_BATCH, 1, 28, 28).astype("float32"),
+            rs.randint(0, 10, (LENET_BATCH,)).astype("int64"))
+
+
+def _lenet_on(paddle, where, weights):
+    """A LeNet made under ``set_device(where)`` holding ``weights``."""
+    from paddle_tpu_torch.core import placement
+    from paddle_tpu_torch.framework_io import state_dict_from_paddle_tpu
+    from paddle_tpu_torch.vision.models import LeNet
+    prev = placement.default()
+    paddle.set_device(where)
+    try:
+        model = LeNet()
+        model.set_state_dict(state_dict_from_paddle_tpu(
+            weights, device=where.replace("gpu", "cuda"), model=model))
+    finally:
+        placement.set_default(prev)
+    return model
+
+
+def _lenet_steps(paddle, model, opt, x, y, steps):
+    import paddle_tpu_torch.nn.functional as F
+    losses = []
+    for _ in range(steps):
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        if not losses:
+            grads = {n: p.grad for n, p in model.named_parameters()}
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+    return losses, grads
+
+
+def phase_lenet_card_vs_cpu(steps=3):
+    """LeNet on the card against the CPU from one set of seeded numpy
+    weights, 3 eager steps of each optimizer."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision.models import LeNet
+    paddle.set_device("cpu")
+    shapes = {k: tuple(v.shape) for k, v in LeNet().state_dict().items()}
+    paddle.core.placement.set_default(None)
+    rs = np.random.RandomState(23)
+    # a conv kernel is [out, in, k, k], a linear weight [in, out]: scale
+    # by the fan-in; biases at 0.1
+    fan_in = {4: lambda s: s[1] * s[2] * s[3], 2: lambda s: s[0],
+              1: lambda s: 100}
+    weights = {k: (rs.randn(*s) / math.sqrt(fan_in[len(s)](s))).astype(
+        "float32") for k, s in shapes.items()}
+    xv, yv = _lenet_batch(np)
+    makers = {
+        "adam": lambda ps: paddle.optimizer.Adam(1e-3, parameters=ps),
+        "sgd": lambda ps: paddle.optimizer.SGD(0.01, parameters=ps),
+        "momentum_l2": lambda ps: paddle.optimizer.Momentum(
+            0.01, 0.9, parameters=ps,
+            weight_decay=paddle.regularizer.L2Decay(1e-4))}
+    out = {}
+    for name, make in makers.items():
+        runs = {}
+        for where in ("cpu", "gpu"):
+            model = _lenet_on(paddle, where, weights)
+            dev = "cpu" if where == "cpu" else "cuda"
+            x = paddle.to_tensor(xv, place=dev)
+            y = paddle.to_tensor(yv, place=dev)
+            losses, grads = _lenet_steps(paddle, model, make(
+                model.parameters()), x, y, steps)
+            runs[where] = (losses, model, grads)
+        (lc, mc, _), (lg, mg, gg) = runs["cpu"], runs["gpu"]
+        rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
+        pdiff = max(float((p.detach().cpu() - q.detach()).abs().max())
+                    for p, q in zip(mg.parameters(), mc.parameters()))
+        out[name] = {"losses_cpu": lc, "losses_card": lg,
+                     "loss_max_rel_err": rel, "param_max_abs_diff": pdiff}
+        if not rel <= LENET_RTOL:
+            raise AssertionError(f"{name}: card losses {lg} vs CPU {lc}, "
+                                 f"rel {rel} > {LENET_RTOL}")
+        for n, p in mg.named_parameters():
+            if not (isinstance(p, paddle.Parameter)
+                    and p.device.type == "cuda"):
+                raise AssertionError(f"{n}: {type(p)} on {p.device}")
+            g = gg[n]
+            if not (isinstance(g, paddle.Tensor) and g.device.type == "cuda"):
+                raise AssertionError(f"{n}.grad: {type(g)} on "
+                                     f"{getattr(g, 'device', None)}")
+    torch.cuda.synchronize()
+    log("LENET_PARITY " + json.dumps({"batch": LENET_BATCH, "steps": steps,
+                                      "rtol": LENET_RTOL,
+                                      "optimizers": out}))
+
+
+# --------------------------------------------------------------- phase 24
+def _count_paddle_ops(fn):
+    """(paddle ops, torch ops) one call of ``fn`` dispatches: calls of
+    ``core.dispatch.apply`` and of the paddle Tensor's operators, counted
+    with ``sys.setprofile``; aten ops from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    import paddle_tpu_torch.core.dispatch as D
+    from paddle_tpu_torch.core.tensor import Tensor
+    codes = {D.apply.__code__}
+    for k, v in vars(Tensor).items():
+        if k.startswith("__") and callable(v) and hasattr(v, "__code__") \
+                and v.__code__.co_filename.endswith("ops/__init__.py"):
+            codes.add(v.__code__)
+    seen = [0]
+
+    def prof(frame, event, arg):
+        if event == "call" and frame.f_code in codes:
+            seen[0] += 1
+    sys.setprofile(prof)
+    try:
+        fn()
+    finally:
+        sys.setprofile(None)
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        fn()
+    aten = sum(e.count for e in p.key_averages()
+               if e.key.startswith("aten::"))
+    return seen[0], aten
+
+
+def phase_lenet_bench(warmup=3, steps=30):
+    """bench_lenet_dygraph's training half at its own size on the card."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.vision.models import LeNet
+    paddle.seed(0)
+    model = LeNet()
+    opt = optimizer.Adam(learning_rate=1e-3, parameters=model.parameters())
+    xv, yv = _lenet_batch(np)
+    x, y = paddle.to_tensor(xv), paddle.to_tensor(yv)
+    enqueue_ms = []
+
+    def one_step():
+        t = time.perf_counter()
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        enqueue_ms.append((time.perf_counter() - t) * 1e3)
+        return float(loss)
+
+    support.reset_launch_counts()
+    for _ in range(warmup):
+        one_step()
+    step_ms, losses = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        losses.append(one_step())
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    launched = dict(support.launch_counts)
+    timed_enqueue = enqueue_ms[warmup:]
+    paddle_ops, aten_ops = _count_paddle_ops(one_step)
+    mean = sum(step_ms) / len(step_ms)
+    out = {"config": {"batch": LENET_BATCH, "input": [1, 28, 28],
+                      "optimizer": "Adam(1e-3)", "warmup": warmup,
+                      "timed_steps": steps},
+           "step_ms_p50": float(np.median(step_ms)), "step_ms_mean": mean,
+           "steps_per_s": 1e3 / mean, "final_loss": losses[-1],
+           "losses_first_last": [losses[0], losses[-1]],
+           "host_enqueue_ms_p50": float(np.median(timed_enqueue)),
+           "host_enqueue_share": float(np.median(timed_enqueue))
+           / float(np.median(step_ms)),
+           "paddle_ops_per_step": paddle_ops,
+           "torch_ops_per_step": aten_ops,
+           "hand_kernel_launches": launched}
+    log("LENET_BENCH " + json.dumps(out))
+    if not all(math.isfinite(v) for v in losses) or not (
+            losses[-1] < losses[0]):
+        raise AssertionError(f"losses {losses}")
+    if any(launched.values()):
+        raise AssertionError(f"the eager LeNet step launched hand kernels "
+                             f"{launched}; this path has none")
+    _step_anatomy("LENET_ANATOMY", one_step, 5, lambda n: (
+        "conv" if "conv" in n or "implicit" in n or "winograd" in n
+        or "fft" in n else
+        "pool" if "pool" in n else
+        "gemm" if _is_gemm(n) else
+        "optimizer" if "foreach" in n or "multi_tensor" in n else
+        "softmax/ce" if "softmax" in n or "nll" in n or "log_" in n else
+        "other"), timed_ms=step_ms)
+    return out
+
+
+# --------------------------------------------------------------- phase 25
+def phase_linear_regression(steps=300):
+    """The verify recipe's eager flow on the card."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    rs = np.random.RandomState(1)
+    xv = rs.rand(256, 3).astype("float32")
+    true_w = np.array([[2.0], [-3.4], [1.7]], "float32")
+    x = paddle.to_tensor(xv)
+    y = paddle.to_tensor(xv @ true_w + 4.2)
+    w = paddle.to_tensor(np.zeros((3, 1), "float32"), stop_gradient=False)
+    b = paddle.to_tensor(np.zeros((1,), "float32"), stop_gradient=False)
+    opt = paddle.optimizer.SGD(learning_rate=0.5, parameters=[w, b])
+    for _ in range(steps):
+        loss = paddle.mean((paddle.matmul(x, w) + b - y) ** 2)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+    got_w, got_b = w.numpy()[:, 0], float(b.numpy()[0])
+    err = max(float(np.abs(got_w - true_w[:, 0]).max()), abs(got_b - 4.2))
+    out = {"steps": steps, "w": got_w.tolist(), "b": got_b,
+           "final_loss": float(loss), "max_abs_err": err,
+           "device": str(w.device)}
+    log("LINREG " + json.dumps(out))
+    if not (err <= 1e-3 and w.device.type == "cuda"):
+        raise AssertionError(f"linear regression: {out}")
+
+
+# --------------------------------------------------------------- phase 26
+def phase_save_load():
+    """A Layer's and an optimizer's state saved and loaded on the card."""
+    import tempfile
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.vision.models import LeNet
+    paddle.set_device("gpu")
+    try:
+        model = LeNet()
+        opt = paddle.optimizer.Adam(1e-3, parameters=model.parameters())
+        xv, yv = _lenet_batch(np)
+        F.cross_entropy(model(paddle.to_tensor(xv)),
+                        paddle.to_tensor(yv)).backward()
+        opt.step()
+        with tempfile.TemporaryDirectory() as d:
+            paddle.save(model.state_dict(), os.path.join(d, "m.pdparams"))
+            paddle.save(opt.state_dict(), os.path.join(d, "m.pdopt"))
+            sd = paddle.load(os.path.join(d, "m.pdparams"))
+            osd = paddle.load(os.path.join(d, "m.pdopt"))
+        model2 = LeNet()
+        missing, unexpected = model2.set_state_dict(sd)
+        opt2 = paddle.optimizer.Adam(1e-3, parameters=model2.parameters())
+        opt2.set_state_dict(osd)
+        loaded = list(sd.values()) + [t for s in osd["slots"].values()
+                                      for t in s.values()]
+        on_card = all(t.device.type == "cuda" for t in loaded)
+        same = all(bool((a == b).all()) for a, b in zip(
+            model.state_dict().values(), model2.state_dict().values()))
+        a, b = opt.state_dict(), opt2.state_dict()
+        same_opt = a["step"] == b["step"] and all(
+            bool((a["slots"][i][k] == b["slots"][i][k]).all())
+            for i in a["slots"] for k in a["slots"][i])
+    finally:
+        paddle.core.placement.set_default(None)
+    out = {"tensors": len(loaded), "all_on_card": on_card,
+           "layer_equal": same, "optimizer_equal": same_opt,
+           "missing": missing, "unexpected": unexpected}
+    log("SAVE_LOAD " + json.dumps(out))
+    if not (on_card and same and same_opt and not missing
+            and not unexpected):
+        raise AssertionError(f"save/load: {out}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2399,6 +2696,10 @@ def main():
     timed("gpt760_anatomy", phase_gpt760_anatomy, g7step, g7batch, g7timed)
     del g7step, g7batch
     torch.cuda.empty_cache()
+    timed("lenet_parity", phase_lenet_card_vs_cpu)
+    timed("lenet_bench", phase_lenet_bench)
+    timed("linear_regression", phase_linear_regression)
+    timed("save_load", phase_save_load)
     seconds["total"] = time.perf_counter() - t0
     log("PHASE_SECONDS " + json.dumps(seconds))
     f32_err = max(r["max_abs_err"] for r in kernel_rows
@@ -2466,8 +2767,8 @@ def main():
             "library_ms": r["library_ms"],
             "library_call": r.get("library_call"),
             **({"bf16": {k: r["bf16"][k] for k in (
-                "case", "ms", "bound_ms", "bound_by", "library_ms",
-                "library_call")}} if "bf16" in r else {})})
+                "case", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_call")}} if "bf16" in r else {})})
     kernels.append({
         "name": "chunk_matmul", "route": "cuda",
         "source": "paddle_tpu_torch/ops/cuda/csrc/chunk_matmul.cu",

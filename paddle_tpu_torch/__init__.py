@@ -33,26 +33,62 @@ These slices are in:
   :func:`transpose`; its attention runs the flash kernels' causal entry
   at head dim 96, forward twice a layer under recompute.
 
-Models, pools, engines and static parameters go to the current CUDA
-device unless the caller passes ``device=`` (e.g. ``"cpu"``) or calls
-``set_device``; with no GPU and neither, they raise.
+- the eager core (``bench_lenet_dygraph``'s training half): the paddle
+  :class:`Tensor` and :class:`Parameter` over ``torch.Tensor`` with
+  torch's autograd as the tape (:func:`grad`, :func:`no_grad`,
+  ``backward``), the op library of :mod:`.ops` (creation, math,
+  reduction, manipulation, logic, linalg, random) at the top level and
+  as Tensor methods, the eager :class:`nn.Layer` with the conv, pooling,
+  activation, loss and container layers, :class:`optimizer.SGD` and
+  :class:`optimizer.Momentum`, L1/L2 decay, parameter groups,
+  :func:`save`/:func:`load` in paddle_tpu's file format, and
+  ``vision.models.LeNet``.
+
+Models, pools, engines, static parameters and new tensors go to the
+current CUDA device unless the caller passes ``device=`` / ``place=``
+(e.g. ``"cpu"``) or calls ``set_device``; with no GPU and neither, they
+raise.
 """
 from . import (amp, core, distributed, framework_io, jit, nn,  # noqa: F401
-               ops, optimizer, parallel, serving, static, testing, utils)
+               ops, optimizer, parallel, serving, static, testing, utils,
+               vision)
+from .core.autograd import (enable_grad, grad, is_grad_enabled,  # noqa
+                            no_grad)
+from .core.dtype import (bfloat16, bool_, complex64, complex128,  # noqa
+                         convert_dtype, float16, float32, float64,
+                         get_default_dtype, int8, int16, int32, int64,
+                         set_default_dtype, uint8)
 from .core.placement import device  # noqa: F401
-from .core.rng import seed  # noqa: F401
+from .core.rng import get_rng_state, seed, set_rng_state  # noqa: F401
+from .core.tensor import Parameter, Tensor, to_tensor  # noqa: F401
 from .device import get_device, set_device  # noqa: F401
+from .framework_io import load, save  # noqa: F401
 from .nn.layer_base import ParamAttr  # noqa: F401
-from .ops.creation import (arange, empty, empty_like, full,  # noqa: F401
-                           full_like, ones, ones_like, zeros, zeros_like)
-from .ops.manipulation import transpose  # noqa: F401
+from .ops import linalg, monkey_patch_tensor  # noqa: F401
+from .ops.creation import *  # noqa: F401,F403
+from .ops.linalg import cholesky, dist, histogram, inverse, norm  # noqa
+from .ops.logic import *  # noqa: F401,F403
+from .ops.manipulation import *  # noqa: F401,F403
+from .ops.math import *  # noqa: F401,F403
+from .ops.random import *  # noqa: F401,F403
+from .ops.reduction import *  # noqa: F401,F403
+from .optimizer import regularizer  # noqa: F401
 
-__all__ = ["amp", "core", "distributed", "framework_io", "jit", "nn", "ops",
-           "optimizer", "parallel", "serving", "static", "testing", "utils",
-           "device", "seed", "set_device", "get_device", "ParamAttr",
-           "arange", "zeros", "ones", "full", "empty", "zeros_like",
-           "ones_like", "full_like", "empty_like", "transpose",
-           "enable_static", "disable_static", "in_dynamic_mode"]
+__all__ = (["amp", "core", "distributed", "framework_io", "jit", "nn",
+            "ops", "optimizer", "parallel", "serving", "static", "testing",
+            "utils", "vision", "device", "seed", "get_rng_state",
+            "set_rng_state", "set_device", "get_device", "ParamAttr",
+            "Tensor", "Parameter", "to_tensor", "grad", "no_grad",
+            "enable_grad", "is_grad_enabled", "save", "load", "linalg",
+            "regularizer", "monkey_patch_tensor", "cholesky", "dist",
+            "histogram", "inverse", "norm", "convert_dtype",
+            "get_default_dtype", "set_default_dtype", "bfloat16", "bool_",
+            "complex64", "complex128", "float16", "float32", "float64",
+            "int8", "int16", "int32", "int64", "uint8",
+            "enable_static", "disable_static", "in_dynamic_mode"]
+           + ops.creation.__all__ + ops.logic.__all__
+           + ops.manipulation.__all__ + ops.math.__all__
+           + ops.random.__all__ + ops.reduction.__all__)
 
 _static_mode = False
 

@@ -13,12 +13,19 @@ torch's: the nodes carry paddle_tpu's op names (``linear``, ``add``,
 Under ``amp.auto_cast`` the tensor inputs are cast here, by the op's
 name, before the op runs (the JAX package's AMP hook sits at the same
 point); a recorded node is never cast.
+
+The eager result comes out as a paddle :class:`~.tensor.Tensor` (the
+JAX package wraps at the same point): a plain ``torch.Tensor`` result,
+or each one of a tuple or list, is re-typed in place.  An op that fails
+carries its paddle name (``[operator < name > error]``), as there.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 from ..amp import amp_active, amp_cast_inputs
+from .enforce import with_op_hint
+from .tensor import wrap
 
 __all__ = ["Symbolic", "apply"]
 
@@ -39,4 +46,8 @@ def apply(fn: Callable, *inputs, op_name: str,
             return x.program.record(fn, inputs, op_name, attrs or {})
     if amp_active():
         inputs = amp_cast_inputs(op_name, inputs)
-    return fn(*inputs, **attrs) if attrs else fn(*inputs)
+    try:
+        out = fn(*inputs, **attrs) if attrs else fn(*inputs)
+    except Exception as e:
+        raise with_op_hint(e, op_name)
+    return wrap(out)

@@ -1,4 +1,16 @@
-"""Weights carried across from paddle_tpu.
+"""``paddle.save`` / ``paddle.load``, and weights carried across from
+paddle_tpu.
+
+:func:`save` and :func:`load` use paddle_tpu's wire format
+(``paddle_tpu/framework_io.py``): the magic ``PDTPU001``, the length and
+pickle of a skeleton (nested dicts, lists and tuples whose leaves are
+``("__tensor__", key)``, ``("__ndarray__", key)`` or ``("__leaf__",
+value)``), then an ``npz`` payload of the arrays by key.  A file written
+by either package loads in the other.  A loaded tensor is a paddle
+Tensor on the device ``set_device`` chose (else the current CUDA
+device); bfloat16 tensors are written as float32.  Encryption and
+``scheme://`` paths (paddle_tpu's ``utils/crypto`` and ``utils/fs``)
+are not ported yet and raise ``NotImplementedError``.
 
 paddle_tpu's layers and the port's share parameter names and layouts
 (``Linear.weight`` is ``[in, out]`` in both), so a paddle_tpu state
@@ -9,15 +21,115 @@ first-use order.  A tensor-parallel model holds shards:
 shards first."""
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Union
+import io as _io
+import os
+import pickle
+from typing import Any, Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from .core.placement import device as _resolve_device
+from .core.tensor import wrap
 
-__all__ = ["state_dict_from_paddle_tpu", "program_state_from_paddle_tpu",
-           "shard_state_from_paddle_tpu"]
+__all__ = ["save", "load", "dumps", "loads", "state_dict_from_paddle_tpu",
+           "program_state_from_paddle_tpu", "shard_state_from_paddle_tpu"]
+
+_MAGIC = b"PDTPU001"
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return torch.Tensor.numpy(t)
+
+
+def _flatten(obj, prefix, arrays):
+    if isinstance(obj, torch.Tensor):
+        arrays[prefix] = _host(obj)
+        return ("__tensor__", prefix)
+    if isinstance(obj, np.ndarray):
+        arrays[prefix] = obj
+        return ("__ndarray__", prefix)
+    if isinstance(obj, dict):
+        return {k: _flatten(v, f"{prefix}.{k}", arrays)
+                for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        t = [_flatten(v, f"{prefix}[{i}]", arrays) for i, v in enumerate(obj)]
+        return tuple(t) if isinstance(obj, tuple) else t
+    return ("__leaf__", obj)
+
+
+def _unflatten(spec, arrays, dev):
+    if isinstance(spec, dict):
+        return {k: _unflatten(v, arrays, dev) for k, v in spec.items()}
+    if isinstance(spec, list):
+        return [_unflatten(v, arrays, dev) for v in spec]
+    if isinstance(spec, tuple):
+        if len(spec) == 2 and spec[0] == "__tensor__":
+            return wrap(_tensor(arrays[spec[1]]).to(dev))
+        if len(spec) == 2 and spec[0] == "__ndarray__":
+            return arrays[spec[1]]
+        if len(spec) == 2 and spec[0] == "__leaf__":
+            return spec[1]
+        return tuple(_unflatten(v, arrays, dev) for v in spec)
+    return spec
+
+
+def _local(path: str, encryption_key) -> str:
+    if encryption_key is not None:
+        raise NotImplementedError(
+            "encrypted checkpoints (paddle_tpu's utils/crypto) are not "
+            "ported yet")
+    if "://" in str(path):
+        raise NotImplementedError(
+            f"{path!r}: filesystem schemes (paddle_tpu's utils/fs) are not "
+            f"ported yet; pass a local path")
+    return os.fspath(path)
+
+
+def dumps(obj: Any, protocol: int = 4) -> bytes:
+    """``obj`` in the wire format, in memory."""
+    arrays: dict = {}
+    skeleton = _flatten(obj, "r", arrays)
+    buf = _io.BytesIO()
+    np.savez(buf, **arrays)
+    sk = pickle.dumps(skeleton, protocol=protocol)
+    return _MAGIC + len(sk).to_bytes(8, "little") + sk + buf.getvalue()
+
+
+def loads(payload: bytes, device=None) -> Any:
+    """:func:`dumps`'s inverse; tensors go to ``device`` (default: the
+    device ``set_device`` chose, else the current CUDA device).  Bytes
+    without the magic are read as a plain pickle, as paddle_tpu does."""
+    f = _io.BytesIO(payload)
+    if f.read(8) != _MAGIC:
+        f.seek(0)
+        return pickle.load(f)
+    n = int.from_bytes(f.read(8), "little")
+    skeleton = pickle.loads(f.read(n))
+    arrays = dict(np.load(_io.BytesIO(f.read()), allow_pickle=False))
+    dev = _resolve_device(device) if arrays else None
+    return _unflatten(skeleton, arrays, dev)
+
+
+def save(obj: Any, path, protocol: int = 4, encryption_key=None, **configs):
+    """``paddle.save``: a state dict, or nested dicts/lists/tuples of
+    tensors, arrays and Python values, to ``path``, written to a
+    temporary file and renamed, so a crash never leaves half a file."""
+    path = _local(path, encryption_key)
+    payload = dumps(obj, protocol=protocol)
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(payload)
+    os.replace(tmp, path)
+
+
+def load(path, encryption_key=None, **configs) -> Any:
+    """``paddle.load``: what :func:`save` (of either package) wrote."""
+    with open(_local(path, encryption_key), "rb") as f:
+        return loads(f.read())
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:

@@ -1,16 +1,24 @@
-"""nn: the layers and functions of ``paddle_tpu.nn`` that the BERT
-training path runs, as ``torch.nn.Module``s with paddle_tpu's parameter
-names and layouts (``Linear.weight`` is ``[in, out]``), so a paddle_tpu
-state dict maps onto the port's one-to-one
-(:func:`paddle_tpu_torch.framework_io.state_dict_from_paddle_tpu`).
-Parameters are made through :class:`ParamAttr` and :mod:`.initializer`
+"""nn: the eager :class:`Layer` (a ``torch.nn.Module`` with paddle's
+methods) and the layers and functions of ``paddle_tpu.nn`` ported so
+far, with paddle_tpu's parameter names and layouts (``Linear.weight``
+is ``[in, out]``), so a paddle_tpu state dict maps onto the port's
+one-to-one (:func:`paddle_tpu_torch.framework_io.
+state_dict_from_paddle_tpu`).  Parameters are paddle ``Parameter``s
+made through :class:`ParamAttr` and :mod:`.initializer`
 (``weight_attr`` / ``bias_attr``)."""
-from . import functional, initializer  # noqa: F401
-from .layer_base import ParamAttr  # noqa: F401
-from .layer import (Dropout, Embedding, LayerList, LayerNorm,  # noqa: F401
-                    Linear, MultiHeadAttention, TransformerEncoder,
-                    TransformerEncoderLayer)
+from . import functional, initializer, layer  # noqa: F401
+from .layer import activation as _activation
+from .layer import conv as _conv
+from .layer import loss as _loss
+from .layer import pooling as _pooling
+from .layer import *  # noqa: F401,F403
+from .layer_base import Layer, ParamAttr  # noqa: F401
+from ..optimizer.clip import ClipGradByGlobalNorm  # noqa: F401
 
-__all__ = ["functional", "initializer", "ParamAttr", "Dropout", "Embedding", "LayerList", "LayerNorm",
-           "Linear", "MultiHeadAttention", "TransformerEncoder",
-           "TransformerEncoderLayer"]
+__all__ = (["functional", "initializer", "Layer", "ParamAttr", "Dropout",
+            "Embedding", "LayerList", "LayerDict", "ParameterList",
+            "Sequential", "LayerNorm", "Linear", "MultiHeadAttention",
+            "TransformerEncoder", "TransformerEncoderLayer",
+            "ClipGradByGlobalNorm"]
+           + _activation.__all__ + _conv.__all__ + _loss.__all__
+           + _pooling.__all__)

@@ -10,6 +10,9 @@ takes to :func:`~paddle_tpu_torch.ops.flash_attention.flash_attention`
 ``FLAGS_use_pallas_kernels`` is on; a mask or ``return_weights`` takes
 the unfused path, as in paddle_tpu.
 
+Activations, convolutions, pooling and the other losses are in
+:mod:`.activation`, :mod:`.conv`, :mod:`.pooling` and :mod:`.loss`.
+
 Each public function is one paddle op: it goes through
 :func:`~paddle_tpu_torch.core.dispatch.apply` under paddle_tpu's op
 name, with its parameters as attrs, so that on a static ``Variable`` it
@@ -27,9 +30,18 @@ from ...core.dispatch import apply
 from ...core.flags import get_flag
 from ...ops.flash_attention import flash_attention, flash_attention_supported
 
-__all__ = ["linear", "embedding", "layer_norm", "gelu", "relu", "dropout",
-           "scaled_dot_product_attention", "cross_entropy", "mse_loss",
-           "linear_cross_entropy"]
+from ...ops.manipulation import one_hot, pad, squeeze, unsqueeze  # noqa
+from . import activation, conv, loss, pooling  # noqa: F401
+from .activation import *  # noqa: F401,F403
+from .conv import *  # noqa: F401,F403
+from .loss import *  # noqa: F401,F403
+from .pooling import *  # noqa: F401,F403
+
+__all__ = (["linear", "embedding", "layer_norm", "gelu", "relu", "dropout",
+            "scaled_dot_product_attention", "cross_entropy", "mse_loss",
+            "linear_cross_entropy", "softmax_with_cross_entropy", "one_hot",
+            "pad", "squeeze", "unsqueeze"] + activation.__all__
+           + conv.__all__ + loss.__all__ + pooling.__all__)
 
 
 def _relu(x):
@@ -243,6 +255,20 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
                         "reduction": reduction, "soft_label": soft_label,
                         "axis": axis, "use_softmax": use_softmax,
                         "label_smoothing": float(label_smoothing)})
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, axis=-1,
+                               return_softmax=False):
+    """The unreduced cross entropy with ``axis`` kept (size 1), and the
+    softmax when ``return_softmax``."""
+    out = cross_entropy(logits, label, reduction="none",
+                        soft_label=soft_label, ignore_index=ignore_index,
+                        axis=axis)
+    out = unsqueeze(out, axis)
+    if return_softmax:
+        return out, activation.softmax(logits, axis=axis)
+    return out
 
 
 def _mse_loss(input, label, reduction):

@@ -10,17 +10,16 @@ the current CUDA device (raising when there is none); pass
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ...core.placement import device as _resolve_device
 from .. import functional as F
 from .. import initializer as I
-from ..layer_base import create_parameter
+from ..layer_base import Layer, create_parameter
 
 __all__ = ["Linear", "Embedding", "Dropout"]
 
 
-class Linear(nn.Module):
+class Linear(Layer):
     """y = x W + b, W: [in_features, out_features]."""
 
     def __init__(self, in_features, out_features, weight_attr=None,
@@ -42,7 +41,7 @@ class Linear(nn.Module):
                 f"out_features={self.out_features}")
 
 
-class Embedding(nn.Module):
+class Embedding(Layer):
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
                  sparse=False, weight_attr=None, name=None, device=None):
         super().__init__()
@@ -68,7 +67,7 @@ class Embedding(nn.Module):
         return f"{self._num_embeddings}, {self._embedding_dim}"
 
 
-class Dropout(nn.Module):
+class Dropout(Layer):
     def __init__(self, p=0.5, axis=None, mode="upscale_in_train",
                  name=None):
         super().__init__()

@@ -2,17 +2,15 @@
 default, or as ``weight_attr`` / ``bias_attr`` say (False: none)."""
 from __future__ import annotations
 
-from torch import nn
-
 from ...core.placement import device as _resolve_device
 from .. import functional as F
 from .. import initializer as I
-from ..layer_base import create_parameter
+from ..layer_base import Layer, create_parameter
 
 __all__ = ["LayerNorm"]
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
                  bias_attr=None, name=None, device=None):
         super().__init__()

@@ -9,9 +9,8 @@ from __future__ import annotations
 
 import copy
 
-from torch import nn
-
 from .. import functional as F
+from ..layer_base import Layer
 from .common import Dropout, Linear
 from .container import LayerList
 from .norm import LayerNorm
@@ -25,7 +24,7 @@ def _no_cache(cache):
         raise NotImplementedError("the attention cache is not ported yet")
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
                  vdim=None, need_weights=False, weight_attr=None,
                  bias_attr=None, device=None):
@@ -66,7 +65,7 @@ class MultiHeadAttention(nn.Module):
         return (out, weights) if self.need_weights else out
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
                  normalize_before=False, weight_attr=None, bias_attr=None,
@@ -106,7 +105,7 @@ class TransformerEncoderLayer(nn.Module):
         return src
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     """``num_layers`` copies of ``encoder_layer`` (deep copies, so all
     start from its weights, as in paddle_tpu)."""
 

@@ -1,4 +1,5 @@
-"""Optimizer base, Adam and AdamW (paddle_tpu.optimizer.optimizer).
+"""Optimizer base, SGD, Momentum, Adam and AdamW
+(paddle_tpu.optimizer.optimizer).
 
 Every optimizer defines two pure functions over tensors, as in
 paddle_tpu: ``init_slots`` and the list-wise ``update``, shared by
@@ -11,6 +12,15 @@ The update runs as PyTorch's multi-tensor ``_foreach`` ops over all
 parameters at once, in plain arithmetic.  The fused kernel (K3,
 ``ops.fused_adam``) takes over from it only in the static Executor, for
 a plain f32 Adam, as in paddle_tpu.
+
+The eager ``step`` and ``functional_update`` run paddle_tpu's order:
+clip the gradients first, then add the weight decay (a parameter's own
+``regularizer`` wins over the optimizer's ``weight_decay``, an
+:class:`~.regularizer.L2Decay` when given as a float), then update with
+the learning rate times the parameter's ``optimize_attr
+["learning_rate"]`` (``ParamAttr(learning_rate=...)``).  Parameters
+with the same factor update as one list.  Parameter groups (a list of
+``{"params": [...]}``) are flattened into one list, as in paddle_tpu.
 
 ``multi_precision``: a bf16/f16 parameter keeps an f32 master copy in
 its slots; the update runs on the master, and the parameter is its
@@ -28,10 +38,12 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from ..core.tensor import wrap
 from .clip import ClipGradBase
 from .lr import LRScheduler
+from .regularizer import L2Decay, WeightDecayRegularizer
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW"]
 
 _LOW = (torch.bfloat16, torch.float16)
 
@@ -43,18 +55,16 @@ class Optimizer:
         if parameters is not None:
             parameters = list(parameters)
             if parameters and isinstance(parameters[0], dict):
-                raise NotImplementedError("parameter groups are not ported")
-        if weight_decay is not None and not isinstance(weight_decay,
-                                                       (int, float)):
-            raise NotImplementedError("regularizer objects are not ported; "
-                                      "pass a float")
+                parameters = [p for group in parameters
+                              for p in group["params"]]
+        if isinstance(weight_decay, (int, float)):
+            weight_decay = L2Decay(float(weight_decay))
         if not isinstance(learning_rate, LRScheduler):
             learning_rate = float(learning_rate)
         self._parameter_list: Optional[List[torch.nn.Parameter]] = parameters
         self._learning_rate = learning_rate
         self._grad_clip: Optional[ClipGradBase] = grad_clip
-        self._weight_decay = (None if weight_decay is None
-                              else float(weight_decay))
+        self._weight_decay: Optional[WeightDecayRegularizer] = weight_decay
         self._multi_precision = multi_precision
         # eager step()'s slots, by id(param)
         self._states: Optional[Dict[int, Dict[str, torch.Tensor]]] = None
@@ -101,15 +111,49 @@ class Optimizer:
                           params_meta=None):
         """Pure: ``(new_params, new_states)``.  Clip first, then the
         (coupled) weight decay, then the update, as paddle_tpu's
-        ``functional_update``; a parameter with a ``master`` slot is
-        updated through it in f32."""
+        ``functional_update``; ``params_meta`` (the Parameters) carries
+        each one's regularizer and learning-rate factor.  A parameter
+        with a ``master`` slot is updated through it in f32."""
+        meta = params_meta or [None] * len(params)
         if self._grad_clip is not None:
-            meta = params_meta or [None] * len(params)
             grads = [g for _, g in self._grad_clip(list(zip(meta, grads)))]
-        if self._weight_decay is not None and not self._decoupled():
-            grads = torch._foreach_add(
-                grads, [p.to(g.dtype) for p, g in zip(params, grads)],
-                alpha=self._weight_decay)
+        if not self._decoupled():
+            grads = self._regularized(params, grads, meta)
+        factors = [float(getattr(m, "optimize_attr", {}).get(
+            "learning_rate", 1.0)) for m in meta]
+        if all(f == 1.0 for f in factors):
+            return self._update_list(params, grads, states, lr, step)
+        new_ps, new_ss = [None] * len(params), [None] * len(params)
+        for f in sorted(set(factors)):
+            idx = [i for i, x in enumerate(factors) if x == f]
+            ps, ss = self._update_list([params[i] for i in idx],
+                                       [grads[i] for i in idx],
+                                       [states[i] for i in idx], lr * f,
+                                       step)
+            for i, a, b in zip(idx, ps, ss):
+                new_ps[i], new_ss[i] = a, b
+        return new_ps, new_ss
+
+    def _regularized(self, params, grads, meta):
+        """The gradients with each parameter's regularizer (its own,
+        else the optimizer's) added, one multi-tensor op a
+        regularizer."""
+        regs = [getattr(m, "regularizer", None) or self._weight_decay
+                for m in meta]
+        if all(r is None for r in regs):
+            return grads
+        if all(r is regs[0] for r in regs):
+            return regs[0]._apply(params, grads)
+        grads = list(grads)
+        for reg in {id(r): r for r in regs if r is not None}.values():
+            idx = [i for i, r in enumerate(regs) if r is reg]
+            for i, g in zip(idx, reg._apply([params[i] for i in idx],
+                                            [grads[i] for i in idx])):
+                grads[i] = g
+        return grads
+
+    def _update_list(self, params, grads, states, lr, step):
+        """One learning rate's update of a list (masters in f32)."""
         work = [s["master"] if "master" in s else p
                 for p, s in zip(params, states)]
         grads = [g.to(w.dtype) for g, w in zip(grads, work)]
@@ -144,7 +188,8 @@ class Optimizer:
         if self._parameter_list is None:
             raise ValueError("optimizer constructed without parameters")
         self._step_count += 1
-        params = [p for p in self._parameter_list if p.grad is not None]
+        params = [p for p in self._parameter_list
+                  if p.requires_grad and p.grad is not None]
         if self._states is None:
             self._states = {}
         states = [self._states.get(id(p)) for p in params]
@@ -164,6 +209,76 @@ class Optimizer:
             p.grad = None
 
     clear_gradients = clear_grad
+
+    # -- state dict --------------------------------------------------------
+    def state_dict(self):
+        """``{"step": n, "slots": {str(i): {name: Tensor}}}`` (the eager
+        step's slots by position in the parameter list) and the
+        scheduler's state, as paddle_tpu saves it."""
+        out = {"step": self._step_count, "slots": {}}
+        for i, p in enumerate(self._parameter_list or []):
+            s = (self._states or {}).get(id(p))
+            if s:
+                out["slots"][str(i)] = {k: wrap(v.detach())
+                                        for k, v in s.items()}
+        if isinstance(self._learning_rate, LRScheduler):
+            out["lr_scheduler"] = self._learning_rate.state_dict()
+        return out
+
+    def set_state_dict(self, state):
+        """Load :meth:`state_dict`'s output (tensors or arrays); slots go
+        to their parameter's device."""
+        self._step_count = int(state.get("step", 0))
+        slots = state.get("slots", {})
+        if self._states is None:
+            self._states = {}
+        for i, p in enumerate(self._parameter_list or []):
+            if str(i) in slots:
+                self._states[id(p)] = {
+                    k: torch.as_tensor(v).to(p.device).clone()
+                    for k, v in slots[str(i)].items()}
+        if (isinstance(self._learning_rate, LRScheduler)
+                and "lr_scheduler" in state):
+            self._learning_rate.set_state_dict(state["lr_scheduler"])
+
+
+class SGD(Optimizer):
+    """``p - lr * g``."""
+
+    def update(self, params, grads, slots, lr, step):
+        grads = [g.to(p.dtype) for p, g in zip(params, grads)]
+        return torch._foreach_sub(params, torch._foreach_mul(grads, lr)), \
+            slots
+
+
+class Momentum(Optimizer):
+    """``v = momentum * v + g``; ``p - lr * v``, or ``p - lr * (g +
+    momentum * v)`` with ``use_nesterov``.  The velocity is f32 under
+    ``multi_precision``, else the parameter's dtype."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=False, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._momentum = float(momentum)
+        self._use_nesterov = bool(use_nesterov)
+
+    def init_slots(self, p):
+        dt = torch.float32 if self._multi_precision else p.dtype
+        return {"velocity": torch.zeros_like(p, dtype=dt)}
+
+    def update(self, params, grads, slots, lr, step):
+        grads = [g.to(p.dtype) for p, g in zip(params, grads)]
+        v = torch._foreach_add(torch._foreach_mul(
+            [s["velocity"] for s in slots], self._momentum), grads)
+        if self._use_nesterov:
+            d = torch._foreach_add(grads, torch._foreach_mul(
+                v, self._momentum))
+        else:
+            d = v
+        new_p = torch._foreach_sub(params, torch._foreach_mul(d, lr))
+        return new_p, [{"velocity": a} for a in v]
 
 
 class Adam(Optimizer):

@@ -37,15 +37,16 @@ from __future__ import annotations
 import math
 
 import torch
-from torch import nn
 
 from ..core import rng
 from ..core.placement import device as _resolve_device
+from ..core.tensor import Parameter
 from ..distributed.collective import (_gather, _resolve, all_reduce,
                                       copy_to_group, gather_from_group,
                                       reduce_from_group, scatter_to_group)
 from ..distributed.mesh import MP_AXIS
 from ..nn import functional as F
+from ..nn.layer_base import Layer
 from ..ops.collective_matmul import (_chunk_mm, all_gather_matmul,
                                      matmul_reduce_scatter)
 
@@ -67,9 +68,9 @@ def get_placement(param):
     return getattr(param, "placement", None)
 
 
-def _shard(full: torch.Tensor, dim: int, group) -> nn.Parameter:
+def _shard(full: torch.Tensor, dim: int, group) -> Parameter:
     g = _resolve(group)
-    return nn.Parameter(full.chunk(g.nranks, dim=dim)[g.rank].contiguous())
+    return Parameter(full.chunk(g.nranks, dim=dim)[g.rank].contiguous())
 
 
 def _mp_divides(n: int, what: str, g) -> None:
@@ -133,7 +134,7 @@ def _flat(x):
     return x.reshape(-1, x.shape[-1])
 
 
-class ColumnParallelLinear(nn.Module):
+class ColumnParallelLinear(Layer):
     """W split along the output dim over 'mp' (reference:
     collective.py:735 axis=1); output gathered unless
     ``gather_output=False``."""
@@ -171,7 +172,7 @@ class ColumnParallelLinear(nn.Module):
         return y.reshape(*lead, y.shape[-1])
 
 
-class RowParallelLinear(nn.Module):
+class RowParallelLinear(Layer):
     """W split along the input dim over 'mp' (reference: collective.py:735
     axis=0); the partial products are reduce-scattered, then gathered.
     ``input_is_parallel``: ``x`` already is this rank's slice."""
@@ -191,7 +192,7 @@ class RowParallelLinear(nn.Module):
                            generator=rng.generator(dev)) * math.sqrt(
             2.0 / (in_features + out_features))
         self.weight = set_placement(_shard(full, 0, self.group), MP_AXIS, None)
-        self.bias = (nn.Parameter(torch.zeros(out_features, device=dev))
+        self.bias = (Parameter(torch.zeros(out_features, device=dev))
                      if has_bias else None)
 
     def forward(self, x):
@@ -204,7 +205,7 @@ class RowParallelLinear(nn.Module):
         return y.reshape(*lead, y.shape[-1])
 
 
-class VocabParallelEmbedding(nn.Module):
+class VocabParallelEmbedding(Layer):
     """Embedding rows split over 'mp' (reference: collective.py:769).
     The table is ``ceil(V / mp) * mp`` rows (zero padding at the end);
     this rank holds rows ``[rank * per, (rank + 1) * per)``."""
@@ -265,7 +266,7 @@ class _VocabParallelCE(torch.autograd.Function):
         return d.to(ctx.dtype), None, None, None
 
 
-class ParallelCrossEntropy(nn.Module):
+class ParallelCrossEntropy(Layer):
     """Mean cross entropy over vocab-split logits ``[..., V/mp]`` (this
     rank's columns, in mp order) and labels ``[...]`` of the full vocab.
     With mp of one it is ``F.cross_entropy``."""

@@ -166,8 +166,13 @@ def test_layers_take_weight_attr():
     ln = nn.LayerNorm(6, weight_attr=I.Constant(2.0), bias_attr=False,
                       device="cpu")
     assert torch.equal(ln.weight, torch.full((6,), 2.0)) and ln.bias is None
-    with pytest.raises(NotImplementedError):
-        ParamAttr(learning_rate=0.5)
+    from paddle_tpu_torch.optimizer import L2Decay
+    decay = L2Decay(0.1)
+    slow = nn.Linear(4, 3, weight_attr=ParamAttr(learning_rate=0.5,
+                                                 regularizer=decay),
+                     device="cpu")
+    assert slow.weight.optimize_attr == {"learning_rate": 0.5}
+    assert slow.weight.regularizer is decay
 
 
 def test_defaults_are_unchanged():
