@@ -115,7 +115,29 @@ kernel from the sources in this checkout.  Phases, each fatal:
     known w and b within 1e-3;
 26. ``paddle.save``/``paddle.load`` on the card: a Layer's and an
     optimizer's ``state_dict`` saved, loaded back onto the card (load
-    follows ``set_device``) and equal.
+    follows ``set_device``) and equal;
+27. ``vision.models.resnet18`` (10 classes, f32, TF32 off) from seeded
+    weights trained 3 ``TrainStep`` Momentum steps on the card and on
+    the CPU at batch 8 of 3 x 32 x 32: losses, the 20 batch norms'
+    running statistics (all moved and finite) and the eval outputs
+    within 1e-4, printed beside the CPU's own spread under a one-ulp
+    input change; the card model's O2 bf16 eval forward against its
+    f32 one;
+28. ``bench_resnet50``'s chip config uncut (``resnet50``, NCHW, batch
+    128, 224 px, bf16 O2, Momentum(0.1, 0.9) with f32 master weights,
+    ``F.cross_entropy``, ``TrainStep``): 2 warm-up and 10 timed steps
+    (images/s, step p50 and mean, MFU against 3 x 4.089 GF an image
+    over 989 TFLOP/s, peak memory, first and last loss, the cuDNN
+    ``benchmark`` setting), a first loss near ln(1000) and no
+    hand-written kernel launched; then a few steps with
+    ``cudnn.benchmark`` on, and of the NHWC model;
+29. anatomy of one ResNet-50 step: device ms by group (convolution
+    forward and backward, batch norm, elementwise and casts, GEMM,
+    Momentum's update, copies), the idle share, the top kernels, and
+    the batch-norm kernels torch ran, by name; then one batch norm's
+    forward and backward at ResNet-50's largest, the port's route
+    against ``torch.batch_norm`` (cuDNN where it takes the call), with
+    the kernels each ran.
 
 The last lines are the kernels JSON object, the card's name and power
 limit as ``nvidia-smi`` reports them, and ``{"ok": true, ...}``.  Any
@@ -2386,13 +2408,19 @@ def _lenet_batch(np):
 
 def _lenet_on(paddle, where, weights):
     """A LeNet made under ``set_device(where)`` holding ``weights``."""
+    from paddle_tpu_torch.vision.models import LeNet
+    return _model_on(paddle, where, weights, LeNet)
+
+
+def _model_on(paddle, where, weights, make):
+    """``make()`` under ``set_device(where)``, holding ``weights`` (its
+    state dict as numpy arrays)."""
     from paddle_tpu_torch.core import placement
     from paddle_tpu_torch.framework_io import state_dict_from_paddle_tpu
-    from paddle_tpu_torch.vision.models import LeNet
     prev = placement.default()
     paddle.set_device(where)
     try:
-        model = LeNet()
+        model = make()
         model.set_state_dict(state_dict_from_paddle_tpu(
             weights, device=where.replace("gpu", "cuda"), model=model))
     finally:
@@ -2642,6 +2670,316 @@ def phase_save_load():
         raise AssertionError(f"save/load: {out}")
 
 
+# --------------------------------------------------------------- phase 27
+# resnet18 card vs CPU: batch 8 of 3 x 32 x 32, 3 Momentum(lr, 0.9)
+# steps through TrainStep.  The lr is 1e-3 because the comparison only
+# holds where rounding does not steer the trajectory: at 32 px layer4's
+# batch norm sees 8 values a channel, and at lr 0.1 or 0.01 the CPU run
+# against itself, with its input moved by one ulp, already parts by
+# more than the tolerance (the phase prints that spread beside the
+# card's difference).  Losses as relative errors, running statistics and
+# eval outputs as max |a - b| / max |b| a tensor.
+RESNET_SMALL = dict(batch=8, hw=32, num_classes=10, lr=1e-3, momentum=0.9)
+RESNET_RTOL = 1e-4
+# the O2 (bf16 weights, statistics and input) eval forward against the
+# f32 one: max |a - b| / max |f32 logits|; bf16 keeps 8 bits, and 20
+# convolutions and batch norms round in turn
+RESNET_BF16_TOL = 5e-2
+# bench.py:540-571, bench_resnet50's chip config, and bench.py:42's
+# forward FLOPs an image (a training step counts 3 forwards)
+RESNET50_CHIP = dict(batch=128, hw=224, data_format="NCHW",
+                     dtype="bfloat16", lr=0.1, momentum=0.9)
+RESNET50_FWD_FLOPS = 4.089e9
+
+
+def _one_ulp(np, x):
+    """``x`` with every element moved by one ulp, up or down at random."""
+    up = np.random.RandomState(5).rand(*x.shape) > 0.5
+    return np.nextafter(x, np.where(up, np.float32(np.inf),
+                                    np.float32(-np.inf))).astype(np.float32)
+
+
+def _bn_buffers(model):
+    return {k: v.detach().float().cpu().numpy()
+            for k, v in model.state_dict().items()
+            if k.endswith(("._mean", "._variance"))}
+
+
+def _scale_err(a, b):
+    return float(abs(a - b).max() / max(abs(b).max(), 1e-30))
+
+
+def phase_resnet_card_vs_cpu(steps=3):
+    """resnet18 trained 3 TrainStep Momentum steps on the card and on the
+    CPU from one set of seeded weights; then eval outputs and the O2
+    bf16 forward against the f32 one."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.vision.models import resnet18
+    cfg = RESNET_SMALL
+    if (torch.backends.cudnn.allow_tf32
+            or torch.backends.cuda.matmul.allow_tf32):
+        raise AssertionError("TF32 is on; this phase compares f32")
+    paddle.set_device("cpu")
+    paddle.seed(27)
+    weights = {k: v.numpy() for k, v in resnet18(
+        num_classes=cfg["num_classes"]).state_dict().items()}
+    paddle.core.placement.set_default(None)
+    rs = np.random.RandomState(27)
+    xv = rs.standard_normal((cfg["batch"], 3, cfg["hw"], cfg["hw"])).astype(
+        np.float32)
+    yv = rs.randint(0, cfg["num_classes"], (cfg["batch"],)).astype(np.int64)
+    make = lambda: resnet18(num_classes=cfg["num_classes"])  # noqa: E731
+    runs = {}
+    for label, where, x_np in (("cpu", "cpu", xv), ("card", "gpu", xv),
+                               ("cpu_one_ulp", "cpu", _one_ulp(np, xv))):
+        model = _model_on(paddle, where, weights, make)
+        dev = "cpu" if where == "cpu" else "cuda"
+        x = paddle.to_tensor(x_np, place=dev)
+        y = paddle.to_tensor(yv, place=dev)
+        opt = paddle.optimizer.Momentum(cfg["lr"], cfg["momentum"],
+                                        parameters=model.parameters())
+        step = paddle.jit.TrainStep(model, lambda out, lab: F.cross_entropy(
+            out, lab), opt)
+        losses = [float(step(x, y)) for _ in range(steps)]
+        model.eval()
+        with paddle.no_grad():
+            logits = model(x).detach().float().cpu().numpy()
+        runs[label] = (losses, _bn_buffers(model), logits, model, x)
+    (lc, bc, oc, _, _), (lg, bg, og, card, xg) = runs["cpu"], runs["card"]
+    lu, bu = runs["cpu_one_ulp"][:2]
+    init = {k: weights[k] for k in bc}
+    out = {"config": cfg, "steps": steps, "rtol": RESNET_RTOL,
+           "losses_cpu": lc, "losses_card": lg,
+           "loss_max_rel_err": max(abs(a - b) / abs(a)
+                                   for a, b in zip(lc, lg)),
+           "stats_max_err": max(_scale_err(bg[k], bc[k]) for k in bc),
+           "eval_max_err": _scale_err(og, oc),
+           "cpu_one_ulp_loss_max_rel_err": max(abs(a - b) / abs(a)
+                                               for a, b in zip(lc, lu)),
+           "cpu_one_ulp_stats_max_err": max(_scale_err(bu[k], bc[k])
+                                            for k in bc),
+           "bn_layers": len(bc) // 2}
+    moved = [k for k in bg if np.isfinite(bg[k]).all()
+             and not np.array_equal(bg[k], init[k])]
+    out["bn_buffers_moved_finite"] = len(moved)
+    # the card model in eval, its f32 logits against O2's bf16 ones
+    amp.decorate(card, level="O2", dtype="bfloat16")
+    if card.bn1._mean.dtype != torch.bfloat16:
+        raise AssertionError("O2 left batch norm's statistics in "
+                             f"{card.bn1._mean.dtype}")
+    with paddle.no_grad():
+        bf16 = card(xg.astype("bfloat16")).float().cpu().numpy()
+    out["o2_vs_f32_err"] = _scale_err(bf16, og)
+    out["o2_tol"] = RESNET_BF16_TOL
+    torch.cuda.synchronize()
+    log("RESNET_PARITY " + json.dumps(out))
+    if out["bn_layers"] != 20 or len(moved) != 40:
+        raise AssertionError(f"{out['bn_layers']} batch norms, {len(moved)} "
+                             "of their buffers moved and finite; want 20, 40")
+    for key in ("loss_max_rel_err", "stats_max_err", "eval_max_err"):
+        if not out[key] <= RESNET_RTOL:
+            raise AssertionError(f"resnet18 card vs CPU: {key} {out[key]} "
+                                 f"> {RESNET_RTOL}")
+    if not out["o2_vs_f32_err"] <= RESNET_BF16_TOL:
+        raise AssertionError(f"O2 forward vs f32: {out['o2_vs_f32_err']}")
+
+
+# --------------------------------------------------------------- phase 28
+def _resnet50_trainer(data_format):
+    """bench_resnet50's chip config: (model, TrainStep, (x, y))."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.vision.models import resnet50
+    cfg = RESNET50_CHIP
+    paddle.seed(2024)
+    model = resnet50(data_format=data_format)
+    opt = optimizer.Momentum(learning_rate=cfg["lr"],
+                             momentum=cfg["momentum"],
+                             parameters=model.parameters(),
+                             multi_precision=True)
+    model, opt = amp.decorate(model, opt, level="O2", dtype=cfg["dtype"])
+    step = TrainStep(model, lambda out, labels: F.cross_entropy(out, labels),
+                     opt, n_inputs=1, donate=True)
+    rng = np.random.RandomState(0)
+    b, hw = cfg["batch"], cfg["hw"]
+    shape = (b, hw, hw, 3) if data_format == "NHWC" else (b, 3, hw, hw)
+    x = paddle.to_tensor(rng.standard_normal(shape).astype(
+        np.float32)).astype(cfg["dtype"])
+    y = paddle.to_tensor(rng.randint(0, 1000, (b,), dtype=np.int64))
+    return model, step, (x, y)
+
+
+def _images_per_s(torch, step, batch, warmup, steps):
+    losses, step_ms, counts = _train_steps(torch, step, batch,
+                                           warmup + steps)
+    timed = step_ms[warmup:]
+    return (RESNET50_CHIP["batch"] / (sum(timed) / len(timed) / 1e3),
+            losses, step_ms, counts)
+
+
+def phase_resnet50_training(warmup=2, steps=10, side_steps=4):
+    """bench_resnet50's chip config uncut (224 px, batch 128, bf16 O2,
+    NCHW): 2 warm-up and 10 timed steps; then the same steps with
+    cuDNN's autotuner on, and the NHWC model, a few steps each."""
+    import numpy as np
+    import torch
+    cfg = RESNET50_CHIP
+    bench_default = torch.backends.cudnn.benchmark
+    t0 = time.perf_counter()
+    model, step, batch = _resnet50_trainer(cfg["data_format"])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ips, losses, step_ms, counts = _images_per_s(torch, step, batch,
+                                                 warmup, steps)
+    peak = torch.cuda.max_memory_allocated()
+    timed = step_ms[warmup:]
+    mean_ms = sum(timed) / len(timed)
+    flops = 3 * RESNET50_FWD_FLOPS * cfg["batch"]
+    out = {"config": cfg, "params": sum(p.numel()
+                                        for p in model.parameters()),
+           "dtype": "bfloat16 O2, f32 master weights",
+           "setup_s": setup_s, "warmup_steps": warmup, "timed_steps": steps,
+           "losses": losses, "first_loss": losses[0],
+           "last_loss": losses[-1], "step_ms": timed,
+           "step_ms_p50": float(np.median(timed)), "step_ms_mean": mean_ms,
+           "first_steps_ms": step_ms[:warmup], "images_per_s": ips,
+           "model_flops_per_step": flops,
+           "mfu": flops / (mean_ms / 1e3) / PEAK_OPS["bfloat16"],
+           "peak_bound_ms": flops / PEAK_OPS["bfloat16"] * 1e3,
+           "max_memory_allocated": peak,
+           "cudnn_benchmark": bench_default,
+           "hand_kernel_launches": counts}
+    # cuDNN's autotuner, which the port leaves at torch's default
+    torch.backends.cudnn.benchmark = True
+    try:
+        tuned = _images_per_s(torch, step, batch, 2, side_steps)
+    finally:
+        torch.backends.cudnn.benchmark = bench_default
+    out["cudnn_benchmark_true"] = {"images_per_s": tuned[0],
+                                   "step_ms": tuned[2]}
+    nhwc_model, nhwc_step, nhwc_batch = _resnet50_trainer("NHWC")
+    nhwc = _images_per_s(torch, nhwc_step, nhwc_batch, 2, side_steps)
+    out["nhwc"] = {"images_per_s": nhwc[0], "losses": nhwc[1],
+                   "step_ms": nhwc[2], "hand_kernel_launches": nhwc[3]}
+    del nhwc_model, nhwc_step, nhwc_batch
+    out["nvidia_smi"] = nvidia_smi()
+    log("RESNET50_TRAIN " + json.dumps(out))
+    if not (math.isfinite(losses[0])
+            and abs(losses[0] - math.log(1000)) < 3.0):
+        # the fc's XavierNormal init gives logits of std ~1-2, which put
+        # the first cross entropy a little above ln(1000)
+        raise AssertionError(f"first loss {losses[0]} is not near "
+                             f"ln(1000) = {math.log(1000)}")
+    for what, c in (("NCHW", counts), ("cudnn.benchmark", tuned[3]),
+                    ("NHWC", nhwc[3])):
+        if any(c.values()):
+            raise AssertionError(f"the {what} ResNet-50 step launched hand "
+                                 f"kernels {c}; this path has none")
+    return model, step, batch, timed
+
+
+# --------------------------------------------------------------- phase 29
+def _resnet_group(name, bn_names):
+    """A ResNet step kernel's group, by its lower-case name; batch norm's
+    kernels are collected in ``bn_names``."""
+    conv = ("fprop", "dgrad", "wgrad", "conv", "implicit", "winograd",
+            "fft", "nchwtonhwc", "nhwctonchw")
+    if "batch_norm" in name or "batchnorm" in name or "bn_" in name:
+        bn_names.add(name[:120])
+        return "batch_norm"
+    if any(w in name for w in conv):
+        return ("conv_backward" if "dgrad" in name or "wgrad" in name
+                or "bwd" in name or "backward" in name else "conv_forward")
+    if _is_gemm(name):
+        return "gemm"
+    if "multi_tensor" in name or "foreach" in name:
+        return "momentum_update"
+    if "copy" in name or "memcpy" in name or "memset" in name:
+        return "copies"
+    if "elementwise" in name or "vectorized" in name or "unrolled" in name:
+        return "elementwise_and_casts"
+    if "pool" in name:
+        return "pooling"
+    if "softmax" in name or "nll" in name or "cross" in name:
+        return "loss"
+    if "reduce" in name:
+        return "reductions"
+    return "other"
+
+
+def _bn_routes(torch, n=128, c=256, hw=56):
+    """One training batch norm, forward and backward, at ResNet-50's
+    largest (layer1's output, bf16): the port's route
+    (``aten.native_batch_norm`` without running buffers, NCHW and
+    channels-last) against ``torch.batch_norm`` with running buffers,
+    which hands the call to cuDNN where cuDNN takes it (with bf16 and
+    with f32 weight and bias): CUDA-event ms a call, and the kernels
+    each ran by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(29)
+    x0 = torch.randn((n, c, hw, hw), device="cuda", generator=gen,
+                     dtype=torch.bfloat16)
+    g = torch.randn(x0.shape, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+
+    def case(fmt, wdt, fn):
+        x = (x0.contiguous(memory_format=torch.channels_last)
+             if fmt == "channels_last" else x0.clone()).requires_grad_()
+        w = torch.ones(c, device="cuda", dtype=wdt, requires_grad=True)
+        b = torch.zeros(c, device="cuda", dtype=wdt, requires_grad=True)
+        rm = torch.zeros(c, device="cuda", dtype=wdt)
+        rv = torch.ones(c, device="cuda", dtype=wdt)
+
+        def call(i):
+            out = fn(x, w, b, rm, rv)
+            torch.autograd.grad(out, (x, w, b), g)
+        ms = cuda_ms(call, 10)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call(0)
+            torch.cuda.synchronize()
+        names = sorted({e.key[:90] for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA})
+        return {"ms": ms, "kernels": names}
+
+    native = lambda x, w, b, rm, rv: torch.ops.aten.native_batch_norm(  # noqa
+        x, w, b, None, None, True, 0.0, 1e-5)[0]
+    aten = lambda x, w, b, rm, rv: torch.batch_norm(  # noqa: E731
+        x, w, b, rm, rv, True, 0.1, 1e-5, torch.backends.cudnn.enabled)
+    out = {"shape": [n, c, hw, hw], "dtype": "bfloat16",
+           "port_nchw": case("nchw", torch.bfloat16, native),
+           "port_channels_last": case("channels_last", torch.bfloat16,
+                                      native),
+           "torch_batch_norm_bf16_weights": case("nchw", torch.bfloat16,
+                                                 aten),
+           "torch_batch_norm_f32_weights": case("nchw", torch.float32, aten)}
+    # x read and the output written forward; x and g read and dx
+    # written backward
+    out["bound_ms"] = 5 * x0.numel() * 2 / HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def phase_resnet50_anatomy(step, batch, timed_ms, steps=2):
+    import torch
+    x, y = batch
+    bn_names = set()
+    _step_anatomy("RESNET50_ANATOMY", lambda: step(x, y), steps,
+                  lambda n: _resnet_group(n, bn_names), timed_ms=timed_ms)
+    log("RESNET50_BN_KERNELS " + json.dumps(sorted(bn_names)))
+    if not bn_names:
+        raise AssertionError("no batch-norm kernel in the ResNet-50 trace")
+    log("RESNET50_BN_ROUTES " + json.dumps(_bn_routes(torch)))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2700,6 +3038,13 @@ def main():
     timed("lenet_bench", phase_lenet_bench)
     timed("linear_regression", phase_linear_regression)
     timed("save_load", phase_save_load)
+    timed("resnet_parity", phase_resnet_card_vs_cpu)
+    r50, r50_step, r50_batch, r50_timed = timed("resnet50_training",
+                                                phase_resnet50_training)
+    timed("resnet50_anatomy", phase_resnet50_anatomy, r50_step, r50_batch,
+          r50_timed)
+    del r50, r50_step, r50_batch
+    torch.cuda.empty_cache()
     seconds["total"] = time.perf_counter() - t0
     log("PHASE_SECONDS " + json.dumps(seconds))
     f32_err = max(r["max_abs_err"] for r in kernel_rows

@@ -42,15 +42,21 @@ These slices are in:
   activation, loss and container layers, :class:`optimizer.SGD` and
   :class:`optimizer.Momentum`, L1/L2 decay, parameter groups,
   :func:`save`/:func:`load` in paddle_tpu's file format, and
-  ``vision.models.LeNet``.
+  ``vision.models.LeNet``;
+- ResNet-50 training (bench's ``bench_resnet50``): the norm layers
+  with paddle's running statistics (:class:`nn.BatchNorm2D` and its
+  siblings, GroupNorm, InstanceNorm, LocalResponseNorm, SpectralNorm),
+  their updates carried through ``jit.TrainStep`` (recompute,
+  accumulation, a skipped loss-scaled step), ``vision.models`` (ResNet,
+  VGG, MobileNet) and :mod:`.metric`.
 
 Models, pools, engines, static parameters and new tensors go to the
 current CUDA device unless the caller passes ``device=`` / ``place=``
 (e.g. ``"cpu"``) or calls ``set_device``; with no GPU and neither, they
 raise.
 """
-from . import (amp, core, distributed, framework_io, jit, nn,  # noqa: F401
-               ops, optimizer, parallel, serving, static, testing, utils,
+from . import (amp, core, distributed, framework_io, jit, metric,  # noqa
+               nn, ops, optimizer, parallel, serving, static, testing, utils,
                vision)
 from .core.autograd import (enable_grad, grad, is_grad_enabled,  # noqa
                             no_grad)
@@ -74,7 +80,8 @@ from .ops.random import *  # noqa: F401,F403
 from .ops.reduction import *  # noqa: F401,F403
 from .optimizer import regularizer  # noqa: F401
 
-__all__ = (["amp", "core", "distributed", "framework_io", "jit", "nn",
+__all__ = (["amp", "core", "distributed", "framework_io", "jit", "metric",
+            "nn",
             "ops", "optimizer", "parallel", "serving", "static", "testing",
             "utils", "vision", "device", "seed", "get_rng_state",
             "set_rng_state", "set_device", "get_device", "ParamAttr",

@@ -125,11 +125,10 @@ def decorate(models=None, optimizers=None, level="O2", dtype="bfloat16",
     master weights (unless ``master_weight`` is False).  O1: cast
     nothing.  Either way the models record ``dtype`` as
     ``_amp_dtype``.  Returns what it was given: ``models`` alone, or
-    ``(models, optimizers)``."""
+    ``(models, optimizers)``.  ``save_dtype`` is taken and, as in
+    paddle_tpu, changes nothing."""
     if level not in ("O1", "O2"):
         raise ValueError(f"amp.decorate level {level!r}: O1 or O2")
-    if save_dtype is not None:
-        raise NotImplementedError("amp.decorate: save_dtype is not ported")
     if dtype not in _LOW:
         raise ValueError(f"amp.decorate: dtype {dtype!r} not in "
                          f"{sorted(_LOW)}")

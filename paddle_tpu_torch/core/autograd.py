@@ -12,20 +12,46 @@ reaches it.  This module keeps paddle's contract on top of it:
 - ``grad`` computes gradients without touching ``.grad``; an input the
   outputs do not reach raises RuntimeError unless ``allow_unused``,
   which gives None; ``grad_outputs`` default to ones;
-- ``no_grad`` and ``enable_grad`` are context managers and decorators.
+- ``no_grad`` and ``enable_grad`` are context managers and decorators;
+- :func:`replaying` says whether a recomputed segment's forward is
+  running again in the backward (``parallel.recompute``): a layer whose
+  forward mutates state, as BatchNorm's running statistics, leaves it
+  as the first forward left it.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import List, Optional
 
 import torch
 
 from .tensor import wrap
 
-__all__ = ["backward", "grad", "no_grad", "enable_grad", "is_grad_enabled"]
+__all__ = ["backward", "grad", "no_grad", "enable_grad", "is_grad_enabled",
+           "replaying", "replay"]
 
 no_grad = torch.no_grad
 enable_grad = torch.enable_grad
+
+# per thread: a CUDA backward, and the replay in it, runs on the autograd
+# engine's device thread
+_tls = threading.local()
+
+
+def replaying() -> bool:
+    return getattr(_tls, "replaying", False)
+
+
+@contextlib.contextmanager
+def replay():
+    """The block is a recomputed forward (see :func:`replaying`)."""
+    prev = replaying()
+    _tls.replaying = True
+    try:
+        yield
+    finally:
+        _tls.replaying = prev
 
 
 def is_grad_enabled() -> bool:

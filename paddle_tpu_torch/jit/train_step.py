@@ -31,6 +31,13 @@ What the JAX step compiles in, this one runs in the same order:
 
 The learning rate is ``optimizer.get_lr()``, read at every call, so an
 LR schedule the loop moves is followed.
+
+Buffers the forward updates (batch norm's running statistics) change
+in place as the forward runs, as often as the JAX step's threaded
+buffers do: once a microbatch, in order; once under ``recompute`` (the
+backward's replay leaves them, ``core.autograd.replaying``); and on a
+loss-scaled step that is skipped too, where only the parameters and
+the optimizer's slots are held back.
 """
 from __future__ import annotations
 

@@ -10,6 +10,7 @@ from . import functional, initializer, layer  # noqa: F401
 from .layer import activation as _activation
 from .layer import conv as _conv
 from .layer import loss as _loss
+from .layer import norm as _norm
 from .layer import pooling as _pooling
 from .layer import *  # noqa: F401,F403
 from .layer_base import Layer, ParamAttr  # noqa: F401
@@ -17,8 +18,8 @@ from ..optimizer.clip import ClipGradByGlobalNorm  # noqa: F401
 
 __all__ = (["functional", "initializer", "Layer", "ParamAttr", "Dropout",
             "Embedding", "LayerList", "LayerDict", "ParameterList",
-            "Sequential", "LayerNorm", "Linear", "MultiHeadAttention",
+            "Sequential", "Linear", "MultiHeadAttention",
             "TransformerEncoder", "TransformerEncoderLayer",
             "ClipGradByGlobalNorm"]
            + _activation.__all__ + _conv.__all__ + _loss.__all__
-           + _pooling.__all__)
+           + _norm.__all__ + _pooling.__all__)

@@ -10,8 +10,9 @@ takes to :func:`~paddle_tpu_torch.ops.flash_attention.flash_attention`
 ``FLAGS_use_pallas_kernels`` is on; a mask or ``return_weights`` takes
 the unfused path, as in paddle_tpu.
 
-Activations, convolutions, pooling and the other losses are in
-:mod:`.activation`, :mod:`.conv`, :mod:`.pooling` and :mod:`.loss`.
+Activations, convolutions, normalisation, pooling and the other losses
+are in :mod:`.activation`, :mod:`.conv`, :mod:`.norm`, :mod:`.pooling`
+and :mod:`.loss`.
 
 Each public function is one paddle op: it goes through
 :func:`~paddle_tpu_torch.core.dispatch.apply` under paddle_tpu's op
@@ -31,17 +32,18 @@ from ...core.flags import get_flag
 from ...ops.flash_attention import flash_attention, flash_attention_supported
 
 from ...ops.manipulation import one_hot, pad, squeeze, unsqueeze  # noqa
-from . import activation, conv, loss, pooling  # noqa: F401
+from . import activation, conv, loss, norm, pooling  # noqa: F401
 from .activation import *  # noqa: F401,F403
 from .conv import *  # noqa: F401,F403
 from .loss import *  # noqa: F401,F403
+from .norm import *  # noqa: F401,F403
 from .pooling import *  # noqa: F401,F403
 
 __all__ = (["linear", "embedding", "layer_norm", "gelu", "relu", "dropout",
             "scaled_dot_product_attention", "cross_entropy", "mse_loss",
             "linear_cross_entropy", "softmax_with_cross_entropy", "one_hot",
             "pad", "squeeze", "unsqueeze"] + activation.__all__
-           + conv.__all__ + loss.__all__ + pooling.__all__)
+           + conv.__all__ + loss.__all__ + norm.__all__ + pooling.__all__)
 
 
 def _relu(x):

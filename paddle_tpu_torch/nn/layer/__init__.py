@@ -1,11 +1,11 @@
-from . import activation, container, conv, loss, pooling  # noqa: F401
+from . import activation, container, conv, loss, norm, pooling  # noqa
 from .activation import *  # noqa: F401,F403
 from .common import Dropout, Embedding, Linear  # noqa: F401
 from .container import (LayerDict, LayerList,  # noqa: F401
                         ParameterList, Sequential)
 from .conv import *  # noqa: F401,F403
 from .loss import *  # noqa: F401,F403
-from .norm import LayerNorm  # noqa: F401
+from .norm import *  # noqa: F401,F403
 from .pooling import *  # noqa: F401,F403
 from .transformer import (MultiHeadAttention,  # noqa: F401
                           TransformerEncoder, TransformerEncoderLayer)

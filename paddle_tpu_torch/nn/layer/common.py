@@ -14,7 +14,7 @@ import torch
 from ...core.placement import device as _resolve_device
 from .. import functional as F
 from .. import initializer as I
-from ..layer_base import Layer, create_parameter
+from ..layer_base import Layer
 
 __all__ = ["Linear", "Embedding", "Dropout"]
 
@@ -28,10 +28,10 @@ class Linear(Layer):
         dev = _resolve_device(device)
         self.in_features = in_features
         self.out_features = out_features
-        self.weight = create_parameter((in_features, out_features),
-                                       weight_attr, device=dev)
-        self.bias = create_parameter((out_features,), bias_attr,
-                                     is_bias=True, device=dev)
+        self.weight = self.create_parameter((in_features, out_features),
+                                            weight_attr, device=dev)
+        self.bias = self.create_parameter((out_features,), bias_attr,
+                                          is_bias=True, device=dev)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -52,7 +52,7 @@ class Embedding(Layer):
                              padding_idx if padding_idx >= 0 else
                              num_embeddings + padding_idx)
         self._sparse = sparse
-        self.weight = create_parameter(
+        self.weight = self.create_parameter(
             (num_embeddings, embedding_dim), weight_attr,
             default_initializer=I.Normal(0.0, 1.0), device=dev)
         if self._padding_idx is not None:

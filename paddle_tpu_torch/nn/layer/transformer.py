@@ -3,12 +3,23 @@
 
 Attention goes through ``F.scaled_dot_product_attention``, which sends
 every shape the flash gate takes to the flash-attention kernels on the
-card.  Not ported yet: the encoder-side ``cache`` (incremental
-decoding) and the decoder family (the GPT slice)."""
+card.
+
+``cache`` is paddle_tpu's: a ``MultiHeadAttention.Cache(k, v)`` (from
+``gen_cache(key)``, empty) grows by this call's keys and values and
+comes back as the last output (incremental decoding); a
+``StaticCache(k, v)`` (``gen_cache(key, value, type=StaticCache)``)
+holds projected keys and values used as they are (cross attention).
+The decoder family is not ported yet."""
 from __future__ import annotations
 
+import collections
 import copy
 
+import torch
+
+from ...core.tensor import wrap
+from ...ops.manipulation import concat
 from .. import functional as F
 from ..layer_base import Layer
 from .common import Dropout, Linear
@@ -19,12 +30,10 @@ __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerEncoder"]
 
 
-def _no_cache(cache):
-    if cache is not None:
-        raise NotImplementedError("the attention cache is not ported yet")
-
-
 class MultiHeadAttention(Layer):
+    Cache = collections.namedtuple("Cache", ["k", "v"])
+    StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
+
     def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
                  vdim=None, need_weights=False, weight_attr=None,
                  bias_attr=None, device=None):
@@ -44,15 +53,35 @@ class MultiHeadAttention(Layer):
         self.v_proj = Linear(self.vdim, embed_dim, **kw)
         self.out_proj = Linear(embed_dim, embed_dim, **kw)
 
+    def _heads(self, proj, x):
+        return proj(x).reshape(x.shape[0], -1, self.num_heads,
+                               self.head_dim)
+
+    def gen_cache(self, key, value=None, type=None):
+        """A ``StaticCache`` of ``key``/``value`` projected (``type=
+        StaticCache``), else an empty ``Cache`` ``[B, 0, H, Dh]``."""
+        if type == MultiHeadAttention.StaticCache:
+            return self.StaticCache(
+                self._heads(self.k_proj, key),
+                self._heads(self.v_proj, key if value is None else value))
+        empty = wrap(torch.zeros((key.shape[0], 0, self.num_heads,
+                                  self.head_dim), device=key.device))
+        return self.Cache(empty, empty)
+
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None):
-        _no_cache(cache)
         key = query if key is None else key
         value = key if value is None else value
-        B, H, Dh = query.shape[0], self.num_heads, self.head_dim
-        q = self.q_proj(query).reshape(B, -1, H, Dh)
-        k = self.k_proj(key).reshape(B, -1, H, Dh)
-        v = self.v_proj(value).reshape(B, -1, H, Dh)
+        q = self._heads(self.q_proj, query)
+        if isinstance(cache, self.StaticCache):
+            k, v = cache.k, cache.v
+        else:
+            k = self._heads(self.k_proj, key)
+            v = self._heads(self.v_proj, value)
+        if isinstance(cache, self.Cache):
+            k = concat([cache.k, k], axis=1)
+            v = concat([cache.v, v], axis=1)
+            cache = self.Cache(k, v)
         if self.need_weights:
             out, weights = F.scaled_dot_product_attention(
                 q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
@@ -61,8 +90,10 @@ class MultiHeadAttention(Layer):
             out = F.scaled_dot_product_attention(
                 q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
                 training=self.training)
-        out = self.out_proj(out.reshape(B, -1, self.embed_dim))
-        return (out, weights) if self.need_weights else out
+        out = self.out_proj(out.reshape(query.shape[0], -1, self.embed_dim))
+        outs = [out] + ([weights] if self.need_weights else []) + (
+            [cache] if cache is not None else [])
+        return out if len(outs) == 1 else tuple(outs)
 
 
 class TransformerEncoderLayer(Layer):
@@ -87,12 +118,14 @@ class TransformerEncoderLayer(Layer):
         self.activation = getattr(F, activation)
 
     def forward(self, src, src_mask=None, cache=None):
-        _no_cache(cache)
         residual = src
         if self.normalize_before:
             src = self.norm1(src)
-        src = residual + self.dropout1(self.self_attn(src, src, src,
-                                                      src_mask))
+        if cache is None:
+            src = self.self_attn(src, src, src, src_mask)
+        else:
+            src, cache = self.self_attn(src, src, src, src_mask, cache)
+        src = residual + self.dropout1(src)
         if not self.normalize_before:
             src = self.norm1(src)
         residual = src
@@ -102,7 +135,10 @@ class TransformerEncoderLayer(Layer):
         src = residual + self.dropout2(src)
         if not self.normalize_before:
             src = self.norm2(src)
-        return src
+        return src if cache is None else (src, cache)
+
+    def gen_cache(self, src):
+        return self.self_attn.gen_cache(src, type=MultiHeadAttention.Cache)
 
 
 class TransformerEncoder(Layer):
@@ -118,10 +154,16 @@ class TransformerEncoder(Layer):
         self.norm = norm
 
     def forward(self, src, src_mask=None, cache=None):
-        _no_cache(cache)
-        output = src
-        for mod in self.layers:
-            output = mod(output, src_mask)
+        output, new_caches = src, []
+        for i, mod in enumerate(self.layers):
+            if cache is None:
+                output = mod(output, src_mask)
+            else:
+                output, c = mod(output, src_mask, cache[i])
+                new_caches.append(c)
         if self.norm is not None:
             output = self.norm(output)
-        return output
+        return output if cache is None else (output, new_caches)
+
+    def gen_cache(self, src):
+        return [layer.gen_cache(src) for layer in self.layers]

@@ -231,7 +231,9 @@ class Layer(nn.Module):
     # -- dtype and device ----------------------------------------------------
     def to(self, *args, device=None, dtype=None, blocking=None, **kwargs):
         """``to(device=, dtype=)`` with paddle's names ('gpu', 'float32')
-        or torch's arguments."""
+        or torch's arguments.  A dtype casts the floating parameters and
+        buffers (BatchNorm's running statistics too), as in paddle_tpu;
+        the buffers stay paddle Tensors."""
         args = tuple(convert_dtype(a) if isinstance(a, str) and not (
             a.startswith(("cpu", "cuda", "gpu"))) else _torch_device(a)
             for a in args)
@@ -240,7 +242,11 @@ class Layer(nn.Module):
         if dtype is not None:
             kwargs["dtype"] = convert_dtype(dtype)
             self._dtype = kwargs["dtype"]
-        return super().to(*args, **kwargs)
+        out = super().to(*args, **kwargs)
+        for m in self.modules():
+            for b in m._buffers.values():
+                wrap(b)
+        return out
 
     def astype(self, dtype):
         return self.to(dtype=dtype)

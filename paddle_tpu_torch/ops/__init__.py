@@ -17,6 +17,10 @@ package patches its Tensor:
   is everything else, so ``x.max(1)`` is paddle's (the values),
   ``x.max(dim=1)`` torch's (values, indices), and ``x.split(2)`` cuts
   two equal sections where torch's cuts sections of 2.
+
+The methods come from one table (``_method_table``); the static
+``Variable`` takes the same table, and the operators as paddle ops, from
+:func:`symbolic_methods`, so each records one node.
 """
 from __future__ import annotations
 
@@ -139,20 +143,10 @@ def _getitem(self, idx):
     return out
 
 
-def monkey_patch_tensor():
-    T = Tensor
-    for name in ("__add__", "__radd__", "__sub__", "__rsub__", "__mul__",
-                 "__rmul__", "__truediv__", "__rtruediv__", "__floordiv__",
-                 "__rfloordiv__", "__mod__", "__rmod__", "__pow__",
-                 "__rpow__", "__matmul__", "__rmatmul__", "__eq__", "__ne__",
-                 "__lt__", "__le__", "__gt__", "__ge__", "__and__", "__or__",
-                 "__xor__", "__rand__", "__ror__", "__rxor__"):
-        setattr(T, name, _binary(name))
-    for name in ("__neg__", "__abs__", "__invert__", "__pos__"):
-        setattr(T, name, _unary(name))
-    T.__getitem__ = _getitem
-    T.__hash__ = torch.Tensor.__hash__
-
+def _method_table():
+    """Every paddle Tensor method of the op library: ``{name: (op,
+    torch_form)}``, ``torch_form`` None where no call of torch's form
+    can reach the name."""
     m, red, man, lg, cre = math, reduction, manipulation, logic, creation
     plain = dict(
         # math
@@ -204,10 +198,8 @@ def monkey_patch_tensor():
         # creation-ish
         tril=cre.tril, triu=cre.triu, diag=cre.diag,
     )
-    for name, fn in plain.items():
-        setattr(T, name, _method(fn, tname=name if hasattr(
-            torch.Tensor, name) else None))
-    special = dict(
+    table = {name: (fn, None) for name, fn in plain.items()}
+    table.update(
         sum=(red.sum, _bool_second), max=(red.max, _tensor_first),
         min=(red.min, _tensor_first),
         transpose=(man.transpose, _two_ints),
@@ -219,8 +211,54 @@ def monkey_patch_tensor():
         index_select=(man.index_select, _ints_first),
         scatter=(man.scatter, _ints_first),
     )
-    for name, (fn, torch_form) in special.items():
-        setattr(T, name, _method(fn, torch_form, tname=name))
+    return table
+
+
+def _swapped(fn):
+    def op(self, other):
+        return fn(other, self)
+    op.__name__ = fn.__name__
+    return op
+
+
+def symbolic_methods():
+    """The Tensor's methods and operators as paddle ops, for the static
+    ``Variable``: each records one node through ``core.dispatch.apply``
+    (``x.flatten(1)``, ``x / 2``, ``x @ w``, ``-x``, ``x[0]``, ...)."""
+    m, lg, man = math, logic, manipulation
+    out = {name: fn for name, (fn, _) in _method_table().items()}
+    binary = {"add": m.add, "sub": m.subtract, "mul": m.multiply,
+              "truediv": m.divide, "floordiv": m.floor_divide,
+              "mod": m.remainder, "pow": m.pow, "matmul": m.matmul,
+              "and": lg.bitwise_and, "or": lg.bitwise_or,
+              "xor": lg.bitwise_xor}
+    for name, fn in binary.items():
+        out[f"__{name}__"] = fn
+        out[f"__r{name}__"] = _swapped(fn)
+    out.update(__eq__=lg.equal, __ne__=lg.not_equal, __lt__=lg.less_than,
+               __le__=lg.less_equal, __gt__=lg.greater_than,
+               __ge__=lg.greater_equal, __neg__=m.neg, __abs__=m.abs,
+               __invert__=lg.bitwise_not, __getitem__=man.getitem,
+               astype=man.cast, cast=man.cast)
+    return out
+
+
+def monkey_patch_tensor():
+    T = Tensor
+    for name in ("__add__", "__radd__", "__sub__", "__rsub__", "__mul__",
+                 "__rmul__", "__truediv__", "__rtruediv__", "__floordiv__",
+                 "__rfloordiv__", "__mod__", "__rmod__", "__pow__",
+                 "__rpow__", "__matmul__", "__rmatmul__", "__eq__", "__ne__",
+                 "__lt__", "__le__", "__gt__", "__ge__", "__and__", "__or__",
+                 "__xor__", "__rand__", "__ror__", "__rxor__"):
+        setattr(T, name, _binary(name))
+    for name in ("__neg__", "__abs__", "__invert__", "__pos__"):
+        setattr(T, name, _unary(name))
+    T.__getitem__ = _getitem
+    T.__hash__ = torch.Tensor.__hash__
+    for name, (fn, torch_form) in _method_table().items():
+        setattr(T, name, _method(fn, torch_form, tname=name if hasattr(
+            torch.Tensor, name) else None))
 
 
 monkey_patch_tensor()

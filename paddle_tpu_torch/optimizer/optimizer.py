@@ -94,8 +94,11 @@ class Optimizer:
     def _decoupled(self) -> bool:
         return False                 # AdamW overrides
 
-    def _decoupled_decay(self, params, lr):
+    def _decoupled_decay(self, params, lr, meta):
         return params                # AdamW overrides
+
+    def _param_lr_ratio(self, param) -> float:
+        return 1.0                   # AdamW's lr_ratio overrides
 
     # -- functional interface (used by jit.TrainStep) ----------------------
     def functional_init(self, params: Sequence[torch.Tensor]):
@@ -120,16 +123,16 @@ class Optimizer:
         if not self._decoupled():
             grads = self._regularized(params, grads, meta)
         factors = [float(getattr(m, "optimize_attr", {}).get(
-            "learning_rate", 1.0)) for m in meta]
+            "learning_rate", 1.0)) * self._param_lr_ratio(m) for m in meta]
         if all(f == 1.0 for f in factors):
-            return self._update_list(params, grads, states, lr, step)
+            return self._update_list(params, grads, states, lr, step, meta)
         new_ps, new_ss = [None] * len(params), [None] * len(params)
         for f in sorted(set(factors)):
             idx = [i for i, x in enumerate(factors) if x == f]
             ps, ss = self._update_list([params[i] for i in idx],
                                        [grads[i] for i in idx],
                                        [states[i] for i in idx], lr * f,
-                                       step)
+                                       step, [meta[i] for i in idx])
             for i, a, b in zip(idx, ps, ss):
                 new_ps[i], new_ss[i] = a, b
         return new_ps, new_ss
@@ -152,13 +155,13 @@ class Optimizer:
                 grads[i] = g
         return grads
 
-    def _update_list(self, params, grads, states, lr, step):
+    def _update_list(self, params, grads, states, lr, step, meta):
         """One learning rate's update of a list (masters in f32)."""
         work = [s["master"] if "master" in s else p
                 for p, s in zip(params, states)]
         grads = [g.to(w.dtype) for g, w in zip(grads, work)]
         sub = [{k: v for k, v in s.items() if k != "master"} for s in states]
-        work = self._decoupled_decay(work, lr)
+        work = self._decoupled_decay(work, lr, meta)
         new_work, new_sub = self.update(work, grads, sub, lr, step)
         new_ps, new_ss = [], []
         for p, s, w, ns in zip(params, states, new_work, new_sub):
@@ -324,22 +327,42 @@ class Adam(Optimizer):
 
 class AdamW(Adam):
     """Adam with decoupled weight decay: ``p - lr * coeff * p`` before
-    the update (on the master weights under ``multi_precision``)."""
+    the update (on the master weights under ``multi_precision``).
+    ``weight_decay`` is the coefficient or an ``L2Decay`` holding it;
+    ``apply_decay_param_fun(name)`` says which parameters decay (by
+    their ``param_name``; a parameter without one decays), and
+    ``lr_ratio(param)`` scales a parameter's learning rate, decay
+    included, as in paddle_tpu."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
                  lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
                  lazy_mode=False, multi_precision=False, name=None):
-        if lr_ratio is not None or apply_decay_param_fun is not None:
-            raise NotImplementedError("AdamW: lr_ratio and "
-                                      "apply_decay_param_fun are not ported")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          None, grad_clip, lazy_mode, multi_precision, name)
-        self._coeff = float(weight_decay)
+        self._coeff = (weight_decay.coeff if isinstance(weight_decay, L2Decay)
+                       else float(weight_decay))
+        self._apply_decay_param_fun = apply_decay_param_fun
+        self._lr_ratio = lr_ratio
 
     def _decoupled(self):
         return True
 
-    def _decoupled_decay(self, params, lr):
-        return torch._foreach_sub(params, torch._foreach_mul(
-            params, lr * self._coeff))
+    def _param_lr_ratio(self, param):
+        if self._lr_ratio is None or param is None:
+            return 1.0
+        return float(self._lr_ratio(param))
+
+    def _decoupled_decay(self, params, lr, meta):
+        fn = self._apply_decay_param_fun
+        decay = [fn is None or getattr(m, "param_name", None) is None
+                 or fn(m.param_name) for m in meta]
+        if not any(decay):
+            return params
+        idx = [i for i, d in enumerate(decay) if d]
+        sub = [params[i] for i in idx]
+        out = list(params)
+        for i, p in zip(idx, torch._foreach_sub(
+                sub, torch._foreach_mul(sub, lr * self._coeff))):
+            out[i] = p
+        return out

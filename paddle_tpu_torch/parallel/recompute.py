@@ -14,7 +14,10 @@ second forward sees what the first one saw:
   back after it.  torch's ``preserve_rng_state`` covers only torch's
   default generators, which the port's ops do not draw from;
 - the same ``amp.auto_cast`` state, which torch's own autocast save
-  does not cover.
+  does not cover;
+- no state update: it runs under ``core.autograd.replay()``, so
+  BatchNorm's running statistics move once a step, as under the JAX
+  package's ``jax.checkpoint``.
 
 So the recomputed flash attention draws its first run's seed and
 dropout mask, and the stream after a step is the stream after the same
@@ -27,7 +30,7 @@ import contextlib
 from torch.utils.checkpoint import checkpoint
 
 from ..amp import _entered, amp_state
-from ..core import rng
+from ..core import autograd, rng
 
 __all__ = ["recompute", "recompute_sequential"]
 
@@ -43,7 +46,7 @@ def _contexts(preserve_rng_state):
         if preserve_rng_state:
             rng.set_rng_state(before)
         try:
-            with _entered(amp):
+            with _entered(amp), autograd.replay():
                 yield
         finally:
             if preserve_rng_state:

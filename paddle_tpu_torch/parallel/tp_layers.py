@@ -29,16 +29,16 @@ and replicated over 'mp'.
 
 The backward products (dx, dw) are ``torch.matmul``: the JAX package
 computes them outside any Pallas kernel (``chunk_matmul`` has no VJP).
-Initial weights are drawn whole from the seeded generator and cut, so
-every mp degree starts from the same full weights.
+Initial weights are drawn whole, by ``weight_attr``'s initializer
+(else XavierNormal, Normal(0, 0.02) for the embedding) from the seeded
+generator, and cut, so every mp degree starts from the same full
+weights; a shard keeps the attr's name, ``need_clip``, regularizer and
+learning rate.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
-from ..core import rng
 from ..core.placement import device as _resolve_device
 from ..core.tensor import Parameter
 from ..distributed.collective import (_gather, _resolve, all_reduce,
@@ -46,6 +46,7 @@ from ..distributed.collective import (_gather, _resolve, all_reduce,
                                       reduce_from_group, scatter_to_group)
 from ..distributed.mesh import MP_AXIS
 from ..nn import functional as F
+from ..nn import initializer as I
 from ..nn.layer_base import Layer
 from ..ops.collective_matmul import (_chunk_mm, all_gather_matmul,
                                      matmul_reduce_scatter)
@@ -68,9 +69,18 @@ def get_placement(param):
     return getattr(param, "placement", None)
 
 
-def _shard(full: torch.Tensor, dim: int, group) -> Parameter:
-    g = _resolve(group)
-    return Parameter(full.chunk(g.nranks, dim=dim)[g.rank].contiguous())
+def _shard(full: torch.Tensor, dim: int, group, like=None) -> Parameter:
+    """This rank's block of ``full``, a Parameter with the ParamAttr-given
+    attributes of ``like`` (default: ``full``)."""
+    g, like = _resolve(group), full if like is None else like
+    trainable = (like.requires_grad
+                 if isinstance(like, torch.nn.Parameter) else True)
+    p = Parameter(full.detach().chunk(g.nranks, dim=dim)[g.rank].contiguous(),
+                  requires_grad=trainable)
+    for k in ("param_name", "need_clip", "regularizer", "optimize_attr"):
+        if k in like.__dict__:
+            setattr(p, k, like.__dict__[k])
+    return p
 
 
 def _mp_divides(n: int, what: str, g) -> None:
@@ -142,16 +152,15 @@ class ColumnParallelLinear(Layer):
     def __init__(self, in_features, out_features, weight_attr=None,
                  has_bias=True, gather_output=True, name=None, device=None):
         super().__init__()
-        if weight_attr is not None:
-            raise NotImplementedError("weight_attr is not ported")
         dev = _resolve_device(device)
         self.group = _resolve(MP_AXIS)
         _mp_divides(out_features, "out_features", self.group)
         self.in_features, self.out_features = in_features, out_features
         self.gather_output = gather_output
-        full = torch.randn((in_features, out_features), device=dev,
-                           generator=rng.generator(dev)) * math.sqrt(
-            2.0 / (in_features + out_features))
+        full = self.create_parameter((in_features, out_features),
+                                     weight_attr,
+                                     default_initializer=I.XavierNormal(),
+                                     device=dev)
         self.weight = set_placement(_shard(full, 1, self.group), None, MP_AXIS)
         self.bias = None
         if has_bias:
@@ -181,16 +190,15 @@ class RowParallelLinear(Layer):
                  has_bias=True, input_is_parallel=False, name=None,
                  device=None):
         super().__init__()
-        if weight_attr is not None:
-            raise NotImplementedError("weight_attr is not ported")
         dev = _resolve_device(device)
         self.group = _resolve(MP_AXIS)
         _mp_divides(in_features, "in_features", self.group)
         self.in_features, self.out_features = in_features, out_features
         self.input_is_parallel = input_is_parallel
-        full = torch.randn((in_features, out_features), device=dev,
-                           generator=rng.generator(dev)) * math.sqrt(
-            2.0 / (in_features + out_features))
+        full = self.create_parameter((in_features, out_features),
+                                     weight_attr,
+                                     default_initializer=I.XavierNormal(),
+                                     device=dev)
         self.weight = set_placement(_shard(full, 0, self.group), MP_AXIS, None)
         self.bias = (Parameter(torch.zeros(out_features, device=dev))
                      if has_bias else None)
@@ -213,18 +221,18 @@ class VocabParallelEmbedding(Layer):
     def __init__(self, num_embeddings, embedding_dim, weight_attr=None,
                  name=None, device=None):
         super().__init__()
-        if weight_attr is not None:
-            raise NotImplementedError("weight_attr is not ported")
         dev = _resolve_device(device)
         self.group = _resolve(MP_AXIS)
         n = self.group.nranks
         self.num_embeddings, self.embedding_dim = num_embeddings, embedding_dim
         self.per = -(-num_embeddings // n)
+        table = self.create_parameter(
+            (num_embeddings, embedding_dim), weight_attr,
+            default_initializer=I.Normal(0.0, 0.02), device=dev)
         full = torch.zeros((self.per * n, embedding_dim), device=dev)
-        full[:num_embeddings] = torch.randn(
-            (num_embeddings, embedding_dim), device=dev,
-            generator=rng.generator(dev)) * 0.02
-        self.weight = set_placement(_shard(full, 0, self.group), MP_AXIS, None)
+        full[:num_embeddings] = table.detach()
+        self.weight = set_placement(_shard(full, 0, self.group, table),
+                                    MP_AXIS, None)
 
     def forward(self, ids):
         lo = self.group.rank * self.per

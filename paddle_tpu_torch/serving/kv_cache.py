@@ -30,6 +30,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from ..core.dtype import dtype_name
 from ..core.placement import device as _resolve_device
 
 __all__ = ["PagePool", "KVCacheConfig", "write_token", "write_prompt",
@@ -67,8 +68,8 @@ class KVCacheConfig:
         return max(1, -(-int(tokens) // self.page_size))
 
     def to_dict(self) -> dict:
-        return {s: (str(self.dtype) if s == "dtype" else getattr(self, s))
-                for s in self.__slots__}
+        return {s: (dtype_name(self.dtype) if s == "dtype"
+                    else getattr(self, s)) for s in self.__slots__}
 
 
 class PagePool:

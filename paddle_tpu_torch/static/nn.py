@@ -1,7 +1,9 @@
 """static.nn: static-graph layer helpers (``paddle_tpu/static/nn.py``).
 
 ``fc`` creates its own weights on ``get_device()`` (XavierNormal
-``[in, size]``, zero bias, drawn from ``core.rng.generator``)."""
+``[in, size]``, zero bias, drawn from ``core.rng.generator``); it takes
+``weight_attr`` and ``bias_attr`` and ignores them, as paddle_tpu's
+does."""
 from __future__ import annotations
 
 import math
@@ -18,9 +20,6 @@ __all__ = ["fc"]
 def fc(x, size, num_flatten_dims=1, weight_attr=None, bias_attr=None,
        activation=None, name=None):
     """``activation(flatten(x) @ w + b)`` with fresh parameters."""
-    if weight_attr is not None or bias_attr is not None:
-        raise NotImplementedError("fc: weight_attr and bias_attr are not "
-                                  "ported")
     dev = _resolve_device(None)
     in_features = math.prod(x.shape[num_flatten_dims:])
     std = math.sqrt(2.0 / (in_features + size))

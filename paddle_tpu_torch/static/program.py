@@ -29,8 +29,9 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..core.dispatch import Symbolic, apply
+from ..core.dispatch import Symbolic
 from ..core.dtype import convert_dtype
+from ..ops import symbolic_methods
 
 __all__ = ["Program", "Variable", "data", "program_guard",
            "default_main_program", "default_startup_program",
@@ -42,31 +43,12 @@ _var_counter = itertools.count(0)
 _program_serial = itertools.count(0)
 
 
-def _add(a, b):
-    return a + b
-
-
-def _subtract(a, b):
-    return a - b
-
-
-def _multiply(a, b):
-    return a * b
-
-
-def _reshape(x, shape):
-    return x.reshape(shape)
-
-
-def _unsqueeze(x, axis):
-    for a in sorted(axis):
-        x = x.unsqueeze(a)
-    return x
-
-
 class Variable(Symbolic):
     """Symbolic tensor inside a Program.  ``meta`` is a ``meta``-device
-    tensor of its recorded shape and dtype."""
+    tensor of its recorded shape and dtype.  The eager Tensor's methods
+    and operators are paddle ops here (``ops.symbolic_methods``), each
+    recording one node; comparisons record too, so a Variable hashes by
+    identity."""
 
     __slots__ = ("meta", "program", "name", "desc_shape")
 
@@ -96,35 +78,11 @@ class Variable(Symbolic):
         return (f"Variable(name={self.name}, shape={self.shape}, "
                 f"dtype={self.dtype})")
 
-    # -- Tensor sugar: recorded paddle ops --------------------------------
-    def __add__(self, other):
-        return apply(_add, self, other, op_name="add")
+    __hash__ = object.__hash__
 
-    def __radd__(self, other):
-        return apply(_add, other, self, op_name="add")
 
-    def __sub__(self, other):
-        return apply(_subtract, self, other, op_name="subtract")
-
-    def __rsub__(self, other):
-        return apply(_subtract, other, self, op_name="subtract")
-
-    def __mul__(self, other):
-        return apply(_multiply, self, other, op_name="multiply")
-
-    def __rmul__(self, other):
-        return apply(_multiply, other, self, op_name="multiply")
-
-    def reshape(self, *shape):
-        if len(shape) == 1 and isinstance(shape[0], (list, tuple)):
-            shape = shape[0]
-        return apply(_reshape, self, op_name="reshape",
-                     attrs={"shape": tuple(int(s) for s in shape)})
-
-    def unsqueeze(self, axis):
-        axes = axis if isinstance(axis, (list, tuple)) else [axis]
-        return apply(_unsqueeze, self, op_name="unsqueeze",
-                     attrs={"axis": tuple(int(a) for a in axes)})
+for _name, _fn in symbolic_methods().items():
+    setattr(Variable, _name, _fn)
 
 
 class _OpNode:

@@ -137,6 +137,7 @@ def time_paged(decode, q, k, v, table, lengths, scale):
 def _time_checkout(root):
     """The TIMES rows of the checkout at ``root``."""
     sys.path.insert(0, root)
+    from paddle_tpu_torch.core.dtype import dtype_name
     from paddle_tpu_torch.ops.attention import paged_attention_reference
     from paddle_tpu_torch.ops.cuda import (flash_attention_fwd,
                                            paged_attention_decode)
@@ -159,7 +160,7 @@ def _time_checkout(root):
         event, dev = time_paged(paged_attention_decode, q, k, v, table,
                                 lengths, scale)
         rows.append({"case": f"paged {label} H={H} Hkv={Hkv} P={P} "
-                             f"{str(dtype).replace('torch.', '')}",
+                             f"{dtype_name(dtype)}",
                      "event_ms": event, "device_ms": dev,
                      "max_abs_err": err})
         del q, k, v, table, lengths, got, ref

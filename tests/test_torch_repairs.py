@@ -1,0 +1,339 @@
+"""Repairs of faults the port had against paddle_tpu (ROADMAP §C): each
+case failed on the port before the repair.
+
+- C3: the static ``Variable`` has the Tensor's methods and operators,
+  each recorded as a paddle op, so a LeNet records into a Program;
+- C4: ``AdamW`` takes ``apply_decay_param_fun``, ``lr_ratio`` and
+  ``weight_decay=L2Decay(c)``;
+- C5: the port's own code names a dtype by its paddle name; what torch
+  does not allow (``x.dtype == 'float32'``, ``str(x.dtype)``) is a kept
+  difference, pinned here;
+- C6: the tensor-parallel layers take ``weight_attr``,
+  ``MultiHeadAttention`` takes ``Cache`` and ``StaticCache``,
+  ``amp.decorate`` takes ``save_dtype`` and ``static.nn.fc`` takes (and
+  ignores) ``weight_attr``/``bias_attr``.
+
+Inputs are seeded numpy and go through both packages; tolerances are
+given at each check."""
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu
+import paddle_tpu_torch
+from paddle_tpu_torch import static
+from paddle_tpu_torch.core import placement
+from paddle_tpu_torch.core.dtype import dtype_name
+from paddle_tpu_torch.framework_io import state_dict_from_paddle_tpu
+
+
+@pytest.fixture
+def cpu():
+    prev = placement.default()
+    paddle_tpu_torch.set_device("cpu")
+    yield paddle_tpu_torch
+    placement.set_default(prev)
+
+
+def _carry(jlayer, tlayer):
+    state = {k: np.asarray(v.data) for k, v in jlayer.state_dict().items()}
+    tlayer.set_state_dict(state_dict_from_paddle_tpu(state, device="cpu",
+                                                     model=tlayer))
+
+
+# -- C3 ------------------------------------------------------------------
+
+def test_static_lenet_runs_as_the_eager_one(cpu):
+    """``LeNet()(x)`` inside ``program_guard`` records a Program (its
+    forward calls ``x.flatten(1)`` on a Variable); ``Executor.run``
+    gives the eager output of the same weights at rtol 1e-5, and the
+    weights carried from paddle_tpu give paddle_tpu's eager output."""
+    from paddle_tpu.vision.models import LeNet as JLeNet
+    paddle_tpu.seed(0)
+    jm = JLeNet()
+    tm = cpu.vision.models.LeNet()
+    _carry(jm, tm)
+    main = static.Program()
+    with static.program_guard(main):
+        x = static.data("x", [None, 1, 28, 28])
+        out = tm(x)
+    assert [n.op_name for n in main.nodes].count("flatten") == 1
+    xs = np.random.RandomState(0).randn(4, 1, 28, 28).astype("float32")
+    got, = static.Executor().run(main, feed={"x": xs}, fetch_list=[out])
+    eager = tm(cpu.to_tensor(xs)).numpy()
+    np.testing.assert_allclose(got, eager, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got, np.asarray(jm(paddle_tpu.to_tensor(
+        xs)).data), rtol=1e-5, atol=1e-5)
+
+
+VARIABLE_EXPRS = {
+    "truediv": lambda x, w: x / 2.0,
+    "rtruediv": lambda x, w: 1.0 / (x * x + 1.0),
+    "matmul": lambda x, w: x @ w,
+    "rmatmul": lambda x, w: w.t() @ x.t(),
+    "neg": lambda x, w: -x,
+    "pow": lambda x, w: x ** 2,
+    "rsub": lambda x, w: 1.0 - x,
+    "compare": lambda x, w: (x > 0).astype("float32") + (x <= 0.5),
+    "eq": lambda x, w: (x == x).astype("float32"),
+    "getitem": lambda x, w: x[1:, ::2],
+    "flatten": lambda x, w: x.reshape([2, 3, 2]).flatten(1),
+    "transpose": lambda x, w: x.transpose([1, 0]),
+    "matmul_method": lambda x, w: x.matmul(w, transpose_y=False),
+    "mean_sum": lambda x, w: x.mean(axis=1) + x.sum(axis=0)[:3],
+    "astype": lambda x, w: x.astype("float64"),
+    "abs_exp": lambda x, w: abs(x).exp(),
+}
+
+
+@pytest.mark.parametrize("name", sorted(VARIABLE_EXPRS))
+def test_variable_methods_and_operators_record_paddle_ops(cpu, name):
+    """Each expression records on ``static.data`` Variables and runs to
+    what the eager Tensors give (exactly: the same torch ops)."""
+    fn = VARIABLE_EXPRS[name]
+    rs = np.random.RandomState(1)
+    xs = rs.randn(3, 4).astype("float32")
+    w = cpu.to_tensor(rs.randn(4, 5).astype("float32"))
+    main = static.Program()
+    with static.program_guard(main):
+        out = fn(static.data("x", [3, 4]), w)
+    assert len(main.nodes) >= 1
+    got, = static.Executor().run(main, feed={"x": xs}, fetch_list=[out])
+    np.testing.assert_array_equal(got, fn(cpu.to_tensor(xs), w).numpy())
+
+
+def test_variables_hash_by_identity(cpu):
+    main = static.Program()
+    with static.program_guard(main):
+        a = static.data("a", [2])
+        b = static.data("b", [2])
+    assert len({a, b, a}) == 2
+    assert isinstance(a == b, static.Variable)
+
+
+# -- C4 ------------------------------------------------------------------
+
+def _mlp(paddle):
+    nn = paddle.nn
+    return nn.Sequential(nn.Linear(4, 8), nn.Tanh(), nn.Linear(8, 3))
+
+
+ADAMW_KW = {
+    "plain": lambda p: {},
+    "apply_decay_param_fun": lambda p: dict(
+        apply_decay_param_fun=lambda name: name.endswith(".w_0")),
+    "lr_ratio": lambda p: dict(
+        lr_ratio=lambda param: 0.3 if len(param.shape) == 2 else 1.0),
+    "l2decay": lambda p: dict(weight_decay=p.regularizer.L2Decay(0.05)),
+    "all": lambda p: dict(
+        weight_decay=p.regularizer.L2Decay(0.05),
+        apply_decay_param_fun=lambda name: name.endswith(".w_0"),
+        lr_ratio=lambda param: 0.3 if len(param.shape) == 2 else 1.0),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(ADAMW_KW))
+def test_adamw_arguments_match_paddle_tpu(cpu, kind):
+    """An MLP over 3 eager AdamW steps with each argument: parameters
+    within 1e-6 of paddle_tpu's."""
+    paddle_tpu.seed(0)
+    jm, tm = _mlp(paddle_tpu), _mlp(cpu)
+    _carry(jm, tm)
+    rs = np.random.RandomState(0)
+    x = rs.randn(16, 4).astype("float32")
+    y = rs.randint(0, 3, (16,)).astype("int64")
+    for pkg, m in ((paddle_tpu, jm), (cpu, tm)):
+        opt = pkg.optimizer.AdamW(learning_rate=0.01,
+                                  parameters=m.parameters(),
+                                  **ADAMW_KW[kind](pkg))
+        for _ in range(3):
+            loss = pkg.nn.functional.cross_entropy(m(pkg.to_tensor(x)),
+                                                   pkg.to_tensor(y))
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+    j = {k: np.asarray(v.data) for k, v in jm.state_dict().items()}
+    for k, v in tm.state_dict().items():
+        np.testing.assert_allclose(v.numpy(), j[k], rtol=0, atol=1e-6,
+                                   err_msg=k)
+
+
+def test_layer_parameters_carry_paddle_names(cpu):
+    """``apply_decay_param_fun`` reads names of paddle_tpu's form
+    (``linear_N.w_0``/``.b_0``)."""
+    lin = cpu.nn.Linear(2, 3)
+    assert lin.weight.param_name.endswith(".w_0")
+    assert lin.bias.param_name.endswith(".b_0")
+    assert lin.weight.param_name.split(".")[0].startswith("linear_")
+
+
+# -- C5 ------------------------------------------------------------------
+
+DTYPES = ["float32", "float64", "float16", "bfloat16", "int64", "int32",
+          "int8", "uint8", "bool"]
+
+
+@pytest.mark.parametrize("name", DTYPES)
+def test_dtype_names_are_paddle_names(cpu, name):
+    t = cpu.to_tensor(np.zeros(2, "float32")).astype(name)
+    assert dtype_name(t.dtype) == name
+    assert t.dtype == cpu.convert_dtype(name) == getattr(
+        cpu, "bool_" if name == "bool" else name)
+    assert repr(t).find(f"dtype={name}") > 0
+
+
+def test_kv_cache_config_names_its_dtype(cpu):
+    cfg = cpu.serving.KVCacheConfig(num_layers=1, num_kv_heads=1,
+                                    head_dim=8, page_size=4, num_pages=2,
+                                    max_context=8, dtype=torch.bfloat16)
+    assert cfg.to_dict()["dtype"] == "bfloat16"
+
+
+def test_dtype_comparisons_kept_difference(cpu):
+    """Kept difference: paddle dtypes are torch's, and ``torch.dtype``
+    can be neither subclassed nor given ``==`` with strings, so
+    ``x.dtype == 'float32'`` and ``x.dtype == np.float32`` are False
+    and ``str(x.dtype)`` is 'torch.float32' where paddle_tpu gives True,
+    True and 'float32'.  Compare with ``paddle.float32`` (equal in
+    both) or ``dtype_name``."""
+    x = np.zeros(2, "float32")
+    j, t = paddle_tpu.to_tensor(x), cpu.to_tensor(x)
+    assert (j.dtype == "float32", j.dtype == np.float32,
+            str(j.dtype)) == (True, True, "float32")
+    assert (t.dtype == "float32", t.dtype == np.float32,
+            str(t.dtype)) == (False, False, "torch.float32")
+    assert j.dtype == paddle_tpu.float32 and t.dtype == cpu.float32
+    assert dtype_name(t.dtype) == str(j.dtype)
+
+
+# -- C6 ------------------------------------------------------------------
+
+def test_tensor_parallel_layers_take_weight_attr(cpu):
+    """At world size 1 (a mesh of one) each TP layer with an ``Assign``
+    initializer and a ParamAttr gives paddle_tpu's output, and its
+    weight keeps the attr's name, learning rate and ``need_clip``."""
+    from paddle_tpu.parallel import tp_layers as J
+    from paddle_tpu_torch.parallel import tp_layers as T
+    rs = np.random.RandomState(0)
+    w = rs.randn(4, 6).astype("float32")
+    table = rs.randn(10, 4).astype("float32")
+    x = rs.randn(3, 4).astype("float32")
+    ids = rs.randint(0, 10, (3, 5)).astype("int64")
+
+    def attr(pkg, value, name):
+        return pkg.ParamAttr(name=name, learning_rate=0.5, need_clip=False,
+                             initializer=pkg.nn.initializer.Assign(value))
+
+    cases = [
+        ("ColumnParallelLinear", (4, 6), w, x),
+        ("RowParallelLinear", (4, 6), w, x),
+        ("VocabParallelEmbedding", (10, 4), table, ids),
+    ]
+    for cls, args, value, inp in cases:
+        jl = getattr(J, cls)(*args, weight_attr=attr(paddle_tpu, value,
+                                                     f"j_{cls}"))
+        tl = getattr(T, cls)(*args, weight_attr=attr(cpu, value, f"t_{cls}"),
+                             device="cpu")
+        assert tl.weight.param_name == f"t_{cls}"
+        assert tl.weight.optimize_attr == {"learning_rate": 0.5}
+        assert tl.weight.need_clip is False
+        np.testing.assert_allclose(
+            tl(cpu.to_tensor(inp)).detach().numpy(),
+            np.asarray(jl(paddle_tpu.to_tensor(inp)).data), rtol=1e-6,
+            atol=1e-6)
+
+
+def _mha_pair():
+    paddle_tpu.seed(0)
+    jm = paddle_tpu.nn.MultiHeadAttention(16, 2)
+    tm = paddle_tpu_torch.nn.MultiHeadAttention(16, 2, device="cpu")
+    _carry(jm, tm)
+    jm.eval(), tm.eval()
+    return jm, tm
+
+
+def test_mha_cache_decodes_as_the_causal_full_run(cpu):
+    """Four tokens decoded one at a time through ``Cache`` equal the
+    full sequence under a causal mask (atol 1e-5), and the cached run
+    equals paddle_tpu's step by step (atol 1e-5)."""
+    jm, tm = _mha_pair()
+    x = np.random.RandomState(2).randn(2, 4, 16).astype("float32")
+    mask = np.triu(np.full((4, 4), -1e9, "float32"), 1)
+    full = tm(cpu.to_tensor(x), attn_mask=cpu.to_tensor(mask))
+    tc = tm.gen_cache(cpu.to_tensor(x))
+    jc = jm.gen_cache(paddle_tpu.to_tensor(x))
+    assert isinstance(tc, tm.Cache) and list(tc.k.shape) == [2, 0, 2, 8]
+    steps = []
+    for i in range(4):
+        tok = x[:, i:i + 1]
+        to, tc = tm(cpu.to_tensor(tok), cache=tc)
+        jo, jc = jm(paddle_tpu.to_tensor(tok), cache=jc)
+        np.testing.assert_allclose(to.detach().numpy(), np.asarray(jo.data),
+                                   rtol=1e-5, atol=1e-5)
+        steps.append(to.detach().numpy())
+    assert list(tc.k.shape) == [2, 4, 2, 8]
+    np.testing.assert_allclose(np.concatenate(steps, 1),
+                               full.detach().numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_mha_static_cache_cross_attention_matches(cpu):
+    jm, tm = _mha_pair()
+    rs = np.random.RandomState(3)
+    q = rs.randn(2, 3, 16).astype("float32")
+    mem = rs.randn(2, 5, 16).astype("float32")
+    tc = tm.gen_cache(cpu.to_tensor(mem), type=tm.StaticCache)
+    jc = jm.gen_cache(paddle_tpu.to_tensor(mem),
+                      type=paddle_tpu.nn.MultiHeadAttention.StaticCache)
+    to, tc2 = tm(cpu.to_tensor(q), cache=tc)
+    jo, _ = jm(paddle_tpu.to_tensor(q), cache=jc)
+    assert tc2 is tc
+    np.testing.assert_allclose(to.detach().numpy(), np.asarray(jo.data),
+                               rtol=1e-5, atol=1e-5)
+    direct = tm(cpu.to_tensor(q), cpu.to_tensor(mem))
+    np.testing.assert_allclose(to.detach().numpy(),
+                               direct.detach().numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_encoder_cache_matches_paddle_tpu(cpu):
+    paddle_tpu.seed(1)
+    jl = paddle_tpu.nn.TransformerEncoderLayer(16, 2, 32, dropout=0.0)
+    tl = cpu.nn.TransformerEncoderLayer(16, 2, 32, dropout=0.0)
+    _carry(jl, tl)
+    jl.eval(), tl.eval()
+    x = np.random.RandomState(4).randn(2, 3, 16).astype("float32")
+    to, tc = tl(cpu.to_tensor(x), cache=tl.gen_cache(cpu.to_tensor(x)))
+    jo, jc = jl(paddle_tpu.to_tensor(x),
+                cache=jl.gen_cache(paddle_tpu.to_tensor(x)))
+    np.testing.assert_allclose(to.detach().numpy(), np.asarray(jo.data),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tc.k.detach().numpy(), np.asarray(jc.k.data),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_decorate_takes_save_dtype(cpu):
+    """``save_dtype`` is accepted and, as in paddle_tpu, changes neither
+    the cast nor the state dict."""
+    outs = []
+    for pkg in (paddle_tpu, cpu):
+        m = pkg.nn.Linear(2, 2)
+        opt = pkg.optimizer.Momentum(0.1, parameters=m.parameters())
+        m, opt = pkg.amp.decorate(m, opt, level="O2", dtype="bfloat16",
+                                  save_dtype="float32")
+        outs.append((dtype_name(m.weight.dtype) if pkg is cpu
+                     else str(m.weight.dtype), opt._multi_precision))
+    assert outs[0] == outs[1] == ("bfloat16", True)
+
+
+def test_static_fc_ignores_weight_and_bias_attr(cpu):
+    """As paddle_tpu's ``static.nn.fc`` does: the attrs are taken and
+    the layer is the same fc."""
+    main = static.Program()
+    with static.program_guard(main):
+        x = static.data("x", [None, 6])
+        out = static.nn.fc(x, 3, weight_attr=cpu.ParamAttr(name="w"),
+                           bias_attr=False, activation="relu")
+    xs = np.random.RandomState(5).randn(4, 6).astype("float32")
+    got, = static.Executor().run(main, feed={"x": xs}, fetch_list=[out])
+    w, b = main.parameters()
+    want = np.maximum(xs @ w.detach().numpy() + b.detach().numpy(), 0)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)

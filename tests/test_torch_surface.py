@@ -46,25 +46,22 @@ NOT_YET_PORTED = {
         param_list save to_static
     """,
     "paddle_tpu.nn": """
-        AlphaDropout BatchNorm BatchNorm1D BatchNorm2D BatchNorm3D
-        BeamSearchDecoder BiRNN Bilinear CTCLoss ClipGradByNorm
+        AlphaDropout BeamSearchDecoder BiRNN Bilinear CTCLoss ClipGradByNorm
         ClipGradByValue CosineEmbeddingLoss CosineSimilarity Dropout2D
-        Dropout3D Flatten GRU GRUCell GroupNorm HSigmoidLoss
-        HingeEmbeddingLoss Identity InstanceNorm1D InstanceNorm2D
-        InstanceNorm3D KLDivLoss LSTM LSTMCell LocalResponseNorm
-        MarginRankingLoss Pad1D Pad2D Pad3D PairwiseDistance PixelShuffle
-        RNN RNNCellBase SimpleRNN SimpleRNNCell SmoothL1Loss SpectralNorm
-        SyncBatchNorm Transformer TransformerDecoder TransformerDecoderLayer
+        Dropout3D Flatten GRU GRUCell HSigmoidLoss HingeEmbeddingLoss
+        Identity KLDivLoss LSTM LSTMCell MarginRankingLoss Pad1D Pad2D Pad3D
+        PairwiseDistance PixelShuffle RNN RNNCellBase SimpleRNN SimpleRNNCell
+        SmoothL1Loss Transformer TransformerDecoder TransformerDecoderLayer
         Unfold Upsample UpsamplingBilinear2D UpsamplingNearest2D cell_step
         dynamic_decode gather_tree remove_weight_norm weight_norm
     """,
     "paddle_tpu.nn.functional": """
-        Tensor affine_grid alpha_dropout as_array batch_norm bilinear
+        Tensor affine_grid alpha_dropout as_array bilinear
         cosine_embedding_loss cosine_similarity ctc_loss diag_embed
         dice_loss dropout2d dropout3d elu_ gather_tree grid_sample
-        group_norm gumbel_softmax hinge_embedding_loss hsigmoid_loss
-        instance_norm interpolate kl_div label_smooth local_response_norm
-        log_loss margin_ranking_loss next_key np_asarray npair_loss
+        gumbel_softmax hinge_embedding_loss hsigmoid_loss interpolate kl_div
+        label_smooth log_loss margin_ranking_loss next_key np_asarray
+        npair_loss
         pixel_shuffle relu_ sequence_mask sigmoid_focal_loss softmax_
         square_error_cost stable_draw tanh_ temporal_shift unfold upsample
     """,
@@ -77,6 +74,7 @@ NOT_YET_PORTED = {
     "paddle_tpu.nn.initializer": """
         next_key
     """,
+    "paddle_tpu.metric": "",
     "paddle_tpu.optimizer.lr": "",
     "paddle_tpu.serving": """
         ElasticityController InferenceEngine ModelEntry ModelRegistry
@@ -100,10 +98,7 @@ UNLISTED = {
     "paddle_tpu.vision.models": ("""
         LeNet MobileNetV1 MobileNetV2 ResNet VGG mobilenet_v1 mobilenet_v2
         resnet18 resnet34 resnet50 resnet101 resnet152 vgg11 vgg13 vgg16
-        vgg19""", """
-        MobileNetV1 MobileNetV2 ResNet VGG mobilenet_v1 mobilenet_v2
-        resnet18 resnet34 resnet50 resnet101 resnet152 vgg11 vgg13 vgg16
-        vgg19"""),
+        vgg19""", ""),
 }
 
 
