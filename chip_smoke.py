@@ -137,7 +137,39 @@ kernel from the sources in this checkout.  Phases, each fatal:
     the batch-norm kernels torch ran, by name; then one batch norm's
     forward and backward at ResNet-50's largest, the port's route
     against ``torch.batch_norm`` (cuDNN where it takes the call), with
-    the kernels each ran.
+    the kernels each ran;
+30. ``build_gpt_static`` (``bench.build_gpt_static``) at bench_pallas's
+    CPU widths, 3 ``Executor.run``s on the card and on the CPU from the
+    same weights and constant: the same realized kernel lists (fc1 +
+    gelu a layer, the residual adds of proj and fc2, the last with the
+    final layer norm, fused Adam), losses within rtol 1e-5, parameters
+    within phase 11's atol (the key projections' biases within lr a
+    step), every kernel's launches by name;
+31. every kernel instance the static GPT and ``bench_static``'s MLP put
+    on a main path, against its plain version and timed beside its
+    bound and a library call: the f32 flash kernels causal at D 64 (B 8,
+    L 1024, H 16; SDPA's memory-efficient backend), K2f and K2b at the
+    GPT's chains (M 8192: fc1 + gelu, proj and fc2 + residual add, the
+    last fc2 + add + layer_norm) and the MLP's bias + relu (M 256),
+    ``torch._addmm_activation`` or ``torch.addmm`` beside the forward,
+    and K3 over the GPT's ~2.0e8 trained parameters beside
+    ``torch._fused_adam_``;
+32. bench_pallas's static GPT at its chip config, uncut (vocab 50257,
+    hidden 1024, 8 layers, 16 heads, ffn 4096, seq 1024, batch 8, f32,
+    Adam 1e-4): 2 warm-up and 8 timed runs; step p50 and mean, tokens/s,
+    MFU from ``Program.analyze``'s ``flops_train`` over 67 TFLOP/s (the
+    PaLM count beside it), peak memory beside analyze's prediction, one
+    build, and every kernel's launches a step by name (24 fused chains,
+    8 of each f32 flash kernel, 1 fused Adam);
+33. anatomy of one static GPT step: device ms by group, the idle share
+    and the named f32 kernels' launches a step;
+34. ``bench_static``'s two entries at its chip config (the static MLP:
+    hidden 1024, depth 8, batch 256, 3 rounds of 100 runs; the static
+    LeNet: batch 256, 50 runs; device feeds, ``return_numpy=False``):
+    steps/s, step ms, ``compile_count`` 1 and ``host_feed_converts`` 0
+    (asserted), every kernel's launches, and the analyzer block with
+    the predicted GFLOP/s beside the achieved; the legacy loop and the
+    anomaly sentry are named as cut.
 
 The last lines are the kernels JSON object, the card's name and power
 limit as ``nvidia-smi`` reports them, and ``{"ok": true, ...}``.  Any
@@ -1300,12 +1332,13 @@ def _static_param_shapes(cfg):
     return [(v, h)] + layer * cfg["layers"] + [(h, v), (v,)]
 
 
-def _adam_phase(torch, gen):
-    """K3 over the full-width static BERT's parameters: 5 steps against
-    the plain version, then times; torch._fused_adam_ timed beside it."""
+def _adam_phase(torch, gen, shapes=None):
+    """K3 over ``shapes`` (default: the full-width static BERT's
+    parameters): 5 steps against the plain version, then times;
+    torch._fused_adam_ timed beside it."""
     from paddle_tpu_torch.ops.fused_adam import (FusedAdam,
                                                  fused_adam_reference_)
-    shapes = _static_param_shapes(STATIC_CHIP)
+    shapes = shapes or _static_param_shapes(STATIC_CHIP)
     numel = sum(math.prod(s) for s in shapes)
     ps = [torch.randn(s, generator=gen, device="cuda") * 0.02
           for s in shapes]
@@ -1415,6 +1448,54 @@ def _epi_bf16_times(torch, gen, M):
     return rows
 
 
+def _epi_chain_times(torch, gen, M, K, N, stages, fwd_call, fwd_call_name):
+    """The three launches of one f32 chain timed at (M, K, N), each beside
+    its bound, the plain version (the forward, or the whole backward) and
+    a library yardstick, f32 with TF32 off: ``fwd_call(x, w, ops)()``
+    (``fwd_call`` makes, outside the timing, a call computing the same
+    forward; None where there is none) for the forward, the product it
+    replays (x . w) for the first backward launch, the two products it
+    computes (dx = g . w^T, dw = x^T . g) for the second: {kernel: chain
+    row}."""
+    from paddle_tpu_torch.ops.cuda import fused_epilogue as cuda_epi
+    from paddle_tpu_torch.ops.fused_epilogue import (
+        epilogue_backward_reference, epilogue_forward_reference)
+    x, w, dy, ops = _epi_case(torch, gen, M, K, N, stages, torch.float32)
+    full = (("bias",),) + tuple(stages)
+    g, partial, _ = cuda_epi.fused_epilogue_bwd_rows(x, w, ops, full, dy)
+    ms = {"fused_epilogue_fwd": cuda_ms(
+              lambda i: cuda_epi.fused_epilogue_fwd(x, w, ops, full), 10),
+          "fused_epilogue_bwd": cuda_ms(
+              lambda i: cuda_epi.fused_epilogue_bwd_rows(x, w, ops, full,
+                                                         dy), 10),
+          "fused_epilogue_bwd_grads": cuda_ms(
+              lambda i: cuda_epi.fused_epilogue_bwd_grads(x, w, ops, g,
+                                                          partial), 10)}
+    plain_fwd = cuda_ms(lambda i: epilogue_forward_reference(
+        x, w, ops, full), 5)
+    plain_bwd = cuda_ms(lambda i: epilogue_backward_reference(
+        x, w, ops, full, dy), 5)
+    lib = {"fused_epilogue_fwd": None if fwd_call is None else cuda_ms(
+               lambda i, call=fwd_call(x, w, ops): call(), 10),
+           "fused_epilogue_bwd": cuda_ms(lambda i: torch.matmul(x, w), 10),
+           "fused_epilogue_bwd_grads": cuda_ms(
+               lambda i: (torch.matmul(g, w.t()),
+                          torch.matmul(x.t(), g)), 10)}
+    calls = dict(EPI_LIBRARY_CALLS, fused_epilogue_fwd=fwd_call_name)
+    bounds = _epi_bounds(M, K, N, stages, 4, "float32")
+    out = {}
+    for name in EPI_KERNELS:
+        b_ms, b_by, nbytes, nops = bounds[name]
+        fwd = name == "fused_epilogue_fwd"
+        out[name] = {"ms": ms[name], "plain_ms": plain_fwd if fwd
+                     else plain_bwd, "bound_ms": b_ms, "bound_by": b_by,
+                     "bytes": nbytes, "operations": nops,
+                     "library_ms": lib[name], "library_call": calls[name]}
+    del x, w, dy, ops, g, partial
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_epilogue_adam_kernels():
     """K2f and K2b against their plain versions: the three BERT-base
     chains at M 8192 in f32 and bf16, three small recipes (bias only,
@@ -1422,9 +1503,6 @@ def phase_epilogue_adam_kernels():
     of 5, 9 and 12 blocks; K2f bitwise against K6 at f32; times of the
     f32 chains (the main path's dtype); then K3."""
     import torch
-    from paddle_tpu_torch.ops.cuda import fused_epilogue as cuda_epi
-    from paddle_tpu_torch.ops.fused_epilogue import (
-        epilogue_backward_reference, epilogue_forward_reference)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(10)
     M = STATIC_CHIP["batch"] * STATIC_CHIP["seq"]
@@ -1463,44 +1541,13 @@ def phase_epilogue_adam_kernels():
                    "bytes": 0, "operations": 0, "chains": {}}
             for name in EPI_KERNELS}
     for label, K, N, stages in _epi_chains(STATIC_CHIP):
-        x, w, dy, ops = _epi_case(torch, gen, M, K, N, stages, torch.float32)
-        full = (("bias",),) + tuple(stages)
-        g, partial, _ = cuda_epi.fused_epilogue_bwd_rows(x, w, ops, full, dy)
-        ms = {"fused_epilogue_fwd": cuda_ms(
-                  lambda i: cuda_epi.fused_epilogue_fwd(x, w, ops, full), 10),
-              "fused_epilogue_bwd": cuda_ms(
-                  lambda i: cuda_epi.fused_epilogue_bwd_rows(x, w, ops, full,
-                                                             dy), 10),
-              "fused_epilogue_bwd_grads": cuda_ms(
-                  lambda i: cuda_epi.fused_epilogue_bwd_grads(x, w, ops, g,
-                                                              partial), 10)}
-        plain_fwd = cuda_ms(lambda i: epilogue_forward_reference(
-            x, w, ops, full), 5)
-        plain_bwd = cuda_ms(lambda i: epilogue_backward_reference(
-            x, w, ops, full, dy), 5)
-        # yardsticks, f32 with TF32 off: for the forward of fc1 the one
-        # call that fuses its bias and GELU; for the first backward launch
-        # the product it replays (x . w), for the second the two products
-        # it computes (dx = g . w^T, dw = x^T . g)
-        lib = {"fused_epilogue_fwd": None,
-               "fused_epilogue_bwd": cuda_ms(lambda i: torch.matmul(x, w),
-                                             10),
-               "fused_epilogue_bwd_grads": cuda_ms(
-                   lambda i: (torch.matmul(g, w.t()),
-                              torch.matmul(x.t(), g)), 10)}
-        if label == "fc1":
-            lib["fused_epilogue_fwd"] = cuda_ms(
-                lambda i: torch._addmm_activation(ops[0][0], x, w,
-                                                  use_gelu=True), 10)
-        bounds = _epi_bounds(M, K, N, stages, 4, "float32")
+        fwd_call = (lambda x, w, ops: lambda: torch._addmm_activation(
+            ops[0][0], x, w, use_gelu=True)) if label == "fc1" else None
+        chains = _epi_chain_times(torch, gen, M, K, N, stages, fwd_call,
+                                  EPI_LIBRARY_CALLS["fused_epilogue_fwd"])
         for name in EPI_KERNELS:
-            b_ms, b_by, nbytes, nops = bounds[name]
+            chain = chains[name]
             fwd = name == "fused_epilogue_fwd"
-            chain = {"ms": ms[name], "plain_ms": plain_fwd if fwd
-                     else plain_bwd, "bound_ms": b_ms, "bound_by": b_by,
-                     "bytes": nbytes, "operations": nops,
-                     "library_ms": lib[name],
-                     "library_call": EPI_LIBRARY_CALLS[name]}
             rows[name]["chains"][label] = chain
             for key in ("ms", "bound_ms", "bytes", "operations"):
                 rows[name][key] += chain[key]
@@ -1511,8 +1558,6 @@ def phase_epilogue_adam_kernels():
             log("KERNEL " + json.dumps(dict(
                 kernel=name, case=f"{label} M={M} K={K} N={N} float32",
                 **chain)))
-        del x, w, dy, ops, g, partial
-        torch.cuda.empty_cache()
     for name, row in rows.items():
         row.setdefault("library_ms", None)
         row["library_call"] = EPI_LIBRARY_CALLS[name]
@@ -2980,6 +3025,446 @@ def phase_resnet50_anatomy(step, batch, timed_ms, steps=2):
     log("RESNET50_BN_ROUTES " + json.dumps(_bn_routes(torch)))
 
 
+# --------------------------------------------------------------- phase 30
+# bench.py:1110-1111 and :1116-1117, bench_pallas's static GPT (its chip
+# and CPU configurations)
+GPT_STATIC_CHIP = dict(vocab=50257, hidden=1024, layers=8, heads=16,
+                       ffn=4096, seq=1024, batch=8)
+GPT_STATIC_CPU = dict(vocab=1000, hidden=128, layers=2, heads=4, ffn=512,
+                      seq=128, batch=4)
+# bench.py:630-632, bench_static's chip config
+STATIC_MLP_CHIP = dict(hidden=1024, depth=8, batch=256, steps=100, rounds=3)
+STATIC_LENET_CHIP = dict(batch=256, steps=50)
+
+
+def _gpt_static_kernels(layers):
+    """The static GPT's realized kernels, in the fusion pass's order: a
+    layer's fc1 + gelu chains first (the largest saving), then the last
+    fc2's residual add, which takes the final layer norm with it (its
+    only reader), then the other residual adds, then fused Adam."""
+    return (["fused_epilogue[matmul+bias+gelu]"] * layers
+            + ["fused_epilogue[matmul+bias+add+layer_norm]"]
+            + ["fused_epilogue[matmul+bias+add]"] * (2 * layers - 1)
+            + ["fused_adam"])
+
+
+def _gpt_static_per_step(kernels, layers):
+    """Each kernel's launches a static GPT step, from a realized list:
+    every fused chain launches K2f and K2b's two kernels once, every
+    layer's attention the three f32 flash kernels once."""
+    chains = sum(k.startswith("fused_epilogue") for k in kernels)
+    return {"fused_epilogue_fwd": chains, "fused_epilogue_bwd": chains,
+            "fused_epilogue_bwd_grads": chains,
+            "fused_adam": kernels.count("fused_adam"),
+            "flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
+            "flash_attention_bwd_dkv": layers}
+
+
+def phase_static_gpt_parity():
+    """``build_gpt_static`` at bench_pallas's CPU widths, 3 runs on the
+    CPU and on the card from the same weights and constant: the same
+    realized kernels (the list ``_gpt_static_kernels`` gives), losses
+    within rtol 1e-5, parameters within BERT_PARAM_ATOL (the key
+    projections' biases within lr a step), and the kernels' launches on
+    the card, by name.  Returns the CPU's realized list."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.framework_io import program_state_from_paddle_tpu
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.testing.models import build_gpt_static
+    cfg, runs = GPT_STATIC_CPU, 3
+    built = {dev: build_gpt_static(**cfg, device=dev)
+             for dev in ("cpu", "cuda")}
+    cpu_main = built["cpu"][0]
+    program_state_from_paddle_tpu(
+        built["cuda"][0], [p.detach().numpy() for p in cpu_main.parameters()],
+        [v.numpy() for node in cpu_main.nodes for tag, v in node.in_specs
+         if tag == "c"])
+    losses, kernels = {}, {}
+    for dev, (main, loss, feeds) in built.items():
+        exe = static.Executor(dev)
+        feed = {k: torch.from_numpy(v).to(dev)
+                for k, v in feeds(np.random.RandomState(0)).items()}
+        support.reset_launch_counts()
+        losses[dev] = [float(exe.run(main, feed=feed, fetch_list=[loss])[0])
+                       for _ in range(runs)]
+        kernels[dev] = next(iter(exe._cache.values())).kernels
+    counts = dict(support.launch_counts)
+    want = {k: v * runs for k, v in _gpt_static_per_step(
+        kernels["cpu"], cfg["layers"]).items()}
+    if counts != want:
+        raise AssertionError(f"small static GPT launches {counts}, want "
+                             f"{want}")
+    if not (kernels["cpu"] == kernels["cuda"]
+            == _gpt_static_kernels(cfg["layers"])):
+        raise AssertionError(f"realized kernels differ: {kernels}")
+    diffs = [(p.detach().cpu() - q.detach()).abs().max().item()
+             for p, q in zip(built["cuda"][0].parameters(),
+                             cpu_main.parameters())]
+    # parameters: tok, then 16 a layer (ln1.w, ln1.b, wq.w, wq.b, wk.w,
+    # wk.b, ...)
+    k_bias = {1 + 16 * layer + 5 for layer in range(cfg["layers"])}
+    rest = max(d for i, d in enumerate(diffs) if i not in k_bias)
+    kb = max(diffs[i] for i in k_bias)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                      losses["cpu"]))
+    out = {"config": cfg, "losses_cpu": losses["cpu"],
+           "losses_cuda": losses["cuda"], "loss_max_rel_err": loss_err,
+           "param_max_abs_err": rest, "k_proj_bias_max_abs_err": kb,
+           "loss_rtol": 1e-5, "param_atol": BERT_PARAM_ATOL,
+           "k_proj_bias_atol": 1e-4 * runs * 1.01,
+           "kernels": kernels["cuda"], "launches": counts}
+    log("STATIC_GPT_PARITY " + json.dumps(out))
+    if (not loss_err <= 1e-5 or not rest <= BERT_PARAM_ATOL
+            or not kb <= 1e-4 * runs * 1.01):
+        raise AssertionError(f"small static GPT card vs CPU: {out}")
+    return kernels["cpu"]
+
+
+# --------------------------------------------------------------- phase 31
+def _gpt_static_chains(cfg):
+    """The static GPT's fused chains at the chip config, and the static
+    MLP's: (label, M, K, N, stages after the bias, library forward call
+    and its name)."""
+    import torch
+    h, f = cfg["hidden"], cfg["ffn"]
+    M = cfg["batch"] * cfg["seq"]
+    ln = ("layer_norm", 1e-5, True, True)
+
+    def addmm_act(gelu):
+        return lambda x, w, ops: lambda: torch._addmm_activation(
+            ops[0][0], x, w, use_gelu=gelu)
+
+    def addmm_res(x, w, ops):
+        c = ops[0] + ops[1]                    # bias + residual, once
+        return lambda: torch.addmm(c, x, w)
+
+    act = "torch._addmm_activation(bias, x, w, use_gelu={})"
+    res = "torch.addmm(bias + residual, x, w), the sum made beforehand"
+    mlp = STATIC_MLP_CHIP
+    return [("fc1", M, h, f, (("gelu", True),), addmm_act(True),
+             act.format(True)),
+            ("proj", M, h, h, (("add",),), addmm_res, res),
+            ("fc2", M, f, h, (("add",),), addmm_res, res),
+            ("fc2 last layer", M, f, h, (("add",), ln), None, None),
+            ("static MLP fc", mlp["batch"], mlp["hidden"], mlp["hidden"],
+             (("relu",),), addmm_act(False), act.format(False))]
+
+
+def _gpt_static_param_shapes(cfg):
+    """program.parameters() of build_gpt_static, in order."""
+    h, f, v = cfg["hidden"], cfg["ffn"], cfg["vocab"]
+    layer = [(h,), (h,)] + [(h, h), (h,)] * 4 + [(h,), (h,), (h, f), (f,),
+                                                 (f, h), (h,)]
+    return [(v, h)] + layer * cfg["layers"] + [(h,), (h,), (h, v), (v,)]
+
+
+def phase_static_gpt_kernels():
+    """Every kernel instance the static GPT and the static MLP put on a
+    main path, held to its plain version on the card and timed beside its
+    bound and a library call: the f32 flash kernels causal at D 64 (B 8,
+    L 1024, H 16; SDPA's memory-efficient backend, causal); K2f and K2b
+    at the GPT's chains (M 8192: fc1 + gelu, the residual adds of proj
+    and fc2, the last fc2's add + layer_norm) and the MLP's bias + relu
+    (M 256); K3 over the GPT's trained parameters (``torch._fused_adam_``
+    beside it).  Returns {kernel: row}."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    cfg = GPT_STATIC_CHIP
+    B, L, H = cfg["batch"], cfg["seq"], cfg["heads"]
+    D = cfg["hidden"] // H
+    errs = _flash_case(torch, gen, B, L, H, D, torch.float32, True, 0.0, 3,
+                       plain_b=1)
+    err = max(errs.values())
+    log("STATIC_GPT_FLASH_CHECK " + json.dumps({
+        "case": f"B={B} L={L} H={H} D={D} float32 causal=True (plain on "
+                f"batch row 0)", "errors": errs, "tol": FLASH_TOL["float32"]}))
+    if not err <= FLASH_TOL["float32"]:
+        raise AssertionError(f"flash f32 causal D {D}: {errs}")
+    rows = _flash_time_rows(torch, gen, B, L, H, D, torch.float32, True,
+                            0.0, 3)
+    for row in rows.values():
+        row["max_abs_err"] = err
+    epi = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                  "library_ms": 0.0, "max_abs_err": 0.0, "chains": {}}
+           for name in EPI_KERNELS}
+    for label, M, K, N, stages, fwd_call, fwd_name in _gpt_static_chains(
+            cfg):
+        x, w, dy, ops = _epi_case(torch, gen, M, K, N, stages, torch.float32)
+        errs = _epi_check(torch, x, w, dy, ops, stages)
+        err = max(errs.values())
+        check = {"case": f"{label} M={M} K={K} N={N} float32",
+                 "errors": errs, "tol": EPI_TOL["float32"]}
+        log("EPILOGUE_CHECK " + json.dumps(check))
+        if not err <= EPI_TOL["float32"]:
+            raise AssertionError(f"fused epilogue kernels disagree with the "
+                                 f"plain versions: {check}")
+        del x, w, dy, ops
+        chains = _epi_chain_times(torch, gen, M, K, N, stages, fwd_call,
+                                  fwd_name)
+        for name, chain in chains.items():
+            chain["max_abs_err"] = err
+            log("KERNEL " + json.dumps(dict(kernel=name, **check, **chain)))
+            epi[name]["chains"][label] = chain
+            epi[name]["max_abs_err"] = max(epi[name]["max_abs_err"], err)
+            if label in ("fc1", "proj", "fc2"):
+                for key in ("ms", "plain_ms", "bound_ms"):
+                    epi[name][key] += chain[key]
+                epi[name]["library_ms"] += chain["library_ms"]
+    for name, row in epi.items():
+        layer = [row["chains"][k] for k in ("fc1", "proj", "fc2")]
+        row["bound_by"] = ("bytes" if all(c["bound_by"] == "bytes"
+                                          for c in layer) else "operations")
+        row["library_call"] = "; ".join(sorted({c["library_call"]
+                                                for c in layer}))
+        row["case"] = (f"one static GPT layer: fc1, proj and fc2 chains at "
+                       f"M={B * L}, float32, times summed")
+        log("KERNEL_LAYER " + json.dumps(dict(kernel=name, **row)))
+        rows[name] = row
+    shapes = _gpt_static_param_shapes(cfg)
+    rows["fused_adam"] = _adam_phase(torch, gen, shapes)
+    rows["fused_adam"]["case"] = (f"the static GPT's {len(shapes)} trained "
+                                  f"tensors, {rows['fused_adam']['numel']} "
+                                  f"float32 elements")
+    return rows
+
+
+# --------------------------------------------------------------- phase 32
+def phase_static_gpt_training(cpu_kernels, warmup=2, steps=8):
+    """bench_pallas's static GPT at its chip config on the card, uncut:
+    losses finite, the first near ln(vocab), one build, the realized
+    kernels those of the CPU's list (phase 30) at this depth, and each
+    kernel launched as often a step as that list says.  MFU from the
+    port's own ``Program.analyze`` count (bench_pallas's) over 67 TFLOP/s,
+    the PaLM count beside it; peak memory beside analyze's prediction."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.testing.models import (build_gpt_static,
+                                                 palm_flops_per_step)
+    cfg = GPT_STATIC_CHIP
+    t0 = time.perf_counter()
+    main, loss, feeds = build_gpt_static(**cfg, device="cuda")
+    exe = static.Executor("cuda")
+    feed = {k: torch.from_numpy(v).cuda()
+            for k, v in feeds(np.random.RandomState(0)).items()}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    support.reset_launch_counts()
+    losses, step_ms = [], []
+    for i in range(warmup + steps):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], return_numpy=False)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out[0]))
+    counts = dict(support.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    rep = main.analyze(fetch_list=[loss], chip="h100", top_k=None)
+    analyze_s = time.perf_counter() - t0
+    step = next(iter(exe._cache.values()))
+    n_params = sum(p.numel() for p in main.parameters())
+    timed = step_ms[warmup:]
+    mean_ms = sum(timed) / len(timed)
+    flops = rep.totals["flops_train"]
+    palm = palm_flops_per_step(n_params - cfg["vocab"] * cfg["hidden"],
+                               cfg["layers"], cfg["seq"], cfg["batch"],
+                               cfg["hidden"])
+    kernels = step.kernels
+    want_kernels = _gpt_static_kernels(cfg["layers"])
+    per_step = _gpt_static_per_step(kernels, cfg["layers"])
+    out = {"config": cfg, "dtype": "float32", "optimizer": "Adam(1e-4)",
+           "params_trained": n_params, "setup_s": setup_s,
+           "warmup_runs": warmup, "timed_runs": steps, "losses": losses,
+           "step_ms": timed, "step_ms_p50": float(np.median(timed)),
+           "step_ms_mean": mean_ms, "first_runs_ms": step_ms[:warmup],
+           "tokens_per_s": cfg["batch"] * cfg["seq"] / (mean_ms / 1e3),
+           "analyze_flops_train": flops,
+           "analyze_flops_fwd": rep.totals["flops_fwd"],
+           "analyze_unmodeled_ops": rep.totals["unmodeled"]["count"],
+           "mfu_f32": flops / (mean_ms / 1e3) / PEAK_OPS["float32"],
+           "palm_flops_per_step": palm,
+           "mfu_f32_palm": palm / (mean_ms / 1e3) / PEAK_OPS["float32"],
+           "mfu_peak": "67 TFLOP/s, f32 on the CUDA cores",
+           "max_memory_allocated": peak,
+           "analyze_peak_bytes_donated": rep.memory.peak_bytes_donated,
+           "analyze_peak_bytes_no_donation":
+               rep.memory.peak_bytes_no_donation,
+           "analyze_s": analyze_s, "predicted": step.predicted,
+           "fusion_candidates_realized":
+               f"{sum(1 for c in rep.fusion_candidates if c['realized'])}"
+               f"/{len(rep.fusion_candidates)}",
+           "launches": counts, "launches_per_step_want": per_step,
+           "realized_kernels": kernels, "compile_count": exe.compile_count}
+    log("STATIC_GPT_TRAIN " + json.dumps(out))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if abs(losses[0] - math.log(cfg["vocab"])) > 1.0:
+        raise AssertionError(f"first loss {losses[0]} is not near "
+                             f"ln({cfg['vocab']}) = "
+                             f"{math.log(cfg['vocab'])}")
+    if exe.compile_count != 1:
+        raise AssertionError(f"{exe.compile_count} builds, want 1")
+    if kernels != want_kernels or (
+            cpu_kernels != _gpt_static_kernels(GPT_STATIC_CPU["layers"])):
+        raise AssertionError(f"realized kernels {kernels}, want "
+                             f"{want_kernels} (the CPU's list at "
+                             f"{cfg['layers']} layers)")
+    if per_step["fused_epilogue_fwd"] != 3 * cfg["layers"]:
+        raise AssertionError(f"{per_step} fused chains, want 3 a layer")
+    runs = warmup + steps
+    want = {k: v * runs for k, v in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"static GPT launches {counts}, want {want}")
+    return counts, (exe, main, loss, feed), timed
+
+
+# --------------------------------------------------------------- phase 33
+def phase_static_gpt_anatomy(run, timed_ms, steps=2):
+    """Anatomy of one static GPT step: device ms by group (fused
+    epilogue, flash, fused Adam, cuBLAS, other), the idle share, and the
+    named f32 kernels' launches a step."""
+    exe, main, loss, feed = run
+    layers = GPT_STATIC_CHIP["layers"]
+    launches = _step_anatomy("STATIC_GPT_ANATOMY", lambda: exe.run(
+        main, feed=feed, fetch_list=[loss], return_numpy=False), steps,
+        lambda n: ("fused_epilogue" if "epilogue_" in n else
+                   "fused_adam" if "adam_kernel" in n else
+                   "flash" if "flash_" in n else
+                   "cublas" if _is_gemm(n) else "other"),
+        timed_ms=timed_ms)
+    want = {"epilogue_fwd_f32_kernel": 3 * layers,
+            "epilogue_bwd_f32_kernel": 3 * layers,
+            "epilogue_grads_f32_kernel": 3 * layers,
+            "flash_fwd_f32_kernel": layers,
+            "flash_bwd_dq_f32_kernel": layers,
+            "flash_bwd_dkv_f32_kernel": layers}
+    seen = {k: launches.get(k, 0) for k in want}
+    if seen != want:
+        raise AssertionError(f"static GPT step kernels {seen}, want {want}")
+
+
+# --------------------------------------------------------------- phase 34
+def _analyzer(main, loss, batch, steps, seconds):
+    """bench_static's ``analyzer`` block (bench.py:765-780), with the
+    h100 row's predicted GFLOP/s beside the achieved."""
+    rep = main.analyze(fetch_list=[loss], batch_size=batch, chip="h100")
+    m, r = rep.memory, rep.roofline["h100"]
+    train = rep.totals["flops_train"]
+    return {"fwd_gflops_per_step": rep.totals["flops_fwd"] / 1e9,
+            "train_gflops_per_step": train / 1e9,
+            "peak_mib_donated": m.peak_bytes_donated / 2 ** 20,
+            "peak_mib_no_donation": m.peak_bytes_no_donation / 2 ** 20,
+            "arithmetic_intensity": rep.totals["arithmetic_intensity"],
+            "unmodeled_ops": rep.totals["unmodeled"]["count"],
+            "fusion_candidates": len(rep.fusion_candidates),
+            "predicted_step_ms_h100": r["predicted_step_s"] * 1e3,
+            "predicted_bound_h100": r["bound"],
+            "predicted_gflops_per_sec": train / r["predicted_step_s"] / 1e9,
+            "achieved_gflops_per_sec": train * steps / seconds / 1e9}
+
+
+def phase_static_bench():
+    """``bench_static``'s two entries at its chip config: the static MLP
+    (hidden 1024, depth 8, batch 256; 3 warm-up runs, then 3 rounds of
+    100 runs with ``return_numpy=False`` and one sync a round) and the
+    static LeNet (batch 256; 3 warm-up and 50 runs, one sync at the end),
+    device feeds.  Prints steps/s, step ms, ``compile_count`` and
+    ``host_feed_converts`` (asserted 1 and 0 each) and the analyzer block;
+    returns each program's launches."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.testing.models import (build_static_lenet,
+                                                 build_static_mlp)
+    mc, lc = STATIC_MLP_CHIP, STATIC_LENET_CHIP
+    rng = np.random.RandomState(0)
+    xs = rng.standard_normal((mc["batch"], mc["hidden"])).astype(np.float32)
+    ys = rng.standard_normal((mc["batch"], 1)).astype(np.float32)
+    lx = rng.standard_normal((lc["batch"], 1, 28, 28)).astype(np.float32)
+    ly = rng.randint(0, 10, (lc["batch"],), dtype=np.int64)
+    out, launches = {}, {}
+    for name in ("mlp", "lenet"):
+        if name == "mlp":
+            main, loss = build_static_mlp(mc["hidden"], mc["depth"])
+            feed = {"x": torch.from_numpy(xs).cuda(),
+                    "y": torch.from_numpy(ys).cuda()}
+            rounds, steps, batch = mc["rounds"], mc["steps"], mc["batch"]
+        else:
+            main, loss = build_static_lenet()
+            feed = {"x": torch.from_numpy(lx).cuda(),
+                    "y": torch.from_numpy(ly).cuda()}
+            rounds, steps, batch = 1, lc["steps"], lc["batch"]
+        exe = static.Executor("cuda")
+        support.reset_launch_counts()
+        for _ in range(3):
+            last = exe.run(main, feed=feed, fetch_list=[loss],
+                           return_numpy=False)[0]
+        first = float(last)
+        dt = 0.0
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                last = exe.run(main, feed=feed, fetch_list=[loss],
+                               return_numpy=False)[0]
+            final = float(last)                    # one sync a round
+            dt += time.perf_counter() - t0
+        launches[name] = dict(support.launch_counts)
+        n = rounds * steps
+        out[name] = {"steps_per_sec": n / dt, "step_time_ms": 1e3 * dt / n,
+                     "timed_runs": n, "batch": batch,
+                     "loss_after_warmup": first, "final_loss": final,
+                     "compile_count": exe.compile_count,
+                     "host_feed_converts": exe.host_feed_converts,
+                     "realized_kernels": next(iter(
+                         exe._cache.values())).kernels,
+                     "launches": launches[name],
+                     "analyzer": _analyzer(main, loss, batch, n, dt)}
+        exe.close()
+    out["config"] = {"mlp": mc, "lenet": lc, "optimizer": "Adam(1e-3)",
+                     "feeds": "torch tensors on the card"}
+    out["cut"] = {
+        "speedup_vs_legacy_executor": "Executor._run_legacy is the JAX "
+        "package's loop from before its donated fast path; the port has "
+        "no earlier loop",
+        "sentry": "the anomaly sentry comes with ROADMAP A5"}
+    log("STATIC_BENCH " + json.dumps(out))
+    for name in ("mlp", "lenet"):
+        r = out[name]
+        if r["compile_count"] != 1 or r["host_feed_converts"] != 0:
+            raise AssertionError(f"static {name}: {r['compile_count']} "
+                                 f"builds, {r['host_feed_converts']} feed "
+                                 f"conversions; want 1 and 0")
+        if not (math.isfinite(r["final_loss"])
+                and r["final_loss"] < r["loss_after_warmup"]):
+            raise AssertionError(f"static {name} did not train: {r}")
+    want = {"mlp": {"fused_epilogue_fwd": mc["depth"],
+                    "fused_epilogue_bwd": mc["depth"],
+                    "fused_epilogue_bwd_grads": mc["depth"],
+                    "fused_adam": 1},
+            "lenet": {"fused_adam": 1}}
+    for name, per in want.items():
+        runs = 3 + out[name]["timed_runs"]
+        got = launches[name]
+        if got != {k: v * runs for k, v in per.items()}:
+            raise AssertionError(f"static {name} launches {got}, want "
+                                 f"{per} a run")
+    return launches
+
+
+def _static_gpt_row(row):
+    """The static GPT's instance of one kernel, for the kernels line."""
+    return {k: row[k] for k in (
+        "case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "library_call", "max_abs_err", "chains") if k in row}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3045,6 +3530,16 @@ def main():
           r50_timed)
     del r50, r50_step, r50_batch
     torch.cuda.empty_cache()
+    sgpt_cpu_kernels = timed("static_gpt_parity", phase_static_gpt_parity)
+    sgpt_rows = timed("static_gpt_kernels", phase_static_gpt_kernels)
+    torch.cuda.empty_cache()
+    sgpt_launches, sgpt_run, sgpt_timed = timed(
+        "static_gpt_training", phase_static_gpt_training, sgpt_cpu_kernels)
+    timed("static_gpt_anatomy", phase_static_gpt_anatomy, sgpt_run,
+          sgpt_timed)
+    del sgpt_run
+    torch.cuda.empty_cache()
+    bench_launches = timed("static_bench", phase_static_bench)
     seconds["total"] = time.perf_counter() - t0
     log("PHASE_SECONDS " + json.dumps(seconds))
     f32_err = max(r["max_abs_err"] for r in kernel_rows
@@ -3076,12 +3571,14 @@ def main():
             "source": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",
             "replaces": site,
             "launches": (flash_launches[name] + gpt_launches[name]
-                         + gpt760_launches[name]),
+                         + gpt760_launches[name] + sgpt_launches[name]),
             "launches_by_entry": {"flash_attention": flash_launches[name],
                                   "flash_attention_block":
                                       gpt_launches[name],
                                   "flash_attention (gpt)":
-                                      gpt760_launches[name]},
+                                      gpt760_launches[name],
+                                  "flash_attention (static gpt)":
+                                      sgpt_launches[name]},
             "max_abs_err": r["max_abs_err"],
             "max_abs_err_bf16": r["max_abs_err_bf16"], "shape": r["case"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -3093,16 +3590,23 @@ def main():
             **{extra: {k: r[extra][k] for k in (
                 "case", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "library_call")}
-               for extra in ("gpt_760m", "static_f32")}})
+               for extra in ("gpt_760m", "static_f32")},
+            "static_gpt": _static_gpt_row(sgpt_rows[name])})
     for name, site in list(EPI_KERNELS.items()) + [("fused_adam",
                                                     ADAM_SITE)]:
         r = epi_rows[name]
         src = ("fused_adam.cu" if name == "fused_adam"
                else "fused_epilogue.cu")
+        by_path = {"static bert": static_launches.get(name, 0),
+                   "static gpt": sgpt_launches.get(name, 0),
+                   **{f"static {p}": n.get(name, 0)
+                      for p, n in bench_launches.items()}}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"paddle_tpu_torch/ops/cuda/csrc/{src}",
-            "replaces": site, "launches": static_launches.get(name, 0),
+            "replaces": site, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "static_gpt": _static_gpt_row(sgpt_rows[name]),
             "max_abs_err": r["max_abs_err"],
             "max_abs_err_bf16": r.get("max_abs_err_bf16"),
             "shape": r.get("case", f"{r.get('tensors')} tensors, "

@@ -77,3 +77,19 @@ define_flag("serving_decode_retries", 2,
             "before the in-flight sequences are failed (injected faults "
             "fire before the step touches the KV pool, so they are "
             "safely retried).")
+define_flag("static_verify", False,
+            "Run static.analysis verification (def-use, cross-program "
+            "leaks, shape/dtype drift, name collisions, dead code and "
+            "the hazards) on each Program version before the Executor "
+            "first builds it, and record file:line anchors for every op "
+            "at record time.  Off by default: verification replays "
+            "every op on meta tensors once.")
+define_flag("static_anchors", False,
+            "Record a file:line source anchor on every op Program.record "
+            "appends (one frame walk per recorded op, no verification), "
+            "so Program.analyze() reports and diagnostics carry the "
+            "user's source line.")
+define_flag("perf_chip", "",
+            "The static/analysis/cost.CHIP_SPECS row the cost model "
+            "prices a step against (the Executor's predicted record).  "
+            "Empty = auto: 'h100' on an H100, else 'cpu'.")

@@ -123,9 +123,17 @@ class BatchNorm(_BatchNormBase):
 
 
 class SyncBatchNorm(_BatchNormBase):
-    """Batch norm whose statistics are the global batch's in the JAX
-    package (GSPMD reduces over 'dp').  On one process that is this
-    layer; across processes the port does not reduce them yet."""
+    """Batch norm over the global batch, which every batch norm layer
+    already is where it matters, as in the JAX package:
+
+    - under ``parallel.SpmdTrainStep`` at dp > 1 the statistics are the
+      global batch's (``F.norm.stats_over`` the 'dp' group: the
+      per-channel sums are all-reduced forward and backward), and every
+      rank's running buffers move by them;
+    - on one process the batch is the global batch;
+    - under eager ``DataParallel`` across processes each rank keeps its
+      own batch's statistics, as paddle_tpu's eager path does
+      (``convert_sync_batchnorm`` warns there)."""
 
     @classmethod
     def convert_sync_batchnorm(cls, layer):
@@ -135,7 +143,9 @@ class SyncBatchNorm(_BatchNormBase):
         if get_world_size() > 1:
             warnings.warn(
                 "convert_sync_batchnorm: running stats are NOT synced "
-                "across processes; each rank keeps its own batch's")
+                "across eager DataParallel processes; use the SPMD train "
+                "step (batch sharded over 'dp') for global-batch BN "
+                "statistics")
         return layer
 
 

@@ -19,7 +19,12 @@ Every rank runs the same step on the same global batch:
   into its dropout key: each dp shard of the batch gets its own masks,
   deterministic per (seed, dp rank), while the 'mp' and 'sp' ranks of
   one dp group draw the same masks, as their replicated activations
-  need.
+  need;
+- at dp > 1 every batch norm in training takes the statistics of the
+  global batch (``nn.functional.norm.stats_over`` the 'dp' group), as
+  GSPMD reduces the JAX package's over the sharded batch: each rank
+  normalises with them, and its running buffers move by them, so every
+  rank holds the same buffers.
 
 Parameters replicated over 'mp' and 'sp' need no further reduction: the
 computation that feeds them is replicated there too (each TP layer's
@@ -41,6 +46,7 @@ from ..distributed.collective import ReduceOp, all_reduce, axis_group
 from ..distributed.mesh import DP_AXIS, ensure_mesh
 from ..distributed.strategy import DistributedStrategy, validate_toggles
 from ..jit.train_step import TrainStep
+from ..nn.functional.norm import stats_over
 from .data_parallel import allreduce_gradients
 
 __all__ = ["SpmdTrainStep"]
@@ -65,7 +71,7 @@ class SpmdTrainStep(TrainStep):
     def __call__(self, *batch):
         if self.dp.nranks == 1:
             return super().__call__(*batch)
-        with rng.fold_in(self.dp.rank):
+        with rng.fold_in(self.dp.rank), stats_over(self.dp):
             return super().__call__(*batch)
 
     def _prepare_batch(self, batch):

@@ -21,10 +21,14 @@ With ``FLAGS_use_pallas_kernels`` on (the default) the Executor fuses
 matmul-epilogue chains into the fused epilogue kernels and updates a
 plain f32 Adam with the fused Adam kernel.
 
+``Program.verify`` runs the verifier and hazard passes and
+``Program.analyze`` the cost model (:mod:`.analysis`);
+``FLAGS_static_verify`` makes the Executor verify before it builds.
+
 Not ported yet: ``save_inference_model`` / ``load_inference_model``
-(``static/io``), ``InputSpec``, control flow (``static.nn.cond`` and
-friends), ``BuildStrategy`` / ``CompiledProgram`` and the analysis
-reports (``Program.verify`` / ``analyze``).
+(``static/io``), ``InputSpec``, ``BuildStrategy`` / ``CompiledProgram``
+(ROADMAP A4), control flow (``static.nn.cond`` and friends, A3) and
+shardcheck (A5).
 """
 from __future__ import annotations
 

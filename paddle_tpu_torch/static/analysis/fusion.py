@@ -26,7 +26,8 @@ from ..program import _OpNode
 from .cost import _fusion_candidates, _propagate_avals
 from .graph import DefUseGraph
 
-__all__ = ["FusionPlan", "plan_fusions", "apply_plans"]
+__all__ = ["FusionPlan", "plan_fusions", "apply_plans",
+           "annotate_candidates"]
 
 
 class FusionPlan:
@@ -187,7 +188,21 @@ def apply_plans(nodes: Sequence[_OpNode], plans: Sequence[FusionPlan]
                                {"stages": p.stages,
                                 "has_bias": p.b_spec is not None},
                                "fused_epilogue", in_specs, [p.out_var],
-                               False))
+                               False, node.loc))
         elif i not in drop:
             out.append(node)
     return out
+
+
+def annotate_candidates(program, candidates, graph, avals) -> None:
+    """Mark each reported candidate dict with what the Executor's pass
+    would realize for it now: ``realized`` (the kernel's label or None)
+    and ``realized_ops`` (the fused prefix), gated like the Executor by
+    ``FLAGS_use_pallas_kernels``."""
+    from ...core.flags import get_flag
+    active = bool(get_flag("use_pallas_kernels"))
+    for cand in candidates:
+        plan = _match_chain(graph.nodes, cand["ops"], avals) if active \
+            else None
+        cand["realized"] = None if plan is None else plan.label
+        cand["realized_ops"] = [] if plan is None else list(plan.node_indices)

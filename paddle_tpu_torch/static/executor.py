@@ -14,7 +14,17 @@ counts the builds.  Building a step:
   ``ops.fused_adam.fused_update_for`` takes the optimizer, else the
   optimizer's ``functional_update``;
 - records the realized kernel list as ``step.kernels`` (paddle_tpu's
-  ``compiled._pallas_kernels``).
+  ``compiled._pallas_kernels``), and the cost model's prediction at the
+  run's feed shapes as ``step.predicted``
+  (:func:`.analysis.cost.compile_summary`: FLOPs forward and a step,
+  peak bytes, the unmodeled ops), kept out of the build key.
+
+With ``FLAGS_static_verify`` on, each (program, version) is verified
+(:meth:`Program.verify` with the run's fetch list) before its first
+build, so a broken program is refused before anything runs.
+:attr:`Executor.host_feed_converts` counts the feeds that were not
+already tensors on the Executor's device (each one an upload, or a copy
+across devices); device feeds keep it at 0.
 
 A training run interprets the (rewritten) node list with the live
 parameters, takes ``torch.autograd.grad`` of the loss with respect to
@@ -31,9 +41,11 @@ tensors without a sync.
 current CUDA device, when None); parameters elsewhere raise.
 
 Not ported: the ``_ExecState`` binding and escape machinery (torch
-tensors update in place), GSPMD plans, ``grad_comm``, the anomaly
-sentry, ``_run_legacy``, the persistent compile cache, and the fault
-and trace hooks.
+tensors update in place), GSPMD plans, ``grad_comm`` and the anomaly
+sentry with ``sentry_stats`` (A5), ``_run_legacy`` (the JAX package's
+loop from before its donated fast path; the port has no earlier loop),
+the persistent compile cache, ``explain_compiles`` and the monitor's
+feed of the prediction (A7), and the fault and trace hooks.
 """
 from __future__ import annotations
 
@@ -94,6 +106,7 @@ class _Step:
         self.feed_vars = feed_vars
         self.fetch_vars = fetch_vars
         self.kernels: List[str] = kernels
+        self.predicted: Optional[dict] = None
         self.t_idx: List[int] = []
         self.loss_var: Optional[Variable] = None
         self.fused = None            # ops.fused_adam.FusedAdam or None
@@ -117,7 +130,9 @@ class Executor:
         self.place = _resolve_device(place)
         self._cache: Dict[tuple, _Step] = {}
         self._states: Dict[int, _State] = {}
+        self._verified: set = set()     # (serial, version) checked
         self._compile_count = 0
+        self._host_feed_converts = 0
 
     @property
     def compile_count(self) -> int:
@@ -125,11 +140,18 @@ class Executor:
         fetch set, optimizer, tier)."""
         return self._compile_count
 
+    @property
+    def host_feed_converts(self) -> int:
+        """Feeds that were not already tensors on this Executor's device
+        (each one crossed to it).  Stays 0 when every feed is one."""
+        return self._host_feed_converts
+
     def close(self):
         """Drop the built steps and the per-program state (optimizer
         slots); parameters keep their values."""
         self._cache.clear()
         self._states.clear()
+        self._verified.clear()
 
     # -- main entry --------------------------------------------------------
     def run(self, program: Optional[Program] = None, feed=None,
@@ -168,6 +190,10 @@ class Executor:
             for k in [k for k in self._cache
                       if k[0] == program._serial and k[1] != key[1]]:
                 del self._cache[k]
+            vkey = (program._serial, program._version)
+            if get_flag("static_verify") and vkey not in self._verified:
+                program.verify(fetch_list=fetch_list)
+                self._verified.add(vkey)
             step = self._build(program, params, feed_names, feeds,
                                fetch_names, tier)
             self._cache[key] = step
@@ -186,8 +212,11 @@ class Executor:
         return fetches
 
     def _feed_tensor(self, a) -> torch.Tensor:
+        if isinstance(a, torch.Tensor) and a.device == self.place:
+            return a
+        self._host_feed_converts += 1
         if isinstance(a, torch.Tensor):
-            return a if a.device == self.place else a.to(self.place)
+            return a.to(self.place)
         return torch.tensor(np.asarray(a), device=self.place)
 
     # -- training ----------------------------------------------------------
@@ -276,6 +305,11 @@ class Executor:
                 nodes = fusion.apply_plans(nodes, plans)
                 kernels.extend(f"fused_epilogue[{p.label}]" for p in plans)
         step = _Step(nodes, feed_vars, fetch_vars, kernels)
+        from .analysis.cost import compile_summary
+        step.predicted = compile_summary(
+            program, feed_shapes={n: tuple(t.shape)
+                                  for n, t in zip(feed_names, feeds)},
+            place=self.place)
         if program._optimizer is None:
             return step
         opt, loss_var, param_filter, no_grad_set = program._optimizer

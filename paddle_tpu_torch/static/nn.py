@@ -3,7 +3,12 @@
 ``fc`` creates its own weights on ``get_device()`` (XavierNormal
 ``[in, size]``, zero bias, drawn from ``core.rng.generator``); it takes
 ``weight_attr`` and ``bias_attr`` and ignores them, as paddle_tpu's
-does."""
+does.  ``batch_norm`` normalises with the batch's statistics and fresh
+affine parameters (ones and zeros), as paddle_tpu's static shim: running
+statistics are the dygraph layer's.
+
+Not ported: the control-flow helpers ``cond``, ``case``, ``switch_case``
+and ``while_loop`` (ROADMAP A3)."""
 from __future__ import annotations
 
 import math
@@ -14,7 +19,7 @@ from ..core import rng
 from ..core.placement import device as _resolve_device
 from ..nn import functional as F
 
-__all__ = ["fc"]
+__all__ = ["fc", "batch_norm"]
 
 
 def fc(x, size, num_flatten_dims=1, weight_attr=None, bias_attr=None,
@@ -33,3 +38,15 @@ def fc(x, size, num_flatten_dims=1, weight_attr=None, bias_attr=None,
     if activation is not None:
         out = getattr(F, activation)(out)
     return out
+
+
+def batch_norm(input, is_test=False, momentum=0.9, epsilon=1e-5,
+               data_layout="NCHW", **kwargs):
+    """Batch-statistics normalisation with fresh affine parameters."""
+    dev = _resolve_device(None)
+    c = input.shape[1 if data_layout.startswith("NC") else -1]
+    w = torch.nn.Parameter(torch.ones(c, device=dev))
+    b = torch.nn.Parameter(torch.zeros(c, device=dev))
+    return F.batch_norm(input, None, None, w, b, training=not is_test,
+                        momentum=momentum, epsilon=epsilon,
+                        data_format=data_layout)

@@ -18,19 +18,26 @@ Parameter)`` (an ``nn.Parameter``, read live at run time), ``("c",
 tensor)`` (a tensor computed while recording, held as a constant) and
 ``("l", literal)``.
 
+With ``FLAGS_static_verify`` or ``FLAGS_static_anchors`` on at record
+time, each node keeps the ``file:line`` of the user statement that
+recorded it (``_OpNode.loc``), which the verifier's diagnostics and
+``Program.analyze``'s report show.
+
 Not ported: the control-flow replay scopes (``cond`` / ``while_loop``
-record one node that re-runs user closures) and the verifier's source
-anchors.
+record one node that re-runs user closures; A3).
 """
 from __future__ import annotations
 
 import itertools
+import os
+import sys
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..core.dispatch import Symbolic
 from ..core.dtype import convert_dtype
+from ..core.flags import get_flag
 from ..ops import symbolic_methods
 
 __all__ = ["Program", "Variable", "data", "program_guard",
@@ -41,6 +48,22 @@ _var_counter = itertools.count(0)
 # monotonic program identity: id(program) can be recycled after GC, the
 # serial never repeats within a process (it keys the Executor's state)
 _program_serial = itertools.count(0)
+
+# the package's own directory, with a trailing separator so that a
+# sibling package whose name starts the same does not match
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__))) \
+    + os.sep
+
+
+def _caller_loc():
+    """(file, line) of the first frame outside the package: the user
+    statement that recorded the op."""
+    f = sys._getframe(2)
+    while f is not None:
+        if not f.f_code.co_filename.startswith(_PKG_DIR):
+            return (f.f_code.co_filename, f.f_lineno)
+        f = f.f_back
+    return None
 
 
 class Variable(Symbolic):
@@ -86,17 +109,20 @@ for _name, _fn in symbolic_methods().items():
 
 
 class _OpNode:
-    """One recorded op."""
+    """One recorded op; ``loc`` is its (file, line) anchor or None."""
 
-    __slots__ = ("fn", "attrs", "op_name", "in_specs", "out_vars", "multi")
+    __slots__ = ("fn", "attrs", "op_name", "in_specs", "out_vars", "multi",
+                 "loc")
 
-    def __init__(self, fn, attrs, op_name, in_specs, out_vars, multi):
+    def __init__(self, fn, attrs, op_name, in_specs, out_vars, multi,
+                 loc=None):
         self.fn = fn
         self.attrs = attrs
         self.op_name = op_name
         self.in_specs = in_specs
         self.out_vars = out_vars
         self.multi = multi
+        self.loc = loc
 
 
 def _spec(x) -> Tuple[str, object]:
@@ -138,9 +164,11 @@ class Program:
             out = fn(*[to_meta(x) for x in inputs], **attrs)
         multi = isinstance(out, (tuple, list))
         out_vars = [Variable(o, self) for o in (out if multi else [out])]
+        loc = (_caller_loc() if get_flag("static_verify")
+               or get_flag("static_anchors") else None)
         self.nodes.append(_OpNode(fn, attrs, op_name,
                                   [_spec(x) for x in inputs], out_vars,
-                                  multi))
+                                  multi, loc))
         self._version += 1
         return tuple(out_vars) if multi else out_vars[0]
 
@@ -158,6 +186,47 @@ class Program:
                     out.append(v)
         self._params_cache = (self._version, out)
         return out
+
+    # -- analysis (static/analysis) ----------------------------------------
+    def verify(self, fetch_list=None, raise_on_error=True, sharding=None,
+               mesh_shape=None, sharding_rules=None, strategy=None):
+        """Run the verifier and hazard passes (``static.analysis``):
+        def-use order, cross-program leaks, name collisions, shape and
+        dtype drift, and, with ``fetch_list`` roots, dead ops and unused
+        feeds.  Raises ``core.enforce.GraphVerificationError`` on an
+        error unless ``raise_on_error=False``; returns the diagnostics.
+        The sharding arguments (shardcheck) raise NotImplementedError:
+        they come with ROADMAP A5."""
+        from .analysis import verify as _verify
+        return _verify(self, fetch_list=fetch_list,
+                       raise_on_error=raise_on_error, sharding=sharding,
+                       mesh_shape=mesh_shape, sharding_rules=sharding_rules,
+                       strategy=strategy)
+
+    def analyze(self, fetch_list=None, feed_shapes=None, batch_size=None,
+                chip=None, top_k=5, sharding=None):
+        """The cost model's report (``static.analysis.cost``): FLOPs and
+        bytes per op with an explicit ``unmodeled`` bucket, donation-aware
+        peak bytes, a roofline per chip spec, the hazards, and the top-k
+        fusion candidates with what the Executor realizes.
+        ``batch_size`` stands in for every dynamic feed dim and
+        ``feed_shapes`` sets feeds exactly.  ``sharding`` raises
+        NotImplementedError (ROADMAP A5)."""
+        from .analysis import analyze as _analyze
+        return _analyze(self, fetch_list=fetch_list,
+                        feed_shapes=feed_shapes, batch_size=batch_size,
+                        chip=chip, top_k=top_k, sharding=sharding)
+
+    # -- the reference's Block protocol --------------------------------------
+    def global_block(self):
+        return self
+
+    @property
+    def ops(self):
+        return self.nodes
+
+    def all_parameters(self):
+        return self.parameters()
 
     def __repr__(self):
         lines = [f"Program({len(self.nodes)} ops)"]

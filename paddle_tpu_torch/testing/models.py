@@ -8,7 +8,10 @@ vocab]`` logits never exist whole).  Parameter names are paddle_tpu's.
 
 :func:`build_bert_static` records ``bench.build_bert_static``'s static
 training program: the same layers in the same order, so parameter order
-matches paddle_tpu's.
+matches paddle_tpu's.  :func:`build_gpt_static` is
+``bench.build_gpt_static`` (``bench_pallas``'s GPT half), and
+:func:`build_static_mlp` and :func:`build_static_lenet` are
+``bench_static``'s two programs.
 
 :func:`build_gpt` is ``bench.build_gpt``, the single-device causal
 decoder ``bench_gpt`` trains (per-block recompute, tied embeddings),
@@ -31,7 +34,8 @@ from ..nn import functional as F
 from ..nn.layer_base import ParamAttr
 
 __all__ = ["BertMLM", "build_model", "mlm_loss", "bench_flops_per_step",
-           "palm_flops_per_step", "build_bert_static", "GPTHybrid",
+           "palm_flops_per_step", "build_bert_static", "build_gpt_static",
+           "build_static_mlp", "build_static_lenet", "GPTHybrid",
            "build_gpt_hybrid", "gpt_loss", "gpt_flops_per_step", "GPT",
            "GPT_PRESETS", "build_gpt", "gpt_pretrain_loss"]
 
@@ -141,6 +145,98 @@ def build_bert_static(vocab, hidden, layers, heads, ffn, seq, batch,
                 "labels": r.randint(0, vocab, (batch, seq), dtype=np.int64)}
 
     return main, loss, feeds
+
+
+def build_gpt_static(vocab, hidden, layers, heads, ffn, seq, batch,
+                     device=None, seed=2024):
+    """``bench.build_gpt_static``: a GPT-shaped pre-norm causal decoder LM
+    (no dropout, untied head) recorded as a static training program with
+    ``Adam(1e-4).minimize(loss)``; parameters on ``device``.  The
+    residual adds after ``proj`` and ``fc2`` and the ``fc1`` + gelu FFN
+    are the chains the fusion pass realizes.  The position embedding is
+    a constant, as in :func:`build_bert_static`.  Returns ``(program,
+    loss, feeds)``."""
+    from .. import optimizer, static
+    from ..core import rng
+    from ..ops.creation import arange
+
+    dev = _resolve_device(device)
+    rng.seed(seed)
+    main = static.Program()
+    with static.program_guard(main):
+        ids = static.data("ids", [batch, seq], "int64")
+        labels = static.data("labels", [batch, seq], "int64")
+        tok = pnn.Embedding(vocab, hidden, device=dev)
+        pos = pnn.Embedding(seq, hidden, device=dev)
+        x = tok(ids) + pos(arange(seq, device=dev).unsqueeze(0))
+        hd = hidden // heads
+        for _ in range(layers):
+            ln1 = pnn.LayerNorm(hidden, device=dev)
+            wq, wk, wv, proj = (pnn.Linear(hidden, hidden, device=dev)
+                                for _ in range(4))
+            ln2 = pnn.LayerNorm(hidden, device=dev)
+            fc1 = pnn.Linear(hidden, ffn, device=dev)
+            fc2 = pnn.Linear(ffn, hidden, device=dev)
+            h = ln1(x)
+            q = wq(h).reshape([batch, seq, heads, hd])
+            k = wk(h).reshape([batch, seq, heads, hd])
+            v = wv(h).reshape([batch, seq, heads, hd])
+            a = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            x = proj(a.reshape([batch, seq, hidden])) + x
+            h = ln2(x)
+            x = fc2(F.gelu(fc1(h), approximate=True)) + x
+        lnf = pnn.LayerNorm(hidden, device=dev)
+        head = pnn.Linear(hidden, vocab, device=dev)
+        logits = head(lnf(x))
+        loss = F.cross_entropy(logits.reshape([-1, vocab]),
+                               labels.reshape([-1]))
+        optimizer.Adam(learning_rate=1e-4).minimize(loss)
+
+    def feeds(r: np.random.RandomState):
+        return {"ids": r.randint(0, vocab, (batch, seq), dtype=np.int64),
+                "labels": r.randint(0, vocab, (batch, seq), dtype=np.int64)}
+
+    return main, loss, feeds
+
+
+def build_static_mlp(hidden, depth, seed=7):
+    """``bench_static``'s MLP (bench.py:640-652): ``depth`` relu
+    ``static.nn.fc`` layers of ``hidden``, a width-1 head, ``mse_loss``
+    and ``Adam(1e-3)``; feeds ``x`` ``[None, hidden]`` and ``y`` ``[None,
+    1]``.  Parameters on ``get_device()``.  Returns ``(program, loss)``."""
+    from .. import optimizer, static
+    from ..core import rng
+
+    rng.seed(seed)
+    main = static.Program()
+    with static.program_guard(main):
+        x = static.data("x", [None, hidden], "float32")
+        y = static.data("y", [None, 1], "float32")
+        h = x
+        for _ in range(depth):
+            h = static.nn.fc(h, hidden, activation="relu")
+        loss = F.mse_loss(static.nn.fc(h, 1), y)
+        optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return main, loss
+
+
+def build_static_lenet(seed=9):
+    """``bench_static``'s LeNet (bench.py:654-663): ``vision.models.LeNet``
+    on ``x`` ``[None, 1, 28, 28]``, ``F.cross_entropy`` against int64
+    ``y`` ``[None]``, ``Adam(1e-3)``.  Parameters on ``get_device()``.
+    Returns ``(program, loss)``."""
+    from .. import optimizer, static
+    from ..core import rng
+    from ..vision.models import LeNet
+
+    rng.seed(seed)
+    main = static.Program()
+    with static.program_guard(main):
+        x = static.data("x", [None, 1, 28, 28], "float32")
+        y = static.data("y", [None], "int64")
+        loss = F.cross_entropy(LeNet()(x), y)
+        optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return main, loss
 
 
 class _Block(nn.Module):

@@ -304,6 +304,80 @@ def case_scaler_overflow(data, device):
     return out
 
 
+def case_batch_norm_dp(data, device):
+    """{"dp": 4}: a conv + BatchNorm2D net, each rank on its quarter of
+    the batch, against the same net on the whole batch in this process.
+    Saves the batch norm's input and output shards of one forward (the
+    test holds their concatenation to paddle_tpu's ``F.batch_norm``), the
+    gradients of the mean loss averaged over 'dp', and the losses,
+    parameters and running buffers of 2 ``SpmdTrainStep``s beside 2
+    ``TrainStep``s on the whole batch."""
+    from .. import jit, nn, optimizer
+    from ..distributed.collective import axis_group
+    from ..distributed.mesh import init_mesh, set_mesh
+    from ..nn import functional as F
+    from ..nn.functional.norm import stats_over
+    from ..parallel import SpmdTrainStep
+    from ..parallel.data_parallel import allreduce_gradients
+    x, y = _t(data["bx"], device), _t(data["by"], device)
+
+    class Net(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.conv = nn.Conv2D(3, 4, 3, padding=1, device=device)
+            self.bn = nn.BatchNorm2D(4, device=device)
+            self.fc = nn.Linear(4, 2, device=device)
+
+        def forward(self, t):
+            h = F.relu(self.bn(self.conv(t)))
+            return self.fc(h.mean([2, 3]))
+
+    def net():
+        m = Net()
+        with torch.no_grad():
+            for k, v in m.state_dict().items():
+                v.copy_(_t(data[f"bn.{k}"], device))
+        return m
+
+    def state(m):
+        return {k: _np(v) for k, v in m.state_dict().items()}
+
+    loss_fn = F.mse_loss
+    out = {}
+    set_mesh(None)                         # the local oracle: one rank
+    whole = net()
+    loss_fn(whole(x), y).backward()
+    out.update({f"oracle_grad.{k}": _np(p.grad)
+                for k, p in whole.named_parameters()})
+    ostep_net = net()
+    ostep = jit.TrainStep(ostep_net, loss_fn, optimizer.SGD(0.1))
+    out["oracle_losses"] = np.asarray([float(ostep(x, y))
+                                       for _ in range(2)])
+    out.update({f"oracle_state.{k}": v for k, v in state(ostep_net).items()})
+
+    mesh = init_mesh({"dp": 4})
+    dp = axis_group("dp", mesh)
+    r, per = dp.rank, x.shape[0] // 4
+    xs, ys = x[r * per:(r + 1) * per], y[r * per:(r + 1) * per]
+    m = net()
+    with stats_over(dp):
+        h = m.conv(xs)
+        out["bn_in"], out["bn_out"] = _np(h), _np(m.bn(h))
+        out.update({f"fwd_state.{k}": _np(v) for k, v in
+                    (("_mean", m.bn._mean), ("_variance", m.bn._variance))})
+        m = net()
+        loss_fn(m(xs), ys).backward()
+    grads = allreduce_gradients(
+        [p.grad for _, p in m.named_parameters()], dp)
+    out.update({f"grad.{k}": _np(g) for (k, _), g in
+                zip(m.named_parameters(), grads)})
+    snet = net()
+    step = SpmdTrainStep(snet, loss_fn, optimizer.SGD(0.1), mesh=mesh)
+    out["losses"] = np.asarray([float(step(x, y)) for _ in range(2)])
+    out.update({f"state.{k}": v for k, v in state(snet).items()})
+    return out
+
+
 # ----------------------------------------------------------- hybrid GPT
 def gpt_run(cfg, state, batch, steps, mesh_shape, device, dtype=None,
             lr=2e-4, seed=2024):
@@ -421,7 +495,8 @@ CASES = {"collectives": case_collectives, "two_card": case_two_card,
          "ring_attention": case_ring_attention,
          "tp_layers": case_tp_layers, "gpt": case_gpt,
          "dp_dropout": case_dp_dropout,
-         "scaler_overflow": case_scaler_overflow}
+         "scaler_overflow": case_scaler_overflow,
+         "batch_norm_dp": case_batch_norm_dp}
 
 
 def exit_on_rank(rank: int, code: int, wait_s: float):

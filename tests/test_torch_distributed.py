@@ -42,7 +42,16 @@ tests:
   "mp": 2}, both dp halves of the batch identical: the dp ranks' own
   losses differ (each dp rank draws its own masks, as the JAX package
   folds the dp index into its dropout key) and the mp ranks of each dp
-  group agree bit for bit (one dp group draws one set of masks).
+  group agree bit for bit (one dp group draws one set of masks);
+- batch norm across 'dp': a conv + ``BatchNorm2D`` net at dp 4 takes
+  the global batch's statistics, as GSPMD gives the JAX package: the
+  normalised output against paddle_tpu's ``F.batch_norm`` on the whole
+  batch, the running buffers against paddle_tpu's layer, the gradients
+  and 2 ``SpmdTrainStep``s against the net on the whole batch on one
+  rank, each within 1e-5 of the reference's largest magnitude (f32
+  sums taken in another order; the conv bias before the batch norm has
+  gradient 0 up to rounding, held below 1e-6 on both sides), and the
+  buffers bit-identical on every rank.
 
 Single-process tests cover the strategy toggles, the launcher's
 failure handling and the device defaults.
@@ -83,7 +92,7 @@ RING = dict(B=2, L=32, H=2)                # ring inputs [B, L, H, D]
 RING_TOL = dict(rtol=1e-5, atol=5e-6)
 CASES = ["collectives", "data_parallel", "tp_layers", "gpt",
          "collective_matmul", "ring_attention", "dp_dropout",
-         "scaler_overflow"]
+         "scaler_overflow", "batch_norm_dp"]
 
 
 def _bench():
@@ -120,6 +129,21 @@ def _jax_tp_net():
     return Net()
 
 
+def _jax_bn_net():
+    """The JAX twin of parallel_cases.case_batch_norm_dp's net."""
+    from paddle_tpu import nn
+
+    class Net(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.conv = nn.Conv2D(3, 4, 3, padding=1)
+            self.bn = nn.BatchNorm2D(4)
+            self.fc = nn.Linear(4, 2)
+
+    paddle.seed(31)
+    return Net()
+
+
 def _jax_gpt():
     paddle.seed(2024)
     c = GPT
@@ -150,6 +174,10 @@ def ranks(tmp_path_factory):
     data["steps"] = np.asarray(GPT_STEPS)
     data["dx"] = r.randn(16, 8).astype(np.float32)
     data["dy"] = r.randn(16, 2).astype(np.float32)
+    for k, v in _jax_bn_net().state_dict().items():
+        data[f"bn.{k}"] = np.asarray(v.numpy())
+    data["bx"] = (r.randn(16, 3, 6, 6) + 0.5).astype(np.float32)
+    data["by"] = r.randn(16, 2).astype(np.float32)
     r = np.random.RandomState(21)
     for tag, (m, k, n) in CMM_SHAPES.items():
         data[f"x_{tag}"] = r.randn(m, k).astype(np.float32)
@@ -402,6 +430,53 @@ def test_data_parallel_averages_gradients_over_dp(ranks):
         assert float(rr["data_parallel/grad_err"]) <= 1e-6
         np.testing.assert_allclose(rr["data_parallel/losses"],
                                    rr["data_parallel/oracle"], rtol=1e-6)
+
+
+def _rel(a, b):
+    """max |a - b| over the reference's largest magnitude."""
+    b = np.asarray(b, np.float64)
+    return float(np.abs(np.asarray(a, np.float64) - b).max()
+                 / max(np.abs(b).max(), 1e-30))
+
+
+def _close(a, b):
+    """Within 1e-5 of the reference's largest magnitude; the conv bias
+    before the batch norm (zeros at the start) has gradient 0 up to
+    rounding, since batch norm takes each channel's mean away, so it and
+    its gradient stay below 1e-6 on both sides."""
+    if np.abs(b).max() <= 1e-6:
+        return np.abs(a).max() <= 1e-6
+    return _rel(a, b) <= 1e-5
+
+
+def test_batch_norm_takes_the_global_batch_over_dp(ranks):
+    _, _, _, res = ranks
+    cs = _case(res, "batch_norm_dp")
+    bn_in = np.concatenate([c["bn_in"] for c in cs])
+    bn = _jax_bn_net().bn
+    want = JF.batch_norm(paddle.to_tensor(bn_in), bn._mean, bn._variance,
+                         bn.weight, bn.bias, training=True)
+    assert _rel(np.concatenate([c["bn_out"] for c in cs]),
+                want.numpy()) <= 1e-5
+    bn.train()
+    bn(paddle.to_tensor(bn_in))            # moves the JAX layer's buffers
+    for c in cs:
+        for k in ("_mean", "_variance"):
+            assert _rel(c[f"fwd_state.{k}"],
+                        getattr(bn, k).numpy()) <= 1e-5
+            np.testing.assert_array_equal(c[f"fwd_state.{k}"],
+                                          cs[0][f"fwd_state.{k}"])
+        grads = [k for k in c if k.startswith("grad.")]
+        assert len(grads) == 6
+        for k in grads:
+            assert _close(c[k], c["oracle_" + k]), k
+        np.testing.assert_allclose(c["losses"], c["oracle_losses"],
+                                   rtol=1e-5)
+        states = [k for k in c if k.startswith("state.")]
+        assert len(states) == 8
+        for k in states:
+            assert _close(c[k], c["oracle_" + k]), k
+            np.testing.assert_array_equal(c[k], cs[0][k])
 
 
 # ------------------------------------------------------ the whole slice
