@@ -169,7 +169,34 @@ kernel from the sources in this checkout.  Phases, each fatal:
     steps/s, step ms, ``compile_count`` 1 and ``host_feed_converts`` 0
     (asserted), every kernel's launches, and the analyzer block with
     the predicted GFLOP/s beside the achieved; the legacy loop and the
-    anomaly sentry are named as cut.
+    anomaly sentry are named as cut;
+35. the PTB LSTM language model of Zaremba et al. (arXiv:1409.2329,
+    section 4.1) at small widths (vocab 200, hidden 32, 2 layers, 8
+    steps, batch 4, dropout 0) on the card against the CPU from the same
+    numpy weights: 3 steps of sparse SGD with a global-norm clip of 10,
+    then 3 of ``Adam(lazy_mode=True)``; losses and touched embedding
+    rows within ``TOL``, untouched rows bitwise as they were on both
+    sides, lazy Adam's moments on the touched rows only;
+36. its large config at full width (vocab 10000, embedding and hidden
+    1500, 2 LSTM layers, 35 steps x batch 20, dropout 0.65, U(-0.04,
+    0.04), SGD lr 1 with clip 10, f32 with TF32 off, Zipf-drawn ids,
+    truncated BPTT): 2 warm-up and 10 timed steps (step p50 and mean,
+    tokens/s, peak memory), a first loss within 2 % of ln 10000, and a
+    few steps with a dense embedding gradient and of the per-step cell
+    path beside; no hand-written kernel launched;
+37. anatomy of one PTB-large step: device ms by kernel group, the idle
+    share and top kernels; device ms by part of the step (the recurrent
+    op, the head's GEMMs, softmax and cross entropy, the embedding's
+    lookup and gradient, its merge and scatter update, the clip, the
+    dense update); the host syncs a step (torch's sync debug mode);
+38. an eager ``paddle.while_loop`` greedy decode of 64 tokens for batch
+    20 through two LSTMCells sharing phase 36's weights (tokens/s, host
+    syncs a token) and at phase 35's widths card against CPU (tokens
+    equal, logits within ``TOL``); ``cond``, ``case`` and
+    ``switch_case`` eagerly; a static Program with ``static.nn.cond``
+    and ``static.nn.while_loop`` (the dynamic decode) through
+    ``Executor.run``, card against CPU; the sequence ops and the IMDB
+    LSTM classifier's ``sequence_pool`` card against CPU.
 
 The last lines are the kernels JSON object, the card's name and power
 limit as ``nvidia-smi`` reports them, and ``{"ok": true, ...}``.  Any
@@ -3458,6 +3485,645 @@ def phase_static_bench():
     return launches
 
 
+# --------------------------------------------------------------- phase 35
+# Zaremba, Sutskever & Vinyals 2014 (arXiv:1409.2329, section 4.1; the
+# TensorFlow PTB tutorial's LargeConfig): vocab 10000, embedding and
+# hidden 1500, 2 LSTM layers, 35 steps unrolled, batch 20, dropout 0.65
+# on the non-recurrent connections, U(-0.04, 0.04), SGD lr 1.0 with a
+# global-norm clip of 10, f32.  The ids are synthetic: the PTB text is
+# not in the repository.
+PTB_LARGE = dict(vocab=10000, hidden=1500, steps=35, batch=20,
+                 dropout=0.65, init=0.04, lr=1.0, clip=10.0)
+PTB_SMALL = dict(vocab=200, hidden=32, steps=8, batch=4, dropout=0.0,
+                 init=0.04, lr=1.0, clip=10.0)
+PTB_ADAM_LR = 1e-3
+
+
+class _PTBLM:
+    """The PTB LM from the port's public nn API: a sparse embedding, two
+    separate LSTM layers (so that dropout sits between them; the
+    layers' own ``dropout=`` is ignored, as in paddle_tpu), a Linear
+    head and the mean cross entropy over the tokens."""
+
+    def __init__(self, paddle, cfg, sparse=True):
+        nn, H, V = paddle.nn, cfg["hidden"], cfg["vocab"]
+        self.paddle, self.cfg = paddle, cfg
+        self.embedding = nn.Embedding(V, H, sparse=sparse)
+        self.lstm1 = nn.LSTM(H, H)
+        self.lstm2 = nn.LSTM(H, H)
+        self.head = nn.Linear(H, V)
+        self.drops = [nn.Dropout(cfg["dropout"]) for _ in range(3)]
+
+    def layers(self):
+        return [self.embedding, self.lstm1, self.lstm2, self.head]
+
+    def parameters(self):
+        return [p for layer in self.layers() for p in layer.parameters()]
+
+    def zero_states(self, device):
+        import torch
+        z = torch.zeros((1, self.cfg["batch"], self.cfg["hidden"]),
+                        device=device)
+        z = self.paddle.to_tensor(z, place=device)
+        return [(z, z)] * 2
+
+    def __call__(self, x, y, states):
+        F = self.paddle.nn.functional
+        h = self.drops[0](self.embedding(x))
+        h, s1 = self.lstm1(h, states[0])
+        h, s2 = self.lstm2(self.drops[1](h), states[1])
+        logits = self.head(self.drops[2](h))
+        loss = F.cross_entropy(logits.reshape([-1, self.cfg["vocab"]]),
+                               y.reshape([-1]))
+        # truncated BPTT: the next step starts from these states, detached
+        return loss, [(a.detach(), b.detach()) for a, b in (s1, s2)]
+
+
+def _ptb_weights(np, model, seed):
+    """U(-init, init) numpy weights, one array a parameter, in
+    ``model.parameters()`` order."""
+    rs = np.random.RandomState(seed)
+    a = model.cfg["init"]
+    return [rs.uniform(-a, a, tuple(p.shape)).astype(np.float32)
+            for p in model.parameters()]
+
+
+def _ptb_on(paddle, where, cfg, weights, sparse=True):
+    from paddle_tpu_torch.core import placement
+    prev = placement.default()
+    paddle.set_device(where)
+    try:
+        model = _PTBLM(paddle, cfg, sparse)
+        for p, w in zip(model.parameters(), weights):
+            p.set_value(w)
+    finally:
+        placement.set_default(prev)
+    return model
+
+
+def _zipf_ids(np, seed, cfg, n):
+    """``n`` batches of ``[batch, steps + 1]`` ids with p proportional to
+    1 / rank: at 10000 words a batch touches a few hundred rows, as PTB
+    text does."""
+    p = 1.0 / np.arange(1, cfg["vocab"] + 1)
+    return np.random.RandomState(seed).choice(
+        cfg["vocab"], size=(n, cfg["batch"], cfg["steps"] + 1),
+        p=p / p.sum()).astype(np.int64)
+
+
+def _ptb_opts(paddle, model, cfg):
+    return (paddle.optimizer.SGD(
+                learning_rate=cfg["lr"], parameters=model.parameters(),
+                grad_clip=paddle.nn.ClipGradByGlobalNorm(cfg["clip"])),
+            paddle.optimizer.Adam(learning_rate=PTB_ADAM_LR, lazy_mode=True,
+                                  parameters=model.parameters()))
+
+
+def phase_ptb_small_parity(steps=3):
+    """The small PTB LM on the card against the CPU from the same numpy
+    weights: 3 steps of sparse SGD with clip 10, then 3 of lazy Adam."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops.cuda import support
+    cfg = PTB_SMALL
+    paddle.set_device("cpu")
+    weights = _ptb_weights(np, _PTBLM(paddle, cfg), 35)
+    paddle.core.placement.set_default(None)
+    ids = _zipf_ids(np, 350, cfg, 2 * steps)
+    runs = {}
+    support.reset_launch_counts()
+    for where, dev in (("cpu", "cpu"), ("gpu", "cuda")):
+        model = _ptb_on(paddle, where, cfg, weights)
+        sgd, adam = _ptb_opts(paddle, model, cfg)
+        states = model.zero_states(dev)
+        losses = []
+        for k in range(2 * steps):
+            x = paddle.to_tensor(ids[k][:, :-1], place=dev)
+            y = paddle.to_tensor(ids[k][:, 1:], place=dev)
+            loss, states = model(x, y, states)
+            loss.backward()
+            opt = sgd if k < steps else adam
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss))
+        m = adam._states[id(model.embedding.weight)]["m"]
+        runs[where] = (losses, model.embedding.weight.numpy(),
+                       m.detach().cpu().numpy(),
+                       [p.numpy() for p in model.parameters()])
+    (lc, ec, mc, pc), (lg, eg, mg, pg) = runs["cpu"], runs["gpu"]
+    tol = TOL["float32"]
+    loss_err = max(abs(a - b) / max(1.0, abs(a)) for a, b in zip(lc, lg))
+    touched = np.zeros(cfg["vocab"], bool)
+    touched[ids[:, :, :-1].ravel()] = True
+    adam_rows = np.zeros(cfg["vocab"], bool)
+    adam_rows[ids[steps:, :, :-1].ravel()] = True
+    emb0 = weights[0]
+    row_err = float(np.abs(eg[touched] - ec[touched]).max())
+    param_err = max(float(np.abs(a - b).max()) for a, b in zip(pg, pc))
+    out = {"config": cfg, "adam_lr": PTB_ADAM_LR, "tol": tol,
+           "losses_cpu": lc, "losses_card": lg, "loss_max_rel_err": loss_err,
+           "touched_rows": int(touched.sum()),
+           "touched_row_max_abs_err": row_err,
+           "param_max_abs_err": param_err,
+           "adam_moment_rows": int((np.abs(mg).sum(1) > 0).sum()),
+           "hand_kernel_launches": dict(support.launch_counts)}
+    log("PTB_SMALL_PARITY " + json.dumps(out))
+    if not loss_err <= tol:
+        raise AssertionError(f"PTB losses card {lg} vs CPU {lc}")
+    for side, e in (("card", eg), ("cpu", ec)):
+        if not np.array_equal(e[~touched], emb0[~touched]):
+            raise AssertionError(f"{side}: untouched embedding rows moved")
+    if not (row_err <= tol and param_err <= tol):
+        raise AssertionError(f"touched rows {row_err}, parameters "
+                             f"{param_err} > {tol}")
+    for side, m in (("card", mg), ("cpu", mc)):
+        if np.abs(m[~adam_rows]).sum() != 0 or not np.all(
+                np.abs(m[adam_rows]).sum(1) > 0):
+            raise AssertionError(f"{side}: lazy Adam's moments are not "
+                                 f"those of the touched rows")
+    if any(support.launch_counts.values()):
+        raise AssertionError(f"hand kernels launched: "
+                             f"{support.launch_counts}")
+    torch.cuda.synchronize()
+    return weights
+
+
+# --------------------------------------------------------------- phase 36
+def _ptb_step_fn(paddle, model, opt, batches, states_box):
+    """One training step a call, through the batches in turn (truncated
+    BPTT over the states in ``states_box``); returns the loss tensor."""
+    it = {"k": 0}
+
+    def one_step():
+        x, y = batches[it["k"] % len(batches)]
+        it["k"] += 1
+        loss, states_box[0] = model(x, y, states_box[0])
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    return one_step
+
+
+def _ptb_batches(np, paddle, ids):
+    return [(paddle.to_tensor(b[:, :-1], place="cuda"),
+             paddle.to_tensor(b[:, 1:], place="cuda")) for b in ids]
+
+
+def _ptb_timed(torch, one_step, warmup, steps):
+    from paddle_tpu_torch.ops.cuda import support
+    support.reset_launch_counts()
+    runs = [_clocked_step(torch, one_step) for _ in range(warmup + steps)]
+    losses = [float(loss) for loss, _ in runs]
+    return losses, [ms for _, ms in runs], dict(support.launch_counts)
+
+
+def phase_ptb_training(warmup=2, steps=10, side_steps=4):
+    """PTB-large at full width on the card: 2 warm-up and 10 timed steps
+    of sparse SGD with clip 10; then a few steps with a dense embedding
+    gradient, and of the per-step cell path."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    cfg = PTB_LARGE
+    tokens = cfg["batch"] * cfg["steps"]
+    t0 = time.perf_counter()
+    paddle.set_device("gpu")
+    model = _PTBLM(paddle, cfg)
+    weights = _ptb_weights(np, model, 36)
+    for p, w in zip(model.parameters(), weights):
+        p.set_value(w)
+    paddle.core.placement.set_default(None)
+    sgd, _ = _ptb_opts(paddle, model, cfg)
+    ids = _zipf_ids(np, 360, cfg, warmup + steps)
+    batches = _ptb_batches(np, paddle, ids)
+    box = [model.zero_states("cuda")]
+    one_step = _ptb_step_fn(paddle, model, sgd, batches, box)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, counts = _ptb_timed(torch, one_step, warmup, steps)
+    peak = torch.cuda.max_memory_allocated()
+    timed = step_ms[warmup:]
+    mean = sum(timed) / len(timed)
+    out = {"config": cfg, "params": sum(p.numel()
+                                        for p in model.parameters()),
+           "dtype": "float32, TF32 off", "setup_s": setup_s,
+           "warmup_steps": warmup, "timed_steps": steps,
+           "tokens_per_step": tokens,
+           "unique_rows_per_step": [int(np.unique(b[:, :-1]).size)
+                                    for b in ids],
+           "losses": losses, "step_ms": timed,
+           "step_ms_p50": float(np.median(timed)), "step_ms_mean": mean,
+           "first_steps_ms": step_ms[:warmup],
+           "tokens_per_s": tokens / (mean / 1e3),
+           "max_memory_allocated": peak, "hand_kernel_launches": counts}
+    first_ok = abs(losses[0] - math.log(cfg["vocab"])) <= 0.02 * math.log(
+        cfg["vocab"])
+    # the dense embedding gradient beside the sparse one: the same
+    # weights and batches, a model whose Embedding has sparse=False
+    dense = _PTBLM(paddle, cfg, sparse=False)
+    for p, w in zip(dense.parameters(), weights):
+        p.set_value(w)
+    dsgd, _ = _ptb_opts(paddle, dense, cfg)
+    dstep = _ptb_step_fn(paddle, dense, dsgd, batches,
+                         [dense.zero_states("cuda")])
+    d = _ptb_timed(torch, dstep, 2, side_steps)
+    del dense, dsgd, dstep
+    out["dense_embedding_grad"] = {
+        "step_ms": d[1][2:], "step_ms_p50": float(np.median(d[1][2:])),
+        "losses": d[0], "hand_kernel_launches": d[2]}
+    # the per-step cell path (the recurrent op's plain version)
+    for lstm in (model.lstm1, model.lstm2):
+        lstm.fused = False
+    c = _ptb_timed(torch, one_step, 1, side_steps)
+    for lstm in (model.lstm1, model.lstm2):
+        lstm.fused = True
+    out["per_step_cells"] = {
+        "step_ms": c[1][1:], "step_ms_p50": float(np.median(c[1][1:])),
+        "losses": c[0], "hand_kernel_launches": c[2]}
+    out["sparse_over_dense"] = (out["step_ms_p50"]
+                                / out["dense_embedding_grad"]["step_ms_p50"])
+    out["per_step_over_fused"] = (out["per_step_cells"]["step_ms_p50"]
+                                  / out["step_ms_p50"])
+    out["nvidia_smi"] = nvidia_smi()
+    log("PTB_TRAIN " + json.dumps(out))
+    if not (first_ok and all(math.isfinite(v) for v in losses + d[0]
+                             + c[0])):
+        raise AssertionError(f"PTB losses {losses}; the first is not "
+                             f"within 2 % of ln({cfg['vocab']})")
+    for what, n in (("sparse", counts), ("dense", d[2]), ("per-step", c[2])):
+        if any(n.values()):
+            raise AssertionError(f"the {what} PTB step launched hand "
+                                 f"kernels {n}; this path has none")
+    return model, one_step, timed
+
+
+# --------------------------------------------------------------- phase 37
+def _ptb_op_group(scope, name):
+    """A PTB step's group for an aten op that launched kernels, by the
+    part of the step it ran in (``scope``: forward, backward or the
+    optimizer's step) and its name."""
+    n = name.replace("aten::", "")
+    if "cudnn_rnn" in n or n in ("lstm", "rnn_tanh", "gru"):
+        return "recurrent"
+    if n in ("mm", "addmm", "matmul", "bmm", "linear"):
+        return "head_gemm"
+    if "softmax" in n or "nll_loss" in n or "cross_entropy" in n:
+        return "softmax_cross_entropy"
+    if scope == "optimizer":
+        if n.startswith("_foreach_norm") or n in (
+                "linalg_vector_norm", "stack", "clamp", "clamp_min",
+                "sqrt", "div", "reciprocal", "mul"):
+            return "clip"
+        if n.startswith("_foreach"):
+            return "dense_update"
+        return "embedding_merge_and_scatter_update"
+    if n in ("embedding", "index_select", "embedding_dense_backward",
+             "index_add_", "_sparse_coo_tensor_with_dims_and_tensors"):
+        return "embedding_lookup_and_gradient"
+    if scope == "forward" and n in ("randint", "ge", "mul", "where",
+                                    "_to_copy", "lt", "div"):
+        return "dropout"
+    return f"{scope}_other"
+
+
+def _ptb_groups(prof, steps):
+    """Device ms a step by :func:`_ptb_op_group`, from the aten ops of a
+    profile whose step parts are ``record_function`` ranges; a kernel
+    is its launching op's (the autograd engine's ops are the
+    backward's)."""
+    groups = {}
+    for e in prof.events():
+        if e.device_type.name != "CPU" or e.self_device_time_total <= 0:
+            continue
+        scope, p = None, e.cpu_parent
+        while p is not None:
+            if p.name.startswith("ptb."):
+                scope = p.name[4:]
+                break
+            if p.name.startswith("autograd::engine"):
+                scope = "backward"
+            p = p.cpu_parent
+        g = _ptb_op_group(scope or "backward", e.name)
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3 / steps
+    return groups
+
+
+def _host_syncs(torch, fn):
+    """Device-to-host synchronisations one call of ``fn`` makes, counted
+    by torch's sync debug mode (one warning a synchronising call)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [str(w.message)[:120] for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def phase_ptb_anatomy(model, one_step, timed_ms, steps=2):
+    """Anatomy of one PTB-large step: device ms by part (the recurrent
+    op, the head's GEMMs, softmax and cross entropy, the embedding's
+    lookup, gradient, merge and scatter update, the clip, the dense
+    update), the idle share and top kernels, and the host syncs a
+    step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    cfg = model.cfg
+    _step_anatomy("PTB_ANATOMY", lambda: one_step(), steps, lambda n: (
+        "recurrent" if "rnn" in n or "lstm" in n or "persist" in n else
+        "gemm" if _is_gemm(n) else
+        "softmax_ce" if "softmax" in n or "nll" in n else
+        "index_scatter" if "index" in n or "scatter" in n or "unique" in n
+        or "sort" in n or "radix" in n else
+        "foreach" if "foreach" in n or "multi_tensor" in n else
+        "other"), timed_ms=timed_ms)
+    paddle = model.paddle
+    sgd, _ = _ptb_opts(paddle, model, cfg)
+    x = paddle.to_tensor(torch.randint(0, cfg["vocab"],
+                                       (cfg["batch"], cfg["steps"]),
+                                       device="cuda"))
+    y = paddle.to_tensor(torch.randint(0, cfg["vocab"],
+                                       (cfg["batch"], cfg["steps"]),
+                                       device="cuda"))
+    box = [model.zero_states("cuda")]
+
+    def parts():
+        with record_function("ptb.forward"):
+            loss, box[0] = model(x, y, box[0])
+        with record_function("ptb.backward"):
+            loss.backward()
+        with record_function("ptb.optimizer"):
+            sgd.step()
+            sgd.clear_grad()
+        return loss
+
+    parts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            parts()
+        torch.cuda.synchronize()
+    groups = _ptb_groups(prof, steps)
+    del prof
+    gc.collect()
+    syncs = _host_syncs(torch, lambda: float(parts()))
+    out = {"device_ms_by_part": groups,
+           "device_ms_total": sum(groups.values()),
+           "host_syncs_per_step": len(syncs),
+           "host_sync_calls": syncs,
+           "note": "float(loss) is one of the syncs counted",
+           "nvidia_smi": nvidia_smi()}
+    log("PTB_ANATOMY_PARTS " + json.dumps(out))
+    if not groups.get("recurrent", 0) > 0:
+        raise AssertionError("no recurrent kernel in the PTB trace")
+
+
+# --------------------------------------------------------------- phase 38
+def _ptb_decoder(paddle, model):
+    """Greedy decoding through two LSTMCells that share the model's
+    layers' weights: ``decode(first_tokens, n)`` runs ``paddle.
+    while_loop`` eagerly and returns (tokens [B, n], logits [n, B, V])."""
+    H = model.cfg["hidden"]
+    cells = []
+    for lstm in (model.lstm1, model.lstm2):
+        cell = paddle.nn.LSTMCell(H, H)
+        for k in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+            setattr(cell, k, getattr(lstm, f"{k}_l0"))
+        cells.append(cell)
+
+    def decode(first, n, states):
+        (h1, c1), (h2, c2) = [(h[0], c[0]) for h, c in states]
+
+        def cond(t, tok, h1, c1, h2, c2, toks, logits):
+            return t < n
+
+        def body(t, tok, h1, c1, h2, c2, toks, logits):
+            e = model.embedding(tok)
+            o1, (h1, c1) = cells[0](e, (h1, c1))
+            o2, (h2, c2) = cells[1](o1, (h2, c2))
+            lg = model.head(o2)
+            nxt = paddle.argmax(lg, axis=-1)
+            return (t + 1, nxt, h1, c1, h2, c2, toks + [nxt],
+                    logits + [lg])
+
+        t0 = paddle.zeros([], dtype="int64")
+        out = paddle.while_loop(cond, body,
+                                [t0, first, h1, c1, h2, c2, [], []])
+        return paddle.stack(out[6], axis=1), paddle.stack(out[7], axis=0)
+    return decode
+
+
+def phase_control_flow_and_sequence(model, weights_small, n_tokens=64):
+    """An eager ``paddle.while_loop`` greedy decode from phase 36's
+    model (tokens/s, host syncs a token) and at phase 35's widths card
+    against CPU; ``cond``, ``case``, ``switch_case`` eagerly; a static
+    Program with ``static.nn.cond`` and ``static.nn.while_loop`` (the
+    dynamic decode) through ``Executor.run``, card against CPU; the
+    sequence ops and the LSTM classifier's ``sequence_pool``, card
+    against CPU."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import sequence as SEQ
+    from paddle_tpu_torch.ops.cuda import support
+    support.reset_launch_counts()
+    out = {}
+    tol = TOL["float32"]
+    # greedy decode at full width
+    cfg = model.cfg
+    decode = _ptb_decoder(paddle, model)
+    first = paddle.to_tensor(torch.arange(cfg["batch"], device="cuda"))
+    states = model.zero_states("cuda")
+    with torch.no_grad():
+        decode(first, 4, states)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        toks, _ = decode(first, n_tokens, states)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        syncs = _host_syncs(torch, lambda: decode(first, 8, states))
+    out["decode_full_width"] = {
+        "batch": cfg["batch"], "tokens": n_tokens, "seconds": dt,
+        "tokens_per_s": cfg["batch"] * n_tokens / dt,
+        "host_syncs_per_token": len(syncs) / 8,
+        "tokens_shape": list(toks.shape)}
+    # the small widths, card against CPU
+    res = {}
+    for where, dev in (("cpu", "cpu"), ("gpu", "cuda")):
+        m = _ptb_on(paddle, where, PTB_SMALL, weights_small)
+        prev = paddle.core.placement.default()
+        paddle.set_device(where)
+        try:
+            dec = _ptb_decoder(paddle, m)
+            with torch.no_grad():
+                tk, lg = dec(paddle.to_tensor(np.arange(PTB_SMALL["batch"])),
+                             16, m.zero_states(dev))
+        finally:
+            paddle.core.placement.set_default(prev)
+        res[where] = (tk.numpy(), lg.numpy())
+    logit_err = float(np.abs(res["gpu"][1] - res["cpu"][1]).max())
+    out["decode_small_card_vs_cpu"] = {
+        "tokens_equal": bool(np.array_equal(res["gpu"][0], res["cpu"][0])),
+        "logits_max_abs_err": logit_err}
+    if not (out["decode_small_card_vs_cpu"]["tokens_equal"]
+            and logit_err <= tol):
+        raise AssertionError(f"decode card vs CPU: {out}")
+    # cond, case, switch_case eagerly on the card
+    a = paddle.to_tensor(torch.tensor([1.0, 2.0], device="cuda"))
+    got = [paddle.cond(a.sum() > 2, lambda: a * 2, lambda: a - 1),
+           paddle.case([(a.sum() < 0, lambda: a - 10),
+                        (a.sum() < 10, lambda: a * 3)],
+                       default=lambda: a + 100),
+           paddle.switch_case(paddle.to_tensor(torch.tensor(3,
+                                                            device="cuda")),
+                              {1: lambda: a * 10, 3: lambda: a * 30},
+                              default=lambda: -a)]
+    want = [[2.0, 4.0], [3.0, 6.0], [30.0, 60.0]]
+    out["eager_cond_case_switch"] = [g.numpy().tolist() for g in got]
+    if out["eager_cond_case_switch"] != want or any(
+            g.device.type != "cuda" for g in got):
+        raise AssertionError(f"eager control flow {out}")
+    # a static Program with cond and while_loop, card against CPU
+    fetched = {}
+    for where in ("cpu", "gpu"):
+        paddle.set_device(where)
+        try:
+            fetched[where] = _static_decode_runs(paddle)
+        finally:
+            paddle.core.placement.set_default(None)
+    out["static_decode"] = {k: [[np.asarray(f).tolist() for f in run]
+                                for run in v] for k, v in fetched.items()}
+    for rc, rg in zip(fetched["cpu"], fetched["gpu"]):
+        for u, v in zip(rc, rg):
+            if not np.array_equal(u, v):
+                raise AssertionError(f"static control flow card vs CPU: "
+                                     f"{out['static_decode']}")
+    # the sequence ops, card against CPU
+    out["sequence_ops_max_err"] = _sequence_card_vs_cpu(np, torch, paddle,
+                                                        SEQ)
+    bad = {k: v for k, v in out["sequence_ops_max_err"].items()
+           if not v <= tol}
+    out["hand_kernel_launches"] = dict(support.launch_counts)
+    log("CONTROL_FLOW_SEQUENCE " + json.dumps(out))
+    if bad:
+        raise AssertionError(f"sequence ops card vs CPU: {bad}")
+    if any(support.launch_counts.values()):
+        raise AssertionError(f"hand kernels launched: "
+                             f"{support.launch_counts}")
+
+
+def _static_decode_runs(paddle, eos=0, maxlen=8):
+    """tests/test_control_flow.py's dynamic decode as a static program
+    (the start token from a feed, so the loop is a node) and a cond on a
+    feed's sum, run by one Executor for three feeds."""
+    import numpy as np
+    paddle.enable_static()
+    try:
+        main = paddle.static.Program()
+        with paddle.static.program_guard(main):
+            seed = paddle.static.data("seed", [], "int64")
+            x = paddle.static.data("x", [None, 4], "float32")
+
+            def cond(t, tok, out):
+                return paddle.logical_and(t < maxlen,
+                                          paddle.logical_not(tok == eos))
+
+            def body(t, tok, out):
+                nxt = paddle.mod(tok * 3 + seed,
+                                 paddle.full([], 5, dtype="int64"))
+                out = paddle.scatter(out, t.reshape([1]),
+                                     nxt.reshape([1, 1]).astype("float32"))
+                return t + 1, nxt, out
+
+            t, _, buf = paddle.static.nn.while_loop(
+                cond, body, [paddle.zeros([], dtype="int64"), seed * 0 + 3,
+                             paddle.full([maxlen, 1], -1.0)])
+            y = paddle.static.nn.cond(x.sum() > 0, lambda: x * 2,
+                                      lambda: x - 1)
+    finally:
+        paddle.disable_static()
+    exe = paddle.static.Executor()
+    return [exe.run(main, feed={"seed": np.array(s, np.int64),
+                                "x": sign * np.ones((3, 4), np.float32)},
+                    fetch_list=[t, buf, y])
+            for s, sign in ((1, 1.0), (2, -1.0), (4, 1.0))]
+
+
+def _sequence_card_vs_cpu(np, torch, paddle, SEQ):
+    """Each sequence op, and the LSTM classifier (test_text_e2e.py's:
+    an LSTM over embeddings averaged by ``sequence_pool``), on the card
+    and on the CPU: max |card - CPU| / max(1, max |CPU|)."""
+    rs = np.random.RandomState(38)
+    x = rs.randn(4, 6, 3).astype(np.float32)
+    lens = np.array([3, 6, 1, 0], np.int64)
+    flat = rs.randn(10, 3).astype(np.float32)
+    ids = rs.randint(0, 9, (4, 6)).astype(np.int64)
+    w = rs.randn(9, 5).astype(np.float32)
+    cases = {
+        **{f"pool_{m}": (lambda m: lambda t, S: S.sequence_pool(
+            t(x), t(lens), m))(m) for m in ("sum", "average", "sqrt", "max",
+                                              "first", "last")},
+        "pad": lambda t, S: S.sequence_pad(t(flat), t(np.array([3, 6, 1])),
+                                           maxlen=6)[0],
+        "softmax": lambda t, S: S.sequence_softmax(t(x[:, :, 0]), t(lens)),
+        "reverse": lambda t, S: S.sequence_reverse(t(x), t(lens)),
+        "expand_as": lambda t, S: S.sequence_expand_as(t(x[:, 0]), t(lens),
+                                                       5),
+        "concat": lambda t, S: S.sequence_concat([t(x), t(x)],
+                                                 [t(lens), t(lens)])[0],
+        "slice": lambda t, S: S.sequence_slice(t(x), t(np.array([1, 0, 0,
+                                                                  0])),
+                                               t(np.array([2, 3, 1, 0])))[0],
+        "erase": lambda t, S: S.sequence_erase(t(ids), [2, 5], t(lens))[0],
+        "enumerate": lambda t, S: S.sequence_enumerate(t(ids), 3, -1,
+                                                       t(lens)),
+        "conv": lambda t, S: S.sequence_conv(t(x), t(lens), t(w)),
+        "mask": lambda t, S: S.sequence_mask(t(lens), 6),
+    }
+    out = {}
+    for name, fn in cases.items():
+        got = [fn(lambda a, d=d: paddle.to_tensor(a, place=d), SEQ).numpy()
+               .astype(np.float64) for d in ("cpu", "cuda")]
+        out[name] = float(np.abs(got[1] - got[0]).max()
+                          / max(1.0, np.abs(got[0]).max()))
+    # the IMDB LSTM classifier's forward
+    rs = np.random.RandomState(39)
+    vocab, emb, hidden = 50, 32, 32
+    params = None
+    logits = []
+    for where, dev in (("cpu", "cpu"), ("gpu", "cuda")):
+        prev = paddle.core.placement.default()
+        paddle.set_device(where)
+        try:
+            layers = [paddle.nn.Embedding(vocab, emb),
+                      paddle.nn.LSTM(emb, hidden),
+                      paddle.nn.Linear(hidden, 2)]
+        finally:
+            paddle.core.placement.set_default(prev)
+        flat_params = [p for layer in layers for p in layer.parameters()]
+        if params is None:
+            params = [rs.uniform(-0.2, 0.2, tuple(p.shape)).astype(
+                np.float32) for p in flat_params]
+        for p, v in zip(flat_params, params):
+            p.set_value(v)
+        tok = paddle.to_tensor(ids, place=dev)
+        o, _ = layers[1](layers[0](tok))
+        full = paddle.to_tensor(np.full((4,), 6, np.int64), place=dev)
+        logits.append(layers[2](SEQ.sequence_pool(o, full, "average"))
+                      .numpy())
+    out["lstm_classifier"] = float(np.abs(logits[1] - logits[0]).max()
+                                   / max(1.0, np.abs(logits[0]).max()))
+    return out
+
+
 def _static_gpt_row(row):
     """The static GPT's instance of one kernel, for the kernels line."""
     return {k: row[k] for k in (
@@ -3540,6 +4206,13 @@ def main():
     del sgpt_run
     torch.cuda.empty_cache()
     bench_launches = timed("static_bench", phase_static_bench)
+    ptb_small = timed("ptb_small_parity", phase_ptb_small_parity)
+    ptb_model, ptb_step, ptb_ms = timed("ptb_training", phase_ptb_training)
+    timed("ptb_anatomy", phase_ptb_anatomy, ptb_model, ptb_step, ptb_ms)
+    timed("control_flow_sequence", phase_control_flow_and_sequence,
+          ptb_model, ptb_small)
+    del ptb_model, ptb_step
+    torch.cuda.empty_cache()
     seconds["total"] = time.perf_counter() - t0
     log("PHASE_SECONDS " + json.dumps(seconds))
     f32_err = max(r["max_abs_err"] for r in kernel_rows

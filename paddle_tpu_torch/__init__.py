@@ -48,7 +48,15 @@ These slices are in:
   siblings, GroupNorm, InstanceNorm, LocalResponseNorm, SpectralNorm),
   their updates carried through ``jit.TrainStep`` (recompute,
   accumulation, a skipped loss-scaled step), ``vision.models`` (ResNet,
-  VGG, MobileNet) and :mod:`.metric`.
+  VGG, MobileNet) and :mod:`.metric`;
+- recurrent language-model training: the recurrent layers and cells
+  (:class:`nn.LSTM`, ``GRU``, ``SimpleRNN``, ``RNN``, ``BiRNN``), the
+  sparse embedding gradient (``nn.Embedding(sparse=True)``, read by the
+  optimizers as a ``core.selected_rows.SelectedRows``) with SGD's and
+  ``Adam(lazy_mode=True)``'s row-wise updates, the clips by value and
+  by norm, the sequence ops of :mod:`.ops.sequence`, and :func:`cond`,
+  :func:`case`, :func:`switch_case` and :func:`while_loop`, eager and
+  in a static Program.
 
 Models, pools, engines, static parameters and new tensors go to the
 current CUDA device unless the caller passes ``device=`` / ``place=``
@@ -71,6 +79,7 @@ from .device import get_device, set_device  # noqa: F401
 from .framework_io import load, save  # noqa: F401
 from .nn.layer_base import ParamAttr  # noqa: F401
 from .ops import linalg, monkey_patch_tensor  # noqa: F401
+from .ops.control_flow import case, cond, switch_case, while_loop  # noqa
 from .ops.creation import *  # noqa: F401,F403
 from .ops.linalg import cholesky, dist, histogram, inverse, norm  # noqa
 from .ops.logic import *  # noqa: F401,F403
@@ -92,7 +101,8 @@ __all__ = (["amp", "core", "distributed", "framework_io", "jit", "metric",
             "get_default_dtype", "set_default_dtype", "bfloat16", "bool_",
             "complex64", "complex128", "float16", "float32", "float64",
             "int8", "int16", "int32", "int64", "uint8",
-            "enable_static", "disable_static", "in_dynamic_mode"]
+            "enable_static", "disable_static", "in_dynamic_mode", "cond",
+            "case", "switch_case", "while_loop"]
            + ops.creation.__all__ + ops.logic.__all__
            + ops.manipulation.__all__ + ops.math.__all__
            + ops.random.__all__ + ops.reduction.__all__)

@@ -191,8 +191,11 @@ class GradScaler:
         if not self._unscaled:
             # the first unscale of a step decides afresh
             self._found_inf = False
-        grads = [p.grad for p in optimizer._parameter_list or []
-                 if p.grad is not None]
+        from ..core.tensor import raw_grad
+        # a sparse embedding gradient unscales its values in place
+        grads = [g._values() if g.is_sparse else g
+                 for g in (raw_grad(p) for p in optimizer._parameter_list
+                           or []) if g is not None]
         found = False
         if grads:
             torch._foreach_mul_(grads, 1.0 / self._scale)

@@ -9,7 +9,8 @@ reaches it.  This module keeps paddle's contract on top of it:
   graph (``stop_gradient``) backpropagates nothing; a second backward
   through a freed graph raises RuntimeError (``retain_graph=True``
   keeps it);
-- ``grad`` computes gradients without touching ``.grad``; an input the
+- ``grad`` computes gradients without touching ``.grad`` (dense, a
+  sparse embedding gradient too); an input the
   outputs do not reach raises RuntimeError unless ``allow_unused``,
   which gives None; ``grad_outputs`` default to ones;
 - ``no_grad`` and ``enable_grad`` are context managers and decorators;
@@ -93,7 +94,10 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
             [gouts[i] for i in keep], retain_graph=bool(retain_graph),
             create_graph=bool(create_graph), allow_unused=True)
         for i, g in zip(live, got):
-            results[i] = g
+            # a sparse embedding gradient comes out dense, as paddle_tpu
+            # gives it
+            results[i] = g.to_dense() if g is not None and g.is_sparse \
+                else g
     skip = {id(t) for t in (no_grad_vars or [])}
     results = [None if id(t) in skip else r for t, r in zip(ins, results)]
     if not allow_unused:

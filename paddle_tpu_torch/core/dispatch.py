@@ -10,6 +10,10 @@ torch's: the nodes carry paddle_tpu's op names (``linear``, ``add``,
 ``gelu``, ``layer_norm``, ...) and their parameters as explicit
 ``attrs``, which is what the static Executor's fusion matcher reads.
 
+Inside a replay scope (:mod:`.static_hooks`: a static control-flow
+node re-running the user's closures) a Variable or a Parameter input is
+replaced by its tensor in the running step, and the op runs.
+
 Under ``amp.auto_cast`` the tensor inputs are cast here, by the op's
 name, before the op runs (the JAX package's AMP hook sits at the same
 point); a recorded node is never cast.
@@ -23,8 +27,11 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+from torch.nn import Parameter
+
 from ..amp import amp_active, amp_cast_inputs
 from .enforce import with_op_hint
+from .static_hooks import current_replay
 from .tensor import wrap
 
 __all__ = ["Symbolic", "apply"]
@@ -41,9 +48,14 @@ def apply(fn: Callable, *inputs, op_name: str,
           attrs: Optional[dict] = None):
     """``fn(*inputs, **attrs)``, or, when an input is a static Variable,
     a node recorded into its Program (returns the output Variable(s))."""
-    for x in inputs:
-        if isinstance(x, Symbolic):
-            return x.program.record(fn, inputs, op_name, attrs or {})
+    replay = current_replay()
+    if replay is not None:
+        inputs = tuple(replay(x) if isinstance(x, (Symbolic, Parameter))
+                       else x for x in inputs)
+    else:
+        for x in inputs:
+            if isinstance(x, Symbolic):
+                return x.program.record(fn, inputs, op_name, attrs or {})
     if amp_active():
         inputs = amp_cast_inputs(op_name, inputs)
     try:

@@ -42,7 +42,8 @@ import torch
 from .dtype import convert_dtype, dtype_name, get_default_dtype
 from .placement import device as _resolve_device
 
-__all__ = ["Tensor", "Parameter", "Shape", "to_tensor", "wrap"]
+__all__ = ["Tensor", "Parameter", "Shape", "to_tensor", "wrap",
+           "raw_grad"]
 
 _TB = torch._C.TensorBase
 _GRAD = _TB.grad
@@ -95,6 +96,12 @@ def wrap(out):
     return out
 
 
+def raw_grad(t):
+    """``t``'s gradient as torch holds it: dense, or the ``sparse_coo``
+    tensor of a sparse embedding (``Tensor.grad`` densifies that)."""
+    return _GRAD.__get__(t)
+
+
 def _plain(x):
     """``x`` as a detached host-side plain tensor (for numpy)."""
     t = _TB.detach(x)
@@ -140,7 +147,13 @@ class Tensor(torch.Tensor):
     # -- autograd ----------------------------------------------------------
     @property
     def grad(self) -> Optional["Tensor"]:
+        """The gradient, dense: a sparse embedding gradient (a
+        ``sparse_coo`` tensor in torch's slot) is densified into a new
+        tensor, as paddle_tpu's user view is; the optimizers read the
+        sparse one (:func:`raw_grad`)."""
         g = _GRAD.__get__(self)
+        if g is not None and g.is_sparse:
+            return wrap(g.to_dense())
         if type(g) is torch.Tensor:
             g.__class__ = Tensor
         return g

@@ -119,7 +119,10 @@ class TrainStep:
             loss = self._loss(inputs, labels)
         target = loss if scale is None else loss * scale
         grads = torch.autograd.grad(target, self._params, allow_unused=True)
-        return loss.detach(), [torch.zeros_like(p) if g is None else g
+        # a sparse embedding gradient is taken dense here, as paddle_tpu's
+        # compiled step takes it
+        return loss.detach(), [torch.zeros_like(p) if g is None else
+                               g.to_dense() if g.is_sparse else g
                                for p, g in zip(self._params, grads)]
 
     def _accumulated(self, inputs, labels, scale):

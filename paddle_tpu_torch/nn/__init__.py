@@ -12,14 +12,16 @@ from .layer import conv as _conv
 from .layer import loss as _loss
 from .layer import norm as _norm
 from .layer import pooling as _pooling
+from .layer import rnn as _rnn
 from .layer import *  # noqa: F401,F403
 from .layer_base import Layer, ParamAttr  # noqa: F401
-from ..optimizer.clip import ClipGradByGlobalNorm  # noqa: F401
+from ..optimizer.clip import (ClipGradByGlobalNorm,  # noqa: F401
+                              ClipGradByNorm, ClipGradByValue)
 
 __all__ = (["functional", "initializer", "Layer", "ParamAttr", "Dropout",
             "Embedding", "LayerList", "LayerDict", "ParameterList",
             "Sequential", "Linear", "MultiHeadAttention",
             "TransformerEncoder", "TransformerEncoderLayer",
-            "ClipGradByGlobalNorm"]
+            "ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue"]
            + _activation.__all__ + _conv.__all__ + _loss.__all__
-           + _norm.__all__ + _pooling.__all__)
+           + _norm.__all__ + _pooling.__all__ + _rnn.__all__)

@@ -27,7 +27,9 @@ import torch
 import torch.nn.functional as TF
 
 from ...core import rng
-from ...core.dispatch import apply
+from ...core.dispatch import Symbolic, apply
+from ...core.dtype import convert_dtype
+from ...core.static_hooks import current_replay
 from ...core.flags import get_flag
 from ...ops.flash_attention import flash_attention, flash_attention_supported
 
@@ -42,7 +44,8 @@ from .pooling import *  # noqa: F401,F403
 __all__ = (["linear", "embedding", "layer_norm", "gelu", "relu", "dropout",
             "scaled_dot_product_attention", "cross_entropy", "mse_loss",
             "linear_cross_entropy", "softmax_with_cross_entropy", "one_hot",
-            "pad", "squeeze", "unsqueeze"] + activation.__all__
+            "pad", "squeeze", "unsqueeze", "sequence_mask"]
+           + activation.__all__
            + conv.__all__ + loss.__all__ + norm.__all__ + pooling.__all__)
 
 
@@ -85,14 +88,67 @@ def _embedding(x, weight, padding_idx):
     return out
 
 
+class _SparseEmbedding(torch.autograd.Function):
+    """The lookup with a sparse weight gradient: an uncoalesced
+    ``sparse_coo`` tensor whose rows are the ids (duplicates kept, the
+    rows at ``padding_idx`` with zero values), as paddle_tpu's
+    SelectedRows vjp gives.  A weight with a backward hook gets the
+    dense gradient: paddle_tpu's hooks see the densified gradient and
+    deposit it."""
+
+    @staticmethod
+    def forward(ctx, ids, weight, padding_idx):
+        ctx.save_for_backward(ids)
+        ctx.weight = weight
+        ctx.padding_idx = padding_idx
+        return _embedding(ids, weight, padding_idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, = ctx.saved_tensors
+        rows = ids.reshape(-1)
+        vals = g.reshape(-1, g.shape[-1])
+        if ctx.padding_idx is not None:
+            vals = vals * (rows != ctx.padding_idx).unsqueeze(1).to(
+                vals.dtype)
+        shape = tuple(ctx.weight.shape)
+        if ctx.weight._backward_hooks:
+            dense = torch.zeros(shape, dtype=vals.dtype, device=vals.device)
+            return None, dense.index_add_(0, rows, vals), None
+        return None, torch.sparse_coo_tensor(
+            rows.unsqueeze(0), vals, shape, check_invariants=False), None
+
+
+def _embedding_sparse(x, weight, padding_idx):
+    return _SparseEmbedding.apply(x, weight, padding_idx)
+
+
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     """Rows of ``weight`` at ``x``; rows at ``padding_idx`` are zero (in
-    the output, as in paddle_tpu)."""
-    if sparse:
-        raise NotImplementedError("sparse (SelectedRows) embedding "
-                                  "gradients are not ported")
-    return apply(_embedding, x, weight, op_name="embedding",
-                 attrs={"padding_idx": padding_idx})
+    the output, as in paddle_tpu).  ``sparse=True`` gives a leaf weight
+    that takes a gradient a sparse one (:class:`_SparseEmbedding`; the
+    optimizers read it as a ``core.selected_rows.SelectedRows``); in a
+    static Program, or for a weight that is not a leaf, the gradient is
+    dense, as in paddle_tpu."""
+    sparse = (sparse and torch.is_grad_enabled()
+              and isinstance(weight, torch.Tensor) and weight.requires_grad
+              and weight.is_leaf and not isinstance(x, Symbolic)
+              and current_replay() is None)
+    return apply(_embedding_sparse if sparse else _embedding, x, weight,
+                 op_name="embedding", attrs={"padding_idx": padding_idx})
+
+
+def _sequence_mask(lengths, maxlen, dtype):
+    return (torch.arange(maxlen, device=lengths.device)[None, :]
+            < lengths[:, None]).to(dtype)
+
+
+def sequence_mask(lengths, maxlen=None, dtype="int64", name=None):
+    """``[B]`` lengths -> ``[B, maxlen]`` 0/1 mask of ``dtype``;
+    ``maxlen`` defaults to the longest (read on the host)."""
+    ml = int(maxlen) if maxlen else int(torch.as_tensor(lengths).max())
+    return apply(_sequence_mask, lengths, op_name="sequence_mask",
+                 attrs={"maxlen": ml, "dtype": convert_dtype(dtype)})
 
 
 def _layer_norm(x, *wb, n, epsilon):

@@ -1,4 +1,4 @@
-from . import activation, container, conv, loss, norm, pooling  # noqa
+from . import activation, container, conv, loss, norm, pooling, rnn  # noqa
 from .activation import *  # noqa: F401,F403
 from .common import Dropout, Embedding, Linear  # noqa: F401
 from .container import (LayerDict, LayerList,  # noqa: F401
@@ -7,5 +7,6 @@ from .conv import *  # noqa: F401,F403
 from .loss import *  # noqa: F401,F403
 from .norm import *  # noqa: F401,F403
 from .pooling import *  # noqa: F401,F403
+from .rnn import *  # noqa: F401,F403
 from .transformer import (MultiHeadAttention,  # noqa: F401
                           TransformerEncoder, TransformerEncoderLayer)

@@ -6,7 +6,9 @@ paddle_tpu: ``init_slots`` and the list-wise ``update``, shared by
 
 - :meth:`Optimizer.functional_update` (pure: returns new parameter and
   slot tensors; ``jit.TrainStep`` writes them back in place), and
-- the eager :meth:`Optimizer.step` (reads ``param.grad``).
+- the eager :meth:`Optimizer.step` (reads the parameters' gradients;
+  a sparse embedding gradient as a ``SelectedRows``, updated row-wise
+  by SGD and ``Adam(lazy_mode=True)``).
 
 The update runs as PyTorch's multi-tensor ``_foreach`` ops over all
 parameters at once, in plain arithmetic.  The fused kernel (K3,
@@ -36,9 +38,11 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
-from ..core.tensor import wrap
+from ..core.selected_rows import SelectedRows, sparse_grad
+from ..core.tensor import raw_grad, wrap
 from .clip import ClipGradBase
 from .lr import LRScheduler
 from .regularizer import L2Decay, WeightDecayRegularizer
@@ -118,12 +122,26 @@ class Optimizer:
         each one's regularizer and learning-rate factor.  A parameter
         with a ``master`` slot is updated through it in f32."""
         meta = params_meta or [None] * len(params)
-        if self._grad_clip is not None:
-            grads = [g for _, g in self._grad_clip(list(zip(meta, grads)))]
+        grads = self._clipped(grads, meta)
+        return self._decay_and_update(params, grads, states, lr, step, meta)
+
+    def _clipped(self, grads, meta):
+        if self._grad_clip is None:
+            return grads
+        return [g for _, g in self._grad_clip(list(zip(meta, grads)))]
+
+    def _lr_factor(self, m) -> float:
+        return float(getattr(m, "optimize_attr", {}).get(
+            "learning_rate", 1.0)) * self._param_lr_ratio(m)
+
+    def _decay_and_update(self, params, grads, states, lr, step, meta,
+                          decay=None):
+        """The coupled weight decay (on every parameter, or where
+        ``decay``, a list of bools, says), then the update, one list a
+        learning-rate factor."""
         if not self._decoupled():
-            grads = self._regularized(params, grads, meta)
-        factors = [float(getattr(m, "optimize_attr", {}).get(
-            "learning_rate", 1.0)) * self._param_lr_ratio(m) for m in meta]
+            grads = self._regularized(params, grads, meta, decay)
+        factors = [self._lr_factor(m) for m in meta]
         if all(f == 1.0 for f in factors):
             return self._update_list(params, grads, states, lr, step, meta)
         new_ps, new_ss = [None] * len(params), [None] * len(params)
@@ -137,12 +155,14 @@ class Optimizer:
                 new_ps[i], new_ss[i] = a, b
         return new_ps, new_ss
 
-    def _regularized(self, params, grads, meta):
+    def _regularized(self, params, grads, meta, decay=None):
         """The gradients with each parameter's regularizer (its own,
         else the optimizer's) added, one multi-tensor op a
         regularizer."""
         regs = [getattr(m, "regularizer", None) or self._weight_decay
                 for m in meta]
+        if decay is not None:
+            regs = [r if d else None for r, d in zip(regs, decay)]
         if all(r is None for r in regs):
             return grads
         if all(r is regs[0] for r in regs):
@@ -188,11 +208,16 @@ class Optimizer:
     # -- eager step --------------------------------------------------------
     @torch.no_grad()
     def step(self):
+        """One update from the parameters' gradients, in
+        :meth:`functional_update`'s order.  A sparse embedding gradient
+        is read as a :class:`SelectedRows`: the clip sees it merged, and
+        :meth:`_apply_rows` takes it off before the weight decay and the
+        dense update."""
         if self._parameter_list is None:
             raise ValueError("optimizer constructed without parameters")
         self._step_count += 1
         params = [p for p in self._parameter_list
-                  if p.requires_grad and p.grad is not None]
+                  if p.requires_grad and raw_grad(p) is not None]
         if self._states is None:
             self._states = {}
         states = [self._states.get(id(p)) for p in params]
@@ -200,12 +225,58 @@ class Optimizer:
         for i, s in zip(fresh, self.functional_init([params[i]
                                                      for i in fresh])):
             states[i] = s
-        new_p, new_s = self.functional_update(
-            [p.detach() for p in params], [p.grad for p in params], states,
-            self.get_lr(), self._step_count, params_meta=params)
+        lr, step = self.get_lr(), self._step_count
+        grads = self._clipped([sparse_grad(raw_grad(p)) for p in params],
+                              params)
+        decay = None
+        if any(isinstance(g, SelectedRows) for g in grads):
+            params, grads, states, decay = self._apply_rows(
+                params, grads, states, lr, step)
+        if not params:
+            return
+        new_p, new_s = self._decay_and_update(
+            [p.detach() for p in params], grads, states, lr, step, params,
+            decay)
         torch._foreach_copy_([p.data for p in params], new_p)
         for p, s in zip(params, new_s):
             self._states[id(p)] = s
+
+    # -- sparse (SelectedRows) updates -------------------------------------
+    def _apply_rows(self, params, grads, states, lr, step):
+        """The sparse gradients' part of a step, in paddle_tpu's order:
+        each SelectedRows is merged (a no-op after the clip's merge); an
+        optimizer with a row-wise update (SGD, ``Adam(lazy_mode=True)``)
+        then moves only its rows, in place, and any other, or a
+        parameter with f32 master weights, takes it dense.  Weight decay
+        skips every sparse gradient.  Returns the parameters left for the
+        dense update, their gradients and slots, and whether each takes
+        the weight decay."""
+        keep, decay = [], []
+        for i, (p, g) in enumerate(zip(params, grads)):
+            if not isinstance(g, SelectedRows):
+                keep.append(i)
+                decay.append(True)
+                continue
+            g = g.merge()
+            if "master" in states[i] or not self._sparse_supported():
+                grads[i] = g.to_dense()
+                keep.append(i)
+                decay.append(False)
+                continue
+            self._states[id(p)] = self._sparse_update(
+                p.detach(), g, states[i], lr * self._lr_factor(p), step)
+        return ([params[i] for i in keep], [grads[i] for i in keep],
+                [states[i] for i in keep], decay)
+
+    def _sparse_supported(self) -> bool:
+        """Whether this optimizer updates a merged SelectedRows row-wise
+        (paddle_tpu: SGD, and Adam in ``lazy_mode``)."""
+        return False
+
+    def _sparse_update(self, p, sr, slots, lr, step):
+        """Update ``p``'s rows ``sr.rows`` (unique) in place; returns
+        the slots."""
+        raise NotImplementedError
 
     def clear_grad(self, set_to_zero=False):
         for p in self._parameter_list or []:
@@ -253,6 +324,15 @@ class SGD(Optimizer):
         return torch._foreach_sub(params, torch._foreach_mul(grads, lr)), \
             slots
 
+    def _sparse_supported(self):
+        return True
+
+    def _sparse_update(self, p, sr, slots, lr, step):
+        """The rows' scatter update: untouched rows are never read or
+        written."""
+        p.index_add_(0, sr.rows, sr.values.to(p.dtype) * -lr)
+        return slots
+
 
 class Momentum(Optimizer):
     """``v = momentum * v + g``; ``p - lr * v``, or ``p - lr * (g +
@@ -289,12 +369,33 @@ class Adam(Optimizer):
                  epsilon=1e-8, parameters=None, weight_decay=None,
                  grad_clip=None, lazy_mode=False, multi_precision=False,
                  name=None):
-        if lazy_mode:
-            raise NotImplementedError("lazy_mode (SelectedRows) Adam is "
-                                      "not ported")
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, multi_precision)
         self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
+        self._lazy = bool(lazy_mode)
+
+    def _sparse_supported(self):
+        return self._lazy
+
+    def _sparse_update(self, p, sr, slots, lr, step):
+        """``lazy_mode``: the moments and the parameter move on the
+        touched rows only, with the bias corrections at the global step
+        count; untouched rows keep stale moments (paddle_tpu's lazy
+        Adam, in its arithmetic)."""
+        b1, b2, eps = self._beta1, self._beta2, self._eps
+        rows, m, v = sr.rows, slots["m"], slots["v"]
+        g = sr.values.to(m.dtype)
+        m_r = b1 * m.index_select(0, rows) + (1 - b1) * g
+        v_r = b2 * v.index_select(0, rows) + (1 - b2) * g * g
+        # the bias corrections in f32, as paddle_tpu takes them
+        one, st = np.float32(1.0), np.float32(step)
+        mhat = m_r / float(one - np.float32(b1) ** st)
+        vhat = v_r / float(one - np.float32(b2) ** st)
+        upd = lr * mhat / (torch.sqrt(vhat) + eps)
+        p.index_add_(0, rows, -upd.to(p.dtype))
+        m.index_copy_(0, rows, m_r)
+        v.index_copy_(0, rows, v_r)
+        return slots
 
     def init_slots(self, p):
         dt = torch.float32 if p.dtype in _LOW else p.dtype

@@ -8,6 +8,13 @@ gradient of the mean loss over the whole batch).  Eagerly,
 ``loss.backward()`` on the wrapped layer averages each parameter's
 ``.grad`` as it is accumulated (a post-accumulate hook); the functional
 path (``SpmdTrainStep``) calls :func:`allreduce_gradients` on its list.
+
+A sparse embedding gradient (a ``sparse_coo`` tensor in the ``.grad``
+slot, ``nn.Embedding(sparse=True)``) has other rows on every rank, so
+it is not summed but gathered: the slot then holds every rank's rows,
+each value divided by the number of ranks, which is the whole batch's
+sparse gradient of the mean loss.  SGD and ``Adam(lazy_mode=True)``
+then update the same rows on every rank.
 """
 from __future__ import annotations
 
@@ -16,7 +23,8 @@ from typing import List
 import torch
 from torch import nn
 
-from ..distributed.collective import ReduceOp, _resolve, all_reduce
+from ..core.tensor import raw_grad
+from ..distributed.collective import ReduceOp, _resolve, all_gather, all_reduce
 from ..distributed.mesh import DP_AXIS
 
 __all__ = ["DataParallel", "allreduce_gradients"]
@@ -30,6 +38,27 @@ def allreduce_gradients(grads: List[torch.Tensor], group=DP_AXIS):
         for t in grads:
             all_reduce(t, ReduceOp.AVG, g)
     return grads
+
+
+def _gather_rows(g: torch.Tensor, group) -> torch.Tensor:
+    """A ``sparse_coo`` gradient with one sparse dim made the mean over
+    ``group``: every rank's (row, value) pairs, in rank order, the values
+    over the number of ranks.  The ranks' counts are gathered first (one
+    host read), then the pairs, padded to the longest."""
+    rows, vals = g._indices()[0], g._values()
+    counts = all_gather(None, torch.tensor([rows.shape[0]],
+                                           device=rows.device), group)
+    width = int(counts.max())
+    pad = width - rows.shape[0]
+    if pad:
+        rows = torch.cat([rows, rows.new_zeros(pad)])
+        vals = torch.cat([vals, vals.new_zeros((pad,) + vals.shape[1:])])
+    keep = (torch.arange(width, device=rows.device)[None, :]
+            < counts[:, None]).reshape(-1)
+    return torch.sparse_coo_tensor(
+        all_gather(None, rows, group)[keep].unsqueeze(0),
+        all_gather(None, vals, group)[keep] / counts.shape[0], g.shape,
+        check_invariants=False)
 
 
 class DataParallel(nn.Module):
@@ -46,7 +75,11 @@ class DataParallel(nn.Module):
                     p.register_post_accumulate_grad_hook(self._average)
 
     def _average(self, p):
-        all_reduce(p.grad, ReduceOp.AVG, self.group)
+        g = raw_grad(p)
+        if g.is_sparse:
+            p.grad = _gather_rows(g, self.group)
+        else:
+            all_reduce(g, ReduceOp.AVG, self.group)
 
     def forward(self, *inputs, **kwargs):
         return self._layers(*inputs, **kwargs)

@@ -27,8 +27,8 @@ plain f32 Adam with the fused Adam kernel.
 
 Not ported yet: ``save_inference_model`` / ``load_inference_model``
 (``static/io``), ``InputSpec``, ``BuildStrategy`` / ``CompiledProgram``
-(ROADMAP A4), control flow (``static.nn.cond`` and friends, A3) and
-shardcheck (A5).
+(ROADMAP A4) and shardcheck (A5).  Control flow is ``static.nn.cond``,
+``case``, ``switch_case`` and ``while_loop``.
 """
 from __future__ import annotations
 

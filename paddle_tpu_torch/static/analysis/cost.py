@@ -38,7 +38,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..program import Program, Variable, to_meta
+from ..program import Program, Variable, infer_outputs, to_meta
 from .graph import DefUseGraph
 from .liveness import MemoryEstimate, aval_bytes, estimate_memory
 from .passes import Diagnostic
@@ -349,13 +349,13 @@ def _propagate_avals(graph: DefUseGraph,
         avals[id(v)] = (v.meta if shape is None else torch.empty(
             tuple(int(s) for s in shape), dtype=v.meta.dtype,
             device="meta"))
-    with torch.no_grad():
-        for node in graph.nodes:
-            args = [avals.get(id(x), x.meta) if tag == "v" else to_meta(x)
-                    for tag, x in node.in_specs]
-            out = node.fn(*args, **node.attrs)
-            for v, a in zip(node.out_vars, out if node.multi else [out]):
-                avals[id(v)] = a
+    for node in graph.nodes:
+        args = [avals.get(id(x), x.meta) if tag == "v" else to_meta(x)
+                for tag, x in node.in_specs]
+        out = infer_outputs(node, args,
+                            lambda v: avals.get(id(v), v.meta))
+        for v, a in zip(node.out_vars, out if node.multi else [out]):
+            avals[id(v)] = a
     return avals
 
 

@@ -9,9 +9,9 @@ cost model and the fusion pass need.  Variables are keyed by identity,
 not by name: name collisions are one of the defects the verifier
 reports, so the graph cannot assume names are unique.
 
-The port records no control-flow replay closures yet (A3), so a node's
-inputs are its ``in_specs`` alone (the JAX graph's ``extra_vars`` and
-``extra_params`` have nothing to hold).
+A control-flow node also reads the Variables and Parameters its replay
+closures reached when it was recorded (``extra_vars``,
+``extra_params``): they count as its inputs, of kind "extra".
 """
 from __future__ import annotations
 
@@ -24,7 +24,8 @@ __all__ = ["DefUseGraph"]
 
 class DefUseGraph:
     """- ``producer_of[id(v)]``: the node index whose outputs hold v;
-    - ``consumers_of[id(v)]``: the node indexes that read v;
+    - ``consumers_of[id(v)]``: the node indexes that read v (as an
+      operand or from a control-flow closure);
     - ``feeds``: name -> Variable declared by ``static.data``;
     - ``params_of[i]``: the parameters node i reads;
     - ``duplicate_producers``: (var, first, later) where a later node
@@ -54,12 +55,18 @@ class DefUseGraph:
                     self.consumers_of.setdefault(id(x), []).append(i)
                 elif tag == "p":
                     params.append(x)
+            for x in node.extra_vars:
+                self.vars[id(x)] = x
+                self.consumers_of.setdefault(id(x), []).append(i)
+            params.extend(node.extra_params)
             self.params_of[i] = params
 
     def node_inputs(self, i: int) -> List[Tuple[Variable, str]]:
-        """The Variables node ``i`` reads, as (var, "in")."""
-        return [(x, "in") for tag, x in self.nodes[i].in_specs
-                if tag == "v"]
+        """The Variables node ``i`` reads, as (var, kind): "in" for an
+        operand, "extra" for a control-flow closure's read."""
+        node = self.nodes[i]
+        return ([(x, "in") for tag, x in node.in_specs if tag == "v"]
+                + [(x, "extra") for x in node.extra_vars])
 
     def is_feed(self, v: Variable) -> bool:
         return any(f is v for f in self.feeds.values())

@@ -27,10 +27,8 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
-import torch
-
 from ...core.enforce import GraphVerificationError
-from ..program import Program, Variable, to_meta
+from ..program import Program, Variable, infer_outputs, to_meta
 from .graph import DefUseGraph
 
 __all__ = [
@@ -148,13 +146,15 @@ class CrossProgramLeakPass(AnalysisPass):
         out: List[Diagnostic] = []
         prog = graph.program
         for i, node in enumerate(graph.nodes):
-            for v, _kind in graph.node_inputs(i):
+            for v, kind in graph.node_inputs(i):
                 if v.program is not prog:
+                    how = ("replay closure" if kind == "extra"
+                           else "operand")
                     out.append(self._diag(
                         graph, Diagnostic.ERROR,
                         f"Variable '{v.name}' belongs to a different "
                         f"Program (leaked across program boundaries as "
-                        f"an op operand)", op_index=i, var_name=v.name))
+                        f"an op {how})", op_index=i, var_name=v.name))
             for v in node.out_vars:
                 if v.program is not prog:
                     out.append(self._diag(
@@ -224,8 +224,9 @@ class DeadCodePass(AnalysisPass):
 
 
 class ShapeDtypeConsistencyPass(AnalysisPass):
-    """Replay every op on ``meta`` tensors of its recorded inputs and
-    compare with what recording stored on its outputs."""
+    """Replay every op on ``meta`` tensors of its recorded inputs (a
+    control-flow node through its ``trace``) and compare with what
+    recording stored on its outputs."""
 
     name = "shape-dtype"
 
@@ -235,8 +236,7 @@ class ShapeDtypeConsistencyPass(AnalysisPass):
             args = [x.meta if tag == "v" else to_meta(x)
                     for tag, x in node.in_specs]
             try:
-                with torch.no_grad():
-                    got = node.fn(*args, **node.attrs)
+                got = infer_outputs(node, args)
             except Exception as e:  # noqa: BLE001 - any replay failure
                 out.append(self._diag(
                     graph, Diagnostic.ERROR,

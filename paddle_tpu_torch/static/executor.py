@@ -57,6 +57,7 @@ import torch
 from ..core import rng
 from ..core.flags import get_flag
 from ..core.placement import device as _resolve_device
+from ..core.static_hooks import replay_scope
 from ..ops.fused_adam import fused_adam_eligible, fused_update_for
 from .program import Program, Variable, default_main_program
 
@@ -82,19 +83,27 @@ def global_scope() -> _Scope:
 
 def _interp(nodes, env: Dict[int, torch.Tensor], pmap: Dict[int, object]):
     """Run the node list; ``env`` maps id(Variable) -> tensor and
-    ``pmap`` id(Parameter) -> the tensor standing in for it."""
-    for node in nodes:
-        args = []
-        for tag, v in node.in_specs:
-            if tag == "v":
-                args.append(env[id(v)])
-            elif tag == "p":
-                args.append(pmap[id(v)])
-            else:
-                args.append(v)
-        out = node.fn(*args, **node.attrs)
-        for var, o in zip(node.out_vars, out if node.multi else [out]):
-            env[id(var)] = o
+    ``pmap`` id(Parameter) -> the tensor standing in for it.  A
+    control-flow node's closures run under a replay scope that resolves
+    the Variables and Parameters they name the same way."""
+    def lookup(v):
+        if isinstance(v, torch.nn.Parameter):
+            return pmap.get(id(v), v)
+        return env[id(v)]
+
+    with replay_scope(lookup):
+        for node in nodes:
+            args = []
+            for tag, v in node.in_specs:
+                if tag == "v":
+                    args.append(env[id(v)])
+                elif tag == "p":
+                    args.append(pmap[id(v)])
+                else:
+                    args.append(v)
+            out = node.fn(*args, **node.attrs)
+            for var, o in zip(node.out_vars, out if node.multi else [out]):
+                env[id(var)] = o
     return env
 
 

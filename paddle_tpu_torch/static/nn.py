@@ -5,10 +5,10 @@
 ``weight_attr`` and ``bias_attr`` and ignores them, as paddle_tpu's
 does.  ``batch_norm`` normalises with the batch's statistics and fresh
 affine parameters (ones and zeros), as paddle_tpu's static shim: running
-statistics are the dygraph layer's.
-
-Not ported: the control-flow helpers ``cond``, ``case``, ``switch_case``
-and ``while_loop`` (ROADMAP A3)."""
+statistics are the dygraph layer's.  ``cond``, ``case``, ``switch_case``
+and ``while_loop`` are :mod:`..ops.control_flow`'s, which record one
+node into the Program when a predicate, index or loop variable is a
+Variable."""
 from __future__ import annotations
 
 import math
@@ -18,8 +18,9 @@ import torch
 from ..core import rng
 from ..core.placement import device as _resolve_device
 from ..nn import functional as F
+from ..ops.control_flow import case, cond, switch_case, while_loop  # noqa
 
-__all__ = ["fc", "batch_norm"]
+__all__ = ["fc", "batch_norm", "cond", "case", "switch_case", "while_loop"]
 
 
 def fc(x, size, num_flatten_dims=1, weight_attr=None, bias_attr=None,

@@ -23,8 +23,18 @@ time, each node keeps the ``file:line`` of the user statement that
 recorded it (``_OpNode.loc``), which the verifier's diagnostics and
 ``Program.analyze``'s report show.
 
-Not ported: the control-flow replay scopes (``cond`` / ``while_loop``
-record one node that re-runs user closures; A3).
+Control flow (``ops.control_flow``: ``cond``, ``case``, ``switch_case``,
+``while_loop``) records ONE node whose function re-runs the user's
+branch or body closures when the node executes, under a replay scope
+(``core.static_hooks``) that resolves the Variables and Parameters the
+closures name to their tensors in that run.  Such a node carries a
+``trace`` function: its outputs cannot be inferred on ``meta`` tensors
+(a closure may make tensors of its own), so recording, and the
+analyses' re-derivation of shapes (:func:`infer_outputs`), run
+``trace`` on zeros of the inputs' shapes on the default device, with
+every branch run once; the Variables and Parameters the closures
+reached are kept on the node (``extra_vars``, ``extra_params``), so the
+def-use graph and :meth:`Program.parameters` see them.
 """
 from __future__ import annotations
 
@@ -38,11 +48,13 @@ import torch
 from ..core.dispatch import Symbolic
 from ..core.dtype import convert_dtype
 from ..core.flags import get_flag
+from ..core.placement import device as _resolve_device
+from ..core.static_hooks import current_replay, replay_scope  # noqa: F401
 from ..ops import symbolic_methods
 
 __all__ = ["Program", "Variable", "data", "program_guard",
            "default_main_program", "default_startup_program",
-           "reset_default_programs"]
+           "reset_default_programs", "infer_outputs"]
 
 _var_counter = itertools.count(0)
 # monotonic program identity: id(program) can be recycled after GC, the
@@ -109,13 +121,15 @@ for _name, _fn in symbolic_methods().items():
 
 
 class _OpNode:
-    """One recorded op; ``loc`` is its (file, line) anchor or None."""
+    """One recorded op; ``loc`` is its (file, line) anchor or None.  A
+    control-flow node has a ``trace`` function and the Variables and
+    Parameters its closures read (``extra_vars``, ``extra_params``)."""
 
     __slots__ = ("fn", "attrs", "op_name", "in_specs", "out_vars", "multi",
-                 "loc")
+                 "loc", "trace", "extra_vars", "extra_params")
 
     def __init__(self, fn, attrs, op_name, in_specs, out_vars, multi,
-                 loc=None):
+                 loc=None, trace=None, extra_vars=(), extra_params=()):
         self.fn = fn
         self.attrs = attrs
         self.op_name = op_name
@@ -123,6 +137,9 @@ class _OpNode:
         self.out_vars = out_vars
         self.multi = multi
         self.loc = loc
+        self.trace = trace
+        self.extra_vars = list(extra_vars)
+        self.extra_params = list(extra_params)
 
 
 def _spec(x) -> Tuple[str, object]:
@@ -144,6 +161,45 @@ def to_meta(x):
     return x
 
 
+def _traced(trace, args, var_meta=None):
+    """Run a control-flow node's ``trace`` on zeros standing for its
+    meta ``args`` (and for the Variables its closures name: their
+    recorded meta, or ``var_meta(v)``); returns (outputs as meta, the
+    Variables and Parameters the closures reached)."""
+    dev = _resolve_device(None)
+    seen_v, seen_p = {}, {}
+
+    def zeros(m):
+        return torch.zeros(m.shape, dtype=m.dtype, device=dev)
+
+    def lookup(v):
+        if isinstance(v, torch.nn.Parameter):
+            seen_p.setdefault(id(v), v)
+            return v.detach()
+        seen_v.setdefault(id(v), v)
+        return zeros(var_meta(v) if var_meta is not None else v.meta)
+
+    real = [zeros(a) if isinstance(a, torch.Tensor) and a.is_meta else a
+            for a in args]
+    with replay_scope(lookup), torch.no_grad():
+        out = trace(*real)
+    multi = isinstance(out, (tuple, list))
+    metas = [to_meta(o) for o in (out if multi else [out])]
+    return ((tuple(metas) if multi else metas[0]), list(seen_v.values()),
+            list(seen_p.values()))
+
+
+def infer_outputs(node, args, var_meta=None):
+    """``node``'s outputs (meta tensors) for the meta ``args``: the op
+    run on them, or a control-flow node's ``trace`` (:func:`_traced`;
+    ``var_meta(v)`` gives the shapes of the Variables its closures
+    read)."""
+    with torch.no_grad():
+        if node.trace is None:
+            return node.fn(*args, **node.attrs)
+        return _traced(node.trace, args, var_meta)[0]
+
+
 class Program:
     """An ordered op list plus feed metadata and the attached optimizer.
     Built by running layer code on ``static.data`` Variables; executed
@@ -159,29 +215,38 @@ class Program:
         self._params_cache = None      # (version, [Parameter])
 
     def record(self, fn: Callable, inputs: Sequence, op_name: str,
-               attrs: dict):
-        with torch.no_grad():
-            out = fn(*[to_meta(x) for x in inputs], **attrs)
+               attrs: dict, trace: Optional[Callable] = None):
+        """Append one node; returns its output Variable(s).  A
+        control-flow node passes its ``trace`` (see :func:`_traced`)."""
+        extra_v, extra_p = (), ()
+        if trace is None:
+            with torch.no_grad():
+                out = fn(*[to_meta(x) for x in inputs], **attrs)
+        else:
+            out, extra_v, extra_p = _traced(
+                trace, [to_meta(x) for x in inputs])
         multi = isinstance(out, (tuple, list))
         out_vars = [Variable(o, self) for o in (out if multi else [out])]
         loc = (_caller_loc() if get_flag("static_verify")
                or get_flag("static_anchors") else None)
         self.nodes.append(_OpNode(fn, attrs, op_name,
                                   [_spec(x) for x in inputs], out_vars,
-                                  multi, loc))
+                                  multi, loc, trace, extra_v, extra_p))
         self._version += 1
         return tuple(out_vars) if multi else out_vars[0]
 
     def parameters(self) -> List[torch.nn.Parameter]:
-        """Parameters the program reads, in first-use order (cached per
-        version: the Executor calls this every run)."""
+        """Parameters the program reads (control-flow closures' too), in
+        first-use order (cached per version: the Executor calls this
+        every run)."""
         cached = self._params_cache
         if cached is not None and cached[0] == self._version:
             return cached[1]
         seen, out = set(), []
         for node in self.nodes:
-            for tag, v in node.in_specs:
-                if tag == "p" and id(v) not in seen:
+            for v in [v for tag, v in node.in_specs if tag == "p"] \
+                    + node.extra_params:
+                if id(v) not in seen:
                     seen.add(id(v))
                     out.append(v)
         self._params_cache = (self._version, out)

@@ -378,6 +378,58 @@ def case_batch_norm_dp(data, device):
     return out
 
 
+def case_dp_sparse_embedding(data, device):
+    """{"dp": 4}: ``nn.Embedding(sparse=True)`` + ``Linear`` under
+    DataParallel, each rank on its quarter of the batch, against the same
+    net on the whole batch in this process.  Saves, for each side, the
+    merged sparse embedding gradient (rows, values) and the Linear
+    weight's gradient of the first backward, and the parameters after 2
+    steps of ``Adam(lazy_mode=True)``."""
+    from .. import nn, optimizer
+    from ..core.selected_rows import sparse_grad
+    from ..core.tensor import raw_grad
+    from ..distributed.mesh import init_mesh, set_mesh
+    from ..nn import functional as F
+    from ..parallel import DataParallel
+    ids, y = _t(data["se_ids"], device), _t(data["se_y"], device)
+
+    class Net(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.emb = nn.Embedding(40, 4, sparse=True, device=device)
+            self.fc = nn.Linear(4, 3, device=device)
+            with torch.no_grad():
+                for k, v in self.state_dict().items():
+                    v.copy_(_t(data["se." + k], device))
+
+        def forward(self, t):
+            return self.fc(self.emb(t).mean(1))
+
+    def run(net, lo, hi, tag):
+        layer = getattr(net, "_layers", net)
+        opt = optimizer.Adam(learning_rate=0.01, lazy_mode=True,
+                             parameters=net.parameters())
+        for i in range(2):
+            F.mse_loss(net(ids[lo:hi]), y[lo:hi]).backward()
+            if i == 0:
+                sr = sparse_grad(raw_grad(layer.emb.weight)).merge()
+                out[f"{tag}.rows"], out[f"{tag}.values"] = (
+                    sr.rows.cpu().numpy(), _np(sr.values))
+                out[f"{tag}.fc_grad"] = _np(layer.fc.weight.grad)
+            opt.step()
+            opt.clear_grad()
+        out.update({f"{tag}.param.{k}": _np(v)
+                    for k, v in layer.named_parameters()})
+
+    out = {}
+    set_mesh(None)                         # the local oracle: one rank
+    run(Net(), 0, ids.shape[0], "oracle")
+    mesh = init_mesh({"dp": 4})
+    r, per = mesh.axis_index("dp"), ids.shape[0] // 4
+    run(DataParallel(Net()), r * per, (r + 1) * per, "dp")
+    return out
+
+
 # ----------------------------------------------------------- hybrid GPT
 def gpt_run(cfg, state, batch, steps, mesh_shape, device, dtype=None,
             lr=2e-4, seed=2024):
@@ -496,7 +548,8 @@ CASES = {"collectives": case_collectives, "two_card": case_two_card,
          "tp_layers": case_tp_layers, "gpt": case_gpt,
          "dp_dropout": case_dp_dropout,
          "scaler_overflow": case_scaler_overflow,
-         "batch_norm_dp": case_batch_norm_dp}
+         "batch_norm_dp": case_batch_norm_dp,
+         "dp_sparse_embedding": case_dp_sparse_embedding}
 
 
 def exit_on_rank(rank: int, code: int, wait_s: float):

@@ -92,7 +92,7 @@ RING = dict(B=2, L=32, H=2)                # ring inputs [B, L, H, D]
 RING_TOL = dict(rtol=1e-5, atol=5e-6)
 CASES = ["collectives", "data_parallel", "tp_layers", "gpt",
          "collective_matmul", "ring_attention", "dp_dropout",
-         "scaler_overflow", "batch_norm_dp"]
+         "scaler_overflow", "batch_norm_dp", "dp_sparse_embedding"]
 
 
 def _bench():
@@ -178,6 +178,12 @@ def ranks(tmp_path_factory):
         data[f"bn.{k}"] = np.asarray(v.numpy())
     data["bx"] = (r.randn(16, 3, 6, 6) + 0.5).astype(np.float32)
     data["by"] = r.randn(16, 2).astype(np.float32)
+    r = np.random.RandomState(31)
+    data["se_ids"] = r.randint(0, 30, (16, 5)).astype(np.int64)
+    data["se_y"] = r.randn(16, 3).astype(np.float32)
+    data["se.emb.weight"] = r.randn(40, 4).astype(np.float32)
+    data["se.fc.weight"] = (0.5 * r.randn(4, 3)).astype(np.float32)
+    data["se.fc.bias"] = (0.1 * r.randn(3)).astype(np.float32)
     r = np.random.RandomState(21)
     for tag, (m, k, n) in CMM_SHAPES.items():
         data[f"x_{tag}"] = r.randn(m, k).astype(np.float32)
@@ -430,6 +436,31 @@ def test_data_parallel_averages_gradients_over_dp(ranks):
         assert float(rr["data_parallel/grad_err"]) <= 1e-6
         np.testing.assert_allclose(rr["data_parallel/losses"],
                                    rr["data_parallel/oracle"], rtol=1e-6)
+
+
+def test_data_parallel_gathers_a_sparse_embedding_gradient(ranks):
+    """{"dp": 4}: ``Embedding(sparse=True)`` under DataParallel.  On
+    every rank the sparse gradient holds the whole batch's rows (exactly)
+    and values of the mean loss (1e-6), the Linear's gradient is the
+    whole batch's, and after 2 lazy Adam steps the parameters are the
+    whole batch's (1e-6) and bit-identical on every rank; the rows no
+    id touches (30-39) never move."""
+    data, _, _, res = ranks
+    res = _case(res, "dp_sparse_embedding")
+    for rr in res:
+        np.testing.assert_array_equal(rr["dp.rows"], rr["oracle.rows"])
+        np.testing.assert_allclose(rr["dp.values"], rr["oracle.values"],
+                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(rr["dp.fc_grad"], rr["oracle.fc_grad"],
+                                   rtol=1e-6, atol=1e-6)
+        for k in ("emb.weight", "fc.weight", "fc.bias"):
+            np.testing.assert_allclose(rr[f"dp.param.{k}"],
+                                       rr[f"oracle.param.{k}"],
+                                       rtol=1e-6, atol=1e-6, err_msg=k)
+            np.testing.assert_array_equal(rr[f"dp.param.{k}"],
+                                          res[0][f"dp.param.{k}"])
+        np.testing.assert_array_equal(rr["dp.param.emb.weight"][30:],
+                                      data["se.emb.weight"][30:])
 
 
 def _rel(a, b):

@@ -21,13 +21,13 @@ SPEC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 NOT_YET_PORTED = {
     "paddle_tpu": """
         CPUPlace CUDAPinnedPlace CUDAPlace DataParallel Model TPUPlace
-        XPUPlace annotations apply as_array builtins_slice case cond
+        XPUPlace annotations apply as_array builtins_slice
         create_parameter device_count disable_dygraph enable_dygraph flops
         get_cuda_rng_state get_cudnn_version get_flags in_dygraph_mode
         is_compiled_with_cuda is_compiled_with_tpu is_compiled_with_xpu
         next_key paged_attention paged_attention_supported
         register_paged_attention_kernel set_cuda_rng_state set_flags
-        set_printoptions summary switch_case while_loop
+        set_printoptions summary
     """,
     "paddle_tpu.amp": """
         Tensor
@@ -46,11 +46,11 @@ NOT_YET_PORTED = {
         param_list save to_static
     """,
     "paddle_tpu.nn": """
-        AlphaDropout BeamSearchDecoder BiRNN Bilinear CTCLoss ClipGradByNorm
-        ClipGradByValue CosineEmbeddingLoss CosineSimilarity Dropout2D
-        Dropout3D Flatten GRU GRUCell HSigmoidLoss HingeEmbeddingLoss
-        Identity KLDivLoss LSTM LSTMCell MarginRankingLoss Pad1D Pad2D Pad3D
-        PairwiseDistance PixelShuffle RNN RNNCellBase SimpleRNN SimpleRNNCell
+        AlphaDropout BeamSearchDecoder Bilinear CTCLoss
+        CosineEmbeddingLoss CosineSimilarity Dropout2D
+        Dropout3D Flatten HSigmoidLoss HingeEmbeddingLoss
+        Identity KLDivLoss MarginRankingLoss Pad1D Pad2D Pad3D
+        PairwiseDistance PixelShuffle
         SmoothL1Loss Transformer TransformerDecoder TransformerDecoderLayer
         Unfold Upsample UpsamplingBilinear2D UpsamplingNearest2D cell_step
         dynamic_decode gather_tree remove_weight_norm weight_norm
@@ -62,14 +62,14 @@ NOT_YET_PORTED = {
         gumbel_softmax hinge_embedding_loss hsigmoid_loss interpolate kl_div
         label_smooth log_loss margin_ranking_loss next_key np_asarray
         npair_loss
-        pixel_shuffle relu_ sequence_mask sigmoid_focal_loss softmax_
+        pixel_shuffle relu_ sigmoid_focal_loss softmax_
         square_error_cost stable_draw tanh_ temporal_shift unfold upsample
     """,
     "paddle_tpu.optimizer": """
-        Adadelta Adagrad Adamax ClipGradByNorm ClipGradByValue
+        Adadelta Adagrad Adamax
         DecayedAdagrad Dpsgd ExponentialMovingAverage Ftrl Lamb LarsMomentum
         Lookahead LookaheadOptimizer ModelAverage ProximalAdagrad ProximalGD
-        RMSProp clip_grad_norm_
+        RMSProp
     """,
     "paddle_tpu.nn.initializer": """
         next_key
