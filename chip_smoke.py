@@ -198,6 +198,48 @@ kernel from the sources in this checkout.  Phases, each fatal:
     ``Executor.run``, card against CPU; the sequence ops and the IMDB
     LSTM classifier's ``sequence_pool`` card against CPU.
 
+39. the translation model (``testing.models.TransformerNMT``: Vaswani
+    et al.'s encoder-decoder with a shared, tied embedding and label
+    smoothing) at small widths (2 + 2 layers, d 64, 4 heads, vocab 500,
+    dropout 0) on the card against the CPU from the same weights: a
+    greedy decode (ids equal), one forward and backward (gradients) and
+    3 ``TrainStep``s of Adam under NoamDecay (losses), within ``TOL``,
+    and the flash launches of the unmasked attentions only;
+40. the f32 flash kernels at Transformer-base's attention shape (B 64,
+    Lq = Lk = 64, H 8, D 64, dropout 0.1) against their plain versions,
+    timed beside the bound and SDPA's memory-efficient backend, and the
+    forward at one query against 1, 37 and 64 keys (decoding);
+41. Transformer-base training (6 + 6 layers, d_model 512, 8 heads, FFN
+    2048, dropout 0.1, vocab 37000 tied, label smoothing 0.1, Adam
+    (0.9, 0.98, 1e-9) under NoamDecay(512, 4000), 64 pairs of 64 + 64
+    Zipf-drawn tokens, f32 with TF32 off): 2 warm-up and 10 timed steps
+    (step p50 and mean, target tokens/s, MFU by the model's FLOP count
+    over 67 TFLOP/s, peak memory), a first loss near ln(vocab), and 12
+    flash forwards, 12 dQ and 12 dK/dV a step (the encoder's
+    self-attentions and the cross-attentions; none from the decoder's
+    masked self-attention);
+42. anatomy of one Transformer-base step: busy ms by kernel group, the
+    idle share and the flash launches a step from the trace; busy ms by
+    part (GEMMs, flash, the unfused masked attention, the head and
+    loss, Adam, the rest);
+43. greedy incremental decoding of Transformer-base, batch 64 for 64
+    steps: ms a token, tokens/s, host syncs and flash launches a token,
+    and the incremental logits against the full masked forward's at
+    every position (``NMT_DECODE_TOL``);
+44. beam search (``dynamic_decode``, ``BeamSearchDecoder``, beam 4)
+    over phase 36's PTB-large model (its LSTM layers as cells, the
+    embedding and head as ``embedding_fn``/``output_fn``), batch 20, 35
+    steps: tokens/s and host syncs a step, each beam's score re-read
+    along its backtracked tokens; at phase 35's widths the card's ids,
+    lengths and scores against the CPU's; ``gather_tree`` on the card
+    against a host backtrack;
+45. each function and layer of ``nn.functional``'s and ``nn``'s tail
+    (resampling, grid sampling, the losses, the in-place activations,
+    the padding, upsampling, distance and loss layers, ``Bilinear``,
+    ``weight_norm``) on the card against the CPU, forward and backward,
+    and the random ones (channel and alpha dropout, gumbel softmax) by
+    statistics on the card.
+
 The last lines are the kernels JSON object, the card's name and power
 limit as ``nvidia-smi`` reports them, and ``{"ok": true, ...}``.  Any
 failure prints a traceback and exits 1 without the result line.
@@ -4124,11 +4166,734 @@ def _sequence_card_vs_cpu(np, torch, paddle, SEQ):
     return out
 
 
-def _static_gpt_row(row):
-    """The static GPT's instance of one kernel, for the kernels line."""
+# --------------------------------------------------------------- phase 39
+NMT_CHIP = dict(vocab=37000, d_model=512, heads=8, enc_layers=6,
+                dec_layers=6, ffn=2048, dropout=0.1, batch=64, src_len=64,
+                tgt_len=64, warmup_steps=4000, epsilon=0.1)
+NMT_SMALL = dict(vocab=500, d_model=64, heads=4, enc_layers=2,
+                 dec_layers=2, ffn=256, dropout=0.0, batch=8, src_len=12,
+                 tgt_len=10, warmup_steps=4, epsilon=0.1)
+NMT_BOS = 1
+# incremental logits (flash at one query over the caches) against the
+# full forward's (the unfused masked self-attention), f32, relative to
+# max(1, max |logit|)
+NMT_DECODE_TOL = 1e-4
+BEAM = dict(beam=4, batch=20, steps=35, small_steps=16)
+
+
+def _nmt_model(cfg, device):
+    from paddle_tpu_torch.testing.models import TransformerNMT
+    return TransformerNMT(cfg["vocab"], cfg["d_model"], cfg["heads"],
+                          cfg["enc_layers"], cfg["dec_layers"], cfg["ffn"],
+                          cfg["dropout"],
+                          max_len=max(cfg["src_len"], cfg["tgt_len"]),
+                          device=device)
+
+
+def _nmt_step(paddle, model, cfg):
+    """One training step a call: ``TrainStep`` of Adam (beta 0.9 / 0.98,
+    epsilon 1e-9) under ``NoamDecay(d_model, warmup_steps)``, with the
+    label-smoothed cross entropy; the schedule steps after each."""
+    from paddle_tpu_torch.testing.models import nmt_loss
+    sched = paddle.optimizer.lr.NoamDecay(cfg["d_model"],
+                                          cfg["warmup_steps"], 1.0)
+    opt = paddle.optimizer.Adam(learning_rate=sched, beta1=0.9, beta2=0.98,
+                                epsilon=1e-9, parameters=model.parameters())
+    step = paddle.jit.TrainStep(model, nmt_loss(cfg["vocab"],
+                                                cfg["epsilon"]),
+                                opt, n_inputs=2)
+
+    def one_step(src, tgt_in, tgt_out):
+        loss = step(src, tgt_in, tgt_out)
+        sched.step()
+        return loss
+    return one_step
+
+
+def _nmt_batches(np, paddle, cfg, n, seed, device):
+    """``n`` (src, tgt_in, tgt_out) batches of Zipf-drawn ids (p
+    proportional to 1 / rank) over the shared vocabulary, no padding."""
+    V = cfg["vocab"]
+    p = 1.0 / np.arange(1, V + 1)
+    p /= p.sum()
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        src = rs.choice(V, size=(cfg["batch"], cfg["src_len"]), p=p)
+        tgt = rs.choice(V, size=(cfg["batch"], cfg["tgt_len"] + 1), p=p)
+        out.append(tuple(paddle.to_tensor(a.astype(np.int64), place=device)
+                         for a in (src, tgt[:, :-1], tgt[:, 1:])))
+    return out
+
+
+def phase_nmt_small_parity(steps=3):
+    """The small translation model (2 + 2 layers, d 64, 4 heads, vocab
+    500, dropout 0) on the card against the CPU from the same weights: a
+    greedy decode (ids equal, logits within ``TOL``), one forward and
+    backward (every gradient within ``TOL`` of the largest), then 3
+    ``TrainStep``s (losses within ``TOL``).  Its head dim, 16, is not
+    one the flash kernels are built for, so the gate sends every
+    attention to the unfused path on both sides: no launch (phases 40,
+    41 and 43 hold the kernels at the model's own shapes)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.testing.models import greedy_decode, nmt_loss
+    cfg = NMT_SMALL
+    paddle.seed(39)
+    cpu_model = _nmt_model(cfg, "cpu")
+    weights = {k: v.detach().clone()
+               for k, v in cpu_model.state_dict().items()}
+    res = {}
+    support.reset_launch_counts()
+    for dev in ("cpu", "cuda"):
+        model = cpu_model if dev == "cpu" else _nmt_model(cfg, "cuda")
+        if dev == "cuda":
+            model.set_state_dict({k: v.to("cuda")
+                                  for k, v in weights.items()})
+        batches = _nmt_batches(np, paddle, cfg, steps, 390, dev)
+        toks, logits = greedy_decode(model, batches[0][0], cfg["tgt_len"],
+                                     NMT_BOS)
+        src, tgt_in, tgt_out = batches[0]
+        nmt_loss(cfg["vocab"])(model(src, tgt_in), tgt_out).backward()
+        grads = {k: p.grad.detach().cpu().numpy()
+                 for k, p in model.named_parameters()}
+        model.clear_gradients()
+        one_step = _nmt_step(paddle, model, cfg)
+        losses = [float(one_step(*b)) for b in batches]
+        res[dev] = (toks.numpy(), logits.numpy(), grads, losses)
+    torch.cuda.synchronize()
+    launches = dict(support.launch_counts)
+    (tc, lc, gc_, sc), (tg, lg, gg, sg) = res["cpu"], res["cuda"]
+    tol = TOL["float32"]
+    g_scale = max(float(np.abs(g).max()) for g in gc_.values())
+    grad_err = max(float(np.abs(gg[k] - gc_[k]).max()) for k in gc_) / g_scale
+    logit_err = float(np.abs(lg - lc).max()) / max(1.0, float(
+        np.abs(lc).max()))
+    loss_err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(sg, sc))
+    out = {"config": cfg, "tol": tol, "tokens_equal": bool(
+        np.array_equal(tg, tc)), "logits_max_rel_err": logit_err,
+        "grad_max_err_over_largest": grad_err, "losses_cpu": sc,
+        "losses_card": sg, "loss_max_rel_err": loss_err,
+        "flash_launches": launches}
+    log("NMT_SMALL_PARITY " + json.dumps(out))
+    if not (out["tokens_equal"] and logit_err <= tol and grad_err <= tol
+            and loss_err <= tol):
+        raise AssertionError(f"translation model card vs CPU: {out}")
+    if launches:                     # head dim 16: outside the kernels' set
+        raise AssertionError(f"flash launches {launches}, want none")
+
+
+# --------------------------------------------------------------- phase 40
+def _device_ms_per_launch(torch, fn, iters, match):
+    """Mean device time (ms) of the launches of kernels named ``match``
+    that a profile of ``iters`` calls of ``fn`` recorded (the tracer may
+    drop some; None when it caught none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and match in e.key:
+            total += e.self_device_time_total
+            count += e.count
+    del prof
+    gc.collect()
+    return total / count / 1e3 if count else None
+
+
+def _flash_decode_rows(torch, gen, B, H, D, lks):
+    """The f32 flash forward at one query against ``Lk`` keys (an
+    incremental decode's attention), no dropout: against the plain
+    version, timed beside its bound and SDPA's memory-efficient
+    backend."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from paddle_tpu_torch.ops.cuda import flash_attention_fwd
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_attention_reference_fwd)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    scale = 1.0 / math.sqrt(D)
+    rows = []
+    for lk in lks:
+        q = torch.randn((B, 1, H, D), generator=gen, device="cuda")
+        k, v = (torch.randn((B, lk, H, D), generator=gen, device="cuda")
+                for _ in range(2))
+        out, lse = flash_attention_fwd(q, k, v, scale=scale)
+        t = lambda x: x.transpose(1, 2)                  # noqa: E731
+        ro, rlse = flash_attention_reference_fwd(t(q), t(k), t(v),
+                                                 scale=scale)
+        err = max(float((t(out) - ro).abs().max()
+                        / ro.abs().max().clamp_min(1.0)),
+                  float((lse - rlse).abs().max()
+                        / rlse.abs().max().clamp_min(1.0)))
+        ms = cuda_ms(lambda i: flash_attention_fwd(q, k, v, scale=scale),
+                     50)
+        plain = cuda_ms(lambda i: flash_attention_reference_fwd(
+            t(q), t(k), t(v), scale=scale), 20)
+        qt, kt, vt = (t(x).contiguous() for x in (q, k, v))
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            lib = cuda_ms(lambda i: sdpa(qt, kt, vt), 50)
+        dev_ms = _device_ms_per_launch(
+            torch, lambda: flash_attention_fwd(q, k, v, scale=scale), 20,
+            "flash_fwd")
+        bound_ms, bound_by, nbytes, ops = _flash_bound(
+            B, H, 1, lk, D, 4, "float32", False, "flash_attention_fwd")
+        row = {"kernel": "flash_attention_fwd", "case": f"B={B} Lq=1 "
+               f"Lk={lk} H={H} D={D} float32", "max_abs_err": err,
+               "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+               "bound_ms": bound_ms,
+               "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+               "share_of_bound_by_device_ms": (bound_ms / dev_ms
+                                               if dev_ms else None),
+               "library_ms": lib, "library_call":
+                   "scaled_dot_product_attention, memory-efficient "
+                   "backend"}
+        log("KERNEL " + json.dumps(row))
+        if not err <= FLASH_TOL["float32"]:
+            raise AssertionError(f"flash forward at Lq 1: {row}")
+        rows.append(row)
+    return rows
+
+
+def phase_nmt_flash_kernels():
+    """K1f and K1b at Transformer-base's training shape (B 64, Lq = Lk
+    = 64, H 8, D 64, f32, dropout 0.1; the encoder's self-attention and
+    the cross-attention) against their plain versions and timed beside
+    SDPA; K1f at one query against 1, 37 and 64 keys (decoding)."""
+    import torch
+    cfg = NMT_CHIP
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(40)
+    B, L, H = cfg["batch"], cfg["src_len"], cfg["heads"]
+    D = cfg["d_model"] // H
+    errs = _flash_case(torch, gen, B, L, H, D, torch.float32, False,
+                       cfg["dropout"], 4040, B)
+    log("FLASH_CHECK " + json.dumps({
+        "case": f"B={B} L={L} H={H} D={D} float32 dropout="
+                f"{cfg['dropout']}", "errors": errs,
+        "tol": FLASH_TOL["float32"]}))
+    if not max(errs.values()) <= FLASH_TOL["float32"]:
+        raise AssertionError(f"flash kernels at the NMT shape: {errs}")
+    rows = _flash_time_rows(torch, gen, B, L, H, D, torch.float32, False,
+                            cfg["dropout"], 4040)
+    for row in rows.values():
+        row["max_abs_err"] = max(errs.values())
+    decode = _flash_decode_rows(torch, gen, B, H, D, (1, 37, 64))
+    torch.cuda.empty_cache()
+    return rows, decode
+
+
+# --------------------------------------------------------------- phase 41
+def phase_nmt_training(warmup=2, steps=10):
+    """Transformer-base (Vaswani et al. 2017, Table 3 "base"): 6 + 6
+    layers, d_model 512, 8 heads, FFN 2048, dropout 0.1, shared vocab
+    37000 with the tied head, label smoothing 0.1, Adam (0.9, 0.98,
+    1e-9) under NoamDecay(512, 4000), 64 pairs of 64 + 64 Zipf-drawn
+    tokens, f32 with TF32 off: 2 warm-up and 10 timed steps, every loss
+    finite, the first near ln(vocab), and per step 12 flash forwards, 12
+    dQ and 12 dK/dV (6 encoder self-attentions and 6 cross-attentions;
+    the decoder's masked self-attention takes the unfused path)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.testing.models import nmt_flops_per_step
+    cfg = NMT_CHIP
+    paddle.seed(41)
+    t0 = time.perf_counter()
+    model = _nmt_model(cfg, "cuda")
+    one_step = _nmt_step(paddle, model, cfg)
+    batches = _nmt_batches(np, paddle, cfg, warmup + steps, 410, "cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    support.reset_launch_counts()
+    runs = [_clocked_step(torch, lambda b=b: one_step(*b)) for b in batches]
+    losses = [float(loss) for loss, _ in runs]
+    step_ms = [ms for _, ms in runs]
+    counts = {n: support.launch_counts.get(n, 0) for n in FLASH_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    timed = step_ms[warmup:]
+    mean = sum(timed) / len(timed)
+    flops = nmt_flops_per_step(cfg["vocab"], cfg["d_model"],
+                               cfg["enc_layers"], cfg["dec_layers"],
+                               cfg["ffn"], cfg["batch"], cfg["src_len"],
+                               cfg["tgt_len"])
+    uniform = math.log(cfg["vocab"])
+    out = {"config": cfg, "dtype": "float32, TF32 off",
+           "params": sum(p.numel() for p in model.parameters()),
+           "setup_s": setup_s, "warmup_steps": warmup, "timed_steps": steps,
+           "losses": losses, "smoothed_uniform_loss": uniform,
+           "step_ms": timed, "step_ms_p50": float(np.median(timed)),
+           "step_ms_mean": mean, "first_steps_ms": step_ms[:warmup],
+           "target_tokens_per_s": cfg["batch"] * cfg["tgt_len"]
+           / (mean / 1e3),
+           "model_flops_per_step": flops,
+           "mfu": flops / (mean / 1e3) / PEAK_OPS["float32"],
+           "peak_bound_ms": flops / PEAK_OPS["float32"] * 1e3,
+           "max_memory_allocated": peak, "flash_launches": counts,
+           "nvidia_smi": nvidia_smi()}
+    log("NMT_TRAIN " + json.dumps(out))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    # the tied head's logits start with unit variance: ln V + 1/2 expected
+    if abs(losses[0] - uniform) > 1.0:
+        raise AssertionError(f"first loss {losses[0]} is not near the "
+                             f"smoothed uniform loss {uniform}")
+    want = (cfg["enc_layers"] + cfg["dec_layers"]) * len(runs)
+    if any(c != want for c in counts.values()):
+        raise AssertionError(f"flash launches {counts}, want {want} each "
+                             f"(the encoder's and the cross-attentions)")
+    return model, one_step, batches, timed, counts
+
+
+# --------------------------------------------------------------- phase 42
+def _nmt_is_attention(e, heads):
+    """A forward op of the unfused masked attention: inside an einsum,
+    a softmax, or an op on the [B, H, Lq, Lk] scores."""
+    p = e
+    while p is not None:
+        if p.name == "aten::einsum":
+            return True
+        p = p.cpu_parent
+    if "softmax" in e.name:
+        return True
+    return any(len(s) == 4 and s[1] == heads and s[2] == s[3]
+               for s in (e.input_shapes or []) if isinstance(s, list))
+
+
+def _nmt_scope(e):
+    p = e
+    while p is not None:
+        if p.name.startswith("nmt."):
+            return p.name[4:]
+        p = p.cpu_parent
+    return None
+
+
+def _nmt_parts(prof, steps, heads):
+    """Device ms a step by part, kernel by kernel: the flash kernels;
+    the unfused masked attention and the head and loss, forward and
+    backward (a backward node's kernels go to the part of the forward op
+    with its sequence number); the other GEMMs; Adam; the rest."""
+    events = prof.events()
+    fwd = {}
+    for e in events:
+        scope = _nmt_scope(e)
+        if e.sequence_nr < 0 or scope not in ("forward", "head_loss"):
+            continue
+        part = ("head_and_loss" if scope == "head_loss" else
+                "masked_attention" if _nmt_is_attention(e, heads) else None)
+        if part is not None or e.sequence_nr not in fwd:
+            fwd[e.sequence_nr] = part or fwd.get(e.sequence_nr)
+    groups = {}
+    for e in events:
+        for k in e.kernels:
+            name = k.name.lower()
+            scope = _nmt_scope(e)
+            if "flash_" in name:
+                part = "flash"
+            elif scope == "optimizer":
+                part = "adam"
+            elif scope in ("forward", "head_loss"):
+                part = ("head_and_loss" if scope == "head_loss" else
+                        "masked_attention" if _nmt_is_attention(e, heads)
+                        else None)
+            else:
+                p, part = e, None
+                while p is not None and part is None:
+                    if "Backward" in p.name and p.sequence_nr >= 0:
+                        part = fwd.get(p.sequence_nr)
+                        break
+                    p = p.cpu_parent
+            if part is None:
+                part = "gemm" if _is_gemm(name) else "other"
+            groups[part] = groups.get(part, 0.0) + k.duration / 1e3 / steps
+    return groups
+
+
+def phase_nmt_anatomy(model, one_step, batches, timed_ms, steps=2):
+    """Anatomy of one Transformer-base step: busy ms by kernel group, the
+    idle share and the flash launches a step by name from the trace (12
+    of each f32 kernel); then busy ms by part (cuBLAS GEMMs, flash, the
+    unfused masked attention, the head and loss, Adam's foreach, the
+    rest) over a step run in ``record_function`` parts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.testing.models import nmt_loss
+    cfg = NMT_CHIP
+    b = batches[0]
+    launches = _step_anatomy("NMT_ANATOMY", lambda: one_step(*b), steps,
+                             lambda n: (
+        "flash_fwd" if "flash_fwd_" in n else
+        "flash_bwd" if "flash_bwd_" in n else
+        "gemm" if _is_gemm(n) else
+        "adam_foreach" if "foreach" in n or "multi_tensor" in n else
+        "softmax" if "softmax" in n else "other"), timed_ms=timed_ms)
+    flash = {k: v for k, v in launches.items() if k.startswith("flash_")}
+    unmasked = cfg["enc_layers"] + cfg["dec_layers"]
+    want = {"flash_fwd_f32_kernel": unmasked,
+            "flash_bwd_dq_f32_kernel": unmasked,
+            "flash_bwd_dkv_f32_kernel": unmasked}
+    if flash != want:
+        raise AssertionError(f"flash launches a step in the trace {flash}, "
+                             f"want {want}")
+    opt = paddle.optimizer.Adam(learning_rate=1e-9, beta1=0.9, beta2=0.98,
+                                epsilon=1e-9, parameters=model.parameters())
+    loss_fn = nmt_loss(cfg["vocab"], cfg["epsilon"])
+    src, tgt_in, tgt_out = b
+    mask = paddle.nn.Transformer.generate_square_subsequent_mask(
+        cfg["tgt_len"], device="cuda")
+
+    def parts():
+        with record_function("nmt.forward"):
+            h = model.transformer(model.embed(src), model.embed(tgt_in),
+                                  tgt_mask=mask)
+        with record_function("nmt.head_loss"):
+            loss = loss_fn(model.logits(h), tgt_out)
+        with record_function("nmt.backward"):
+            loss.backward()
+        with record_function("nmt.optimizer"):
+            opt.step()
+            opt.clear_grad()
+
+    parts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(steps):
+            parts()
+        torch.cuda.synchronize()
+    groups = _nmt_parts(prof, steps, cfg["heads"])
+    del prof, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"device_ms_by_part": groups,
+           "device_ms_total": sum(groups.values()),
+           "flash_launches_per_step": flash, "nvidia_smi": nvidia_smi()}
+    log("NMT_ANATOMY_PARTS " + json.dumps(out))
+    if not groups.get("masked_attention", 0) > 0:
+        raise AssertionError("no unfused masked attention in the trace")
+
+
+# --------------------------------------------------------------- phase 43
+def phase_nmt_decode(model, n_tokens=64):
+    """Greedy incremental decoding of Transformer-base for 64 source
+    sentences of 64 tokens, 64 steps: ms a token (a decode step of the
+    batch), tokens/s, host syncs and flash launches a token (two a
+    decoder layer: the self-attention at one query over its cache, the
+    cross-attention over the source); the incremental logits against the
+    full forward's at every position (``NMT_DECODE_TOL``)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.testing.models import greedy_decode
+    cfg = NMT_CHIP
+    src = _nmt_batches(np, paddle, cfg, 1, 430, "cuda")[0][0]
+    greedy_decode(model, src, 4, NMT_BOS)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    toks, logits = greedy_decode(model, src, n_tokens, NMT_BOS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    syncs = _host_syncs(torch, lambda: greedy_decode(model, src, 8,
+                                                     NMT_BOS))
+    support.reset_launch_counts()
+    greedy_decode(model, src, 8, NMT_BOS)
+    torch.cuda.synchronize()
+    counts = dict(support.launch_counts)
+    per_token = (counts.get("flash_attention_fwd", 0)
+                 - cfg["enc_layers"]) / 8
+    tgt_in = paddle.concat([paddle.zeros_like(src[:, :1]) + NMT_BOS,
+                            toks[:, :-1]], axis=1)
+    model.eval()
+    with torch.no_grad():
+        full = model(src, tgt_in)
+    model.train()
+    err = float((logits - full).abs().max()) / max(1.0, float(
+        full.abs().max()))
+    agree = float((full.argmax(-1) == toks).float().mean())
+    out = {"batch": cfg["batch"], "tokens": n_tokens, "seconds": dt,
+           "ms_per_token": dt / n_tokens * 1e3,
+           "tokens_per_s": cfg["batch"] * n_tokens / dt,
+           "host_syncs_per_token": len(syncs) / 8,
+           "flash_fwd_launches_per_token": per_token,
+           "launches_8_tokens": counts,
+           "incremental_vs_full_max_rel_err": err, "tol": NMT_DECODE_TOL,
+           "argmax_of_full_equals_tokens": agree,
+           "nvidia_smi": nvidia_smi()}
+    log("NMT_DECODE " + json.dumps(out))
+    del logits, full
+    torch.cuda.empty_cache()
+    if not err <= NMT_DECODE_TOL:
+        raise AssertionError(f"incremental logits vs full forward: {out}")
+    if per_token != 2 * cfg["dec_layers"] or set(counts) != {
+            "flash_attention_fwd"}:
+        raise AssertionError(f"decode launches {counts}")
+    return counts.get("flash_attention_fwd", 0)
+
+
+# --------------------------------------------------------------- phase 44
+def _ptb_beam_decoder(paddle, model, start, end, beam):
+    """``BeamSearchDecoder`` over the PTB LM: its two LSTM layers as one
+    cell (LSTMCells sharing their weights; states ``[(h1, c1), (h2,
+    c2)]``), the embedding as ``embedding_fn`` and the head as
+    ``output_fn``."""
+    H = model.cfg["hidden"]
+    cells = []
+    for lstm in (model.lstm1, model.lstm2):
+        cell = paddle.nn.LSTMCell(H, H, device=lstm.weight_ih_l0.device)
+        for k in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+            setattr(cell, k, getattr(lstm, f"{k}_l0"))
+        cells.append(cell)
+
+    def cell(inp, states):
+        (h1, c1), (h2, c2) = states
+        o1, (h1, c1) = cells[0](inp, (h1, c1))
+        o2, (h2, c2) = cells[1](o1, (h2, c2))
+        return o2, [(h1, c1), (h2, c2)]
+
+    return paddle.nn.BeamSearchDecoder(cell, start, end, beam,
+                                       embedding_fn=model.embedding,
+                                       output_fn=model.head)
+
+
+def _beam_inits(torch, paddle, B, H, device):
+    z = paddle.to_tensor(torch.zeros((B, H)), place=device)
+    return [(z, z), (z, z)]
+
+
+def _rescore(torch, paddle, dec, inits, seq, lens):
+    """Each returned beam's log-probability, re-read by feeding its
+    backtracked tokens through ``cell_step``: a beam's score if the
+    backtrack is right."""
+    B, K, T = seq.shape
+    states = [(torch.repeat_interleave(h, K, 0),
+               torch.repeat_interleave(c, K, 0)) for h, c in inits]
+    flat, n = torch.reshape(seq, (B * K, T)), torch.reshape(lens, (-1,))
+    tok = torch.full((B * K,), dec.start_token, dtype=torch.int64,
+                     device=seq.device)
+    total = torch.zeros(B * K, device=seq.device)
+    for t in range(T):
+        logp, states = paddle.nn.cell_step(dec, tok, states)
+        pick = torch.gather(logp, 1, flat[:, t:t + 1])[:, 0]
+        total = total + torch.where(t < n, pick, torch.zeros_like(pick))
+        tok = flat[:, t]
+    return torch.reshape(total, (B, K))
+
+
+def phase_ptb_beam_search(model, weights_small):
+    """``dynamic_decode`` with ``BeamSearchDecoder`` (beam 4) over phase
+    36's PTB-large model, batch 20, 35 steps: tokens/s and host syncs a
+    step; at phase 35's small widths the card's ids, lengths and scores
+    against the CPU's, each beam's score re-read along its backtracked
+    tokens, and ``gather_tree`` on a random trellis against a host
+    backtrack."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops.cuda import support
+    support.reset_launch_counts()
+    cfg, K = model.cfg, BEAM["beam"]
+    B, T, H = BEAM["batch"], BEAM["steps"], cfg["hidden"]
+    dec = _ptb_beam_decoder(paddle, model, 1, cfg["vocab"] - 1, K)
+    inits = _beam_inits(torch, paddle, B, H, "cuda")
+    paddle.nn.dynamic_decode(dec, inits, max_step_num=4)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    seq, scores, lens = paddle.nn.dynamic_decode(dec, inits, max_step_num=T,
+                                                 return_length=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    steps_run = int(lens.max())
+    syncs = _host_syncs(torch, lambda: paddle.nn.dynamic_decode(
+        dec, inits, max_step_num=8))
+    with torch.no_grad():
+        rescored = _rescore(torch, paddle, dec, inits, seq, lens)
+    full = {"batch": B, "beam": K, "max_steps": T, "steps_run": steps_run,
+            "seconds": dt, "steps_per_s": steps_run / dt,
+            "tokens_per_s": B * steps_run / dt,
+            "beam_tokens_per_s": B * K * steps_run / dt,
+            "host_syncs_per_step": len(syncs) / 8,
+            "shape": list(seq.shape),
+            "rescored_max_abs_err": float((rescored - scores).abs().max()),
+            "scores_sorted": bool((scores[:, :-1] >= scores[:, 1:]).all())}
+    # the small widths, card against CPU
+    res = {}
+    for where, dev in (("cpu", "cpu"), ("gpu", "cuda")):
+        m = _ptb_on(paddle, where, PTB_SMALL, weights_small)
+        d = _ptb_beam_decoder(paddle, m, 1, 0, K)
+        ini = _beam_inits(torch, paddle, PTB_SMALL["batch"],
+                          PTB_SMALL["hidden"], dev)
+        s, sc, ln = paddle.nn.dynamic_decode(
+            d, ini, max_step_num=BEAM["small_steps"], return_length=True)
+        with torch.no_grad():
+            rs_ = _rescore(torch, paddle, d, ini, s, ln)
+        res[where] = (s.numpy(), sc.numpy(), ln.numpy(), rs_.cpu().numpy())
+    (sc_, scc, lc, rc), (sg, scg, lg, rg) = res["cpu"], res["gpu"]
+    small = {"ids_equal": bool(np.array_equal(sg, sc_)),
+             "lengths_equal": bool(np.array_equal(lg, lc)),
+             "scores_max_abs_err": float(np.abs(scg - scc).max()),
+             "rescored_max_abs_err": float(np.abs(rg - scg).max()),
+             "finished_beams": int((lg < BEAM["small_steps"]).sum())}
+    # gather_tree on the card against a host backtrack
+    rs = np.random.RandomState(44)
+    Tt, Bt, Kt = 9, 5, 4
+    ids = rs.randint(0, 100, (Tt, Bt, Kt)).astype(np.int64)
+    par = rs.randint(0, Kt, (Tt, Bt, Kt)).astype(np.int64)
+    got = paddle.nn.gather_tree(paddle.to_tensor(ids, place="cuda"),
+                                paddle.to_tensor(par, place="cuda")).numpy()
+    ref = np.zeros_like(ids)
+    for b in range(Bt):
+        for k in range(Kt):
+            beam = k
+            for t in range(Tt - 1, -1, -1):
+                ref[t, b, k] = ids[t, b, beam]
+                beam = par[t, b, beam]
+    small["gather_tree_equal"] = bool(np.array_equal(got, ref))
+    out = {"full_width": full, "small_card_vs_cpu": small,
+           "hand_kernel_launches": dict(support.launch_counts),
+           "nvidia_smi": nvidia_smi()}
+    log("PTB_BEAM_SEARCH " + json.dumps(out))
+    tol = 1e-4
+    if not (full["scores_sorted"] and full["rescored_max_abs_err"] <= tol
+            and list(seq.shape) == [B, K, T]):
+        raise AssertionError(f"beam search at full width: {full}")
+    if not (small["ids_equal"] and small["lengths_equal"]
+            and small["scores_max_abs_err"] <= tol
+            and small["rescored_max_abs_err"] <= tol
+            and small["gather_tree_equal"]):
+        raise AssertionError(f"beam search card vs CPU: {small}")
+    if any(support.launch_counts.values()):
+        raise AssertionError(f"hand kernels launched: "
+                             f"{support.launch_counts}")
+
+
+# --------------------------------------------------------------- phase 45
+def _tail_run(np, paddle, dev, fn, inputs, grad, params):
+    """``fn(paddle, *tensors)`` on ``dev``: its output and the gradients
+    of ``sum(out * w)`` (fixed w) for the inputs at ``grad`` and for
+    ``params``."""
+    ts = [paddle.to_tensor(a, place=dev, stop_gradient=i not in grad)
+          for i, a in enumerate(inputs)]
+    out = fn(paddle, *ts)
+    res = [out.numpy()]
+    if grad or params:
+        w = np.asarray(np.random.RandomState(7).randn(*res[0].shape),
+                       np.float32)
+        (out * paddle.to_tensor(w, place=dev)).sum().backward()
+        res += [ts[i].grad.numpy() for i in grad]
+        res += [p.grad.numpy() for p in params]
+    return res
+
+
+def phase_nn_tail():
+    """Each case of ``testing.nn_tail_cases`` (the functions and layers
+    of ``nn.functional``'s and ``nn``'s tail, the CPU tests' parity
+    cases) once on the card against the CPU, forward and backward,
+    within ``TOL`` of the largest value (CTC 1e-4: its CUDA backward
+    sums with atomics); the random ones on the card by statistics
+    (whole channels dropped, alpha dropout's unit moments, gumbel rows
+    summing to 1 and a hard one-hot)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import placement
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.testing.nn_tail_cases import (function_cases,
+                                                        layer_cases)
+    support.reset_launch_counts()
+    errs = {}
+    cases = [(n, fn, x, g, None) for n, fn, x, g in function_cases()]
+    cases += [(n, None, x, g, make) for n, make, x, g in layer_cases()]
+    for name, fn, inputs, grad, make in cases:
+        res, sd = {}, None
+        for where, dev in (("cpu", "cpu"), ("gpu", "cuda")):
+            prev = placement.default()
+            paddle.set_device(where)
+            try:
+                params = []
+                if make is not None:
+                    lyr = make(paddle.nn)
+                    if sd is None:
+                        sd = {k: v.detach().clone()
+                              for k, v in lyr.state_dict().items()}
+                    else:
+                        lyr.set_state_dict({k: v.to(dev)
+                                            for k, v in sd.items()})
+                    params = [p for _, p in sorted(lyr.named_parameters())]
+                    fn = (lambda lyr: lambda p, *t: lyr(*t))(lyr)
+                res[where] = _tail_run(np, paddle, dev, fn, inputs, grad,
+                                       params)
+            finally:
+                placement.set_default(prev)
+        scale = max(1.0, max(float(np.abs(r).max()) for r in res["cpu"]
+                             if r.size))
+        errs[name] = max(float(np.abs(a - b).max()) if a.size else 0.0
+                         for a, b in zip(res["gpu"], res["cpu"])) / scale
+    tol = {n: 1e-4 if "CTC" in n or "ctc" in n else TOL["float32"]
+           for n in errs}
+    F = paddle.nn.functional
+    stats = {}
+    x = paddle.to_tensor(torch.ones((64, 32, 3, 4), device="cuda"))
+    ch = F.dropout2d(x, 0.25).reshape([64, 32, -1])
+    stats["dropout2d_whole_channels"] = bool(
+        (ch.amax(-1) == ch.amin(-1)).all())
+    stats["dropout2d_kept"] = float((ch[..., 0] != 0).float().mean())
+    ch3 = F.dropout3d(paddle.to_tensor(torch.ones((16, 8, 2, 3, 4),
+                                                  device="cuda")),
+                      0.5).reshape([16, 8, -1])
+    stats["dropout3d_whole_channels"] = bool(
+        (ch3.amax(-1) == ch3.amin(-1)).all())
+    g = torch.Generator(device="cuda")
+    g.manual_seed(45)
+    z = paddle.to_tensor(torch.randn((200, 500), generator=g,
+                                     device="cuda"))
+    a = F.alpha_dropout(z, 0.2)
+    stats["alpha_dropout_mean"] = float(a.mean())
+    stats["alpha_dropout_var"] = float(a.var())
+    soft = F.gumbel_softmax(paddle.to_tensor(torch.zeros((1000, 4),
+                                                         device="cuda")))
+    hard = F.gumbel_softmax(paddle.to_tensor(torch.zeros((1000, 4),
+                                                         device="cuda")),
+                            hard=True)
+    stats["gumbel_rows_sum_to_1"] = float((soft.sum(-1) - 1).abs().max())
+    stats["gumbel_hard_one_hot"] = bool(((hard == 0) | (hard == 1)).all()
+                                        and (hard.sum(-1) == 1).all())
+    helpers = F.np_asarray(z[:1, :2]).shape == (1, 2) and (
+        type(F.as_array(z)) is torch.Tensor) and isinstance(F.next_key(),
+                                                            int)
+    out = {"max_err_over_largest": errs, "tol": tol, "random": stats,
+           "helpers_ok": helpers, "cases": len(errs),
+           "hand_kernel_launches": dict(support.launch_counts)}
+    log("NN_TAIL " + json.dumps(out))
+    bad = {n: e for n, e in errs.items() if not e <= tol[n]}
+    if bad:
+        raise AssertionError(f"card vs CPU: {bad}")
+    if not (stats["dropout2d_whole_channels"]
+            and stats["dropout3d_whole_channels"]
+            and abs(stats["dropout2d_kept"] - 0.75) < 0.05
+            and abs(stats["alpha_dropout_mean"]) < 0.02
+            and abs(stats["alpha_dropout_var"] - 1) < 0.03
+            and stats["gumbel_rows_sum_to_1"] < 1e-5
+            and stats["gumbel_hard_one_hot"] and helpers):
+        raise AssertionError(f"random functions on the card: {stats}")
+
+
+def _instance_row(row):
+    """One instance of a kernel (a path's shape), for the kernels
+    line."""
     return {k: row[k] for k in (
-        "case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-        "library_call", "max_abs_err", "chains") if k in row}
+        "case", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "library_call", "max_abs_err", "chains") if k in row}
 
 
 def main():
@@ -4211,8 +4976,22 @@ def main():
     timed("ptb_anatomy", phase_ptb_anatomy, ptb_model, ptb_step, ptb_ms)
     timed("control_flow_sequence", phase_control_flow_and_sequence,
           ptb_model, ptb_small)
-    del ptb_model, ptb_step
+    del ptb_step
     torch.cuda.empty_cache()
+    timed("nmt_small_parity", phase_nmt_small_parity)
+    nmt_rows, nmt_decode_rows = timed("nmt_flash_kernels",
+                                      phase_nmt_flash_kernels)
+    nmt, nmt_step, nmt_batches, nmt_timed, nmt_launches = timed(
+        "nmt_training", phase_nmt_training)
+    timed("nmt_anatomy", phase_nmt_anatomy, nmt, nmt_step, nmt_batches,
+          nmt_timed)
+    nmt_decode_fwd = timed("nmt_decode", phase_nmt_decode, nmt)
+    del nmt, nmt_step, nmt_batches
+    torch.cuda.empty_cache()
+    timed("ptb_beam_search", phase_ptb_beam_search, ptb_model, ptb_small)
+    del ptb_model
+    torch.cuda.empty_cache()
+    timed("nn_tail", phase_nn_tail)
     seconds["total"] = time.perf_counter() - t0
     log("PHASE_SECONDS " + json.dumps(seconds))
     f32_err = max(r["max_abs_err"] for r in kernel_rows
@@ -4239,19 +5018,26 @@ def main():
                         for r in kernel_rows if r is not head]}]
     for name, site in FLASH_KERNELS.items():
         r, b = flash_rows[name], block_rows[name]
+        decode_launches = (nmt_decode_fwd if name == "flash_attention_fwd"
+                           else 0)
         kernels.append({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",
             "replaces": site,
             "launches": (flash_launches[name] + gpt_launches[name]
-                         + gpt760_launches[name] + sgpt_launches[name]),
+                         + gpt760_launches[name] + sgpt_launches[name]
+                         + nmt_launches[name] + decode_launches),
             "launches_by_entry": {"flash_attention": flash_launches[name],
                                   "flash_attention_block":
                                       gpt_launches[name],
                                   "flash_attention (gpt)":
                                       gpt760_launches[name],
                                   "flash_attention (static gpt)":
-                                      sgpt_launches[name]},
+                                      sgpt_launches[name],
+                                  "flash_attention (translation "
+                                  "training)": nmt_launches[name],
+                                  "flash_attention (translation decode, "
+                                  "8 tokens)": decode_launches},
             "max_abs_err": r["max_abs_err"],
             "max_abs_err_bf16": r["max_abs_err_bf16"], "shape": r["case"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -4264,7 +5050,11 @@ def main():
                 "case", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "library_call")}
                for extra in ("gpt_760m", "static_f32")},
-            "static_gpt": _static_gpt_row(sgpt_rows[name])})
+            "static_gpt": _instance_row(sgpt_rows[name]),
+            "translation": _instance_row(nmt_rows[name]),
+            **({"translation_decode": [_instance_row(d)
+                                       for d in nmt_decode_rows]}
+               if name == "flash_attention_fwd" else {})})
     for name, site in list(EPI_KERNELS.items()) + [("fused_adam",
                                                     ADAM_SITE)]:
         r = epi_rows[name]
@@ -4279,7 +5069,7 @@ def main():
             "source": f"paddle_tpu_torch/ops/cuda/csrc/{src}",
             "replaces": site, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "static_gpt": _static_gpt_row(sgpt_rows[name]),
+            "static_gpt": _instance_row(sgpt_rows[name]),
             "max_abs_err": r["max_abs_err"],
             "max_abs_err_bf16": r.get("max_abs_err_bf16"),
             "shape": r.get("case", f"{r.get('tensors')} tensors, "

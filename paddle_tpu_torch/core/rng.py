@@ -28,6 +28,9 @@
   uint32 (the serving sampler, the flash-attention dropout mask).
 - :func:`dropout_threshold`: the 16-bit quantised dropout rule shared by
   ``F.dropout`` and the flash-attention kernels.
+- :class:`StableDraw`: one :func:`next_seed` drawn when it is made and
+  handed out by every ``key()`` after (the counterpart of the JAX
+  package's ``stable_draw``, whose key is a threefry key, not an int).
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ import torch
 
 __all__ = ["seed", "get_rng_state", "set_rng_state", "RngState",
            "generator", "next_seed", "fold_in", "mul32", "fmix32",
-           "dropout_threshold"]
+           "dropout_threshold", "StableDraw"]
 
 M32 = 0xFFFFFFFF
 
@@ -194,3 +197,17 @@ def dropout_threshold(p: float) -> Tuple[int, float]:
     (scale 1), ``t == 65536`` drops everything (scale 0)."""
     t = min(max(int(round(float(p) * 65536.0)), 0), 65536)
     return t, (0.0 if t >= 65536 else 65536.0 / (65536 - t))
+
+
+class StableDraw:
+    """A seed fixed when the draw is made: ``key()`` gives the same int32
+    seed every call, so a replayed op draws what it drew the first
+    time."""
+
+    __slots__ = ("_seed",)
+
+    def __init__(self):
+        self._seed = next_seed()
+
+    def key(self) -> int:
+        return self._seed

@@ -12,7 +12,15 @@ the unfused path, as in paddle_tpu.
 
 Activations, convolutions, normalisation, pooling and the other losses
 are in :mod:`.activation`, :mod:`.conv`, :mod:`.norm`, :mod:`.pooling`
-and :mod:`.loss`.
+and :mod:`.loss`; the channel and alpha dropouts, ``bilinear`` and
+``label_smooth`` in :mod:`.common`; resampling and patches in
+:mod:`.vision`.
+
+The JAX package's helper names have counterparts over the port's core:
+``Tensor`` is the paddle Tensor, ``as_array`` gives the torch tensor
+under it, ``np_asarray`` a numpy array, ``next_key`` a fresh int32 seed
+(``core.rng.next_seed``; the JAX package's is a threefry key) and
+``stable_draw`` a ``core.rng.StableDraw``.
 
 Each public function is one paddle op: it goes through
 :func:`~paddle_tpu_torch.core.dispatch.apply` under paddle_tpu's op
@@ -26,27 +34,59 @@ import math
 import torch
 import torch.nn.functional as TF
 
+import numpy as np
+
 from ...core import rng
 from ...core.dispatch import Symbolic, apply
+from ...core.rng import StableDraw
+from ...core.tensor import Tensor, _plain
 from ...core.dtype import convert_dtype
 from ...core.static_hooks import current_replay
 from ...core.flags import get_flag
 from ...ops.flash_attention import flash_attention, flash_attention_supported
 
 from ...ops.manipulation import one_hot, pad, squeeze, unsqueeze  # noqa
-from . import activation, conv, loss, norm, pooling  # noqa: F401
+from ..decode import gather_tree  # noqa: F401
+from . import activation, common, conv, loss, norm, pooling  # noqa: F401
+from . import vision  # noqa: F401
 from .activation import *  # noqa: F401,F403
+from .common import *  # noqa: F401,F403
 from .conv import *  # noqa: F401,F403
 from .loss import *  # noqa: F401,F403
 from .norm import *  # noqa: F401,F403
 from .pooling import *  # noqa: F401,F403
+from .vision import *  # noqa: F401,F403
 
 __all__ = (["linear", "embedding", "layer_norm", "gelu", "relu", "dropout",
             "scaled_dot_product_attention", "cross_entropy", "mse_loss",
             "linear_cross_entropy", "softmax_with_cross_entropy", "one_hot",
-            "pad", "squeeze", "unsqueeze", "sequence_mask"]
-           + activation.__all__
-           + conv.__all__ + loss.__all__ + norm.__all__ + pooling.__all__)
+            "pad", "squeeze", "unsqueeze", "sequence_mask", "gather_tree",
+            "Tensor", "as_array", "np_asarray", "next_key", "stable_draw"]
+           + activation.__all__ + common.__all__
+           + conv.__all__ + loss.__all__ + norm.__all__ + pooling.__all__
+           + vision.__all__)
+
+
+def as_array(x):
+    """The torch tensor under a paddle Tensor; anything else as it is."""
+    return x.as_subclass(torch.Tensor) if isinstance(x, Tensor) else x
+
+
+def np_asarray(x):
+    """``x`` as a numpy array (a tensor is copied to the host)."""
+    return (_plain(x).numpy() if isinstance(x, torch.Tensor)
+            else np.asarray(x))
+
+
+def next_key():
+    """A fresh int32 seed from ``core.rng`` (the JAX package's
+    ``next_key`` gives a threefry key)."""
+    return rng.next_seed()
+
+
+def stable_draw():
+    """A seed fixed now and given again by every ``key()``."""
+    return StableDraw()
 
 
 def _relu(x):

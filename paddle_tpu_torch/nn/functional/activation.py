@@ -1,19 +1,24 @@
 """Activations (the activation part of ``paddle_tpu.nn.functional``),
 each one paddle op through ``core.dispatch.apply`` with the JAX
 package's formula.  ``relu`` and ``gelu`` live in the package
-``__init__``."""
+``__init__``.  The in-place forms (``elu_``, ``relu_``, ``softmax_``,
+``tanh_``) write into ``x`` with torch's in-place ops, so autograd
+sees them as it sees any in-place op.  ``gumbel_softmax`` draws its
+noise from the device's ``core.rng`` generator."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as TF
 
+from ...core import rng
 from ...core.dispatch import apply
 
 __all__ = ["relu6", "sigmoid", "tanh", "silu", "swish", "mish", "softsign",
            "tanhshrink", "hardswish", "leaky_relu", "prelu", "elu", "selu",
            "celu", "hardsigmoid", "hardtanh", "hardshrink", "softshrink",
            "softplus", "maxout", "softmax", "log_softmax", "log_sigmoid",
-           "thresholded_relu", "glu", "normalize"]
+           "thresholded_relu", "glu", "normalize", "elu_", "relu_",
+           "softmax_", "tanh_", "gumbel_softmax"]
 
 
 def _act(tfn, op_name):
@@ -190,3 +195,46 @@ def _normalize(a, *, p, axis, epsilon):
 def normalize(x, p=2, axis=1, epsilon=1e-12, name=None):
     return apply(_normalize, x, op_name="normalize",
                  attrs={"p": p, "axis": int(axis), "epsilon": epsilon})
+
+
+def elu_(x, alpha=1.0, name=None):
+    """In-place ``elu``."""
+    TF.elu_(x, alpha)
+    return x
+
+
+def relu_(x, name=None):
+    """In-place ``relu``."""
+    torch.Tensor.relu_(x)
+    return x
+
+
+def softmax_(x, axis=-1, dtype=None, name=None):
+    """In-place ``softmax``."""
+    torch.Tensor.copy_(x, torch.softmax(x, int(axis)))
+    return x
+
+
+def tanh_(x, name=None):
+    """In-place ``tanh``."""
+    torch.Tensor.tanh_(x)
+    return x
+
+
+def _gumbel_softmax(a, *, temperature, hard, axis):
+    # -log(E), E ~ Exp(1), is Gumbel(0, 1)
+    e = torch.empty_like(a).exponential_(generator=rng.generator(a.device))
+    y = torch.softmax((a - torch.log(e)) / temperature, axis)
+    if hard:
+        one = torch.zeros_like(y).scatter_(
+            axis, torch.argmax(y, dim=axis, keepdim=True), 1.0)
+        y = (one - y).detach() + y           # straight-through
+    return y
+
+
+def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1, name=None):
+    """softmax((x + g) / temperature) with g ~ Gumbel(0, 1); ``hard``
+    gives the one-hot of its argmax with the soft gradient."""
+    return apply(_gumbel_softmax, x, op_name="gumbel_softmax",
+                 attrs={"temperature": float(temperature),
+                        "hard": bool(hard), "axis": int(axis)})

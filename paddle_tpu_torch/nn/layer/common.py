@@ -1,4 +1,6 @@
-"""Linear, Embedding and Dropout (paddle_tpu.nn.layer.common).
+"""Linear, Embedding, the dropouts, Identity, Flatten, the upsampling
+and padding layers, PixelShuffle, Unfold, Bilinear and the distance
+layers (paddle_tpu.nn.layer.common).
 
 Parameters are made by ``weight_attr`` / ``bias_attr`` (a
 :class:`~..layer_base.ParamAttr`, a name, an initializer, or False for
@@ -12,11 +14,17 @@ from __future__ import annotations
 import torch
 
 from ...core.placement import device as _resolve_device
+from ...ops.linalg import norm
+from ...ops.manipulation import flatten
 from .. import functional as F
 from .. import initializer as I
 from ..layer_base import Layer
 
-__all__ = ["Linear", "Embedding", "Dropout"]
+__all__ = ["Linear", "Embedding", "Dropout", "Identity", "Dropout2D",
+           "Dropout3D", "AlphaDropout", "Flatten", "Upsample",
+           "UpsamplingNearest2D", "UpsamplingBilinear2D", "PixelShuffle",
+           "Pad1D", "Pad2D", "Pad3D", "CosineSimilarity", "Bilinear",
+           "Unfold", "PairwiseDistance"]
 
 
 class Linear(Layer):
@@ -81,3 +89,167 @@ class Dropout(Layer):
 
     def extra_repr(self):
         return f"p={self.p}"
+
+
+class Identity(Layer):
+    def forward(self, x):
+        return x
+
+
+class Dropout2D(Layer):
+    def __init__(self, p=0.5, data_format="NCHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout2d(x, self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class Dropout3D(Layer):
+    def __init__(self, p=0.5, data_format="NCDHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout3d(x, self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class AlphaDropout(Layer):
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return F.alpha_dropout(x, self.p, training=self.training)
+
+
+class Flatten(Layer):
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        return flatten(x, self.start_axis, self.stop_axis)
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+        self.align_mode = align_mode
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.align_mode,
+                             self.data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest",
+                         data_format=data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear", align_corners=True,
+                         data_format=data_format)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.upscale_factor = upscale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.upscale_factor, self.data_format)
+
+
+class Pad1D(Layer):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCL", name=None):
+        super().__init__()
+        self.padding = padding
+        self.mode = mode
+        self.value = value
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pad(x, self.padding, self.mode, self.value, self.data_format)
+
+
+class Pad2D(Pad1D):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        super().__init__(padding, mode, value, data_format, name)
+
+
+class Pad3D(Pad1D):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW", name=None):
+        super().__init__(padding, mode, value, data_format, name)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis = axis
+        self.eps = eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, self.axis, self.eps)
+
+
+class Bilinear(Layer):
+    """``x1 . W[o] . x2 + b[o]``, W ``[out, in1, in2]``, b ``[out]``."""
+
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None, device=None):
+        super().__init__()
+        dev = _resolve_device(device)
+        self.weight = self.create_parameter(
+            (out_features, in1_features, in2_features), weight_attr,
+            device=dev)
+        self.bias = self.create_parameter((out_features,), bias_attr,
+                                          is_bias=True, device=dev)
+
+    def forward(self, x1, x2):
+        return F.bilinear(x1, x2, self.weight, self.bias)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.unfold(x, *self.args)
+
+
+class PairwiseDistance(Layer):
+    """The p-norm of ``x - y + epsilon`` over the last axis."""
+
+    def __init__(self, p=2.0, epsilon=1e-6, keepdim=False, name=None):
+        super().__init__()
+        self.p = p
+        self.epsilon = epsilon
+        self.keepdim = keepdim
+
+    def forward(self, x, y):
+        return norm(x - y + self.epsilon, p=self.p, axis=-1,
+                    keepdim=self.keepdim)

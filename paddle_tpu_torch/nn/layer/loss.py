@@ -2,11 +2,14 @@
 ``nn.functional`` loss with the arguments it was built with."""
 from __future__ import annotations
 
+from ...core.placement import device as _resolve_device
 from .. import functional as F
 from ..layer_base import Layer
 
 __all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "NLLLoss", "BCELoss",
-           "BCEWithLogitsLoss"]
+           "BCEWithLogitsLoss", "KLDivLoss", "SmoothL1Loss",
+           "MarginRankingLoss", "HingeEmbeddingLoss", "CTCLoss",
+           "CosineEmbeddingLoss", "HSigmoidLoss"]
 
 
 class CrossEntropyLoss(Layer):
@@ -83,3 +86,87 @@ class BCEWithLogitsLoss(Layer):
     def forward(self, logit, label):
         return F.binary_cross_entropy_with_logits(
             logit, label, self.weight, self.reduction, self.pos_weight)
+
+
+class KLDivLoss(Layer):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.kl_div(input, label, self.reduction)
+
+
+class SmoothL1Loss(Layer):
+    def __init__(self, reduction="mean", delta=1.0, name=None):
+        super().__init__()
+        self.reduction = reduction
+        self.delta = delta
+
+    def forward(self, input, label):
+        return F.smooth_l1_loss(input, label, self.reduction, self.delta)
+
+
+class MarginRankingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input, other, label):
+        return F.margin_ranking_loss(input, other, label, self.margin,
+                                     self.reduction)
+
+
+class HingeEmbeddingLoss(Layer):
+    def __init__(self, margin=1.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.hinge_embedding_loss(input, label, self.margin,
+                                      self.reduction)
+
+
+class CTCLoss(Layer):
+    def __init__(self, blank=0, reduction="mean"):
+        super().__init__()
+        self.blank = blank
+        self.reduction = reduction
+
+    def forward(self, log_probs, labels, input_lengths, label_lengths,
+                norm_by_times=False):
+        return F.ctc_loss(log_probs, labels, input_lengths, label_lengths,
+                          self.blank, self.reduction, norm_by_times)
+
+
+class CosineEmbeddingLoss(Layer):
+    def __init__(self, margin=0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input1, input2, label):
+        return F.cosine_embedding_loss(input1, input2, label, self.margin,
+                                       self.reduction)
+
+
+class HSigmoidLoss(Layer):
+    """The hierarchical sigmoid loss with its ``[num_classes - 1,
+    feature_size]`` node weights (and biases)."""
+
+    def __init__(self, feature_size, num_classes, weight_attr=None,
+                 bias_attr=None, is_custom=False, is_sparse=False,
+                 name=None, device=None):
+        super().__init__()
+        dev = _resolve_device(device)
+        self.num_classes = num_classes
+        self.weight = self.create_parameter(
+            (num_classes - 1, feature_size), weight_attr, device=dev)
+        self.bias = self.create_parameter((num_classes - 1,), bias_attr,
+                                          is_bias=True, device=dev)
+
+    def forward(self, input, label, path_table=None, path_code=None):
+        return F.hsigmoid_loss(input, label, self.num_classes, self.weight,
+                               self.bias, path_table, path_code)

@@ -21,12 +21,24 @@ with :data:`GPT_PRESETS` and :func:`gpt_pretrain_loss`.
 tensor- and sequence-parallel (q, k, v and fc1 column-parallel, proj and
 fc2 row-parallel, ring attention over 'sp'); :func:`gpt_loss` is
 ``bench_gpt``'s tied head through ``F.linear_cross_entropy``.
+
+:class:`TransformerNMT` is the translation model of Vaswani et al.
+(2017, sections 3.4-3.5) from the public ``paddle.nn`` API: one source
+and target embedding scaled by sqrt(d_model), sinusoidal positions,
+``nn.Transformer`` and an output projection tied to the embedding;
+:func:`nmt_loss` is its label-smoothed cross entropy and
+:func:`greedy_decode` decodes incrementally through the decoder's
+caches, the encoder run once.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 from torch import nn
+
+import paddle_tpu_torch as paddle
 
 from .. import nn as pnn
 from ..core.placement import device as _resolve_device
@@ -37,7 +49,9 @@ __all__ = ["BertMLM", "build_model", "mlm_loss", "bench_flops_per_step",
            "palm_flops_per_step", "build_bert_static", "build_gpt_static",
            "build_static_mlp", "build_static_lenet", "GPTHybrid",
            "build_gpt_hybrid", "gpt_loss", "gpt_flops_per_step", "GPT",
-           "GPT_PRESETS", "build_gpt", "gpt_pretrain_loss"]
+           "GPT_PRESETS", "build_gpt", "gpt_pretrain_loss",
+           "TransformerNMT", "nmt_loss", "greedy_decode",
+           "nmt_flops_per_step", "sinusoid_positions"]
 
 
 class BertMLM(nn.Module):
@@ -426,3 +440,114 @@ def gpt_flops_per_step(vocab, hidden, layers, seq, batch, ffn) -> int:
     n_matmul = layers * per_layer + 2 * hidden + vocab * hidden
     return (6 * n_matmul * batch * seq
             + 6 * layers * batch * seq ** 2 * hidden)
+
+
+def sinusoid_positions(max_len, d_model) -> np.ndarray:
+    """Vaswani et al.'s position table, ``[max_len, d_model]`` f32:
+    sin(pos / 10000^(2i/d)) at 2i, cos at 2i + 1."""
+    pos = np.arange(max_len, dtype=np.float64)[:, None]
+    rate = 10000.0 ** (-np.arange(0, d_model, 2, dtype=np.float64) / d_model)
+    table = np.zeros((max_len, d_model), np.float64)
+    table[:, 0::2] = np.sin(pos * rate)
+    table[:, 1::2] = np.cos(pos * rate)
+    return table.astype(np.float32)
+
+
+class TransformerNMT(paddle.nn.Layer):
+    """Encoder-decoder translation model with a vocabulary shared by the
+    source and the target: ``model(src, tgt_in)`` -> logits ``[B, T,
+    vocab]`` under the causal target mask.  The embedding is drawn from
+    N(0, d_model^-0.5); the position table is a buffer outside the
+    state dict, so a state dict holds ``embedding.weight`` and the
+    ``transformer.*`` parameters only."""
+
+    def __init__(self, vocab, d_model=512, nhead=8, num_encoder_layers=6,
+                 num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
+                 max_len=256, device=None):
+        super().__init__()
+        self.vocab, self.d_model = vocab, d_model
+        self.embedding = paddle.nn.Embedding(
+            vocab, d_model, weight_attr=paddle.ParamAttr(
+                initializer=paddle.nn.initializer.Normal(
+                    0.0, d_model ** -0.5)),
+            device=device)
+        self.transformer = paddle.nn.Transformer(
+            d_model, nhead, num_encoder_layers, num_decoder_layers,
+            dim_feedforward, dropout, device=device)
+        self.dropout = paddle.nn.Dropout(dropout)
+        self.register_buffer("positions", paddle.to_tensor(
+            sinusoid_positions(max_len, d_model),
+            place=self.embedding.weight.device), persistable=False)
+
+    def embed(self, ids, offset=0):
+        """Scaled embeddings plus positions ``offset ...``, dropped."""
+        x = self.embedding(ids) * math.sqrt(self.d_model)
+        return self.dropout(x + self.positions[offset:offset + ids.shape[1]])
+
+    def encode(self, src):
+        return self.transformer.encoder(self.embed(src))
+
+    def logits(self, h):
+        """The output projection, tied to the embedding."""
+        return paddle.matmul(h, self.embedding.weight, transpose_y=True)
+
+    def forward(self, src, tgt):
+        mask = paddle.nn.Transformer.generate_square_subsequent_mask(
+            tgt.shape[1], device=tgt.device)
+        h = self.transformer(self.embed(src), self.embed(tgt),
+                             tgt_mask=mask)
+        return self.logits(h)
+
+
+def nmt_loss(vocab, epsilon=0.1):
+    """``loss_fn(logits, labels)``: the cross entropy against the
+    label-smoothed one-hot targets (section 5.4), mean over tokens."""
+    def loss_fn(logits, labels):
+        F = paddle.nn.functional
+        soft = F.label_smooth(F.one_hot(labels.reshape([-1]), vocab),
+                              epsilon=epsilon)
+        return F.cross_entropy(logits.reshape([-1, vocab]), soft,
+                               soft_label=True)
+    return loss_fn
+
+
+def greedy_decode(model: TransformerNMT, src, max_len, bos):
+    """Greedy decoding of ``max_len`` tokens after ``bos``: the encoder
+    runs once, the decoder one token a step over its caches (the
+    self-attention's grows by a key a step, the cross-attention's holds
+    the source's).  Returns ``(tokens [B, max_len], logits [B, max_len,
+    vocab])``; runs in eval mode without autograd."""
+    was_training = model.training
+    model.eval()
+    try:
+        with paddle.no_grad():
+            memory = model.encode(src)
+            cache = model.transformer.decoder.gen_cache(memory)
+            tok = paddle.zeros_like(src[:, :1]) + bos
+            toks, logits = [], []
+            for t in range(max_len):
+                h, cache = model.transformer.decoder(model.embed(tok, t),
+                                                     memory, cache=cache)
+                lg = model.logits(h)
+                tok = paddle.argmax(lg, axis=-1)
+                toks.append(tok)
+                logits.append(lg)
+    finally:
+        model.train(was_training)
+    return paddle.concat(toks, axis=1), paddle.concat(logits, axis=1)
+
+
+def nmt_flops_per_step(vocab, d_model, enc_layers, dec_layers, ffn, batch,
+                       src_len, tgt_len) -> int:
+    """Model FLOPs of one training step of :class:`TransformerNMT` (3x
+    the forward): the projections and FFNs (the cross-attention's keys
+    and values over the source), the tied head, and the attention
+    products (QK^T and PV, unmasked counted whole)."""
+    d, f = d_model, ffn
+    src, tgt = batch * src_len, batch * tgt_len
+    enc = 2 * src * (4 * d * d + 2 * d * f)
+    dec = 2 * tgt * (6 * d * d + 2 * d * f) + 2 * src * 2 * d * d
+    attn = 4 * batch * d * (enc_layers * src_len ** 2 + dec_layers * (
+        tgt_len ** 2 + tgt_len * src_len))
+    head = 2 * tgt * d * vocab
+    return 3 * (enc_layers * enc + dec_layers * dec + attn + head)

@@ -45,26 +45,8 @@ NOT_YET_PORTED = {
         buffer_arrays enable_to_static lint load not_to_static param_arrays
         param_list save to_static
     """,
-    "paddle_tpu.nn": """
-        AlphaDropout BeamSearchDecoder Bilinear CTCLoss
-        CosineEmbeddingLoss CosineSimilarity Dropout2D
-        Dropout3D Flatten HSigmoidLoss HingeEmbeddingLoss
-        Identity KLDivLoss MarginRankingLoss Pad1D Pad2D Pad3D
-        PairwiseDistance PixelShuffle
-        SmoothL1Loss Transformer TransformerDecoder TransformerDecoderLayer
-        Unfold Upsample UpsamplingBilinear2D UpsamplingNearest2D cell_step
-        dynamic_decode gather_tree remove_weight_norm weight_norm
-    """,
-    "paddle_tpu.nn.functional": """
-        Tensor affine_grid alpha_dropout as_array bilinear
-        cosine_embedding_loss cosine_similarity ctc_loss diag_embed
-        dice_loss dropout2d dropout3d elu_ gather_tree grid_sample
-        gumbel_softmax hinge_embedding_loss hsigmoid_loss interpolate kl_div
-        label_smooth log_loss margin_ranking_loss next_key np_asarray
-        npair_loss
-        pixel_shuffle relu_ sigmoid_focal_loss softmax_
-        square_error_cost stable_draw tanh_ temporal_shift unfold upsample
-    """,
+    "paddle_tpu.nn": "",
+    "paddle_tpu.nn.functional": "",
     "paddle_tpu.optimizer": """
         Adadelta Adagrad Adamax
         DecayedAdagrad Dpsgd ExponentialMovingAverage Ftrl Lamb LarsMomentum
