@@ -238,7 +238,49 @@ kernel from the sources in this checkout.  Phases, each fatal:
     the padding, upsampling, distance and loss layers, ``Bilinear``,
     ``weight_norm``) on the card against the CPU, forward and backward,
     and the random ones (channel and alpha dropout, gumbel softmax) by
-    statistics on the card.
+    statistics on the card;
+46. each tail optimizer (Adamax, Adagrad, Adadelta, RMSProp plain and
+    centered, Lamb, LarsMomentum, Ftrl at ``lr_power`` -0.5 and -0.3,
+    Dpsgd, ProximalGD, ProximalAdagrad, DecayedAdagrad) and EMA,
+    ModelAverage and Lookahead, 5 steps on the tests' small MLP, card
+    against CPU: f32 eager with a global-norm clip, O2 bf16 from the
+    same fixed gradients (parameters and f32 masters), and O2 bf16
+    inside ``TrainStep`` under a ``GradScaler``, at the CPU tests'
+    tolerances; Dpsgd on injected draws, and its own draws on the card
+    by statistics;
+47. LAMB BERT-base: phase 8's config (``bench_bert``'s chip config) with
+    ``Lamb(1e-4, lamb_weight_decay=0.01, 0.9, 0.999, 1e-6)`` in AdamW's
+    place (You et al. 2019): 2 warm-up and 10 timed steps, step p50 and
+    mean, tokens/s, peak memory, the update's device ms beside AdamW's,
+    the trust ratios' min, median and max (finite and positive), a
+    first loss near ln(vocab), 12 launches of each flash kernel a step;
+48. LARS ResNet-50: phase 28's config with ``LarsMomentum(0.1, 0.9,
+    lars_coeff=0.001, lars_weight_decay=5e-4)`` in Momentum's place
+    (You et al. 2017): 2 + 10 steps, images/s, step p50, peak memory,
+    the update's device ms beside Momentum's, a first loss near
+    ln(1000), no hand kernel launched;
+49. second derivatives: the double-backward cases and a WGAN-GP critic
+    (5 Adam steps), card against CPU; ``create_graph=True`` through
+    ``MultiHeadAttention`` at D 64 raises on the card (fault C9: the
+    flash kernels have no second derivative), and on the CPU equals
+    plain attention's;
+50. the top level: flags set and put back (an XLA flag refuses another
+    value); ``get_/set_cuda_rng_state`` replaying a dropout-0.1 small
+    BERT step bit for bit; ``create_parameter`` and ``flops`` on the
+    card; the card's ``device_count``, ``is_compiled_with_cuda`` and
+    ``get_cudnn_version``;
+51. the public ``paged_attention`` at phase 2's shapes: one K4 launch a
+    call, equal to the plain version, with a function registered and
+    after ``None`` as before;
+52. each ``ops.pallas`` entry on CUDA tensors at a small shape: its
+    kernel launched once (``kernel_selections``) and equal to its plain
+    version; ``interpret=True`` on the card raises.
+
+Phases 46-52 each log their number and name, print every compared
+quantity beside its limit, put back in a ``finally`` the global state
+they may touch (flags, dygraph mode, default dtype and device, the RNG
+state, the registered paged kernel, print options, the profiler hook)
+and assert that a snapshot of it equals the one taken at their start.
 
 The last lines are the kernels JSON object, the card's name and power
 limit as ``nvidia-smi`` reports them, and ``{"ok": true, ...}``.  Any
@@ -328,6 +370,7 @@ GPT760_PER_STEP = {"flash_attention_fwd": 48, "flash_attention_bwd_dq": 24,
                    "flash_attention_bwd_dkv": 24}
 GPT760_PLAIN_PER_STEP = {k: 24 for k in GPT760_PER_STEP}
 CMM_SITE = "paddle_tpu/ops/pallas/collective_matmul.py:44"  # _mm_kernel
+K4 = "paged_attention"      # K4's name in ops.cuda.support.launch_counts
 # K6 vs plain, as max |a - b| / max(1, max |b|), outputs ~N(0, 1): f32
 # sums over K taken in another order; bf16 rounded once on either side
 CMM_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
@@ -1199,8 +1242,10 @@ def _step_anatomy(tag, one_step, steps, classify, wgmma_flash=False,
     # every step launches the same kernels, so a trace with no device
     # time, or a named kernel's count that is no whole multiple of
     # ``steps``, means the tracer dropped records: it is taken again, up
-    # to three times
-    for _ in range(3):
+    # to six times.  The tracer only ever drops a record, so each named
+    # kernel's launches are the most any trace saw
+    most = {}
+    for attempt in range(6):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
@@ -1222,6 +1267,9 @@ def _step_anatomy(tag, one_step, steps, classify, wgmma_flash=False,
                 launches[k] = launches.get(k, 0) + e.count / steps
         del prof
         gc.collect()
+        for k, n in launches.items():
+            most[k] = max(most.get(k, 0), n)
+        launches = dict(most)
         if groups and all(float(n).is_integer() for n in launches.values()):
             break
     busy = sum(groups.values())
@@ -1234,6 +1282,7 @@ def _step_anatomy(tag, one_step, steps, classify, wgmma_flash=False,
            "device_idle_share": max(0.0, 1.0 - busy / step_ms),
            "device_ms_by_group": groups, "flash_kernels_ms": flash,
            "epilogue_kernels_ms": epi, "launches_per_step": launches,
+           "trace_attempts": attempt + 1,
            "top_kernels_ms": [[round(m, 4), n] for m, n in top[:24]]}
     log(tag + " " + json.dumps(out))
     if wgmma_flash:
@@ -4888,6 +4937,895 @@ def phase_nn_tail():
         raise AssertionError(f"random functions on the card: {stats}")
 
 
+# ----------------------------------------------------------- phases 46-52
+# the global state phases 46-52 may touch, snapshotted at each one's start
+# and restored in a ``finally``; the snapshot taken after must equal it
+def _global_state():
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import framework_compat
+    from paddle_tpu_torch.core import placement, profiler_hook, rng
+    from paddle_tpu_torch.ops import attention
+    return {"flags": paddle.get_flags(),
+            "dygraph": framework_compat.in_dygraph_mode(),
+            "static_mode": paddle._static_mode,
+            "default_dtype": paddle.get_default_dtype(),
+            "placement": placement.default(),
+            "rng": rng.get_rng_state(),
+            "paged_kernel": attention.registered_kernel(),
+            "printoptions": _printoptions(np),
+            "profiler_hook": profiler_hook.current(),
+            "tf32": (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32),
+            "cudnn_benchmark": torch.backends.cudnn.benchmark}
+
+
+def _printoptions(np):
+    """numpy's print options that ``np.set_printoptions`` takes back."""
+    import inspect
+    keys = inspect.signature(np.set_printoptions).parameters
+    return {k: v for k, v in np.get_printoptions().items() if k in keys}
+
+
+def _restore_global_state(s):
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import framework_compat
+    from paddle_tpu_torch.core import placement, profiler_hook, rng
+    from paddle_tpu_torch.ops import attention
+    paddle.set_flags(s["flags"])
+    (framework_compat.enable_dygraph if s["dygraph"]
+     else framework_compat.disable_dygraph)()
+    paddle._static_mode = s["static_mode"]
+    paddle.set_default_dtype(s["default_dtype"])
+    placement.set_default(s["placement"])
+    rng.set_rng_state(s["rng"])
+    attention.register_paged_attention_kernel(s["paged_kernel"])
+    np.set_printoptions(**s["printoptions"])
+    profiler_hook.set_active(s["profiler_hook"])
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = s["tf32"]
+    torch.backends.cudnn.benchmark = s["cudnn_benchmark"]
+
+
+def _same_state(a, b):
+    """Whether two :func:`_global_state` snapshots agree (generator
+    states compared by value)."""
+    import torch
+
+    def same(x, y):
+        if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+            return (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)
+                    and torch.equal(x, y))
+        if isinstance(x, dict) and isinstance(y, dict):
+            return x.keys() == y.keys() and all(same(x[k], y[k]) for k in x)
+        if isinstance(x, (tuple, list)) and isinstance(y, (tuple, list)):
+            return len(x) == len(y) and all(map(same, x, y))
+        return x is y or x == y
+    return {k: same(a[k], b[k]) for k in a}
+
+
+def _keeps_global_state(fn):
+    """Phases 46-52: log the phase's number and name at its start, put
+    back every global state it may touch in a ``finally``, and assert
+    the snapshot after equals the one before."""
+    import functools
+
+    @functools.wraps(fn)
+    def phase(*args, **kwargs):
+        log(f"PHASE {fn.__doc__.split(':')[0].strip()}")
+        before = _global_state()
+        try:
+            out = fn(*args, **kwargs)
+        finally:
+            _restore_global_state(before)
+        same = _same_state(before, _global_state())
+        if not all(same.values()):
+            raise AssertionError(f"{fn.__name__} left global state changed: "
+                                 f"{sorted(k for k, v in same.items() if not v)}")
+        return out
+    return phase
+
+
+def _check(tag, quantities):
+    """Print every compared quantity beside its limit, then check:
+    ``quantities`` is ``{name: (value, limit)}``, each value at most its
+    limit."""
+    log(tag + " " + json.dumps({k: {"value": v, "limit": lim}
+                                for k, (v, lim) in quantities.items()}))
+    bad = {k: (v, lim) for k, (v, lim) in quantities.items()
+           if not (isinstance(v, (int, float)) and v <= lim)}
+    if bad:
+        raise AssertionError(f"{tag}: over the limit: {bad}")
+
+
+# the CPU tests' tolerances (tests/test_torch_optimizer_tail.py)
+OPT_F32_ATOL = 1e-5
+OPT_O2_RTOL = 2 ** -7
+OPT_O2_STEP_ATOL = 1e-2
+TAIL_OPTIMIZERS = {
+    "Adamax": ("Adamax", dict(learning_rate=0.01)),
+    "Adagrad": ("Adagrad", dict(learning_rate=0.05)),
+    "Adadelta": ("Adadelta", dict(learning_rate=1.0)),
+    "RMSProp": ("RMSProp", dict(learning_rate=0.01, momentum=0.5)),
+    "RMSProp-centered": ("RMSProp", dict(learning_rate=0.01,
+                                         centered=True)),
+    "Lamb": ("Lamb", dict(learning_rate=0.01)),
+    "LarsMomentum": ("LarsMomentum", dict(learning_rate=0.1)),
+    "Ftrl": ("Ftrl", dict(learning_rate=0.1, l1=0.01, l2=0.01)),
+    "Ftrl-lr_power": ("Ftrl", dict(learning_rate=0.1, l1=0.01,
+                                   lr_power=-0.3)),
+    "Dpsgd": ("Dpsgd", dict(learning_rate=0.05, clip=0.5, sigma=0.3,
+                            batch_size=4.0, seed=3)),
+    "ProximalGD": ("ProximalGD", dict(learning_rate=0.05, l1=0.01,
+                                      l2=0.01)),
+    "ProximalAdagrad": ("ProximalAdagrad", dict(learning_rate=0.05,
+                                                l1=0.01, l2=0.01)),
+    "DecayedAdagrad": ("DecayedAdagrad", dict(learning_rate=0.05)),
+}
+OPT_STEPS = 5
+
+
+def _mlp_pair(paddle, torch):
+    """The tests' 6 -> 8 -> 3 tanh MLP on the CPU and on the card, from
+    the same seeded weights."""
+    paddle.seed(1)
+    cpu = paddle.nn.Sequential(paddle.nn.Linear(6, 8), paddle.nn.Tanh(),
+                               paddle.nn.Linear(8, 3)).to("cpu")
+    gpu = paddle.nn.Sequential(paddle.nn.Linear(6, 8), paddle.nn.Tanh(),
+                               paddle.nn.Linear(8, 3)).to("cuda")
+    gpu.load_state_dict({k: v.cuda() for k, v in cpu.state_dict().items()})
+    return cpu, gpu
+
+
+def _mlp_batch(np):
+    rs = np.random.RandomState(0)
+    return (rs.randn(16, 6).astype(np.float32),
+            rs.randn(16, 3).astype(np.float32))
+
+
+def _fixed_draws(step, n, device):
+    """Dpsgd's draws for the card-against-CPU runs: the same numbers on
+    both sides (the card's Philox and the CPU's generator differ)."""
+    import numpy as np
+    import torch
+    st = int(step) if not isinstance(step, torch.Tensor) else 0
+    rs = np.random.RandomState(1000 + st)
+    return torch.from_numpy(rs.randn(n).astype(np.float32)).to(device)
+
+
+def _tail_opt(paddle, case, params, clip):
+    cls, kw = TAIL_OPTIMIZERS[case]
+    kw = dict(kw)
+    if clip and cls != "Dpsgd":
+        kw["grad_clip"] = paddle.optimizer.ClipGradByGlobalNorm(0.5)
+    opt = getattr(paddle.optimizer, cls)(parameters=params, **kw)
+    if cls == "Dpsgd":
+        opt._draw = _fixed_draws
+    return opt
+
+
+def _weights_np(model):
+    """The model's weights as f32 numpy copies (a CPU tensor's
+    ``numpy()`` would share the parameter's memory)."""
+    return {k: v.detach().float().cpu().clone().numpy()
+            for k, v in model.state_dict().items()}
+
+
+def _max_diff(a, b):
+    return max(float(abs(a[k] - b[k]).max()) for k in a)
+
+
+def _dpsgd_draw_stats(paddle, torch):
+    """The card's own Dpsgd draws: 64 tensors x 40 steps of sigma 1,
+    batch 1, lr 1 from zero gradients; mean, deviation and the mean
+    |correlation| between two tensors' draws."""
+    import numpy as np
+    ps = [torch.zeros(2, device="cuda", requires_grad=True)
+          for _ in range(64)]
+    opt = paddle.optimizer.Dpsgd(learning_rate=1.0, clip=100.0,
+                                 batch_size=1.0, sigma=1.0, seed=5,
+                                 parameters=ps)
+    draws = []
+    for _ in range(40):
+        before = torch.stack([p.detach()[0] for p in ps]).clone()
+        for p in ps:
+            p.grad = torch.zeros(2, device="cuda")
+        opt.step()
+        draws.append((before - torch.stack([p.detach()[0] for p in ps])))
+    d = torch.stack(draws).cpu().numpy()
+    corr = np.corrcoef(d.T)
+    return {"mean": float(d.mean()), "std": float(d.std()),
+            "mean_abs_corr": float(np.abs(corr[~np.eye(64, dtype=bool)])
+                                   .mean())}
+
+
+@_keeps_global_state
+def phase_tail_optimizers():
+    """46 tail_optimizers: each tail optimizer (and EMA, ModelAverage,
+    Lookahead) 5 steps on the tests' MLP, card against CPU: f32 eager
+    with a global-norm clip; O2 bf16 (f32 masters) from the same fixed
+    bf16 gradients; O2 bf16 inside ``TrainStep`` under a ``GradScaler``
+    (the step a device tensor).  The CPU tests' tolerances; Dpsgd's
+    parity on the same injected draws, its own draws on the card by
+    statistics."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    x, y = _mlp_batch(np)
+    rows, quantities = {}, {}
+    for case in TAIL_OPTIMIZERS:
+        # f32, eager, clipped
+        out = {}
+        for dev, m in zip(("cpu", "cuda"), _mlp_pair(paddle, torch)):
+            opt = _tail_opt(paddle, case, m.parameters(), clip=True)
+            xs, ys = (torch.from_numpy(a).to(dev) for a in (x, y))
+            for _ in range(OPT_STEPS):
+                loss = ((m(xs) - ys) ** 2).mean()
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+            out[dev] = _weights_np(m)
+        f32 = _max_diff(out["cuda"], out["cpu"])
+        # O2 from fixed bf16 gradients: parameters and masters
+        rs = np.random.RandomState(5)
+        shapes = [tuple(v.shape) for v in out["cpu"].values()]
+        grads = [[(0.3 * rs.randn(*s)).astype(np.float32) for s in shapes]
+                 for _ in range(OPT_STEPS)]
+        o2 = {}
+        for dev, m in zip(("cpu", "cuda"), _mlp_pair(paddle, torch)):
+            opt = _tail_opt(paddle, case, m.parameters(), clip=False)
+            m, opt = paddle.amp.decorate(m, opt, level="O2",
+                                         dtype="bfloat16")
+            params = list(m.parameters())
+            for gs in grads:
+                for p, g in zip(params, gs):
+                    p.grad = torch.from_numpy(g).to(dev, torch.bfloat16)
+                opt.step()
+                opt.clear_grad()
+            o2[dev] = (_weights_np(m), [opt._states[id(p)]["master"].cpu()
+                                        .numpy() for p in params])
+        o2_rel = max(float((abs(o2["cuda"][0][k] - o2["cpu"][0][k])
+                            / (abs(o2["cpu"][0][k]) + 1e-6 / OPT_O2_RTOL))
+                           .max()) for k in o2["cpu"][0])
+        o2_master = max(float(abs(a - b).max())
+                        for a, b in zip(o2["cuda"][1], o2["cpu"][1]))
+        # O2 inside TrainStep under a GradScaler
+        ts = {}
+        for dev, m in zip(("cpu", "cuda"), _mlp_pair(paddle, torch)):
+            opt = _tail_opt(paddle, case, m.parameters(), clip=True)
+            m, opt = paddle.amp.decorate(m, opt, level="O2",
+                                         dtype="bfloat16")
+            step = paddle.jit.TrainStep(
+                m, lambda o, lab: ((o.astype("float32") - lab) ** 2).mean(),
+                opt, scaler=paddle.amp.GradScaler(init_loss_scaling=1024.0))
+            xs = torch.from_numpy(x).to(dev, torch.bfloat16)
+            ys = torch.from_numpy(y).to(dev)
+            losses = [float(step(xs, ys)) for _ in range(OPT_STEPS)]
+            if not isinstance(step._scaler_state["step"], torch.Tensor):
+                raise AssertionError(f"{case}: the scaled step's count is "
+                                     f"not a device tensor")
+            ts[dev] = (_weights_np(m), losses, opt)
+        o2_step = _max_diff(ts["cuda"][0], ts["cpu"][0])
+        loss_diff = max(abs(a - b) for a, b in zip(ts["cuda"][1],
+                                                   ts["cpu"][1]))
+        rows[case] = {"f32_max_abs": f32, "o2_fixed_grads_max_rel": o2_rel,
+                      "o2_master_max_abs": o2_master,
+                      "o2_train_step_max_abs": o2_step,
+                      "o2_train_step_loss_max_abs": loss_diff}
+        quantities.update({
+            f"{case} f32": (f32, OPT_F32_ATOL),
+            f"{case} O2 params (rel)": (o2_rel, OPT_O2_RTOL),
+            f"{case} O2 masters": (o2_master, OPT_F32_ATOL),
+            f"{case} O2 TrainStep": (o2_step, OPT_O2_STEP_ATOL)})
+        if case == "Lamb":
+            tr = ts["cuda"][2].trust_ratios
+            quantities["Lamb O2 trust ratios finite and positive (0/1)"] = (
+                0.0 if bool(torch.isfinite(tr).all() and (tr > 0).all())
+                else 1.0, 0.0)
+    # EMA, ModelAverage, Lookahead over SGD / Adam, f32
+    ext = {}
+    for dev, m in zip(("cpu", "cuda"), _mlp_pair(paddle, torch)):
+        xs, ys = (torch.from_numpy(a).to(dev) for a in (x, y))
+        ema = paddle.optimizer.ExponentialMovingAverage(
+            0.9, thres_steps=1, parameters=m.parameters())
+        ma = paddle.optimizer.ModelAverage(0.15, parameters=m.parameters(),
+                                           min_average_window=2,
+                                           max_average_window=3)
+        look = paddle.optimizer.Lookahead(paddle.optimizer.Adam(
+            learning_rate=0.01, parameters=m.parameters()), alpha=0.5, k=3)
+        for _ in range(7):
+            loss = ((m(xs) - ys) ** 2).mean()
+            loss.backward()
+            look.step()
+            look.clear_grad()
+            ema.update()
+            ma.step()
+        trained = _weights_np(m)
+        with ema.apply():
+            shadow = _weights_np(m)
+        with ma.apply():
+            avg = _weights_np(m)
+        if _max_diff(_weights_np(m), trained) != 0.0:
+            raise AssertionError("EMA/ModelAverage apply did not restore")
+        ext[dev] = (trained, shadow, avg)
+    for i, what in enumerate(("Lookahead", "EMA", "ModelAverage")):
+        d = _max_diff(ext["cuda"][i], ext["cpu"][i])
+        rows[what] = {"f32_max_abs": d}
+        quantities[f"{what} f32"] = (d, OPT_F32_ATOL)
+    stats = _dpsgd_draw_stats(paddle, torch)
+    quantities.update({
+        "Dpsgd card draws |mean|": (abs(stats["mean"]), 0.1),
+        "Dpsgd card draws |std - 1|": (abs(stats["std"] - 1.0), 0.1),
+        "Dpsgd card draws mean |corr|": (stats["mean_abs_corr"], 0.2)})
+    log("TAIL_OPTIMIZERS " + json.dumps({"cases": rows,
+                                         "dpsgd_card_draws": stats}))
+    _check("TAIL_OPTIMIZERS_CHECK", quantities)
+
+
+def _device_ms(torch, fn, iters=5):
+    """Device ms of one ``fn()``: the kernels' own device time in a
+    ``torch.profiler`` trace of ``iters`` calls, over ``iters``.  A trace
+    with no device time is taken again, up to three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and not e.is_user_annotation)
+        del prof
+        gc.collect()
+        if total > 0:
+            return total / 1e3 / iters
+    raise AssertionError("the profiler saw no device time")
+
+
+def _update_ms(torch, opt, model, lr):
+    """One ``functional_update`` over the model's parameters (f32
+    masters under O2), from gradients of the parameters' shapes: its
+    CUDA-event ms over back-to-back calls (which the host's launches
+    bound when they outlast the kernels) and its device ms (the
+    kernels' own time, from the profiler)."""
+    params = [p.detach() for p in model.parameters()]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    grads = [1e-3 * torch.randn(p.shape, generator=gen, device="cuda",
+                                dtype=p.dtype) for p in params]
+    states = opt.functional_init(params)
+    step = torch.tensor(1, dtype=torch.int32, device="cuda")
+    meta = list(model.parameters())
+
+    def update(i=0):
+        with torch.no_grad():
+            return opt.functional_update(params, grads, states, lr, step,
+                                         params_meta=meta)
+    return {"event_ms": cuda_ms(update, 10, warmup=2),
+            "device_ms": _device_ms(torch, update)}
+
+
+# bench.py:159-190 (bench_bert's chip config) with You et al. 2019's LAMB
+# (arXiv:1904.00962) at bench_bert's learning rate
+LAMB = dict(learning_rate=1e-4, lamb_weight_decay=0.01, beta1=0.9,
+            beta2=0.999, epsilon=1e-6)
+
+
+@_keeps_global_state
+def phase_lamb_bert(warmup=2, steps=10):
+    """47 lamb_bert: bench_bert's chip config (BERT-base, batch 64, seq
+    512, dropout 0.1, O2 bf16 with f32 masters, global-norm clip 1.0)
+    with Lamb in AdamW's place: 2 warm-up and 10 timed steps; step p50
+    and mean, tokens/s, peak memory; the update's device ms beside
+    AdamW's on the same parameters; the trust ratios' min, median and
+    max; 12 launches of each flash kernel a step."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import amp, jit, optimizer, seed
+    from paddle_tpu_torch.testing.models import build_model, mlm_loss
+    cfg = BERT_CHIP
+    seed(2024)
+    t0 = time.perf_counter()
+    model = build_model(cfg["vocab"], cfg["hidden"], cfg["layers"],
+                        cfg["heads"], cfg["ffn"], cfg["seq"],
+                        cfg["dropout"], device="cuda")
+    opt = optimizer.Lamb(parameters=model.parameters(),
+                         grad_clip=optimizer.ClipGradByGlobalNorm(1.0),
+                         **LAMB)
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    step = jit.TrainStep(model, mlm_loss(model), opt, n_inputs=1,
+                         donate=True)
+    x, y = _bench_batch(torch, cfg, "cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, counts = _train_steps(torch, step, (x, y),
+                                           warmup + steps)
+    counts = {n: counts.get(n, 0) for n in FLASH_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    trust = opt.trust_ratios.float().cpu().numpy()
+    names = [n for n, _ in model.named_parameters()]   # TrainStep's order
+    timed = step_ms[warmup:]
+    mean_ms = sum(timed) / len(timed)
+    lamb_ms = _update_ms(torch, opt, model, LAMB["learning_rate"])
+    adamw = optimizer.AdamW(learning_rate=1e-4,
+                            parameters=model.parameters(), weight_decay=0.01,
+                            grad_clip=optimizer.ClipGradByGlobalNorm(1.0),
+                            multi_precision=True)
+    adamw_ms = _update_ms(torch, adamw, model, 1e-4)
+    out = {"config": cfg, "optimizer": dict(LAMB, name="Lamb",
+                                            grad_clip="global norm 1.0"),
+           "dtype": "bfloat16 O2, f32 master weights",
+           "params": sum(p.numel() for p in model.parameters()),
+           "setup_s": setup_s, "warmup_steps": warmup, "timed_steps": steps,
+           "losses": losses, "step_ms": timed,
+           "step_ms_p50": float(np.median(timed)), "step_ms_mean": mean_ms,
+           "first_steps_ms": step_ms[:warmup],
+           "tokens_per_s": cfg["batch"] * cfg["seq"] / (mean_ms / 1e3),
+           "max_memory_allocated": peak,
+           "update_ms_lamb": lamb_ms, "update_ms_adamw": adamw_ms,
+           "trust_ratio": {"min": float(trust.min()),
+                           "median": float(np.median(trust)),
+                           "max": float(trust.max()), "n": int(trust.size),
+                           "min_of": names[int(trust.argmin())],
+                           "max_of": names[int(trust.argmax())]},
+           "flash_launches": counts, "nvidia_smi": nvidia_smi()}
+    log("LAMB_BERT " + json.dumps(out))
+    want = cfg["layers"] * (warmup + steps)
+    _check("LAMB_BERT_CHECK", {
+        "|first loss - ln(vocab)|": (abs(losses[0]
+                                         - math.log(cfg["vocab"])), 0.5),
+        "non-finite losses": (sum(not math.isfinite(v) for v in losses), 0),
+        "non-finite or non-positive trust ratios": (
+            int((~np.isfinite(trust) | (trust <= 0)).sum()), 0),
+        **{f"|{n} launches - {want}|": (abs(c - want), 0)
+           for n, c in counts.items()}})
+    del model, step, opt, adamw
+    torch.cuda.empty_cache()
+    return counts
+
+
+# You et al. 2017's LARS (arXiv:1708.03888) in place of bench_resnet50's
+# Momentum
+LARS = dict(learning_rate=0.1, momentum=0.9, lars_coeff=0.001,
+            lars_weight_decay=5e-4)
+
+
+@_keeps_global_state
+def phase_lars_resnet50(warmup=2, steps=10):
+    """48 lars_resnet50: bench_resnet50's chip config (batch 128, 224
+    px, NCHW, O2 bf16, f32 masters) with LarsMomentum in Momentum's
+    place: 2 warm-up and 10 timed steps; images/s, step p50, peak
+    memory, the update's device ms beside Momentum's; a first loss near
+    ln(1000) and no hand kernel launched."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.vision.models import resnet50
+    cfg = RESNET50_CHIP
+    paddle.seed(2024)
+    t0 = time.perf_counter()
+    model = resnet50(data_format=cfg["data_format"])
+    opt = optimizer.LarsMomentum(parameters=model.parameters(), **LARS)
+    model, opt = amp.decorate(model, opt, level="O2", dtype=cfg["dtype"])
+    step = TrainStep(model, lambda out, labels: F.cross_entropy(out, labels),
+                     opt, n_inputs=1, donate=True)
+    rng = np.random.RandomState(0)
+    b, hw = cfg["batch"], cfg["hw"]
+    x = paddle.to_tensor(rng.standard_normal((b, 3, hw, hw)).astype(
+        np.float32)).astype(cfg["dtype"])
+    y = paddle.to_tensor(rng.randint(0, 1000, (b,), dtype=np.int64))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, counts = _train_steps(torch, step, (x, y),
+                                           warmup + steps)
+    peak = torch.cuda.max_memory_allocated()
+    timed = step_ms[warmup:]
+    mean_ms = sum(timed) / len(timed)
+    lars_ms = _update_ms(torch, opt, model, LARS["learning_rate"])
+    momentum = optimizer.Momentum(learning_rate=cfg["lr"],
+                                  momentum=cfg["momentum"],
+                                  parameters=model.parameters(),
+                                  multi_precision=True)
+    momentum_ms = _update_ms(torch, momentum, model, cfg["lr"])
+    out = {"config": cfg, "optimizer": dict(LARS, name="LarsMomentum"),
+           "dtype": "bfloat16 O2, f32 master weights",
+           "params": sum(p.numel() for p in model.parameters()),
+           "setup_s": setup_s, "warmup_steps": warmup, "timed_steps": steps,
+           "losses": losses, "step_ms": timed,
+           "step_ms_p50": float(np.median(timed)), "step_ms_mean": mean_ms,
+           "first_steps_ms": step_ms[:warmup],
+           "images_per_s": b / (mean_ms / 1e3),
+           "max_memory_allocated": peak, "update_ms_lars": lars_ms,
+           "update_ms_momentum": momentum_ms,
+           "hand_kernel_launches": counts, "nvidia_smi": nvidia_smi()}
+    log("LARS_RESNET50 " + json.dumps(out))
+    _check("LARS_RESNET50_CHECK", {
+        "|first loss - ln(1000)|": (abs(losses[0] - math.log(1000)), 3.0),
+        "non-finite losses": (sum(not math.isfinite(v) for v in losses), 0),
+        "hand kernel launches": (sum(counts.values()), 0)})
+    del model, step, opt, momentum
+    torch.cuda.empty_cache()
+
+
+def _second_order_cases(paddle, torch, dev):
+    """The double-backward cases of tests/test_torch_double_backward.py
+    on ``dev``: their results as floats and arrays."""
+    import numpy as np
+    out = {}
+    x = torch.tensor(3.0, device=dev, requires_grad=True)
+    g1, = paddle.grad(x * x * x, [x], create_graph=True)
+    g2, = paddle.grad(g1, [x])
+    out["x^3"] = np.array([float(g1), float(g2)])
+    paddle.seed(0)
+    lin = paddle.nn.Linear(4, 1).to("cpu")
+    w0 = {k: v.clone() for k, v in lin.state_dict().items()}
+    lin = paddle.nn.Linear(4, 1).to(dev)
+    lin.load_state_dict({k: v.to(dev) for k, v in w0.items()})
+    xs = torch.from_numpy(np.random.RandomState(0).randn(8, 4).astype(
+        np.float32)).to(dev).requires_grad_()
+    gx, = paddle.grad(paddle.nn.functional.tanh(lin(xs)).sum(), [xs],
+                      create_graph=True)
+    gw, = paddle.grad((gx * gx).sum(), [lin.weight])
+    out["grad of grad"] = gw.detach().cpu().numpy()
+    a = torch.from_numpy(np.random.RandomState(0).randn(6).astype(
+        np.float32)).to(dev).requires_grad_()
+    g1, = paddle.grad((a.sin() * a).sum(), [a], create_graph=True)
+    (g1 * g1).sum().backward()
+    out["sin oracle"] = a.grad.cpu().numpy()
+    b = torch.tensor([2.0], device=dev, requires_grad=True)
+    yb = (b * b).to(torch.bfloat16).float().sum()
+    g1, = paddle.grad(yb, [b], create_graph=True)
+    g2, = paddle.grad(g1.sum(), [b])
+    out["bf16 intermediate"] = np.array([float(g1), float(g2)])
+    return out
+
+
+def _wgan_gp(paddle, torch, dev, weights, xs):
+    critic = paddle.nn.Sequential(paddle.nn.Linear(4, 16), paddle.nn.Tanh(),
+                                  paddle.nn.Linear(16, 1)).to(dev)
+    critic.load_state_dict({k: v.to(dev) for k, v in weights.items()})
+    opt = paddle.optimizer.Adam(learning_rate=1e-3,
+                                parameters=critic.parameters())
+    losses = []
+    for xb in xs:
+        x = torch.from_numpy(xb).to(dev).requires_grad_()
+        score = critic(x).sum()
+        gx, = paddle.grad(score, [x], create_graph=True)
+        norm = (gx * gx).sum(axis=1).sqrt()
+        loss = -score / 16.0 + ((norm - 1.0) ** 2).mean()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+    return losses, _weights_np(critic)
+
+
+def _mha_penalty(paddle, torch, layer, x):
+    t = x.clone().requires_grad_()
+    out = layer(t, t, t)
+    g, = paddle.grad((out * out).sum(), [t], create_graph=True)
+    (g * g).sum().backward()
+    return t.grad
+
+
+@_keeps_global_state
+def phase_double_backward():
+    """49 double_backward: the double-backward cases and a WGAN-GP
+    critic (an MLP: no hand kernel), 5 steps, card against CPU;
+    ``create_graph=True`` through ``MultiHeadAttention`` at D 64 on the
+    card raises C9's error; on the CPU its value through the flash
+    Function equals the plain attention's (the flag off)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops.cuda import support
+    quantities = {}
+    cpu = _second_order_cases(paddle, torch, "cpu")
+    gpu = _second_order_cases(paddle, torch, "cuda")
+    for k in cpu:
+        quantities[f"{k} rel"] = (float(abs(gpu[k] - cpu[k]).max()
+                                        / max(1.0, abs(cpu[k]).max())), 1e-5)
+    paddle.seed(1)
+    critic = paddle.nn.Sequential(paddle.nn.Linear(4, 16), paddle.nn.Tanh(),
+                                  paddle.nn.Linear(16, 1)).to("cpu")
+    w0 = {k: v.clone() for k, v in critic.state_dict().items()}
+    rs = np.random.RandomState(1)
+    xs = [rs.randn(16, 4).astype(np.float32) for _ in range(5)]
+    lc, wc = _wgan_gp(paddle, torch, "cpu", w0, xs)
+    lg, wg = _wgan_gp(paddle, torch, "cuda", w0, xs)
+    quantities["WGAN-GP losses rel"] = (
+        max(abs(a - b) / abs(b) for a, b in zip(lg, lc)), 1e-5)
+    quantities["WGAN-GP params"] = (_max_diff(wg, wc), 1e-5)
+    # C9 on the card: the flash Function refuses a second derivative
+    paddle.seed(3)
+    mha = paddle.nn.MultiHeadAttention(128, 2).to("cpu")
+    mha.eval()
+    w_mha = {k: v.clone() for k, v in mha.state_dict().items()}
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 5, 128).astype(
+        np.float32))
+    gpu_mha = paddle.nn.MultiHeadAttention(128, 2).to("cuda")
+    gpu_mha.load_state_dict({k: v.cuda() for k, v in w_mha.items()})
+    gpu_mha.eval()
+    support.reset_launch_counts()
+    try:
+        _mha_penalty(paddle, torch, gpu_mha, x.cuda())
+        raised = "nothing"
+    except NotImplementedError as e:
+        raised = str(e)
+    torch.cuda.synchronize()
+    launched = support.launch_counts.get("flash_attention_fwd", 0)
+    # C9 on the CPU: through the Function, against plain attention
+    flash = _mha_penalty(paddle, torch, mha, x)
+    paddle.set_flags({"use_pallas_kernels": False})
+    plain = _mha_penalty(paddle, torch, mha, x)
+    paddle.set_flags({"use_pallas_kernels": True})
+    c9 = float((flash - plain).abs().max() / plain.abs().max())
+    log("DOUBLE_BACKWARD " + json.dumps({
+        "cases_cpu": {k: v.tolist() for k, v in cpu.items()},
+        "wgan_gp_losses_cpu": lc, "wgan_gp_losses_cuda": lg,
+        "card_mha_create_graph": raised, "card_flash_fwd_launches": launched,
+        "cpu_penalty_scale": float(plain.abs().max()),
+        "cpu_flash_vs_plain_rel": c9}))
+    quantities.update({
+        "card raised C9's error (0/1)": (
+            0.0 if "no second derivative" in raised else 1.0, 0.0),
+        "card K1f launched before the refusal (0/1)": (
+            0.0 if launched == 1 else 1.0, 0.0),
+        "CPU penalty, flash Function vs plain, rel": (c9, 1e-5)})
+    _check("DOUBLE_BACKWARD_CHECK", quantities)
+
+
+@_keeps_global_state
+def phase_top_level():
+    """50 top_level: flags set and put back; ``get_/set_cuda_rng_state``
+    replaying a dropout-0.1 small BERT step bit for bit; ``create_
+    parameter`` and ``flops`` on the card; the card's ``device_count``,
+    ``is_compiled_with_cuda`` and ``get_cudnn_version``."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import flags
+    quantities = {}
+    paddle.set_flags({"FLAGS_perf_sample_every": 4, "check_nan_inf": True})
+    set_ok = paddle.get_flags(["perf_sample_every", "check_nan_inf"]) == {
+        "perf_sample_every": 4, "check_nan_inf": True}
+    try:
+        paddle.set_flags({"xla_latency_hiding": True})
+        card_less_raised = False
+    except ValueError:
+        card_less_raised = True
+    quantities["flags set (0/1)"] = (0.0 if set_ok else 1.0, 0.0)
+    quantities["an XLA flag raised (0/1)"] = (0.0 if card_less_raised
+                                              else 1.0, 0.0)
+    quantities["flags registered"] = (abs(len(flags._registry) - 47), 0)
+    # the rng state replays a dropout-0.1 step: three models from the
+    # same weights; a and b step from the same state, c from where a's
+    # step left the stream
+    cfg = dict(BERT_CPU, dropout=0.1)
+    paddle.seed(7)
+    a, a_step = _bert_trainer(torch, cfg, "cuda", False)
+    b, b_step = _bert_trainer(torch, cfg, "cuda", False)
+    c, c_step = _bert_trainer(torch, cfg, "cuda", False)
+    b.load_state_dict(a.state_dict())
+    c.load_state_dict(a.state_dict())
+    x, y = _bench_batch(torch, cfg, "cuda")
+    state = paddle.get_cuda_rng_state()
+    la = float(a_step(x, y))
+    lc = float(c_step(x, y))
+    paddle.set_cuda_rng_state(state)
+    lb = float(b_step(x, y))
+    pa, pb = dict(a.named_parameters()), dict(b.named_parameters())
+    param_diff = max(float((pa[k] - pb[k]).abs().max()) for k in pa)
+    del a, b, c, a_step, b_step, c_step
+    # create_parameter and flops on the card
+    w = paddle.create_parameter([64, 32], "float32", name="w_card")
+    bias = paddle.create_parameter([32], "float32", is_bias=True)
+    lenet = paddle.vision.models.LeNet().to("cuda")
+    r18 = paddle.vision.models.resnet18().to("cuda")
+    lenet_flops = paddle.flops(lenet, [1, 1, 28, 28])
+    r18_flops = paddle.flops(r18, [1, 3, 224, 224])
+    lenet_cpu = paddle.flops(paddle.vision.models.LeNet().to("cpu"),
+                             [1, 1, 28, 28])
+    r18_cpu = paddle.flops(paddle.vision.models.resnet18().to("cpu"),
+                           [1, 3, 224, 224])
+    device = {"device_count": paddle.device_count(),
+              "is_compiled_with_cuda": paddle.is_compiled_with_cuda(),
+              "get_cudnn_version": paddle.get_cudnn_version(),
+              "get_all_devices": paddle.device.get_all_devices()}
+    log("TOP_LEVEL " + json.dumps({
+        "rng_replay_losses": [la, lb], "stream_continued_loss": lc,
+        "rng_replay_param_max_abs": param_diff,
+        "create_parameter": [str(w.device), list(w.shape),
+                             float(w.detach().std()),
+                             float(bias.detach().abs().max())],
+        "flops": {"lenet": lenet_flops, "resnet18_224": r18_flops},
+        "device": device}))
+    quantities.update({
+        "replayed loss |a - b|": (abs(la - lb), 0.0),
+        "replayed step params max |a - b|": (param_diff, 1e-6),
+        "the stream's next draw gave another loss (0/1)": (
+            0.0 if lc != la else 1.0, 0.0),
+        "create_parameter on the card (0/1)": (
+            0.0 if w.is_cuda and tuple(w.shape) == (64, 32)
+            and w.param_name == "w_card" and not bias.detach().any()
+            else 1.0, 0.0),
+        "LeNet flops card vs CPU": (abs(lenet_flops - lenet_cpu), 0),
+        "resnet18 flops card vs CPU": (abs(r18_flops - r18_cpu), 0),
+        "device_count >= 1 (0/1)": (0.0 if device["device_count"] >= 1
+                                    else 1.0, 0.0),
+        "is_compiled_with_cuda (0/1)": (
+            0.0 if device["is_compiled_with_cuda"] else 1.0, 0.0),
+        "cudnn version is an int (0/1)": (
+            0.0 if isinstance(device["get_cudnn_version"], int) else 1.0,
+            0.0)})
+    _check("TOP_LEVEL_CHECK", quantities)
+    del lenet, r18
+    torch.cuda.empty_cache()
+
+
+@_keeps_global_state
+def phase_public_paged_attention():
+    """51 public_paged_attention: ``paged_attention`` on the card at phase
+    2's shapes launches K4 once a call and equals its plain version;
+    registering a function, and then ``None``, leaves K4's launches as
+    they were."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops.attention import paged_attention_reference
+    from paddle_tpu_torch.ops.cuda import support
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    calls, errs, quantities = [], {}, {}
+
+    def registered(q, k_pool, v_pool, page_table, lengths, scale,
+                   layer=None):
+        calls.append(tuple(q.shape))
+        return paged_attention_reference(q, k_pool, v_pool, page_table,
+                                         lengths, scale=scale, layer=layer)
+
+    launches = {}
+    for label, H, Hkv, P, dtype, lens in kernel_times.paged_cases(gen):
+        q, k, v, table, lengths = kernel_times.paged_inputs(gen, H, Hkv, P,
+                                                            dtype, lens)
+        dname = str(dtype).replace("torch.", "")
+        name = f"{label} H={H} Hkv={Hkv} P={P} {dname}"
+        ref = paged_attention_reference(q, k, v, table, lengths,
+                                        scale=1 / math.sqrt(q.shape[-1]),
+                                        layer=0)
+        for when, fn in (("none", None), ("registered", registered),
+                         ("cleared", None)):
+            paddle.register_paged_attention_kernel(fn)
+            support.reset_launch_counts()
+            got = paddle.paged_attention(q, k, v, table, lengths, layer=0)
+            torch.cuda.synchronize()
+            n = support.launch_counts.get(K4, 0)
+            launches[f"{name} {when}"] = n
+            quantities[f"{name} {when}: |K4 launches - 1|"] = (abs(n - 1), 0)
+            errs[f"{name} {when}"] = (got.float() - ref.float()).abs().max(
+            ).item()
+            quantities[f"{name} {when}: max abs err"] = (
+                errs[f"{name} {when}"], TOL[dname])
+        del q, k, v, table, lengths
+    paddle.register_paged_attention_kernel(None)
+    quantities["registered function calls on K4's shapes"] = (len(calls), 0)
+    log("PUBLIC_PAGED " + json.dumps({"launches": launches,
+                                      "max_abs_err": errs}))
+    _check("PUBLIC_PAGED_CHECK", quantities)
+    return sum(launches.values())
+
+
+@_keeps_global_state
+def phase_ops_pallas():
+    """52 ops_pallas: each ``ops.pallas`` entry on CUDA tensors at a small
+    shape launches its kernel (counted in ``kernel_selections``) and
+    equals its plain version; ``interpret=True`` on the card raises."""
+    import torch
+    from paddle_tpu_torch.ops import fused_adam as fa
+    from paddle_tpu_torch.ops import pallas
+    from paddle_tpu_torch.ops.attention import paged_attention_reference
+    from paddle_tpu_torch.ops.cuda import support
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(52)
+
+    def rand(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max().clamp_min(1))
+
+    quantities, launches = {}, {}
+    support.reset_launch_counts()
+    # flash attention, forward and backward (K1f, K1b)
+    q, k, v, do = (rand(2, 128, 2, 64) for _ in range(4))
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = pallas.flash_attention(qg, kg, vg, causal=True, block_q=128,
+                                 block_k=128)
+    grads = torch.autograd.grad(out, (qg, kg, vg), do)
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    ref = pallas.mha_reference(qr, kr, vr, causal=True)
+    rgrads = torch.autograd.grad(ref, (qr, kr, vr), do)
+    quantities["flash_attention out rel"] = (rel(out, ref), FLASH_TOL[
+        "float32"])
+    for n, a, b in zip(("dq", "dk", "dv"), grads, rgrads):
+        quantities[f"flash_attention {n} rel"] = (rel(a, b), FLASH_TOL[
+            "float32"])
+    # fused epilogue, forward and backward (K2f, K2b)
+    stages = (("gelu", True), ("add",))
+    x, w, bias = rand(64, 128), rand(128, 256, scale=0.1), rand(256)
+    res, dy = rand(64, 256), rand(64, 256)
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = pallas.fused_linear_epilogue(xg, wg, bias, stages, (res,))
+    gx, gw = torch.autograd.grad(y, (xg, wg), dy)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    yr = pallas.reference_epilogue(xr, wr, bias, stages, (res,))
+    rx, rw = torch.autograd.grad(yr, (xr, wr), dy)
+    quantities["fused_linear_epilogue out rel"] = (rel(y, yr),
+                                                   EPI_TOL["float32"])
+    quantities["fused_linear_epilogue dx rel"] = (rel(gx, rx),
+                                                  EPI_TOL["float32"])
+    quantities["fused_linear_epilogue dw rel"] = (rel(gw, rw),
+                                                  EPI_TOL["float32"])
+    # fused Adam (K3)
+    p, g, m = rand(1000), rand(1000), rand(1000)
+    vv = rand(1000).abs()
+    got = pallas.fused_adam_update(p, g, m, vv, 1e-3, 4.0)
+    pp, mm, v2 = p.clone(), m.clone(), vv.clone()
+    fa.fused_adam_reference_([pp], [g], [mm], [v2],
+                             torch.tensor(1e-3, device="cuda"),
+                             torch.tensor(4.0, device="cuda"))
+    quantities["fused_adam_update max abs"] = (max(
+        float((a - b).abs().max()) for a, b in zip(got, (pp, mm, v2))),
+        ADAM_TOL)
+    # paged decode (K4)
+    case = kernel_times.paged_cases(gen)[3]
+    qp, kp, vp, table, lengths = kernel_times.paged_inputs(gen, *case[1:])
+    got = pallas.paged_attention_decode(qp, kp, vp, table, lengths,
+                                        layer=1)
+    ref = paged_attention_reference(qp, kp, vp, table, lengths,
+                                    scale=1 / math.sqrt(qp.shape[-1]),
+                                    layer=1)
+    quantities["paged_attention_decode max abs"] = (
+        float((got - ref).abs().max()), TOL["float32"])
+    torch.cuda.synchronize()
+    launches = dict(pallas.kernel_selections)
+    for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv", "fused_epilogue_fwd",
+              "fused_epilogue_bwd", "fused_epilogue_bwd_grads",
+              "fused_adam", K4):
+        quantities[f"|{n} launches - 1|"] = (abs(launches.get(n, 0) - 1), 0)
+    raised = []
+    for name, call in (
+            ("fused_adam_update", lambda: pallas.fused_adam_update(
+                p, g, m, vv, 1e-3, 4.0, interpret=True)),
+            ("fused_linear_epilogue", lambda: pallas.fused_linear_epilogue(
+                x, w, bias, stages, (res,), interpret=True)),
+            ("paged_attention_decode", lambda: pallas.paged_attention_decode(
+                qp, kp, vp, table, lengths, layer=1, interpret=True))):
+        try:
+            call()
+        except ValueError:
+            raised.append(name)
+    quantities["entries that did not refuse interpret=True"] = (
+        3 - len(raised), 0)
+    log("OPS_PALLAS " + json.dumps({"launches": launches,
+                                    "interpret_refused": raised}))
+    _check("OPS_PALLAS_CHECK", quantities)
+    return launches
+
+
 def _instance_row(row):
     """One instance of a kernel (a path's shape), for the kernels
     line."""
@@ -4992,6 +5930,14 @@ def main():
     del ptb_model
     torch.cuda.empty_cache()
     timed("nn_tail", phase_nn_tail)
+    timed("tail_optimizers", phase_tail_optimizers)
+    lamb_launches = timed("lamb_bert", phase_lamb_bert)
+    timed("lars_resnet50", phase_lars_resnet50)
+    timed("double_backward", phase_double_backward)
+    timed("top_level", phase_top_level)
+    public_paged = timed("public_paged_attention",
+                         phase_public_paged_attention)
+    pallas_launches = timed("ops_pallas", phase_ops_pallas)
     seconds["total"] = time.perf_counter() - t0
     log("PHASE_SECONDS " + json.dumps(seconds))
     f32_err = max(r["max_abs_err"] for r in kernel_rows
@@ -5002,7 +5948,10 @@ def main():
         "name": "paged_attention_decode", "route": "cuda",
         "source": "paddle_tpu_torch/ops/cuda/csrc/paged_attention.cu",
         "replaces": "paddle_tpu/ops/pallas/paged_attention.py:63",
-        "launches": launches,
+        "launches": launches + public_paged + pallas_launches[K4],
+        "launches_by_entry": {
+            "serving decode": launches, "paged_attention": public_paged,
+            "ops.pallas.paged_attention_decode": pallas_launches[K4]},
         "max_abs_err": f32_err, "max_err": f32_err,
         "max_abs_err_bf16": max(r["max_abs_err"] for r in kernel_rows
                                 if r["case"].endswith("bfloat16")),
@@ -5026,7 +5975,8 @@ def main():
             "replaces": site,
             "launches": (flash_launches[name] + gpt_launches[name]
                          + gpt760_launches[name] + sgpt_launches[name]
-                         + nmt_launches[name] + decode_launches),
+                         + nmt_launches[name] + decode_launches
+                         + lamb_launches[name] + pallas_launches[name]),
             "launches_by_entry": {"flash_attention": flash_launches[name],
                                   "flash_attention_block":
                                       gpt_launches[name],
@@ -5037,7 +5987,11 @@ def main():
                                   "flash_attention (translation "
                                   "training)": nmt_launches[name],
                                   "flash_attention (translation decode, "
-                                  "8 tokens)": decode_launches},
+                                  "8 tokens)": decode_launches,
+                                  "flash_attention (LAMB bert)":
+                                      lamb_launches[name],
+                                  "ops.pallas.flash_attention":
+                                      pallas_launches[name]},
             "max_abs_err": r["max_abs_err"],
             "max_abs_err_bf16": r["max_abs_err_bf16"], "shape": r["case"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -5063,7 +6017,8 @@ def main():
         by_path = {"static bert": static_launches.get(name, 0),
                    "static gpt": sgpt_launches.get(name, 0),
                    **{f"static {p}": n.get(name, 0)
-                      for p, n in bench_launches.items()}}
+                      for p, n in bench_launches.items()},
+                   "ops.pallas": pallas_launches.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"paddle_tpu_torch/ops/cuda/csrc/{src}",

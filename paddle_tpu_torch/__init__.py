@@ -58,28 +58,62 @@ These slices are in:
   :func:`case`, :func:`switch_case` and :func:`while_loop`, eager and
   in a static Program.
 
+- the rest of the eager surface: the tail optimizers (Adamax,
+  Adagrad, Adadelta, RMSProp, :class:`optimizer.Lamb`,
+  :class:`optimizer.LarsMomentum`, Ftrl, Dpsgd, ProximalGD,
+  ProximalAdagrad, DecayedAdagrad) and :mod:`.optimizer.extras` (EMA,
+  ModelAverage, Lookahead), second derivatives
+  (``grad(create_graph=True)``; through a hand kernel's autograd
+  Function exact on the CPU and refused on the card), the flags
+  registry (:func:`get_flags`, :func:`set_flags`), the names of
+  ``framework_compat`` (``*Place``, the dygraph switches, the CUDA RNG
+  state, :func:`create_parameter`, :func:`flops`), the device queries,
+  :func:`paged_attention` with :func:`register_paged_attention_kernel`,
+  and :mod:`.ops.pallas`, the JAX package's kernel entries over the
+  CUDA kernels.
+
 Models, pools, engines, static parameters and new tensors go to the
 current CUDA device unless the caller passes ``device=`` / ``place=``
 (e.g. ``"cpu"``) or calls ``set_device``; with no GPU and neither, they
 raise.
 """
+from __future__ import annotations
+
+import builtins as _builtins
+
 from . import (amp, core, distributed, framework_io, jit, metric,  # noqa
                nn, ops, optimizer, parallel, serving, static, testing, utils,
                vision)
 from .core.autograd import (enable_grad, grad, is_grad_enabled,  # noqa
                             no_grad)
+from .core.dispatch import apply  # noqa: F401
+from .core.flags import get_flags, set_flags  # noqa: F401
 from .core.dtype import (bfloat16, bool_, complex64, complex128,  # noqa
                          convert_dtype, float16, float32, float64,
                          get_default_dtype, int8, int16, int32, int64,
                          set_default_dtype, uint8)
 from .core.placement import device  # noqa: F401
-from .core.rng import get_rng_state, seed, set_rng_state  # noqa: F401
+from .core.rng import get_rng_state, next_key, seed, set_rng_state  # noqa
+from .framework_compat import (CPUPlace, CUDAPinnedPlace,  # noqa: F401
+                               CUDAPlace, TPUPlace, XPUPlace,
+                               create_parameter, disable_dygraph,
+                               enable_dygraph, flops, get_cuda_rng_state,
+                               get_cudnn_version, in_dygraph_mode,
+                               set_cuda_rng_state, set_printoptions)
 from .core.tensor import Parameter, Tensor, to_tensor  # noqa: F401
-from .device import get_device, set_device  # noqa: F401
+from .device import (device_count, get_all_devices,  # noqa: F401
+                     get_device, is_compiled_with_cuda,
+                     is_compiled_with_tpu, is_compiled_with_xpu,
+                     set_device)
 from .framework_io import load, save  # noqa: F401
 from .nn.layer_base import ParamAttr  # noqa: F401
 from .ops import linalg, monkey_patch_tensor  # noqa: F401
+from .nn.functional import as_array  # noqa: F401
+from .ops.attention import (paged_attention,  # noqa: F401
+                            paged_attention_supported,
+                            register_paged_attention_kernel)
 from .ops.control_flow import case, cond, switch_case, while_loop  # noqa
+from .parallel import DataParallel  # noqa: F401
 from .ops.creation import *  # noqa: F401,F403
 from .ops.linalg import cholesky, dist, histogram, inverse, norm  # noqa
 from .ops.logic import *  # noqa: F401,F403
@@ -102,7 +136,17 @@ __all__ = (["amp", "core", "distributed", "framework_io", "jit", "metric",
             "complex64", "complex128", "float16", "float32", "float64",
             "int8", "int16", "int32", "int64", "uint8",
             "enable_static", "disable_static", "in_dynamic_mode", "cond",
-            "case", "switch_case", "while_loop"]
+            "case", "switch_case", "while_loop", "apply", "as_array",
+            "next_key", "get_flags", "set_flags", "CPUPlace",
+            "CUDAPinnedPlace", "CUDAPlace", "TPUPlace", "XPUPlace",
+            "create_parameter", "disable_dygraph", "enable_dygraph",
+            "flops", "get_cuda_rng_state", "get_cudnn_version",
+            "in_dygraph_mode", "set_cuda_rng_state", "set_printoptions",
+            "device_count", "get_all_devices", "is_compiled_with_cuda",
+            "is_compiled_with_tpu", "is_compiled_with_xpu",
+            "paged_attention", "paged_attention_supported",
+            "register_paged_attention_kernel", "DataParallel",
+            "builtins_slice", "annotations"]
            + ops.creation.__all__ + ops.logic.__all__
            + ops.manipulation.__all__ + ops.math.__all__
            + ops.random.__all__ + ops.reduction.__all__)
@@ -125,3 +169,8 @@ def disable_static(place=None):
 
 def in_dynamic_mode() -> bool:
     return not _static_mode
+
+
+# the JAX package's top level carries the builtin ``slice`` under this
+# name (its ``slice`` is the op)
+builtins_slice = _builtins.slice

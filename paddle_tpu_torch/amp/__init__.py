@@ -27,10 +27,11 @@ import threading
 import torch
 
 from ..core.dtype import convert_dtype
+from ..core.tensor import Tensor
 
 __all__ = ["WHITE_LIST", "BLACK_LIST", "auto_cast", "amp_guard",
            "amp_active", "amp_cast_inputs", "amp_state", "decorate",
-           "GradScaler"]
+           "GradScaler", "Tensor"]
 
 # op lists, by paddle op name (paddle_tpu/amp/__init__.py:24-39)
 WHITE_LIST = {

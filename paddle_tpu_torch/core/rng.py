@@ -41,8 +41,8 @@ from typing import Dict, Iterator, NamedTuple, Optional, Tuple, Union
 import torch
 
 __all__ = ["seed", "get_rng_state", "set_rng_state", "RngState",
-           "generator", "next_seed", "fold_in", "mul32", "fmix32",
-           "dropout_threshold", "StableDraw"]
+           "generator", "next_seed", "next_key", "fold_in", "mul32",
+           "fmix32", "dropout_threshold", "StableDraw"]
 
 M32 = 0xFFFFFFFF
 
@@ -147,6 +147,11 @@ def next_seed() -> int:
         _draws += 1
         return int(torch.randint(-2 ** 31, 2 ** 31 - 1, (1,),
                                  generator=_host).item())
+
+
+# the JAX package's name (its ``next_key`` gives a threefry key, the
+# port an int32 seed)
+next_key = next_seed
 
 
 @contextlib.contextmanager

@@ -67,6 +67,9 @@ __all__ = (["linear", "embedding", "layer_norm", "gelu", "relu", "dropout",
            + vision.__all__)
 
 
+next_key = rng.next_key
+
+
 def as_array(x):
     """The torch tensor under a paddle Tensor; anything else as it is."""
     return x.as_subclass(torch.Tensor) if isinstance(x, Tensor) else x
@@ -76,12 +79,6 @@ def np_asarray(x):
     """``x`` as a numpy array (a tensor is copied to the host)."""
     return (_plain(x).numpy() if isinstance(x, torch.Tensor)
             else np.asarray(x))
-
-
-def next_key():
-    """A fresh int32 seed from ``core.rng`` (the JAX package's
-    ``next_key`` gives a threefry key)."""
-    return rng.next_seed()
 
 
 def stable_draw():

@@ -20,7 +20,9 @@ from ...core.placement import device as _resolve_device
 __all__ = ["Initializer", "Constant", "Normal", "TruncatedNormal",
            "Uniform", "XavierNormal", "XavierUniform", "KaimingNormal",
            "KaimingUniform", "Assign", "Orthogonal", "Dirac", "constant",
-           "normal", "uniform"]
+           "normal", "uniform", "next_key"]
+
+next_key = rng.next_key
 
 
 def _fans(shape):

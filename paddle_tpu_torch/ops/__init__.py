@@ -31,9 +31,13 @@ import torch
 
 from . import (attention, chunk_matmul, collective_matmul,  # noqa: F401
                creation, cuda, flash_attention, fused_adam, fused_epilogue,
-               linalg, logic, manipulation, math, random, reduction)
-from .attention import (paged_attention_reference,  # noqa: F401
-                        paged_attention_select, paged_attention_supported)
+               linalg, logic, manipulation, math, pallas, random,
+               reduction, sequence)
+from .attention import (paged_attention,  # noqa: F401
+                        paged_attention_reference, paged_attention_select,
+                        paged_attention_supported,
+                        register_paged_attention_kernel)
+from .control_flow import case, cond, switch_case, while_loop  # noqa: F401
 from .creation import *  # noqa: F401,F403
 from .linalg import dist, norm  # noqa: F401
 from .logic import *  # noqa: F401,F403
@@ -43,6 +47,7 @@ from .random import *  # noqa: F401,F403
 from .reduction import *  # noqa: F401,F403
 from ..amp import _entered, amp_state
 from ..core.dispatch import Symbolic
+from ..core.dtype import convert_dtype, get_default_dtype  # noqa: F401
 from ..core.tensor import Tensor, wrap
 
 _TORCH_KW = frozenset(("dim", "out", "alpha", "correction", "stable",

@@ -16,26 +16,55 @@ Two versions of one function, chosen by where the tensors lie:
   hand-written CUDA kernel, which raises on shapes it does not take.
 
 :func:`paged_attention_select` is the serving decode step's dispatch, as
-in the JAX package: the kernel where :func:`paged_attention_supported`
-takes the call (``FLAGS_use_pallas_kernels`` on, CUDA tensors, a dtype
-and shapes the kernel was built for), the plain version for everything
-else, on the card too.  The TPU's own gates (head dim % 128, page % 8)
-are its tiling; the card's gate is the kernel's instance set.
+in the JAX package: the kernel where :func:`kernel_supported` takes the
+call (``FLAGS_use_pallas_kernels`` on, CUDA tensors, a dtype and shapes
+the kernel was built for), the plain version for everything else, on
+the card too.  The TPU's own gates (head dim % 128, page % 8) are its
+tiling; the card's gate is the kernel's instance set.
+
+:func:`register_paged_attention_kernel` installs a function with the
+plain version's contract, as in the JAX package, where it is the only
+way to a kernel.  Here it never takes a call the CUDA kernel takes: it
+only adds a route where the JAX package would call it, among the calls
+the kernel refuses (its gate less the TPU backend test: the flag on,
+f32 or bf16, a head dim that is a multiple of 128, pages a multiple of
+8, and the function's own ``supported`` if it has one).  ``None``
+clears it.  :func:`paged_attention` is the public entry, in the JAX
+signature, over :func:`paged_attention_select`.
 """
 from __future__ import annotations
 
+import inspect
 import math
+from typing import Callable, Optional
 
 import torch
 
+from ..core.dispatch import apply
 from ..core.flags import get_flag
 from .cuda.paged_attention import (SUPPORTED_GROUPS, SUPPORTED_HEAD_DIMS,
                                    paged_attention_decode)
 
-__all__ = ["paged_attention_reference", "paged_attention_select",
-           "paged_attention_supported"]
+__all__ = ["paged_attention", "paged_attention_reference",
+           "paged_attention_select", "paged_attention_supported",
+           "kernel_supported", "register_paged_attention_kernel"]
 
 _NEG = -1e30
+
+# the registered function (None: none registered)
+_REGISTERED: Optional[Callable] = None
+
+
+def register_paged_attention_kernel(fn: Optional[Callable]) -> None:
+    """Install ``fn(q, k_pool, v_pool, page_table, lengths, scale[,
+    layer])``, or clear it with ``None``; see the module docstring for
+    the calls it takes."""
+    global _REGISTERED
+    _REGISTERED = fn
+
+
+def registered_kernel() -> Optional[Callable]:
+    return _REGISTERED
 
 
 def paged_attention_reference(q, k_pool, v_pool, page_table, lengths,
@@ -77,8 +106,37 @@ def paged_attention_reference(q, k_pool, v_pool, page_table, lengths,
     return out.to(q.dtype)
 
 
-def paged_attention_supported(q_shape, pool_shape, dtype, page_size,
-                              device) -> bool:
+def _registered_takes(q_shape, pool_shape, dtype, page_size) -> bool:
+    """The JAX package's gate for a registered function, less its TPU
+    backend test."""
+    fn = _REGISTERED
+    if fn is None or not get_flag("use_pallas_kernels"):
+        return False
+    if dtype not in (torch.float32, torch.bfloat16):
+        return False
+    if len(q_shape) != 3 or len(pool_shape) not in (4, 5):
+        return False
+    if q_shape[-1] % 128 or q_shape[-1] != pool_shape[-1] or page_size % 8:
+        return False
+    gate = getattr(fn, "supported", None)
+    return gate is None or bool(gate(tuple(q_shape), tuple(pool_shape),
+                                     dtype, page_size))
+
+
+def paged_attention_supported(q_shape, kv_pool_shape, dtype, page_size,
+                              device="cuda") -> bool:
+    """Whether :func:`paged_attention` takes the call off the plain
+    version (the JAX signature; ``device``, the card by default, is
+    where the tensors lie): the CUDA kernel takes it, or a registered
+    function does."""
+    return (kernel_supported(q_shape, kv_pool_shape, dtype, page_size,
+                             device)
+            or _registered_takes(q_shape, kv_pool_shape, dtype,
+                                 page_size))
+
+
+def kernel_supported(q_shape, pool_shape, dtype, page_size,
+                     device) -> bool:
     """Capability gate of the CUDA decode kernel (not profitability):
     ``FLAGS_use_pallas_kernels`` on, tensors on CUDA, f32 or bf16, q
     ``[S, H, D]`` over a 4-D ``[N, page, Hkv, D]`` or 5-D ``[L, N, page,
@@ -104,12 +162,45 @@ def paged_attention_supported(q_shape, pool_shape, dtype, page_size,
 def paged_attention_select(q, k_pool, v_pool, page_table, lengths, *,
                            scale, layer=None):
     """The serving decode step's attention: the CUDA kernel where
-    :func:`paged_attention_supported` takes the call, else the plain
-    version (the CPU, the flag off, or a head dim or GQA group the
-    kernel was not built for)."""
-    if paged_attention_supported(tuple(q.shape), tuple(k_pool.shape),
-                                 q.dtype, int(k_pool.shape[-3]), q.device):
+    :func:`kernel_supported` takes the call, else a registered function
+    where it takes the call, else the plain version (the CPU, the flag
+    off, or a head dim or GQA group the kernel was not built for)."""
+    q_shape, pool_shape = tuple(q.shape), tuple(k_pool.shape)
+    page = int(pool_shape[-3])
+    if kernel_supported(q_shape, pool_shape, q.dtype, page, q.device):
         return paged_attention_decode(q, k_pool, v_pool, page_table,
                                       lengths, scale=scale, layer=layer)
+    fn = _REGISTERED
+    if _registered_takes(q_shape, pool_shape, q.dtype, page):
+        if _takes_layer(fn):
+            return fn(q, k_pool, v_pool, page_table, lengths,
+                      scale=float(scale), layer=layer)
+        if layer is None:
+            return fn(q, k_pool, v_pool, page_table, lengths,
+                      scale=float(scale))
     return paged_attention_reference(q, k_pool, v_pool, page_table,
                                      lengths, scale=scale, layer=layer)
+
+
+def _takes_layer(fn) -> bool:
+    """Whether ``fn`` takes ``layer=`` (by its signature, as the JAX
+    package decides it)."""
+    try:
+        params = inspect.signature(fn).parameters
+    except (TypeError, ValueError):
+        return False
+    return "layer" in params or any(
+        p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values())
+
+
+def paged_attention(q, k_pool, v_pool, page_table, lengths, scale=None,
+                    layer=None, name=None):
+    """Decode-phase paged attention, one query token a sequence slot
+    (the JAX package's public entry): :func:`paged_attention_select`
+    with ``scale`` 1/sqrt(D) by default, recorded as the op
+    ``paged_attention`` in a static Program."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return apply(paged_attention_select, q, k_pool, v_pool, page_table,
+                 lengths, op_name="paged_attention",
+                 attrs=dict(scale=float(scale), layer=layer))

@@ -45,7 +45,7 @@ __all__ = ["flash_attention", "flash_attention_supported",
            "flash_attention_reference_fwd", "flash_attention_reference_bwd",
            "attention_delta", "dropout_keep_mask", "mha_reference",
            "FlashAttention", "flash_attention_block", "FlashAttentionBlock",
-           "NEG_INF"]
+           "plain_graph_grads", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -173,11 +173,41 @@ def _bhld(t):
     return t.transpose(1, 2)
 
 
+def plain_graph_grads(kernel, inputs, plain_fwd, cotangents):
+    """A hand kernel's backward run with grad mode on (a second
+    derivative: ``grad(create_graph=True)``).  On CPU tensors: the
+    gradients of ``plain_fwd(*inputs)`` (the outputs recomputed from the
+    saved inputs, in the graph) against the inputs that require grad,
+    taken with ``create_graph=True``, so a derivative of the gradients
+    has every term.  On CUDA tensors it raises: the kernels compute
+    first derivatives only, and a gradient that lacked the second-order
+    terms would be wrong without an error."""
+    if any(t.device.type == "cuda" for t in inputs):
+        raise NotImplementedError(
+            f"{kernel}: the CUDA kernel has no second derivative "
+            f"(grad(create_graph=True) through it); take the gradient "
+            f"without create_graph, or run the model on the CPU")
+    need = [t.requires_grad for t in inputs]
+    wrt = [t for t in inputs if t.requires_grad]
+    with torch.enable_grad():
+        outs = plain_fwd(*inputs)
+    pairs = [(o, c) for o, c in zip(outs, cotangents)
+             if c is not None and o.requires_grad]
+    if not wrt or not pairs:
+        return [None] * len(inputs)
+    got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                   [c for _, c in pairs], create_graph=True,
+                                   allow_unused=True))
+    return [next(got) if n else None for n in need]
+
+
 class FlashAttention(torch.autograd.Function):
     """Flash attention over ``[B, L, H, D]`` with the kernels' backward:
     the CUDA kernels for CUDA tensors, the plain versions for the others
     (CPU tensors, and ``meta`` ones when a static program infers shapes).
-    Saves ``(q, k, v, out, lse)``; the seed rides on ``ctx``."""
+    Saves ``(q, k, v, out, lse)``; the seed rides on ``ctx``.  A backward
+    with grad mode on (a second derivative) goes through
+    :func:`plain_graph_grads`: exact on the CPU, an error on the card."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, dropout_p, seed):
@@ -197,7 +227,12 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         kw = ctx.kw
-        if q.device.type == "cuda":
+        if torch.is_grad_enabled():
+            dq, dk, dv = plain_graph_grads(
+                "flash_attention", (q, k, v),
+                lambda q, k, v: (_bhld(flash_attention_reference_fwd(
+                    _bhld(q), _bhld(k), _bhld(v), **kw)[0]),), (dout,))
+        elif q.device.type == "cuda":
             dout = dout.contiguous()
             delta = attention_delta(_bhld(dout), _bhld(out))
             dq = _cuda.flash_attention_bwd_dq(q, k, v, dout, lse, delta,
@@ -216,7 +251,8 @@ class FlashAttentionBlock(torch.autograd.Function):
     """``(out, lse)`` of one query block against one key block, both
     differentiable: the CUDA kernels for CUDA tensors, the plain versions
     for the others.
-    Saves ``(q, k, v, out, lse)``; a missing cotangent counts as zero."""
+    Saves ``(q, k, v, out, lse)``; a missing cotangent counts as zero.
+    A second derivative goes through :func:`plain_graph_grads`."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_off, k_off, scale, causal):
@@ -237,6 +273,11 @@ class FlashAttentionBlock(torch.autograd.Function):
     def backward(ctx, dout, dlse):
         q, k, v, out, lse = ctx.saved_tensors
         kw = ctx.kw
+        if torch.is_grad_enabled():
+            dq, dk, dv = plain_graph_grads(
+                "flash_attention_block", (q, k, v),
+                lambda q, k, v: _block_plain(q, k, v, kw), (dout, dlse))
+            return dq, dk, dv, None, None, None, None
         if dout is None:
             dout = torch.zeros_like(out)
         if q.device.type == "cuda":
@@ -252,6 +293,12 @@ class FlashAttentionBlock(torch.autograd.Function):
                 dlse, **kw)
             dq, dk, dv = (_bhld(g).contiguous() for g in grads)
         return dq, dk, dv, None, None, None, None
+
+
+def _block_plain(q, k, v, kw):
+    out, lse = flash_attention_reference_fwd(_bhld(q), _bhld(k), _bhld(v),
+                                             **kw)
+    return _bhld(out), lse
 
 
 def flash_attention_block(q, k, v, q_off: int = 0, k_off: int = 0,

@@ -38,6 +38,7 @@ import torch.nn.functional as TF
 from ..core.dtype import convert_dtype
 from .cuda import fused_epilogue as _cuda
 from .cuda.fused_epilogue import MAX_LN_N, ops_per_stage
+from .flash_attention import plain_graph_grads
 
 __all__ = ["fused_linear_epilogue", "fused_epilogue_supported",
            "reference_epilogue", "epilogue_forward_reference",
@@ -198,7 +199,10 @@ def epilogue_backward_reference(x, w, ops, stages, dy):
 class FusedLinearEpilogue(torch.autograd.Function):
     """``epilogue(x2 @ w)`` over 2-D x2 with the kernels' backward: the
     CUDA kernels for CUDA tensors, the plain versions for the others.
-    Saves ``(x2, w, *ops)``: the backward recomputes the rest."""
+    Saves ``(x2, w, *ops)``: the backward recomputes the rest.  A second
+    derivative goes through
+    :func:`~.flash_attention.plain_graph_grads`: exact on the CPU, an
+    error on the card."""
 
     @staticmethod
     def forward(ctx, x2, w, stages, *ops):
@@ -215,7 +219,13 @@ class FusedLinearEpilogue(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x2, w, *ops = ctx.saved_tensors
-        if x2.device.type == "cuda":
+        if torch.is_grad_enabled():
+            stages = ctx.stages
+            dx, dw, *dops = plain_graph_grads(
+                "fused_linear_epilogue", (x2, w, *ops),
+                lambda x2, w, *ops: (epilogue_forward_reference(
+                    x2, w, ops, stages),), (dy,))
+        elif x2.device.type == "cuda":
             dx, dw, dops = _cuda.fused_epilogue_bwd(x2, w, ops, ctx.stages,
                                                     dy.contiguous())
         else:

@@ -1,5 +1,7 @@
-"""Optimizer base, SGD, Momentum, Adam and AdamW
-(paddle_tpu.optimizer.optimizer).
+"""The optimizers of paddle_tpu.optimizer.optimizer: the base, SGD,
+Momentum, Adam and AdamW, and the tail (Adamax, Adagrad, Adadelta,
+RMSProp, Lamb, LarsMomentum, Ftrl, Dpsgd, ProximalGD, ProximalAdagrad,
+DecayedAdagrad).
 
 Every optimizer defines two pure functions over tensors, as in
 paddle_tpu: ``init_slots`` and the list-wise ``update``, shared by
@@ -47,7 +49,9 @@ from .clip import ClipGradBase
 from .lr import LRScheduler
 from .regularizer import L2Decay, WeightDecayRegularizer
 
-__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adamax",
+           "Adagrad", "Adadelta", "RMSProp", "Lamb", "LarsMomentum", "Ftrl",
+           "Dpsgd", "ProximalGD", "ProximalAdagrad", "DecayedAdagrad"]
 
 _LOW = (torch.bfloat16, torch.float16)
 
@@ -467,3 +471,397 @@ class AdamW(Adam):
                 sub, torch._foreach_mul(sub, lr * self._coeff))):
             out[i] = p
         return out
+
+
+# -- the tail: paddle_tpu/optimizer/optimizer.py's other optimizers --------
+def _slot_dtype(opt, p):
+    """f32 for a bf16/f16 parameter with a master copy, else its own."""
+    return (torch.float32 if opt._multi_precision and p.dtype in _LOW
+            else p.dtype)
+
+
+def _zeros(opt, p):
+    return torch.zeros_like(p, dtype=_slot_dtype(opt, p))
+
+
+def _bias_correction(beta: float, step):
+    """``1 - beta ** step`` in f32, as paddle_tpu takes it (``step`` an
+    int, or a 0-d device tensor: then a 0-d f32 tensor, no host read)."""
+    if isinstance(step, torch.Tensor):
+        return 1.0 - torch.pow(torch.tensor(beta, dtype=torch.float32,
+                                            device=step.device),
+                               step.float())
+    return float(np.float32(1.0) - np.float32(beta) ** np.float32(step))
+
+
+def _norms(ts):
+    """Each tensor's L2 norm, stacked into one f32 vector (one
+    multi-tensor reduction; nothing is read on the host)."""
+    return torch.stack(torch._foreach_norm(ts)).float()
+
+
+def _per_tensor(scale, like):
+    """A stacked per-tensor scale as 0-d tensors in each one's dtype."""
+    return [s.to(t.dtype) for s, t in zip(scale.unbind(), like)]
+
+
+class Adamax(Optimizer):
+    """``m = b1 m + (1 - b1) g``; ``u = max(b2 u, |g|)``; ``p - lr / (1 -
+    b1^t) * m / (u + eps)``."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
+
+    def init_slots(self, p):
+        return {"m": _zeros(self, p), "inf": _zeros(self, p)}
+
+    def update(self, params, grads, slots, lr, step):
+        b1, b2 = self._beta1, self._beta2
+        m = torch._foreach_add(torch._foreach_mul([s["m"] for s in slots],
+                                                  b1),
+                               torch._foreach_mul(grads, 1.0 - b1))
+        u = torch._foreach_maximum(
+            torch._foreach_mul([s["inf"] for s in slots], b2),
+            torch._foreach_abs(grads))
+        scale = lr / _bias_correction(b1, step)
+        upd = torch._foreach_div(torch._foreach_mul(m, scale),
+                                 torch._foreach_add(u, self._eps))
+        return (torch._foreach_sub(params, upd),
+                [{"m": a, "inf": b} for a, b in zip(m, u)])
+
+
+class Adagrad(Optimizer):
+    """``mom += g^2``; ``p - lr g / (sqrt(mom) + eps)``."""
+
+    def __init__(self, learning_rate, epsilon=1e-6, parameters=None,
+                 weight_decay=None, grad_clip=None,
+                 initial_accumulator_value=0.0, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._eps = epsilon
+        self._init_acc = initial_accumulator_value
+
+    def init_slots(self, p):
+        return {"moment": torch.full_like(p, self._init_acc,
+                                          dtype=_slot_dtype(self, p))}
+
+    def update(self, params, grads, slots, lr, step):
+        mom = torch._foreach_addcmul([s["moment"] for s in slots], grads,
+                                     grads)
+        denom = torch._foreach_add(torch._foreach_sqrt(mom), self._eps)
+        upd = torch._foreach_div(torch._foreach_mul(grads, lr), denom)
+        return (torch._foreach_sub(params, upd),
+                [{"moment": a} for a in mom])
+
+
+class Adadelta(Optimizer):
+    """``E[g^2] = rho E[g^2] + (1 - rho) g^2``; ``u = g sqrt(E[u^2] +
+    eps) / sqrt(E[g^2] + eps)``; ``E[u^2] = rho E[u^2] + (1 - rho) u^2``;
+    ``p - lr u``."""
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-6, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._eps, self._rho = epsilon, rho
+
+    def init_slots(self, p):
+        return {"avg_sq_grad": _zeros(self, p),
+                "avg_sq_update": _zeros(self, p)}
+
+    def update(self, params, grads, slots, lr, step):
+        rho, eps = self._rho, self._eps
+        old_u = [s["avg_sq_update"] for s in slots]
+        asg = torch._foreach_mul([s["avg_sq_grad"] for s in slots], rho)
+        torch._foreach_addcmul_(asg, torch._foreach_mul(grads, 1.0 - rho),
+                                grads)
+        upd = torch._foreach_div(
+            torch._foreach_mul(grads, torch._foreach_sqrt(
+                torch._foreach_add(old_u, eps))),
+            torch._foreach_sqrt(torch._foreach_add(asg, eps)))
+        asu = torch._foreach_mul(old_u, rho)
+        torch._foreach_addcmul_(asu, torch._foreach_mul(upd, 1.0 - rho), upd)
+        return (torch._foreach_sub(params, torch._foreach_mul(upd, lr)),
+                [{"avg_sq_grad": a, "avg_sq_update": b}
+                 for a, b in zip(asg, asu)])
+
+
+class RMSProp(Optimizer):
+    """``ms = rho ms + (1 - rho) g^2`` (and, ``centered``, ``mg = rho mg
+    + (1 - rho) g``, the denominator ``sqrt(ms - mg^2 + eps)``); ``mom =
+    momentum mom + lr g / sqrt(ms + eps)``; ``p - mom``."""
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._rho, self._eps = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    def init_slots(self, p):
+        s = {"mean_square": _zeros(self, p), "momentum": _zeros(self, p)}
+        if self._centered:
+            s["mean_grad"] = _zeros(self, p)
+        return s
+
+    def update(self, params, grads, slots, lr, step):
+        rho, eps = self._rho, self._eps
+        ms = torch._foreach_mul([s["mean_square"] for s in slots], rho)
+        torch._foreach_addcmul_(ms, torch._foreach_mul(grads, 1.0 - rho),
+                                grads)
+        out = [dict(s, mean_square=a) for s, a in zip(slots, ms)]
+        if self._centered:
+            mg = torch._foreach_add(
+                torch._foreach_mul([s["mean_grad"] for s in slots], rho),
+                torch._foreach_mul(grads, 1.0 - rho))
+            denom = torch._foreach_sqrt(torch._foreach_add(
+                torch._foreach_sub(ms, torch._foreach_mul(mg, mg)), eps))
+            for o, a in zip(out, mg):
+                o["mean_grad"] = a
+        else:
+            denom = torch._foreach_sqrt(torch._foreach_add(ms, eps))
+        mom = torch._foreach_add(
+            torch._foreach_mul([s["momentum"] for s in slots],
+                               self._momentum),
+            torch._foreach_div(torch._foreach_mul(grads, lr), denom))
+        for o, a in zip(out, mom):
+            o["momentum"] = a
+        return torch._foreach_sub(params, mom), out
+
+
+class Lamb(Optimizer):
+    """LAMB (You et al. 2019): Adam's ``r = m^ / (sqrt(v^) + eps) +
+    wd p``, scaled per tensor by the trust ratio ``||p|| / ||r||`` (1
+    where either norm is 0): ``p - lr trust r``.  The norms are one
+    multi-tensor reduction each and the ratio a ``torch.where``, so a
+    step reads nothing on the host; the last update's ratios stay on
+    the device as ``trust_ratios`` (one per tensor, in order).
+    ``exclude_from_weight_decay_fn`` is stored and not used, and there
+    is no ``weight_decay=``, as in paddle_tpu."""
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip, name)
+        self._wd = lamb_weight_decay
+        self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
+        self._exclude_fn = exclude_from_weight_decay_fn
+        self.trust_ratios: Optional[torch.Tensor] = None
+
+    def init_slots(self, p):
+        return {"m": _zeros(self, p), "v": _zeros(self, p)}
+
+    def update(self, params, grads, slots, lr, step):
+        b1, b2 = self._beta1, self._beta2
+        m = torch._foreach_add(torch._foreach_mul([s["m"] for s in slots],
+                                                  b1),
+                               torch._foreach_mul(grads, 1.0 - b1))
+        v = torch._foreach_mul([s["v"] for s in slots], b2)
+        torch._foreach_addcmul_(v, torch._foreach_mul(grads, 1.0 - b2),
+                                grads)
+        mhat = torch._foreach_div(m, _bias_correction(b1, step))
+        vhat = torch._foreach_div(v, _bias_correction(b2, step))
+        r = torch._foreach_div(mhat, torch._foreach_add(
+            torch._foreach_sqrt(vhat), self._eps))
+        torch._foreach_add_(r, torch._foreach_mul(params, self._wd))
+        w_norm, r_norm = _norms(params), _norms(r)
+        trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
+                            torch.ones_like(w_norm))
+        self.trust_ratios = trust
+        upd = torch._foreach_mul(r, _per_tensor(lr * trust, r))
+        return (torch._foreach_sub(params, upd),
+                [{"m": a, "v": b} for a, b in zip(m, v)])
+
+
+class LarsMomentum(Optimizer):
+    """LARS (You et al. 2017): a local learning rate ``lr coeff ||p|| /
+    (||g|| + wd ||p|| + eps)`` per tensor (``lr`` where either norm is
+    0); ``v = momentum v + local_lr (g + wd p)``; ``p - v``.  The norms
+    and the rate stay on the device; no ``weight_decay=``, as in
+    paddle_tpu."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, parameters=None, grad_clip=None,
+                 epsilon=0, name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip, name)
+        self._momentum = momentum
+        self._lars_coeff = lars_coeff
+        self._lars_wd = lars_weight_decay
+        self._eps = epsilon
+
+    def init_slots(self, p):
+        return {"velocity": _zeros(self, p)}
+
+    def update(self, params, grads, slots, lr, step):
+        wd = self._lars_wd
+        w_norm, g_norm = _norms(params), _norms(grads)
+        local = torch.where((w_norm > 0) & (g_norm > 0),
+                            lr * self._lars_coeff * w_norm
+                            / (g_norm + wd * w_norm + self._eps),
+                            torch.full_like(w_norm, lr))
+        d = torch._foreach_add(grads, torch._foreach_mul(params, wd))
+        v = torch._foreach_add(
+            torch._foreach_mul([s["velocity"] for s in slots],
+                               self._momentum),
+            torch._foreach_mul(d, _per_tensor(local, d)))
+        return (torch._foreach_sub(params, v),
+                [{"velocity": a} for a in v])
+
+
+class Ftrl(Optimizer):
+    """FTRL-Proximal (McMahan et al.): squared and linear accumulators,
+    the soft threshold on the linear term; ``lr_power`` in the
+    reference's sign convention (-0.5 means ``sqrt`` in the
+    denominators)."""
+
+    def __init__(self, learning_rate=0.001, l1=0.0, l2=0.0,
+                 lr_power=-0.5, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._l1, self._l2, self._lr_power = l1, l2, lr_power
+
+    def init_slots(self, p):
+        return {"squared": _zeros(self, p), "linear": _zeros(self, p)}
+
+    def update(self, params, grads, slots, lr, step):
+        sq = [s["squared"] for s in slots]
+        new_sq = torch._foreach_addcmul(sq, grads, grads)
+        if self._lr_power == -0.5:
+            a, b = torch._foreach_sqrt(new_sq), torch._foreach_sqrt(sq)
+        else:
+            a = torch._foreach_pow(new_sq, -self._lr_power)
+            b = torch._foreach_pow(sq, -self._lr_power)
+        sigma = torch._foreach_div(torch._foreach_sub(a, b), lr)
+        denom = torch._foreach_div(a, lr)
+        new_lin = torch._foreach_sub(
+            torch._foreach_add([s["linear"] for s in slots], grads),
+            torch._foreach_mul(sigma, params))
+        x = torch._foreach_sub(torch._foreach_mul(
+            torch._foreach_sign(new_lin), self._l1), new_lin)
+        y = torch._foreach_add(denom, 2.0 * self._l2)
+        q = torch._foreach_div(x, y)
+        new_p = [torch.where(n.abs() > self._l1, v, torch.zeros_like(v))
+                 for n, v in zip(new_lin, q)]
+        return new_p, [{"squared": a, "linear": b}
+                       for a, b in zip(new_sq, new_lin)]
+
+
+class Dpsgd(Optimizer):
+    """Differentially private SGD: each gradient tensor clipped to L2
+    norm ``clip`` as a whole, plus one Gaussian draw per tensor (shared
+    by its elements) of deviation ``sigma`` scaled by ``1 /
+    batch_size``: ``p - lr (g / max(1, ||g|| / clip) + sigma n /
+    batch_size)``.
+
+    The draws come from a Philox generator of the parameters' device
+    seeded with ``seed`` (``seed=0`` is the literal seed), one vector
+    of one draw per tensor each update, so two tensors never share a
+    draw and each step draws anew.  paddle_tpu draws from threefry keys
+    folded with the step and the tensor's index: the same seed gives
+    other numbers here (:meth:`_draw` is where they come from)."""
+
+    def __init__(self, learning_rate=0.001, clip=10.0, batch_size=16.0,
+                 sigma=1.0, seed=0, parameters=None, name=None):
+        super().__init__(learning_rate, parameters, None, None, name)
+        self._clip, self._batch = clip, batch_size
+        self._sigma, self._seed = sigma, seed
+        self._gens: Dict[torch.device, torch.Generator] = {}
+
+    def _draw(self, step, n: int, device) -> torch.Tensor:
+        """``n`` standard normal draws (f32) on ``device``."""
+        gen = self._gens.get(device)
+        if gen is None:
+            gen = self._gens[device] = torch.Generator(device=device)
+            gen.manual_seed(int(self._seed))
+        return torch.randn(n, generator=gen, device=device)
+
+    def update(self, params, grads, slots, lr, step):
+        norm = _norms([g.float() for g in grads])
+        scale = torch.where(norm > self._clip, norm / self._clip,
+                            torch.ones_like(norm))
+        noise = (self._sigma * self._draw(step, len(params),
+                                          params[0].device)) / self._batch
+        upd = torch._foreach_add(
+            torch._foreach_div(grads, _per_tensor(scale, grads)),
+            _per_tensor(noise, grads))
+        return (torch._foreach_sub(params, torch._foreach_mul(upd, lr)),
+                slots)
+
+
+class ProximalGD(Optimizer):
+    """A gradient step, then the proximal map: the L1 soft threshold
+    (when ``l1 > 0``) and the L2 shrink ``1 / (1 + lr l2)``."""
+
+    def __init__(self, learning_rate=0.001, l1=0.0, l2=0.0,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._l1, self._l2 = l1, l2
+
+    def _prox(self, prox, lr):
+        shrink = 1.0 + lr * self._l2
+        if self._l1 > 0:
+            mag = torch._foreach_clamp_min(torch._foreach_sub(
+                torch._foreach_abs(prox), lr * self._l1), 0.0)
+            return torch._foreach_div(torch._foreach_mul(
+                torch._foreach_sign(prox), mag), shrink)
+        return torch._foreach_div(prox, shrink)
+
+    def update(self, params, grads, slots, lr, step):
+        return self._prox(torch._foreach_sub(
+            params, torch._foreach_mul(grads, lr)), lr), slots
+
+
+class ProximalAdagrad(ProximalGD):
+    """Adagrad's step ``lr g / sqrt(mom)``, then ProximalGD's map.  An
+    element whose accumulator is still 0 takes a zero step (the
+    reference's kernel divides 0 by 0 there), as in paddle_tpu."""
+
+    def init_slots(self, p):
+        return {"moment": _zeros(self, p)}
+
+    def update(self, params, grads, slots, lr, step):
+        mom = torch._foreach_addcmul([s["moment"] for s in slots], grads,
+                                     grads)
+        steps = []
+        for g, m in zip(grads, mom):
+            live = m > 0
+            safe = torch.where(live, m, torch.ones_like(m))
+            steps.append(torch.where(live, lr * g / torch.sqrt(safe),
+                                     torch.zeros_like(g)))
+        return (self._prox(torch._foreach_sub(params, steps), lr),
+                [{"moment": a} for a in mom])
+
+
+class DecayedAdagrad(Optimizer):
+    """Adagrad with a decayed accumulator: ``mom = decay mom + (1 -
+    decay) g^2``; ``p - lr g / (sqrt(mom) + eps)``."""
+
+    def __init__(self, learning_rate=0.001, decay=0.95, epsilon=1e-6,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._decay, self._eps = decay, epsilon
+
+    def init_slots(self, p):
+        return {"moment": _zeros(self, p)}
+
+    def update(self, params, grads, slots, lr, step):
+        d = self._decay
+        mom = torch._foreach_mul([s["moment"] for s in slots], d)
+        torch._foreach_addcmul_(mom, torch._foreach_mul(grads, 1.0 - d),
+                                grads)
+        denom = torch._foreach_add(torch._foreach_sqrt(mom), self._eps)
+        upd = torch._foreach_div(torch._foreach_mul(grads, lr), denom)
+        return (torch._foreach_sub(params, upd),
+                [{"moment": a} for a in mom])

@@ -107,7 +107,9 @@ class Variable(Symbolic):
         raise TypeError(
             "[operator < bool > error] Python `if`/`while` tested a "
             "symbolic static.Variable while building a Program; the "
-            "branch cannot be resolved at build time")
+            "branch cannot be resolved at build time. Use "
+            "paddle.static.nn.cond / paddle.where for branches and "
+            "paddle.static.nn.while_loop for loops.")
 
     def __repr__(self):
         return (f"Variable(name={self.name}, shape={self.shape}, "

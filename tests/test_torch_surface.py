@@ -20,18 +20,9 @@ SPEC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 # module -> the spec's module-level names the port lacks
 NOT_YET_PORTED = {
     "paddle_tpu": """
-        CPUPlace CUDAPinnedPlace CUDAPlace DataParallel Model TPUPlace
-        XPUPlace annotations apply as_array builtins_slice
-        create_parameter device_count disable_dygraph enable_dygraph flops
-        get_cuda_rng_state get_cudnn_version get_flags in_dygraph_mode
-        is_compiled_with_cuda is_compiled_with_tpu is_compiled_with_xpu
-        next_key paged_attention paged_attention_supported
-        register_paged_attention_kernel set_cuda_rng_state set_flags
-        set_printoptions summary
+        Model summary
     """,
-    "paddle_tpu.amp": """
-        Tensor
-    """,
+    "paddle_tpu.amp": "",
     "paddle_tpu.distributed": """
         AnomalyEscalation AnomalyPolicy Fleet ProcessSupervisor
         ServingSupervisor ShardedState ShardingPlan SpecLayout StepWatchdog
@@ -47,15 +38,9 @@ NOT_YET_PORTED = {
     """,
     "paddle_tpu.nn": "",
     "paddle_tpu.nn.functional": "",
-    "paddle_tpu.optimizer": """
-        Adadelta Adagrad Adamax
-        DecayedAdagrad Dpsgd ExponentialMovingAverage Ftrl Lamb LarsMomentum
-        Lookahead LookaheadOptimizer ModelAverage ProximalAdagrad ProximalGD
-        RMSProp
-    """,
-    "paddle_tpu.nn.initializer": """
-        next_key
-    """,
+    "paddle_tpu.optimizer": "",
+    "paddle_tpu.nn.initializer": "",
+    "paddle_tpu.ops.pallas": "",
     "paddle_tpu.metric": "",
     "paddle_tpu.optimizer.lr": "",
     "paddle_tpu.serving": """
