@@ -274,9 +274,38 @@ kernel from the sources in this checkout.  Phases, each fatal:
     after ``None`` as before;
 52. each ``ops.pallas`` entry on CUDA tensors at a small shape: its
     kernel launched once (``kernel_selections``) and equal to its plain
-    version; ``interpret=True`` on the card raises.
+    version; ``interpret=True`` on the card raises;
+53. R1: ``bench_bert``'s model (BERT-base, f32, eval) saved by
+    ``jit.save`` with ``InputSpec([None, 512], "int64")`` (the flash
+    forward a custom-op node of the graph) and served by
+    ``inference.create_predictor`` at batches 1, 8 and 32: 12 flash
+    forwards a run and no other kernel, the output against the model
+    run eagerly with ``use_pallas_kernels`` off, latency a run, save
+    and load seconds, 3 variants, a batch-32 run's anatomy; the f32
+    flash forward at the batch-32 shape beside its bound, plain version
+    and SDPA; a small BERT saved on the CPU (the plain versions under
+    the custom ops) launching the flash forward when the Predictor
+    serves it from the card;
+54. R2: bench_pallas's static BERT (B 16, L 512, f32) saved by
+    ``static.save_inference_model`` with the MLM logits as the fetch
+    variable (the fusion pass's 36 chains and 12 flash calls custom-op
+    nodes of the graph) and served: 36 fused-epilogue and 12 flash
+    forwards a run, the logits against the Executor's eager replay with
+    ``use_pallas_kernels`` off, latency a run, a run's anatomy, and 5
+    rows padded to the program's batch of 16 and sliced back;
+55. R3: the predictor half of ``bench_lenet_dygraph``
+    (``predictor_latency_ms_bs1``, ``predictor_recompiles``) and the
+    sequential half of ``bench_serving`` (the 64-128-128-32 MLP on 240
+    ragged requests of 1-4 rows under pad-to-bucket: requests/s and
+    ``num_compiled_variants()`` flat after warm-up), outputs against the
+    eager models;
+56. R4: a ``to_static`` function with a tensor ``if`` and one with a
+    tensor ``while`` saved, loaded and run on the card at inputs that
+    take the other branch and other trip counts than the example, each
+    equal to the eager ``to_static`` call and each graph holding
+    torch's ``cond`` / ``while_loop``.
 
-Phases 46-52 each log their number and name, print every compared
+Phases 46-56 each log their number and name, print every compared
 quantity beside its limit, put back in a ``finally`` the global state
 they may touch (flags, dygraph mode, default dtype and device, the RNG
 state, the registered paged kernel, print options, the profiler hook)
@@ -1212,14 +1241,14 @@ def _step_anatomy(tag, one_step, steps, classify, wgmma_flash=False,
     back-to-back steps, ``step_ms_host``), then 3 steps each on the host
     clock (:func:`_clocked_step`) with the ms Python's cyclic GC paused
     each, printed beside the training phase's timed steps
-    (``timed_ms``), then ``torch.profiler`` over ``steps``
-    steps: device ms a step by ``classify``'s groups (a function of the
-    lower-case kernel name), the flash kernels by name, the top kernels
-    and the device's idle share.  With ``wgmma_flash`` the flash
-    launches must have run the wgmma + TMA kernels."""
+    (``timed_ms``), then ``torch.profiler`` over ``steps`` steps after
+    one warm-up step: device ms a step by ``classify``'s groups (a
+    function of the lower-case kernel name), the flash kernels by name,
+    the top kernels and the device's idle share.  With ``wgmma_flash``
+    the flash launches must have run the wgmma + TMA kernels."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     step_ms = cuda_ms(lambda i: one_step(), 3, warmup=1)
     pause = {"s": 0.0, "t0": None}
 
@@ -1239,18 +1268,25 @@ def _step_anatomy(tag, one_step, steps, classify, wgmma_flash=False,
             gc_ms.append((pause["s"] - s0) * 1e3)
     finally:
         gc.callbacks.remove(on_gc)
-    # every step launches the same kernels, so a trace with no device
+    # each trace starts with one step the profiler collects and throws
+    # away (the schedule's warm-up): late in a long run a session has
+    # lost the records of one or a few of its first hand-kernel
+    # launches in every trace, the counters showing them launched.
+    # Every step launches the same kernels, so a trace with no device
     # time, or a named kernel's count that is no whole multiple of
-    # ``steps``, means the tracer dropped records: it is taken again, up
-    # to six times.  The tracer only ever drops a record, so each named
-    # kernel's launches are the most any trace saw
+    # ``steps``, means the tracer dropped records all the same: it is
+    # taken again, up to six times.  The tracer only ever drops a
+    # record, so each named kernel's launches are the most any trace saw
     most = {}
     for attempt in range(6):
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=steps,
+                                       repeat=1)) as prof:
+            for _ in range(1 + steps):
                 one_step()
-            torch.cuda.synchronize()
+                torch.cuda.synchronize()
+                prof.step()
         groups, top, flash, epi, launches = {}, [], {}, {}, {}
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA or e.is_user_annotation:
@@ -5008,7 +5044,7 @@ def _same_state(a, b):
 
 
 def _keeps_global_state(fn):
-    """Phases 46-52: log the phase's number and name at its start, put
+    """Phases 46-56: log the phase's number and name at its start, put
     back every global state it may touch in a ``finally``, and assert
     the snapshot after equals the one before."""
     import functools
@@ -5826,6 +5862,460 @@ def phase_ops_pallas():
     return launches
 
 
+# ---------------------------------------------------------- phases 53-56
+# R1: BERT-base f32 exported by jit.save and served at these batches
+PRED_BERT_BATCHES = (1, 8, 32)
+PRED_BERT_RUNS = {1: 20, 8: 8, 32: 4}
+# R3: bench_serving's sequential half (bench.py:817-863)
+SERVING_MLP = (64, 128, 128, 32)
+SERVING_REQUESTS, SERVING_REPS = 240, 3
+
+
+def _serve_ms(np, pred, x, runs):
+    """bench.py's Predictor latency: one warm-up run, then ``runs`` runs
+    back to back and the last output read to the host; ms a run."""
+    pred.run([x])
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        outs = pred.run([x])
+    float(np.asarray(outs[0]).sum())
+    return (time.perf_counter() - t0) / runs * 1e3
+
+
+def _file_bytes(prefix):
+    from paddle_tpu_torch.jit.save_load import SUFFIX_MODEL, SUFFIX_PARAMS
+    return {s: os.path.getsize(prefix + s)
+            for s in (SUFFIX_MODEL, SUFFIX_PARAMS)}
+
+
+def _flash_fwd_row(torch, B, L, H, D):
+    """K1f at one of the Predictor's shapes (f32, no mask): its time
+    beside the plain version, the bound and SDPA's time."""
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd_op, flash_attention_reference_fwd)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(53)
+    q, k, v = (torch.randn((B, L, H, D), generator=gen, device="cuda")
+               for _ in range(3))
+    scale = 1.0 / math.sqrt(D)
+    out, _ = flash_attention_fwd_op(q, k, v, False, scale, 0.0, 0, 0, 0)
+    t = [x.transpose(1, 2) for x in (q, k, v)]
+    plain, _ = flash_attention_reference_fwd(*t, scale=scale)
+    err = _rel_err(out, plain.transpose(1, 2))
+    ms = cuda_ms(lambda i: flash_attention_fwd_op(q, k, v, False, scale,
+                                                  0.0, 0, 0, 0), 10)
+    plain_ms = cuda_ms(lambda i: flash_attention_reference_fwd(
+        *t, scale=scale), 3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_ms(lambda i: sdpa(*t, scale=scale), 10)
+    bound_ms, bound_by, _, _ = _flash_bound(B, H, L, L, D, 4, "float32",
+                                            False, "flash_attention_fwd")
+    return {"case": f"B={B} L={L} H={H} D={D} float32", "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "library_call": "torch.nn.functional.scaled_dot_product_"
+                            "attention (f32)",
+            "max_abs_err": err}
+
+
+def _cpu_saved_on_card(np, torch):
+    """A small BERT (``bench_bert``'s CPU widths, D 32) built and saved
+    on the CPU, where the custom ops ran their plain versions, then
+    served from the card: its flash launches and its output against the
+    CPU model's."""
+    import tempfile
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.core import placement
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.testing.models import build_model
+    c = BERT_CPU
+    prev = placement.default()
+    paddle.set_device("cpu")
+    try:
+        paddle.seed(7)
+        model = build_model(c["vocab"], c["hidden"], c["layers"], c["heads"],
+                            c["ffn"], c["seq"], c["dropout"], device="cpu")
+        model.eval()
+        ids = np.random.RandomState(7).randint(0, c["vocab"],
+                                               (3, c["seq"]))
+        with torch.no_grad():
+            want = model(torch.from_numpy(ids))
+        with tempfile.TemporaryDirectory() as d:
+            prefix = os.path.join(d, "small")
+            jit.save(model, prefix, input_spec=[
+                jit.InputSpec([None, c["seq"]], "int64")])
+            config = inference.Config(prefix)
+            config.enable_use_gpu()
+            pred = inference.create_predictor(config)
+    finally:
+        placement.set_default(prev)
+    support.reset_launch_counts()
+    out, = pred.run([ids])
+    torch.cuda.synchronize()
+    return {"config": c, "saved_on": "cpu", "served_on": str(out.device),
+            "launches": dict(support.launch_counts),
+            "graph_kernels": pred._meta["kernels"],
+            "rel_err_vs_cpu": _rel_err(out.cpu(), want)}
+
+
+def _predictor_group(n):
+    return ("flash_fwd" if "flash_fwd_" in n else
+            "fused_epilogue" if "epilogue_" in n else
+            "gemm" if _is_gemm(n) else
+            "layer_norm" if "layer_norm" in n else
+            "copies" if "copy" in n or "memcpy" in n else "other")
+
+
+@_keeps_global_state
+def phase_predictor_bert():
+    """53 predictor_bert: R1, ``bench_bert``'s model (BERT-base, f32)
+    in eval saved by ``jit.save`` with ``InputSpec([None, 512],
+    "int64")``, served by ``create_predictor`` at batches 1, 8 and 32:
+    12 K1f launches a run and nothing else, the output against the same
+    model run eagerly with ``use_pallas_kernels`` off, latency a run,
+    save and load seconds, and K1f at the batch-32 shape beside its
+    bound, plain version and SDPA."""
+    import tempfile
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.testing.models import build_model
+    cfg = BERT_CHIP
+    paddle.seed(2024)
+    model = build_model(cfg["vocab"], cfg["hidden"], cfg["layers"],
+                        cfg["heads"], cfg["ffn"], cfg["seq"],
+                        cfg["dropout"], device="cuda")
+    rs = np.random.RandomState(53)
+    rows, quantities = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        prefix = os.path.join(d, "bert")
+        t0 = time.perf_counter()
+        jit.save(model, prefix, input_spec=[
+            jit.InputSpec([None, cfg["seq"]], "int64")])
+        save_s = time.perf_counter() - t0
+        sizes = _file_bytes(prefix)
+        t0 = time.perf_counter()
+        pred = inference.create_predictor(inference.Config(prefix))
+        load_s = time.perf_counter() - t0
+    graph_kernels = pred._meta["kernels"]
+    model.eval()
+    for b in PRED_BERT_BATCHES:
+        ids = rs.randint(0, cfg["vocab"], (b, cfg["seq"])).astype(np.int64)
+        support.reset_launch_counts()
+        out, = pred.run([ids])
+        torch.cuda.synchronize()
+        counts = dict(support.launch_counts)
+        paddle.set_flags({"use_pallas_kernels": False})
+        try:
+            with torch.no_grad():
+                plain = model(torch.from_numpy(ids).cuda())
+        finally:
+            paddle.set_flags({"use_pallas_kernels": True})
+        err = _rel_err(out, plain)
+        ms = _serve_ms(np, pred, ids, PRED_BERT_RUNS[b])
+        rows[b] = {"latency_ms": ms, "runs": PRED_BERT_RUNS[b],
+                   "tokens_per_s": b * cfg["seq"] / (ms / 1e3),
+                   "launches": counts, "rel_err_vs_plain": err,
+                   "output_shape": list(out.shape),
+                   "output_device": str(out.device)}
+        quantities[f"batch {b}: |flash_attention_fwd launches - 12|"] = (
+            abs(counts.get("flash_attention_fwd", 0) - cfg["layers"]), 0)
+        quantities[f"batch {b}: other kernels launched"] = (
+            sum(n for k, n in counts.items()
+                if k != "flash_attention_fwd"), 0)
+        quantities[f"batch {b}: rel err vs plain"] = (err,
+                                                      FLASH_TOL["float32"])
+        quantities[f"batch {b}: non-finite outputs"] = (
+            int((~torch.isfinite(out)).sum()), 0)
+    ids = torch.from_numpy(rs.randint(0, cfg["vocab"], (
+        PRED_BERT_BATCHES[-1], cfg["seq"]))).cuda()
+    _step_anatomy("PREDICTOR_BERT_ANATOMY", lambda: pred.run([ids]), 2,
+                  _predictor_group)
+    cpu_saved = _cpu_saved_on_card(np, torch)
+    quantities["CPU-saved small BERT on the card: |flash launches - 2|"] = (
+        abs(cpu_saved["launches"].get("flash_attention_fwd", 0) - 2), 0)
+    quantities["CPU-saved small BERT on the card: other kernels"] = (
+        sum(n for k, n in cpu_saved["launches"].items()
+            if k != "flash_attention_fwd"), 0)
+    quantities["CPU-saved small BERT on the card: rel err vs CPU"] = (
+        cpu_saved["rel_err_vs_cpu"], FLASH_TOL["float32"])
+    k1f = _flash_fwd_row(torch, 32, cfg["seq"], cfg["heads"],
+                         cfg["hidden"] // cfg["heads"])
+    quantities["K1f at batch 32: rel err vs plain"] = (
+        k1f["max_abs_err"], FLASH_TOL["float32"])
+    quantities["|graph's flash_attention_fwd nodes - 12|"] = (abs(
+        graph_kernels.get("paddle_tpu_torch::flash_attention_fwd", 0)
+        - cfg["layers"]), 0)
+    quantities["|variants - 3|"] = (abs(pred.num_compiled_variants() - 3),
+                                    0)
+    launches = sum(r["launches"].get("flash_attention_fwd", 0)
+                   for r in rows.values())
+    out = {"config": dict(cfg, dtype="float32", mode="eval"),
+           "save_s": save_s, "load_s": load_s, "artifact_bytes": sizes,
+           "graph_kernels": graph_kernels, "batches": rows,
+           "variants": pred.num_compiled_variants(), "k1f": k1f,
+           "cpu_saved_small_bert": cpu_saved, "nvidia_smi": nvidia_smi()}
+    log("PREDICTOR_BERT " + json.dumps(out))
+    _check("PREDICTOR_BERT_CHECK", quantities)
+    del model, pred
+    torch.cuda.empty_cache()
+    return {"flash_attention_fwd": launches}, k1f
+
+
+def _static_forward(torch, main, feed_var, fetch_var, ids):
+    """The Executor's eager replay of the program's slice that computes
+    ``fetch_var``, with the live parameters."""
+    from paddle_tpu_torch.static.executor import _interp
+    from paddle_tpu_torch.static.io import _prune
+    nodes = _prune(main.nodes, [fetch_var])
+    with torch.no_grad():
+        env = _interp(nodes, {id(feed_var): ids},
+                      {id(p): p for p in main.parameters()})
+    return env[id(fetch_var)]
+
+
+@_keeps_global_state
+def phase_predictor_static_bert():
+    """54 predictor_static_bert: R2, bench_pallas's static BERT
+    (``build_bert_static`` at its chip config: BERT-base, B 16, L 512,
+    f32) saved by ``static.save_inference_model`` with the MLM logits as
+    the fetch variable and served by the Predictor: 36 K2f and 12 K1f
+    launches a run, the logits against the Executor's eager replay of
+    the program with ``use_pallas_kernels`` off, latency a run, a run's
+    anatomy, and one padded batch (5 rows padded to 16 and sliced
+    back)."""
+    import tempfile
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import inference, static
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.testing.models import build_bert_static
+    cfg = STATIC_CHIP
+    main, _, feeds = build_bert_static(**cfg, device="cuda")
+    ids_var = main.feed_vars["ids"]
+    logits = [n for n in main.nodes if n.op_name == "linear"][-1].out_vars[0]
+    quantities, rows = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        prefix = os.path.join(d, "static_bert")
+        t0 = time.perf_counter()
+        static.save_inference_model(prefix, [ids_var], [logits],
+                                    program=main)
+        save_s = time.perf_counter() - t0
+        sizes = _file_bytes(prefix)
+        t0 = time.perf_counter()
+        pred = inference.create_predictor(inference.Config(prefix))
+        load_s = time.perf_counter() - t0
+    graph_kernels = pred._meta["kernels"]
+    want = {"fused_epilogue_fwd": STATIC_PER_STEP["fused_epilogue_fwd"],
+            "flash_attention_fwd": STATIC_PER_STEP["flash_attention_fwd"]}
+    ids = feeds(np.random.RandomState(54))["ids"]
+    paddle.set_flags({"use_pallas_kernels": False})
+    try:
+        plain = _static_forward(torch, main, ids_var, logits,
+                                torch.from_numpy(ids).cuda())
+    finally:
+        paddle.set_flags({"use_pallas_kernels": True})
+    for name, x in (("full", ids), ("padded 5 of 16", ids[:5])):
+        support.reset_launch_counts()
+        out, = pred.run([x])
+        torch.cuda.synchronize()
+        counts = dict(support.launch_counts)
+        err = _rel_err(out, plain[:x.shape[0]])
+        rows[name] = {"launches": counts, "rel_err_vs_plain": err,
+                      "output_shape": list(out.shape)}
+        for k, n in want.items():
+            quantities[f"{name}: |{k} launches - {n}|"] = (
+                abs(counts.get(k, 0) - n), 0)
+        quantities[f"{name}: other kernels launched"] = (
+            sum(n for k, n in counts.items() if k not in want), 0)
+        quantities[f"{name}: rel err vs plain"] = (err, EPI_TOL["float32"])
+        quantities[f"{name}: |output rows - {x.shape[0]}|"] = (
+            abs(out.shape[0] - x.shape[0]), 0)
+        del out
+    del plain
+    ms = _serve_ms(np, pred, ids, 4)
+    ids_dev = torch.from_numpy(ids).cuda()
+    _step_anatomy("PREDICTOR_STATIC_BERT_ANATOMY",
+                  lambda: pred.run([ids_dev]), 2, _predictor_group)
+    rows["full"].update(latency_ms=ms, runs=4,
+                        tokens_per_s=cfg["batch"] * cfg["seq"] / (ms / 1e3))
+    quantities["variants after the padded run (want 1)"] = (
+        pred.num_compiled_variants(), 1)
+    quantities["|graph's fused_linear_epilogue_fwd nodes - 36|"] = (abs(
+        graph_kernels.get("paddle_tpu_torch::fused_linear_epilogue_fwd", 0)
+        - 36), 0)
+    out = {"config": dict(cfg, dtype="float32", fetch="MLM logits"),
+           "save_s": save_s, "load_s": load_s, "artifact_bytes": sizes,
+           "graph_kernels": graph_kernels, "runs": rows,
+           "variants": pred.num_compiled_variants(),
+           "nvidia_smi": nvidia_smi()}
+    log("PREDICTOR_STATIC_BERT " + json.dumps(out))
+    _check("PREDICTOR_STATIC_BERT_CHECK", quantities)
+    launches = {k: sum(rows[r]["launches"].get(k, 0)
+                       for r in ("full", "padded 5 of 16")) for k in want}
+    del main, pred
+    torch.cuda.empty_cache()
+    return launches
+
+
+@_keeps_global_state
+def phase_predictor_benches():
+    """55 predictor_benches: R3, the predictor half of
+    ``bench_lenet_dygraph`` (bench.py:1310-1326: LeNet saved with
+    ``InputSpec([None, 1, 28, 28])``, 50 runs at batch 1:
+    ``predictor_latency_ms_bs1``, ``predictor_recompiles``) and the
+    sequential half of ``bench_serving`` (bench.py:817-863: the
+    64-128-128-32 MLP, 240 ragged requests of 1-4 rows, 3 rounds, under
+    pad-to-bucket: requests/s, ``num_compiled_variants()`` flat after
+    warm-up); outputs against the eager models."""
+    import tempfile
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import inference, jit, nn
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.vision.models import LeNet
+    quantities = {}
+    with tempfile.TemporaryDirectory() as d:
+        paddle.seed(0)
+        lenet = LeNet()
+        lenet.eval()
+        pfx = os.path.join(d, "m")
+        jit.save(lenet, pfx, input_spec=[
+            jit.InputSpec([None, 1, 28, 28], "float32")])
+        pred = inference.create_predictor(inference.Config(pfx))
+        xi = np.zeros((1, 1, 28, 28), "float32")
+        support.reset_launch_counts()
+        infer_ms = _serve_ms(np, pred, xi, 50)
+        lenet_launches = dict(support.launch_counts)
+        recompiles = pred.num_compiled_variants()
+        xr = np.random.RandomState(55).standard_normal(
+            (3, 1, 28, 28)).astype("float32")
+        with torch.no_grad():
+            lenet_err = _rel_err(pred.run([xr])[0],
+                             lenet(torch.from_numpy(xr).cuda()))
+        lenet_out = {"predictor_latency_ms_bs1": infer_ms,
+                     "predictor_recompiles": recompiles,
+                     "rel_err_vs_eager": lenet_err,
+                     "hand_kernel_launches": lenet_launches}
+
+        paddle.seed(2024)
+        sizes = SERVING_MLP
+        layers = []
+        for a, b in zip(sizes[:-1], sizes[1:]):
+            layers += [nn.Linear(a, b), nn.ReLU()]
+        mlp = nn.Sequential(*layers[:-1])
+        mlp.eval()
+        pfx = os.path.join(d, "mlp")
+        jit.save(mlp, pfx, input_spec=[
+            jit.InputSpec([None, sizes[0]], "float32")])
+        spred = inference.create_predictor(inference.Config(pfx))
+    rng = np.random.RandomState(0)
+    reqs = [rng.standard_normal((int(rng.randint(1, 5)), sizes[0]))
+            .astype(np.float32) for _ in range(SERVING_REQUESTS)]
+    for n in sorted({r.shape[0] for r in reqs}):
+        np.asarray(spred.run([np.zeros((n, sizes[0]), np.float32)])[0])
+    warm = spred.num_compiled_variants()
+    dt, outs = 0.0, []
+    for _ in range(SERVING_REPS):
+        t0 = time.perf_counter()
+        outs = [np.asarray(spred.run([r])[0]) for r in reqs]
+        dt += time.perf_counter() - t0
+    with torch.no_grad():
+        mlp_err = max(_rel_err(torch.from_numpy(o).cuda(),
+                           mlp(torch.from_numpy(r).cuda()))
+                      for r, o in zip(reqs, outs))
+    n_req = SERVING_REQUESTS * SERVING_REPS
+    rows_total = sum(r.shape[0] for r in reqs) * SERVING_REPS
+    serving_out = {"sequential_requests_per_sec": n_req / dt,
+                   "rows_per_sec": rows_total / dt,
+                   "ms_per_request": dt / n_req * 1e3,
+                   "compiled_variants_sequential_warm": warm,
+                   "variants_after": spred.num_compiled_variants(),
+                   "rel_err_vs_eager": mlp_err,
+                   "config": {"model": "mlp 64-128-128-32",
+                              "ragged_rows": "1-4",
+                              "requests": SERVING_REQUESTS,
+                              "rounds": SERVING_REPS}}
+    log("PREDICTOR_BENCHES " + json.dumps({
+        "lenet": lenet_out, "serving_sequential": serving_out,
+        "nvidia_smi": nvidia_smi()}))
+    quantities["lenet: rel err vs eager"] = (lenet_err, TOL["float32"])
+    quantities["lenet: predictor_recompiles (want 1)"] = (recompiles, 1)
+    quantities["lenet: hand kernels launched"] = (
+        sum(lenet_launches.values()), 0)
+    quantities["serving: rel err vs eager"] = (mlp_err, TOL["float32"])
+    quantities["serving: variants added after warm-up"] = (
+        spred.num_compiled_variants() - warm, 0)
+    quantities["serving: |warm variants - 3|"] = (abs(warm - 3), 0)
+    _check("PREDICTOR_BENCHES_CHECK", quantities)
+    return lenet_out, serving_out
+
+
+def _d2s_if(x):
+    if x.sum() > 0:
+        y = x * 2
+    else:
+        y = x - 1
+    return y + 10
+
+
+def _d2s_while(x):
+    s = x * 0
+    while s.sum() < 10:
+        s = s + x
+    return s
+
+
+@_keeps_global_state
+def phase_dy2static_export():
+    """56 dy2static_export: R4, a ``to_static`` function with a tensor
+    ``if`` and one with a tensor ``while`` (``tests/test_dy2static.py``)
+    saved on the card with a zero example, loaded, and fed inputs that
+    take the other branch and other trip counts: each answer equals the
+    eager ``to_static`` call's, and each graph holds torch's ``cond`` /
+    ``while_loop``."""
+    import tempfile
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import jit
+    paddle.set_device("gpu")
+    quantities, out = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, fn, inputs in (
+                ("if", _d2s_if, ([1.0, 2.0], [-1.0, -2.0], [-4.0, 1.0])),
+                ("while", _d2s_while, ([1.0, 1.0], [2.0, 2.0],
+                                       [4.5, 4.5]))):
+            sf = jit.to_static(fn)
+            path = os.path.join(d, name)
+            jit.save(sf, path, input_spec=[jit.InputSpec([2], "float32")])
+            loaded = jit.load(path)
+            hops = sorted({n.target.name() for n in
+                           loaded.program.graph.nodes
+                           if n.op == "call_function" and isinstance(
+                               n.target, torch._ops.HigherOrderOperator)})
+            got, want = [], []
+            for v in inputs:
+                x = paddle.to_tensor(np.array(v, np.float32))
+                got.append(loaded(x).numpy().tolist())
+                want.append(sf(x).numpy().tolist())
+            out[name] = {"graph_control_flow": hops, "inputs": inputs,
+                         "loaded": got, "eager_to_static": want,
+                         "device": str(loaded.device)}
+            quantities[f"{name}: max |loaded - eager|"] = (float(np.abs(
+                np.array(got) - np.array(want)).max()), 0.0)
+            quantities[f"{name}: control-flow node missing"] = (
+                int(("cond" if name == "if" else "while_loop")
+                    not in hops), 0)
+    log("DY2STATIC_EXPORT " + json.dumps(out))
+    _check("DY2STATIC_EXPORT_CHECK", quantities)
+
+
 def _instance_row(row):
     """One instance of a kernel (a path's shape), for the kernels
     line."""
@@ -5938,6 +6428,11 @@ def main():
     public_paged = timed("public_paged_attention",
                          phase_public_paged_attention)
     pallas_launches = timed("ops_pallas", phase_ops_pallas)
+    pred_bert, pred_k1f = timed("predictor_bert", phase_predictor_bert)
+    pred_static = timed("predictor_static_bert",
+                        phase_predictor_static_bert)
+    timed("predictor_benches", phase_predictor_benches)
+    timed("dy2static_export", phase_dy2static_export)
     seconds["total"] = time.perf_counter() - t0
     log("PHASE_SECONDS " + json.dumps(seconds))
     f32_err = max(r["max_abs_err"] for r in kernel_rows
@@ -5969,6 +6464,8 @@ def main():
         r, b = flash_rows[name], block_rows[name]
         decode_launches = (nmt_decode_fwd if name == "flash_attention_fwd"
                            else 0)
+        by_path = {"predictor bert": pred_bert.get(name, 0),
+                   "predictor static bert": pred_static.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",
@@ -5976,7 +6473,8 @@ def main():
             "launches": (flash_launches[name] + gpt_launches[name]
                          + gpt760_launches[name] + sgpt_launches[name]
                          + nmt_launches[name] + decode_launches
-                         + lamb_launches[name] + pallas_launches[name]),
+                         + lamb_launches[name] + pallas_launches[name]
+                         + sum(by_path.values())),
             "launches_by_entry": {"flash_attention": flash_launches[name],
                                   "flash_attention_block":
                                       gpt_launches[name],
@@ -5992,6 +6490,7 @@ def main():
                                       lamb_launches[name],
                                   "ops.pallas.flash_attention":
                                       pallas_launches[name]},
+            "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"],
             "max_abs_err_bf16": r["max_abs_err_bf16"], "shape": r["case"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -6007,7 +6506,8 @@ def main():
             "static_gpt": _instance_row(sgpt_rows[name]),
             "translation": _instance_row(nmt_rows[name]),
             **({"translation_decode": [_instance_row(d)
-                                       for d in nmt_decode_rows]}
+                                       for d in nmt_decode_rows],
+                "predictor_bert": _instance_row(pred_k1f)}
                if name == "flash_attention_fwd" else {})})
     for name, site in list(EPI_KERNELS.items()) + [("fused_adam",
                                                     ADAM_SITE)]:
@@ -6018,7 +6518,9 @@ def main():
                    "static gpt": sgpt_launches.get(name, 0),
                    **{f"static {p}": n.get(name, 0)
                       for p, n in bench_launches.items()},
-                   "ops.pallas": pallas_launches.get(name, 0)}
+                   "ops.pallas": pallas_launches.get(name, 0),
+                   "predictor bert": pred_bert.get(name, 0),
+                   "predictor static bert": pred_static.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"paddle_tpu_torch/ops/cuda/csrc/{src}",

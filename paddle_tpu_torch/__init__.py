@@ -58,6 +58,14 @@ These slices are in:
   :func:`case`, :func:`switch_case` and :func:`while_loop`, eager and
   in a static Program.
 
+- export and inference: :func:`jit.to_static` (dy2static's
+  control-flow conversion, run eagerly), :func:`jit.save` /
+  :func:`jit.load` and ``static.save_inference_model`` /
+  ``load_inference_model`` (``torch.export`` of the eval forward, the
+  hand kernels' forwards kept as custom ops), and :mod:`.inference`
+  (``Config``, ``create_predictor``, a ``Predictor`` that pads to a
+  bucket);
+
 - the rest of the eager surface: the tail optimizers (Adamax,
   Adagrad, Adadelta, RMSProp, :class:`optimizer.Lamb`,
   :class:`optimizer.LarsMomentum`, Ftrl, Dpsgd, ProximalGD,
@@ -81,9 +89,9 @@ from __future__ import annotations
 
 import builtins as _builtins
 
-from . import (amp, core, distributed, framework_io, jit, metric,  # noqa
-               nn, ops, optimizer, parallel, serving, static, testing, utils,
-               vision)
+from . import (amp, core, distributed, framework_io, inference,  # noqa
+               jit, metric, nn, ops, optimizer, parallel, serving, static,
+               testing, utils, vision)
 from .core.autograd import (enable_grad, grad, is_grad_enabled,  # noqa
                             no_grad)
 from .core.dispatch import apply  # noqa: F401
@@ -123,8 +131,8 @@ from .ops.random import *  # noqa: F401,F403
 from .ops.reduction import *  # noqa: F401,F403
 from .optimizer import regularizer  # noqa: F401
 
-__all__ = (["amp", "core", "distributed", "framework_io", "jit", "metric",
-            "nn",
+__all__ = (["amp", "core", "distributed", "framework_io", "inference",
+            "jit", "metric", "nn",
             "ops", "optimizer", "parallel", "serving", "static", "testing",
             "utils", "vision", "device", "seed", "get_rng_state",
             "set_rng_state", "set_device", "get_device", "ParamAttr",

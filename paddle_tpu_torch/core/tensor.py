@@ -22,7 +22,9 @@ What the type adds to ``torch.Tensor``:
 - ``numpy()`` copies from the card and detaches (torch's raises on
   both); ``grad`` is a paddle Tensor; ``backward``, ``clear_grad``,
   ``register_hook``, ``set_value``, ``astype``, ``place`` behave as in
-  paddle_tpu.
+  paddle_tpu;
+- its truth value (``if x:``) raises inside ``jit.to_static``, as
+  paddle_tpu's traced Tensor's does (``core.static_hooks``).
 
 The paddle methods of :mod:`paddle_tpu_torch.ops` (``sum(axis=...)``,
 ``transpose(perm)``, ``reshape(shape)``, ...) are installed by
@@ -41,6 +43,7 @@ import torch
 
 from .dtype import convert_dtype, dtype_name, get_default_dtype
 from .placement import device as _resolve_device
+from .static_hooks import in_to_static
 
 __all__ = ["Tensor", "Parameter", "Shape", "to_tensor", "wrap",
            "raw_grad"]
@@ -83,10 +86,14 @@ class Shape(list):
 def wrap(out):
     """Re-type a torch op's result as paddle Tensor(s), in place: a
     plain ``torch.Tensor`` becomes a :class:`Tensor`; a tuple or list
-    is wrapped item by item (a torch named tuple keeps its fields)."""
+    is wrapped item by item (a torch named tuple keeps its fields).
+    While torch compiles or exports (the branches of ``torch.cond`` and
+    the body of ``while_loop`` are traced by dynamo), tensors stay
+    torch's: a traced graph holds no subclass."""
     t = type(out)
     if t is torch.Tensor:
-        out.__class__ = Tensor
+        if not torch.compiler.is_compiling():
+            out.__class__ = Tensor
         return out
     if t is tuple or t is list:
         return t(wrap(o) for o in out)
@@ -192,6 +199,17 @@ class Tensor(torch.Tensor):
 
     def tolist(self):
         return _plain(self).tolist()
+
+    def __bool__(self):
+        if in_to_static():
+            raise TypeError(
+                "[operator < bool > error] Python `if`/`while` tested a "
+                "Tensor inside paddle.jit.to_static; the branch cannot be "
+                "kept in a saved program and would silently freeze one "
+                "path into it. Use paddle.cond / paddle.where for "
+                "branches, paddle.while_loop for loops, or mark the "
+                "function non-static.")
+        return _TB.__bool__(self)
 
     def __float__(self):
         return float(_TB.item(_TB.detach(self)))

@@ -225,6 +225,20 @@ class TrainStep:
         self._opt_state = new_s
         return self._reduce_loss(loss)
 
+    def eval_step(self, *batch):
+        """Forward only, nothing updated: ``(loss, outputs)`` of the
+        model in the mode it is in (paddle_tpu's compiled
+        ``eval_step``)."""
+        if len(batch) < self.n_inputs:
+            raise ValueError(f"TrainStep expects at least {self.n_inputs} "
+                             "input(s)")
+        batch = self._prepare_batch(batch)
+        inputs, labels = batch[:self.n_inputs], batch[self.n_inputs:]
+        with torch.no_grad(), self._amp_scope():
+            out = self.model(*inputs)
+            loss = self.loss_fn(out, *labels)
+        return self._reduce_loss(loss), out
+
     # -- hooks of the distributed step (parallel.SpmdTrainStep) ----------
     def _prepare_batch(self, batch):
         return batch

@@ -14,10 +14,21 @@ Two regimes, as in paddle_tpu:
   that resolves the Variables and Parameters they name
   (``core.static_hooks``; ``static.program`` for the recording).
 
-The port has no traced regime: PyTorch runs ``jit.TrainStep`` eagerly,
-so there the eager path runs (a Python ``if`` on a tensor works where
-paddle_tpu raises), and a ``while_loop`` inside ``TrainStep`` or a
+- **While ``torch.export`` captures a graph** (``jit.save``,
+  ``static.save_inference_model``; ``torch.compiler.is_exporting()``):
+  a tensor predicate lowers ``cond`` to ``torch.cond``, ``case`` and
+  ``switch_case`` to nested ``torch.cond``s, and ``while_loop`` to
+  torch's ``while_loop``, so the saved graph keeps every branch and a
+  data-dependent trip count instead of the one the example took.  Each
+  branch's and the body's outputs are copied (torch's control-flow ops
+  refuse an output that aliases an input), and Python numbers among the
+  loop variables become 0-d tensors.
+
+PyTorch runs ``jit.TrainStep`` and ``jit.to_static`` eagerly, so there
+the eager path runs, and a ``while_loop`` inside ``TrainStep`` or a
 static training program has gradients, where XLA's While has none.
+Inside ``to_static`` a Python ``if`` on a tensor raises, as in
+paddle_tpu (``core.tensor``); inside ``TrainStep`` it works.
 """
 from __future__ import annotations
 
@@ -32,6 +43,46 @@ __all__ = ["cond", "case", "switch_case", "while_loop"]
 
 def _is_static(x) -> bool:
     return isinstance(x, Symbolic)
+
+
+def _exporting(*xs) -> bool:
+    """Is ``torch.export`` capturing a graph with a tensor among ``xs``
+    deciding the control flow?"""
+    return (torch.compiler.is_exporting()
+            and any(isinstance(x, torch.Tensor) for x in xs))
+
+
+def _pred(p):
+    return p.reshape(()).bool()
+
+
+def scalar_tensor(v, device=None) -> torch.Tensor:
+    """A Python number as a 0-d tensor made by an op (bool, int64 or
+    the default float dtype), never a captured constant: a branch
+    traced for ``torch.cond`` cannot serialize a constant of its own."""
+    dtype = (torch.bool if isinstance(v, bool) else torch.int64
+             if isinstance(v, int) else torch.get_default_dtype())
+    return torch.scalar_tensor(v, dtype=dtype, device=device)
+
+
+def _fresh(fn):
+    """``fn`` for torch's control-flow ops: each tensor it returns
+    copied (an output may not alias an input), Python numbers as 0-d
+    tensors, in ``fn``'s structure (one value or a tuple)."""
+    def run(*args):
+        out = fn(*args)
+        single = not isinstance(out, (tuple, list))
+        outs = [out] if single else list(out)
+        res = []
+        for o in outs:
+            res.append(o.clone() if isinstance(o, torch.Tensor)
+                       else scalar_tensor(o))
+        return res[0] if single else tuple(res)
+    return run
+
+
+def _export_cond(pred, true_fn, false_fn):
+    return torch.cond(_pred(pred), _fresh(true_fn), _fresh(false_fn), ())
 
 
 def _truth(p) -> bool:
@@ -116,6 +167,8 @@ def cond(pred, true_fn: Optional[Callable] = None,
     if _is_static(pred):
         op = _Cond(true_fn, false_fn)
         return pred.program.record(op, [pred], "cond", {}, trace=op.trace)
+    if _exporting(pred):
+        return _export_cond(pred, true_fn, false_fn)
     return true_fn() if _truth(pred) else false_fn()
 
 
@@ -133,6 +186,13 @@ def case(pred_fn_pairs: Sequence[Tuple[Any, Callable]],
         op = _Case(fns, tail)
         return static[0].program.record(op, preds, "case", {},
                                         trace=op.trace)
+    if _exporting(*preds):
+        out = tail
+        for p, fn in reversed(pred_fn_pairs):
+            out = (lambda p=p, fn=fn, rest=out:
+                   _export_cond(p, fn, rest) if isinstance(p, torch.Tensor)
+                   else (fn() if p else rest()))
+        return out()
     for p, fn in pred_fn_pairs:
         if _truth(p):
             return fn()
@@ -160,6 +220,12 @@ def switch_case(branch_index, branch_fns, default: Optional[Callable] = None,
         return branch_index.program.record(op, [branch_index],
                                            "switch_case", {},
                                            trace=op.trace)
+    if _exporting(branch_index):
+        out = default
+        for key, fn in reversed(pairs):
+            out = (lambda key=key, fn=fn, rest=out: _export_cond(
+                branch_index == key, fn, rest))
+        return out()
     return dict(pairs).get(_as_int(branch_index), default)()
 
 
@@ -204,7 +270,40 @@ def while_loop(cond: Callable, body: Callable, loop_vars: Sequence,
         op = _While(cond, body)
         return list(program.record(op, loop_vars, "while_loop", {},
                                    trace=op.trace))
+    if _exporting(probe, *loop_vars):
+        return _export_while(cond, body, loop_vars, probe)
     while _truth(probe):
         loop_vars = _outs(body(*loop_vars))
         probe = cond(*loop_vars)
     return loop_vars
+
+
+def _export_while(cond, body, loop_vars, probe):
+    """torch's ``while_loop`` over the loop variables as tensors.  A
+    loop this torch cannot export raises ``NotImplementedError`` (fault
+    C10 when it happens): a saved graph never holds a fixed trip
+    count."""
+    try:
+        from torch._higher_order_ops.while_loop import while_loop as hop
+    except ImportError as e:
+        raise NotImplementedError(
+            f"while_loop: torch {torch.__version__} has no while_loop "
+            f"operator to export it with") from e
+    like = next(x for x in [probe, *loop_vars]
+                if isinstance(x, torch.Tensor))
+    carry = tuple(v if isinstance(v, torch.Tensor)
+                  else scalar_tensor(v, like.device) for v in loop_vars)
+
+    def test(*vs):
+        c = cond(*vs)
+        if not isinstance(c, torch.Tensor):
+            c = scalar_tensor(bool(c), like.device)
+        return _pred(c)
+
+    step = _fresh(lambda *vs: tuple(_outs(body(*vs))))
+    try:
+        return list(hop(test, step, carry))
+    except Exception as e:       # noqa: BLE001 - re-raised, cause chained
+        raise NotImplementedError(
+            f"while_loop: torch {torch.__version__} cannot export this "
+            f"loop ({type(e).__name__}: {str(e).splitlines()[0]})") from e

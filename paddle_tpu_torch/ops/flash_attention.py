@@ -45,7 +45,7 @@ __all__ = ["flash_attention", "flash_attention_supported",
            "flash_attention_reference_fwd", "flash_attention_reference_bwd",
            "attention_delta", "dropout_keep_mask", "mha_reference",
            "FlashAttention", "flash_attention_block", "FlashAttentionBlock",
-           "plain_graph_grads", "NEG_INF"]
+           "plain_graph_grads", "flash_attention_fwd_op", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -200,25 +200,51 @@ def plain_graph_grads(kernel, inputs, plain_fwd, cotangents):
                                    allow_unused=True))
     return [next(got) if n else None for n in need]
 
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
+                         mutates_args=(), device_types="cpu")
+def flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, causal: bool, scale: float,
+                           dropout_p: float, seed: int, q_off: int,
+                           k_off: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)`` of q/k/v ``[B, L, H, D]``; on the CPU the plain
+    version."""
+    out, lse = flash_attention_reference_fwd(
+        _bhld(q), _bhld(k), _bhld(v), causal=causal, scale=scale,
+        dropout_p=dropout_p, seed=seed, q_off=q_off, k_off=k_off)
+    return _bhld(out).contiguous(), lse.contiguous()
+
+
+@flash_attention_fwd_op.register_kernel("cuda")
+def _flash_fwd_cuda(q, k, v, causal, scale, dropout_p, seed, q_off, k_off):
+    return _cuda.flash_attention_fwd(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+        scale=scale, dropout_p=dropout_p, seed=seed, q_off=q_off,
+        k_off=k_off)
+
+
+@flash_attention_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal, scale, dropout_p, seed, q_off, k_off):
+    B, Lq, H, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((B, H, Lq), dtype=torch.float32))
+
 
 class FlashAttention(torch.autograd.Function):
     """Flash attention over ``[B, L, H, D]`` with the kernels' backward:
     the CUDA kernels for CUDA tensors, the plain versions for the others
     (CPU tensors, and ``meta`` ones when a static program infers shapes).
-    Saves ``(q, k, v, out, lse)``; the seed rides on ``ctx``.  A backward
-    with grad mode on (a second derivative) goes through
-    :func:`plain_graph_grads`: exact on the CPU, an error on the card."""
+    Saves ``(q, k, v, out, lse)``; the seed rides on ``ctx``.  The forward
+    is :func:`flash_attention_fwd_op`.  A backward with grad mode on (a
+    second derivative) goes through :func:`plain_graph_grads`: exact on
+    the CPU, an error on the card."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, dropout_p, seed):
         kw = dict(causal=causal, scale=scale, dropout_p=dropout_p, seed=seed)
         if q.device.type == "cuda":
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-            out, lse = _cuda.flash_attention_fwd(q, k, v, **kw)
-        else:
-            out, lse = flash_attention_reference_fwd(_bhld(q), _bhld(k),
-                                                     _bhld(v), **kw)
-            out = _bhld(out).contiguous()
+        out, lse = flash_attention_fwd_op(q, k, v, causal, scale, dropout_p,
+                                          seed, 0, 0)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = kw
         return out
@@ -252,18 +278,16 @@ class FlashAttentionBlock(torch.autograd.Function):
     differentiable: the CUDA kernels for CUDA tensors, the plain versions
     for the others.
     Saves ``(q, k, v, out, lse)``; a missing cotangent counts as zero.
-    A second derivative goes through :func:`plain_graph_grads`."""
+    The forward is :func:`flash_attention_fwd_op`.  A second derivative
+    goes through :func:`plain_graph_grads`."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_off, k_off, scale, causal):
         kw = dict(causal=causal, scale=scale, q_off=q_off, k_off=k_off)
         if q.device.type == "cuda":
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-            out, lse = _cuda.flash_attention_fwd(q, k, v, **kw)
-        else:
-            out, lse = flash_attention_reference_fwd(_bhld(q), _bhld(k),
-                                                     _bhld(v), **kw)
-            out = _bhld(out).contiguous()
+        out, lse = flash_attention_fwd_op(q, k, v, causal, scale, 0.0, 0,
+                                          q_off, k_off)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = kw
         ctx.set_materialize_grads(False)

@@ -27,10 +27,20 @@ signature), differentiable in x, w, bias and every operand through
 :class:`FusedLinearEpilogue`.  :func:`reference_epilogue` is the unfused
 composite the kernel replaces.  :func:`fused_epilogue_supported` is the
 gate the static Executor's fusion pass asks.
+
+The forward is one ``torch.library`` custom op,
+``paddle_tpu_torch::fused_linear_epilogue_fwd``
+(:func:`fused_linear_epilogue_fwd_op`, the recipe passed as its
+``repr``): the CUDA implementation launches K2f, the CPU one is the plain
+version, chosen by the tensors' device when the op runs, so a graph
+captured by ``torch.export`` keeps the kernel as one node.
 """
 from __future__ import annotations
 
+import ast
+import functools
 import math
+from typing import List
 
 import torch
 import torch.nn.functional as TF
@@ -43,7 +53,7 @@ from .flash_attention import plain_graph_grads
 __all__ = ["fused_linear_epilogue", "fused_epilogue_supported",
            "reference_epilogue", "epilogue_forward_reference",
            "epilogue_backward_reference", "stage_label",
-           "FusedLinearEpilogue"]
+           "FusedLinearEpilogue", "fused_linear_epilogue_fwd_op"]
 
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 _INV_SQRT_2 = 1.0 / math.sqrt(2.0)
@@ -195,11 +205,40 @@ def epilogue_backward_reference(x, w, ops, stages, dy):
     return dx, dw, [gr.to(o.dtype) for gr, o in zip(grads, ops)]
 
 
+# ------------------------------------------------------ the forward op
+@functools.lru_cache(maxsize=None)
+def _stages_of(recipe: str):
+    return ast.literal_eval(recipe)
+
+
+@torch.library.custom_op("paddle_tpu_torch::fused_linear_epilogue_fwd",
+                         mutates_args=(), device_types="cpu")
+def fused_linear_epilogue_fwd_op(x2: torch.Tensor, w: torch.Tensor,
+                                 ops: List[torch.Tensor],
+                                 recipe: str) -> torch.Tensor:
+    """``epilogue(x2 @ w)``, x2 [M, K], with the stages of ``recipe``
+    (``repr`` of the stage tuple); on the CPU the plain version."""
+    return epilogue_forward_reference(x2, w, ops, _stages_of(recipe))
+
+
+@fused_linear_epilogue_fwd_op.register_kernel("cuda")
+def _epilogue_fwd_cuda(x2, w, ops, recipe):
+    return _cuda.fused_epilogue_fwd(x2.contiguous(), w.contiguous(),
+                                    tuple(o.contiguous() for o in ops),
+                                    _stages_of(recipe))
+
+
+@fused_linear_epilogue_fwd_op.register_fake
+def _epilogue_fwd_fake(x2, w, ops, recipe):
+    return x2.new_empty((x2.shape[0], w.shape[1]))
+
+
 # ------------------------------------------------ the autograd Function
 class FusedLinearEpilogue(torch.autograd.Function):
     """``epilogue(x2 @ w)`` over 2-D x2 with the kernels' backward: the
     CUDA kernels for CUDA tensors, the plain versions for the others.
-    Saves ``(x2, w, *ops)``: the backward recomputes the rest.  A second
+    Saves ``(x2, w, *ops)``: the backward recomputes the rest.  The
+    forward is :func:`fused_linear_epilogue_fwd_op`.  A second
     derivative goes through
     :func:`~.flash_attention.plain_graph_grads`: exact on the CPU, an
     error on the card."""
@@ -209,9 +248,7 @@ class FusedLinearEpilogue(torch.autograd.Function):
         if x2.device.type == "cuda":
             x2, w = x2.contiguous(), w.contiguous()
             ops = tuple(o.contiguous() for o in ops)
-            out = _cuda.fused_epilogue_fwd(x2, w, ops, stages)
-        else:
-            out = epilogue_forward_reference(x2, w, ops, stages)
+        out = fused_linear_epilogue_fwd_op(x2, w, list(ops), repr(stages))
         ctx.save_for_backward(x2, w, *ops)
         ctx.stages = stages
         return out

@@ -166,6 +166,9 @@ class Executor:
     def run(self, program: Optional[Program] = None, feed=None,
             fetch_list: Optional[Sequence] = None, return_numpy=True,
             seed=None):
+        # loaded inference programs (load_inference_model) run their own
+        if hasattr(program, "_run_loaded"):
+            return program._run_loaded(feed, fetch_list, return_numpy)
         if program is None:
             program = default_main_program()
         if not program.nodes:

@@ -45,7 +45,9 @@ def test_import_leaves_jax_and_paddle_tpu_out():
             "paddle_tpu_torch.optimizer.extras, "
             "paddle_tpu_torch.framework_compat, "
             "paddle_tpu_torch.core.profiler_hook, "
-            "paddle_tpu_torch.core.flags\n"
+            "paddle_tpu_torch.core.flags, paddle_tpu_torch.inference, "
+            "paddle_tpu_torch.jit.save_load, paddle_tpu_torch.jit.dy2static, "
+            "paddle_tpu_torch.jit.lint, paddle_tpu_torch.static.io\n"
             "from paddle_tpu_torch.ops.cuda import support\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'paddle_tpu.', 'triton')) "

@@ -31,11 +31,8 @@ NOT_YET_PORTED = {
         named_sharding plan_for_params register_mesh_user release_mesh_user
         shard_tree spec_divisor specs_for_state split with_constraint
     """,
-    "paddle_tpu.jit": """
-        InputSpec LintDiagnostic StaticFunction TranslatedLayer bind
-        buffer_arrays enable_to_static lint load not_to_static param_arrays
-        param_list save to_static
-    """,
+    "paddle_tpu.jit": "",
+    "paddle_tpu.inference": "",
     "paddle_tpu.nn": "",
     "paddle_tpu.nn.functional": "",
     "paddle_tpu.optimizer": "",
@@ -47,10 +44,7 @@ NOT_YET_PORTED = {
         ElasticityController InferenceEngine ModelEntry ModelRegistry
         QuotaExceeded ReplicaSet UnknownModel WeightWatcher publish_weights
     """,
-    "paddle_tpu.static": """
-        BuildStrategy CompiledProgram InputSpec load_inference_model
-        save_inference_model
-    """,
+    "paddle_tpu.static": "",
     "paddle_tpu.utils": """
         register_custom_op train_epoch_range
     """,
