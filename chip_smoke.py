@@ -303,24 +303,61 @@ kernel from the sources in this checkout.  Phases, each fatal:
     tensor ``while`` saved, loaded and run on the card at inputs that
     take the other branch and other trip counts than the example, each
     equal to the eager ``to_static`` call and each graph holding
-    torch's ``cond`` / ``while_loop``.
+    torch's ``cond`` / ``while_loop``;
+57. ``bench_serving`` whole: the 64-128-128-32 MLP, 240 ragged requests
+    of 1-4 rows, 3 rounds of the sequential Predictor interleaved with 3
+    of the ``InferenceEngine`` (``max_batch_size`` 32, 2 ms) under 8
+    closed-loop clients each keeping 8 in flight: requests/s, the
+    speedup, occupancy, requests a batch, padding waste, latency
+    p50/p95/p99; no variant after warm-up, every response within 1e-5
+    of the request run alone;
+58. R1 (phase 53's saved BERT-base) behind the ``InferenceEngine``,
+    bench_serving's traffic cut to 96 requests of 1-4 rows x 512 tokens
+    and 2 rounds: requests/s, rows/s, tokens/s, the speedup over
+    sequential ``Predictor.run``, occupancy, latency; 12 K1f launches
+    for every batch dispatched and no other hand kernel; every response
+    within ``FLASH_TOL`` of the request alone; one batch's anatomy;
+59. a ``ServingServer`` over a ``ModelRegistry``: BERT-base and the MLP
+    loaded through ``POST /admin/models``, ``/healthz`` 503 before
+    ``mark_ready`` and 200 after, 16 ``/predict`` requests a model from
+    4 clients (BERT's as ``.npy`` bodies) against each model's engine,
+    an unknown model's 404, an ``unload`` that drains;
+60. the C ABI built with ``g++``: ``CPredictor`` over R1 at batches 1
+    and 8 (12 K1f a run, within ``FLASH_TOL`` of ``Predictor.run``, its
+    latency beside ``Predictor.run``'s), and a C program compiled with
+    ``gcc`` driving a small BERT saved on the card in its own embedded
+    interpreter (checksums within 1e-4 of the Predictor's);
+61. ``bench_generation`` whole: ``PagedDecoderLM(1024, 256, 2 layers, 8
+    heads, ffn 2048)``, 48 requests generated alone by
+    ``nn.dynamic_decode`` over ``make_cell``'s dense cache of 512 rows
+    against the paged ``GenerationEngine``, 2 rounds: tokens/s, the
+    speedup (bench.py's >= 3x gate printed), p99s and
+    ``latency_bound_ms``; every baseline sequence ends in EOS after its
+    budget; the cell's logits card vs CPU over 8 steps within ``TOL``.
 
-Phases 46-56 each log their number and name, print every compared
+Phases 46-61 each log their number and name, print every compared
 quantity beside its limit, put back in a ``finally`` the global state
 they may touch (flags, dygraph mode, default dtype and device, the RNG
 state, the registered paged kernel, print options, the profiler hook)
-and assert that a snapshot of it equals the one taken at their start.
+and assert that a snapshot of it equals the one taken at their start;
+phases 57-61 also close their engines, servers and clients in a
+``finally`` and assert that every thread they started has ended.
 
 The last lines are the kernels JSON object, the card's name and power
-limit as ``nvidia-smi`` reports them, and ``{"ok": true, ...}``.  Any
+limit as ``nvidia-smi`` reports them, and ``{"ok": true, ...}``.
+``python3 chip_smoke.py --phase7-runs N`` runs phase 7 alone N times
+(its reproducibility, ROADMAP §C).  Any
 failure prints a traceback and exits 1 without the result line.
 """
 import gc
+import hashlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1154,11 +1191,19 @@ def phase_small_bert_parity():
     worst = max(rest, key=rest.get)
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
                                                       losses["cpu"]))
+    # each side's final parameters bit for bit, to tell runs apart
+    prints = {}
+    for side, model in (("cpu", cpu), ("cuda", gpu)):
+        h = hashlib.sha256()
+        for n, p in sorted(model.named_parameters()):
+            h.update(p.detach().cpu().numpy().tobytes())
+        prints[side] = h.hexdigest()[:16]
     out = {"losses_cpu": losses["cpu"], "losses_cuda": losses["cuda"],
            "loss_max_rel_err": loss_err, "param_max_abs_err": rest[worst],
            "param_worst": worst, "k_proj_bias_max_abs_err":
            max(k_bias.values()), "loss_rtol": 1e-5,
-           "param_atol": BERT_PARAM_ATOL, "k_proj_bias_atol": 2e-4 * steps}
+           "param_atol": BERT_PARAM_ATOL, "k_proj_bias_atol": 2e-4 * steps,
+           "param_fingerprints": prints}
     log("BERT_PARITY " + json.dumps(out))
     if (not loss_err <= 1e-5 or not rest[worst] <= BERT_PARAM_ATOL
             or not max(k_bias.values()) <= 2e-4 * steps):
@@ -5044,7 +5089,7 @@ def _same_state(a, b):
 
 
 def _keeps_global_state(fn):
-    """Phases 46-56: log the phase's number and name at its start, put
+    """Phases 46-61: log the phase's number and name at its start, put
     back every global state it may touch in a ``finally``, and assert
     the snapshot after equals the one before."""
     import functools
@@ -5968,15 +6013,15 @@ def _predictor_group(n):
 
 
 @_keeps_global_state
-def phase_predictor_bert():
+def phase_predictor_bert(artifacts):
     """53 predictor_bert: R1, ``bench_bert``'s model (BERT-base, f32)
     in eval saved by ``jit.save`` with ``InputSpec([None, 512],
-    "int64")``, served by ``create_predictor`` at batches 1, 8 and 32:
-    12 K1f launches a run and nothing else, the output against the same
-    model run eagerly with ``use_pallas_kernels`` off, latency a run,
-    save and load seconds, and K1f at the batch-32 shape beside its
-    bound, plain version and SDPA."""
-    import tempfile
+    "int64")`` into ``artifacts`` (phases 58-60 serve it again), served
+    by ``create_predictor`` at batches 1, 8 and 32: 12 K1f launches a
+    run and nothing else, the output against the same model run eagerly
+    with ``use_pallas_kernels`` off, latency a run, save and load
+    seconds, and K1f at the batch-32 shape beside its bound, plain
+    version and SDPA."""
     import numpy as np
     import torch
     import paddle_tpu_torch as paddle
@@ -5990,16 +6035,15 @@ def phase_predictor_bert():
                         cfg["dropout"], device="cuda")
     rs = np.random.RandomState(53)
     rows, quantities = {}, {}
-    with tempfile.TemporaryDirectory() as d:
-        prefix = os.path.join(d, "bert")
-        t0 = time.perf_counter()
-        jit.save(model, prefix, input_spec=[
-            jit.InputSpec([None, cfg["seq"]], "int64")])
-        save_s = time.perf_counter() - t0
-        sizes = _file_bytes(prefix)
-        t0 = time.perf_counter()
-        pred = inference.create_predictor(inference.Config(prefix))
-        load_s = time.perf_counter() - t0
+    prefix = os.path.join(artifacts, "bert")
+    t0 = time.perf_counter()
+    jit.save(model, prefix, input_spec=[
+        jit.InputSpec([None, cfg["seq"]], "int64")])
+    save_s = time.perf_counter() - t0
+    sizes = _file_bytes(prefix)
+    t0 = time.perf_counter()
+    pred = inference.create_predictor(inference.Config(prefix))
+    load_s = time.perf_counter() - t0
     graph_kernels = pred._meta["kernels"]
     model.eval()
     for b in PRED_BERT_BATCHES:
@@ -6062,7 +6106,7 @@ def phase_predictor_bert():
     _check("PREDICTOR_BERT_CHECK", quantities)
     del model, pred
     torch.cuda.empty_cache()
-    return {"flash_attention_fwd": launches}, k1f
+    return {"flash_attention_fwd": launches}, k1f, prefix
 
 
 def _static_forward(torch, main, feed_var, fetch_var, ids):
@@ -6316,6 +6360,669 @@ def phase_dy2static_export():
     _check("DY2STATIC_EXPORT_CHECK", quantities)
 
 
+# ----------------------------------------------------------- phases 57-61
+ENGINE_BERT_REQUESTS, ENGINE_BERT_REPS = 96, 2     # cut from 240 and 3
+SERVING_CLIENTS, SERVING_WINDOW, SERVING_MAX_BATCH = 8, 8, 32
+HTTP_REQUESTS, HTTP_CLIENTS = 16, 4
+CAPI_BATCHES, CAPI_RUNS = (1, 8), {1: 10, 8: 4}
+GEN_BASELINE = dict(vocab_size=1024, hidden=256, num_layers=2, num_heads=8,
+                    ffn=2048, seed=7)
+GEN_REQUESTS, GEN_REPS, GEN_SLOTS, GEN_T_MAX = 48, 2, 8, 512
+GEN_PROMPT_LENGTHS, GEN_BUDGETS = [4, 6, 8, 12, 16, 24, 32], (16, 48)
+
+
+class _ServingScope:
+    """Phases 57-61's own state: every thread started inside the block
+    (dispatchers, HTTP servers and their handlers, clients) must have
+    ended within a few seconds of the block's end, after its engines and
+    servers were closed in the block's ``finally``."""
+
+    def __enter__(self):
+        self._before = {t.ident for t in threading.enumerate()}
+        return self
+
+    def __exit__(self, *exc):
+        deadline = time.monotonic() + 15.0
+        while True:
+            left = [t.name for t in threading.enumerate()
+                    if t.ident not in self._before and t.is_alive()]
+            if not left or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        if left and exc[0] is None:
+            raise AssertionError(f"threads still running after the phase: "
+                                 f"{left}")
+        return False
+
+
+def _closed_loop(engine, reqs, clients, window):
+    """bench.py's clients: ``clients`` threads, each keeping up to
+    ``window`` requests in flight; returns the outputs in request order
+    and the wall seconds."""
+    outs, errors = [None] * len(reqs), []
+
+    def client(idx):
+        try:
+            pending = []
+            for i in range(idx, len(reqs), clients):
+                pending.append((i, engine.infer([reqs[i]])))
+                while len(pending) >= window:
+                    j, f = pending.pop(0)
+                    outs[j] = f.result(300)[0]
+            for j, f in pending:
+                outs[j] = f.result(300)[0]
+        except BaseException as e:     # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,), name=f"client-{c}")
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return outs, wall
+
+
+def _np_rel_err(np, got, ref):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    if not np.isfinite(got).all():
+        raise AssertionError("non-finite output")
+    return float(np.abs(got - ref).max() / max(1.0, np.abs(ref).max()))
+
+
+def _engine_stats_row(st):
+    return {"mean_batch_occupancy": st["mean_batch_occupancy"],
+            "requests_per_batch": st["requests_per_batch"],
+            "padding_waste": st["padding_waste"],
+            "latency_ms_p50": st["latency_ms"]["p50"],
+            "latency_ms_p95": st["latency_ms"]["p95"],
+            "latency_ms_p99": st["latency_ms"]["p99"],
+            "batches": st["counters"]["batches"],
+            "recompiles_after_warmup": st["recompiles_after_warmup"],
+            "buckets": st["buckets"]}
+
+
+def _serving_mlp(paddle, nn):
+    paddle.seed(2024)
+    layers = []
+    for a, b in zip(SERVING_MLP[:-1], SERVING_MLP[1:]):
+        layers += [nn.Linear(a, b), nn.ReLU()]
+    mlp = nn.Sequential(*layers[:-1])
+    mlp.eval()
+    return mlp
+
+
+@_keeps_global_state
+def phase_engine_mlp(artifacts):
+    """57 engine_mlp: ``bench_serving`` whole (bench.py:817-927): the
+    64-128-128-32 MLP saved into ``artifacts`` (phase 59 loads it), 240
+    ragged requests of 1-4 rows, 3 rounds of the sequential Predictor
+    interleaved with 3 of the ``InferenceEngine`` (``max_batch_size``
+    32, 2 ms ``batch_timeout_ms``) under 8 closed-loop clients each
+    keeping 8 in flight: requests/s, the speedup, occupancy, requests a
+    batch, padding waste, latency p50/p95/p99; no variant after warm-up
+    and every response within 1e-5 of that request run alone."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import inference, jit, nn, serving
+    prefix = os.path.join(artifacts, "mlp")
+    jit.save(_serving_mlp(paddle, nn), prefix, input_spec=[
+        jit.InputSpec([None, SERVING_MLP[0]], "float32")])
+    pred = inference.create_predictor(inference.Config(prefix))
+    rng = np.random.RandomState(0)
+    reqs = [rng.standard_normal((int(rng.randint(1, 5)), SERVING_MLP[0]))
+            .astype(np.float32) for _ in range(SERVING_REQUESTS)]
+    rows = sum(r.shape[0] for r in reqs)
+    for n in sorted({r.shape[0] for r in reqs}):
+        np.asarray(pred.run([np.zeros((n, SERVING_MLP[0]), np.float32)])[0])
+    seq_variants = pred.num_compiled_variants()
+    with _ServingScope():
+        eng = serving.InferenceEngine(pred, max_batch_size=SERVING_MAX_BATCH,
+                                      batch_timeout_ms=2.0,
+                                      max_queue=4 * SERVING_REQUESTS)
+        try:
+            eng.warmup()
+            dt_seq = dt_conc = 0.0
+            for _ in range(SERVING_REPS):
+                t0 = time.perf_counter()
+                alone = [np.asarray(pred.run([r])[0]) for r in reqs]
+                dt_seq += time.perf_counter() - t0
+                outs, wall = _closed_loop(eng, reqs, SERVING_CLIENTS,
+                                          SERVING_WINDOW)
+                dt_conc += wall
+            st = eng.stats()
+        finally:
+            eng.close()
+    err = max(_np_rel_err(np, o, a) for o, a in zip(outs, alone))
+    n_req = SERVING_REQUESTS * SERVING_REPS
+    out = {"requests_per_sec": n_req / dt_conc,
+           "sequential_requests_per_sec": n_req / dt_seq,
+           "speedup_vs_sequential_predictor": dt_seq / dt_conc,
+           "rows_per_sec": rows * SERVING_REPS / dt_conc,
+           **_engine_stats_row(st),
+           "compiled_variants_sequential_warm": seq_variants,
+           "max_rel_err_vs_alone": err, "nvidia_smi": nvidia_smi(),
+           "config": {"model": "mlp 64-128-128-32", "requests":
+                      SERVING_REQUESTS, "rounds": SERVING_REPS,
+                      "clients": SERVING_CLIENTS,
+                      "pipeline_depth": SERVING_WINDOW,
+                      "max_batch_size": SERVING_MAX_BATCH,
+                      "batch_timeout_ms": 2.0, "ragged_rows": "1-4"}}
+    log("ENGINE_MLP " + json.dumps(out))
+    _check("ENGINE_MLP_CHECK", {
+        "recompiles_after_warmup": (st["recompiles_after_warmup"], 0),
+        "max rel err vs the request alone": (err, 1e-5),
+        "responses missing": (n_req - st["counters"]["responses"], 0)})
+    return prefix
+
+
+def _one_engine_batch(engine, reqs):
+    """One dispatched batch's worth of requests (rows summing to the
+    largest bucket), submitted together and waited for."""
+    futs = [engine.infer([r]) for r in reqs]
+    for f in futs:
+        f.result(300)
+
+
+@_keeps_global_state
+def phase_engine_bert(prefix):
+    """58 engine_bert: R1 (phase 53's saved BERT-base, f32 eval) behind
+    the ``InferenceEngine`` (``max_batch_size`` 32, 2 ms), bench_serving's
+    traffic cut to 96 ragged requests of 1-4 rows x 512 tokens and 2
+    rounds, the sequential ``Predictor.run`` interleaved: requests/s,
+    rows/s and tokens/s, the speedup, occupancy, latency p50/p95/p99; 12
+    K1f launches for every batch dispatched and no other hand kernel; no
+    variant after warm-up; every response within ``FLASH_TOL`` of that
+    request run alone; one dispatched batch's anatomy."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import inference, serving
+    from paddle_tpu_torch.ops.cuda import support
+    cfg = BERT_CHIP
+    pred = inference.create_predictor(inference.Config(prefix))
+    rng = np.random.RandomState(58)
+    reqs = [rng.randint(0, cfg["vocab"], (int(rng.randint(1, 5)),
+                                          cfg["seq"])).astype(np.int64)
+            for _ in range(ENGINE_BERT_REQUESTS)]
+    rows = sum(r.shape[0] for r in reqs)
+    for n in sorted({r.shape[0] for r in reqs}):
+        np.asarray(pred.run([np.zeros((n, cfg["seq"]), np.int64)])[0])
+    launches, seq_launches, batches = {}, {}, 0
+    with _ServingScope():
+        eng = serving.InferenceEngine(pred, max_batch_size=SERVING_MAX_BATCH,
+                                      batch_timeout_ms=2.0,
+                                      max_queue=4 * ENGINE_BERT_REQUESTS)
+        try:
+            t0 = time.perf_counter()
+            eng.warmup()
+            torch.cuda.synchronize()
+            warmup_s = time.perf_counter() - t0
+            dt_seq = dt_conc = 0.0
+            err = 0.0
+            for _ in range(ENGINE_BERT_REPS):
+                support.reset_launch_counts()
+                t0 = time.perf_counter()
+                alone = [np.asarray(pred.run([r])[0]) for r in reqs]
+                dt_seq += time.perf_counter() - t0
+                for k, n in support.launch_counts.items():
+                    seq_launches[k] = seq_launches.get(k, 0) + n
+                b0 = eng.stats()["counters"]["batches"]
+                support.reset_launch_counts()
+                outs, wall = _closed_loop(eng, reqs, SERVING_CLIENTS,
+                                          SERVING_WINDOW)
+                for k, n in support.launch_counts.items():
+                    launches[k] = launches.get(k, 0) + n
+                batches += eng.stats()["counters"]["batches"] - b0
+                dt_conc += wall
+                err = max([err] + [_np_rel_err(np, o, a)
+                                   for o, a in zip(outs, alone)])
+                del outs, alone
+            st = eng.stats()
+            batch = [np.zeros((4, cfg["seq"]), np.int64)] * (
+                SERVING_MAX_BATCH // 4)
+            anatomy_launches = _step_anatomy(
+                "ENGINE_BERT_ANATOMY", lambda: _one_engine_batch(eng, batch),
+                2, _predictor_group)
+        finally:
+            eng.close()
+    n_req = ENGINE_BERT_REQUESTS * ENGINE_BERT_REPS
+    out = {"requests_per_sec": n_req / dt_conc,
+           "rows_per_sec": rows * ENGINE_BERT_REPS / dt_conc,
+           "tokens_per_sec": rows * ENGINE_BERT_REPS * cfg["seq"] / dt_conc,
+           "sequential_requests_per_sec": n_req / dt_seq,
+           "sequential_rows_per_sec": rows * ENGINE_BERT_REPS / dt_seq,
+           "speedup_vs_sequential_predictor": dt_seq / dt_conc,
+           **_engine_stats_row(st), "warmup_s": warmup_s,
+           "batches_timed": batches, "launches": launches,
+           "sequential_launches": seq_launches,
+           "anatomy_launches_per_batch": anatomy_launches,
+           "max_rel_err_vs_alone": err, "nvidia_smi": nvidia_smi(),
+           "config": dict(cfg, dtype="float32", mode="eval",
+                          requests=ENGINE_BERT_REQUESTS,
+                          rounds=ENGINE_BERT_REPS, ragged_rows="1-4",
+                          clients=SERVING_CLIENTS,
+                          pipeline_depth=SERVING_WINDOW,
+                          max_batch_size=SERVING_MAX_BATCH,
+                          batch_timeout_ms=2.0,
+                          cut="96 requests x 2 rounds (bench.py: 240 x 3)")}
+    log("ENGINE_BERT " + json.dumps(out))
+    _check("ENGINE_BERT_CHECK", {
+        "|K1f launches - 12 x batches|": (abs(
+            launches.get("flash_attention_fwd", 0)
+            - cfg["layers"] * batches), 0),
+        "other hand kernels launched": (sum(
+            n for k, n in launches.items() if k != "flash_attention_fwd"), 0),
+        "|sequential K1f launches - 12 x requests|": (abs(
+            seq_launches.get("flash_attention_fwd", 0)
+            - cfg["layers"] * n_req), 0),
+        "recompiles_after_warmup": (st["recompiles_after_warmup"], 0),
+        "max rel err vs the request alone": (err, FLASH_TOL["float32"])})
+    del pred
+    torch.cuda.empty_cache()
+    return {"flash_attention_fwd": launches.get("flash_attention_fwd", 0)}
+
+
+@_keeps_global_state
+def phase_http_registry(bert_prefix, mlp_prefix):
+    """59 http_registry: a ``ServingServer`` over a ``ModelRegistry``
+    bound not ready; R1's BERT-base and phase 57's MLP loaded through
+    ``POST /admin/models``; ``/healthz`` 503 before ``mark_ready`` and
+    200 after; 16 ``/predict`` requests a model from 4 clients routed by
+    ``"model"`` (BERT's as ``.npy`` bodies), each against the model's
+    engine answering the same request directly; an unknown model's 404;
+    an ``unload`` that drains."""
+    import http.client
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import serving
+    cfg = BERT_CHIP
+    rng = np.random.RandomState(59)
+    reqs = {"bert": [rng.randint(0, cfg["vocab"], (int(rng.randint(1, 3)),
+                                                   cfg["seq"]))
+                     for _ in range(HTTP_REQUESTS)],
+            "mlp": [rng.standard_normal((int(rng.randint(1, 5)),
+                                         SERVING_MLP[0])).astype(np.float32)
+                    for _ in range(HTTP_REQUESTS)]}
+    quantities, codes, timings = {}, {}, {}
+    with _ServingScope():
+        reg = serving.ModelRegistry()
+        srv = serving.ServingServer(registry=reg, port=0, ready=False,
+                                    request_timeout=300).start()
+        try:
+            client = serving.Client(srv.url, timeout=600)
+            codes["healthz before load"] = client.healthz()["status"]
+            for name, prefix in (("bert", bert_prefix), ("mlp", mlp_prefix)):
+                t0 = time.perf_counter()
+                r = client.load_model(name, prefix, engine_kwargs={
+                    "max_batch_size": SERVING_MAX_BATCH,
+                    "batch_timeout_ms": 2.0})
+                timings[f"load {name} s"] = time.perf_counter() - t0
+                if r != {"loaded": name, "state": "ready"}:
+                    raise AssertionError(f"load {name}: {r}")
+            h = client.healthz()
+            quantities["healthz ready before mark_ready"] = (int(h["ready"]),
+                                                             0)
+            srv.mark_ready()
+            quantities["healthz not ready after mark_ready"] = (
+                int(not client.healthz()["ready"]), 0)
+            got, errors = {"bert": {}, "mlp": {}}, []
+
+            def worker(c):
+                cl = serving.Client(srv.url, timeout=600)
+                try:
+                    for i in range(c, HTTP_REQUESTS, HTTP_CLIENTS):
+                        got["bert"][i] = cl.predict_npy(reqs["bert"][i],
+                                                        model="bert")
+                        got["mlp"][i] = cl.predict(reqs["mlp"][i],
+                                                   model="mlp")[0]
+                except BaseException as e:   # noqa: BLE001 - re-raised
+                    errors.append(e)
+                finally:
+                    cl.close()
+
+            threads = [threading.Thread(target=worker, args=(c,),
+                                        name=f"http-client-{c}")
+                       for c in range(HTTP_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            timings["predict wall s"] = time.perf_counter() - t0
+            if errors:
+                raise errors[0]
+            for name, tol in (("bert", FLASH_TOL["float32"]), ("mlp", 1e-5)):
+                eng = reg.resolve(name).engine
+                err = max(_np_rel_err(np, got[name][i], eng.infer_sync(
+                    [reqs[name][i]], timeout=300)[0])
+                    for i in range(HTTP_REQUESTS))
+                quantities[f"{name}: max rel err vs its engine"] = (err, tol)
+                quantities[f"{name}: answers missing"] = (
+                    HTTP_REQUESTS - len(got[name]), 0)
+            conn = http.client.HTTPConnection(srv.host, srv.port, timeout=60)
+            conn.request("POST", "/predict", json.dumps(
+                {"inputs": [reqs["mlp"][0].tolist()], "model": "nope"}),
+                {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            resp.read()
+            conn.close()
+            quantities["|unknown model status - 404|"] = (
+                abs(resp.status - 404), 0)
+            metrics = client.metrics()
+            desc = client.admin_models()
+            t0 = time.perf_counter()
+            summary = client.unload_model("bert")
+            timings["unload bert s"] = time.perf_counter() - t0
+            quantities["unload did not drain"] = (
+                int(summary != {"model": "bert", "engine_drained": True}), 0)
+            quantities["models left (want 1)"] = (len(reg.models()), 1)
+            client.close()
+        finally:
+            srv.close()
+            reg.close()
+    out = {"healthz": codes, "timings": timings,
+           "registry": metrics["registry"], "models": desc["models"],
+           "unload": summary, "nvidia_smi": nvidia_smi()}
+    log("HTTP_REGISTRY " + json.dumps(out))
+    _check("HTTP_REGISTRY_CHECK", quantities)
+    torch.cuda.empty_cache()
+
+
+_CAPI_C_MAIN = r"""
+#include <stdio.h>
+#include <stdlib.h>
+#include "paddle_tpu_capi.h"
+
+int main(int argc, char** argv) {
+  int64_t batch = atoll(argv[2]), seq = atoll(argv[3]), vocab = atoll(argv[4]);
+  PT_Predictor* p = PT_NewPredictor(argv[1]);
+  if (!p) { printf("FAIL new\n"); return 1; }
+  float* ids = (float*)malloc(sizeof(float) * batch * seq);
+  for (int64_t i = 0; i < batch * seq; ++i) ids[i] = (float)((i * 7) % vocab);
+  const float* inputs[1] = {ids};
+  int64_t shape[2] = {batch, seq};
+  const int64_t* shapes[1] = {shape};
+  int32_t ndims[1] = {2};
+  int32_t n = PT_PredictorRun(p, inputs, shapes, ndims, 1);
+  if (n != 1) { printf("FAIL run %d\n", n); return 1; }
+  PT_Output out;
+  if (PT_GetOutput(p, 0, &out) != 0) { printf("FAIL out\n"); return 1; }
+  double sum = 0, asum = 0;
+  for (int64_t i = 0; i < out.numel; ++i) {
+    sum += out.data[i];
+    asum += out.data[i] < 0 ? -out.data[i] : out.data[i];
+  }
+  printf("OK numel=%lld sum=%.9e abs=%.9e\n", (long long)out.numel, sum, asum);
+  PT_FreeOutput(&out);
+  PT_DeletePredictor(p);
+  free(ids);
+  return 0;
+}
+"""
+
+
+def _capi_ms(np, fn, runs):
+    """ms a run of ``fn()`` (whose result is read to the host) over
+    ``runs`` runs after one warm-up run."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    return (time.perf_counter() - t0) / runs * 1e3
+
+
+@_keeps_global_state
+def phase_capi(bert_prefix, artifacts):
+    """60 capi: the C ABI built with ``g++`` from the checkout
+    (``load_capi``): ``CPredictor`` over R1 at batches 1 and 8 (ids as
+    float32), 12 K1f launches a run and the output within ``FLASH_TOL``
+    of ``Predictor.run``'s, its latency a run beside ``Predictor.run``'s
+    (both read to the host); then a C program compiled with ``gcc``
+    drives a small BERT (bench.py:167's widths) saved on the card in its
+    own embedded interpreter, its checksum within 1e-4 relative of the
+    in-process Predictor's."""
+    import site
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.inference import capi
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.testing.models import build_model
+    cfg = BERT_CHIP
+    prev_env = os.environ.pop(capi.DEVICE_ENV, None)
+    quantities, rows, launches = {}, {}, 0
+    try:
+        t0 = time.perf_counter()
+        capi.load_capi()
+        build_s = time.perf_counter() - t0
+        pred = inference.create_predictor(inference.Config(bert_prefix))
+        rs = np.random.RandomState(60)
+        with capi.CPredictor(bert_prefix) as cp:
+            for b in CAPI_BATCHES:
+                ids = rs.randint(0, cfg["vocab"], (b, cfg["seq"]))
+                idf = ids.astype(np.float32)
+                support.reset_launch_counts()
+                got, = cp.run([idf])
+                counts = dict(support.launch_counts)
+                launches += counts.get("flash_attention_fwd", 0)
+                want = np.asarray(pred.run([ids])[0])
+                err = _np_rel_err(np, got, want)
+                c_ms = _capi_ms(np, lambda: cp.run([idf]), CAPI_RUNS[b])
+                p_ms = _capi_ms(np, lambda: np.asarray(pred.run([ids])[0]),
+                                CAPI_RUNS[b])
+                rows[b] = {"capi_ms": c_ms, "predictor_ms": p_ms,
+                           "runs": CAPI_RUNS[b], "launches": counts,
+                           "rel_err_vs_predictor": err,
+                           "output_shape": list(got.shape)}
+                quantities[f"batch {b}: |K1f launches - 12|"] = (abs(
+                    counts.get("flash_attention_fwd", 0) - cfg["layers"]), 0)
+                quantities[f"batch {b}: other kernels launched"] = (sum(
+                    n for k, n in counts.items()
+                    if k != "flash_attention_fwd"), 0)
+                quantities[f"batch {b}: rel err vs Predictor.run"] = (
+                    err, FLASH_TOL["float32"])
+        del pred
+        torch.cuda.empty_cache()
+        c = BERT_CPU
+        paddle.seed(60)
+        small = build_model(c["vocab"], c["hidden"], c["layers"], c["heads"],
+                            c["ffn"], c["seq"], 0.0, device="cuda")
+        small.eval()
+        spfx = os.path.join(artifacts, "small_bert")
+        jit.save(small, spfx, input_spec=[jit.InputSpec([None, c["seq"]],
+                                                        "int64")])
+        del small
+        B = 2
+        ids = (np.arange(B * c["seq"]) * 7 % c["vocab"]).reshape(
+            B, c["seq"])
+        want = np.asarray(inference.create_predictor(inference.Config(
+            spfx)).run([ids])[0]).astype(np.float64)
+        src = os.path.join(artifacts, "capi_main.c")
+        exe = os.path.join(artifacts, "capi_main")
+        with open(src, "w") as f:
+            f.write(_CAPI_C_MAIN)
+        so = capi.load_capi()._name
+        subprocess.run(["gcc", src, f"-I{capi.CSRC}", "-o", exe, so,
+                        f"-Wl,-rpath,{os.path.dirname(so)}",
+                        *capi.python_link_flags()],
+                       check=True, capture_output=True, text=True)
+        env = {k: v for k, v in os.environ.items() if k != capi.DEVICE_ENV}
+        env["PYTHONPATH"] = os.pathsep.join([ROOT] + site.getsitepackages())
+        t0 = time.perf_counter()
+        r = subprocess.run([exe, spfx, str(B), str(c["seq"]),
+                            str(c["vocab"])], capture_output=True, text=True,
+                           env=env, timeout=600)
+        c_prog_s = time.perf_counter() - t0
+        if r.returncode != 0 or not r.stdout.startswith("OK"):
+            raise AssertionError(f"C program failed ({r.returncode}): "
+                                 f"{r.stdout} {r.stderr[-3000:]}")
+        fields = dict(kv.split("=") for kv in r.stdout.split()[1:])
+        sums = {"sum": float(fields["sum"]), "abs": float(fields["abs"])}
+        quantities["C program: |numel - B x L x H|"] = (abs(
+            int(fields["numel"]) - B * c["seq"] * c["hidden"]), 0)
+        abs_sum = float(np.abs(want).sum())
+        quantities["C program: abs-sum rel err"] = (
+            abs(sums["abs"] - abs_sum) / abs_sum, 1e-4)
+        # the hidden states are layer-normed rows: their plain sum is
+        # near 0, so its error is taken relative to the abs-sum
+        quantities["C program: sum err / abs-sum"] = (
+            abs(sums["sum"] - float(want.sum())) / abs_sum, 1e-4)
+    finally:
+        if prev_env is not None:
+            os.environ[capi.DEVICE_ENV] = prev_env
+    out = {"build_s": build_s, "library": so, "batches": rows,
+           "c_program": {"config": c, "batch": B, "seconds": c_prog_s,
+                         "checksums": sums, "predictor_sum": float(
+                             want.sum()),
+                         "predictor_abs_sum": float(np.abs(want).sum())},
+           "nvidia_smi": nvidia_smi()}
+    log("CAPI " + json.dumps(out))
+    _check("CAPI_CHECK", quantities)
+    return {"flash_attention_fwd": launches}
+
+
+@_keeps_global_state
+def phase_generation_baseline():
+    """61 generation_baseline: ``bench_generation`` whole
+    (bench.py:930-1086): ``PagedDecoderLM(1024, 256, 2 layers, 8 heads,
+    ffn 2048)`` on the card, 48 requests (prompts of 4-32, budgets
+    16-48), each generated alone by ``nn.dynamic_decode`` over
+    ``make_cell``'s dense cache of 512 rows (beam 1), against the paged
+    ``GenerationEngine`` (8 slots, pages of 8, 128 pages), 2 rounds
+    interleaved: tokens/s of both, the speedup, both p99s and
+    ``latency_bound_ms`` (bench.py's >= 3x gate printed, not asserted);
+    every baseline sequence ends in EOS after its budget, the engine
+    gives every budget, no variant after warm-up; the cell's logits on
+    the card within ``TOL`` of the CPU's over one request's first 8
+    steps."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import nn, serving
+    model = serving.PagedDecoderLM(**GEN_BASELINE, device="cuda")
+    EOS = model.vocab_size - 1
+    rng = np.random.RandomState(42)
+    prompts = [rng.randint(0, 128, rng.choice(GEN_PROMPT_LENGTHS)).tolist()
+               for _ in range(GEN_REQUESTS)]
+    budgets = [int(rng.randint(GEN_BUDGETS[0], GEN_BUDGETS[1] + 1))
+               for _ in range(GEN_REQUESTS)]
+    t_decode_max = GEN_BUDGETS[1] + 1
+    dec = nn.BeamSearchDecoder(model.make_cell(EOS), start_token=0,
+                               end_token=EOS, beam_size=1)
+
+    def gen_one(prompt, limit):
+        st = model.init_cell_state(prompt, GEN_T_MAX)
+        st["limit"] = np.full((1,), limit, np.int32)
+        dec.start_token = int(prompt[-1])
+        seq, _, lens = nn.dynamic_decode(dec, st, max_step_num=t_decode_max,
+                                         return_length=True, cache=True)
+        n = int(np.asarray(lens.numpy())[0, 0])
+        return np.asarray(seq.numpy())[0, 0, :n]
+
+    for L in sorted({len(p) for p in prompts}):
+        gen_one(list(range(1, L + 1)), 2)
+    errors, conc_lat, seq_lat = [], [], []
+    with _ServingScope():
+        engine = serving.GenerationEngine(
+            model, num_slots=GEN_SLOTS, page_size=8, max_context=GEN_T_MAX,
+            num_pages=128, prompt_buckets=[8, 16, 32],
+            max_queue=4 * GEN_REQUESTS, device="cuda")
+        try:
+            engine.warmup()
+
+            def client(idx):
+                try:
+                    for i in range(idx, GEN_REQUESTS, GEN_SLOTS):
+                        t0 = time.perf_counter()
+                        out = engine.generate_sync(prompts[i], timeout=300,
+                                                   max_new_tokens=budgets[i])
+                        conc_lat.append(time.perf_counter() - t0)
+                        if len(out) != budgets[i]:
+                            errors.append(f"engine request {i}: {len(out)} "
+                                          f"tokens, budget {budgets[i]}")
+                except BaseException as e:   # noqa: BLE001 - gated below
+                    errors.append(f"{type(e).__name__}: {e}")
+
+            dt_seq = dt_conc = 0.0
+            for _ in range(GEN_REPS):
+                t0 = time.perf_counter()
+                for p, b in zip(prompts, budgets):
+                    t1 = time.perf_counter()
+                    out = gen_one(p, b)
+                    seq_lat.append(time.perf_counter() - t1)
+                    if len(out) != b + 1 or out[-1] != EOS:
+                        errors.append(f"baseline: {len(out)} tokens for "
+                                      f"budget {b}")
+                dt_seq += time.perf_counter() - t0
+                threads = [threading.Thread(target=client, args=(c,),
+                                            name=f"gen-client-{c}")
+                           for c in range(GEN_SLOTS)]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(600)
+                dt_conc += time.perf_counter() - t0
+            st = engine.stats()
+        finally:
+            engine.close()
+    # the cell on the card against the same weights on the CPU
+    cpu_model = serving.PagedDecoderLM(**GEN_BASELINE, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    cell_err, tok = 0.0, prompts[0][-1]
+    states = {d: m.init_cell_state(prompts[0], GEN_T_MAX)
+              for d, m in (("cuda", model), ("cpu", cpu_model))}
+    cells = {"cuda": model.make_cell(EOS), "cpu": cpu_model.make_cell(EOS)}
+    for d in states:
+        states[d]["limit"] = torch.full((1,), budgets[0], dtype=torch.int32,
+                                        device=d)
+    for _ in range(8):
+        logits = {}
+        for d in ("cuda", "cpu"):
+            logits[d], states[d] = cells[d](
+                torch.tensor([tok], device=d), states[d])
+        cell_err = max(cell_err, _rel_err(logits["cuda"].cpu(),
+                                          logits["cpu"]))
+        tok = int(logits["cpu"].argmax())
+
+    def p99(lat):
+        return float(np.percentile(np.asarray(lat) * 1000.0, 99))
+
+    toks = sum(budgets) * GEN_REPS
+    bound_ms = max(900.0, 3.5 * p99(seq_lat))
+    speedup = dt_seq / dt_conc
+    out = {"tokens_per_sec": toks / dt_conc,
+           "dynamic_decode_tokens_per_sec": toks / dt_seq,
+           "speedup_vs_dynamic_decode": speedup,
+           "gate_3x_met": speedup >= 3.0,
+           "latency_bound_ms": bound_ms,
+           "p99_latency_ms": p99(conc_lat),
+           "p99_latency_ms_baseline": p99(seq_lat),
+           "p99_within_bound": p99(conc_lat) <= bound_ms,
+           "ttft_ms_p95": st["ttft_ms"]["p95"],
+           "mean_slot_occupancy": st["mean_slot_occupancy"],
+           "decode_steps": st["counters"]["decode_steps"],
+           "recompiles_after_warmup": st["recompiles_after_warmup"],
+           "cell_logits_rel_err_card_vs_cpu": cell_err,
+           "requests": GEN_REQUESTS * GEN_REPS, "nvidia_smi": nvidia_smi(),
+           "config": dict(GEN_BASELINE, t_max=GEN_T_MAX, beam=1,
+                          slots=GEN_SLOTS, page_size=8, num_pages=128,
+                          prompt_lengths=GEN_PROMPT_LENGTHS,
+                          budgets=list(GEN_BUDGETS), rounds=GEN_REPS)}
+    log("GENERATION_BASELINE " + json.dumps(out))
+    _check("GENERATION_BASELINE_CHECK", {
+        "sequences off their budget or EOS": (len(errors), 0),
+        "recompiles_after_warmup": (st["recompiles_after_warmup"], 0),
+        "cell logits rel err card vs CPU": (cell_err, TOL["float32"])})
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+
 def _instance_row(row):
     """One instance of a kernel (a path's shape), for the kernels
     line."""
@@ -6428,11 +7135,21 @@ def main():
     public_paged = timed("public_paged_attention",
                          phase_public_paged_attention)
     pallas_launches = timed("ops_pallas", phase_ops_pallas)
-    pred_bert, pred_k1f = timed("predictor_bert", phase_predictor_bert)
-    pred_static = timed("predictor_static_bert",
-                        phase_predictor_static_bert)
-    timed("predictor_benches", phase_predictor_benches)
-    timed("dy2static_export", phase_dy2static_export)
+    artifacts = tempfile.mkdtemp(prefix="chip_smoke_artifacts_")
+    try:
+        pred_bert, pred_k1f, bert_prefix = timed(
+            "predictor_bert", phase_predictor_bert, artifacts)
+        pred_static = timed("predictor_static_bert",
+                            phase_predictor_static_bert)
+        timed("predictor_benches", phase_predictor_benches)
+        timed("dy2static_export", phase_dy2static_export)
+        mlp_prefix = timed("engine_mlp", phase_engine_mlp, artifacts)
+        engine_bert = timed("engine_bert", phase_engine_bert, bert_prefix)
+        timed("http_registry", phase_http_registry, bert_prefix, mlp_prefix)
+        capi_bert = timed("capi", phase_capi, bert_prefix, artifacts)
+        timed("generation_baseline", phase_generation_baseline)
+    finally:
+        shutil.rmtree(artifacts, ignore_errors=True)
     seconds["total"] = time.perf_counter() - t0
     log("PHASE_SECONDS " + json.dumps(seconds))
     f32_err = max(r["max_abs_err"] for r in kernel_rows
@@ -6465,7 +7182,9 @@ def main():
         decode_launches = (nmt_decode_fwd if name == "flash_attention_fwd"
                            else 0)
         by_path = {"predictor bert": pred_bert.get(name, 0),
-                   "predictor static bert": pred_static.get(name, 0)}
+                   "predictor static bert": pred_static.get(name, 0),
+                   "inference engine bert": engine_bert.get(name, 0),
+                   "capi bert": capi_bert.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",
@@ -6557,9 +7276,27 @@ def main():
     return 0
 
 
+def main_phase7(runs):
+    """``--phase7-runs N``: phase 7 alone, N times in this process (each
+    run's ``BERT_PARITY`` line carries both sides' parameter
+    fingerprints): run the command in several processes to see whether
+    the card and the CPU give the same bits run to run."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    phase_environment()
+    for _ in range(runs):
+        phase_small_bert_parity()
+    log(nvidia_smi())
+    return 0
+
+
 if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
+        if sys.argv[1:2] == ["--phase7-runs"]:
+            sys.exit(main_phase7(int(sys.argv[2])))
         code = main()
     except Exception:                  # noqa: BLE001 - report, exit 1
         import traceback

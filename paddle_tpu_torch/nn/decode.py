@@ -19,7 +19,8 @@ is an eager loop on tensors with the same contract:
 - the output is ``[B, K, max_step_num]`` ids, best beam first.
 
 Cell states keep their shapes across steps, as ``lax.while_loop``
-demands: a cell that changes a state's shape raises.  ``cache=True``
+demands: a cell that changes a state's shape raises.  A state leaf
+given as an array (not a tensor) is put on the other leaves' device.  ``cache=True``
 is accepted and runs the same loop: there is no compiled program to
 keep.
 """
@@ -123,6 +124,12 @@ def _decode(dec, inits, T):
     if not leaves:
         raise ValueError("dynamic_decode needs initial states with a "
                          "batch dim")
+    dev = next((a.device for a in leaves if isinstance(a, torch.Tensor)),
+               None)
+    # array leaves (a numpy budget, say) join the tensors' device
+    inits = _tree_map(lambda a: a if isinstance(a, torch.Tensor) else
+                      torch.as_tensor(np.asarray(a), device=dev), inits)
+    leaves = _leaves(inits)
     B, dev = leaves[0].shape[0], leaves[0].device
     states = _tree_map(lambda a: torch.repeat_interleave(a, K, 0), inits)
     i64 = dict(dtype=torch.int64, device=dev)

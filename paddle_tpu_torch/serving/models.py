@@ -20,6 +20,12 @@ parameter names are those of ``paddle_tpu.serving.PagedDecoderLM``
 ``w2{l}``); :func:`params_from_paddle_tpu` carries that model's weights
 across.  ``dyadic=True`` rounds every weight to k/64 as the JAX model
 does.
+
+``init_cell_state`` and ``make_cell`` are the dense padded-cache
+baseline: a ``BeamSearchDecoder`` cell over fixed ``[N, L, t_max, Hkv,
+D]`` K/V buffers for ``nn.dynamic_decode``, one request at a time
+(``bench_generation``'s baseline against the paged engine).  Its
+attention is plain PyTorch over all ``t_max`` rows, as the JAX model's.
 """
 from __future__ import annotations
 
@@ -38,6 +44,14 @@ __all__ = ["PagedDecoderLM", "params_from_paddle_tpu"]
 
 _NEG = -1e30
 KV = Tuple[torch.Tensor, torch.Tensor]
+
+
+def _plain(t) -> torch.Tensor:
+    """A state leaf or token tensor as a plain torch tensor (a paddle
+    Tensor's methods shadow torch's)."""
+    if isinstance(t, torch.Tensor):
+        return torch.Tensor.as_subclass(t, torch.Tensor)
+    return torch.as_tensor(np.asarray(t))
 
 
 def params_from_paddle_tpu(np_params: Mapping[str, np.ndarray],
@@ -183,3 +197,101 @@ class PagedDecoderLM(nn.Module):
                 scale=self._scale, layer=l)
             x = self._mlp_residual(p, x, attn, l)
         return x @ p["embed"].T, (k_pool, v_pool)
+
+    # -- BeamSearchDecoder cell contract (dynamic_decode baseline) ---------
+    @torch.no_grad()
+    def init_cell_state(self, prompt, t_max: int) -> Dict[str, torch.Tensor]:
+        """Dense-cache prefill for the per-request baseline.
+
+        Feeds ``prompt[:-1]`` through the network (the last prompt token
+        becomes ``dynamic_decode``'s start token), caching K/V into
+        fixed [1, L, t_max, Hkv, D] buffers on the model's device.
+        Returns the cell-state dict (leading batch dim 1) for
+        ``dynamic_decode(inits=...)``; set its ``"limit"`` to the
+        request's token budget."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size < 1:
+            raise ValueError("prompt must carry at least one token")
+        n_ctx = prompt.size - 1
+        t_max = int(t_max)
+        if n_ctx > t_max:
+            raise ValueError(f"prompt needs {n_ctx} cache rows, "
+                             f"t_max={t_max}")
+        p = self.params
+        dev = p["embed"].device
+        L, Hkv, D = self.num_layers, self.num_kv_heads, self.head_dim
+        k_cache = torch.zeros((1, L, t_max, Hkv, D), dtype=torch.float32,
+                              device=dev)
+        v_cache = torch.zeros_like(k_cache)
+        if n_ctx:
+            ids = torch.from_numpy(prompt[:-1].astype(np.int64)).to(dev)
+            x = p["embed"][ids]                             # [n, E]
+            pos = torch.arange(n_ctx, device=dev)
+            mask = pos[None, :] <= pos[:, None]
+            for l in range(self.num_layers):
+                q, k, v = self._qkv(p, x, l)
+                k_cache[0, l, :n_ctx] = k
+                v_cache[0, l, :n_ctx] = v
+                kk, vv = self._group(k), self._group(v)
+                s = torch.einsum("ihd,jhd->hij", q.float(),
+                                 kk.float()) * self._scale
+                s = torch.where(mask[None], s, torch.full_like(s, _NEG))
+                w = torch.softmax(s, dim=-1)
+                attn = torch.einsum("hij,jhd->ihd", w,
+                                    vv.float()).to(x.dtype)
+                x = self._mlp_residual(p, x, attn, l)
+        i32 = dict(dtype=torch.int32, device=dev)
+        return {"k": k_cache, "v": v_cache,
+                "pos": torch.full((1,), n_ctx, **i32),
+                "gen": torch.zeros((1,), **i32),
+                "limit": torch.zeros((1,), **i32)}
+
+    def make_cell(self, eos_id: int):
+        """A ``cell(tokens, states) -> (logits, states)`` closure over a
+        dense padded KV cache — the BeamSearchDecoder contract.  When a
+        row's ``gen`` count reaches its ``limit``, its logits collapse
+        onto ``eos_id`` so dynamic_decode's early exit ends the row (one
+        cell serves ragged per-request budgets).  The states it returns
+        are new tensors; the ones it is given are not written."""
+        p = self.params
+        eos_row = torch.full((self.vocab_size,), _NEG, dtype=torch.float32,
+                             device=p["embed"].device)
+        eos_row[int(eos_id)] = 0.0
+
+        @torch.no_grad()
+        def cell(tok, states):
+            x0 = _plain(tok).to(p["embed"].device).long()       # [N]
+            st = {k: _plain(v) for k, v in states.items()}
+            k_cache, v_cache = st["k"], st["v"]           # [N,L,T,Hkv,D]
+            pos, gen, limit = st["pos"], st["gen"], st["limit"]
+            T = k_cache.shape[2]
+            x = p["embed"][x0]                                  # [N, E]
+            t = torch.arange(T, device=x.device)[None, :]
+            onehot = (t == pos[:, None])[:, :, None, None]      # [N,T,1,1]
+            visible = t <= pos[:, None]                         # [N, T]
+            ks, vs = [], []
+            for l in range(self.num_layers):
+                q, k, v = self._qkv(p, x, l)                # [N, Hkv, D]
+                # this token's K/V written at pos: an O(T) masked
+                # update, the dense baseline's raggedness tax
+                kl = torch.where(onehot, k[:, None], k_cache[:, l])
+                vl = torch.where(onehot, v[:, None], v_cache[:, l])
+                ks.append(kl)
+                vs.append(vl)
+                kk, vv = self._group(kl), self._group(vl)   # [N, T, H, D]
+                s = torch.einsum("nhd,nthd->nht", q.float(),
+                                 kk.float()) * self._scale
+                s = torch.where(visible[:, None, :], s,
+                                torch.full_like(s, _NEG))
+                w = torch.softmax(s, dim=-1)
+                attn = torch.einsum("nht,nthd->nhd", w,
+                                    vv.float()).to(x.dtype)
+                x = self._mlp_residual(p, x, attn, l)
+            logits = x @ p["embed"].T                           # [N, V]
+            done = gen >= limit
+            logits = torch.where(done[:, None], eos_row[None], logits)
+            return logits, {"k": torch.stack(ks, 1),
+                            "v": torch.stack(vs, 1), "pos": pos + 1,
+                            "gen": gen + 1, "limit": limit}
+
+        return cell

@@ -1,1 +1,1 @@
-from . import fault, models  # noqa: F401
+from . import chaos, fault, models  # noqa: F401

@@ -1,11 +1,11 @@
 """Process-wide stat gauges and histograms.
 
 Reference: paddle/fluid/platform/monitor.h StatRegistry / STAT_ADD —
-integer/float gauges keyed by name.  Histograms (``stat_observe`` /
-``quantile``) use fixed log-spaced buckets for latency-style
-distributions; the generation engine's ``stats()`` and the HTTP
-``/metrics`` payload are built on them.  Same bucket layout and
-quantile estimate as ``paddle_tpu.utils.monitor``.
+integer/float gauges keyed by name, readable for logging and tests.
+Histograms (``stat_observe`` / ``quantile``) use fixed log-spaced
+buckets for latency-style distributions; the engines' ``stats()`` and
+the HTTP ``/metrics`` payload are built on them.  Same bucket layout
+and quantile estimate as ``paddle_tpu.utils.monitor``.
 """
 from __future__ import annotations
 
@@ -13,8 +13,10 @@ import math
 import threading
 from typing import Dict, List, Union
 
-__all__ = ["StatRegistry", "stat_add", "stat_observe", "quantile",
-           "histogram_summary"]
+__all__ = ["StatRegistry", "get_stat", "stat_add", "stat_set",
+           "stat_reset", "all_stats", "stat_observe", "quantile",
+           "histogram_summary", "all_histograms", "histogram_raw",
+           "quantile_from_counts"]
 
 # Histogram bucket layout: log-spaced, 8 buckets per decade covering
 # [1e-3, 1e7) — sub-microsecond to ~3 hours when observing milliseconds.
@@ -80,6 +82,15 @@ class _Histogram:
                 return min(max(est, self.vmin), self.vmax)
         return self.vmax
 
+    def raw(self) -> Dict[str, object]:
+        """Cumulative bucket counts and exact aggregates: two raws taken
+        at different times subtract bucket-wise into the distribution of
+        the interval between them."""
+        return {"counts": tuple(self.counts), "count": self.n,
+                "sum": self.total,
+                "min": self.vmin if self.n else 0.0,
+                "max": self.vmax if self.n else 0.0}
+
     def summary(self) -> Dict[str, float]:
         return {
             "count": self.n,
@@ -104,6 +115,27 @@ class StatRegistry:
             self._stats[name] = self._stats.get(name, 0) + v
             return self._stats[name]
 
+    def set(self, name: str, v: Union[int, float]):
+        with self._lock:
+            self._stats[name] = v
+
+    def get(self, name: str) -> Union[int, float]:
+        with self._lock:
+            return self._stats.get(name, 0)
+
+    def reset(self, name: str = None):
+        with self._lock:
+            if name is None:
+                self._stats.clear()
+                self._hists.clear()
+            else:
+                self._stats.pop(name, None)
+                self._hists.pop(name, None)
+
+    def snapshot(self) -> Dict[str, Union[int, float]]:
+        with self._lock:
+            return dict(self._stats)
+
     def observe(self, name: str, v: float):
         with self._lock:
             h = self._hists.get(name)
@@ -121,12 +153,40 @@ class StatRegistry:
             h = self._hists.get(name)
             return h.summary() if h is not None else _Histogram().summary()
 
+    def histogram_raw(self, name: str):
+        """Cumulative bucket counts for ``name`` (None if unobserved)."""
+        with self._lock:
+            h = self._hists.get(name)
+            return h.raw() if h is not None else None
+
+    def histograms(self) -> Dict[str, Dict[str, float]]:
+        with self._lock:
+            return {k: h.summary() for k, h in self._hists.items()}
+
 
 _default = StatRegistry()
 
 
+def get_stat(name):
+    return _default.get(name)
+
+
 def stat_add(name, v=1):
     return _default.add(name, v)
+
+
+def stat_set(name, v):
+    _default.set(name, v)
+
+
+def stat_reset(name=None):
+    """Forget counter and histogram ``name``, or everything."""
+    _default.reset(name)
+
+
+def all_stats():
+    """Every counter (histograms not included)."""
+    return _default.snapshot()
 
 
 def stat_observe(name, v):
@@ -142,3 +202,44 @@ def quantile(name, q):
 def histogram_summary(name):
     """count/sum/mean/min/max/p50/p95/p99 for histogram ``name``."""
     return _default.histogram_summary(name)
+
+
+def all_histograms():
+    return _default.histograms()
+
+
+def histogram_raw(name):
+    """Cumulative bucket counts and aggregates of histogram ``name``
+    (None if it was never observed)."""
+    return _default.histogram_raw(name)
+
+
+def quantile_from_counts(counts, n: int, q: float,
+                         vmin=None, vmax=None) -> float:
+    """q-quantile of a raw bucket-count vector (e.g. the difference of
+    two :func:`histogram_raw` snapshots), by the same rank-linear
+    interpolation as a histogram's, clamped to ``[vmin, vmax]`` where
+    given (a window's values lie within the histogram's cumulative
+    extremes)."""
+    if n <= 0:
+        return 0.0
+    rank = min(max(q, 0.0), 1.0) * n
+    seen = 0
+    last = 0
+    est = None
+    for i, c in enumerate(counts):
+        if not c:
+            continue
+        last = i
+        prev, seen = seen, seen + c
+        if seen >= rank:
+            lo, hi = _bucket_bounds(i)
+            est = lo + (hi - lo) * (max(rank - prev, 0.0) / c)
+            break
+    if est is None:
+        est = _bucket_bounds(last)[1]
+    if vmax is not None:
+        est = min(est, vmax)
+    if vmin is not None:
+        est = max(est, vmin)
+    return est

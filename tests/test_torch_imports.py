@@ -47,7 +47,12 @@ def test_import_leaves_jax_and_paddle_tpu_out():
             "paddle_tpu_torch.core.profiler_hook, "
             "paddle_tpu_torch.core.flags, paddle_tpu_torch.inference, "
             "paddle_tpu_torch.jit.save_load, paddle_tpu_torch.jit.dy2static, "
-            "paddle_tpu_torch.jit.lint, paddle_tpu_torch.static.io\n"
+            "paddle_tpu_torch.jit.lint, paddle_tpu_torch.static.io, "
+            "paddle_tpu_torch.serving.engine, "
+            "paddle_tpu_torch.serving.registry, "
+            "paddle_tpu_torch.serving.http, paddle_tpu_torch.serving.serve, "
+            "paddle_tpu_torch.inference.capi, paddle_tpu_torch.testing.chaos, "
+            "paddle_tpu_torch.testing.fault, paddle_tpu_torch.utils.monitor\n"
             "from paddle_tpu_torch.ops.cuda import support\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'paddle_tpu.', 'triton')) "
@@ -79,6 +84,26 @@ def test_no_module_imports_jax_or_paddle_tpu():
     assert pat.search("import jax.numpy as jnp")
     assert pat.search("from paddle_tpu.serving import x")
     assert not pat.search("from paddle_tpu_torch.serving import x")
+
+
+def test_c_abi_and_go_sources_name_neither_jax_nor_paddle_tpu():
+    """The C shim and the Go binding drive ``paddle_tpu_torch`` only,
+    and no binary is kept beside their sources (the shim is built at
+    first use under ``build/``)."""
+    hits, binaries = [], []
+    for sub in ("csrc", "go"):
+        top = os.path.join(PKG, "inference", sub)
+        for dirpath, _, files in os.walk(top):
+            for f in files:
+                path = os.path.join(dirpath, f)
+                if f.endswith((".so", ".o", ".a")):
+                    binaries.append(path)
+                    continue
+                text = open(path).read().replace("paddle_tpu_torch", "")
+                if re.search(r"\bjax\b|\bpaddle_tpu\b", text):
+                    hits.append(os.path.relpath(path, ROOT))
+    assert not hits, hits
+    assert not binaries, binaries
 
 
 def test_static_placement_without_a_gpu():

@@ -41,8 +41,7 @@ NOT_YET_PORTED = {
     "paddle_tpu.metric": "",
     "paddle_tpu.optimizer.lr": "",
     "paddle_tpu.serving": """
-        ElasticityController InferenceEngine ModelEntry ModelRegistry
-        QuotaExceeded ReplicaSet UnknownModel WeightWatcher publish_weights
+        ElasticityController WeightWatcher publish_weights
     """,
     "paddle_tpu.static": "",
     "paddle_tpu.utils": """
