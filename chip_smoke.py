@@ -333,15 +333,41 @@ kernel from the sources in this checkout.  Phases, each fatal:
     against the paged ``GenerationEngine``, 2 rounds: tokens/s, the
     speedup (bench.py's >= 3x gate printed), p99s and
     ``latency_bound_ms``; every baseline sequence ends in EOS after its
-    budget; the cell's logits card vs CPU over 8 steps within ``TOL``.
+    budget; the cell's logits card vs CPU over 8 steps within ``TOL``;
+62. hot swap under live traffic (``chaos.swap_main(supervised=False)``'s
+    gate): R1 behind ``ModelRegistry.load(weights_dir=...)`` and the
+    paged engine at GPT `1b` widths cut to 2 layers under one
+    ``WeightWatcher``, 8 ``/predict`` and 3 streaming ``/generate``
+    clients over HTTP while versions 1-3 are published and version 4
+    (one byte flipped) is rejected, then the rollback case; every
+    answer within ``FLASH_TOL`` of one version's answer alone, versions
+    never going back, generations inside one version equal to its
+    serial tokens, the swap counters, ``/healthz``, no new variant, 12
+    K1f a dispatched batch or prewarm run, 2 K4 a decode step, the page
+    pool, memory at rest; the swap windows' p50/p99 beside steady state,
+    publish to commit, the peak with two predictors, and a replica's
+    cold start by part in a fresh process;
+63. the tracer, perf and an SLO monitor over phase 62's stack: the
+    Prometheus text parses with every family typed once, ``/perf``'s
+    sampled dispatch anatomy (device ms by CUDA events),
+    ``device_memory()`` against ``torch.cuda.memory_allocated``, one
+    request's spans joined client to engine batch, two spooling
+    exporters and ``/admin/fleet`` over two servers, the flight
+    recorder's one dump for one injected fault, and the cost of the
+    tracer and perf on R1's requests/s and the eager LeNet step;
+64. an ``ElasticityController`` over R1 with a ``ReplicaSet`` of R1
+    replicas on the card: scale up to 2, shed (503) with ``/healthz``
+    503 ``degraded``, then recover and scale down once the objective
+    is raised.
 
-Phases 46-61 each log their number and name, print every compared
+Phases 46-64 each log their number and name, print every compared
 quantity beside its limit, put back in a ``finally`` the global state
 they may touch (flags, dygraph mode, default dtype and device, the RNG
-state, the registered paged kernel, print options, the profiler hook)
-and assert that a snapshot of it equals the one taken at their start;
-phases 57-61 also close their engines, servers and clients in a
-``finally`` and assert that every thread they started has ended.
+state, the registered paged kernel, print options, the profiler hook,
+the observability hooks) and assert that a snapshot of it equals the
+one taken at their start; phases 57-64 also close their engines,
+servers and clients in a ``finally`` and assert that every thread they
+started has ended.
 
 The last lines are the kernels JSON object, the card's name and power
 limit as ``nvidia-smi`` reports them, and ``{"ok": true, ...}``.
@@ -5039,7 +5065,38 @@ def _global_state():
             "profiler_hook": profiler_hook.current(),
             "tf32": (torch.backends.cuda.matmul.allow_tf32,
                      torch.backends.cudnn.allow_tf32),
-            "cudnn_benchmark": torch.backends.cudnn.benchmark}
+            "cudnn_benchmark": torch.backends.cudnn.benchmark,
+            "obs": _obs_state()}
+
+
+def _obs_state():
+    """The observability hooks a phase may install (tracer, perf,
+    crash handler, exporter, SLO monitor, flight recorder) and the
+    process hooks the recorder chains to."""
+    import signal
+    from paddle_tpu_torch.core import obs_hook
+    from paddle_tpu_torch.observability import flight, slo
+    return (obs_hook._tracer, obs_hook._perf, obs_hook._crash,
+            obs_hook._export, slo.get_slo_monitor(),
+            flight.flight_recorder_path(),
+            signal.getsignal(signal.SIGTERM), sys.excepthook)
+
+
+def _restore_obs_state(st):
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.core import obs_hook
+    obs.uninstall_flight_recorder()
+    if obs_hook._export is not None and obs_hook._export is not st[3]:
+        obs.uninstall_exporter()
+    if obs.get_slo_monitor() is not st[4]:
+        if st[4] is None:
+            obs.uninstall_slo_monitor()
+        else:
+            obs.install_slo_monitor(st[4])
+    obs_hook.set_tracer(st[0])
+    obs_hook.set_perf(st[1])
+    obs_hook.set_crash_handler(st[2])
+    obs_hook.set_export(st[3])
 
 
 def _printoptions(np):
@@ -5069,6 +5126,7 @@ def _restore_global_state(s):
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = s["tf32"]
     torch.backends.cudnn.benchmark = s["cudnn_benchmark"]
+    _restore_obs_state(s["obs"])
 
 
 def _same_state(a, b):
@@ -7023,6 +7081,1102 @@ def phase_generation_baseline():
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phases 62-64
+# GPT `1b` widths (bench.py:318) at 2 of its 24 layers: each published
+# version of its parameters stays well under 1 GB
+HOTSWAP_GPT = dict(GPT_1B, num_layers=2)
+HOTSWAP_CLIENTS, HOTSWAP_GEN_CLIENTS, HOTSWAP_POOL = 8, 3, 12
+HOTSWAP_PROMPTS = 6
+HOTSWAP_VERSIONS = (1, 2, 3)
+HOTSWAP_WINDOW_S = 1.5          # traffic on each version between swaps
+ELASTIC_WINDOW_S = 2.0
+PROM_LINE = r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^{}]*\})? -?[0-9.eE+naif]+$"
+
+
+def _mem(torch, dev):
+    """``(allocated, peak)`` bytes on ``dev`` (0, 0 off the card)."""
+    if torch.device(dev).type != "cuda":
+        return 0, 0
+    return torch.cuda.memory_allocated(dev), torch.cuda.max_memory_allocated(
+        dev)
+
+
+def _version_factors(np, names, version):
+    """A seeded per-tensor factor in [0.9, 1.1] for every floating
+    parameter of one published version (version 0: the weights as they
+    are)."""
+    rs = np.random.RandomState(620 + version)
+    return {n: (1.0 if version == 0 else float(rs.uniform(0.9, 1.1)))
+            for n in sorted(names)}
+
+
+def _bert_versions(np, prefix, workdir, versions):
+    """R1's artifact with every floating weight scaled by its version's
+    factors: one ``jit.save`` prefix a version (the program file is the
+    same; ``.pdiparams`` carries the weights)."""
+    import torch
+    from paddle_tpu_torch import framework_io
+    from paddle_tpu_torch.jit.save_load import SUFFIX_MODEL, SUFFIX_PARAMS
+    with open(prefix + SUFFIX_PARAMS, "rb") as f:
+        state = framework_io.loads(f.read(), device="cpu")
+    base = {k: v.numpy() for k, v in state.items()}
+    out = {0: prefix}
+    for v in versions:
+        fac = _version_factors(np, [k for k, a in base.items()
+                                    if a.dtype.kind == "f"], v)
+        new = {k: torch.from_numpy(a * np.asarray(fac[k], a.dtype)
+                                   if k in fac else a)
+               for k, a in base.items()}
+        p = os.path.join(workdir, f"bert_v{v}")
+        shutil.copyfile(prefix + SUFFIX_MODEL, p + SUFFIX_MODEL)
+        framework_io.save(new, p + SUFFIX_PARAMS)
+        out[v] = p
+    return out
+
+
+def _gpt_versions(np, model, versions):
+    """The GPT's parameters by version in paddle_tpu's layout (numpy by
+    paddle_tpu's names), version 0 the model's own."""
+    base = {k: v.detach().cpu().numpy() for k, v in model.params.items()}
+    out = {0: base}
+    for v in versions:
+        fac = _version_factors(np, base, v)
+        out[v] = {k: a * np.asarray(fac[k], a.dtype)
+                  for k, a in base.items()}
+    return out
+
+
+def _hotswap_requests(np, cfg, n):
+    rs = np.random.RandomState(62)
+    return [rs.randint(0, cfg["vocab"], (int(rs.randint(1, 5)),
+                                          cfg["seq"])).astype(np.int64)
+            for _ in range(n)]
+
+
+def _hotswap_prompts(np, vocab, n):
+    rs = np.random.RandomState(621)
+    return [dict(prompt=rs.randint(0, vocab, int(rs.randint(16, 49))).tolist(),
+                 max_new_tokens=int(rs.randint(8, 17)))
+            for _ in range(n)]
+
+
+def _match_version(np, got, refs, i, tol):
+    """The versions whose answer to request ``i`` (run alone) ``got``
+    is within ``tol`` of, and the errors by version."""
+    errs = {v: _np_rel_err(np, got, r[i]) for v, r in refs.items()}
+    return [v for v, e in errs.items() if e <= tol], errs
+
+
+def _pctl(np, xs, q):
+    return float(np.percentile(xs, q)) if len(xs) else None
+
+
+def _time_swap_stages(watcher, store, engine, gen):
+    """Time the watcher's stages by version (the payloads' read, digest
+    check and decode; the replacement predictor's load; its prewarm;
+    the inference commit; the GPT parameters' upload and commit) by
+    wrapping them on these instances; returns ``{version: {stage:
+    seconds}}``, filled as swaps run."""
+    stages, current = {}, {"v": None}
+
+    def wrap(obj, attr, stage):
+        fn = getattr(obj, attr)
+
+        def timed(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                v = current["v"]
+                stages.setdefault(v, {})[stage] = round(
+                    stages.get(v, {}).get(stage, 0.0)
+                    + time.perf_counter() - t, 4)
+        setattr(obj, attr, timed)
+
+    snap_fn = store.latest_snapshot
+
+    def latest():
+        snap = snap_fn()
+        if snap is not None:
+            current["v"] = int(snap.get("step") or 0)
+        return snap
+    store.latest_snapshot = latest
+    wrap(store, "load_payloads", "read, verify and decode payloads")
+    wrap(engine, "prewarm_predictor", "prewarm the replacement")
+    wrap(watcher, "_build_predictor", "load and prewarm the replacement")
+    wrap(engine, "swap_predictor", "inference commit")
+    wrap(gen, "swap_weights", "GPT upload and commit")
+    return stages
+
+
+def _hotswap_stack(bert_prefix, store_dir, gpt_model, dev, poll_s=0.05):
+    """R1 behind a registry (``load(weights_dir=store_dir)``), the paged
+    GPT engine under the same watcher, one HTTP server over both."""
+    from paddle_tpu_torch import serving
+    reg = serving.ModelRegistry()
+    entry = reg.load("bert", bert_prefix, weights_dir=store_dir,
+                     weights_poll_s=poll_s, engine_kwargs={
+                         "max_batch_size": SERVING_MAX_BATCH,
+                         "batch_timeout_ms": 2.0, "max_queue": 256})
+    gen = serving.GenerationEngine(gpt_model, num_slots=SLOTS,
+                                   page_size=PAGE, max_context=MAX_CONTEXT,
+                                   prompt_buckets=[32, 64], device=dev,
+                                   name="gpt")
+    gen.warmup()
+    reg.register("gpt", generation=gen)
+    # one watcher swaps both engines: the registry's, given the engine
+    entry.watcher.generation = gen
+    srv = serving.ServingServer(entry.engine, generation=gen, registry=reg,
+                                port=0, request_timeout=300).start()
+    return reg, entry, gen, srv
+
+
+def _close_stack(reg, gen, srv):
+    srv.close()
+    reg.close(timeout=60)
+    gen.close()
+
+
+def _cold_start_parts(prefix):
+    """A BERT-base replica's cold start in a fresh process, by part:
+    the interpreter with torch and the port, the CUDA context, the
+    import of ``torch.export``'s deserializer, the ``torch.export``
+    load, the weights onto the card, the program's
+    move onto the card, the kernel library (built once a source hash
+    under ``build/``; here a cache hit), a second ``torch.export`` load
+    (the deserialization alone, the first one's imports done), each
+    bucket's first run, and the first request after them."""
+    code = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import numpy as np, torch
+import paddle_tpu_torch as paddle
+from paddle_tpu_torch import framework_io
+from paddle_tpu_torch.jit import save_load
+from paddle_tpu_torch.ops.cuda import support
+parts = {"import torch and the port": time.perf_counter() - t0}
+def part(name, fn):
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    parts[name] = time.perf_counter() - t
+    return out
+prefix = sys.argv[1]
+part("CUDA context", lambda: torch.zeros(1, device="cuda"))
+import importlib
+part("import torch.export's deserializer",
+     lambda: importlib.import_module("torch._export.serde.serialize"))
+meta, program = part("torch.export load", lambda: save_load.read_artifact(prefix))
+state = part("weights onto the card", lambda: framework_io.loads(
+    open(prefix + save_load.SUFFIX_PARAMS, "rb").read(), device="cuda"))
+layer = part("program onto the card", lambda: save_load.TranslatedLayer(
+    meta, program, state, torch.device("cuda")))
+part("kernel library (cached build)", support.load_library)
+part("torch.export load, again (deserialization alone)",
+     lambda: save_load.read_artifact(prefix))
+seq = meta["in_shapes"][0][1]
+for b in (1, 2, 4, 8, 16, 32):
+    x = torch.zeros((b, seq), dtype=torch.int64, device="cuda")
+    part(f"bucket {b}", lambda: layer.run_flat([x]))
+x = np.random.RandomState(0).randint(0, 1000, (4, seq)).astype(np.int64)
+part("first request (4 rows, read to the host)",
+     lambda: np.asarray(layer.run_flat([torch.from_numpy(x).cuda()])[0].cpu()))
+parts["total"] = time.perf_counter() - t0
+print("COLD " + json.dumps(parts))
+"""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", code, prefix], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("COLD ")]
+    if out.returncode != 0 or not line:
+        raise AssertionError(f"cold start probe failed: {out.stderr[-2000:]}")
+    parts = json.loads(line[0][5:])
+    parts["process wall"] = wall
+    return parts
+
+
+def _hotswap_clients(cfg_path):
+    """The client process of phase 62: closed-loop ``/predict`` clients
+    (each answer matched, here, against every version's answer to that
+    request run alone), streaming ``/generate`` clients (the generation
+    engine's version read from ``/metrics`` before and after each) and
+    a ``/healthz`` prober, until the parent creates ``stop``; the
+    results go to ``results.json``.  Times are ``time.monotonic()``,
+    the clock the parent stamps its swap windows with."""
+    import numpy as np
+    from paddle_tpu_torch import serving
+    deadline = time.monotonic() + 900
+    while not os.path.exists(cfg_path):     # the parent writes it once
+        if time.monotonic() > deadline:     # its server is up
+            raise SystemExit("no client configuration came")
+        time.sleep(0.05)
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    d = cfg["dir"]
+    with np.load(os.path.join(d, "reqs.npz")) as z:
+        reqs = [z[f"r{i}"] for i in range(len(z.files))]
+    refs = {}
+    with np.load(os.path.join(d, "refs.npz")) as z:
+        for k in z.files:
+            v, i = (int(x) for x in k[1:].split("_"))
+            refs.setdefault(v, {})[i] = z[k]
+    stop = os.path.join(d, "stop")
+    answers, gens, probes, errors = [], [], [], []
+    t_start = time.monotonic()
+
+    def predict_client(c):
+        cl = serving.Client(cfg["url"], timeout=600)
+        k = c
+        try:
+            while not os.path.exists(stop):
+                i = k % len(reqs)
+                k += cfg["predict"]
+                t0 = time.monotonic()
+                got = cl.predict_npy(reqs[i], model="bert")
+                t1 = time.monotonic()
+                vs, errs = _match_version(np, got, refs, i, cfg["tol"])
+                answers.append((c, i, t0, t1, vs,
+                                errs[vs[0]] if vs else None))
+                if len(answers) == 1:
+                    open(os.path.join(d, "ready"), "w").close()
+        except BaseException as e:      # noqa: BLE001 - reported
+            errors.append(("predict", repr(e)))
+        finally:
+            cl.close()
+
+    def gen_version(cl):
+        return int(cl.metrics()["generation"]["weights_version"])
+
+    def gen_client(c):
+        cl = serving.Client(cfg["url"], timeout=600)
+        k = c
+        try:
+            while not os.path.exists(stop):
+                i = k % len(cfg["prompts"])
+                k += cfg["generate"]
+                v0 = gen_version(cl)
+                toks = list(cl.generate_stream(model="gpt",
+                                               **cfg["prompts"][i]))
+                gens.append((i, v0, gen_version(cl), toks))
+        except BaseException as e:      # noqa: BLE001 - reported
+            errors.append(("generate", repr(e)))
+        finally:
+            cl.close()
+
+    def prober():
+        cl = serving.Client(cfg["url"], timeout=600)
+        try:
+            while not os.path.exists(stop):
+                h = cl.healthz()
+                probes.append((h.get("ready"), h.get("status"),
+                               h.get("weights_version")))
+                time.sleep(0.02)
+        except BaseException as e:      # noqa: BLE001 - reported
+            errors.append(("healthz", repr(e)))
+        finally:
+            cl.close()
+
+    threads = ([threading.Thread(target=predict_client, args=(c,))
+                for c in range(cfg["predict"])]
+               + [threading.Thread(target=gen_client, args=(c,))
+                  for c in range(cfg["generate"])]
+               + [threading.Thread(target=prober)])
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    with open(os.path.join(d, "results.json.tmp"), "w") as f:
+        json.dump({"answers": answers, "generations": gens,
+                   "probes": probes, "errors": errors,
+                   "seconds": time.monotonic() - t_start}, f)
+    os.replace(os.path.join(d, "results.json.tmp"),
+               os.path.join(d, "results.json"))
+
+
+def _spawn_hotswap_clients(d):
+    """Start :func:`_hotswap_clients` in a process of its own early (its
+    interpreter and torch import while the parent builds the versions
+    and the server); it waits for :func:`_configure_hotswap_clients`."""
+    os.makedirs(d)
+    cfg = os.path.join(d, "cfg.json")
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+            f"chip_smoke._hotswap_clients({cfg!r})")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _configure_hotswap_clients(np, proc, d, url, reqs, refs, prompts, tol):
+    """Hand the client process its server, requests, answers by version
+    and prompts, and wait (a poll with a deadline) for its first
+    answer."""
+    np.savez(os.path.join(d, "reqs.npz"),
+             **{f"r{i}": r for i, r in enumerate(reqs)})
+    np.savez(os.path.join(d, "refs.npz"),
+             **{f"v{v}_{i}": a for v, rs in refs.items()
+                for i, a in enumerate(rs)})
+    cfg = os.path.join(d, "cfg.json")
+    with open(cfg + ".tmp", "w") as f:
+        json.dump({"url": url, "dir": d, "predict": HOTSWAP_CLIENTS,
+                   "generate": HOTSWAP_GEN_CLIENTS, "prompts": prompts,
+                   "tol": tol}, f)
+    os.replace(cfg + ".tmp", cfg)
+    deadline = time.monotonic() + 300
+    while not os.path.exists(os.path.join(d, "ready")):
+        if proc.poll() is not None or time.monotonic() > deadline:
+            proc.kill()
+            raise AssertionError(f"the client process did not start: "
+                                 f"{proc.communicate()[0][-3000:]}")
+        time.sleep(0.05)
+
+
+def _stop_hotswap_clients(proc, d):
+    open(os.path.join(d, "stop"), "w").close()
+    try:
+        out, _ = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+    path = os.path.join(d, "results.json")
+    if proc.returncode != 0 or not os.path.exists(path):
+        raise AssertionError(f"the client process failed "
+                             f"(rc {proc.returncode}): {out[-3000:]}")
+    with open(path) as f:
+        return json.load(f)
+
+
+@_keeps_global_state
+def phase_hotswap_serving(bert_prefix, dev="cuda"):
+    """62 hotswap_serving: ``chaos.swap_main(supervised=False)``'s gate
+    on the card.  R1 behind ``ModelRegistry.load(weights_dir=...)`` on a
+    ``SnapshotStore`` and the paged ``GenerationEngine`` at GPT `1b`
+    widths cut to 2 layers (8 slots) under the same ``WeightWatcher``,
+    one ``ServingServer`` over both; 8 closed-loop ``/predict`` clients
+    (1-4 rows x 512 tokens) and 3 streaming ``/generate`` clients while
+    versions 1-3 (seeded per-tensor factors) are published, then version
+    4 with one byte of its payload flipped; then the rollback case (the
+    generation apply fails after the inference commit).  Asserts every
+    answer against each version's answer run alone, versions never
+    going back, generations inside one version against that version's
+    serial tokens, the swap counters, readiness, no new variant, K1f
+    12 a dispatched batch (and a prewarm run), K4 2 a decode step, the
+    page pool, and memory back at rest after the swaps; prints the
+    swap windows' p50/p99 beside steady state, publish to commit, the
+    peak with two predictors resident, and the cold start by part."""
+    import gc
+    import re
+    import warnings
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import inference, serving
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.serving.hotswap import (PARAMS_PAYLOAD,
+                                                  publish_weights)
+    from paddle_tpu_torch.serving.models import params_from_paddle_tpu
+    from paddle_tpu_torch.utils import monitor
+    from paddle_tpu_torch.utils.checkpoint import SnapshotStore
+    cfg = BERT_CHIP
+    tol = FLASH_TOL["float32"]
+    work = tempfile.mkdtemp(prefix="chip_smoke_hotswap_")
+    quantities, out, proc = {}, {}, None
+    try:
+        # the clients run in a process of their own, as a server's
+        # clients do (their Python does not share this process's
+        # interpreter lock with the engines); it starts now and waits
+        cdir = os.path.join(work, "clients")
+        proc = _spawn_hotswap_clients(cdir)
+        t0 = time.perf_counter()
+        bert = _bert_versions(np, bert_prefix, work, HOTSWAP_VERSIONS)
+        out["bert versions written s"] = time.perf_counter() - t0
+        reqs = _hotswap_requests(np, cfg, HOTSWAP_POOL)
+        refs = {}
+        for v, p in bert.items():
+            pred = inference.create_predictor(inference.Config(p))
+            refs[v] = [np.asarray(pred.run([r])[0]) for r in reqs]
+            del pred
+        gc.collect()
+        distinct = min(_np_rel_err(np, refs[a][0], refs[b][0])
+                       for a in refs for b in refs if a < b)
+        quantities["versions' answers too close (min rel diff < 100 tol)"] = (
+            int(distinct < 100 * tol), 0)
+        paddle.seed(62)
+        gpt = serving.PagedDecoderLM(seed=62, device=dev, **HOTSWAP_GPT)
+        gparams = _gpt_versions(np, gpt, HOTSWAP_VERSIONS)
+        gpt_bytes = sum(a.nbytes for a in gparams[0].values())
+        prompts = _hotswap_prompts(np, HOTSWAP_GPT["vocab_size"],
+                                   HOTSWAP_PROMPTS)
+        # serial references: one engine swapped through the versions idle
+        ref_model = serving.PagedDecoderLM(seed=62, device=dev,
+                                           **HOTSWAP_GPT)
+        ref_gen = serving.GenerationEngine(
+            ref_model, num_slots=2, page_size=PAGE, max_context=MAX_CONTEXT,
+            prompt_buckets=[32, 64], device=dev)
+        ref_gen.warmup()
+        gen_refs = {}
+        try:
+            for v in sorted(gparams):
+                if v:
+                    ref_gen.swap_weights(params_from_paddle_tpu(
+                        gparams[v], device=dev), v)
+                gen_refs[v] = [ref_gen.generate_sync(timeout=300, **p)
+                               for p in prompts]
+        finally:
+            ref_gen.close()
+        del ref_gen, ref_model
+        gc.collect()
+        store_dir = os.path.join(work, "weights")
+        store = SnapshotStore(store_dir)
+        swap0 = {k: monitor.get_stat(f"serving.swap.{k}")
+                 for k in ("applied", "rejected", "rolled_back")}
+        with _ServingScope():
+            reg, entry, gen, srv = _hotswap_stack(bert_prefix, store_dir,
+                                                  gpt, dev)
+            eng, watcher = entry.engine, entry.watcher
+            try:
+                gc.collect()
+                mem_idle_before = _mem(torch, dev)[0]
+                stages = _time_swap_stages(watcher, watcher.store, eng, gen)
+                b0 = eng.stats()["counters"]["batches"]
+                d0 = gen.stats()["counters"]["decode_steps"]
+                support.reset_launch_counts()
+                _configure_hotswap_clients(np, proc, cdir, srv.url, reqs,
+                                           refs, prompts, tol)
+                windows, swaps = [], []
+                try:
+                    time.sleep(2 * HOTSWAP_WINDOW_S)
+                    for v in HOTSWAP_VERSIONS:
+                        if dev == "cuda":
+                            torch.cuda.reset_peak_memory_stats(dev)
+                        t_pub0 = time.monotonic()
+                        publish_weights(store, v, artifact_prefix=bert[v],
+                                        params=gparams[v])
+                        t_pub1 = time.monotonic()
+                        deadline = time.monotonic() + 300
+                        while (watcher.version < v
+                               and time.monotonic() < deadline):
+                            time.sleep(0.005)
+                        t_commit = time.monotonic()
+                        if watcher.version != v:
+                            raise AssertionError(
+                                f"version {v} not applied: "
+                                f"{watcher.last_error}")
+                        windows.append((t_pub0, t_commit))
+                        swaps.append({"version": v,
+                                      "publish_s": t_pub1 - t_pub0,
+                                      "publish_to_commit_s":
+                                          t_commit - t_pub0,
+                                      "commit_after_publish_s":
+                                          t_commit - t_pub1,
+                                      "peak_allocated_bytes":
+                                          _mem(torch, dev)[1],
+                                      "stages_s": stages.pop(v, {})})
+                        time.sleep(HOTSWAP_WINDOW_S)
+                    # the corrupted version 4: the poller stops first so
+                    # the flip is seen by the digest check, not by timing
+                    watcher.stop()
+                    snap = publish_weights(store, 4, artifact_prefix=bert[3],
+                                           params=gparams[3])
+                    path = os.path.join(store.dir, snap["dir"],
+                                        f"{PARAMS_PAYLOAD}.pdparams")
+                    with open(path, "r+b") as f:
+                        f.seek(20)
+                        byte = f.read(1)
+                        f.seek(20)
+                        f.write(bytes([byte[0] ^ 0xFF]))
+                    with warnings.catch_warnings():
+                        warnings.simplefilter("ignore")
+                        got4 = watcher.check_once()
+                    time.sleep(0.5)
+                finally:
+                    client_out = _stop_hotswap_clients(proc, cdir)
+                launches = dict(support.launch_counts)
+                batches = eng.stats()["counters"]["batches"] - b0
+                steps = gen.stats()["counters"]["decode_steps"] - d0
+                after4 = {k: monitor.get_stat(f"serving.swap.{k}") - swap0[k]
+                          for k in swap0}
+                st_inf, st_gen = eng.stats(), gen.stats()
+                gc.collect()
+                mem_idle_after = _mem(torch, dev)[0]
+                # the rollback case: the inference commit happens, then
+                # the generation apply fails (a parameter's shape)
+                bad = dict(gparams[1])
+                k0 = sorted(bad)[0]
+                bad[k0] = bad[k0].reshape(-1)
+                publish_weights(store, 5, artifact_prefix=bert[1],
+                                params=bad)
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    got5 = watcher.check_once()
+                rolled = {k: monitor.get_stat(f"serving.swap.{k}") - swap0[k]
+                          for k in swap0}
+                x_after = eng.infer_sync([reqs[0]], timeout=300)[0]
+                gen_after = gen.generate_sync(timeout=300, **prompts[0])
+            finally:
+                watcher.stop()
+                _close_stack(reg, gen, srv)
+        # -- checks ----------------------------------------------------
+        buckets = len(eng.buckets)
+        answers, gens = client_out["answers"], client_out["generations"]
+        probes, errors = client_out["probes"], client_out["errors"]
+        quantities["failed or stranded requests"] = (
+            len(errors) + st_inf["counters"].get("failed", 0)
+            + st_inf["counters"].get("closed_stranded", 0)
+            + st_gen["counters"].get("failed", 0), 0)
+        matched, unmatched, ambiguous, worst = {}, 0, 0, 0.0
+        last_by_client, backwards = {}, 0
+        for c, i, t0, t1, vs, err in answers:
+            if not vs:
+                unmatched += 1
+                continue
+            if len(vs) > 1:
+                ambiguous += 1
+            v = vs[0]
+            worst = max(worst, err)
+            matched[v] = matched.get(v, 0) + 1
+            if v < last_by_client.get(c, 0):
+                backwards += 1
+            last_by_client[c] = v
+        quantities["/predict answers matching no version"] = (unmatched, 0)
+        quantities["/predict answers matching two versions"] = (ambiguous,
+                                                               0)
+        quantities["max rel err vs the version's answer alone"] = (worst, tol)
+        quantities["versions going back for a client"] = (backwards, 0)
+        stable = [g for g in gens if g[1] == g[2]]
+        quantities["stable generations unlike their version's serial "
+                   "tokens"] = (sum(toks != gen_refs[v0][i]
+                                    for i, v0, _, toks in stable), 0)
+        quantities["no generation inside one version"] = (int(not stable), 0)
+        versions_seen = [p[2] for p in probes]
+        quantities["/healthz not ready"] = (
+            sum(1 for r, s, _ in probes if not r or s != "running"), 0)
+        quantities["/healthz weights_version going back"] = (sum(
+            1 for a, b in zip(versions_seen, versions_seen[1:]) if b < a), 0)
+        quantities["|/healthz last weights_version - 3|"] = (
+            abs((versions_seen or [0])[-1] - 3), 0)
+        quantities["|serving.swap.applied - 3|"] = (abs(after4["applied"]
+                                                        - 3), 0)
+        quantities["|serving.swap.rejected - 1| (after version 4)"] = (
+            abs(after4["rejected"] - 1), 0)
+        quantities["version 4 applied"] = (int(got4 is not None), 0)
+        quantities["|engines' version after 4 - 3|"] = (
+            abs(st_inf["weights_version"] - 3)
+            + abs(st_gen.get("weights_version", gen.weights_version) - 3), 0)
+        quantities["recompiles_after_warmup (inference)"] = (
+            st_inf["recompiles_after_warmup"], 0)
+        quantities["recompiles_after_warmup (generation)"] = (
+            st_gen["recompiles_after_warmup"], 0)
+        k1f = launches.get("flash_attention_fwd", 0)
+        k4 = launches.get("paged_attention", 0)
+        prewarm_runs = len(HOTSWAP_VERSIONS) * buckets
+        quantities["|K1f - 12 x (batches + prewarm runs)|"] = (abs(
+            k1f - cfg["layers"] * (batches + prewarm_runs)), 0)
+        quantities["|K4 - 2 x decode steps|"] = (
+            abs(k4 - HOTSWAP_GPT["num_layers"] * steps), 0)
+        quantities["other hand kernels launched"] = (sum(
+            n for k, n in launches.items()
+            if k not in ("flash_attention_fwd", "paged_attention")), 0)
+        quantities["pages in use at the end"] = (
+            st_gen["page_pool"]["in_use"], 0)
+        quantities["|pages allocated - freed|"] = (abs(
+            st_gen["counters"]["pages_allocated"]
+            - st_gen["counters"]["pages_freed"]), 0)
+        # at rest after the swaps: the replaced predictors are gone; the
+        # GPT model object still holds its own (version 0) parameters
+        # while the engine serves the swapped dict, one version more
+        quantities["|allocated at rest after - before - one GPT version| "
+                   "(MB)"] = (abs(mem_idle_after - mem_idle_before
+                                  - gpt_bytes) / 2 ** 20, 64.0)
+        quantities["|serving.swap.rolled_back - 1|"] = (
+            abs(rolled["rolled_back"] - 1), 0)
+        quantities["rollback case applied"] = (int(got5 is not None), 0)
+        quantities["rel err after the rollback vs version 3 alone"] = (
+            _np_rel_err(np, x_after, refs[3][0]), tol)
+        quantities["generation after the rollback unlike version 3"] = (
+            int(gen_after != gen_refs[3][0]), 0)
+        lat = [(a[2], a[3]) for a in answers]
+        in_win = [t1 - t0 for t0, t1 in lat
+                  if any(t0 < w1 and t1 > w0 for w0, w1 in windows)]
+        steady = [t1 - t0 for t0, t1 in lat
+                  if not any(t0 < w1 and t1 > w0 for w0, w1 in windows)]
+        cold = _cold_start_parts(bert_prefix)
+        out.update({
+            "config": {"bert": dict(cfg, dtype="float32", mode="eval"),
+                       "gpt": dict(HOTSWAP_GPT, slots=SLOTS, page=PAGE,
+                                   cut="2 of 24 layers"),
+                       "clients": HOTSWAP_CLIENTS,
+                       "generate_clients": HOTSWAP_GEN_CLIENTS,
+                       "request_pool": HOTSWAP_POOL},
+            "gpt_version_bytes": gpt_bytes,
+            "requests": len(answers), "generations": len(gens),
+            "stable_generations": len(stable), "probes": len(probes),
+            "answers_by_version": matched, "swaps": swaps,
+            "client_process_s": client_out["seconds"],
+            "steady_ms": {"n": len(steady),
+                          "p50": _pctl(np, steady, 50) * 1e3,
+                          "p99": _pctl(np, steady, 99) * 1e3},
+            "swap_window_ms": {"n": len(in_win),
+                               "p50": (_pctl(np, in_win, 50) or 0) * 1e3,
+                               "p99": (_pctl(np, in_win, 99) or 0) * 1e3},
+            "allocated_at_rest_bytes": [mem_idle_before, mem_idle_after],
+            "batches": batches, "decode_steps": steps,
+            "launches": launches, "prewarm_runs": prewarm_runs,
+            "swap_counters_after_v4": after4,
+            "swap_counters_after_rollback": rolled,
+            "cold_start_s": cold, "nvidia_smi": nvidia_smi()})
+        log("HOTSWAP_SERVING " + json.dumps(out))
+        _check("HOTSWAP_SERVING_CHECK", quantities)
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        shutil.rmtree(work, ignore_errors=True)
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return {"flash_attention_fwd": k1f, "paged_attention": k4}
+
+
+def _prom_families(re, text):
+    """Problems with a Prometheus exposition: lines the grammar
+    rejects, families typed more than once, samples outside their
+    family's block."""
+    bad, typed, order, current = [], {}, [], None
+    line_re = re.compile(PROM_LINE)
+    for ln in text.splitlines():
+        if not ln:
+            continue
+        if ln.startswith("# TYPE "):
+            name = ln.split()[2]
+            typed[name] = typed.get(name, 0) + 1
+            current = name
+            order.append(name)
+            continue
+        if ln.startswith("#"):
+            continue
+        if not line_re.match(ln):
+            bad.append(ln)
+            continue
+        fam = re.split(r"[{ ]", ln, 1)[0]
+        if current is None or not (fam == current or fam.startswith(
+                current + "_")):
+            bad.append(ln)
+    return bad, [n for n, k in typed.items() if k > 1]
+
+
+OBS_COST_WINDOW_S = 3.0      # one timed window of a mode
+OBS_COST_PAIRS = 4           # off/on pairs, the order alternating
+
+
+def _paired_cost(measure, np, pairs=OBS_COST_PAIRS):
+    """``measure(on)`` over ``pairs`` pairs of windows, off first in the
+    even pairs and on first in the odd ones, after one discarded pair
+    of warm-up.  Returns each mode's readings in order, and each pair's
+    on/off ratio with its median and range."""
+    measure(False)
+    measure(True)
+    got = {"off": [], "on": []}
+    for i in range(pairs):
+        for on in ((False, True) if i % 2 == 0 else (True, False)):
+            got["on" if on else "off"].append(measure(on))
+    ratio = [a / b for a, b in zip(got["on"], got["off"])]
+    got.update(on_over_off=ratio,
+               on_over_off_median=float(np.median(ratio)),
+               on_over_off_range=[min(ratio), max(ratio)],
+               window_s=OBS_COST_WINDOW_S)
+    return got
+
+
+@_keeps_global_state
+def phase_observability(bert_prefix, dev="cuda"):
+    """63 observability: the tracer, the performance observatory and an
+    SLO monitor over phase 62's stack (R1 under the registry, the paged
+    GPT, one server): the Prometheus exposition parses with every
+    family typed once and carries ``weights_version``; ``/perf`` has a
+    sampled dispatch anatomy (host ms, device ms by CUDA events) and
+    ``device_memory()`` is within 1 MB of ``torch.cuda.memory_allocated``;
+    ``/admin/trace`` and ``assemble_trace`` join one request's spans
+    from the client through the server to the engine's batch; two
+    in-process exporters spool and ``/admin/fleet`` aggregates two
+    servers; the flight recorder dumps once on a fault injected into
+    the engine; and the cost of the tracer and perf on R1's requests/s
+    and on the eager LeNet step."""
+    import re
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import observability as obs, optimizer, serving
+    from paddle_tpu_torch.core.enforce import UnavailableError
+    from paddle_tpu_torch.observability import fleet
+    from paddle_tpu_torch.testing import fault
+    from paddle_tpu_torch.utils import monitor
+    from paddle_tpu_torch.vision.models import LeNet
+    cfg = BERT_CHIP
+    quantities, out = {}, {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    spool = os.path.join(work, "spool")
+    reqs = _hotswap_requests(np, cfg, 32)
+    old_flags = paddle.get_flags(["obs_spool_dir", "obs_role",
+                                  "obs_export_interval_s"])
+    try:
+        paddle.seed(62)
+        gpt = serving.PagedDecoderLM(seed=62, device=dev, **HOTSWAP_GPT)
+        with _ServingScope():
+            reg, entry, gen, srv = _hotswap_stack(
+                bert_prefix, os.path.join(work, "weights"), gpt, dev)
+            eng = entry.engine
+            srv_b = client = None
+            try:
+                # the cost first: windows of several seconds, off and
+                # on in pairs whose order alternates (off-on, on-off, ..)
+                # so drift falls on both modes alike
+                def hooks(on):
+                    obs.disable()
+                    obs.disable_perf()
+                    if on:
+                        obs.enable(capacity=65536)
+                        obs.enable_perf(sample_every=4)
+
+                def rate(on):
+                    hooks(on)
+                    n, wall = 0, 0.0
+                    while wall < OBS_COST_WINDOW_S:
+                        _, w = _closed_loop(eng, reqs, HOTSWAP_CLIENTS, 1)
+                        n, wall = n + len(reqs), wall + w
+                    hooks(False)
+                    return n / wall
+                out["r1_requests_per_s"] = _paired_cost(rate, np)
+                paddle.seed(0)
+                lenet = LeNet()
+                opt = optimizer.Adam(learning_rate=1e-3,
+                                     parameters=lenet.parameters())
+                xv, yv = _lenet_batch(np)
+                x, y = paddle.to_tensor(xv), paddle.to_tensor(yv)
+
+                def lenet_step():
+                    loss = F.cross_entropy(lenet(x), y)
+                    loss.backward()
+                    opt.step()
+                    opt.clear_grad()
+                    float(loss)
+
+                def lenet_ms(on):
+                    hooks(on)
+                    n, t0 = 0, time.perf_counter()
+                    while time.perf_counter() - t0 < OBS_COST_WINDOW_S:
+                        lenet_step()
+                        n += 1
+                    ms = (time.perf_counter() - t0) * 1e3 / n
+                    hooks(False)
+                    return ms
+                lenet_step()                    # Adam's state made
+                trc = obs.enable(capacity=65536)
+                e0 = trc.emitted
+                lenet_step()
+                out["lenet_op_events_a_step"] = trc.emitted - e0
+                obs.disable()
+                out["lenet_step_ms"] = _paired_cost(lenet_ms, np)
+                del lenet, opt
+                # now observe the served stack
+                trc = obs.enable(capacity=65536)
+                perf = obs.enable_perf(sample_every=2)
+                rule = obs.SLORule("serving.engine.bert.latency_ms", 60000.0,
+                                   window=30.0, quantile=0.99, min_count=1,
+                                   name="bert_p99_latency_ms")
+                obs.install_slo_monitor([rule])
+                paddle.set_flags({"obs_spool_dir": spool,
+                                  "obs_role": "replica-a",
+                                  "obs_export_interval_s": 60.0})
+                exp_a = obs.install_exporter()
+                client = serving.Client(srv.url, trace_id="chip-63",
+                                        timeout=600)
+                _closed_loop(eng, reqs, HOTSWAP_CLIENTS, 1)
+                got = client.predict_npy(reqs[0], model="bert")
+                toks = client.generate([1, 2, 3], max_new_tokens=4,
+                                       model="gpt")
+                h = client.healthz()
+                quantities["/healthz not ready with the SLO monitor"] = (
+                    int(not h.get("ready") or h.get("slo") != "ok"), 0)
+                text = client.metrics_text()
+                bad, twice = _prom_families(re, text)
+                quantities["exposition lines the grammar rejects"] = (
+                    len(bad), 0)
+                quantities["families typed twice"] = (len(twice), 0)
+                quantities["exposition without weights_version"] = (int(
+                    "paddle_tpu_serving_weights_version" not in text), 0)
+                rep = client.perf()
+                anat = rep["perf"].get("serving", {}).get(
+                    "bert.dispatch", {})
+                quantities["no sampled dispatch on /perf"] = (
+                    int(not anat.get("sampled")), 0)
+                quantities["dispatch device ms missing"] = (
+                    int(not anat.get("device_ms_p50")), 0)
+                torch.cuda.synchronize()
+                dm = obs.device_memory()
+                quantities["|device_memory - memory_allocated| (MB)"] = (
+                    abs(dm["cuda:0"]["live_bytes"]
+                        - torch.cuda.memory_allocated(0)) / 2 ** 20, 1.0)
+                raw = client._post("/admin/trace?secs=0", b"",
+                                   {"Content-Type": "application/json"})
+                merged = json.loads(raw)
+                quantities["no chrome event of the traced request"] = (
+                    int(not any((e.get("args") or {}).get("trace")
+                                == "chip-63"
+                                for e in merged["traceEvents"])), 0)
+                exp_a.flush()
+                procs = fleet._merge_self(fleet.read_spool(spool))
+                asm = fleet.assemble_trace(procs, "chip-63")
+                quantities["trace not connected"] = (
+                    int(not asm["connected"]), 0)
+                need = {"client.predict", "http.predict", "enqueue",
+                        "dispatch"}
+                quantities["spans missing from the assembled trace"] = (
+                    len(need - set(asm["names"])), 0)
+                # a second replica: its own server and spool
+                srv_b = serving.ServingServer(eng, port=0).start()
+                paddle.set_flags({"obs_role": "replica-b"})
+                obs.install_exporter()
+                fv = fleet.FleetView(timeout_s=30.0)
+                fv.register("bert", urls=[srv.url, srv_b.url])
+                srv.attach_fleet(fv)
+                snap = client._get_json("/admin/fleet")
+                bert_fleet = snap["fleet"]["bert"]
+                quantities["|fleet replicas ready - 2|"] = (
+                    abs(bert_fleet["ready"] - 2), 0)
+                quantities["|spooled processes - 2|"] = (
+                    abs(len(fleet.read_spool(spool)) - 2), 0)
+                # the flight recorder: one dump for one injected fault
+                flight = os.path.join(work, "flight.json")
+                obs.install_flight_recorder(path=flight)
+                d0 = monitor.get_stat("flight.dumps")
+                with fault.inject([fault.Rule(pattern="serving.dispatch",
+                                              count=1,
+                                              exc=UnavailableError)]):
+                    eng.infer_sync([reqs[1]], timeout=300)
+                dumps = monitor.get_stat("flight.dumps") - d0
+                box = json.load(open(flight))
+                quantities["|flight dumps - 1|"] = (abs(dumps - 1), 0)
+                quantities["flight dump without the fault event"] = (int(
+                    not any(e.get("kind") == "fault" for e in box["events"])),
+                    0)
+                out.update({
+                    "exposition_lines": len(text.splitlines()),
+                    "perf_dispatch_anatomy": anat,
+                    "perf_identities": rep["perf"]["totals"],
+                    "device_memory": dm,
+                    "assembled_trace": asm,
+                    "fleet": {"replicas": bert_fleet["count"],
+                              "ready": bert_fleet["ready"],
+                              "spooled": [p["label"] for p in
+                                          fleet.read_spool(spool)]},
+                    "flight": {"reason": box["reason"], "dumps": dumps},
+                    "tracer": trc.ring_stats(), "answer_shape": list(
+                        got.shape), "tokens": toks})
+            finally:
+                if client is not None:
+                    client.close()
+                obs.uninstall_flight_recorder()
+                obs.uninstall_exporter()
+                obs.uninstall_slo_monitor()
+                obs.disable_perf()
+                obs.disable()
+                if srv_b is not None:
+                    srv_b.close()
+                _close_stack(reg, gen, srv)
+    finally:
+        paddle.set_flags(old_flags)
+        shutil.rmtree(work, ignore_errors=True)
+    out["nvidia_smi"] = nvidia_smi()
+    log("OBSERVABILITY " + json.dumps(out))
+    _check("OBSERVABILITY_CHECK", quantities)
+    torch.cuda.empty_cache()
+
+
+class _BertReplica:
+    """One more R1 replica on the card for a ``ReplicaSet``: its own
+    Predictor, engine and HTTP server, warmed before it reports ready,
+    serving until :meth:`stop`."""
+
+    def __init__(self, prefix, index):
+        self.prefix, self.name = prefix, f"bert-replica-{index}"
+        self.ready = False
+        self.health_url = None
+        self.exit_history = []
+        self._stop = threading.Event()
+
+    def run(self):
+        from paddle_tpu_torch import inference, serving
+        pred = inference.create_predictor(inference.Config(self.prefix))
+        eng = serving.InferenceEngine(pred, max_batch_size=SERVING_MAX_BATCH,
+                                      batch_timeout_ms=2.0, name=self.name)
+        srv = serving.ServingServer(eng, port=0, ready=False).start()
+        try:
+            eng.warmup()
+            srv.mark_ready()
+            self.health_url = srv.url + "/healthz"
+            self.ready = True
+            self._stop.wait()
+        finally:
+            self.ready = False
+            srv.close()
+            eng.close()
+
+    def stop(self):
+        self._stop.set()
+
+
+@_keeps_global_state
+def phase_elasticity(bert_prefix, dev="cuda"):
+    """64 elasticity: an ``ElasticityController`` over R1 behind the
+    registry, its scaler a ``ReplicaSet`` of R1 replicas on the one card.
+    With the objective below the p99 measured under 8 clients it scales
+    up to ``max_replicas`` 2 and then sheds (``QueueFull``; 503 over
+    HTTP) while ``/healthz`` answers 503 ``degraded``; with the
+    objective raised it recovers and scales down.  Asserts the
+    ``elasticity.*`` counters and the replica count."""
+    import http.client
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import observability as obs, serving
+    from paddle_tpu_torch.utils import monitor
+    cfg = BERT_CHIP
+    reqs = _hotswap_requests(np, cfg, 16)
+    quantities, out = {}, {}
+    names = ("scale_up", "scale_down", "shed", "recover")
+    c0 = {k: monitor.get_stat(f"elasticity.{k}") for k in names}
+    with _ServingScope():
+        reg = serving.ModelRegistry()
+        entry = reg.load("bert", bert_prefix, engine_kwargs={
+            "max_batch_size": SERVING_MAX_BATCH, "batch_timeout_ms": 2.0,
+            "max_queue": 256})
+        srv = serving.ServingServer(entry.engine, registry=reg,
+                                    port=0).start()
+        rs = serving.ReplicaSet(lambda i: _BertReplica(bert_prefix, i),
+                                name="bert")
+        stop = threading.Event()
+        shed, served, errors = [0], [0], []
+
+        def client(c):
+            k = c
+            while not stop.is_set():
+                try:
+                    reg.infer_sync("bert", [reqs[k % len(reqs)]],
+                                   timeout=300)
+                    served[0] += 1
+                except serving.QueueFull:
+                    shed[0] += 1
+                    time.sleep(0.01)
+                except BaseException as e:   # noqa: BLE001 - checked
+                    errors.append(repr(e))
+                    return
+                k += HOTSWAP_CLIENTS
+
+        def health():
+            conn = http.client.HTTPConnection(srv.host, srv.port,
+                                              timeout=120)
+            try:
+                conn.request("GET", "/healthz")
+                r = conn.getresponse()
+                return r.status, json.loads(r.read() or b"{}")
+            finally:
+                conn.close()
+
+        def predict_status():
+            conn = http.client.HTTPConnection(srv.host, srv.port,
+                                              timeout=300)
+            try:
+                conn.request("POST", "/predict", json.dumps(
+                    {"inputs": [reqs[0].tolist()], "model": "bert"}),
+                    {"Content-Type": "application/json"})
+                r = conn.getresponse()
+                r.read()
+                return r.status
+            finally:
+                conn.close()
+
+        threads = [threading.Thread(target=client, args=(c,),
+                                    name=f"elastic-client-{c}")
+                   for c in range(HOTSWAP_CLIENTS)]
+        ctl = None
+        try:
+            h0 = monitor.histogram_raw("serving.engine.bert.latency_ms")
+            for t in threads:
+                t.start()
+            time.sleep(ELASTIC_WINDOW_S)
+            # this phase's own window (earlier phases' engines shared
+            # the name)
+            h1 = monitor.histogram_raw("serving.engine.bert.latency_ms")
+            counts = [a - (h0["counts"][j] if h0 else 0)
+                      for j, a in enumerate(h1["counts"])]
+            p99 = monitor.quantile_from_counts(
+                counts, h1["count"] - (h0["count"] if h0 else 0), 0.99)
+            rule = obs.SLORule("serving.engine.bert.latency_ms", 0.5 * p99,
+                               window=ELASTIC_WINDOW_S, quantile=0.99,
+                               min_count=8, name="bert_p99_latency_ms")
+            obs.install_slo_monitor([rule])
+            obs.slo_status()                # the window's first snapshot
+            ctl = serving.ElasticityController(
+                reg, rules_for=lambda name: [rule],
+                scaler=lambda name, n: rs.scale_to(n - 1),
+                min_replicas=1, max_replicas=2, breach_polls=1,
+                clear_polls=1, cooldown_s=0.0)
+            timeline = [("baseline", ctl.poll())]
+            state = {}
+            deadline = time.monotonic() + 120
+            while time.monotonic() < deadline:
+                time.sleep(ELASTIC_WINDOW_S / 2)
+                r = ctl.poll()["bert"]
+                timeline.append(("breach", r))
+                if r["shedding"]:
+                    state["healthz"] = health()
+                    state["predict_status"] = predict_status()
+                    break
+            replicas_up = rs.count
+            rule.objective = 1e7            # the objective raised
+            deadline = time.monotonic() + 120
+            while time.monotonic() < deadline:
+                time.sleep(ELASTIC_WINDOW_S / 2)
+                r = ctl.poll()["bert"]
+                timeline.append(("raised", r))
+                if not r["shedding"] and r["desired"] == 1:
+                    break
+            state["healthz_after"] = health()
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(300)
+            rs.stop()
+            obs.uninstall_slo_monitor()
+            srv.close()
+            reg.close(timeout=60)
+    c1 = {k: monitor.get_stat(f"elasticity.{k}") - c0[k] for k in names}
+    quantities["client errors"] = (len(errors), 0)
+    quantities["|replicas at the shed - 1 (2 in all)|"] = (
+        abs(replicas_up - 1), 0)
+    quantities["replicas left after recovery"] = (rs.count, 0)
+    for k in names:
+        quantities[f"elasticity.{k} missing"] = (int(c1[k] < 1), 0)
+    quantities["no request shed with QueueFull"] = (int(shed[0] < 1), 0)
+    quantities["|/predict status while shedding - 503|"] = (
+        abs(state.get("predict_status", 0) - 503), 0)
+    hz = state.get("healthz", (0, {}))
+    quantities["/healthz while breached not 503 degraded"] = (
+        int(hz[0] != 503 or hz[1].get("status") != "degraded"), 0)
+    hz2 = state.get("healthz_after", (0, {}))
+    quantities["/healthz after recovery not 200"] = (int(hz2[0] != 200), 0)
+    out.update({"measured_p99_ms": p99, "objective_ms": 0.5 * p99,
+                "counters": c1, "served": served[0], "shed": shed[0],
+                "timeline": [(tag, {k: r[k] for k in ("burn", "desired",
+                                                       "shedding")})
+                             for tag, r in timeline[1:]],
+                "healthz_while_breached": hz, "healthz_after": hz2,
+                "nvidia_smi": nvidia_smi()})
+    log("ELASTICITY " + json.dumps(out, default=str))
+    _check("ELASTICITY_CHECK", quantities)
+    torch.cuda.empty_cache()
+
+
 def _instance_row(row):
     """One instance of a kernel (a path's shape), for the kernels
     line."""
@@ -7148,6 +8302,9 @@ def main():
         timed("http_registry", phase_http_registry, bert_prefix, mlp_prefix)
         capi_bert = timed("capi", phase_capi, bert_prefix, artifacts)
         timed("generation_baseline", phase_generation_baseline)
+        hot = timed("hotswap_serving", phase_hotswap_serving, bert_prefix)
+        timed("observability", phase_observability, bert_prefix)
+        timed("elasticity", phase_elasticity, bert_prefix)
     finally:
         shutil.rmtree(artifacts, ignore_errors=True)
     seconds["total"] = time.perf_counter() - t0
@@ -7160,10 +8317,12 @@ def main():
         "name": "paged_attention_decode", "route": "cuda",
         "source": "paddle_tpu_torch/ops/cuda/csrc/paged_attention.cu",
         "replaces": "paddle_tpu/ops/pallas/paged_attention.py:63",
-        "launches": launches + public_paged + pallas_launches[K4],
+        "launches": (launches + public_paged + pallas_launches[K4]
+                     + hot["paged_attention"]),
         "launches_by_entry": {
             "serving decode": launches, "paged_attention": public_paged,
             "ops.pallas.paged_attention_decode": pallas_launches[K4]},
+        "launches_by_path": {"hotswap generation": hot["paged_attention"]},
         "max_abs_err": f32_err, "max_err": f32_err,
         "max_abs_err_bf16": max(r["max_abs_err"] for r in kernel_rows
                                 if r["case"].endswith("bfloat16")),
@@ -7184,7 +8343,8 @@ def main():
         by_path = {"predictor bert": pred_bert.get(name, 0),
                    "predictor static bert": pred_static.get(name, 0),
                    "inference engine bert": engine_bert.get(name, 0),
-                   "capi bert": capi_bert.get(name, 0)}
+                   "capi bert": capi_bert.get(name, 0),
+                   "hotswap bert": hot.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",

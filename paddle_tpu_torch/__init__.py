@@ -78,7 +78,15 @@ These slices are in:
   state, :func:`create_parameter`, :func:`flops`), the device queries,
   :func:`paged_attention` with :func:`register_paged_attention_kernel`,
   and :mod:`.ops.pallas`, the JAX package's kernel entries over the
-  CUDA kernels.
+  CUDA kernels;
+
+- the rest of serving and the observability package: the dynamic-
+  batching ``InferenceEngine``, ``/predict`` and the model registry
+  with its ``ElasticityController``, the C ABI, weight hot swap
+  (:mod:`.serving.hotswap` over :class:`~.utils.checkpoint.
+  SnapshotStore`), and :mod:`.observability` (tracer, compile
+  attribution, Prometheus, the flight recorder, the performance
+  observatory, SLO monitors, the fleet spool and views).
 
 Models, pools, engines, static parameters and new tensors go to the
 current CUDA device unless the caller passes ``device=`` / ``place=``
@@ -89,9 +97,11 @@ from __future__ import annotations
 
 import builtins as _builtins
 
+__version__ = "0.1.0"
+
 from . import (amp, core, distributed, framework_io, inference,  # noqa
-               jit, metric, nn, ops, optimizer, parallel, serving, static,
-               testing, utils, vision)
+               jit, metric, nn, observability, ops, optimizer, parallel,
+               serving, static, testing, utils, vision)
 from .core.autograd import (enable_grad, grad, is_grad_enabled,  # noqa
                             no_grad)
 from .core.dispatch import apply  # noqa: F401
@@ -132,7 +142,7 @@ from .ops.reduction import *  # noqa: F401,F403
 from .optimizer import regularizer  # noqa: F401
 
 __all__ = (["amp", "core", "distributed", "framework_io", "inference",
-            "jit", "metric", "nn",
+            "jit", "metric", "nn", "observability",
             "ops", "optimizer", "parallel", "serving", "static", "testing",
             "utils", "vision", "device", "seed", "get_rng_state",
             "set_rng_state", "set_device", "get_device", "ParamAttr",
@@ -178,6 +188,16 @@ def disable_static(place=None):
 def in_dynamic_mode() -> bool:
     return not _static_mode
 
+
+# fleet telemetry: with FLAGS_obs_spool_dir in the environment the
+# exporter installs at import, so a child process spawned with the flag
+# spools with no code change.  Unset, this is one flag read.
+from .core import flags as _flags  # noqa: E402
+
+if _flags.get_flag("obs_spool_dir"):
+    from .observability import export as _obs_export  # noqa: E402
+
+    _obs_export.install_exporter()
 
 # the JAX package's top level carries the builtin ``slice`` under this
 # name (its ``slice`` is the op)

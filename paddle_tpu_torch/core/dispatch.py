@@ -18,6 +18,13 @@ Under ``amp.auto_cast`` the tensor inputs are cast here, by the op's
 name, before the op runs (the JAX package's AMP hook sits at the same
 point); a recorded node is never cast.
 
+With a tracer installed whose ``trace_ops`` is on
+(``observability.enable``), every eager op that runs here lands on it
+as one ``op`` event (its host duration); disabled, the op path pays one
+module-attribute None-check.  Ops that never pass through here (a
+Tensor method or operator that calls torch directly) emit nothing
+(ROADMAP §C).
+
 The eager result comes out as a paddle :class:`~.tensor.Tensor` (the
 JAX package wraps at the same point): a plain ``torch.Tensor`` result,
 or each one of a tuple or list, is re-typed in place.  An op that fails
@@ -25,11 +32,13 @@ carries its paddle name (``[operator < name > error]``), as there.
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional
 
 from torch.nn import Parameter
 
 from ..amp import amp_active, amp_cast_inputs
+from . import obs_hook
 from .enforce import with_op_hint
 from .static_hooks import current_replay
 from .tensor import wrap
@@ -58,8 +67,12 @@ def apply(fn: Callable, *inputs, op_name: str,
                 return x.program.record(fn, inputs, op_name, attrs or {})
     if amp_active():
         inputs = amp_cast_inputs(op_name, inputs)
+    trc = obs_hook._tracer
+    t0 = time.perf_counter() if trc is not None else 0.0
     try:
         out = fn(*inputs, **attrs) if attrs else fn(*inputs)
     except Exception as e:
         raise with_op_hint(e, op_name)
+    if trc is not None:
+        trc.op(op_name, t0, time.perf_counter())
     return wrap(out)

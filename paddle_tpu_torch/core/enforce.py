@@ -3,10 +3,12 @@
 The error-code taxonomy as exception classes, so user code can catch
 narrow categories; the port's ops raise them where the JAX package
 does, and :func:`with_op_hint` attaches the failing op's name the same
-way.  No flight recorder exists in the port yet, so constructing an
-error dumps nothing.
+way.  With a flight recorder installed (``observability``),
+constructing any error of the taxonomy dumps the black box.
 """
 from __future__ import annotations
+
+from . import obs_hook
 
 __all__ = ["EnforceError", "InvalidArgumentError", "NotFoundError",
            "OutOfRangeError", "AlreadyExistsError", "ResourceExhaustedError",
@@ -17,8 +19,19 @@ __all__ = ["EnforceError", "InvalidArgumentError", "NotFoundError",
 
 
 class EnforceError(RuntimeError):
-    """Base of the taxonomy (reference: error_codes.proto)."""
+    """Base of the taxonomy (reference: error_codes.proto).
+
+    When a flight recorder is installed, constructing any error of the
+    taxonomy dumps the black box; the handler dedups by exception
+    object, so a later re-report (the Executor catching this error)
+    never dumps twice."""
     code = "LEGACY"
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        h = obs_hook._crash
+        if h is not None:
+            h(self, f"enforce.{type(self).__name__}")
 
 
 class InvalidArgumentError(EnforceError, ValueError):

@@ -184,7 +184,8 @@ define_flag("mesh_replace_warn_only", False,
             "Downgrade the error raised when a live mesh would be "
             "replaced to a warning. " + _LATER)
 define_flag("checkpoint_keep_max", 2,
-            "Snapshots retained per checkpoint dir. " + _LATER)
+            "Snapshots retained per checkpoint dir (the default of "
+            "utils.checkpoint.SnapshotStore's keep_max).")
 define_flag("inference_pad_policy", "bucket",
             "Predictor.run on a batch size with no compiled variant: "
             "'bucket' or 'none'. " + _LATER)
@@ -197,17 +198,22 @@ define_flag("serving_decode_retries", 2,
             "fire before the step touches the KV pool, so they are "
             "safely retried).")
 define_flag("metrics_dump_path", "",
-            "JSONL file training appends monitor-metrics snapshots to. "
-            + _LATER)
+            "Default JSONL file observability.dump_metrics appends "
+            "monitor-metrics snapshots to.")
 define_flag("flight_recorder_path", "",
-            "Default dump path for the crash flight recorder. " + _LATER)
+            "Default dump path for the crash flight recorder "
+            "(observability.install_flight_recorder; else "
+            "./flight_record.json).")
 define_flag("perf_sample_every", 16,
-            "Runtime performance observatory: fence and sample device "
-            "memory on every Nth step. " + _LATER)
+            "Performance observatory (observability.enable_perf): time "
+            "the device lane by CUDA events and sample device memory on "
+            "every Nth step of a build identity or engine; <= 0 keeps "
+            "the host lane only.")
 define_flag("perf_chip", "",
             "The static/analysis/cost.CHIP_SPECS row the cost model "
-            "prices a step against (the Executor's predicted record).  "
-            "Empty = auto: 'h100' on an H100, else 'cpu'.")
+            "prices a step against (the Executor's predicted record and "
+            "the performance observatory's drift).  Empty = auto: "
+            "'h100' on an H100, else 'cpu'.")
 define_flag("pallas_interpret", False,
             "Pallas interpret mode off the TPU (the card's kernels have "
             "none: a CPU tensor takes the plain versions).")
@@ -231,16 +237,20 @@ define_flag("anomaly_spike_factor", 10.0,
 define_flag("compile_cache_dir", "",
             "The persistent cache of serialized XLA executables.")
 define_flag("metrics_dump_max_mb", 0.0,
-            "Size-based rotation threshold of the metrics dump. "
-            + _LATER)
+            "Size-based rotation threshold (MiB) of the metrics dump: at "
+            "or above it the file shifts to .1 before the next append; "
+            "0 = never rotate.")
 define_flag("metrics_dump_keep", 3,
-            "Rotated metrics-dump files retained. " + _LATER)
+            "Rotated metrics-dump files retained (.1 .. .N).")
 define_flag("obs_spool_dir", "",
-            "Fleet telemetry spool directory. " + _LATER)
+            "Fleet telemetry spool directory: set in the environment, "
+            "the exporter installs at import and spools this process's "
+            "metrics and trace there (observability.install_exporter).")
 define_flag("obs_role", "",
-            "Role label for this process's telemetry spool. " + _LATER)
+            "Role label for this process's telemetry spool "
+            "(<role>-<pid>; empty = 'proc').")
 define_flag("obs_export_interval_s", 5.0,
-            "Seconds between telemetry spool flushes. " + _LATER)
+            "Seconds between telemetry spool flushes (at least 0.05).")
 define_flag("pallas_attention_dropout_min_seqlen", 512,
             "The TPU's flash-attention length threshold under dropout "
             "(the card's gate has none).")

@@ -30,6 +30,7 @@ sliced back, so a steady stream of ragged batches adds no variant.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -39,6 +40,8 @@ from ..core.dtype import convert_dtype
 from ..core.flags import get_flag
 from ..core.tensor import wrap
 from ..jit.save_load import SUFFIX_MODEL, SUFFIX_PARAMS, load_artifact
+
+_SERIALS = itertools.count(1)
 
 __all__ = ["Config", "Predictor", "Tensor", "create_predictor",
            "SUFFIX_MODEL", "SUFFIX_PARAMS"]
@@ -179,6 +182,7 @@ class Predictor:
         self._inputs: Dict[str, object] = {}
         self._outputs: Dict[str, torch.Tensor] = {}
         self._prepared: set = set()
+        self._serial = next(_SERIALS)   # compile-attribution identity
         # batch sizes per rest-signature (shapes minus the leading dim)
         self._batch_buckets: Dict[tuple, set] = {}
         if config._aot_on_load:
@@ -195,11 +199,19 @@ class Predictor:
             return None, None
         return tuple((s[1:], d) for s, d in sig), batches.pop()
 
-    def _register(self, sig):
+    def _register(self, sig, note="serve-path miss"):
+        if sig in self._prepared:
+            return
         self._prepared.add(sig)
         rest, batch = self._split_batch(sig)
         if rest is not None:
             self._batch_buckets.setdefault(rest, set()).add(batch)
+        # recompile attribution: after load, each new signature is a new
+        # bucket (paddle_tpu's cause names)
+        from ..observability import record_compile
+        record_compile("predictor", self._serial, {
+            "bucket": tuple((s, d.replace("torch.", "")) for s, d in sig),
+        }, note=note)
 
     def _prepare_on_load(self):
         shapes = list(self.config._shape_buckets)
@@ -212,7 +224,7 @@ class Predictor:
                 self._program.run_flat([
                     torch.zeros(s, dtype=dt, device=self.device)
                     for (s, _), dt in zip(sig, self._in_dtypes)])
-                self._register(sig)
+                self._register(sig, note="aot")
 
     def batched_output_mask(self) -> Optional[List[bool]]:
         """Which outputs carry the dynamic batch dim, from the saved

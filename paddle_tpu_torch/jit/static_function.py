@@ -10,11 +10,21 @@ Tensor's truth value raises inside the call), so a function that runs
 under ``to_static`` is one ``jit.save`` can capture with every branch.
 Outputs, gradients, buffer updates (batch norm's running statistics)
 and random draws (dropout under ``paddle.seed``) are eager's.
+
+Each new input structure (the nesting of the arguments, their
+non-tensor values, the layer's training flag) is what paddle_tpu traces
+and compiles anew; the port reports it to
+``observability.record_compile`` (component ``jit``) as its capture,
+with paddle_tpu's cause names.  Captures are keyed as paddle_tpu keys
+its traces, by the hash of the static values (``1`` and ``1.0`` are one
+capture); a call with an unhashable value (a numpy array) is a capture
+of its own every time, ``new_uncacheable_call``.
 """
 from __future__ import annotations
 
 import functools
 import inspect
+import itertools
 from typing import Callable, Optional
 
 import torch
@@ -24,6 +34,35 @@ from ..core.static_hooks import to_static_scope
 
 __all__ = ["InputSpec", "StaticFunction", "to_static", "enable_to_static",
            "not_to_static"]
+
+_SERIALS = itertools.count(1)
+
+
+class _TensorLeaf:
+    """The marker a tensor leaves among a call's static leaves."""
+
+    def __repr__(self):
+        return "<tensor>"
+
+
+_TENSOR_LEAF = _TensorLeaf()
+
+
+def _structure(obj, leaves: list) -> str:
+    """The nesting of ``obj`` with every leaf a ``*``; non-tensor
+    leaves are appended to ``leaves`` (tensors as a marker)."""
+    if isinstance(obj, torch.Tensor):
+        leaves.append(_TENSOR_LEAF)
+        return "*"
+    if isinstance(obj, (list, tuple)):
+        inner = ",".join(_structure(x, leaves) for x in obj)
+        return f"{type(obj).__name__}({inner})"
+    if isinstance(obj, dict):
+        inner = ",".join(f"{k!r}:{_structure(obj[k], leaves)}"
+                         for k in sorted(obj, key=repr))
+        return "{" + inner + "}"
+    leaves.append(obj)
+    return "*"
 
 
 class InputSpec:
@@ -62,6 +101,7 @@ class StaticFunction:
     function instead."""
 
     _enabled = True
+    _NONCE = itertools.count(1)     # uncacheable captures, in order
 
     def __init__(self, fn: Callable, input_spec=None, layer=None):
         self._raw = fn.forward if layer is not None and fn is layer else fn
@@ -69,6 +109,8 @@ class StaticFunction:
         self._input_spec = input_spec
         self._fn = self._convert_control_flow(self._raw)
         functools.update_wrapper(self, self._fn)
+        self._serial = next(_SERIALS)   # compile-attribution identity
+        self._captured: set = set()     # input structures seen
 
     @staticmethod
     def _convert_control_flow(fn):
@@ -88,8 +130,28 @@ class StaticFunction:
     def __call__(self, *args, **kwargs):
         if not StaticFunction._enabled:
             return self._raw(*args, **kwargs)
+        self._note_capture(args, kwargs)
         with to_static_scope():
             return self._fn(*args, **kwargs)
+
+    def _note_capture(self, args, kwargs) -> None:
+        leaves: list = []
+        struct = _structure((args, kwargs), leaves)
+        training = (bool(self._layer.training)
+                    if self._layer is not None else False)
+        static_leaves = tuple(leaves)
+        sig = {}
+        try:
+            key = (struct, static_leaves, training)
+            if key in self._captured:
+                return
+            self._captured.add(key)
+        except TypeError:   # an unhashable leaf: captured on every call
+            sig["uncacheable_call"] = next(StaticFunction._NONCE)
+        sig["input_structure"] = (struct, repr(static_leaves))
+        sig["training"] = training
+        from ..observability import record_compile
+        record_compile("jit", self._serial, sig)
 
     def __get__(self, instance, owner=None):
         """``@to_static`` on a method binds per instance."""

@@ -442,6 +442,13 @@ class InferenceEngine:
         last_exc: Optional[BaseException] = None
         outs = None
         t_disp = time.perf_counter()
+        # perf observatory (one None-check when off): a sampled dispatch
+        # times its device lane by CUDA events, start here and end
+        # before the host read (which waits for it anyway)
+        p = obs_hook._perf
+        sample = (p.serving_begin(self.name, "dispatch",
+                                  getattr(self._pred, "device", None))
+                  if p is not None else None)
         for attempt in range(self._retries + 1):
             try:
                 fault.point("serving.dispatch",
@@ -457,6 +464,8 @@ class InferenceEngine:
                 if attempt < self._retries:
                     self._c["dispatch_retries"] += 1
                     self._madd("dispatch_retries")
+        if sample is not None:
+            sample.stop()
         t_done = time.perf_counter()
         # supervised liveness: one beat per dispatched batch (success OR
         # failure — the signal is "the dispatch loop makes progress",
@@ -488,14 +497,12 @@ class InferenceEngine:
             self._madd("failed", len(batch))
             return
         host = [np.asarray(o) for o in outs]    # one device sync per batch
-        # perf observatory: per-engine dispatch anatomy (one None-check
-        # when off).  Measured AFTER the host read above: the outputs
-        # of a CUDA run are ready only once read, so a stamp before it
-        # would time the launches instead of the batch
-        p = obs_hook._perf
+        # per-engine dispatch anatomy, measured AFTER the host read
+        # above: the outputs of a CUDA run are ready only once read, so
+        # a stamp before it would time the launches instead of the batch
         if p is not None:
             p.serving_step(self.name, "dispatch",
-                           time.perf_counter() - t_disp)
+                           time.perf_counter() - t_disp, sample)
         mask = self._out_mask
         batched = [h.ndim >= 1
                    and (mask[j] if mask is not None and j < len(mask)

@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import itertools
 import queue
 import threading
 import time
@@ -63,6 +64,8 @@ from .engine import (DeadlineExceeded, EngineClosed, QueueFull,
                      _mirrored_observe, _safe_set_exception,
                      _safe_set_result)
 from .kv_cache import KVCacheConfig, PagePool, pages_needed
+
+_SERIALS = itertools.count(1)
 
 __all__ = ["GenerationEngine", "GenerationStream", "GenerationError"]
 
@@ -298,6 +301,7 @@ class GenerationEngine:
         # warmup() on the caller's thread
         self._step_lock = threading.Lock()
         self._variants: set = set()     # (kind, bucket) run so far
+        self._serial = next(_SERIALS)   # compile-attribution identity
         self._compile_count = 0
         self._warm_variants: Optional[int] = None
         # serving weights, passed to every model call (see module
@@ -417,6 +421,14 @@ class GenerationEngine:
         if (kind, bucket) not in self._variants:
             self._variants.add((kind, bucket))
             self._compile_count += 1
+            from ..observability import record_compile
+            record_compile("generation", self._serial, {
+                "kind": kind, "bucket": bucket,
+                "slots": self._slots_n, "pages": self._pool.num_pages,
+                "page_size": self.config.page_size,
+                "weights_version": self._weights_version,
+            }, note="warmup" if self._warm_variants is None
+                else "serve-path miss")
 
     def warmup(self) -> int:
         """Run every decode context bucket and prompt bucket once, on

@@ -26,10 +26,27 @@ Endpoints:
   the engine is serving and the server has been marked ready
   (:meth:`ServingServer.mark_ready`); 503 with ``Retry-After`` during
   warmup (``"warming"``), drain and close.  The body carries
-  ``status`` / ``ready`` / ``weights_version``.
-- ``GET /metrics`` — JSON: the inference engine's ``stats()`` (or
-  ``{"counters": {}}``), with ``"generation"`` and ``"registry"`` beside
-  it when those are attached.
+  ``status`` / ``ready`` / ``weights_version``.  With an SLO monitor
+  installed (``observability.install_slo_monitor``) each probe also
+  polls the rules: a breached burn-rate rule degrades the reply to 503
+  ``{"status": "degraded", "slo": {reasons...}}`` while the engine
+  keeps serving, and it recovers to 200 once the windows clear.
+- ``GET /perf`` — the performance observatory's report
+  (``observability.perf_report``) and the last SLO evaluation.
+- ``GET /metrics`` — content-negotiated.  By default JSON: the
+  inference engine's ``stats()`` (or ``{"counters": {}}``), with
+  ``"generation"`` and ``"registry"`` beside it when those are
+  attached.  When the Accept header asks for ``text/plain`` /
+  OpenMetrics (what a Prometheus scraper sends): the whole
+  ``observability.prometheus_text`` exposition with the engines'
+  gauges under ``paddle_tpu_serving_engine_*`` /
+  ``paddle_tpu_serving_decode_*``, ``paddle_tpu_serving_weights_version``
+  and ``paddle_tpu_serving_ready`` (paddle_tpu's family names).
+- ``GET /admin/fleet`` — the attached
+  :class:`~..observability.fleet.FleetView`'s scrape of its replicas
+  (``attach_fleet``), else the spool's summary.
+- ``POST /admin/trace?secs=N`` — N seconds (at most 60; 0 = what is
+  buffered now) of the fleet's merged chrome trace.
 
 With a :class:`~.registry.ModelRegistry` attached
 (``ServingServer(registry=...)``):
@@ -47,9 +64,7 @@ With a :class:`~.registry.ModelRegistry` attached
   ``"default"``.
 
 Every response carries an ``X-Trace-Id``: the caller's (1-64 chars of
-``[A-Za-z0-9._-]``) or a fresh one.  ``/perf``, ``/admin/fleet``,
-``/admin/trace`` and the Prometheus text of ``/metrics`` belong to the
-observability layer (ROADMAP A4c/A7) and answer as unknown paths.
+``[A-Za-z0-9._-]``) or a fresh one.
 
 Error mapping: shed -> 503 (+Retry-After), deadline -> 504, malformed
 -> 400, engine closed -> 503, unknown model -> 404, tenant over quota
@@ -69,11 +84,12 @@ import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Iterator, List, Optional
-from urllib.parse import urlsplit
+from urllib.parse import parse_qs, urlsplit
 
 import numpy as np
 
 from ..core import obs_hook
+from ..observability import perf as _perf, slo as _slo
 from ..utils import monitor
 from .engine import (DeadlineExceeded, EngineClosed, InferenceEngine,
                      QueueFull, ServingError)
@@ -91,6 +107,17 @@ _TRACE_ID_RE = re.compile(r"^[A-Za-z0-9][A-Za-z0-9._\-]{0,63}$")
 
 def _mint_trace_id() -> str:
     return uuid.uuid4().hex
+
+
+def _engine_label(name) -> str:
+    """``{engine="<name>"}`` with the value escaped per the Prometheus
+    text format (backslash, quote, newline) — an engine name is an
+    arbitrary user string and must not break the scrape."""
+    if not name:
+        return ""
+    v = (str(name).replace("\\", r"\\").replace('"', r'\"')
+         .replace("\n", r"\n"))
+    return f'{{engine="{v}"}}'
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -210,7 +237,9 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _route_get(self):
         path = self.path.split("?", 1)[0]
-        if path == "/admin/models":
+        if path == "/admin/fleet":
+            self._do_fleet()
+        elif path == "/admin/models":
             if self.registry is None:
                 self._reply_json(501, {"error": "NotImplemented",
                                        "message": "no model registry "
@@ -219,38 +248,92 @@ class _Handler(BaseHTTPRequestHandler):
                 self._reply_json(200, self.registry.describe())
         elif path == "/healthz":
             self._do_healthz()
+        elif path == "/perf":
+            self._reply_json(200, {"perf": _perf.perf_report(),
+                                   "slo": _slo.slo_status(poll=False)})
         elif path == "/metrics":
-            stats = (self.engine.stats() if self.engine is not None
-                     else {"counters": {}})
-            if self.generation is not None:
-                stats["generation"] = self.generation.stats()
-            if self.registry is not None:
-                stats["registry"] = self.registry.stats()
-            self._reply_json(200, stats)
+            self._do_metrics()
         else:
             self._reply_json(404, {"error": "NotFound", "message": self.path})
 
-    def _do_healthz(self):
+    def _state(self) -> str:
         src = self.engine if self.engine is not None else self.generation
         if src is None and self.registry is not None:
             # registry mode: alive while it routes to anything
-            st = "running" if self.registry.models() else "empty"
-        else:
-            st = src.stats()["state"] if src is not None else "empty"
+            return "running" if self.registry.models() else "empty"
+        return src.stats()["state"] if src is not None else "empty"
+
+    def _do_healthz(self):
+        st = self._state()
         wv = self._weights_version()
         retry = [("Retry-After", str(self.server.retry_after_s))]
         if st not in ("running", "paused"):
             # liveness gone: draining / closing / closed
             self._reply_json(503, {"status": st, "ready": False,
                                    "weights_version": wv}, retry)
-        elif not self.server.ready:
+            return
+        if not self.server.ready:
             # alive but not yet warmed: hold traffic, don't restart
             self._reply_json(503, {"status": "warming",
                                    "engine_state": st, "ready": False,
                                    "weights_version": wv}, retry)
-        else:
-            self._reply_json(200, {"status": st, "ready": True,
-                                   "weights_version": wv})
+            return
+        # with an SLO monitor installed the probe polls the objectives:
+        # a breached burn-rate rule degrades the reply to 503 with the
+        # reasons, and it recovers as soon as the windows clear
+        slo = _slo.slo_status()
+        if slo.get("status") == "degraded":
+            self._reply_json(503, {
+                "status": "degraded", "engine_state": st,
+                "ready": False, "weights_version": wv,
+                "slo": {"breached": slo.get("breached", []),
+                        "reasons": slo.get("reasons", [])}}, retry)
+            return
+        body = {"status": st, "ready": True, "weights_version": wv}
+        if slo.get("installed"):
+            body["slo"] = "ok"
+        self._reply_json(200, body)
+
+    def _do_metrics(self):
+        accept = (self.headers.get("Accept") or "").lower()
+        stats = (self.engine.stats() if self.engine is not None
+                 else {"counters": {}})
+        gen = self.generation
+        if gen is not None:
+            stats["generation"] = gen.stats()
+        if self.registry is not None:
+            stats["registry"] = self.registry.stats()
+        if not ("text/plain" in accept or "openmetrics" in accept
+                or "prometheus" in accept):
+            self._reply_json(200, stats)
+            return
+        from ..observability import prometheus_text
+        # a named engine labels its gauges so a multi-model scrape can
+        # tell its engines apart
+        lab = _engine_label(getattr(self.engine, "name", None)
+                            if self.engine is not None else None)
+        gauges = {f"serving_engine_{k}{lab}": v
+                  for k, v in stats.items()
+                  if isinstance(v, (int, float))}
+        gauges.update({f"serving_engine_{k}{lab}": v
+                       for k, v in stats["counters"].items()})
+        # what version this replica serves and whether it takes traffic
+        st = self._state()
+        ready = self.server.ready and st in ("running", "paused")
+        gauges[f"serving_weights_version{lab}"] = self._weights_version()
+        gauges[f"serving_ready{lab}"] = 1 if ready else 0
+        if gen is not None:
+            gs = stats["generation"]
+            glab = _engine_label(getattr(gen, "name", None))
+            gauges.update({f"serving_decode_{k}{glab}": v
+                           for k, v in gs.items()
+                           if isinstance(v, (int, float))})
+            gauges.update({f"serving_decode_{k}{glab}": v
+                           for k, v in gs["counters"].items()})
+            gauges.update({f"serving_decode_pages_{k}{glab}": v
+                           for k, v in gs["page_pool"].items()})
+        self._reply(200, prometheus_text(gauges).encode(),
+                    ctype="text/plain; version=0.0.4; charset=utf-8")
 
     def do_POST(self):
         tid = self._bind_trace()
@@ -277,6 +360,9 @@ class _Handler(BaseHTTPRequestHandler):
             return
         if path == "/admin/models":
             self._do_admin()
+            return
+        if path == "/admin/trace":
+            self._do_trace()
             return
         if path != "/predict":
             self._reply_json(404, {"error": "NotFound",
@@ -400,6 +486,50 @@ class _Handler(BaseHTTPRequestHandler):
         except (BrokenPipeError, ConnectionError):
             pass                        # client went away mid-stream
 
+    def _do_fleet(self):
+        """``GET /admin/fleet``: the aggregated per-replica view.  With
+        a :class:`~..observability.fleet.FleetView` attached
+        (``ServingServer(..., fleet=...)``), its live scrape of every
+        registered replica; otherwise the spool-level summary."""
+        try:
+            fv = self.server.fleet
+            if fv is not None:
+                self._reply_json(200, fv.snapshot())
+                return
+            from ..observability import fleet as _fleet
+            snap = _fleet.fleet_snapshot()
+            self._reply_json(200, {
+                "time": snap["time"], "fleet": {},
+                "spool": {"procs": sorted(snap["procs"]),
+                          "build_skew": snap["build_skew"]}})
+        except Exception as e:          # noqa: BLE001 - mapped to HTTP
+            self._reply_error(e)
+
+    def _do_trace(self):
+        """``POST /admin/trace?secs=N``: capture ``N`` seconds of fleet
+        activity (at most 60; 0 = everything buffered or spooled now)
+        and return the merged chrome-trace JSON, one lane a process."""
+        try:
+            q = parse_qs(self.path.partition("?")[2])
+            secs = float(q.get("secs", ["0"])[0])
+        except (TypeError, ValueError):
+            self._reply_json(400, {"error": "ValueError",
+                                   "message": "secs must be a number"})
+            return
+        secs = max(0.0, min(secs, 60.0))
+        t0 = time.time()
+        if secs > 0:
+            time.sleep(secs)
+        try:
+            exp = obs_hook._export
+            if exp is not None:
+                exp.flush()         # this process's lane must be current
+            from ..observability import fleet as _fleet
+            self._reply_json(200, _fleet.merged_chrome_trace(
+                since_time=t0 if secs > 0 else None))
+        except Exception as e:          # noqa: BLE001 - mapped to HTTP
+            self._reply_error(e)
+
     def _do_admin(self):
         """``POST /admin/models``: registry control actions.  Missing
         fields map to 400 (KeyError), unknown names to 404, so a fat-
@@ -468,7 +598,7 @@ class ServingServer:
                  port: int = 8000, request_timeout: float = 60.0,
                  verbose: bool = False, generation=None,
                  ready: bool = True, retry_after_s: float = 1.0,
-                 registry: Optional[ModelRegistry] = None):
+                 registry: Optional[ModelRegistry] = None, fleet=None):
         if isinstance(engine, GenerationEngine) and generation is None:
             engine, generation = None, engine
         if engine is None and generation is None and registry is None:
@@ -491,6 +621,8 @@ class ServingServer:
         # the Retry-After hint on every 503 probe
         self._httpd.ready = bool(ready)
         self._httpd.retry_after_s = retry_after_s
+        # a FleetView (observability.fleet) behind GET /admin/fleet
+        self._httpd.fleet = fleet
         self._thread: Optional[threading.Thread] = None
 
     @property
@@ -508,6 +640,15 @@ class ServingServer:
     @property
     def ready(self) -> bool:
         return self._httpd.ready
+
+    @property
+    def fleet(self):
+        return self._httpd.fleet
+
+    def attach_fleet(self, fleet) -> None:
+        """Attach/replace the :class:`FleetView` behind
+        ``GET /admin/fleet`` (None detaches)."""
+        self._httpd.fleet = fleet
 
     def mark_ready(self) -> None:
         """Readiness gate up: warmup is done — /healthz turns 200 and
@@ -832,6 +973,24 @@ class Client:
 
     def metrics(self) -> dict:
         return self._get_json("/metrics")
+
+    def perf(self) -> dict:
+        """The server's ``/perf`` report and last SLO evaluation."""
+        return self._get_json("/perf")
+
+    def metrics_text(self) -> str:
+        """Prometheus text exposition (the scraper's view of /metrics)."""
+        headers = {"Accept": "text/plain"}
+        trc, sid = self._trace_begin("/metrics", headers)
+        try:
+            r = self._request("GET", "/metrics", headers=headers)
+            raw = r.read()
+            self._finish(r)
+        finally:
+            self._trace_end(trc, sid)
+        if r.status >= 400:
+            self._raise_for(r.status, raw)
+        return raw.decode()
 
     # -- generation --------------------------------------------------------
     def _generate_body(self, prompt, stream: bool, kw: dict,

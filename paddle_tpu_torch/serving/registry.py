@@ -18,23 +18,28 @@ and quotas (the counterpart of ``paddle_tpu/serving/registry.py``).
   (:class:`QuotaExceeded`, HTTP 429).
 - :class:`ReplicaSet` — N supervised replicas of one serving entry,
   scaled at runtime.
-
-The JAX package's ``ElasticityController`` (SLO burn rates driving
-replica counts) and ``load(weights_dir=...)`` (the hot-swap watcher)
-wait for ROADMAP's A4c.
+- :class:`ElasticityController` — the SLO burn-rate rules
+  (:mod:`..observability.slo`) evaluated per model over the per-engine
+  monitor mirrors drive replica counts through a ``scaler`` callback;
+  a model still burning at ``max_replicas`` is shed (``QueueFull``)
+  until its windows clear.  Observable through ``elasticity.*`` stats
+  and tracer events.
+- ``load(weights_dir=...)`` runs a per-model :class:`~.hotswap.
+  WeightWatcher` on that snapshot directory.
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence
 
-from ..core import obs_hook
+from ..core import flags, obs_hook
 from ..utils import monitor
 from .engine import EngineClosed, InferenceEngine, QueueFull, ServingError
 
 __all__ = ["ModelRegistry", "ModelEntry", "UnknownModel", "QuotaExceeded",
-           "ReplicaSet"]
+           "ElasticityController", "ReplicaSet"]
 
 
 class UnknownModel(ServingError):
@@ -105,7 +110,7 @@ class ModelEntry:
         self.artifact = artifact
         self.state = state
         self.shedding = False           # shed decision (an elasticity
-                                        # controller sets it; A4c)
+                                        # controller sets it)
         self.created = time.time()
 
     @property
@@ -195,13 +200,10 @@ class ModelRegistry:
         """Load an inference artifact end to end: Predictor (on the
         device ``set_device`` chose, else the current CUDA device) ->
         engine (named ``name`` so its stats mirror per-model) -> warmup
-        -> ready.  The name becomes routable only once ready — a load
-        can never race traffic into a cold engine.  ``weights_dir``
-        (the hot-swap watcher) is not ported yet."""
-        if weights_dir:
-            raise NotImplementedError(
-                "load(weights_dir=...) needs the hot-swap WeightWatcher, "
-                "which is ROADMAP A4c's")
+        -> ready, with an optional per-model :class:`~.hotswap.
+        WeightWatcher` polling ``weights_dir`` every ``weights_poll_s``
+        seconds.  The name becomes routable only once ready — a load
+        can never race traffic into a cold engine."""
         from .. import inference
         kw = dict(engine_kwargs or {})
         kw.setdefault("name", name)
@@ -213,6 +215,11 @@ class ModelRegistry:
         try:
             if warmup:
                 eng.warmup(rest_shapes=rest_shapes)
+            if weights_dir:
+                from .hotswap import WeightWatcher
+                entry.watcher = WeightWatcher(
+                    weights_dir, engine=eng, poll_s=weights_poll_s,
+                    rest_shapes=rest_shapes).start()
         except BaseException:
             with self._mu:
                 entry.state = "failed"
@@ -571,3 +578,197 @@ class ReplicaSet:
                 replicas.append(info)
             return {"name": self.name, "count": len(replicas),
                     "replicas": replicas}
+
+
+class ElasticityController:
+    """SLO burn rates -> per-model replica counts and shed decisions.
+
+    Per ready model, a rule set from ``rules_for(name)`` (default: p99
+    latency against ``objective_ms`` over that model's per-engine
+    mirror ``serving.engine.<name>.latency_ms``) is evaluated by its
+    own :class:`~..observability.slo.SLOMonitor` each
+    :meth:`poll`:
+
+    - burn >= ``scale_up_burn`` for ``breach_polls`` consecutive polls
+      scales the model up one replica (to ``max_replicas``) through
+      ``scaler(name, desired)``, then holds through ``cooldown_s``;
+    - burn <= ``scale_down_burn`` for ``clear_polls`` polls scales it
+      down one (to ``min_replicas``);
+    - still breaching at ``max_replicas``: the *shed decision* — the
+      registry sheds that model's new requests (``QueueFull``) until
+      the burn clears, protecting every other model's objectives.
+
+    Observable: ``elasticity.scale_up/scale_down/shed/recover``
+    counters, ``elasticity.<model>.{desired_replicas,burn}`` gauges and
+    ``elasticity`` tracer events.  ``poll(now=)`` is injectable for
+    deterministic tests; :meth:`start` runs it on a daemon thread."""
+
+    def __init__(self, registry: ModelRegistry,
+                 rules_for: Optional[Callable[[str], list]] = None, *,
+                 scaler: Optional[Callable[[str, int], None]] = None,
+                 objective_ms: float = 250.0, window: float = 30.0,
+                 min_count: int = 8,
+                 min_replicas: int = 1, max_replicas: int = 4,
+                 scale_up_burn: float = 1.0, scale_down_burn: float = 0.5,
+                 breach_polls: int = 2, clear_polls: int = 3,
+                 cooldown_s: float = 30.0, poll_s: float = 2.0):
+        if min_replicas < 0 or max_replicas < max(min_replicas, 1):
+            raise ValueError("need 0 <= min_replicas <= max_replicas "
+                             "and max_replicas >= 1")
+        self.registry = registry
+        self.scaler = scaler
+        self.min_replicas = int(min_replicas)
+        self.max_replicas = int(max_replicas)
+        self.scale_up_burn = float(scale_up_burn)
+        self.scale_down_burn = float(scale_down_burn)
+        self.breach_polls = int(breach_polls)
+        self.clear_polls = int(clear_polls)
+        self.cooldown_s = float(cooldown_s)
+        self.poll_s = float(poll_s)
+        if rules_for is None:
+            from ..observability.slo import SLORule
+
+            def rules_for(name: str):
+                return [SLORule(f"serving.engine.{name}.latency_ms",
+                                objective_ms, window=window,
+                                quantile=0.99, min_count=min_count,
+                                name=f"{name}_p99_latency_ms")]
+        self._rules_for = rules_for
+        self._mu = threading.Lock()
+        self._monitors: Dict[str, object] = {}
+        self._state: Dict[str, dict] = {}   # per-model control state
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+
+    def _emit(self, event: str, **args) -> None:
+        trc = obs_hook._tracer
+        if trc is not None:
+            trc.emit("elasticity", event, args=args)
+
+    def _collect_incident(self, name: str, burn: float) -> None:
+        spool = flags.get_flag("obs_spool_dir")
+        if not spool:
+            return
+        try:
+            from ..observability import fleet as _fleet
+            _fleet.collect_fleet_bundle(
+                os.path.join(spool, f"incident_shed_{name}"),
+                reason=f"registry.shed:{name}",
+                extra={"model": name, "burn": round(burn, 3)})
+        except Exception:   # telemetry must never break the control loop
+            pass
+
+    def _model_state(self, name: str) -> dict:
+        return self._state.setdefault(name, {
+            "desired": self.min_replicas, "breach": 0, "clear": 0,
+            "cooldown_until": 0.0})
+
+    def _scale(self, name: str, st: dict, desired: int,
+               now: float) -> None:
+        st["desired"] = desired
+        st["cooldown_until"] = now + self.cooldown_s
+        st["breach"] = st["clear"] = 0
+        monitor.stat_set(f"elasticity.{name}.desired_replicas", desired)
+        if self.scaler is not None:
+            self.scaler(name, desired)
+
+    def poll(self, now: Optional[float] = None) -> dict:
+        """One control-loop evaluation over every ready model; returns
+        ``{model: {burn, desired, shedding, breached}}``.  ``now``
+        (monotonic seconds) feeds the SLO windows AND the cooldown
+        clock, so tests drive time explicitly."""
+        import math
+        now = time.monotonic() if now is None else float(now)
+        out: Dict[str, dict] = {}
+        with self.registry._mu:
+            entries = {n: e for n, e in self.registry._models.items()
+                       if e.state == "ready"}
+        with self._mu:
+            for name in list(self._monitors):
+                if name not in entries:     # unloaded: drop its loop
+                    del self._monitors[name]
+                    self._state.pop(name, None)
+            for name, entry in entries.items():
+                from ..observability.slo import SLOMonitor
+                mon = self._monitors.get(name)
+                if mon is None:
+                    mon = self._monitors[name] = SLOMonitor(
+                        self._rules_for(name))
+                status = mon.poll(now=now)
+                burns = [r["burn"] for r in status["rules"]
+                         if isinstance(r["burn"], (int, float))]
+                burn = max(burns) if burns else 0.0
+                breached = bool(status["breached"])
+                st = self._model_state(name)
+                monitor.stat_set(
+                    f"elasticity.{name}.burn",
+                    round(burn, 6) if math.isfinite(burn) else 1e12)
+                in_cooldown = now < st["cooldown_until"]
+                if burn >= self.scale_up_burn:
+                    st["breach"] += 1
+                    st["clear"] = 0
+                    if (st["breach"] >= self.breach_polls
+                            and not in_cooldown):
+                        if st["desired"] < self.max_replicas:
+                            self._scale(name, st, st["desired"] + 1, now)
+                            monitor.stat_add("elasticity.scale_up")
+                            self._emit("scale_up", model=name,
+                                       desired=st["desired"],
+                                       burn=round(burn, 3))
+                        elif not entry.shedding:
+                            # at max capacity and still burning: shed
+                            entry.shedding = True
+                            monitor.stat_add("elasticity.shed")
+                            self._emit("shed", model=name,
+                                       burn=round(burn, 3))
+                            # a shed decision is a registry incident:
+                            # when the fleet is spooling, capture every
+                            # process's black box for the post-mortem
+                            self._collect_incident(name, burn)
+                elif burn <= self.scale_down_burn:
+                    st["clear"] += 1
+                    st["breach"] = 0
+                    if entry.shedding:
+                        entry.shedding = False
+                        monitor.stat_add("elasticity.recover")
+                        self._emit("recover", model=name)
+                    if (st["clear"] >= self.clear_polls
+                            and not in_cooldown
+                            and st["desired"] > self.min_replicas):
+                        self._scale(name, st, st["desired"] - 1, now)
+                        monitor.stat_add("elasticity.scale_down")
+                        self._emit("scale_down", model=name,
+                                   desired=st["desired"])
+                else:       # between thresholds: hysteresis band
+                    st["breach"] = st["clear"] = 0
+                out[name] = {"burn": burn, "desired": st["desired"],
+                             "shedding": entry.shedding,
+                             "breached": breached}
+        return out
+
+    def status(self) -> dict:
+        with self._mu:
+            return {n: dict(st) for n, st in self._state.items()}
+
+    def start(self) -> "ElasticityController":
+        if self._thread is not None:
+            raise RuntimeError("controller already started")
+        self._stop.clear()
+
+        def loop():
+            while not self._stop.wait(self.poll_s):
+                try:
+                    self.poll()
+                except Exception:   # registry churn mid-poll: retry next
+                    pass
+
+        self._thread = threading.Thread(target=loop, name="elasticity",
+                                        daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10.0)
+            self._thread = None

@@ -20,7 +20,12 @@ in-flight work before exit.
 
 The HTTP plane binds *before* warmup with readiness down: ``/healthz``
 answers 503 + ``Retry-After`` (``"warming"``) until every bucket has
-run once, then 200.
+run once, then 200.  With ``--weights-dir`` a
+:class:`~paddle_tpu_torch.serving.WeightWatcher` polls that
+:class:`~paddle_tpu_torch.utils.checkpoint.SnapshotStore` directory
+(every ``--weights-poll-s`` seconds) and hot-swaps newly published,
+digest-verified weights into the live engine with no downtime and no
+new variant.
 
 **Multi-model mode**: ``--models manifest.json`` loads every entry of
 the manifest into a :class:`~paddle_tpu_torch.serving.ModelRegistry`
@@ -31,13 +36,12 @@ more at runtime.  Manifest shape::
 
     {"models": {
         "bert": {"artifact": "/path/prefix", "aliases": ["prod"],
+                 "weights_dir": "/path/snapshots",
                  "weight": 2.0, "rest_shapes": [[512]]},
         "mlp":  {"artifact": "/other/prefix"}},
      "default": "bert",
      "max_inflight": 128,
      "quotas": {"tenant-a": {"rate": 50, "burst": 100}}}
-
-``--weights-dir`` (the hot-swap watcher) is ROADMAP A4c's and raises.
 """
 from __future__ import annotations
 
@@ -77,18 +81,30 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-warmup", action="store_true",
                     help="skip the warm-up of the buckets")
     ap.add_argument("--weights-dir", default=None,
-                    help="hot-swap snapshot directory (not ported yet)")
+                    help="SnapshotStore directory to watch for hot-swap "
+                         "weight snapshots (publish_weights); new "
+                         "digest-verified versions swap in with no "
+                         "downtime")
+    ap.add_argument("--weights-poll-s", type=float, default=2.0,
+                    help="meta-poll cadence of the weight watcher")
     ap.add_argument("--verbose", action="store_true",
                     help="log every HTTP request")
     return ap
 
 
+def _on_signal(signum, frame):
+    raise KeyboardInterrupt
+
+
+def _install_drain_handler() -> None:
+    """SIGTERM unwinds as KeyboardInterrupt (the drain path), like
+    SIGINT.  A flight recorder installed after this chains to it."""
+    signal.signal(signal.SIGTERM, _on_signal)
+
+
 def _wait_for_signal() -> None:
     """Block until SIGINT or SIGTERM (both unwind as KeyboardInterrupt)."""
-    def _on_signal(signum, frame):
-        raise KeyboardInterrupt
-
-    signal.signal(signal.SIGTERM, _on_signal)
+    _install_drain_handler()
     try:
         signal.pause()
     except KeyboardInterrupt:
@@ -98,10 +114,6 @@ def _wait_for_signal() -> None:
 def main(argv=None) -> int:
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.weights_dir:
-        raise NotImplementedError(
-            "--weights-dir needs the hot-swap WeightWatcher, which is "
-            "ROADMAP A4c's")
     from .. import set_device
     if args.device is not None:
         set_device(args.device)
@@ -129,12 +141,21 @@ def main(argv=None) -> int:
         print(f"warmed {len(engine.buckets)} buckets {engine.buckets} -> "
               f"{n} variants on {predictor.device}", flush=True)
     srv.mark_ready()
+    watcher = None
+    if args.weights_dir:
+        watcher = serving.WeightWatcher(
+            args.weights_dir, engine=engine,
+            poll_s=args.weights_poll_s, rest_shapes=rest).start()
+        print(f"watching {args.weights_dir} for weight snapshots",
+              flush=True)
     print(f"serving {args.model} on {srv.url}  "
           f"(POST /predict, GET /healthz, GET /metrics)", flush=True)
     try:
         _wait_for_signal()
     finally:
         print("draining...", flush=True)
+        if watcher is not None:
+            watcher.stop()
         srv.close()
         engine.drain(timeout=30.0)
         engine.close()
@@ -155,10 +176,6 @@ def _serve_registry(args) -> int:
     if not models:
         print(f"manifest {args.models} has no models", file=sys.stderr)
         return 2
-    if any(spec.get("weights_dir") for spec in models.values()):
-        raise NotImplementedError(
-            "a manifest weights_dir needs the hot-swap WeightWatcher, "
-            "which is ROADMAP A4c's")
     reg = serving.ModelRegistry(
         max_inflight=manifest.get("max_inflight"),
         default_model=manifest.get("default"))
@@ -172,6 +189,8 @@ def _serve_registry(args) -> int:
                 if spec.get("rest_shapes") else None)
         entry = reg.load(
             name, spec["artifact"], aliases=spec.get("aliases", ()),
+            weights_dir=spec.get("weights_dir"),
+            weights_poll_s=float(spec.get("weights_poll_s", 2.0)),
             weight=float(spec.get("weight", 1.0)),
             warmup=not args.no_warmup, rest_shapes=rest,
             engine_kwargs={"max_batch_size": args.max_batch_size,

@@ -40,25 +40,37 @@ tensors without a sync.
 ``Executor(place)`` names the device (``set_device``'s choice, else the
 current CUDA device, when None); parameters elsewhere raise.
 
+Observability: each build is reported to
+``observability.record_compile`` (component ``executor``, paddle_tpu's
+causes); with a tracer on, each run is an ``executor.run`` span whose
+step id is the program's run count; an exception escaping a run feeds
+the flight recorder; the performance observatory times each run's host
+lanes and, on sampled runs, its device lane by CUDA events; the fleet
+exporter ticks once a run.  The ``executor.run`` fault point fires at
+the start of each run.
+
 Not ported: the ``_ExecState`` binding and escape machinery (torch
 tensors update in place), GSPMD plans, ``grad_comm`` and the anomaly
 sentry with ``sentry_stats`` (A5), ``_run_legacy`` (the JAX package's
 loop from before its donated fast path; the port has no earlier loop),
-the persistent compile cache, ``explain_compiles`` and the monitor's
-feed of the prediction (A7), and the fault and trace hooks.
+the persistent compile cache (ROADMAP §C), and the supervised
+heartbeat (A5).
 """
 from __future__ import annotations
 
+import time
+import zlib
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..core import rng
+from ..core import obs_hook, rng
 from ..core.flags import get_flag
 from ..core.placement import device as _resolve_device
 from ..core.static_hooks import replay_scope
 from ..ops.fused_adam import fused_adam_eligible, fused_update_for
+from ..testing import fault
 from .program import Program, Variable, default_main_program
 
 __all__ = ["Executor", "global_scope"]
@@ -119,6 +131,7 @@ class _Step:
         self.t_idx: List[int] = []
         self.loss_var: Optional[Variable] = None
         self.fused = None            # ops.fused_adam.FusedAdam or None
+        self.perf_identity = ""      # the perf observatory's key
 
 
 class _State:
@@ -142,6 +155,7 @@ class Executor:
         self._verified: set = set()     # (serial, version) checked
         self._compile_count = 0
         self._host_feed_converts = 0
+        self._run_counts: Dict[int, int] = {}   # program serial -> runs
 
     @property
     def compile_count(self) -> int:
@@ -171,6 +185,26 @@ class Executor:
             return program._run_loaded(feed, fetch_list, return_numpy)
         if program is None:
             program = default_main_program()
+        # observability: a span per run when tracing is on (one
+        # module-attribute None-check when off), and an exception
+        # escaping the step feeds the crash flight recorder before it
+        # propagates
+        trc = obs_hook._tracer
+        sid = (trc.begin_span("executor.run", program=program._serial)
+               if trc is not None else None)
+        try:
+            return self._run(program, feed, fetch_list, return_numpy, seed)
+        except Exception as e:
+            h = obs_hook._crash
+            if h is not None:
+                h(e, f"executor.run(program#{program._serial})")
+            raise
+        finally:
+            if sid is not None:
+                trc.end_span(sid)
+
+    def _run(self, program, feed, fetch_list, return_numpy, seed):
+        fault.point("executor.run", program._serial)
         if not program.nodes:
             return []          # a startup program: parameters exist already
         feed = feed or {}
@@ -189,15 +223,28 @@ class Executor:
                 raise ValueError(f"Executor(place={self.place}): a "
                                  f"parameter of shape {tuple(p.shape)} is on "
                                  f"{p.device}")
+        # perf observatory (one module-attribute None-check when off):
+        # host-side anatomy stamps around feed conversion and dispatch
+        perf = obs_hook._perf
+        t_h0 = time.perf_counter() if perf is not None else 0.0
         feed_items = sorted(feed.items())
         feeds = [self._feed_tensor(a) for _, a in feed_items]
+        t_h1 = time.perf_counter() if perf is not None else 0.0
         feed_names = tuple(n for n, _ in feed_items)
+        # the per-program run counter is the step correlation id of the
+        # events this run emits
+        run_i = self._run_counts.get(program._serial, 0) + 1
+        self._run_counts[program._serial] = run_i
+        trc = obs_hook._tracer
+        if trc is not None:
+            trc.set_step(run_i)
         tier = bool(get_flag("use_pallas_kernels"))
         key = (program._serial, program._version, feed_names,
                tuple((tuple(t.shape), t.dtype) for t in feeds),
                tuple(fetch_names), program._optimizer is not None, tier)
         step = self._cache.get(key)
-        if step is None:
+        built = step is None
+        if built:
             # a new version makes the steps of older ones unreachable
             for k in [k for k in self._cache
                       if k[0] == program._serial and k[1] != key[1]]:
@@ -210,8 +257,28 @@ class Executor:
                                fetch_names, tier)
             self._cache[key] = step
             self._compile_count += 1
+            shapes = ";".join("x".join(map(str, t.shape)) for t in feeds)
+            step.perf_identity = (
+                f"{program._serial}v{program._version}[{shapes}]"
+                f"#{zlib.crc32(repr(key).encode()) & 0xffffff:06x}")
+            # recompile attribution: the first changed field (most
+            # significant first) names the cause of this build
+            from ..observability import record_compile
+            record_compile("executor", program._serial, {
+                "program_version": program._version,
+                "feed_signature": tuple(
+                    (tuple(t.shape), str(t.dtype).replace("torch.", ""))
+                    for t in feeds),
+                "feed_names": feed_names,
+                "fetch_set": tuple(fetch_names),
+                "optimizer": program._optimizer is not None,
+                "pallas": tier,
+            }, predicted=step.predicted, kernels=step.kernels)
         if seed is not None:
             rng.generator(self.place).manual_seed(int(seed))
+        sample = (perf.begin("executor", step.perf_identity, self.place)
+                  if perf is not None and not built else None)
+        t_d0 = time.perf_counter() if perf is not None else 0.0
         env = {id(v): t for v, t in zip(step.feed_vars, feeds)}
         if program._optimizer is None:
             with torch.no_grad():
@@ -219,6 +286,16 @@ class Executor:
         else:
             self._train(program, params, step, env)
         fetches = [env[id(v)].detach() for v in step.fetch_vars]
+        # the building run is left out of the anatomy (its wall is the
+        # build); a sampled step waits for its end event here
+        if perf is not None and not built:
+            perf.step("executor", step.perf_identity, t_h0, t_h1 - t_h0,
+                      t_d0, time.perf_counter() - t_d0,
+                      predicted=step.predicted, sample=sample)
+        # fleet telemetry: the exporter flushes at most once an interval
+        exp = obs_hook._export
+        if exp is not None:
+            exp.tick()
         if return_numpy:
             return [f.cpu().numpy() for f in fetches]
         return fetches

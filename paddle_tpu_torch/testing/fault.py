@@ -1,5 +1,6 @@
 """Deterministic fault injection (the part of
-``paddle_tpu.testing.fault`` that the serving engines' points use).
+``paddle_tpu.testing.fault`` that the serving engines', the
+checkpoint store's and the Executor's points use).
 
 Instrumented code calls :func:`point` at named sites::
 
@@ -18,7 +19,8 @@ the point's detail args), ``action`` (``raise`` | ``exit`` |
 (how long ``action=sleep`` blocks the calling thread before the point
 returns: a short one is a latency injection, a long one a hang).  The
 RNG driving ``p`` is seeded, so a chaos run replays exactly.  Every
-fire counts ``fault.fired.<point>`` in :mod:`..utils.monitor`.
+fire counts ``fault.fired.<point>`` in :mod:`..utils.monitor` and, with
+a tracer installed, lands on it as a ``fault`` event.
 ``FLAGS_fault_spec``, the worker re-arming and the ``corrupt`` action
 belong to the rest of the module, which is not ported.
 """
@@ -180,6 +182,14 @@ def point(name: str, *detail) -> None:
         if rule is None:
             return
     monitor.stat_add(f"fault.fired.{name}")
+    from ..core import obs_hook
+    trc = obs_hook._tracer
+    if trc is not None:
+        # the fire lands on the trace BEFORE the raise/exit, so a crash
+        # flight dump always shows the injected fault that caused it
+        trc.emit("fault", name,
+                 args={"detail": [str(d) for d in detail],
+                       "action": rule.action})
     msg = rule.msg or (f"injected fault at '{name}'"
                        + (f" ({', '.join(map(str, detail))})"
                           if detail else ""))

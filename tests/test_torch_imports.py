@@ -52,7 +52,18 @@ def test_import_leaves_jax_and_paddle_tpu_out():
             "paddle_tpu_torch.serving.registry, "
             "paddle_tpu_torch.serving.http, paddle_tpu_torch.serving.serve, "
             "paddle_tpu_torch.inference.capi, paddle_tpu_torch.testing.chaos, "
-            "paddle_tpu_torch.testing.fault, paddle_tpu_torch.utils.monitor\n"
+            "paddle_tpu_torch.testing.fault, paddle_tpu_torch.utils.monitor, "
+            "paddle_tpu_torch.utils.checkpoint, "
+            "paddle_tpu_torch.serving.hotswap, "
+            "paddle_tpu_torch.observability, "
+            "paddle_tpu_torch.observability.tracer, "
+            "paddle_tpu_torch.observability.compiles, "
+            "paddle_tpu_torch.observability.metrics, "
+            "paddle_tpu_torch.observability.slo, "
+            "paddle_tpu_torch.observability.perf, "
+            "paddle_tpu_torch.observability.flight, "
+            "paddle_tpu_torch.observability.export, "
+            "paddle_tpu_torch.observability.fleet\n"
             "from paddle_tpu_torch.ops.cuda import support\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'paddle_tpu.', 'triton')) "

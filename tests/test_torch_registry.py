@@ -6,10 +6,9 @@ tenant token buckets and unload's drain on stub engines (each also run
 on paddle_tpu's registry, with the same outcomes and counters), and
 unload/reload plus an alias flip under live traffic on real dyadic
 artifacts, every answer bitwise paddle_tpu's.  Also the HTTP admin
-plane (``/admin/models``) and ``ReplicaSet``.
-
-Not twinned: ``test_elasticity_deterministic_scale_shed_recover``
-(``ElasticityController`` needs ``observability/slo.py``: ROADMAP A4c).
+plane (``/admin/models``), ``ReplicaSet``, and the
+``ElasticityController``'s scale / shed / recover on an injected clock
+(run on both packages: the same decisions, counters and scaler calls).
 """
 import concurrent.futures as cf
 import threading
@@ -232,11 +231,116 @@ def test_unload_drains_resolves_futures_cleans_aliases(side):
         reg.close()
 
 
-def test_load_weights_dir_names_a4c():
+@pytest.mark.parametrize("side", sorted(SIDES))
+def test_elasticity_deterministic_scale_shed_recover(side):
+    srv, mon = SIDES[side]
+    reg = srv.ModelRegistry()
+    a = StubEngine()
+    reg.register("el-alpha", engine=a)
+    scales = []
+    ctl = srv.ElasticityController(
+        reg, scaler=lambda name, n: scales.append((name, n)),
+        objective_ms=50.0, window=5.0, min_count=1,
+        max_replicas=2, breach_polls=2, clear_polls=2, cooldown_s=0.0)
+    stat = "serving.engine.el-alpha.latency_ms"
+    names = ("scale_up", "scale_down", "shed", "recover")
+    c0 = {k: mon.get_stat(f"elasticity.{k}") for k in names}
+    polls = []
+    try:
+        now = 1000.0
+        mon.stat_reset(stat)
+        for _ in range(40):
+            mon.stat_observe(stat, 500.0)
+        polls.append(ctl.poll(now=now))              # baseline snapshot
+        for _ in range(5):                           # sustained burn
+            for _ in range(40):
+                mon.stat_observe(stat, 500.0)
+            now += 5.0
+            polls.append(ctl.poll(now=now))
+        entry = reg.resolve("el-alpha")
+        assert ("el-alpha", 2) in scales, (scales, polls[-1])
+        assert entry.shedding, polls[-1]            # at max and burning
+        with pytest.raises(srv.QueueFull, match="shedding"):
+            reg.infer("el-alpha", [1])
+        for _ in range(6):                           # burn clears
+            for _ in range(40):
+                mon.stat_observe(stat, 1.0)
+            now += 5.0
+            polls.append(ctl.poll(now=now))
+        assert not entry.shedding, polls[-1]
+        assert ("el-alpha", 1) in scales, scales
+        reg.infer("el-alpha", [1])                   # admits again
+        a.release_all()
+        st = ctl.status()
+        assert st["el-alpha"]["desired"] == 1
+        counts = {k: mon.get_stat(f"elasticity.{k}") - c0[k]
+                  for k in names}
+        assert counts == {"scale_up": 1, "scale_down": 1, "shed": 1,
+                          "recover": 1}
+        assert mon.get_stat("elasticity.el-alpha.desired_replicas") == 1
+        ELASTIC_RUNS[side] = (scales, [{m: (r["desired"], r["shedding"],
+                                            r["breached"])
+                                        for m, r in p.items()}
+                                       for p in polls])
+    finally:
+        reg.close()
+        mon.stat_reset(stat)
+
+
+ELASTIC_RUNS = {}
+
+
+def test_elasticity_decisions_agree_across_packages():
+    for side in sorted(SIDES):
+        if side not in ELASTIC_RUNS:
+            test_elasticity_deterministic_scale_shed_recover(side)
+    assert ELASTIC_RUNS["port"] == ELASTIC_RUNS["jax"]
+
+
+def test_elasticity_controller_thread_starts_and_stops():
     reg = ModelRegistry()
-    with pytest.raises(NotImplementedError, match="A4c"):
-        reg.load("m", "/nonexistent", weights_dir="/snapshots")
-    assert reg.models() == []
+    reg.register("m", engine=StubEngine())
+    ctl = serving.ElasticityController(reg, poll_s=0.01)
+    try:
+        ctl.start()
+        with pytest.raises(RuntimeError, match="already started"):
+            ctl.start()
+        deadline = time.monotonic() + 10
+        while "m" not in ctl.status() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert ctl.status()["m"]["desired"] == 1
+    finally:
+        ctl.stop()
+        reg.close()
+    assert ctl._thread is None
+
+
+def test_elasticity_validates_replica_bounds():
+    reg = ModelRegistry()
+    with pytest.raises(ValueError):
+        serving.ElasticityController(reg, min_replicas=2, max_replicas=1)
+    with pytest.raises(ValueError):
+        serving.ElasticityController(reg, min_replicas=-1)
+
+
+def test_load_weights_dir_starts_a_watcher(tmp_path, dyadic_artifacts):
+    """``load(weights_dir=...)``: the model's entry carries a running
+    watcher on that store; unload stops it."""
+    from paddle_tpu_torch.utils.checkpoint import SnapshotStore
+    reg = ModelRegistry()
+    store = SnapshotStore(str(tmp_path / "weights"))
+    try:
+        entry = reg.load("m", dyadic_artifacts["a"][1],
+                         weights_dir=store.dir,
+                         weights_poll_s=0.01)
+        assert entry.watcher is not None and entry.watcher.engine is \
+            entry.engine
+        assert entry.watcher.poll_s == 0.01
+        assert entry.watcher._thread.is_alive()
+        reg.unload("m")
+        assert not entry.watcher._thread.is_alive()
+    finally:
+        reg.close()
 
 
 def test_replica_set_scales_supervisors():

@@ -40,9 +40,8 @@ NOT_YET_PORTED = {
     "paddle_tpu.ops.pallas": "",
     "paddle_tpu.metric": "",
     "paddle_tpu.optimizer.lr": "",
-    "paddle_tpu.serving": """
-        ElasticityController WeightWatcher publish_weights
-    """,
+    "paddle_tpu.observability": "",
+    "paddle_tpu.serving": "",
     "paddle_tpu.static": "",
     "paddle_tpu.utils": """
         register_custom_op train_epoch_range
