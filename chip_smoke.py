@@ -2407,6 +2407,85 @@ def phase_multicard(steps=3):
     if not err <= 1e-4:
         raise AssertionError(f"multi-card losses disagree: {out}")
     torch.cuda.empty_cache()
+    if n == 4:
+        out["fleet"] = _multicard_fleet(n)
+    return out
+
+
+def _multicard_fleet(n, steps=4):
+    """Four NCCL ranks train ``tools/comm_smoke.py``'s GPT-tiny (hidden
+    32, vocab 128, 2 layers; seeded weights) through fleet and the
+    static Executor: fp32, int8 under each overlap mode, ZeRO-3 int8,
+    bf16 and no grad_comm (``testing.sharding_cases``'s ``comm`` case).
+    comm_smoke's gates: int8 wire bytes under 0.35x fp32's, measured
+    ``comm.wire_bytes`` == the cost model's prediction in every mode
+    (per axis and the gather leg too), int8 losses within 2e-3 of fp32's
+    after every step, the ranks' params bitwise equal; and the param
+    bytes a rank holds between runs == ``analyze(sharding=)``'s per-shard
+    price (a quarter of each ZeRO-3 param)."""
+    import numpy as np
+    from paddle_tpu_torch.distributed.launch import free_port, spawn
+    from paddle_tpu_torch.testing import sharding_cases as sc
+    import paddle_tpu_torch as pt
+    outdir = os.path.join(ROOT, "build", "chip_smoke_fleet")
+    os.makedirs(outdir, exist_ok=True)
+    pt.enable_static()
+    try:
+        main, _ = sc.build_gpt_tiny()
+        shapes = [tuple(p.shape) for p in main.parameters()]
+    finally:
+        pt.disable_static()
+    r = np.random.RandomState(65)
+    data = {f"w{i}": (0.05 * r.standard_normal(s)).astype(np.float32)
+            for i, s in enumerate(shapes)}
+    data.update(n_weights=len(shapes), n_constants=0, steps=steps,
+                **sc.gpt_feeds())
+    np.savez(os.path.join(outdir, "inputs.npz"), **data)
+    t0 = time.perf_counter()
+    spawn(sc.run, (outdir, ["comm"], "cuda"), nprocs=n,
+          init_method=f"tcp://localhost:{free_port()}", timeout=600)
+    res = [dict(np.load(os.path.join(outdir, f"rank{i}.npz")))
+           for i in range(n)]
+    g = lambda k: res[0]["comm/" + k]  # noqa: E731
+    tags = ("fp32", "int8_auto", "int8_none", "int8_ring", "z3_auto",
+            "z3_none", "bf16")
+    fp32 = g("fp32.losses")
+    out = {"ranks": n, "spawn_s": time.perf_counter() - t0,
+           "wire_ratio_int8": float(g("int8_auto.wire_bytes_per_step")
+                                    / g("fp32.wire_bytes_per_step")),
+           **{t: {"losses": g(f"{t}.losses").tolist(),
+                  "wire_bytes_per_step": float(g(f"{t}.wire_bytes_per_step")),
+                  "predicted_wire_bytes": int(g(f"{t}.predicted_wire_bytes")),
+                  "gather_wire_bytes_per_step":
+                      float(g(f"{t}.gather_wire_bytes_per_step")),
+                  "resident_param_bytes": int(g(f"{t}.resident_param_bytes")),
+                  "predicted_param_bytes":
+                      int(g(f"{t}.predicted_param_bytes"))}
+              for t in tags}}
+    log("MULTICARD_FLEET " + json.dumps(out))
+    if not out["wire_ratio_int8"] < 0.35:
+        raise AssertionError(f"int8 wire ratio {out['wire_ratio_int8']}")
+    for t in tags:
+        for a, b in (("wire_bytes_per_step", "predicted_wire_bytes"),
+                     ("axis_dp_wire_bytes", "predicted_axis_dp"),
+                     ("gather_wire_bytes_per_step",
+                      "predicted_gather_wire_bytes")):
+            if g(f"{t}.{a}") != g(f"{t}.{b}"):
+                raise AssertionError(f"{t}: measured {a} {g(f'{t}.{a}')} "
+                                     f"!= predicted {g(f'{t}.{b}')}")
+        # between runs a rank holds what the cost model prices per shard
+        # (ZeRO-3: its rows of each dp-sharded param)
+        if g(f"{t}.resident_param_bytes") != g(f"{t}.predicted_param_bytes"):
+            raise AssertionError(
+                f"{t}: resident param bytes {g(f'{t}.resident_param_bytes')}"
+                f" != per-shard price {g(f'{t}.predicted_param_bytes')}")
+        if t != "fp32" and not np.abs(g(f"{t}.losses") - fp32).max() \
+                <= 2e-3:
+            raise AssertionError(f"{t} losses {g(f'{t}.losses')} vs fp32 "
+                                 f"{fp32}")
+        for rr in res[1:]:
+            if not np.array_equal(rr[f"comm/{t}.params"], g(f"{t}.params")):
+                raise AssertionError(f"{t}: the ranks' params differ")
     return out
 
 
@@ -3262,6 +3341,9 @@ STATIC_MLP_CHIP = dict(hidden=1024, depth=8, batch=256, steps=100, rounds=3)
 STATIC_LENET_CHIP = dict(batch=256, steps=50)
 
 
+_PHASE32: dict = {}
+
+
 def _gpt_static_kernels(layers):
     """The static GPT's realized kernels, in the fusion pass's order: a
     layer's fc1 + gelu chains first (the largest saving), then the last
@@ -3527,6 +3609,9 @@ def phase_static_gpt_training(cpu_kernels, warmup=2, steps=8):
            "launches": counts, "launches_per_step_want": per_step,
            "realized_kernels": kernels, "compile_count": exe.compile_count}
     log("STATIC_GPT_TRAIN " + json.dumps(out))
+    # phase 65 holds the same model through fleet to these numbers
+    _PHASE32.update(losses=losses, step_ms_p50=out["step_ms_p50"],
+                    max_memory_allocated=peak)
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite loss: {losses}")
     if abs(losses[0] - math.log(cfg["vocab"])) > 1.0:
@@ -8177,6 +8262,231 @@ def phase_elasticity(bert_prefix, dev="cuda"):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phases 65-66
+# phase 65's losses against phase 32's (the same model, seed and feed):
+# phase 32 runs Adam with the kernel tier on, phase 65 AdamW (weight
+# decay 0.01) through fleet with the tier off under the plan, as the
+# reference routes it.  The decay moves a parameter by lr * 0.01 * |p|
+# a step (1e-6 relative at lr 1e-4) and the unfused f32 products sum in
+# another order (~1e-5 relative in the logits), so over 10 runs the
+# losses (~10.8) stay within 2e-3 of each other
+FLEET_LOSS_ATOL = 2e-3
+# comm_smoke's grad_comm knobs (tools/comm_smoke.py:104-108): the fuse
+# budget of bench_multichip's run, int8 blocks of 256
+FLEET_GC = {"dtype": "int8", "block_size": 256, "error_feedback": True,
+            "scatter_threshold_KB": 4.0, "overlap": "auto"}
+FLEET_FUSE_MB = 0.05
+
+
+def phase_fleet_static_gpt(warmup=2, steps=8):
+    """bench_pallas's static GPT at its chip config, uncut, through
+    ``fleet.init`` / ``distributed_optimizer(AdamW(1e-4))`` with ZeRO-3
+    (``strategy.sharding`` stage 3) and comm_smoke's int8 ``grad_comm``,
+    at world size 1 over NCCL, 2 + 8 runs: the plan's grad_comm status
+    is ``off`` at dp 1; the kernel tier is off under the plan (0 K2, 0
+    K3) and attention runs K1f and both K1b kernels once a layer a step;
+    losses finite and within FLEET_LOSS_ATOL of phase 32's; the step p50
+    and peak memory beside phase 32's and ``analyze(sharding=plan)``'s
+    per-shard peak."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import distributed as dist, optimizer, static
+    from paddle_tpu_torch.distributed import grad_comm as gc
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.testing.models import build_gpt_static
+    cfg = GPT_STATIC_CHIP
+    t0 = time.perf_counter()
+    strategy = dist.DistributedStrategy()
+    strategy.sharding = True
+    strategy.sharding_configs = {"stage": 3}
+    strategy.fuse_grad_size_in_MB = FLEET_FUSE_MB
+    strategy.grad_comm = dict(FLEET_GC)
+    dist.fleet.init(is_collective=True, strategy=strategy)
+
+    def minimize(loss):
+        opt = dist.fleet.distributed_optimizer(
+            optimizer.AdamW(learning_rate=1e-4))
+        opt.minimize(loss)
+
+    main, loss, feeds = build_gpt_static(**cfg, device="cuda",
+                                         minimize=minimize)
+    exe = static.Executor("cuda")
+    feed = {k: torch.from_numpy(v).cuda()
+            for k, v in feeds(np.random.RandomState(0)).items()}
+    plan = exe._plan_for(main, main.parameters())
+    status = gc.plan_status(plan)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    support.reset_launch_counts()
+    losses, step_ms = [], []
+    for _ in range(warmup + steps):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], return_numpy=False)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out[0]))
+    counts = dict(support.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    rep = main.analyze(fetch_list=[loss], chip="h100", sharding=plan)
+    step = next(iter(exe._cache.values()))
+    runs = warmup + steps
+    per_step = _gpt_static_per_step([], cfg["layers"])
+    want = {k: v * runs for k, v in per_step.items() if v}
+    ref = _PHASE32.get("losses")
+    err = (max(abs(a - b) for a, b in zip(losses, ref))
+           if ref is not None else None)
+    timed = step_ms[warmup:]
+    out = {"config": cfg, "dtype": "float32", "optimizer": "AdamW(1e-4)",
+           "strategy": {"sharding_stage": 3, "grad_comm": FLEET_GC,
+                        "fuse_grad_size_in_MB": FLEET_FUSE_MB},
+           "mesh": dict(plan.mesh.shape), "plan_status": status[0],
+           "specs_dp": sum(1 for s in plan.param_specs if "dp" in s),
+           "params": len(plan.param_specs),
+           "setup_s": setup_s, "losses": losses,
+           "phase32_losses": ref, "loss_max_abs_diff": err,
+           "loss_atol": FLEET_LOSS_ATOL,
+           "step_ms": timed, "step_ms_p50": float(np.median(timed)),
+           "phase32_step_ms_p50": _PHASE32.get("step_ms_p50"),
+           "max_memory_allocated": peak,
+           "phase32_max_memory_allocated":
+               _PHASE32.get("max_memory_allocated"),
+           "analyze_peak_bytes_per_shard":
+               rep.memory_per_shard.peak_bytes_donated,
+           "analyze_peak_bytes_donated": rep.memory.peak_bytes_donated,
+           "realized_kernels": step.kernels,
+           "compile_count": exe.compile_count, "launches": counts,
+           "launches_want": want, "device": nvidia_smi()}
+    log("FLEET_STATIC_GPT " + json.dumps(out))
+    if status[0] != "off":
+        raise AssertionError(f"plan_status {status} at dp 1, want off")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if exe.compile_count != 1 or step.kernels:
+        raise AssertionError(f"{exe.compile_count} builds, kernels "
+                             f"{step.kernels}: want 1 and none")
+    if counts != want:
+        raise AssertionError(f"fleet static GPT launches {counts}, want "
+                             f"{want}")
+    if err is None or not err <= FLEET_LOSS_ATOL:
+        raise AssertionError(f"losses {losses} vs phase 32's {ref}")
+    exe.close()
+    del main, exe, step
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _gpt_static_param_shapes(cfg):
+    """``build_gpt_static``'s trainable parameters in program order: the
+    token embedding, per layer ln1, q, k, v, proj, ln2, fc1, fc2 (weight
+    and bias each), the final layer norm and the head (the position
+    embedding is a recorded constant)."""
+    V, H, F = cfg["vocab"], cfg["hidden"], cfg["ffn"]
+    layer = [(H,), (H,), (H, H), (H,), (H, H), (H,), (H, H), (H,), (H, H),
+             (H,), (H,), (H,), (H, F), (F,), (F, H), (H,)]
+    return [(V, H)] + layer * cfg["layers"] + [(H,), (H,), (H, V), (V,)]
+
+
+def _stage_ms(torch, fn, iters=5):
+    """Device ms of ``fn()`` by CUDA events, after one untimed call."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def phase_grad_comm_stage(dp=4):
+    """The grad_comm stage's own device work on CUDA tensors, at the
+    static GPT's gradient sizes (phase 65's parameters, seeded values)
+    and comm_smoke's fuse budget and block: the int8 block quantize and
+    dequantize of every bucket, and the bucket flatten/unflatten, plain
+    (the plan at dp 4) and FSDP (every dim-0-divisible gradient in
+    shard-major rows), each held bitwise to the CPU and timed in ms a
+    step (the sum over the plan's buckets)."""
+    import torch
+    from paddle_tpu_torch.distributed import grad_comm as gc
+    shapes = _gpt_static_param_shapes(GPT_STATIC_CHIP)
+    gen = torch.Generator(device="cuda").manual_seed(66)
+    grads = [torch.randn(s, device="cuda", generator=gen) * 1e-3
+             for s in shapes]
+    cpu = [g.cpu() for g in grads]
+    spec = gc.CommSpec("int8", FLEET_GC["block_size"], True,
+                       FLEET_GC["scatter_threshold_KB"], FLEET_FUSE_MB,
+                       "grad_comm")
+    plain = gc.plan_reduction(shapes, dp=dp, cfg=spec)
+    fsdp_idx = tuple(i for i, s in enumerate(shapes) if s[0] % dp == 0)
+    fsdp = gc.plan_reduction(shapes, dp=dp, cfg=spec, fsdp=fsdp_idx)
+    rows = {}
+    block = spec.block_size
+
+    def check(name, got, want):
+        for a, b in zip(got, want):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"grad_comm stage {name}: card and "
+                                     f"CPU differ")
+
+    flats = [gc.flatten_bucket(grads, b) for b in plain.buckets]
+    cflats = [gc.flatten_bucket(cpu, b) for b in plain.buckets]
+    check("flatten", flats, cflats)
+    back = [t for b, f in zip(plain.buckets, flats)
+            for _, t in gc.unflatten_bucket(f, b, grads)]
+    cback = [t for b, f in zip(plain.buckets, cflats)
+             for _, t in gc.unflatten_bucket(f, b, cpu)]
+    check("unflatten", back, cback)
+    qs = [gc.quantize_int8_blocks(f, block) for f in flats]
+    cqs = [gc.quantize_int8_blocks(f, block) for f in cflats]
+    check("quantize", [t for q in qs for t in q], [t for q in cqs for t in q])
+    deq = [gc.dequantize_int8_blocks(q, s, f.numel())
+           for (q, s), f in zip(qs, flats)]
+    cdeq = [gc.dequantize_int8_blocks(q, s, f.numel())
+            for (q, s), f in zip(cqs, cflats)]
+    check("dequantize", deq, cdeq)
+    fb = [b for b in fsdp.buckets if b.algorithm == "rscatter"]
+    ff = [gc.flatten_bucket_fsdp(grads, b, dp, block) for b in fb]
+    cff = [gc.flatten_bucket_fsdp(cpu, b, dp, block) for b in fb]
+    check("flatten_fsdp", ff, cff)
+    fu = [t for b, f in zip(fb, ff)
+          for _, t in gc.unflatten_bucket_fsdp(f.reshape(dp, -1)[1], b, dp,
+                                               grads)]
+    cfu = [t for b, f in zip(fb, cff)
+           for _, t in gc.unflatten_bucket_fsdp(f.reshape(dp, -1)[1], b, dp,
+                                                cpu)]
+    check("unflatten_fsdp", fu, cfu)
+    rows["flatten_ms"] = _stage_ms(torch, lambda: [
+        gc.flatten_bucket(grads, b) for b in plain.buckets])
+    rows["unflatten_ms"] = _stage_ms(torch, lambda: [
+        gc.unflatten_bucket(f, b, grads)
+        for b, f in zip(plain.buckets, flats)])
+    rows["quantize_ms"] = _stage_ms(torch, lambda: [
+        gc.quantize_int8_blocks(f, block) for f in flats])
+    rows["dequantize_ms"] = _stage_ms(torch, lambda: [
+        gc.dequantize_int8_blocks(q, s, f.numel())
+        for (q, s), f in zip(qs, flats)])
+    rows["flatten_fsdp_ms"] = _stage_ms(torch, lambda: [
+        gc.flatten_bucket_fsdp(grads, b, dp, block) for b in fb])
+    rows["unflatten_fsdp_ms"] = _stage_ms(torch, lambda: [
+        gc.unflatten_bucket_fsdp(f.reshape(dp, -1)[1], b, dp, grads)
+        for b, f in zip(fb, ff)])
+    numel = sum(g.numel() for g in grads)
+    out = {"gradients": len(shapes), "numel": numel, "dp": dp,
+           "block": block, "fuse_grad_size_in_MB": FLEET_FUSE_MB,
+           "buckets": len(plain.buckets), "fsdp_buckets": len(fb),
+           "algorithms": plain.algo_counts(),
+           "wire_bytes_per_step_dp4": plain.wire_bytes_per_step,
+           "fp32_wire_bytes_per_step_dp4": plain.fp32_wire_bytes_per_step,
+           "bitwise_vs_cpu": True, **rows, "device": nvidia_smi()}
+    log("GRAD_COMM_STAGE " + json.dumps(out))
+    del grads, flats, qs, deq, ff
+    torch.cuda.empty_cache()
+    return out
+
+
 def _instance_row(row):
     """One instance of a kernel (a path's shape), for the kernels
     line."""
@@ -8307,6 +8617,8 @@ def main():
         timed("elasticity", phase_elasticity, bert_prefix)
     finally:
         shutil.rmtree(artifacts, ignore_errors=True)
+    fleet_launches = timed("fleet_static_gpt", phase_fleet_static_gpt)
+    timed("grad_comm_stage", phase_grad_comm_stage)
     seconds["total"] = time.perf_counter() - t0
     log("PHASE_SECONDS " + json.dumps(seconds))
     f32_err = max(r["max_abs_err"] for r in kernel_rows
@@ -8344,7 +8656,9 @@ def main():
                    "predictor static bert": pred_static.get(name, 0),
                    "inference engine bert": engine_bert.get(name, 0),
                    "capi bert": capi_bert.get(name, 0),
-                   "hotswap bert": hot.get(name, 0)}
+                   "hotswap bert": hot.get(name, 0),
+                   "fleet static gpt (ZeRO-3)":
+                       fleet_launches.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",
@@ -8452,11 +8766,27 @@ def main_phase7(runs):
     return 0
 
 
+def main_multicard():
+    """``--multicard``: phase 18 alone (the hybrid GPT and, on four
+    cards, the fleet leg) on every card the machine shows: the one path
+    of this script that spans cards, without the single-card phases."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    phase_environment()
+    out = phase_multicard()
+    log(nvidia_smi())
+    return 0 if out is not None else 1
+
+
 if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         if sys.argv[1:2] == ["--phase7-runs"]:
             sys.exit(main_phase7(int(sys.argv[2])))
+        if sys.argv[1:2] == ["--multicard"]:
+            sys.exit(main_multicard())
         code = main()
     except Exception:                  # noqa: BLE001 - report, exit 1
         import traceback

@@ -22,6 +22,22 @@ def default() -> Optional[torch.device]:
     return _default
 
 
+def _from_place(place):
+    """paddle's ``*Place`` objects (a class or an instance) as torch
+    device names: ``CPUPlace`` is the CPU, ``CUDAPlace(i)`` and
+    ``CUDAPinnedPlace`` the card (pinned memory is host memory the card
+    reads, so it places on the CPU)."""
+    from ..framework_compat import CPUPlace, CUDAPinnedPlace, CUDAPlace
+    cls = place if isinstance(place, type) else type(place)
+    if not isinstance(cls, type) or not issubclass(
+            cls, (CPUPlace, CUDAPlace, CUDAPinnedPlace)):
+        return place
+    if issubclass(cls, (CPUPlace, CUDAPinnedPlace)):
+        return "cpu"
+    idx = place.device_id if not isinstance(place, type) else 0
+    return f"cuda:{int(idx)}"
+
+
 def device(device: Optional[Union[str, torch.device]] = None
            ) -> torch.device:
     """Resolve a placement.  ``None`` means the device ``set_device``
@@ -30,6 +46,7 @@ def device(device: Optional[Union[str, torch.device]] = None
     or call ``set_device("cpu")``, to ask for the CPU explicitly)."""
     if device is None and _default is not None:
         device = _default
+    device = _from_place(device)
     if device is not None:
         if isinstance(device, str) and device.startswith("gpu"):
             device = "cuda" + device[3:]       # paddle's name for it

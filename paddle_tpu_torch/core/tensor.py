@@ -36,6 +36,7 @@ torch's own code and the port's keep working on paddle Tensors.
 from __future__ import annotations
 
 import copy
+import itertools
 from typing import Optional
 
 import numpy as np
@@ -117,12 +118,33 @@ def _plain(x):
     return t
 
 
+_name_counter = itertools.count(0)
+
+
 class Tensor(torch.Tensor):
     __torch_function__ = torch._C._disabled_torch_function_impl
 
     persistable = False
 
     # -- metadata ----------------------------------------------------------
+    @property
+    def name(self) -> str:
+        """paddle's tensor name: the ``param_name`` a layer, a
+        ``ParamAttr`` or an assignment gave it, else ``tensor_N`` from a
+        counter, drawn the first time the name is read (torch's own
+        ``Tensor.name`` is a read-only None, replaced here)."""
+        d = self.__dict__
+        n = d.get("param_name")
+        if n is None:
+            n = d.get("_auto_name")
+            if n is None:
+                n = d["_auto_name"] = f"tensor_{next(_name_counter)}"
+        return n
+
+    @name.setter
+    def name(self, value):
+        self.__dict__["param_name"] = value
+
     @property
     def shape(self) -> Shape:
         return Shape(_SHAPE.__get__(self))

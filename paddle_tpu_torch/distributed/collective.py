@@ -38,7 +38,8 @@ import torch.distributed as dist
 from .mesh import get_mesh
 
 __all__ = ["ReduceOp", "Group", "axis_group", "new_group", "get_group",
-           "barrier", "all_reduce", "all_gather", "broadcast", "reduce",
+           "barrier", "all_reduce", "all_gather", "all_gather_object",
+           "in_spmd", "broadcast", "reduce",
            "reduce_scatter", "scatter", "alltoall", "send", "recv", "shift",
            "collective_permute", "spmd", "ppermute", "copy_to_group",
            "reduce_from_group", "scatter_to_group", "gather_from_group"]
@@ -144,6 +145,26 @@ def new_group(ranks=None, backend=None, axis_name: Optional[str] = None):
 
 def get_group(id=0):
     return _world
+
+
+def in_spmd():
+    """The axis names of the innermost ``spmd`` region, or None.  Each
+    process here is one device and ``spmd`` is the identity, so no code
+    runs inside such a region: always None."""
+    return None
+
+
+def all_gather_object(obj_list, obj, group=None):
+    """Every rank's picklable ``obj``, in group order, appended to
+    ``obj_list`` (which is returned)."""
+    g = _resolve(group)
+    if g.nranks == 1:
+        obj_list.append(obj)
+        return obj_list
+    got = [None] * g.nranks
+    dist.all_gather_object(got, obj, group=g.process_group)
+    obj_list.extend(got)
+    return obj_list
 
 
 def spmd(fn=None, **_kw):

@@ -18,7 +18,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["init_parallel_env", "get_rank", "get_world_size",
-           "is_initialized", "ParallelEnv", "local_rank"]
+           "is_initialized", "ParallelEnv", "local_rank", "early_init"]
 
 _TIMEOUT = datetime.timedelta(seconds=300)
 
@@ -30,6 +30,16 @@ def _env_int(name: str, default: int) -> int:
 
 def local_rank() -> int:
     return _env_int("LOCAL_RANK", _env_int("RANK", 0))
+
+
+def early_init():
+    """paddle_tpu runs the ``jax.distributed`` rendezvous here, before
+    anything initialises the XLA backend.  ``torch.distributed`` has no
+    such ordering constraint: importing torch or this package touches no
+    process group, and :func:`init_parallel_env` joins it whenever it is
+    called.  So this is the no-op paddle_tpu's is when no launcher is
+    present."""
+    return None
 
 
 def init_parallel_env(mesh_shape=None, *, device=None, backend=None):

@@ -16,6 +16,8 @@ An axis of size 1 has no group: collectives over it are the identity.
 from __future__ import annotations
 
 import threading
+import warnings
+import weakref
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -23,15 +25,72 @@ import torch.distributed as dist
 
 __all__ = ["DP_AXIS", "MP_AXIS", "PP_AXIS", "SP_AXIS", "Mesh", "init_mesh",
            "get_mesh", "set_mesh", "ensure_mesh", "axis_size",
-           "axis_index"]
+           "axis_index", "PartitionSpec", "NamedSharding", "named_sharding",
+           "register_mesh_user", "release_mesh_user", "mesh_users"]
 
 DP_AXIS = "dp"
 MP_AXIS = "mp"
 PP_AXIS = "pp"
 SP_AXIS = "sp"
 
-_lock = threading.Lock()
+_lock = threading.RLock()
 _global_mesh: Optional["Mesh"] = None
+# live holders of shardings against a mesh: id(owner) -> (weakref(owner),
+# mesh, note); an entry dies with its owner
+_mesh_users: Dict[int, tuple] = {}
+
+
+class PartitionSpec(tuple):
+    """Which mesh axes split each tensor dim (``jax.sharding.
+    PartitionSpec``'s shape): one entry a dim, None (whole), an axis
+    name, or a tuple of names; trailing dims not named are whole."""
+
+    def __new__(cls, *entries):
+        return tuple.__new__(cls, entries)
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+    __str__ = __repr__
+
+
+def _spec_entry_axes(entry) -> List[str]:
+    if entry is None:
+        return []
+    return [entry] if isinstance(entry, str) else list(entry)
+
+
+class NamedSharding:
+    """A spec over a mesh.  In this port every rank holds its own block
+    of a sharded tensor: :meth:`index` names the block of ``rank`` as
+    slices of the global shape (a dim split over several axes counts in
+    the entry's axis order, the last fastest, as GSPMD does)."""
+
+    def __init__(self, mesh: "Mesh", spec=None):
+        self.mesh = mesh
+        self.spec = spec if isinstance(spec, PartitionSpec) else (
+            PartitionSpec() if spec is None else PartitionSpec(*spec))
+
+    def index(self, shape, rank: Optional[int] = None) -> tuple:
+        coords = (self.mesh.coords if rank is None
+                  else self.mesh.coords_of(rank))
+        out = []
+        for d, dim in enumerate(shape):
+            entry = self.spec[d] if d < len(self.spec) else None
+            n, k = 1, 0
+            for a in _spec_entry_axes(entry):
+                size = self.mesh.shape.get(a, 1)
+                k = k * size + coords.get(a, 0)
+                n *= size
+            step = int(dim) // n
+            out.append(slice(k * step, (k + 1) * step))
+        return tuple(out)
+
+    def shard_shape(self, shape) -> tuple:
+        return tuple(sl.stop - sl.start for sl in self.index(shape))
+
+    def __repr__(self):
+        return f"NamedSharding(mesh={self.mesh.shape}, spec={self.spec})"
 
 
 class Mesh:
@@ -69,6 +128,10 @@ class Mesh:
                 if rank in line:
                     self._lines[ax] = line
 
+    def coords_of(self, rank: int) -> Dict[str, int]:
+        where = np.argwhere(self.ranks == rank)[0]
+        return dict(zip(self.axis_names, (int(i) for i in where)))
+
     def axis_size(self, axis: str) -> int:
         return self.shape.get(axis, 1)
 
@@ -102,10 +165,72 @@ def init_mesh(shape: Optional[Dict[str, int]] = None, devices=None) -> Mesh:
             f"mesh shape {dict(shape)} holds {n} ranks but the job has "
             f"{world}: the sizes must multiply to the world size (start "
             f"the ranks with init_parallel_env / launch.spawn first)")
-    mesh = Mesh(dict(shape), rank)
     with _lock:
+        old = _global_mesh
+        if old is not None and old.shape == dict(shape) \
+                and old.rank == rank:
+            return old          # the same grid: keep its groups
+        _check_replace(dict(shape))
+        mesh = Mesh(dict(shape), rank)
         _global_mesh = mesh
     return mesh
+
+
+def register_mesh_user(owner, mesh: Mesh, note: str = "") -> None:
+    """Record that ``owner`` (a built step, a sharded state) holds
+    shardings built against ``mesh``: replacing that mesh while the
+    owner lives raises (warns under ``FLAGS_mesh_replace_warn_only``)."""
+    key = id(owner)
+
+    def _drop(_ref, _key=key):
+        _mesh_users.pop(_key, None)
+
+    with _lock:
+        _mesh_users[key] = (weakref.ref(owner, _drop), mesh, note)
+
+
+def release_mesh_user(owner) -> None:
+    with _lock:
+        _mesh_users.pop(id(owner), None)
+
+
+def mesh_users(mesh: Optional[Mesh] = None) -> List[str]:
+    """Notes of the live owners holding shardings against ``mesh``
+    (default: any mesh)."""
+    out = []
+    with _lock:
+        for key, (ref, m, note) in list(_mesh_users.items()):
+            if ref() is None:
+                _mesh_users.pop(key, None)
+            elif mesh is None or m is mesh:
+                out.append(note or f"owner#{key}")
+    return out
+
+
+def _check_replace(new_shape: Dict[str, int]) -> None:
+    old = _global_mesh
+    if old is None or old.shape == new_shape:
+        return
+    users = mesh_users(old)
+    if not users:
+        return
+    from ..core.enforce import PreconditionNotMetError
+    from ..core.flags import get_flag
+    msg = (f"replacing live mesh {dict(old.shape)} with {new_shape} while "
+           f"{len(users)} built program(s) still hold shardings against "
+           f"it: {users[:4]} — they would silently keep the old "
+           f"placement.  Close the Executor / drop the train step first "
+           f"(or set FLAGS_mesh_replace_warn_only=1 to proceed at your "
+           f"own risk).")
+    if get_flag("mesh_replace_warn_only"):
+        warnings.warn(msg)
+    else:
+        raise PreconditionNotMetError(msg)
+
+
+def named_sharding(*spec) -> NamedSharding:
+    """A :class:`NamedSharding` over the global mesh."""
+    return NamedSharding(ensure_mesh(), PartitionSpec(*spec))
 
 
 def get_mesh() -> Optional[Mesh]:

@@ -2,13 +2,15 @@
 ``paddle_tpu/distributed/strategy.py``): the toggles and ``*_configs``
 that ``SpmdTrainStep`` reads, and :func:`validate_toggles`.
 
-This slice ports data, tensor and sequence parallelism.  A toggle whose
-machinery is not ported yet raises ``NotImplementedError`` naming it,
-never a silent no-op: ``sharding`` (ZeRO), ``grad_comm`` /
-``fp16_allreduce``, ``gradient_merge``, ``recompute``, ``amp`` (use
+The port carries data, tensor and sequence parallelism, ZeRO 1-3
+(``sharding``) and the gradient-communication stage (``grad_comm`` and
+its bf16 alias ``fp16_allreduce``), with the LAMB/LARS optimizer swaps.
+A toggle whose machinery is not ported yet raises
+``NotImplementedError`` naming it and the slice that brings it (A5b),
+never a silent no-op: ``gradient_merge``, ``recompute``, ``amp`` (use
 ``amp.decorate`` on the model and optimizer), ``pipeline``,
-``localsgd`` / ``adaptive_localsgd``, and, as in the JAX package,
-``dgc`` and ``a_sync``.
+``localsgd`` / ``adaptive_localsgd``; as in the JAX package, ``dgc``
+and ``a_sync`` raise for good.
 """
 from __future__ import annotations
 
@@ -45,6 +47,20 @@ class ShardingConfig:
     fuse_broadcast_MB: float = 32.0
     hybrid_dp: bool = False
     min_shard_numel: int = 1024
+
+
+@dataclass
+class LambConfig:
+    lamb_weight_decay: float = 0.01
+    exclude_from_weight_decay: list = field(default_factory=list)
+
+
+@dataclass
+class LarsConfig:
+    lars_coeff: float = 0.001
+    lars_weight_decay: float = 0.0005
+    epsilon: float = 0.0
+    exclude_from_weight_decay: list = field(default_factory=list)
 
 
 @dataclass
@@ -94,6 +110,8 @@ class DistributedStrategy:
         "tensor_parallel_configs": TensorParallelConfig,
         "gradient_merge_configs": GradientMergeConfig,
         "sequence_parallel_configs": SequenceParallelConfig,
+        "lamb_configs": LambConfig,
+        "lars_configs": LarsConfig,
         "grad_comm": GradCommConfig,
     }
 
@@ -107,11 +125,18 @@ class DistributedStrategy:
         self.localsgd = False
         self.adaptive_localsgd = False
         self.dgc = False
+        self.lamb = False
+        self.lars = False
         self.a_sync = False
         self.sequence_parallel = False
         self.fp16_allreduce = False
         self.find_unused_parameters = False
+        # bucket size of the grad_comm stage: gradients fuse into flat
+        # buckets of this many MB, each reduced by its own collectives
         self.fuse_grad_size_in_MB = 32
+        # ordered (regex, spec) partition rules for the sharding plan
+        # (distributed/sharding.py); None = placements + ZeRO-3 dim 0
+        self.sharding_rules = None
         for name, cls in self._CONFIGS.items():
             object.__setattr__(self, "_" + name, cls())
 
@@ -144,10 +169,17 @@ class DistributedStrategy:
               if self.sequence_parallel else 1)
         model = mp * pp * sp
         if n_devices % model:
-            raise ValueError(
-                f"DistributedStrategy: the model-parallel degrees (mp {mp}, "
-                f"pp {pp}, sp {sp}; product {model}) do not divide the "
-                f"device count {n_devices}")
+            from ..core.enforce import InvalidArgumentError
+            from .grad_comm import format_mesh_axes
+            axes = format_mesh_axes(
+                {MP_AXIS: mp, PP_AXIS: pp, SP_AXIS: sp}) or "none"
+            raise InvalidArgumentError(
+                f"DistributedStrategy: the model-parallel degrees "
+                f"(mesh axes [{axes}], product {model}) do not divide "
+                f"the device count ({n_devices}) — {n_devices % model} "
+                f"device(s) would be silently dropped.  Pick degrees "
+                f"whose product divides {n_devices}, or run on "
+                f"{(n_devices // model) * model} devices.")
         shape: Dict[str, int] = {}
         if pp > 1:
             shape[PP_AXIS] = pp
@@ -165,13 +197,10 @@ class DistributedStrategy:
 
 
 _NOT_PORTED = (
-    ("sharding", "ZeRO sharding of optimizer state, gradients and "
-                 "parameters"),
     ("gradient_merge", "in-step micro-batch accumulation"),
     ("recompute", "activation recompute"),
     ("amp", "mixed precision through the strategy (use amp.decorate "
             "on the model and optimizer)"),
-    ("fp16_allreduce", "the bf16-wire gradient reduction"),
     ("pipeline", "pipeline parallelism"),
     ("localsgd", "LocalSGD"),
     ("adaptive_localsgd", "adaptive LocalSGD"),
@@ -180,28 +209,75 @@ _NOT_PORTED = (
 
 def validate_toggles(strategy: DistributedStrategy,
                      n_devices: Optional[int] = None) -> None:
-    """Raise on a toggle this port does not carry; with ``n_devices``
-    also on degrees that do not divide it."""
+    """Raise on a toggle this port does not carry and on knobs out of
+    range; with ``n_devices`` also on degrees that do not divide it."""
+    from ..core.enforce import InvalidArgumentError
     if n_devices is not None:
         strategy.infer_mesh_shape(int(n_devices))
     fuse = strategy.fuse_grad_size_in_MB
     if not isinstance(fuse, (int, float)) or fuse <= 0:
-        raise ValueError(f"strategy.fuse_grad_size_in_MB={fuse!r}: must be "
-                         f"a positive number of megabytes")
+        raise InvalidArgumentError(
+            f"strategy.fuse_grad_size_in_MB={fuse!r}: the gradient "
+            f"bucket size must be a positive number of megabytes — each "
+            f"bucket is one fused collective, so 0 or negative would "
+            f"mean no reduction at all.  Typical values: 8-64 (small = "
+            f"more overlap opportunities, large = fewer collectives).")
+    gc = strategy.grad_comm
+    if gc.dtype not in (None, "fp32", "bf16", "int8"):
+        raise InvalidArgumentError(
+            f"strategy.grad_comm.dtype={gc.dtype!r}: wire dtype must be "
+            f"None (off), 'fp32', 'bf16' or 'int8'.")
+    if int(gc.block_size) <= 0:
+        raise InvalidArgumentError(
+            f"strategy.grad_comm.block_size={gc.block_size!r}: int8 "
+            f"block-scaling needs a positive block size (one f32 absmax "
+            f"scale per block; typical: 128-1024).")
+    if float(gc.scatter_threshold_KB) < 0:
+        raise InvalidArgumentError(
+            f"strategy.grad_comm.scatter_threshold_KB="
+            f"{gc.scatter_threshold_KB!r} must be >= 0 (buckets at least "
+            f"this large take the reduce-scatter + all-gather route; "
+            f"smaller take one fused sum).")
+    from .grad_comm import OVERLAP_MODES
+    if gc.overlap not in OVERLAP_MODES:
+        raise InvalidArgumentError(
+            f"strategy.grad_comm.overlap={gc.overlap!r}: must be 'none' "
+            f"(comm strictly after backward — the measured no-overlap "
+            f"baseline), 'auto' (each bucket's collectives issued "
+            f"asynchronously as its last gradient lands) or 'ring' "
+            f"(single-chunk permutations).")
+    if strategy.fp16_allreduce and gc.dtype not in (None, "bf16"):
+        raise InvalidArgumentError(
+            f"strategy.fp16_allreduce is an alias for grad_comm.dtype="
+            f"'bf16' but grad_comm.dtype={gc.dtype!r} is also set — "
+            f"drop the alias or the explicit dtype; they conflict.")
+    if gc.dtype is not None or strategy.fp16_allreduce:
+        still_bad = [name for name, on in
+                     (("pipeline", strategy.pipeline),
+                      ("sequence_parallel", strategy.sequence_parallel))
+                     if on]
+        if still_bad:
+            raise NotImplementedError(
+                f"strategy.grad_comm + strategy."
+                f"{' + strategy.'.join(still_bad)}: the explicit "
+                f"grad-comm stage composes data parallelism with "
+                f"tensor parallelism (mp-sharded params) and ZeRO-3 "
+                f"(strategy.sharding stage 3, dp-sharded params), but "
+                f"pipeline/sequence-parallel axes schedule cross-stage "
+                f"collectives the stage cannot carry.  Disable grad_comm "
+                f"(leave its dtype None) on pp/sp meshes, or drop the "
+                f"pp/sp degrees.")
     for name, what in _NOT_PORTED:
         if getattr(strategy, name):
             raise NotImplementedError(
                 f"strategy.{name}: {what} is not ported to "
-                f"paddle_tpu_torch yet")
-    if strategy.grad_comm.dtype is not None:
-        raise NotImplementedError(
-            f"strategy.grad_comm (dtype={strategy.grad_comm.dtype!r}): the "
-            f"explicit gradient-communication stage is not ported yet; "
-            f"leave grad_comm.dtype None for the plain all-reduce")
+                f"paddle_tpu_torch yet (slice A5b)")
     if strategy.dgc:
         raise NotImplementedError(
             "strategy.dgc: deep gradient compression is not carried, as "
-            "in paddle_tpu")
+            "in paddle_tpu; the quantized gradient-collective stage "
+            "(strategy.grad_comm.dtype='int8', block-scaled with error "
+            "feedback) covers wire compression")
     if strategy.a_sync:
         raise NotImplementedError(
             "strategy.a_sync: async parameter-server training is not "

@@ -40,6 +40,7 @@ from ..core.dtype import convert_dtype
 from ..core.flags import get_flag
 from ..core.tensor import wrap
 from ..jit.save_load import SUFFIX_MODEL, SUFFIX_PARAMS, load_artifact
+from ..utils import monitor
 
 _SERIALS = itertools.count(1)
 
@@ -294,6 +295,11 @@ class Predictor:
                     sig = tuple((tuple(a.shape), str(a.dtype))
                                 for a in args)
                     n_real, n_padded = batch, target
+                    if sig in self._prepared:
+                        monitor.stat_add("inference.pad_hits")
+        if sig not in self._prepared:
+            # a signature served the first time (paddle_tpu: a compile)
+            monitor.stat_add("inference.compile_misses")
         outs = self._program.run_flat(args)
         self._register(sig)
         if n_real is not None:

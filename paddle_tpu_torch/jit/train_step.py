@@ -185,7 +185,7 @@ class TrainStep:
         params = self._params
         if self._opt_state is None:
             self._opt_state = self.optimizer.functional_init(
-                [p.detach() for p in params])
+                self._update_targets())
         st = None
         if self.scaler is not None:
             if self._scaler_state is None:
@@ -208,7 +208,7 @@ class TrainStep:
         step = (self.optimizer._step_count if st is None
                 else st["step"] + 1)
         with torch.no_grad():
-            old = [p.detach() for p in params]
+            old = self._update_targets()
             new_p, new_s = self.optimizer.functional_update(
                 old, grads, self._opt_state, self.optimizer.get_lr(), step,
                 params_meta=params)
@@ -222,6 +222,7 @@ class TrainStep:
                 self._scaler_state = self._next_scaler_state(st, found_inf,
                                                              step)
             torch._foreach_copy_(old, new_p)
+            self._after_update(old)
         self._opt_state = new_s
         return self._reduce_loss(loss)
 
@@ -245,6 +246,14 @@ class TrainStep:
 
     def _reduce_grads(self, grads):
         return grads
+
+    def _update_targets(self):
+        """The tensors the optimizer updates in place, one a parameter
+        (the distributed step's ZeRO stages give a rank's rows)."""
+        return [p.detach() for p in self._params]
+
+    def _after_update(self, targets):
+        pass
 
     def _reduce_loss(self, loss):
         return loss

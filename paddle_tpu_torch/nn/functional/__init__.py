@@ -220,6 +220,10 @@ def _u16_keep(shape, p, x, upscale=True):
         return None
     if t >= 65536:
         return 0.0
+    if x.device.type == "meta":
+        # a static Program records on meta tensors: the mask takes its
+        # shape there and is drawn when the Executor replays the node
+        return torch.empty(tuple(shape), dtype=x.dtype, device="meta")
     bits = torch.randint(0, 65536, tuple(shape), dtype=torch.int32,
                          device=x.device, generator=rng.generator(x.device))
     keep = (bits >= t).to(x.dtype)

@@ -197,6 +197,7 @@ class Layer(nn.Module):
         if prefix is not None:
             return super().state_dict(destination=destination,
                                       prefix=prefix, keep_vars=keep_vars)
+        self._sync_owned_params()
         out = super().state_dict(destination=destination,
                                  prefix=structured_name_prefix,
                                  keep_vars=keep_vars)
@@ -204,9 +205,21 @@ class Layer(nn.Module):
             wrap(v)
         return out
 
+    def _sync_owned_params(self):
+        """A step may hold a parameter's value elsewhere (ZeRO-3 rows
+        between steps): let it give the parameter its full value before
+        it is read or written here, as paddle_tpu's ``state_dict``
+        does."""
+        for p in self.parameters():
+            ref = getattr(p, "_param_owner_step", None)
+            owner = ref() if ref is not None else None
+            if owner is not None:
+                owner.sync_params()
+
     def set_state_dict(self, state_dict, use_structured_name=True):
         """Copy values into the existing parameters and buffers, shape
         checked (ValueError); returns ``(missing, unexpected)`` names."""
+        self._sync_owned_params()
         own = super().state_dict(keep_vars=True)
         missing = [k for k in own if k not in state_dict]
         unexpected = []

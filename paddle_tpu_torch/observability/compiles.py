@@ -55,7 +55,8 @@ def _freeze(v):
 
 def record_compile(component: str, identity, signature: Dict[str, object],
                    note: str = "", predicted: Optional[dict] = None,
-                   kernels: Optional[List[str]] = None) -> dict:
+                   kernels: Optional[List[str]] = None,
+                   comm: Optional[dict] = None) -> dict:
     """Report one compile.
 
     ``component``: "executor" | "jit" | "predictor" | ... .
@@ -73,6 +74,9 @@ def record_compile(component: str, identity, signature: Dict[str, object],
     ``kernels``: the hand kernels this variant selected (the static
     step's realized fused epilogues, fused Adam) — like ``predicted``,
     on the record but OUT of the signature.
+    ``comm``: a grad_comm step's bucket schedule (each bucket's size,
+    algorithm, wire dtype and bytes, issue point; the overlap knob and
+    the path it resolved to), on the record, out of the signature.
     Persistent-compile-cache provenance goes on through
     :func:`annotate_compile`.
     """
@@ -105,6 +109,8 @@ def record_compile(component: str, identity, signature: Dict[str, object],
             rec["predicted"] = dict(predicted)
         if kernels:
             rec["kernels"] = list(kernels)
+        if comm:
+            rec["comm"] = dict(comm)
         _records.append(rec)
         _totals[(component, cause)] += 1
     monitor.stat_add(f"compiles.{component}.{cause}")

@@ -299,6 +299,15 @@ class Optimizer:
             if s:
                 out["slots"][str(i)] = {k: wrap(v.detach())
                                         for k, v in s.items()}
+        # a static program's slots live in the Executor's state, keyed by
+        # position in program.parameters() (paddle_tpu's protocol); read
+        # only when there are no eager slots, so the two index spaces
+        # never mix
+        prov = getattr(self, "_static_state_provider", None)
+        if prov is not None and not out["slots"]:
+            st = prov()
+            if st is not None:
+                out["slots"].update(st.export_slots())
         if isinstance(self._learning_rate, LRScheduler):
             out["lr_scheduler"] = self._learning_rate.state_dict()
         return out
@@ -315,6 +324,27 @@ class Optimizer:
                 self._states[id(p)] = {
                     k: torch.as_tensor(v).to(p.device).clone()
                     for k, v in slots[str(i)].items()}
+        if not self._parameter_list and slots:
+            # a static program's: staged for the Executor, keyed by
+            # position in program.parameters(); a live Executor state
+            # takes them in place (its fused-Adam table points at them)
+            staged = {k: {sk: torch.as_tensor(np.asarray(v)) if not
+                          isinstance(v, torch.Tensor) else v
+                          for sk, v in sl.items()}
+                      for k, sl in slots.items()}
+            prov = getattr(self, "_static_state_provider", None)
+            st = prov() if prov is not None else None
+            if st is not None:
+                by_pos = {pos: pid for pid, pos in st.position.items()}
+                with torch.no_grad():
+                    for k in list(staged):
+                        live = st.slots.get(by_pos.get(int(k)))
+                        if live:
+                            for sk, v in staged.pop(k).items():
+                                live[sk].copy_(v.to(live[sk].device,
+                                                    live[sk].dtype))
+                st.step.fill_(float(self._step_count))
+            self._static_pending_slots = staged or None
         if (isinstance(self._learning_rate, LRScheduler)
                 and "lr_scheduler" in state):
             self._learning_rate.set_state_dict(state["lr_scheduler"])

@@ -1,6 +1,5 @@
 """SpmdTrainStep: the multi-device training step (the counterpart of
-``paddle_tpu/parallel/spmd_train_step.py``), without ZeRO, grad_comm or
-padding.
+``paddle_tpu/parallel/spmd_train_step.py``).
 
 Every rank runs the same step on the same global batch:
 
@@ -34,6 +33,35 @@ their gradients already agree.  The tests hold them equal across ranks.
 Optimizer, O2 master weights and the global-norm clip are the port's
 own (``jit.TrainStep``); the clip sums the squares of mp-sharded
 gradients over 'mp' (:mod:`..optimizer.clip`), not each rank's share.
+
+ZeRO (``strategy.sharding``, at dp > 1), on every parameter without a
+tensor-parallel placement whose dim 0 the dp size divides (stage 3:
+every one of at least ``min_shard_numel`` elements, dim 0 padded with
+zero rows to a multiple of dp where it does not divide, as paddle_tpu
+pads; ``_padded`` holds ``(d0, padded d0)``):
+
+- stages 1 and 2: its optimizer slots hold only this rank's dim-0
+  rows, the gradient is reduce-scattered to those rows (paddle_tpu's
+  stage 1 averages the whole gradient and keeps the rows: the same
+  values), the update writes them, and an all-gather of the updated
+  rows gives every rank the full parameter again;
+- stage 3: the parameter rests as this rank's rows between steps
+  (:class:`~..distributed.sharding.ParamShards`): each step all-gathers
+  them just before the forward, and the update writes the rows.
+  :meth:`SpmdTrainStep.sync_params` gives the model its full values
+  again (``Layer.state_dict`` calls it), as paddle_tpu writes its
+  shards back there.
+
+Every sum over ranks here runs in ascending member order
+(``distributed.grad_comm``), so ZeRO's numerics are the replicated
+step's: a reduce-scatter (all-to-all and an ascending sum of the
+chunks), with an all-gather after it for a replicated gradient of at
+least 32 KB, or one gather of every rank's copy below that.
+``strategy.grad_comm`` (or its bf16 alias ``fp16_allreduce``)
+reduces the gradients through the bucketed, quantized stage of
+:mod:`..distributed.grad_comm` instead, without error feedback (its
+residual carry lives on the static Executor's path), and refuses
+ZeRO-3 and model-parallel axes with paddle_tpu's messages.
 """
 from __future__ import annotations
 
@@ -43,11 +71,23 @@ import torch
 
 from ..core import rng
 from ..distributed.collective import ReduceOp, all_reduce, axis_group
-from ..distributed.mesh import DP_AXIS, ensure_mesh
+from ..distributed.mesh import DP_AXIS, PartitionSpec, ensure_mesh
 from ..distributed.strategy import DistributedStrategy, validate_toggles
 from ..jit.train_step import TrainStep
 from ..nn.functional.norm import stats_over
 from .data_parallel import allreduce_gradients
+from .tp_layers import get_placement
+
+
+def _numel(shape):
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return n
+
+
+def _shardable(shape, n):
+    return len(shape) > 0 and shape[0] % n == 0 and shape[0] >= n
 
 __all__ = ["SpmdTrainStep"]
 
@@ -67,12 +107,174 @@ class SpmdTrainStep(TrainStep):
         self.mesh = mesh or ensure_mesh()
         self.strategy = strategy
         self.dp = axis_group(DP_AXIS, self.mesh)
+        from ..distributed import grad_comm as _gc
+        self._grad_comm = _gc.resolve(strategy)
+        self._comm_plan = None
+        if self._grad_comm is not None:
+            zero3 = strategy.sharding and strategy.sharding_configs.stage >= 3
+            msg = _gc.incompatibility(
+                self._grad_comm, self.mesh.shape,
+                sharded_params=(["<ZeRO-3 stage-3 params>"] if zero3
+                                else ()))
+            if msg is not None:
+                raise NotImplementedError(msg)
+            if (self._grad_comm.error_feedback
+                    and self._grad_comm.source == "grad_comm"
+                    and self._grad_comm.dtype != "fp32"):
+                import warnings
+                warnings.warn(
+                    "grad_comm.error_feedback: the per-rank residual "
+                    "carry lives in the static Executor's state; "
+                    "SpmdTrainStep reduces without error feedback.  Use "
+                    "the static path (fleet + Executor) for EF, or set "
+                    "error_feedback=False to silence this.")
+        # -- ZeRO-3 padding plan (paddle_tpu pads dim 0 to a dp multiple)
+        # and the sharding rules, fixed at construction from the full
+        # shapes (a ZeRO-3 param's own shape is its rows' between steps)
+        self._shapes = [tuple(p.shape) for p in self._params]
+        self._padded = {}
+        z3 = []
+        n = self.dp.nranks
+        if self._stage() >= 3:
+            min_numel = strategy.sharding_configs.min_shard_numel
+            for i, p in enumerate(self._params):
+                shp = self._shapes[i]
+                if (get_placement(p) is not None or len(shp) == 0
+                        or _numel(shp) < min_numel):
+                    continue
+                if shp[0] % n != 0:
+                    self._padded[i] = (shp[0], -(-shp[0] // n) * n)
+                if i in self._padded or _shardable(shp, n):
+                    z3.append(i)
+        self._z3 = tuple(z3)
+        # the ZeRO-3 params resting as this rank's rows between steps
+        from ..distributed.sharding import ParamShards
+        self._shards = ParamShards()
+
+    # -- sharding rules ----------------------------------------------------
+    def _dp_size(self) -> int:
+        return self.mesh.shape.get(DP_AXIS, 1)
+
+    def _stage(self) -> int:
+        return (int(self.strategy.sharding_configs.stage)
+                if self.strategy.sharding and DP_AXIS in self.mesh.shape
+                else 0)
+
+    def _stage3_sharded(self, i, p) -> bool:
+        return i in self._z3
+
+    def _param_spec(self, i, p) -> PartitionSpec:
+        pl = get_placement(p)
+        if pl is not None:
+            return PartitionSpec(*pl)
+        if self._stage3_sharded(i, p):
+            return PartitionSpec(DP_AXIS)
+        return PartitionSpec()
+
+    def _stored_shape(self, i, p):
+        if i in self._padded:
+            return (self._padded[i][1],) + self._shapes[i][1:]
+        return self._shapes[i]
+
+    def _slot_spec(self, i, p, slot_shape) -> PartitionSpec:
+        pl = get_placement(p)
+        if pl is not None and tuple(slot_shape) == self._shapes[i]:
+            return PartitionSpec(*pl)
+        if (self._stage() >= 1 and tuple(slot_shape) == self._stored_shape(
+                i, p) and _shardable(slot_shape, self._dp_size())):
+            return PartitionSpec(DP_AXIS)
+        return PartitionSpec()
+
+    def _zero_rows(self):
+        """Positions of the params whose rows this rank updates (ZeRO at
+        dp > 1)."""
+        if self._stage() < 1 or self.dp.nranks <= 1:
+            return ()
+        n = self.dp.nranks
+        return tuple(i for i, p in enumerate(self._params)
+                     if get_placement(p) is None
+                     and (i in self._padded
+                          or _shardable(self._shapes[i], n)))
+
+    def _resting(self):
+        """The params that rest as this rank's rows (ZeRO-3 at dp > 1)."""
+        if self.dp.nranks <= 1:
+            return []
+        return [self._params[i] for i in self._z3]
+
+    def _padded_full(self, i, t):
+        if i in self._padded:
+            d0, pd0 = self._padded[i]
+            t = torch.nn.functional.pad(
+                t, [0, 0] * (t.dim() - 1) + [0, pd0 - d0])
+        return t
+
+    def _rows(self, t):
+        n, r = self.dp.nranks, self.dp.rank
+        per = t.shape[0] // n
+        return t[r * per:(r + 1) * per]
+
+    # -- the update on this rank's rows ------------------------------------
+    def _update_targets(self):
+        rows = set(self._zero_rows())
+        z3 = set(self._z3) if self.dp.nranks > 1 else set()
+        out = []
+        for i, p in enumerate(self._params):
+            if i in z3:
+                pad = self._padded.get(i)
+                t = self._shards.rows(p, self.dp,
+                                      None if pad is None else pad[1])
+            elif i in rows:
+                t = self._rows(p.detach())
+            else:
+                t = p.detach()
+            out.append(t)
+        return out
+
+    def _after_update(self, targets):
+        rows = [i for i in self._zero_rows() if i not in self._z3]
+        import torch.distributed as dist
+        # ZeRO 1-2: every rank's updated rows make the full param again
+        for i in rows:
+            dist.all_gather(list(self._params[i].detach().chunk(
+                self.dp.nranks)), targets[i].clone(),
+                group=self.dp.process_group)
+        # ZeRO-3: the param rests as the rows the update wrote
+        self._shards.release(self._resting())
+
+    @property
+    def _p_store(self):
+        """This rank's stored rows of each resting ZeRO-3 param."""
+        return {i: self._shards.rows_of(self._params[i]) for i in self._z3
+                if self._shards.rows_of(self._params[i]) is not None}
+
+    def sync_params(self):
+        """Give the model's ZeRO-3 params their full values again,
+        gathered from every rank's rows (a collective: every rank calls
+        it).  Between steps such a param holds only this rank's rows;
+        ``Layer.state_dict`` and ``set_state_dict`` call this first.
+        After it the params hold their full values, which the next step
+        reads (so an outside load into them is kept)."""
+        self._shards.sync()
+
+    def eval_step(self, *batch):
+        held = self._shards.materialize(self._resting())
+        try:
+            return super().eval_step(*batch)
+        finally:
+            self._shards.release(held)
 
     def __call__(self, *batch):
         if self.dp.nranks == 1:
             return super().__call__(*batch)
-        with rng.fold_in(self.dp.rank), stats_over(self.dp):
-            return super().__call__(*batch)
+        # ZeRO-3 params are gathered from the ranks' rows just before
+        # the forward, and rest as the updated rows after the step
+        held = self._shards.materialize(self._resting())
+        try:
+            with rng.fold_in(self.dp.rank), stats_over(self.dp):
+                return super().__call__(*batch)
+        finally:
+            self._shards.release(held)
 
     def _prepare_batch(self, batch):
         n, r = self.dp.nranks, self.dp.rank
@@ -88,7 +290,35 @@ class SpmdTrainStep(TrainStep):
         return tuple(out)
 
     def _reduce_grads(self, grads):
-        return allreduce_gradients(grads, self.dp)
+        from ..distributed import grad_comm as _gc
+        n = self.dp.nranks
+        if n == 1:
+            return grads
+        rows = set(self._zero_rows())
+        if self._grad_comm is not None:
+            if self._comm_plan is None:
+                shapes = [self._stored_shape(i, p)
+                          for i, p in enumerate(self._params)]
+                self._comm_plan = _gc.plan_reduction(shapes, dp=n,
+                                                     cfg=self._grad_comm)
+            padded = [self._padded_full(i, g) for i, g in enumerate(grads)]
+            red, _ = _gc.reduce_gradients(padded, plan=self._comm_plan,
+                                          group=self.dp)
+            return [self._rows(g) if i in rows else g
+                    for i, g in enumerate(red)]
+        if not rows:
+            return allreduce_gradients(grads, self.dp)
+        out = []
+        for i, g in enumerate(grads):
+            if i not in rows:
+                out.append(_gc.sum_over(g, self.dp) / n)
+                continue
+            # reduce-scatter (every stage): this rank's rows of the sum
+            g = self._padded_full(i, g)
+            red = _gc._rs_only(g.reshape(-1), self.dp, n, False).reshape(
+                (g.shape[0] // n,) + tuple(g.shape[1:]))
+            out.append(red / n)
+        return out
 
     def _reduce_loss(self, loss):
         return all_reduce(loss.clone(), ReduceOp.AVG, self.dp)

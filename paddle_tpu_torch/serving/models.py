@@ -122,6 +122,26 @@ class PagedDecoderLM(nn.Module):
         """The module's own weights as a name -> tensor dict."""
         return dict(self.named_parameters())
 
+    @params.setter
+    def params(self, value: Dict[str, torch.Tensor]):
+        """Replace the weights by name (paddle_tpu's model takes a new
+        dict): each value is copied into the parameter of that name."""
+        own = dict(self.named_parameters())
+        missing = sorted(set(own) - set(value))
+        if missing:
+            raise KeyError(f"PagedDecoderLM.params: no value for "
+                           f"{missing[:4]}")
+        with torch.no_grad():
+            for k, p in own.items():
+                v = torch.as_tensor(np.asarray(value[k])
+                                    if not isinstance(value[k], torch.Tensor)
+                                    else value[k])
+                if tuple(v.shape) != tuple(p.shape):
+                    raise ValueError(f"PagedDecoderLM.params: '{k}' has "
+                                     f"shape {tuple(v.shape)}, the model "
+                                     f"{tuple(p.shape)}")
+                p.copy_(v.to(p.device, p.dtype))
+
     # -- shared pieces -----------------------------------------------------
     def _qkv(self, p, x, l):
         """x: [..., E] -> q [..., H, D], k/v [..., Hkv, D]."""

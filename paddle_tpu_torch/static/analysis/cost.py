@@ -25,9 +25,14 @@ is a maximal chain of single-consumer ops, ranked by the bytes a fused
 kernel saves: each intermediate written by one op and read back by the
 next (twice its size) stays on chip when the chain runs as one kernel.
 
-Not ported: the gradient-communication block and per-shard memory of a
-sharded program (``analyze(sharding=...)`` and the ``comm`` totals),
-which come with ROADMAP A5.
+Under a sharding plan (``analyze(sharding=plan)``) the report adds
+``memory_per_shard`` (each parameter, with its gradient and slots,
+divided by its spec's axis sizes; activations by the batch axes) and
+the ``comm`` block: the gradient-communication plan the Executor runs
+(the same :func:`~...distributed.grad_comm.plan_reduction`, so
+``predicted_wire_bytes`` is the runtime's ``comm.wire_bytes`` per
+step), per-axis wire bytes and the gather schedule, and the exposed
+share of the comm seconds on each chip row.
 """
 from __future__ import annotations
 
@@ -38,7 +43,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..program import Program, Variable, infer_outputs, to_meta
+from ..program import (Program, Variable, infer_outputs, param_aval,
+                       to_meta)
 from .graph import DefUseGraph
 from .liveness import MemoryEstimate, aval_bytes, estimate_memory
 from .passes import Diagnostic
@@ -292,6 +298,7 @@ def _node_costs(graph: DefUseGraph,
                 in_avals.append(a)
                 in_bytes += aval_bytes(a)
             elif tag == "p":
+                x = param_aval(x)
                 param_avals.append(x)
                 param_bytes += aval_bytes(x)
             elif tag == "c" or isinstance(x, np.ndarray):
@@ -450,8 +457,8 @@ class ProgramReport:
     """Everything :func:`analyze` learned about one Program."""
 
     __slots__ = ("program_serial", "n_ops", "fetch_names", "per_op",
-                 "totals", "memory", "roofline", "fusion_candidates",
-                 "hazards", "batch_hint")
+                 "totals", "memory", "memory_per_shard", "roofline",
+                 "fusion_candidates", "hazards", "batch_hint")
 
     def to_dict(self) -> dict:
         return {
@@ -462,6 +469,9 @@ class ProgramReport:
             "per_op": [c.to_dict() for c in self.per_op],
             "totals": self.totals,
             "memory": self.memory.to_dict(),
+            "memory_per_shard": (
+                None if getattr(self, "memory_per_shard", None) is None
+                else self.memory_per_shard.to_dict()),
             "roofline": self.roofline,
             "fusion_candidates": self.fusion_candidates,
             "hazards": [d.to_dict() for d in self.hazards],
@@ -494,6 +504,27 @@ class ProgramReport:
             f"(params {_fmt_bytes(m.param_bytes)}, slots "
             f"{_fmt_bytes(m.slot_bytes)}, grads {_fmt_bytes(m.grad_bytes)}, "
             f"activations {_fmt_bytes(act)})")
+        ms = getattr(self, "memory_per_shard", None)
+        if ms is not None:
+            lines.append(
+                f"  per-shard ({self.totals.get('mesh_devices', '?')} "
+                f"devices): peak {_fmt_bytes(ms.peak_bytes_donated)} "
+                f"donated / {_fmt_bytes(ms.peak_bytes_no_donation)} "
+                f"no-donation (params {_fmt_bytes(ms.param_bytes)}, "
+                f"slots {_fmt_bytes(ms.slot_bytes)}, grads "
+                f"{_fmt_bytes(ms.grad_bytes)})")
+        comm = self.totals.get("comm")
+        if comm is not None:
+            ratio = (comm["wire_bytes_per_step"]
+                     / max(comm["fp32_wire_bytes_per_step"], 1))
+            lines.append(
+                f"  comm (dp={comm['dp']}, "
+                f"{'grad_comm ' + str(comm['dtype']) if comm['enabled'] else 'fp32 all-reduce'}): "
+                f"{_fmt_bytes(comm['wire_bytes_per_step'])}/step wire "
+                f"({ratio:.3f}x fp32), "
+                f"{len(comm['collectives'])} collective group(s), "
+                f"overlap {comm.get('overlap', 'none')}"
+                f"->{comm.get('overlap_path', 'none')}")
         if self.roofline:
             lines.append("  roofline (predicted):")
             for name, r in self.roofline.items():
@@ -542,6 +573,91 @@ class ProgramReport:
                 f"peak={_fmt_bytes(self.memory.peak_bytes_donated)})")
 
 
+# ---------------------------------------------------------------------------
+# gradient-collective prediction (grad_comm wire bytes)
+# ---------------------------------------------------------------------------
+
+def _comm_block(program: Program, plan,
+                graph: Optional[DefUseGraph] = None) -> Optional[dict]:
+    """Predicted per-step gradient communication of a training program
+    under a sharding plan.  With an active ``grad_comm`` spec the
+    numbers come from the same ``plan_reduction`` the Executor runs, so
+    this prediction and the runtime ``comm.wire_bytes`` stat agree
+    exactly; without one, the block models a plain fp32 all-reduce of
+    every gradient after backward."""
+    if program._optimizer is None or plan is None:
+        return None
+    from ...distributed import grad_comm as _gc
+    from ...distributed.mesh import DP_AXIS
+    from .liveness import _opt_unpack
+    dp = dict(plan.mesh.shape).get(DP_AXIS, 1)
+    _opt, trainable = _opt_unpack(program)
+    shapes = [tuple(param_aval(p).shape) for p in trainable]
+    grad_bytes = sum(4 * int(np.prod(s)) if s else 4 for s in shapes)
+    ring = (2.0 * (dp - 1) / dp) if dp > 1 else 0.0
+    fp32_wire = int(round(ring * grad_bytes))
+    status, err = _gc.plan_status(plan)
+    if status != "active":
+        return {
+            "enabled": False, "dp": dp, "dtype": "fp32",
+            **({"error": err} if err else {}),
+            "overlap": "none", "overlap_path": "none",
+            "wire_bytes_per_step": fp32_wire,
+            "fp32_wire_bytes_per_step": fp32_wire,
+            "gathers": [], "gather_wire_bytes_per_step": 0,
+            "axis_wire_bytes": ({DP_AXIS: fp32_wire} if dp > 1 else {}),
+            "collectives": ([] if dp <= 1 else [{
+                "params": list(range(len(shapes))),
+                "numel": grad_bytes // 4, "algorithm": "gspmd_psum",
+                "wire_dtype": "fp32", "wire_bytes": fp32_wire,
+                "collectives": 1, "classification": "bandwidth",
+                "error_feedback": False, "issue_frac": 1.0}]),
+        }
+    cfg = plan.grad_comm
+    pack = program._optimizer
+    order = _gc.production_order(program, trainable,
+                                 pack[1] if pack is not None else None,
+                                 graph=graph)
+    named = [(p.name, s) for p, s in zip(trainable, shapes)]
+    _kinds, fsdp, gathers = _gc.hybrid_layout(plan, named, order=order)
+    gplan = _gc.plan_reduction(shapes, dp=dp, cfg=cfg, order=order,
+                               fsdp=fsdp, gathers=gathers)
+    return {
+        "enabled": True, "dp": dp, "dtype": cfg.dtype,
+        "block_size": cfg.block_size,
+        "error_feedback": cfg.error_feedback,
+        "overlap": cfg.overlap,
+        "overlap_path": gplan.overlap_path,
+        "wire_bytes_per_step": gplan.wire_bytes_per_step,
+        "fp32_wire_bytes_per_step": gplan.fp32_wire_bytes_per_step,
+        "collectives_per_step": gplan.collectives_per_step,
+        "collectives": [b.to_dict() for b in gplan.buckets],
+        "gathers": list(gplan.gathers),
+        "gather_wire_bytes_per_step": gplan.gather_wire_bytes_per_step,
+        "axis_wire_bytes": dict(gplan.axis_wire_bytes),
+    }
+
+
+def _comm_seconds(comm: dict, backward_s: float, ici_bw: float
+                  ) -> Tuple[float, float]:
+    """(total comm seconds, predicted exposed comm seconds) of one comm
+    block over ``ici_bw`` bytes/s.  Bucket i is ready at ``backward_s *
+    issue_frac_i`` and takes the link after the buckets before it; what
+    the link still moves when backward ends is exposed.  On the
+    ``'none'`` path everything is exposed."""
+    if ici_bw <= 0:
+        return 0.0, 0.0
+    gather_s = comm.get("gather_wire_bytes_per_step", 0) / ici_bw
+    total = comm["wire_bytes_per_step"] / ici_bw + gather_s
+    if not comm.get("enabled") or comm.get("overlap_path") == "none":
+        return total, total
+    link_end = 0.0
+    for b in comm.get("collectives", ()):
+        ready = backward_s * float(b.get("issue_frac", 1.0))
+        link_end = max(link_end, ready) + b["wire_bytes"] / ici_bw
+    return total, max(0.0, link_end - backward_s)
+
+
 def analyze(program: Program, fetch_list: Optional[Sequence] = None,
             feed_shapes: Optional[Dict[str, Sequence[int]]] = None,
             batch_size: Optional[int] = None,
@@ -554,12 +670,9 @@ def analyze(program: Program, fetch_list: Optional[Sequence] = None,
     dynamic feed dim and re-derives every shape; ``feed_shapes`` sets
     feeds exactly.  ``chip`` picks one :data:`CHIP_SPECS` row (default:
     all); an unknown name raises KeyError.  ``top_k`` bounds the ranked
-    fusion candidates (0: none, None: all).  ``sharding`` raises
-    NotImplementedError: per-shard accounting comes with ROADMAP A5."""
-    if sharding is not None:
-        raise NotImplementedError(
-            "analyze(sharding=...) is not ported yet: per-shard memory and "
-            "the gradient-communication block come with ROADMAP A5")
+    fusion candidates (0: none, None: all).  ``sharding`` (a
+    :class:`~...distributed.sharding.ShardingPlan`) adds
+    ``memory_per_shard`` and the ``comm`` totals."""
     graph = DefUseGraph(program)
     shapes = dict(feed_shapes or {})
     if batch_size is not None:
@@ -582,6 +695,29 @@ def analyze(program: Program, fetch_list: Optional[Sequence] = None,
 
     costs = _node_costs(graph, avals)
     memory = estimate_memory(graph, fetch_vars, avals)
+    memory_per_shard = None
+    if sharding is not None:
+        # params (with grads and slots) divide by their spec's axis
+        # sizes, activations and feeds by the batch axes, when the plan
+        # shards every feed (a replicated feed is whole on every rank)
+        from ...distributed.sharding import spec_axes
+        spec_of = dict(zip(sharding.param_names, sharding.param_specs))
+        div: Dict[int, int] = {}
+        for pos, p in enumerate(program.parameters()):
+            spec = spec_of.get(p.name)
+            if spec is None and pos < len(sharding.param_specs):
+                spec = sharding.param_specs[pos]
+            div[id(p)] = sharding.divisor(spec) if spec is not None else 1
+
+        def _feed_shape(v):
+            return tuple(avals.get(id(v), v.meta).shape)
+
+        feeds_sharded = all(
+            len(spec_axes(sharding.feed_spec(_feed_shape(v)))) > 0
+            for v in graph.feeds.values()) if graph.feeds else True
+        memory_per_shard = estimate_memory(
+            graph, fetch_vars, avals, param_div=div,
+            act_div=sharding.batch_divisor() if feeds_sharded else 1)
     flops_fwd = sum(c.flops for c in costs)
     unmodeled = [c for c in costs if not c.modeled]
     training = opt_pack is not None
@@ -608,6 +744,9 @@ def analyze(program: Program, fetch_list: Optional[Sequence] = None,
         roof_flops = flops_fwd
     intensity = roof_flops / max(min_traffic, 1)
 
+    comm = _comm_block(program, sharding, graph=graph) \
+        if sharding is not None else None
+
     if chip is not None:
         if chip not in CHIP_SPECS:
             raise KeyError(
@@ -620,7 +759,7 @@ def analyze(program: Program, fetch_list: Optional[Sequence] = None,
         t_comp = roof_flops / spec.peak_flops
         t_mem = min_traffic / spec.hbm_bw
         step = max(t_comp, t_mem)
-        roofline[name] = {
+        entry = {
             "peak_flops": spec.peak_flops,
             "hbm_bw": spec.hbm_bw,
             "predicted_step_s": step,
@@ -628,12 +767,27 @@ def analyze(program: Program, fetch_list: Optional[Sequence] = None,
             "bound": "compute" if t_comp >= t_mem else "memory",
             "fits_hbm": memory.peak_bytes_donated <= spec.hbm_bytes,
         }
+        if comm is not None and training and comm.get("dp", 1) > 1:
+            # only the exposed share of the gradient collectives adds to
+            # the step; backward's window is its FLOP share (2x the
+            # forward of the 3x-forward training total)
+            backward_s = step * (2.0 * flops_fwd / max(roof_flops, 1))
+            comm_s, exposed_s = _comm_seconds(comm, backward_s,
+                                              spec.ici_bw)
+            entry["predicted_comm_s"] = comm_s
+            entry["predicted_exposed_comm_s"] = exposed_s
+            entry["predicted_hidden_comm_s"] = comm_s - exposed_s
+            entry["predicted_step_s"] = step + exposed_s
+            if entry["predicted_step_s"] > 0:
+                entry["predicted_mfu"] = t_comp / entry["predicted_step_s"]
+        roofline[name] = entry
 
     fetched_ids = {id(v) for v in fetch_vars}
     cands = _fusion_candidates(graph, avals, fetched_ids, costs, top_k)
     if cands:
         from .fusion import annotate_candidates
-        annotate_candidates(program, cands, graph, avals)
+        annotate_candidates(program, cands, graph, avals,
+                            plan_active=sharding is not None)
 
     hazards: List[Diagnostic] = []
     if include_hazards:
@@ -647,7 +801,11 @@ def analyze(program: Program, fetch_list: Optional[Sequence] = None,
     rep.fetch_names = fetch_names
     rep.batch_hint = batch_size
     rep.per_op = costs
+    rep.memory_per_shard = memory_per_shard
     rep.totals = {
+        **({"mesh_devices": sharding.n_devices}
+           if sharding is not None else {}),
+        **({"comm": comm} if comm is not None else {}),
         "flops_fwd": flops_fwd,
         "flops_train": flops_train,
         "optimizer_flops": opt_flops if training else 0,
@@ -702,23 +860,27 @@ def resolve_perf_chip(place=None) -> str:
 
 def compile_summary(program: Program, donate: bool = True,
                     feed_shapes: Optional[Dict[str, Sequence[int]]] = None,
-                    place=None) -> Optional[dict]:
+                    place=None, sharding=None) -> Optional[dict]:
     """The slice of :func:`analyze` the Executor keeps on each built
     step: FLOPs a step (forward and train), peak bytes, the least
     traffic, the chip row and its predicted step time, and the unmodeled
     ops.  Priced at ``feed_shapes`` (the run's; paddle_tpu prices the
     recorded placeholder of 1 for a dynamic dim).  Returns None instead
-    of raising: a cost-model gap must never break a build."""
+    of raising: a cost-model gap must never break a build.  With a
+    ``sharding`` plan it also carries ``peak_bytes_per_shard`` and the
+    comm prediction (``predicted_wire_bytes``, per axis, the overlap
+    path and the comm seconds the perf observatory splits)."""
     try:
         # inside the try: a misconfigured flag warns, and under
         # warnings-as-errors that warning raises
         chip = resolve_perf_chip(place)
         rep = analyze(program, feed_shapes=feed_shapes,
-                      include_hazards=False, chip=chip, top_k=0)
+                      include_hazards=False, chip=chip, top_k=0,
+                      sharding=sharding)
     except Exception:  # noqa: BLE001 - prediction is best-effort
         return None
     t = rep.totals
-    return {
+    out = {
         "flops": (t["flops_train"] if t["flops_train"] is not None
                   else t["flops_fwd"]),
         "flops_fwd": t["flops_fwd"],
@@ -730,3 +892,24 @@ def compile_summary(program: Program, donate: bool = True,
         "unmodeled_ops": t["unmodeled"]["count"],
         "unmodeled_bytes": t["unmodeled"]["bytes"],
     }
+    if rep.memory_per_shard is not None:
+        ms = rep.memory_per_shard
+        out["peak_bytes_per_shard"] = (ms.peak_bytes_donated if donate
+                                       else ms.peak_bytes_no_donation)
+        out["mesh_devices"] = t.get("mesh_devices")
+    comm = t.get("comm")
+    if comm is not None:
+        out["predicted_wire_bytes"] = comm["wire_bytes_per_step"]
+        out["comm_enabled"] = comm["enabled"]
+        if comm.get("axis_wire_bytes"):
+            out["predicted_axis_wire_bytes"] = dict(comm["axis_wire_bytes"])
+        if comm.get("gather_wire_bytes_per_step"):
+            out["predicted_gather_wire_bytes"] = \
+                comm["gather_wire_bytes_per_step"]
+        out["comm_overlap"] = comm.get("overlap_path", "none")
+        r = rep.roofline[chip]
+        for k in ("predicted_comm_s", "predicted_exposed_comm_s",
+                  "predicted_hidden_comm_s"):
+            if k in r:
+                out[k] = r[k]
+    return out

@@ -22,7 +22,7 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from ..program import _OpNode
+from ..program import _OpNode, param_aval
 from .cost import _fusion_candidates, _propagate_avals
 from .graph import DefUseGraph
 
@@ -54,7 +54,9 @@ def _aval_of(spec, avals) -> Optional[torch.Tensor]:
     tag, x = spec
     if tag == "v":
         return avals.get(id(x), x.meta)
-    if tag in ("p", "c"):
+    if tag == "p":
+        return param_aval(x)
+    if tag == "c":
         return x
     return None
 
@@ -194,13 +196,15 @@ def apply_plans(nodes: Sequence[_OpNode], plans: Sequence[FusionPlan]
     return out
 
 
-def annotate_candidates(program, candidates, graph, avals) -> None:
+def annotate_candidates(program, candidates, graph, avals,
+                        plan_active: bool = False) -> None:
     """Mark each reported candidate dict with what the Executor's pass
     would realize for it now: ``realized`` (the kernel's label or None)
     and ``realized_ops`` (the fused prefix), gated like the Executor by
-    ``FLAGS_use_pallas_kernels``."""
+    ``FLAGS_use_pallas_kernels`` and, as there, off under a sharding
+    plan (``plan_active``)."""
     from ...core.flags import get_flag
-    active = bool(get_flag("use_pallas_kernels"))
+    active = bool(get_flag("use_pallas_kernels")) and not plan_active
     for cand in candidates:
         plan = _match_chain(graph.nodes, cand["ops"], avals) if active \
             else None

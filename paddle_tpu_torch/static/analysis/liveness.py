@@ -30,7 +30,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..program import Program, Variable
+from ..program import Program, Variable, param_aval, to_meta
 from .graph import DefUseGraph
 
 __all__ = ["MemoryEstimate", "estimate_memory", "aval_bytes"]
@@ -71,8 +71,7 @@ def _slot_bytes_list(opt, trainable) -> Optional[List[int]]:
         return []
     try:
         state = opt.functional_init(
-            [torch.empty(tuple(p.shape), dtype=p.dtype, device="meta")
-             for p in trainable])
+            [to_meta(p) for p in trainable])
     except Exception:  # noqa: BLE001 - estimation must not raise
         return None
     return [sum(aval_bytes(t) for t in s.values()
@@ -99,17 +98,31 @@ class MemoryEstimate:
 
 def estimate_memory(graph: DefUseGraph,
                     fetch_vars: Sequence[Variable] = (),
-                    avals: Optional[Dict[int, object]] = None
-                    ) -> MemoryEstimate:
+                    avals: Optional[Dict[int, object]] = None,
+                    param_div: Optional[Dict[int, int]] = None,
+                    act_div: int = 1) -> MemoryEstimate:
     """Interval liveness over the op list.  ``avals`` (id(var) -> meta
     tensor) overrides the recorded shapes, e.g. under a concrete batch
-    size; ``fetch_vars`` stay live to the end."""
+    size; ``fetch_vars`` stay live to the end.
+
+    ``param_div`` (``id(param) -> n``) and ``act_div`` switch to
+    per-shard accounting under a sharding plan: each parameter's bytes
+    (and its gradient's and slots', which shard like it) divide by its
+    spec's axis-size product, activation and feed bytes by the batch
+    axes' product.  Divisions round up."""
     avals = avals or {}
     nodes = graph.nodes
     n = len(nodes)
+    param_div = param_div or {}
+
+    def _ceil_div(b: int, d: int) -> int:
+        return -(-int(b) // max(int(d), 1))
 
     def bytes_of(v: Variable) -> int:
-        return aval_bytes(avals.get(id(v), v.meta))
+        return _ceil_div(aval_bytes(avals.get(id(v), v.meta)), act_div)
+
+    def pbytes(p) -> int:
+        return _ceil_div(aval_bytes(param_aval(p)), param_div.get(id(p), 1))
 
     fetched = {id(v) for v in fetch_vars}
     # a var is resident for ops birth..death inclusive: feeds from op 0,
@@ -161,18 +174,19 @@ def estimate_memory(graph: DefUseGraph,
             if id(p) not in seen:
                 seen.add(id(p))
                 params.append(p)
-    est.param_bytes = sum(aval_bytes(p) for p in params)
+    est.param_bytes = sum(pbytes(p) for p in params)
 
     opt, trainable = _opt_unpack(graph.program)
     est.training = opt is not None
-    est.trainable_param_bytes = sum(aval_bytes(p) for p in trainable)
+    est.trainable_param_bytes = sum(pbytes(p) for p in trainable)
     est.grad_bytes = est.trainable_param_bytes if est.training else 0
     slots = _slot_bytes_list(opt, trainable)
     if slots is None:            # assume Adam's two slots
         est.slot_bytes = 2 * est.trainable_param_bytes
         est.slots_estimated = True
     else:
-        est.slot_bytes = sum(slots)
+        est.slot_bytes = sum(_ceil_div(b, param_div.get(id(p), 1))
+                             for b, p in zip(slots, trainable))
         est.slots_estimated = False
 
     if est.training:

@@ -17,6 +17,7 @@ import torch
 
 from ..core import rng
 from ..core.placement import device as _resolve_device
+from ..core.tensor import Parameter
 from ..nn import functional as F
 from ..ops.control_flow import case, cond, switch_case, while_loop  # noqa
 
@@ -29,9 +30,9 @@ def fc(x, size, num_flatten_dims=1, weight_attr=None, bias_attr=None,
     dev = _resolve_device(None)
     in_features = math.prod(x.shape[num_flatten_dims:])
     std = math.sqrt(2.0 / (in_features + size))
-    w = torch.nn.Parameter(torch.randn(
+    w = Parameter(torch.randn(
         (in_features, size), device=dev, generator=rng.generator(dev)) * std)
-    b = torch.nn.Parameter(torch.zeros(size, device=dev))
+    b = Parameter(torch.zeros(size, device=dev))
     # trailing dims are concrete; at most the leading dynamic dim stays -1
     flat = (x.reshape(list(x.shape[:num_flatten_dims]) + [in_features])
             if len(x.shape) > num_flatten_dims + 1 else x)
@@ -46,8 +47,8 @@ def batch_norm(input, is_test=False, momentum=0.9, epsilon=1e-5,
     """Batch-statistics normalisation with fresh affine parameters."""
     dev = _resolve_device(None)
     c = input.shape[1 if data_layout.startswith("NC") else -1]
-    w = torch.nn.Parameter(torch.ones(c, device=dev))
-    b = torch.nn.Parameter(torch.zeros(c, device=dev))
+    w = Parameter(torch.ones(c, device=dev))
+    b = Parameter(torch.zeros(c, device=dev))
     return F.batch_norm(input, None, None, w, b, training=not is_test,
                         momentum=momentum, epsilon=epsilon,
                         data_format=data_layout)

@@ -155,12 +155,24 @@ def _spec(x) -> Tuple[str, object]:
 
 
 def to_meta(x):
-    """A ``meta`` stand-in for a record-time input."""
+    """A ``meta`` stand-in for a record-time input (of its global shape
+    for a ZeRO-3 parameter resting as this rank's rows)."""
     if isinstance(x, Variable):
         return x.meta
     if isinstance(x, torch.Tensor):
-        return torch.empty(x.shape, dtype=x.dtype, device="meta")
+        shape = getattr(x, "global_shape", None) or x.shape
+        return torch.empty(tuple(shape), dtype=x.dtype, device="meta")
     return x
+
+
+def param_aval(p):
+    """A parameter as the analysis reads it: itself, or a ``meta``
+    stand-in of its global shape while it rests as this rank's rows
+    (``distributed.sharding.ParamShards``)."""
+    g = getattr(p, "global_shape", None)
+    if g is None or tuple(g) == tuple(p.shape):
+        return p
+    return to_meta(p)
 
 
 def _traced(trace, args, var_meta=None):

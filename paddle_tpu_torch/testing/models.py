@@ -162,10 +162,11 @@ def build_bert_static(vocab, hidden, layers, heads, ffn, seq, batch,
 
 
 def build_gpt_static(vocab, hidden, layers, heads, ffn, seq, batch,
-                     device=None, seed=2024):
+                     device=None, seed=2024, minimize=None):
     """``bench.build_gpt_static``: a GPT-shaped pre-norm causal decoder LM
     (no dropout, untied head) recorded as a static training program with
-    ``Adam(1e-4).minimize(loss)``; parameters on ``device``.  The
+    ``Adam(1e-4).minimize(loss)`` (or ``minimize(loss)`` when given, e.g.
+    through ``fleet.distributed_optimizer``); parameters on ``device``.  The
     residual adds after ``proj`` and ``fc2`` and the ``fc1`` + gelu FFN
     are the chains the fusion pass realizes.  The position embedding is
     a constant, as in :func:`build_bert_static`.  Returns ``(program,
@@ -204,7 +205,10 @@ def build_gpt_static(vocab, hidden, layers, heads, ffn, seq, batch,
         logits = head(lnf(x))
         loss = F.cross_entropy(logits.reshape([-1, vocab]),
                                labels.reshape([-1]))
-        optimizer.Adam(learning_rate=1e-4).minimize(loss)
+        if minimize is None:
+            optimizer.Adam(learning_rate=1e-4).minimize(loss)
+        else:
+            minimize(loss)
 
     def feeds(r: np.random.RandomState):
         return {"ids": r.randint(0, vocab, (batch, seq), dtype=np.int64),

@@ -19,6 +19,16 @@ waits for it.  :meth:`SnapshotStore.latest_snapshot` and
 :meth:`SnapshotStore.load_payloads` are the serving side's poll and
 verified read (``serving.hotswap``).
 
+An object with ``shard_state`` (``distributed.sharding.ShardedState``,
+e.g. ``Executor.sharded_state``) is saved by the sharded protocol: a
+``<name>.manifest.json`` and one ``<name>.<file>`` payload per unique
+block, each with its own digest, so a corrupt block is caught alone;
+restore hands the manifest and the decoded blocks to its
+``load_shard_state``, which reshards onto the live mesh.  In a job of
+several ranks every rank calls ``save``/``restore`` together (the
+blocks are gathered); world rank 0 writes and the ranks meet at a
+barrier after a synchronous save.
+
 The fault points are paddle_tpu's: ``ckpt.publish``, ``ckpt.save``,
 ``ckpt.restore`` and the file operations' ``fs.open_read``,
 ``fs.open_write``, ``fs.mkdir``, ``fs.remove``, ``fs.list`` and
@@ -168,9 +178,28 @@ class SnapshotStore:
     @staticmethod
     def _encode(objects: Dict[str, object]) -> Dict[str, bytes]:
         """Every object's state as bytes, on the caller's thread (the
-        consistency half of a save; the publish may be deferred)."""
-        return {f"{name}.pdparams": _dumps(obj.state_dict())
-                for name, obj in objects.items()}
+        consistency half of a save; the publish may be deferred).  A
+        sharded object gives a manifest and one payload per block."""
+        files: Dict[str, bytes] = {}
+        for name, obj in objects.items():
+            if hasattr(obj, "shard_state"):
+                manifest, payloads = obj.shard_state()
+                files[f"{name}.manifest.json"] = json.dumps(
+                    manifest).encode("utf-8")
+                for fname, data in payloads.items():
+                    files[f"{name}.{fname}"] = data
+                continue
+            files[f"{name}.pdparams"] = _dumps(obj.state_dict())
+        return files
+
+    @staticmethod
+    def _job():
+        """(this process writes, the job's world size): in a job of
+        several ranks only world rank 0 writes."""
+        import torch.distributed as dist
+        if dist.is_available() and dist.is_initialized():
+            return dist.get_rank() == 0, dist.get_world_size()
+        return True, 1
 
     def _publish(self, epoch: int, files: Dict[str, bytes],
                  object_names: List[str], step: Optional[int] = None,
@@ -220,8 +249,14 @@ class SnapshotStore:
         a snapshot already captured)."""
         fault.point("ckpt.save", self.dir, epoch)
         self.flush()
-        self._publish(epoch, self._encode(objects), sorted(objects),
-                      step=step, kind=kind)
+        files = self._encode(objects)
+        writer, world = self._job()
+        if writer:
+            self._publish(epoch, files, sorted(objects), step=step,
+                          kind=kind)
+        if world > 1:
+            import torch.distributed as dist
+            dist.barrier()
 
     # -- background publish ------------------------------------------------
     def save_async(self, epoch: int, objects: Dict[str, object],
@@ -235,6 +270,8 @@ class SnapshotStore:
         job = {"epoch": int(epoch), "files": self._encode(objects),
                "object_names": sorted(objects), "step": step,
                "kind": kind}
+        if not self._job()[0]:
+            return
         with self._pub_cv:
             if self._pub_thread is None or not self._pub_thread.is_alive():
                 self._pub_queue = queue.SimpleQueue()
@@ -297,17 +334,39 @@ class SnapshotStore:
     def _read_verified(self, snap: dict,
                        names: Sequence[str]) -> Optional[dict]:
         """All payloads of one snapshot, digest-checked, or None with a
-        warning naming what failed (missing file, bad hash)."""
+        warning naming what failed (missing file, bad hash).  A sharded
+        object comes back as ``("__sharded__", manifest, {file:
+        bytes})``, every block verified against its own digest."""
         digests = snap.get("digests")
         payloads = {}
         for name in names:
+            mf = f"{name}.manifest.json"
+            if digests is not None and mf in digests:
+                raw = self._read_file_verified(snap, mf, digests)
+                if raw is None:
+                    return None
+                try:
+                    manifest = json.loads(raw.decode("utf-8"))
+                except ValueError as e:
+                    warnings.warn(f"checkpoint {snap['dir']}: corrupt "
+                                  f"manifest '{mf}': {e}")
+                    return None
+                blobs = {}
+                for leaf in manifest.get("leaves", []):
+                    for sh in leaf.get("shards", []):
+                        full = f"{name}.{sh['file']}"
+                        if full not in digests:
+                            warnings.warn(
+                                f"checkpoint {snap['dir']}: manifest "
+                                f"names '{full}' but it carries no digest")
+                            return None
+                        data = self._read_file_verified(snap, full, digests)
+                        if data is None:
+                            return None
+                        blobs[sh["file"]] = data
+                payloads[name] = ("__sharded__", manifest, blobs)
+                continue
             fname = f"{name}.pdparams"
-            if digests is not None and f"{name}.manifest.json" in digests:
-                warnings.warn(
-                    f"checkpoint {snap['dir']}: object '{name}' was saved "
-                    f"sharded (paddle_tpu's shard_state); the port reads "
-                    f"replicated snapshots only")
-                return None
             if digests is not None and fname not in digests:
                 warnings.warn(
                     f"checkpoint {snap['dir']}: registered object "
@@ -345,10 +404,21 @@ class SnapshotStore:
                 continue
             # decode everything BEFORE applying anything: a corrupt
             # payload that slipped past hashing still can't part-load
-            states = {name: _loads(p)
-                      for name, p in payloads.items()}
+            states = {}
+            for name, p in payloads.items():
+                if isinstance(p, tuple) and p[0] == "__sharded__":
+                    states[name] = ("__sharded__", p[1], {
+                        f: _loads(b) for f, b in p[2].items()})
+                else:
+                    states[name] = _loads(p)
             for name, obj in objects.items():
-                obj.set_state_dict(states[name])
+                st = states[name]
+                if isinstance(st, tuple) and st[0] == "__sharded__":
+                    # reshard onto the mesh live now (gather-free when
+                    # the saved layout is the live one)
+                    obj.load_shard_state(st[1], st[2])
+                else:
+                    obj.set_state_dict(st)
             if attempts:
                 warnings.warn(
                     f"checkpoint: snapshot(s) {attempts} failed "
@@ -399,6 +469,12 @@ class SnapshotStore:
             return None
         out = {}
         for name, p in payloads.items():
+            if isinstance(p, tuple) and p[0] == "__sharded__":
+                warnings.warn(
+                    f"checkpoint {snap.get('dir')}: payload '{name}' is "
+                    f"sharded; load_payloads serves replicated weights "
+                    f"only")
+                return None
             try:
                 out[name] = _loads(p)
             except Exception as e:      # decode failure == corruption

@@ -587,16 +587,20 @@ def test_spmd_scaler_skips_an_overflow_on_every_rank(ranks):
 def test_strategy_toggles_not_ported_raise_naming_them():
     from paddle_tpu_torch.distributed.strategy import (DistributedStrategy,
                                                        validate_toggles)
-    for name in ("sharding", "gradient_merge", "recompute", "amp",
-                 "fp16_allreduce", "pipeline", "localsgd", "dgc", "a_sync"):
+    for name in ("gradient_merge", "recompute", "amp", "pipeline",
+                 "localsgd", "adaptive_localsgd", "dgc", "a_sync"):
         s = DistributedStrategy()
         setattr(s, name, True)
         with pytest.raises(NotImplementedError, match=name):
             validate_toggles(s)
+    # ZeRO and the grad_comm stage are ported (slice A5a)
+    for name in ("sharding", "fp16_allreduce"):
+        s = DistributedStrategy()
+        setattr(s, name, True)
+        validate_toggles(s)
     s = DistributedStrategy()
     s.grad_comm = {"dtype": "int8"}
-    with pytest.raises(NotImplementedError, match="grad_comm"):
-        validate_toggles(s)
+    validate_toggles(s)
     s = DistributedStrategy()
     s.tensor_parallel = True
     s.tensor_parallel_configs = {"tensor_parallel_degree": 2}

@@ -11,7 +11,16 @@ case failed on the port before the repair.
 - C6: the tensor-parallel layers take ``weight_attr``,
   ``MultiHeadAttention`` takes ``Cache`` and ``StaticCache``,
   ``amp.decorate`` takes ``save_dtype`` and ``static.nn.fc`` takes (and
-  ignores) ``weight_attr``/``bias_attr``.
+  ignores) ``weight_attr``/``bias_attr``;
+- C11: paddle's ``*Place`` objects (a class or an instance) are places;
+- C12: a Tensor and a Parameter carry paddle's ``name``;
+- C13: a static program's optimizer slots go through
+  ``optimizer.state_dict`` / ``set_state_dict``;
+- C14: dropout records into a static Program and ``Executor.run(seed=)``
+  reproduces it;
+- C15: the ``Predictor`` counts ``inference.compile_misses`` and
+  ``inference.pad_hits``;
+- C16: ``PagedDecoderLM.params`` takes assignment.
 
 Inputs are seeded numpy and go through both packages; tolerances are
 given at each check."""
@@ -337,3 +346,233 @@ def test_static_fc_ignores_weight_and_bias_attr(cpu):
     w, b = main.parameters()
     want = np.maximum(xs @ w.detach().numpy() + b.detach().numpy(), 0)
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+# -- C11 -----------------------------------------------------------------
+
+def _fc_program(pkg, seed, opt_cls=None, lr=0.05, dropout=False):
+    """``tests/test_static_fastpath.py``'s MLP (fc 16 relu, fc 1, mse)
+    recorded by ``pkg``; with ``dropout`` an F.dropout(p=0.5) after the
+    first layer and SGD at lr 0."""
+    F = pkg.nn.functional
+    pkg.seed(seed)
+    main = pkg.static.Program()
+    with pkg.static.program_guard(main):
+        x = pkg.static.data("x", [None, 8], "float32")
+        y = pkg.static.data("y", [None, 1], "float32")
+        h = pkg.static.nn.fc(x, 16, activation="relu")
+        if dropout:
+            h = F.dropout(h, p=0.5, training=True)
+        pred = pkg.static.nn.fc(h, 1)
+        loss = F.mse_loss(pred, y)
+        (opt_cls or pkg.optimizer.SGD)(learning_rate=lr).minimize(loss)
+    return main, loss
+
+
+def _fc_batch(seed, n=16):
+    r = np.random.RandomState(seed)
+    xs = r.standard_normal((n, 8)).astype(np.float32)
+    return xs, (xs @ r.standard_normal((8, 1))).astype(np.float32)
+
+
+@pytest.fixture
+def both_static(cpu):
+    cpu.enable_static()
+    paddle_tpu.enable_static()
+    yield cpu
+    paddle_tpu.disable_static()
+    paddle_tpu.static.reset_default_programs()
+    cpu.disable_static()
+
+
+@pytest.mark.parametrize("how", ["class", "instance"])
+def test_places_are_devices_on_both_packages(both_static, how):
+    """``Executor(CPUPlace)`` and ``Executor(CPUPlace())`` run a training
+    program on both packages with the same losses (rtol 1e-5), and
+    ``to_tensor(place=CPUPlace())`` lands on the CPU; ``CUDAPlace(i)``
+    names ``cuda:i``."""
+    xs, ys = _fc_batch(3)
+    losses = []
+    for pkg in (paddle_tpu, both_static):
+        main, loss = _fc_program(pkg, 3)
+        if pkg is both_static:
+            from paddle_tpu_torch.framework_io import \
+                program_state_from_paddle_tpu
+            program_state_from_paddle_tpu(main, init)
+        else:
+            init = [np.asarray(p.data).copy() for p in main.parameters()]
+        place = pkg.CPUPlace if how == "class" else pkg.CPUPlace()
+        exe = pkg.static.Executor(place)
+        losses.append([float(exe.run(main, feed={"x": xs, "y": ys},
+                                     fetch_list=[loss])[0])
+                       for _ in range(3)])
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
+    t = both_static.to_tensor([1.0], place=both_static.CPUPlace())
+    assert t.device == torch.device("cpu")
+    paddle_tpu.to_tensor([1.0], place=paddle_tpu.CPUPlace())
+    assert placement.device(both_static.CUDAPlace(1)) == torch.device(
+        "cuda", 1)
+
+
+# -- C12 -----------------------------------------------------------------
+
+def test_tensor_and_parameter_names_on_both_packages(cpu):
+    """paddle's names: a layer's weight is ``<layer>_<n>.w_0``, a new
+    tensor ``tensor_<n>``, a ``ParamAttr`` name wins, and a name takes
+    assignment; AdamW's ``apply_decay_param_fun`` reads it (zero
+    gradients: only the decoupled decay moves the weight, not the
+    bias), on both packages.  ``torch.export`` of a layer with named
+    parameters is unaffected (the saved programs of PRs 18-20 are held
+    by their own tests)."""
+    import re
+    for pkg in (paddle_tpu, cpu):
+        w = pkg.nn.Linear(4, 4).weight
+        assert re.fullmatch(r"linear_\d+\.w_0", w.name), w.name
+        assert re.fullmatch(r"tensor_\d+", pkg.to_tensor([1.0]).name)
+        named = pkg.nn.Linear(4, 4, weight_attr=pkg.ParamAttr(name="myw"))
+        assert named.weight.name == "myw"
+        b = pkg.nn.Linear(4, 4).bias
+        w.name, b.name = "linear_0.w_0", "linear_0.b_0"
+        assert (w.name, b.name) == ("linear_0.w_0", "linear_0.b_0")
+    w0 = np.asarray(w.detach().numpy()).copy()
+    b0 = np.asarray(b.detach().numpy()).copy()
+    opt = cpu.optimizer.AdamW(
+        learning_rate=0.1, parameters=[w, b], weight_decay=0.5,
+        apply_decay_param_fun=lambda n: not n.endswith("b_0"))
+    w.grad = torch.zeros_like(w)
+    b.grad = torch.zeros_like(b)
+    opt.step()
+    assert not np.allclose(w.detach().numpy(), w0)
+    np.testing.assert_allclose(b.detach().numpy(), b0, atol=1e-7)
+
+
+# -- C13 -----------------------------------------------------------------
+
+def test_static_optimizer_slots_round_trip_on_both_packages(both_static):
+    """``tests/test_static_fastpath.py:236-280`` on both packages: after
+    3 runs ``state_dict`` exports the Executor's Adam slots (step 3,
+    numpy arrays keyed by position); a fresh program given the weights
+    and ``set_state_dict`` takes the 6th step the original takes
+    (rtol 1e-6, atol 1e-8), and the port's step equals paddle_tpu's
+    (rtol 1e-5, atol 1e-6)."""
+    xs, ys = _fc_batch(13)
+    feed = {"x": xs, "y": ys}
+    got = []
+    for pkg in (paddle_tpu, both_static):
+        main, loss = _fc_program(pkg, 13, pkg.optimizer.Adam, lr=1e-2)
+        if pkg is both_static:
+            from paddle_tpu_torch.framework_io import \
+                program_state_from_paddle_tpu
+            program_state_from_paddle_tpu(main, init)
+        else:
+            init = [np.asarray(p.data).copy() for p in main.parameters()]
+        opt = main._optimizer[0]
+        exe = pkg.static.Executor()
+        for _ in range(3):
+            exe.run(main, feed=feed, fetch_list=[loss])
+        sd = opt.state_dict()
+        assert sd["step"] == 3
+        assert sd["slots"], pkg.__name__
+        assert all(isinstance(v, np.ndarray)
+                   for sl in sd["slots"].values() for v in sl.values())
+        for _ in range(2):
+            exe.run(main, feed=feed, fetch_list=[loss])
+        ckpt = opt.state_dict()
+        snap = [np.asarray(p.detach().numpy() if pkg is both_static else p.data)
+                .copy() for p in main.parameters()]
+        exe.run(main, feed=feed, fetch_list=[loss])
+        want = [np.asarray(p.detach().numpy() if pkg is both_static else p.data)
+                for p in main.parameters()]
+        main2, loss2 = _fc_program(pkg, 99, pkg.optimizer.Adam, lr=1e-2)
+        if pkg is both_static:
+            from paddle_tpu_torch.framework_io import \
+                program_state_from_paddle_tpu
+            program_state_from_paddle_tpu(main2, snap)
+        else:
+            import jax.numpy as jnp
+            for p2, arr in zip(main2.parameters(), snap):
+                p2.data = jnp.asarray(arr)
+        main2._optimizer[0].set_state_dict(ckpt)
+        pkg.static.Executor().run(main2, feed=feed, fetch_list=[loss2])
+        have = [np.asarray(p.detach().numpy() if pkg is both_static else p.data)
+                for p in main2.parameters()]
+        for a, b in zip(have, want):
+            np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-8)
+        got.append(have)
+    for a, b in zip(got[1], got[0]):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+
+
+# -- C14 -----------------------------------------------------------------
+
+def test_static_dropout_seed_reproduces_on_both_packages(both_static):
+    """``tests/test_static_fastpath.py:282-302`` on both packages:
+    dropout records into a static Program; ``seed=7`` twice gives the
+    same loss, an unseeded run another, and ``seed=-3`` twice the same
+    (the draws differ between the packages by design)."""
+    xs, ys = np.ones((4, 8), np.float32), np.zeros((4, 1), np.float32)
+    for pkg in (paddle_tpu, both_static):
+        main, loss = _fc_program(pkg, 11, lr=0.0, dropout=True)
+        exe = pkg.static.Executor()
+
+        def run(**kw):
+            return float(exe.run(main, feed={"x": xs, "y": ys},
+                                 fetch_list=[loss], **kw)[0])
+
+        a, b, c = run(seed=7), run(seed=7), run()
+        assert a == b and not np.isclose(a, c), (pkg.__name__, a, b, c)
+        assert run(seed=-3) == run(seed=-3)
+
+
+# -- C15 -----------------------------------------------------------------
+
+def test_predictor_counts_misses_and_pad_hits_on_both_packages(cpu,
+                                                              tmp_path):
+    """``tests/test_serving.py:465-482`` on both packages: batches 3, 5,
+    6, 3 pad to the buckets 4, 8, 8, 4: 2 variants, 2 compile misses,
+    2 pad hits; outputs within rtol 2e-3, atol 1e-5 of the eager
+    model."""
+    from paddle_tpu.static import InputSpec as JSpec
+    for pkg, spec in ((paddle_tpu, JSpec),
+                      (cpu, cpu.static.InputSpec)):
+        pkg.seed(0)
+        model = pkg.nn.Sequential(pkg.nn.Linear(4, 8), pkg.nn.ReLU(),
+                                  pkg.nn.Linear(8, 2))
+        prefix = str(tmp_path / f"pad_{pkg.__name__}")
+        pkg.jit.save(model, prefix,
+                     input_spec=[spec([None, 4], "float32")])
+        pred = pkg.inference.create_predictor(pkg.inference.Config(prefix))
+        mon = pkg.utils.monitor
+        mon.stat_reset("inference.pad_hits")
+        mon.stat_reset("inference.compile_misses")
+        model.eval()
+        for n in (3, 5, 6, 3):
+            x = np.random.RandomState(n).standard_normal(
+                (n, 4)).astype(np.float32)
+            got, = pred.run([x])
+            want = model(pkg.to_tensor(x)).numpy()
+            np.testing.assert_allclose(np.asarray(got), want, rtol=2e-3,
+                                       atol=1e-5)
+        assert pred.num_compiled_variants() == 2
+        assert mon.get_stat("inference.compile_misses") == 2
+        assert mon.get_stat("inference.pad_hits") == 2
+
+
+# -- C16 -----------------------------------------------------------------
+
+def test_paged_lm_params_take_assignment_on_both_packages(cpu):
+    """``m2.params = scaled`` (``tests/test_hotswap.py:103``) on both
+    packages: the model then holds the new weights, and the port's
+    logits for a prompt match paddle_tpu's within rtol 1e-4, atol 1e-5
+    before and after."""
+    from paddle_tpu.serving.models import PagedDecoderLM as JLM
+    from paddle_tpu_torch.serving.models import PagedDecoderLM as TLM
+    jm, tm = JLM(seed=3), TLM(seed=3, device="cpu")
+    new = {k: np.asarray(v) * 0.5 for k, v in jm.params.items()}
+    jm.params = {k: __import__("jax").numpy.asarray(v)
+                 for k, v in new.items()}
+    tm.params = new
+    for k, v in tm.params.items():
+        np.testing.assert_array_equal(v.detach().numpy(), new[k])
+    with pytest.raises(KeyError):
+        tm.params = {}

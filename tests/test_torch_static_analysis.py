@@ -369,8 +369,17 @@ def test_roofline_rows_are_the_cpu_and_the_h100():
     for bad in ("v5p", "v9000"):
         with pytest.raises(KeyError, match="unknown chip.*'cpu', 'h100'"):
             main.analyze(fetch_list=[loss], chip=bad)
-    with pytest.raises(NotImplementedError, match="A5"):
-        main.analyze(fetch_list=[loss], sharding=object())
+    # per-shard pricing is ported: a plan over a one-rank mesh prices
+    # every rank's share as the whole (tests/test_torch_sharding.py
+    # holds the sharded figures to paddle_tpu's)
+    from paddle_tpu_torch.distributed.mesh import Mesh
+    from paddle_tpu_torch.distributed.sharding import plan_for_params
+    plan = plan_for_params([(p.name, p) for p in main.parameters()],
+                           mesh=Mesh({"dp": 1}))
+    rep = main.analyze(fetch_list=[loss], sharding=plan)
+    assert rep.totals["mesh_devices"] == 1
+    assert rep.memory_per_shard.peak_bytes_donated \
+        == rep.memory.peak_bytes_donated
     with pytest.raises(NotImplementedError, match="A5"):
         main.verify(fetch_list=[loss], mesh_shape={"dp": 2})
 

@@ -24,12 +24,11 @@ NOT_YET_PORTED = {
     """,
     "paddle_tpu.amp": "",
     "paddle_tpu.distributed": """
-        AnomalyEscalation AnomalyPolicy Fleet ProcessSupervisor
-        ServingSupervisor ShardedState ShardingPlan SpecLayout StepWatchdog
-        SupervisorGaveUp SupervisorResult TrainingSupervisor all_gather_object
-        early_init fleet gather_tree in_spmd match_partition_rules mesh_users
-        named_sharding plan_for_params register_mesh_user release_mesh_user
-        shard_tree spec_divisor specs_for_state split with_constraint
+        AnomalyEscalation AnomalyPolicy ProcessSupervisor ServingSupervisor
+        StepWatchdog SupervisorGaveUp SupervisorResult TrainingSupervisor
+    """,
+    "paddle_tpu.distributed.fleet": """
+        DatasetFactory InMemoryDataset QueueDataset
     """,
     "paddle_tpu.jit": "",
     "paddle_tpu.inference": "",
