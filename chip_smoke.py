@@ -2364,7 +2364,10 @@ def phase_multicard(steps=3):
     (f32, dropout 0, batch 4) for 3 steps from seeded weights; their
     losses against a world-size-1 run of the same model and weights on
     this process's card, rtol 1e-4 (f32 sums over shards in other
-    orders, then 3 AdamW steps).  On one card it says it did not run."""
+    orders, then 3 AdamW steps).  On four cards it then runs the fleet
+    leg (:func:`_multicard_fleet`) and the pipeline and hybrid {dp, mp}
+    legs (:func:`_multicard_pipeline_hybrid`).  On one card it says it
+    did not run."""
     import numpy as np
     import torch
     from paddle_tpu_torch.distributed.launch import free_port, spawn
@@ -2409,7 +2412,139 @@ def phase_multicard(steps=3):
     torch.cuda.empty_cache()
     if n == 4:
         out["fleet"] = _multicard_fleet(n)
+        out["a5b"] = _multicard_pipeline_hybrid(n)
     return out
+
+
+def _multicard_pipeline_hybrid(n, steps=3):
+    """Four NCCL ranks, one world (``testing.pipeline_cases``): the
+    pipelined GPT at the 1b widths on {pp: 4} (2 blocks a stage, f32,
+    dropout 0, 8 microbatches, 3 AdamW steps) against the same model as
+    one stage at world size 1 on this card, losses at rtol 1e-4, each
+    rank holding one stage's block, its two Adam moments and, once the
+    stages it built are dropped, no more device memory than the block,
+    the replicated embedding and head and the batch; then comm_smoke's
+    hybrid {dp: 2, mp: 2} rows on GPT-tiny through fleet and the static
+    Executor (every 2-D weight cut over 'mp'; fp32, int8 auto and none)
+    with comm_smoke's gates: int8 wire under 0.35x fp32's, measured ==
+    predicted bytes on each axis and for the mp gathers, int8 losses
+    within 2e-3 of fp32's, a rank's params at the per-shard price, the
+    ranks' params equal; and the overlap flip of an mp-cut fc weight one
+    rebuild named new_sharding."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed.launch import free_port, spawn
+    from paddle_tpu_torch.testing import pipeline_cases as pc
+    from paddle_tpu_torch.testing import sharding_cases as sc
+    import paddle_tpu_torch as pt
+    cfg = MULTI_PIPE
+    outdir = os.path.join(ROOT, "build", "chip_smoke_a5b")
+    os.makedirs(outdir, exist_ok=True)
+    r = np.random.RandomState(18)
+    ids, labels = (r.randint(0, cfg["vocab"], (cfg["batch"], cfg["seq"]))
+                   .astype(np.int64) for _ in range(2))
+    data = pc.p1b_inputs(cfg, ids, labels, steps)
+    pt.enable_static()
+    try:
+        main, _ = sc.build_gpt_tiny()
+        shapes = [tuple(p.shape) for p in main.parameters()]
+    finally:
+        pt.disable_static()
+    r = np.random.RandomState(65)
+    data.update({f"w{i}": (0.05 * r.standard_normal(sh)).astype(np.float32)
+                 for i, sh in enumerate(shapes)})
+    data.update(n_weights=len(shapes), n_constants=0, **sc.gpt_feeds())
+    r = np.random.RandomState(1)
+    xs = r.standard_normal((64, 8)).astype(np.float32)
+    data.update(fc_x=xs, fc_y=(xs @ r.standard_normal((8, 1))).astype(
+        np.float32))
+    np.savez(os.path.join(outdir, "inputs.npz"), **data)
+    t0 = time.perf_counter()
+    spawn(pc.run, (outdir, ["pipeline_1b", "hybrid"], "cuda"), nprocs=n,
+          init_method=f"tcp://localhost:{free_port()}", timeout=900)
+    spawn_s = time.perf_counter() - t0
+    res = [dict(np.load(os.path.join(outdir, f"rank{i}.npz")))
+           for i in range(n)]
+    prev_mesh = dist.get_mesh()
+    dist.init_mesh({"pp": 1})
+    try:
+        one = pc.pipeline_gpt_train(cfg, torch.from_numpy(ids).cuda(),
+                                    torch.from_numpy(labels).cuda(), steps)
+    finally:
+        dist.set_mesh(prev_mesh)
+    torch.cuda.empty_cache()
+    g = lambda k, i=0: res[i][k]  # noqa: E731
+    pipe = {"config": cfg, "losses_world_1": one["losses"].tolist(),
+            "losses_by_rank": [g("pipeline_1b/losses", i).tolist()
+                               for i in range(n)],
+            **{k: [int(g(f"pipeline_1b/{k}", i)) for i in range(n)]
+               for k in ("stage_param_bytes", "block_param_bytes",
+                         "block_slot_bytes", "replicated_param_bytes",
+                         "allocated_after_drop")},
+            "world_1_stage_param_bytes": int(one["stage_param_bytes"]),
+            "spawn_s": spawn_s}
+    log("MULTICARD_PIPELINE " + json.dumps(pipe))
+    rel = max(abs(a - b) / abs(b) for lr in pipe["losses_by_rank"]
+              for a, b in zip(lr, pipe["losses_world_1"]))
+    batch_bytes = 2 * ids.size * 8
+    slack = 16 << 20
+    q = {"loss_rel_err": (rel, PIPE_RTOL)}
+    for i in range(n):
+        stage = pipe["stage_param_bytes"][i]
+        q[f"rank{i}.block_minus_stage"] = (abs(
+            pipe["block_param_bytes"][i] - stage), 0)
+        q[f"rank{i}.slots_minus_two_moments"] = (abs(
+            pipe["block_slot_bytes"][i] - 2 * stage), 0)
+        q[f"rank{i}.stages_times_4_minus_world_1"] = (abs(
+            n * stage - pipe["world_1_stage_param_bytes"]), 0)
+        q[f"rank{i}.allocated_over_block_and_replicated"] = (
+            pipe["allocated_after_drop"][i] - stage
+            - pipe["replicated_param_bytes"][i] - batch_bytes, slack)
+    _check("MULTICARD_PIPELINE_CHECK", q)
+    h = lambda k, i=0: res[i]["hybrid/" + k]  # noqa: E731
+    tags = ("fp32", "int8_auto", "int8_none")
+    hyb = {t: {k: (h(f"{t}.{k}").tolist()
+                   if np.asarray(h(f"{t}.{k}")).ndim else
+                   float(h(f"{t}.{k}")))
+               for k in ("losses", "wire_bytes_per_step",
+                         "predicted_wire_bytes", "axis_dp_wire_bytes",
+                         "predicted_axis_dp", "axis_mp_wire_bytes",
+                         "predicted_axis_mp", "gather_wire_bytes_per_step",
+                         "predicted_gather_wire_bytes",
+                         "resident_param_bytes", "predicted_param_bytes",
+                         "compiles")}
+           for t in tags}
+    hyb["matrix"] = {"compiles": [int(h("matrix.compiles0")),
+                                  int(h("matrix.compiles1"))],
+                     "cause": str(h("matrix.cause"))}
+    log("MULTICARD_HYBRID " + json.dumps(hyb))
+    fp32 = np.asarray(hyb["fp32"]["losses"])
+    q = {"int8_wire_over_fp32": (hyb["int8_auto"]["wire_bytes_per_step"]
+                                 / hyb["fp32"]["wire_bytes_per_step"],
+                                 0.35 - 1e-9),
+         "matrix_rebuilds_off": (abs(hyb["matrix"]["compiles"][1] - 2), 0),
+         "matrix_cause_not_new_sharding": (
+             int(hyb["matrix"]["cause"] != "new_sharding"), 0)}
+    for t in tags:
+        v = hyb[t]
+        for a, b in (("wire_bytes_per_step", "predicted_wire_bytes"),
+                     ("axis_dp_wire_bytes", "predicted_axis_dp"),
+                     ("axis_mp_wire_bytes", "predicted_axis_mp"),
+                     ("gather_wire_bytes_per_step",
+                      "predicted_gather_wire_bytes"),
+                     ("resident_param_bytes", "predicted_param_bytes")):
+            q[f"{t}.{a}_off"] = (abs(v[a] - v[b]), 0)
+        q[f"{t}.no_mp_traffic"] = (int(v["axis_mp_wire_bytes"] <= 0), 0)
+        q[f"{t}.builds_off"] = (abs(v["compiles"] - 1), 0)
+        if t != "fp32":
+            q[f"{t}.loss_vs_fp32"] = (float(np.abs(
+                np.asarray(v["losses"]) - fp32).max()), 2e-3)
+        q[f"{t}.ranks_params_differ"] = (sum(
+            int(not np.array_equal(res[i][f"hybrid/{t}.params"],
+                                   h(f"{t}.params"))) for i in range(n)), 0)
+    _check("MULTICARD_HYBRID_CHECK", q)
+    return {"pipeline": pipe, "hybrid": hyb}
 
 
 def _multicard_fleet(n, steps=4):
@@ -8487,6 +8622,371 @@ def phase_grad_comm_stage(dp=4):
     return out
 
 
+# ------------------------------------------------------------ phase 67
+# bench.py:318 (_GPT_PRESETS["1b"]) cut into a pipeline: batch 16 as 4
+# microbatches (bench_gpt's chip batch), and the 2-layer f32 parity cut
+PIPE_GPT = dict(vocab=50257, hidden=1792, layers=24, heads=14, ffn=7168,
+                seq=1024, dropout=0.1, batch=16, microbatches=4)
+PIPE_GPT_PARITY = dict(PIPE_GPT, layers=2, dropout=0.0, batch=2,
+                       microbatches=2)
+PIPE_RTOL = 1e-4
+# the pipeline leg of phase 18: the 1b widths, 2 blocks a stage over 4
+# cards, f32, dropout 0, batch 8 as 8 microbatches of one row
+MULTI_PIPE = dict(PIPE_GPT, layers=8, dropout=0.0, batch=8, microbatches=8)
+
+
+def _pipe_layers(torch, cfg, device, seed=67):
+    """``build_gpt_pipeline`` at ``cfg`` from ``seed``: (stage, embed,
+    head)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.testing.models import build_gpt_pipeline
+    pt.seed(seed)
+    return build_gpt_pipeline(cfg["vocab"], cfg["hidden"], cfg["layers"],
+                              cfg["heads"], cfg["ffn"], cfg["seq"],
+                              cfg["dropout"], device=device)
+
+
+def _pipe_trainer(torch, layers, cfg, lr, clip=False, bf16=False):
+    """The slice's entry points: ``stack_stage_params`` ->
+    ``pipeline_train_fn`` (pp 1, ``cfg["microbatches"]``, remat on) and
+    AdamW over the stack, the embedding and the head; returns
+    ``step(ids, labels) -> loss`` and the parameters it trains.  The
+    stage's own module is dropped: the stack holds its weights."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.parallel import pipeline_train_fn, \
+        stack_stage_params
+    from paddle_tpu_torch.testing.models import gpt_pipeline_loss
+    stage, embed, head = layers
+    stacked, _ = stack_stage_params([stage])
+    fn = pipeline_train_fn(stage, gpt_pipeline_loss(cfg["vocab"]), 1,
+                           cfg["microbatches"], embed_layer=embed,
+                           head_layer=head, remat=True)
+    layers[0] = None
+    del stage
+    ep, hp = list(embed.parameters()), list(head.parameters())
+    params = list(stacked) + ep + hp
+    opt = optimizer.AdamW(
+        learning_rate=lr, parameters=params, weight_decay=0.01,
+        grad_clip=optimizer.ClipGradByGlobalNorm(1.0) if clip else None,
+        multi_precision=bf16)
+
+    def step(ids, labels):
+        loss = fn(stacked, ids, labels, ep, hp)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+    return step, params, opt
+
+
+@_keeps_global_state
+def phase_pipeline_gpt_parity(steps=2):
+    """67 pipeline_gpt_parity: the pipelined GPT at the 1b widths cut to
+    2 layers (f32, dropout 0, batch 2 as 2 microbatches, remat on), 2
+    AdamW steps through ``stack_stage_params`` / ``pipeline_train_fn``
+    on the card, against the same model unpipelined through
+    ``jit.TrainStep`` on the card and against the pipeline on the CPU,
+    losses at rtol 1e-4; K1f launched twice a layer and microbatch a
+    step (once recomputed), each K1b once."""
+    import torch
+    from paddle_tpu_torch import distributed as dist, jit, optimizer
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.testing.models import gpt_pipeline_loss
+    cfg = PIPE_GPT_PARITY
+    prev_mesh = dist.get_mesh()
+    dist.init_mesh({"pp": 1})
+    try:
+        t0 = time.perf_counter()
+        state = [{k: v.detach().clone() for k, v in m.state_dict().items()}
+                 for m in _pipe_layers(torch, cfg, "cpu")]
+        losses, counts = {}, {}
+        for dev in ("cpu", "cuda"):
+            layers = list(_pipe_layers(torch, cfg, dev))
+            for m, sd in zip(layers, state):
+                m.load_state_dict({k: v.to(dev) for k, v in sd.items()})
+            step, _, _ = _pipe_trainer(torch, layers, cfg, 1e-4)
+            x, y = _bench_batch(torch, cfg, dev)
+            x, y = x.long(), y.long()
+            support.reset_launch_counts()
+            losses[dev] = [float(step(x, y)) for _ in range(steps)]
+            counts[dev] = dict(support.launch_counts)
+            del step, layers
+        # the same model unpipelined: embed -> blocks -> head in one
+        # TrainStep on the card
+        stage, embed, head = _pipe_layers(torch, cfg, "cuda")
+        for m, sd in zip((stage, embed, head), state):
+            m.load_state_dict({k: v.cuda() for k, v in sd.items()})
+        whole = torch.nn.Sequential(embed, stage, head)
+        ts = jit.TrainStep(whole, gpt_pipeline_loss(cfg["vocab"]),
+                           optimizer.AdamW(learning_rate=1e-4,
+                                           parameters=whole.parameters(),
+                                           weight_decay=0.01))
+        x, y = _bench_batch(torch, cfg, "cuda")
+        x, y = x.long(), y.long()
+        losses["train_step"] = [float(ts(x, y)) for _ in range(steps)]
+        del whole, ts, stage, embed, head
+        torch.cuda.empty_cache()
+        rel = lambda a, b: max(abs(u - v) / abs(v)  # noqa: E731
+                               for u, v in zip(a, b))
+        per = cfg["layers"] * cfg["microbatches"] * steps
+        want = dict(zip(FLASH_KERNELS, (2 * per, per, per)))
+        out = {"config": cfg, "losses": losses,
+               "launches": counts["cuda"], "launches_want": want,
+               "seconds": time.perf_counter() - t0}
+        log("PIPELINE_GPT_PARITY " + json.dumps(out))
+        _check("PIPELINE_GPT_PARITY_CHECK", {
+            "card_vs_train_step_rel": (rel(losses["cuda"],
+                                           losses["train_step"]), PIPE_RTOL),
+            "card_vs_cpu_rel": (rel(losses["cuda"], losses["cpu"]),
+                                PIPE_RTOL),
+            **{f"launches_off.{k}": (abs(counts["cuda"].get(k, 0) - n), 0)
+               for k, n in want.items()}})
+    finally:
+        dist.set_mesh(prev_mesh)
+
+
+# ------------------------------------------------------------ phase 68
+def _resident_bytes(params, opt):
+    slots = sum(t.numel() * t.element_size()
+                for st in (opt._states or {}).values() for t in st.values()
+                if hasattr(t, "numel"))
+    return sum(p.numel() * p.element_size() for p in params), slots
+
+
+@_keeps_global_state
+def phase_pipeline_gpt_training(warmup=2, steps=6):
+    """68 pipeline_gpt_training: the pipelined GPT at the 1b widths,
+    uncut (24 blocks as one stage, the embedding first, an untied head
+    last; batch 16 as 4 microbatches of 4, seq 1024, dropout 0.1, remat
+    on), O2 bf16 with f32 masters, AdamW(2e-4, wd 0.01) with a
+    global-norm clip 1.0, at world size 1 (pp 1): 2 warm-up and 6 timed
+    steps, every loss finite, the first near ln(vocab), per step 192 K1f
+    launches (24 blocks x 4 microbatches, doubled by the recompute) and
+    96 of each K1b; the step p50, the peak memory and the bytes the
+    trainer holds.  Then K1f and K1b at the microbatch's attention shape
+    (B 4, L 1024, H 14, D 128, bf16, causal, dropout 0.1) against the
+    plain version, and timed beside their bound and SDPA's."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import amp, distributed as dist
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.testing.models import gpt_flops_per_step
+    cfg = PIPE_GPT
+    prev_mesh = dist.get_mesh()
+    dist.init_mesh({"pp": 1})
+    try:
+        t0 = time.perf_counter()
+        layers = list(_pipe_layers(torch, cfg, "cuda", seed=2024))
+        amp.decorate(layers, level="O2", dtype="bfloat16")
+        step, params, opt = _pipe_trainer(torch, layers, cfg, 2e-4,
+                                          clip=True, bf16=True)
+        batch = tuple(t.long() for t in _bench_batch(torch, cfg, "cuda"))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms, counts = _train_steps(torch, step, batch,
+                                               warmup + steps)
+        peak = torch.cuda.max_memory_allocated()
+        param_bytes, slot_bytes = _resident_bytes(params, opt)
+        allocated = torch.cuda.memory_allocated()
+        timed = step_ms[warmup:]
+        mean_ms = sum(timed) / len(timed)
+        tokens = cfg["batch"] * cfg["seq"]
+        flops = gpt_flops_per_step(cfg["vocab"], cfg["hidden"],
+                                   cfg["layers"], cfg["seq"], cfg["batch"],
+                                   cfg["ffn"])
+        runs = warmup + steps
+        per = cfg["layers"] * cfg["microbatches"]
+        want = dict(zip(FLASH_KERNELS, (2 * per * runs, per * runs,
+                                        per * runs)))
+        out = {"config": cfg, "dtype": "bfloat16 O2, f32 master weights",
+               "pipeline": f"pp 1: {cfg['layers']} blocks one stage, "
+                           f"embedding first, untied head last, "
+                           f"{cfg['microbatches']} microbatches, remat",
+               "params": sum(p.numel() for p in params),
+               "setup_s": setup_s, "warmup_steps": warmup,
+               "timed_steps": steps, "losses": losses, "step_ms": timed,
+               "step_ms_p50": float(np.median(timed)),
+               "step_ms_mean": mean_ms, "first_steps_ms": step_ms[:warmup],
+               "tokens_per_s": tokens / (mean_ms / 1e3),
+               "model_flops_per_step": flops,
+               "mfu": flops / (mean_ms / 1e3) / PEAK_OPS["bfloat16"],
+               "max_memory_allocated": peak,
+               "memory_allocated_after": allocated,
+               "param_bytes": param_bytes, "slot_bytes": slot_bytes,
+               "launches": counts, "launches_want": want,
+               "device": nvidia_smi()}
+        log("PIPELINE_GPT_TRAIN " + json.dumps(out))
+        _check("PIPELINE_GPT_TRAIN_CHECK", {
+            "non_finite_losses": (sum(not math.isfinite(v)
+                                      for v in losses), 0),
+            "first_loss_from_ln_vocab": (abs(losses[0] - math.log(
+                cfg["vocab"])), 1.0),
+            **{f"launches_off.{k}": (abs(counts.get(k, 0) - n), 0)
+               for k, n in want.items()}})
+        x, y = batch
+        per_step = {k: n // runs for k, n in want.items()}
+        anatomy = _step_anatomy(
+            "PIPELINE_GPT_ANATOMY", lambda: step(x, y), 2, lambda n: (
+                "flash_fwd" if "flash_fwd_" in n else
+                "flash_bwd" if "flash_bwd_" in n else
+                "gemm" if _is_gemm(n) else
+                "loss" if ("softmax" in n or "nll" in n) else
+                "optimizer" if ("foreach" in n or "multi_tensor" in n)
+                else "other"), wgmma_flash=True, timed_ms=timed)
+        flash = {k: v for k, v in anatomy.items() if k.startswith("flash_")}
+        wgmma = {"flash_fwd_wgmma_kernel": per_step["flash_attention_fwd"],
+                 "flash_bwd_dq_wgmma_kernel":
+                     per_step["flash_attention_bwd_dq"],
+                 "flash_bwd_dkv_wgmma_kernel":
+                     per_step["flash_attention_bwd_dkv"]}
+        _check("PIPELINE_GPT_ANATOMY_CHECK", {
+            f"{k}_launches_off": (abs(flash.get(k, 0) - n), 0)
+            for k, n in wgmma.items()})
+        del step, params, opt, layers
+        torch.cuda.empty_cache()
+        # the flash entry at the microbatch's attention shape
+        mb = cfg["batch"] // cfg["microbatches"]
+        H = cfg["heads"]
+        D = cfg["hidden"] // H
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(68)
+        errs = _flash_case(torch, gen, mb, cfg["seq"], H, D, torch.bfloat16,
+                           True, cfg["dropout"], 1234, 1)
+        log("FLASH_CHECK " + json.dumps({
+            "case": f"B={mb} L={cfg['seq']} H={H} D={D} bfloat16 "
+                    f"causal=True dropout={cfg['dropout']}",
+            "errors": errs, "tol": FLASH_TOL["bfloat16"]}))
+        _check("PIPELINE_FLASH_CHECK", {
+            f"{k}_rel_err": (v, FLASH_TOL["bfloat16"])
+            for k, v in errs.items()})
+        rows = _flash_time_rows(torch, gen, mb, cfg["seq"], H, D,
+                                torch.bfloat16, True, cfg["dropout"], 1234)
+        for name, row in rows.items():
+            row["launches_per_step"] = want[name] // runs
+            row["max_abs_err_bf16"] = max(errs.values())
+        return {k: counts.get(k, 0) for k in FLASH_KERNELS}, rows
+    finally:
+        dist.set_mesh(prev_mesh)
+
+
+# ------------------------------------------------------------ phase 69
+@_keeps_global_state
+def phase_localsgd_bert(steps=3):
+    """69 localsgd_bert: LocalSGD (k 2, begin 1) through
+    ``fleet.get_train_step`` on bench_bert's CPU widths (bench.py:167,
+    f32, dropout 0) at world size 1, on the card: one replica, so its
+    losses are ``jit.TrainStep``'s from the same weights (rtol 1e-5),
+    and each attention call launches K1f and both K1b kernels."""
+    import torch
+    from paddle_tpu_torch import distributed as dist, jit, optimizer
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.parallel import LocalSGDTrainStep
+    from paddle_tpu_torch.testing.models import build_model, mlm_loss
+    cfg = BERT_CPU
+    prev_mesh = dist.get_mesh()
+    dist.init_mesh({"dp": 1})
+    try:
+        import paddle_tpu_torch as pt
+        pt.seed(69)
+        models = [build_model(cfg["vocab"], cfg["hidden"], cfg["layers"],
+                              cfg["heads"], cfg["ffn"], cfg["seq"], 0.0,
+                              device="cuda") for _ in range(2)]
+        models[1].load_state_dict(models[0].state_dict())
+        x, y = _bench_batch(torch, cfg, "cuda")
+        f = dist.Fleet()
+        s = dist.DistributedStrategy()
+        s.localsgd = True
+        s.localsgd_configs = {"k_steps": 2, "begin_step": 1}
+        f.init(strategy=s)
+        f.distributed_optimizer(optimizer.AdamW(
+            learning_rate=1e-4, parameters=models[0].parameters(),
+            weight_decay=0.01))
+        local = f.get_train_step(models[0], mlm_loss(models[0]))
+        support.reset_launch_counts()
+        got = [float(local(x, y)) for _ in range(steps)]
+        counts = dict(support.launch_counts)
+        base = jit.TrainStep(models[1], mlm_loss(models[1]), optimizer.AdamW(
+            learning_rate=1e-4, parameters=models[1].parameters(),
+            weight_decay=0.01))
+        want = [float(base(x, y)) for _ in range(steps)]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        per = cfg["layers"] * steps
+        out = {"config": dict(cfg, dropout=0.0), "kind": type(local).__name__,
+               "losses_localsgd": got, "losses_train_step": want,
+               "launches": counts}
+        log("LOCALSGD_BERT " + json.dumps(out))
+        _check("LOCALSGD_BERT_CHECK", {
+            "not_localsgd": (int(not isinstance(local, LocalSGDTrainStep)),
+                             0),
+            "loss_rel_err": (rel, 1e-5),
+            **{f"launches_off.{k}": (abs(counts.get(k, 0) - per), 0)
+               for k in FLASH_KERNELS}})
+        return {k: counts.get(k, 0) for k in FLASH_KERNELS}
+    finally:
+        dist.set_mesh(prev_mesh)
+
+
+# ------------------------------------------------------------ phase 70
+@_keeps_global_state
+def phase_sharded_embedding(steps=2):
+    """70 sharded_embedding: part D of the dryrun at world size 1 on the
+    card: ``ShardedEmbedding(4096, 32)`` and a Linear(32, 8) head under
+    ``SpmdTrainStep`` (Adam 0.1), 2 steps on ids in [0, 256): losses
+    finite, the rows no id reached unchanged bit for bit, the touched
+    ones moved."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import distributed as dist, nn, optimizer
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.parallel import ShardedEmbedding, SpmdTrainStep
+    prev_mesh = dist.get_mesh()
+    mesh = dist.init_mesh({"dp": 1})
+    try:
+        import paddle_tpu_torch as pt
+        pt.seed(77)
+
+        class EmbNet(nn.Layer):
+            def __init__(self):
+                super().__init__()
+                self.emb = ShardedEmbedding(4096, 32, axis="dp",
+                                            device="cuda")
+                self.head = nn.Linear(32, 8, device="cuda")
+
+            def forward(self, ids):
+                return self.head(self.emb(ids).mean(axis=1))
+
+        net = EmbNet()
+        before = net.emb.weight.detach().clone()
+        step = SpmdTrainStep(net, lambda o, l: F.cross_entropy(o, l),
+                             optimizer.Adam(learning_rate=0.1,
+                                            parameters=net.parameters()),
+                             mesh=mesh)
+        r = np.random.RandomState(11)
+        ids = torch.from_numpy(r.randint(0, 256, (8, 16))).cuda()
+        lab = torch.from_numpy(np.random.RandomState(12).randint(
+            0, 8, (8,))).cuda()
+        losses = [float(step(ids, lab)) for _ in range(steps)]
+        after = net.emb.weight.detach()
+        hit = torch.zeros(4096, dtype=torch.bool, device="cuda")
+        hit[ids.reshape(-1)] = True
+        changed_untouched = int((after[~hit] != before[~hit]).any(
+            dim=1).sum())
+        moved = int((after[hit] != before[hit]).any(dim=1).sum())
+        out = {"losses": losses, "touched_rows": int(hit.sum()),
+               "touched_rows_moved": moved,
+               "untouched_rows_changed": changed_untouched}
+        log("SHARDED_EMBEDDING " + json.dumps(out))
+        _check("SHARDED_EMBEDDING_CHECK", {
+            "non_finite_losses": (sum(not math.isfinite(v)
+                                      for v in losses), 0),
+            "untouched_rows_changed": (changed_untouched, 0),
+            "touched_rows_not_moved": (int(hit.sum()) - moved, 0)})
+    finally:
+        dist.set_mesh(prev_mesh)
+
+
 def _instance_row(row):
     """One instance of a kernel (a path's shape), for the kernels
     line."""
@@ -8619,6 +9119,11 @@ def main():
         shutil.rmtree(artifacts, ignore_errors=True)
     fleet_launches = timed("fleet_static_gpt", phase_fleet_static_gpt)
     timed("grad_comm_stage", phase_grad_comm_stage)
+    timed("pipeline_gpt_parity", phase_pipeline_gpt_parity)
+    pipe_launches, pipe_rows = timed("pipeline_gpt_training",
+                                     phase_pipeline_gpt_training)
+    lsgd_launches = timed("localsgd_bert", phase_localsgd_bert)
+    timed("sharded_embedding", phase_sharded_embedding)
     seconds["total"] = time.perf_counter() - t0
     log("PHASE_SECONDS " + json.dumps(seconds))
     f32_err = max(r["max_abs_err"] for r in kernel_rows
@@ -8667,6 +9172,7 @@ def main():
                          + gpt760_launches[name] + sgpt_launches[name]
                          + nmt_launches[name] + decode_launches
                          + lamb_launches[name] + pallas_launches[name]
+                         + pipe_launches[name] + lsgd_launches[name]
                          + sum(by_path.values())),
             "launches_by_entry": {"flash_attention": flash_launches[name],
                                   "flash_attention_block":
@@ -8681,6 +9187,10 @@ def main():
                                   "8 tokens)": decode_launches,
                                   "flash_attention (LAMB bert)":
                                       lamb_launches[name],
+                                  "flash_attention (pipelined gpt 1b)":
+                                      pipe_launches[name],
+                                  "flash_attention (LocalSGD bert)":
+                                      lsgd_launches[name],
                                   "ops.pallas.flash_attention":
                                       pallas_launches[name]},
             "launches_by_path": by_path,
@@ -8698,6 +9208,9 @@ def main():
                for extra in ("gpt_760m", "static_f32")},
             "static_gpt": _instance_row(sgpt_rows[name]),
             "translation": _instance_row(nmt_rows[name]),
+            "pipeline_gpt_1b": dict(
+                _instance_row(pipe_rows[name]),
+                launches_per_step=pipe_rows[name]["launches_per_step"]),
             **({"translation_decode": [_instance_row(d)
                                        for d in nmt_decode_rows],
                 "predictor_bert": _instance_row(pred_k1f)}
@@ -8768,8 +9281,9 @@ def main_phase7(runs):
 
 def main_multicard():
     """``--multicard``: phase 18 alone (the hybrid GPT and, on four
-    cards, the fleet leg) on every card the machine shows: the one path
-    of this script that spans cards, without the single-card phases."""
+    cards, the fleet, pipeline and hybrid {dp, mp} legs) on every card
+    the machine shows: the one path of this script that spans cards,
+    without the single-card phases."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

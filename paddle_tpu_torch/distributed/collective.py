@@ -26,7 +26,11 @@ Two kinds of function:
   :func:`scatter_to_group` (this rank's slice; backward all-gather) and
   :func:`gather_from_group` (all-gather; backward this rank's slice).
   They are right when what the group computes downstream is replicated
-  over it: every rank then holds the same cotangent.
+  over it: every rank then holds the same cotangent.  :func:`psum` is
+  ``jax.lax.psum`` as ``shard_map`` differentiates it: all-reduce both
+  ways, so a cotangent that only some ranks hold (the rank that uses a
+  broadcast value) reaches every rank, and a mask before the psum sends
+  it to the rank that owns the value.
 """
 from __future__ import annotations
 
@@ -42,7 +46,8 @@ __all__ = ["ReduceOp", "Group", "axis_group", "new_group", "get_group",
            "in_spmd", "broadcast", "reduce",
            "reduce_scatter", "scatter", "alltoall", "send", "recv", "shift",
            "collective_permute", "spmd", "ppermute", "copy_to_group",
-           "reduce_from_group", "scatter_to_group", "gather_from_group"]
+           "reduce_from_group", "scatter_to_group", "gather_from_group",
+           "psum"]
 
 
 class ReduceOp:
@@ -371,6 +376,17 @@ class _ReduceFromGroup(torch.autograd.Function):
         return dy, None
 
 
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x.contiguous().clone(), group=group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return all_reduce(dy.contiguous().clone(), group=ctx.group), None
+
+
 def _my_slice(x, g: Group, dim: int):
     return x.chunk(g.nranks, dim=dim)[g.rank]
 
@@ -433,3 +449,13 @@ def gather_from_group(x, group, dim: int = -1):
     this rank's slice (the consumers are replicated, so no sum)."""
     g = _resolve(group)
     return x if g.nranks == 1 else _GatherFromGroup.apply(x, g, _dim(x, dim))
+
+
+def psum(x, group):
+    """All-reduce (sum) forward and backward: the transpose of a sum over
+    the group is the sum of the cotangents.  Where only the ranks that
+    consume the result hold a cotangent, each rank gets their sum (a mask
+    applied before the psum then keeps it on the rank whose value was
+    broadcast)."""
+    g = _resolve(group)
+    return x if g.nranks == 1 else _PSum.apply(x, g)

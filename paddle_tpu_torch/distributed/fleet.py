@@ -127,7 +127,7 @@ class Fleet:
         raise NotImplementedError(
             "Parameter-server mode is not carried, as in paddle_tpu: the "
             "parameter-server capability is the mesh-sharded embedding "
-            "table (parallel.ShardedEmbedding, slice A5b)")
+            "table (parallel.ShardedEmbedding)")
 
     def stop_worker(self):
         pass
@@ -174,24 +174,27 @@ class Fleet:
         return DataParallel(model)
 
     def get_train_step(self, model, loss_fn, optimizer=None, n_inputs=1):
-        """The strategy as one ``SpmdTrainStep``.  LocalSGD and adaptive
-        LocalSGD (a per-replica step) come with slice A5b."""
+        """The strategy as one ``SpmdTrainStep``; ``strategy.localsgd``
+        / ``adaptive_localsgd`` route to the per-replica
+        ``LocalSGDTrainStep`` instead."""
         opt = optimizer or self._optimizer
         s = self._strategy or DistributedStrategy()
         if s.localsgd or s.adaptive_localsgd:
-            raise NotImplementedError(
-                "fleet.get_train_step: strategy.localsgd / "
-                "adaptive_localsgd (LocalSGDTrainStep) is not ported to "
-                "paddle_tpu_torch yet (slice A5b)")
-        from ..parallel.spmd_train_step import SpmdTrainStep
-        step = SpmdTrainStep(model, loss_fn, opt, mesh=ensure_mesh(),
-                             strategy=s, n_inputs=n_inputs, donate=True)
+            from ..parallel.localsgd import LocalSGDTrainStep
+            step = LocalSGDTrainStep(model, loss_fn, opt, mesh=ensure_mesh(),
+                                     strategy=s, n_inputs=n_inputs,
+                                     adaptive=s.adaptive_localsgd)
+        else:
+            from ..parallel.spmd_train_step import SpmdTrainStep
+            step = SpmdTrainStep(model, loss_fn, opt, mesh=ensure_mesh(),
+                                 strategy=s, n_inputs=n_inputs, donate=True)
         self._train_step = step
         return step
 
     def _sync_step_params(self):
         """Write the step's authoritative weights back into the model
-        before a persistence read (ZeRO-3's padded shards)."""
+        before a persistence read (LocalSGD's replicas, ZeRO-3's
+        shards)."""
         step = getattr(self, "_train_step", None)
         if step is not None:
             step.sync_params()

@@ -615,22 +615,24 @@ def plan_for_params(named_params, strategy=None, mesh: Optional[Mesh] = None,
 # ---------------------------------------------------------------------------
 
 class ParamShards:
-    """ZeRO-3 parameters between steps: each holds only this rank's
-    dim-0 rows, and a step gathers them back just before its forward.
+    """Sharded parameters between steps: each holds only this rank's
+    block along one dim (ZeRO-3: the dim-0 rows over 'dp'; a
+    tensor-parallel parameter of the hybrid static step: its chunk over
+    'mp'), and a step gathers them back just before its forward.
 
-    While a parameter rests, its ``data`` is the rows (dim 0 padded to a
-    multiple of the group's size where given) and it carries the
+    While a parameter rests, its ``data`` is the block (dim 0 padded to
+    a multiple of the group's size where given) and it carries the
     ``global_shape`` it stands for, as every sharded tensor of the port
-    does; the static analysis prices it by that shape.  The rows are
+    does; the static analysis prices it by that shape.  The block is
     what the update writes.
 
-    - :meth:`rows` gives the rows the update writes: the stored ones, or,
-      when the parameter holds its full value (its first step, or after
-      :meth:`sync`), a copy of this rank's rows of it;
-    - :meth:`materialize` gathers every resting parameter's rows from
+    - :meth:`rows` gives the block the update writes: the stored one,
+      or, when the parameter holds its full value (its first step, or
+      after :meth:`sync`), a copy of this rank's block of it;
+    - :meth:`materialize` gathers every resting parameter's blocks from
       the ranks of its group into a full value for one step (a
       collective: every rank calls it, in the same order);
-    - :meth:`release` puts each parameter back to its rows;
+    - :meth:`release` puts each parameter back to its block;
     - :meth:`sync` (``sync_params``) gathers them for good: the
       parameters hold their full values again and are what the next
       step reads, so an outside write into them is kept.
@@ -640,41 +642,48 @@ class ParamShards:
     call :meth:`sync_params` first, as paddle_tpu's do."""
 
     def __init__(self):
-        # id(p) -> [p, rows, d0, padded d0, group]
+        # id(p) -> [p, block, d0, padded d0, group, dim]
         self._ent: Dict[int, list] = {}
 
     def resting(self, p) -> bool:
-        """True while ``p`` holds only its rows."""
+        """True while ``p`` holds only its block."""
         e = self._ent.get(id(p))
         return (e is not None and tuple(p.shape) == tuple(e[1].shape)
                 and p.data_ptr() == e[1].data_ptr())
 
-    def rows(self, p, group, padded_d0: Optional[int] = None):
+    def rows(self, p, group, padded_d0: Optional[int] = None,
+             dim: int = 0):
         e = self._ent.get(id(p))
         if e is not None:
             return e[1]
         n, r = group.nranks, group.rank
         t = p.detach()
-        d0 = int(t.shape[0])
+        dim = dim % t.dim()
+        d0 = int(t.shape[dim])
         pd0 = int(padded_d0 or d0)
-        if pd0 != d0:
+        if pd0 != d0:              # dim 0 only (ZeRO-3's padded rows)
             t = torch.nn.functional.pad(
                 t, [0, 0] * (t.dim() - 1) + [0, pd0 - d0])
         per = pd0 // n
-        rows = t[r * per:(r + 1) * per].clone()
-        self._ent[id(p)] = [p, rows, d0, pd0, group]
+        rows = t.narrow(dim, r * per, per).clone()
+        self._ent[id(p)] = [p, rows, d0, pd0, group, dim]
         return rows
 
     def _full(self, e):
         import torch.distributed as dist
-        p, rows, d0, pd0, g = e
-        full = rows.new_empty((pd0,) + tuple(rows.shape[1:]))
-        dist.all_gather(list(full.chunk(g.nranks)), rows.contiguous(),
-                        group=g.process_group)
-        return full[:d0] if pd0 != d0 else full
+        p, rows, d0, pd0, g, dim = e
+        if dim == 0:
+            full = rows.new_empty((pd0,) + tuple(rows.shape[1:]))
+            dist.all_gather(list(full.chunk(g.nranks)), rows.contiguous(),
+                            group=g.process_group)
+            return full[:d0] if pd0 != d0 else full
+        parts = [torch.empty_like(rows) for _ in range(g.nranks)]
+        dist.all_gather(parts, rows.contiguous(), group=g.process_group)
+        return torch.cat(parts, dim=dim)
 
     def materialize(self, params) -> list:
-        """Gather each resting parameter of ``params``; returns them."""
+        """Gather each resting parameter of ``params``, in their order;
+        returns them."""
         out = []
         for p in params:
             if self.resting(p):
@@ -691,7 +700,9 @@ class ParamShards:
             if e is None or self.resting(p):
                 continue
             p.data = e[1]
-            p.global_shape = (e[2],) + tuple(e[1].shape[1:])
+            shape = list(e[1].shape)
+            shape[e[5]] = e[2]
+            p.global_shape = tuple(shape)
             p._param_owner_step = weakref.ref(self)
 
     def sync(self, params=None) -> None:

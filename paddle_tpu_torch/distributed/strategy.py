@@ -2,15 +2,16 @@
 ``paddle_tpu/distributed/strategy.py``): the toggles and ``*_configs``
 that ``SpmdTrainStep`` reads, and :func:`validate_toggles`.
 
-The port carries data, tensor and sequence parallelism, ZeRO 1-3
-(``sharding``) and the gradient-communication stage (``grad_comm`` and
-its bf16 alias ``fp16_allreduce``), with the LAMB/LARS optimizer swaps.
-A toggle whose machinery is not ported yet raises
-``NotImplementedError`` naming it and the slice that brings it (A5b),
-never a silent no-op: ``gradient_merge``, ``recompute``, ``amp`` (use
-``amp.decorate`` on the model and optimizer), ``pipeline``,
-``localsgd`` / ``adaptive_localsgd``; as in the JAX package, ``dgc``
-and ``a_sync`` raise for good.
+The port carries every toggle of the JAX package's: data, tensor,
+sequence and pipeline parallelism (``pipeline`` shapes the mesh; the
+schedule is ``parallel.pipeline``'s), ZeRO 1-3 (``sharding``), the
+gradient-communication stage (``grad_comm`` and its bf16 alias
+``fp16_allreduce``), ``gradient_merge``, ``recompute`` and ``amp``
+through ``SpmdTrainStep``, ``localsgd`` / ``adaptive_localsgd`` through
+``fleet.get_train_step`` (``parallel.LocalSGDTrainStep``), and the
+LAMB/LARS optimizer swaps.  As in the JAX package, ``dgc`` and
+``a_sync`` raise, and so does ``pipeline_configs.schedule_mode =
+'F-then-B'``.
 """
 from __future__ import annotations
 
@@ -47,6 +48,18 @@ class ShardingConfig:
     fuse_broadcast_MB: float = 32.0
     hybrid_dp: bool = False
     min_shard_numel: int = 1024
+
+
+@dataclass
+class LocalSGDConfig:
+    k_steps: int = 1
+    begin_step: int = 1
+
+
+@dataclass
+class AdaptiveLocalSGDConfig:
+    init_k_steps: int = 1
+    begin_step: int = 1
 
 
 @dataclass
@@ -109,6 +122,8 @@ class DistributedStrategy:
         "pipeline_configs": PipelineConfig,
         "tensor_parallel_configs": TensorParallelConfig,
         "gradient_merge_configs": GradientMergeConfig,
+        "localsgd_configs": LocalSGDConfig,
+        "adaptive_localsgd_configs": AdaptiveLocalSGDConfig,
         "sequence_parallel_configs": SequenceParallelConfig,
         "lamb_configs": LambConfig,
         "lars_configs": LarsConfig,
@@ -196,21 +211,11 @@ class DistributedStrategy:
         return f"DistributedStrategy(enabled={on})"
 
 
-_NOT_PORTED = (
-    ("gradient_merge", "in-step micro-batch accumulation"),
-    ("recompute", "activation recompute"),
-    ("amp", "mixed precision through the strategy (use amp.decorate "
-            "on the model and optimizer)"),
-    ("pipeline", "pipeline parallelism"),
-    ("localsgd", "LocalSGD"),
-    ("adaptive_localsgd", "adaptive LocalSGD"),
-)
-
-
 def validate_toggles(strategy: DistributedStrategy,
                      n_devices: Optional[int] = None) -> None:
-    """Raise on a toggle this port does not carry and on knobs out of
-    range; with ``n_devices`` also on degrees that do not divide it."""
+    """Raise on a toggle the port does not carry (dgc, a_sync, the
+    F-then-B schedule) and on knobs out of range; with ``n_devices``
+    also on degrees that do not divide it."""
     from ..core.enforce import InvalidArgumentError
     if n_devices is not None:
         strategy.infer_mesh_shape(int(n_devices))
@@ -267,11 +272,6 @@ def validate_toggles(strategy: DistributedStrategy,
                 f"collectives the stage cannot carry.  Disable grad_comm "
                 f"(leave its dtype None) on pp/sp meshes, or drop the "
                 f"pp/sp degrees.")
-    for name, what in _NOT_PORTED:
-        if getattr(strategy, name):
-            raise NotImplementedError(
-                f"strategy.{name}: {what} is not ported to "
-                f"paddle_tpu_torch yet (slice A5b)")
     if strategy.dgc:
         raise NotImplementedError(
             "strategy.dgc: deep gradient compression is not carried, as "
@@ -282,3 +282,17 @@ def validate_toggles(strategy: DistributedStrategy,
         raise NotImplementedError(
             "strategy.a_sync: async parameter-server training is not "
             "carried, as in paddle_tpu")
+    sm = strategy.pipeline_configs.schedule_mode
+    if sm not in ("1F1B", "F-then-B"):
+        raise ValueError(
+            f"pipeline_configs.schedule_mode must be '1F1B' or "
+            f"'F-then-B' (section_worker.cc:115-127), got {sm!r}")
+    if strategy.pipeline and sm == "F-then-B":
+        raise NotImplementedError(
+            "pipeline_configs.schedule_mode='F-then-B': the pipeline "
+            "(parallel/pipeline.py) differentiates one fill-drain "
+            "schedule, which collapses the F-then-B/1F1B distinction — "
+            "the backward schedule is derived by autodiff and in-flight "
+            "state is O(microbatch) either way.  There is no separate "
+            "all-forwards-then-all-backwards executor to select, so this "
+            "knob cannot take effect; keep the default '1F1B'.")

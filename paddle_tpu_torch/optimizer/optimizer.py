@@ -316,6 +316,11 @@ class Optimizer:
         """Load :meth:`state_dict`'s output (tensors or arrays); slots go
         to their parameter's device."""
         self._step_count = int(state.get("step", 0))
+        # a bound step that keeps its own state (LocalSGD's replicas)
+        # starts again from the loaded counter and the model's weights
+        bound = getattr(self, "_bound_train_step", None)
+        if bound is not None:
+            bound._scaler_state = None
         slots = state.get("slots", {})
         if self._states is None:
             self._states = {}

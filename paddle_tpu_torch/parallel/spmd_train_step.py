@@ -30,6 +30,17 @@ computation that feeds them is replicated there too (each TP layer's
 output is full on every mp rank, ring attention's on every sp rank), so
 their gradients already agree.  The tests hold them equal across ranks.
 
+The strategy's ``gradient_merge`` (``k_steps`` micro-batches a step),
+``recompute`` (the loss's forward as one recomputed segment) and ``amp``
+(``auto_cast`` at O1, or O2 under ``use_pure_fp16``, in
+``amp_configs.dtype``; float16 with a ``GradScaler`` from the configs)
+are ``jit.TrainStep``'s own, as the JAX step wires them.
+
+A parameter whose placement cuts it over 'dp' (``ShardedEmbedding``)
+holds its own rows, and its lookup's backward already sums every rank's
+cotangents into them: its gradient is divided by the dp size, not
+averaged over ranks.
+
 Optimizer, O2 master weights and the global-norm clip are the port's
 own (``jit.TrainStep``); the clip sums the squares of mp-sharded
 gradients over 'mp' (:mod:`..optimizer.clip`), not each rank's share.
@@ -102,8 +113,25 @@ class SpmdTrainStep(TrainStep):
                  accumulate_steps: Optional[int] = None):
         strategy = strategy or DistributedStrategy()
         validate_toggles(strategy)
+        if accumulate_steps is None:
+            accumulate_steps = (strategy.gradient_merge_configs.k_steps
+                                if strategy.gradient_merge else 1)
+        amp_level = None
+        if strategy.amp:
+            c = strategy.amp_configs
+            if scaler is None and c.dtype == "float16":
+                from ..amp import GradScaler
+                scaler = GradScaler(
+                    init_loss_scaling=c.init_loss_scaling,
+                    incr_ratio=c.incr_ratio, decr_ratio=c.decr_ratio,
+                    incr_every_n_steps=c.incr_every_n_steps,
+                    decr_every_n_nan_or_inf=c.decr_every_n_nan_or_inf,
+                    use_dynamic_loss_scaling=c.use_dynamic_loss_scaling)
+            amp_level = "O2" if c.use_pure_fp16 else "O1"
+            model._amp_dtype = c.dtype
         super().__init__(model, loss_fn, optimizer, n_inputs, donate,
-                         scaler=scaler, accumulate_steps=accumulate_steps or 1)
+                         scaler=scaler, accumulate_steps=accumulate_steps,
+                         recompute=strategy.recompute, amp_level=amp_level)
         self.mesh = mesh or ensure_mesh()
         self.strategy = strategy
         self.dp = axis_group(DP_AXIS, self.mesh)
@@ -306,10 +334,17 @@ class SpmdTrainStep(TrainStep):
                                           group=self.dp)
             return [self._rows(g) if i in rows else g
                     for i, g in enumerate(red)]
-        if not rows:
+        # a parameter whose rows are cut over 'dp' (ShardedEmbedding)
+        # holds the sum of every rank's gradient for its own rows already
+        split = {i for i, p in enumerate(self._params)
+                 if DP_AXIS in (get_placement(p) or ())}
+        if not rows and not split:
             return allreduce_gradients(grads, self.dp)
         out = []
         for i, g in enumerate(grads):
+            if i in split:
+                out.append(g / n)
+                continue
             if i not in rows:
                 out.append(_gc.sum_over(g, self.dp) / n)
                 continue

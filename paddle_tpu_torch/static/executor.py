@@ -81,8 +81,19 @@ dp = 1 nothing else changes.  At dp > 1 each rank is one process of a
   ``comm.gather.*``) and the compile record carries the bucket
   schedule.
 
-Only a dp axis may be larger than one: the hybrid {dp, mp} form (mp
-gathers over ``parallel/tp_layers.py``) is slice A5b's.
+The hybrid {dp, mp} form: a trainable whose spec cuts it over 'mp'
+(the program's ``_sharding_rules`` or a tensor-parallel placement)
+rests as this rank's chunk between runs, as a ZeRO-3 one rests as its
+rows.  A run all-gathers each such chunk over 'mp' in the reduction
+plan's gather order (the forward order) before the forward, outside the
+differentiated region, so gradients are taken with respect to the full
+values; the dp-reduced gradient is cut back to the rank's chunk along
+the gather's dim and the update writes the chunk.  Dropout draws fold
+in the dp index only, so the mp replicas of a dp group draw the same
+masks and compute the same values.  The ``comm.axis.mp.*`` statistics
+carry the mp gathers' bytes.  Other mesh axes (pp, sp) hold replicas of
+the computation; under ``grad_comm`` they are refused with paddle_tpu's
+cause string.
 :meth:`Executor.sharded_state` is the program's state as a
 ``ShardedState`` for ``SnapshotStore``.
 
@@ -180,7 +191,7 @@ class _DistStep:
     stats a run adds."""
 
     def __init__(self, plan, group, feed_specs, fetch_rules, gplan, fsdp,
-                 comm_stats):
+                 comm_stats, mp=None):
         self.plan = plan
         self.g = group
         self.dp = group.nranks
@@ -189,6 +200,8 @@ class _DistStep:
         self.gplan = gplan
         self.fsdp = frozenset(fsdp)
         self.comm_stats = comm_stats
+        # trainable position -> (dim, mp group) of the mp-cut ones
+        self.mp = dict(mp or {})
 
 
 class _State:
@@ -234,9 +247,13 @@ class Executor:
         # sharding plans per program serial:
         # (version, mesh, strategy, rules, plan)
         self._plans: Dict[int, tuple] = {}
-        # ZeRO-3 parameters resting as this rank's rows between runs
+        # ZeRO-3 parameters resting as this rank's rows, and mp-cut ones
+        # as their chunks, between runs
         from ..distributed.sharding import ParamShards
         self._shards = ParamShards()
+        # program serial -> the params in the reduction plan's gather
+        # order (the forward order), which a run gathers them in
+        self._gather_order: Dict[int, list] = {}
 
     @property
     def compile_count(self) -> int:
@@ -501,7 +518,11 @@ class Executor:
             # ZeRO-3 parameters resting as this rank's rows are gathered
             # for the run (the plan's gather leg, before the forward) and
             # put back to their rows after it
-            held = self._shards.materialize(program.parameters())
+            params = program.parameters()
+            first = self._gather_order.get(program._serial, [])
+            ids = {id(p) for p in first}
+            held = self._shards.materialize(
+                first + [p for p in params if id(p) not in ids])
             try:
                 return self._run(program, feed, fetch_list, return_numpy,
                                  seed)
@@ -785,10 +806,21 @@ class Executor:
         lr = float(opt.get_lr())
         with torch.no_grad():
             state.step.add_(1.0)
-            # a dp-sharded param's update writes this rank's rows, which
-            # it rests as until the next run gathers them
-            targets = [self._shards.rows(p, d.g) if k in d.fsdp
-                       else p.detach() for k, p in enumerate(tparams)]
+            # a dp-sharded param's update writes this rank's rows, an
+            # mp-cut one's its chunk, which they rest as until the next
+            # run gathers them
+            targets = []
+            for k, p in enumerate(tparams):
+                if k in d.fsdp:
+                    targets.append(self._shards.rows(p, d.g))
+                elif k in d.mp:
+                    dim, mg = d.mp[k]
+                    targets.append(self._shards.rows(p, mg, dim=dim))
+                    # the reduced gradient is the full mp-invariant one:
+                    # this rank keeps its chunk of it
+                    red[k] = red[k].chunk(mg.nranks, dim=dim)[mg.rank]
+                else:
+                    targets.append(p.detach())
             slots = self._slots(state, opt, tparams, targets)
             new_p, new_s = opt.functional_update(
                 targets, red, slots, lr, opt._step_count,
@@ -797,7 +829,7 @@ class Executor:
             for old, new in zip(slots, new_s):
                 for key, t in new.items():
                     old[key].copy_(t)
-        self._shards.release([tparams[k] for k in sorted(d.fsdp)])
+        self._shards.release([tparams[k] for k in sorted(d.fsdp | set(d.mp))])
         if d.comm_stats:
             from ..utils import monitor
             for name, val in d.comm_stats:
@@ -892,17 +924,9 @@ class Executor:
         slice), which refuses a sum-reduced loss or fetch."""
         from ..distributed import grad_comm as _gc
         from ..distributed.collective import axis_group
-        from ..distributed.mesh import DP_AXIS
-        from ..distributed.sharding import spec_axes
+        from ..distributed.mesh import DP_AXIS, MP_AXIS
         shape = dict(plan.mesh.shape)
         dp = shape.get(DP_AXIS, 1)
-        others = {a: n for a, n in shape.items() if a != DP_AXIS and n > 1}
-        if others:
-            raise NotImplementedError(
-                f"Executor: a sharding plan over mesh axes {others} (the "
-                f"hybrid {{dp, mp}} form, tensor-parallel gathers) is not "
-                f"ported to paddle_tpu_torch yet (slice A5b); run the "
-                f"program on a pure-dp mesh")
         status, msg = _gc.plan_status(plan)
         if status == "error":
             raise NotImplementedError(msg)
@@ -914,16 +938,19 @@ class Executor:
                                      graph=graph)
         named = [(p.name, s) for p, s in zip(tparams, shapes)]
         kinds, fsdp, gathers = _gc.hybrid_layout(plan, named, order=order)
+        mp = {k: (dim, axis_group(MP_AXIS, plan.mesh))
+              for k, (kind, dim) in enumerate(kinds) if kind == "mp"}
         opt = program._optimizer[0]
-        if fsdp and (opt._grad_clip is not None or type(opt).__name__ in (
-                "Lamb", "LarsMomentum")):
+        if (fsdp or mp) and (opt._grad_clip is not None
+                             or type(opt).__name__ in ("Lamb",
+                                                       "LarsMomentum")):
             raise NotImplementedError(
                 f"Executor: {type(opt).__name__}"
                 f"{' with grad_clip' if opt._grad_clip is not None else ''}"
-                f" over dp-sharded (ZeRO-3) parameters: its per-tensor "
-                f"norms would be taken over this rank's rows only.  Keep "
-                f"those parameters replicated (ZeRO stage <= 2) or drop "
-                f"the clip")
+                f" over dp-sharded (ZeRO-3) or mp-cut parameters: its "
+                f"per-tensor norms would be taken over this rank's rows "
+                f"only.  Keep those parameters replicated (ZeRO stage <= "
+                f"2, no 'mp' cut) or drop the clip")
         if status == "active":
             cfg = plan.grad_comm
         else:
@@ -959,8 +986,14 @@ class Executor:
                               len(gplan.gathers)))
             step.comm_record = gplan.schedule()
         step.dist = _DistStep(plan, axis_group(DP_AXIS, plan.mesh),
-                              feed_specs, fetch_rules, gplan, fsdp, stats)
-        del kinds
+                              feed_specs, fetch_rules, gplan, fsdp, stats,
+                              mp)
+        self._gather_order[program._serial] = [
+            tparams[g["index"]] for g in gplan.gathers]
+        if mp:
+            # the mp gathers compose the all-gather + matmul of each
+            # cut layer into this step, as paddle_tpu records it
+            step.kernels.append("collective_matmul[composite]")
 
     def _probe_fetches(self, program, params, step: _Step, feeds,
                        feed_specs, dp) -> List[str]:

@@ -17,6 +17,10 @@ matches paddle_tpu's.  :func:`build_gpt_static` is
 decoder ``bench_gpt`` trains (per-block recompute, tied embeddings),
 with :data:`GPT_PRESETS` and :func:`gpt_pretrain_loss`.
 
+:func:`build_gpt_pipeline` cuts the same decoder into the stages of
+``parallel.pipeline``: the embedding, the blocks (one stage) and an
+untied head, with :func:`gpt_pipeline_loss`.
+
 :func:`build_gpt_hybrid` is ``bench.build_gpt``'s causal decoder made
 tensor- and sequence-parallel (q, k, v and fc1 column-parallel, proj and
 fc2 row-parallel, ring attention over 'sp'); :func:`gpt_loss` is
@@ -49,7 +53,8 @@ __all__ = ["BertMLM", "build_model", "mlm_loss", "bench_flops_per_step",
            "palm_flops_per_step", "build_bert_static", "build_gpt_static",
            "build_static_mlp", "build_static_lenet", "GPTHybrid",
            "build_gpt_hybrid", "gpt_loss", "gpt_flops_per_step", "GPT",
-           "GPT_PRESETS", "build_gpt", "gpt_pretrain_loss",
+           "GPT_PRESETS", "build_gpt", "gpt_pretrain_loss", "GPTEmbed",
+           "GPTHead", "build_gpt_pipeline", "gpt_pipeline_loss",
            "TransformerNMT", "nmt_loss", "greedy_decode",
            "nmt_flops_per_step", "sinusoid_positions"]
 
@@ -323,6 +328,64 @@ class GPT(nn.Module):
         for blk in self.blocks:
             x = recompute(blk, x) if self.recompute else blk(x)
         return self.ln_f(x)
+
+
+class GPTEmbed(nn.Module):
+    """The pipelined GPT's first stage: token and position embeddings
+    drawn N(0, 0.02), summed, then dropout (``GPT``'s input half)."""
+
+    def __init__(self, vocab, hidden, seq, dropout, device=None):
+        super().__init__()
+        from .. import ParamAttr
+        dev = _resolve_device(device)
+        emb_attr = ParamAttr(initializer=pnn.initializer.Normal(0.0, 0.02))
+        self.tok = pnn.Embedding(vocab, hidden, weight_attr=emb_attr,
+                                 device=dev)
+        self.pos = pnn.Embedding(seq, hidden, weight_attr=emb_attr,
+                                 device=dev)
+        self.drop = pnn.Dropout(dropout)
+
+    def forward(self, ids):
+        pos_ids = torch.arange(ids.shape[1], device=ids.device)[None, :]
+        return self.drop(self.tok(ids) + self.pos(pos_ids))
+
+
+class GPTHead(nn.Module):
+    """The pipelined GPT's last stage: the final LayerNorm and an untied
+    vocab projection, giving the logits."""
+
+    def __init__(self, vocab, hidden, device=None):
+        super().__init__()
+        dev = _resolve_device(device)
+        self.ln_f = pnn.LayerNorm(hidden, device=dev)
+        self.out = pnn.Linear(hidden, vocab, device=dev)
+
+    def forward(self, x):
+        return self.out(self.ln_f(x))
+
+
+def build_gpt_pipeline(vocab, hidden, layers, heads, ffn, seq, dropout,
+                       device=None):
+    """``bench.build_gpt``'s decoder cut for ``parallel.pipeline``:
+    ``(stage, embed, head)``, the stage the ``layers`` blocks in a
+    ``Sequential`` (one pipeline stage; stack it with
+    ``parallel.stack_stage_params``), the embedding the first stage and
+    an untied head the last.  Parameter names follow ``GPT``'s blocks."""
+    dev = _resolve_device(device)
+    stage = pnn.Sequential(*[_Block(hidden, heads, ffn, dropout, dev)
+                             for _ in range(layers)])
+    return (stage, GPTEmbed(vocab, hidden, seq, dropout, dev),
+            GPTHead(vocab, hidden, dev))
+
+
+def gpt_pipeline_loss(vocab: int):
+    """``head_fn(logits, labels)``: the mean next-token cross entropy
+    (f32) over the pipeline's logits."""
+    def loss_fn(logits, labels):
+        return F.cross_entropy(
+            torch.Tensor.float(logits.reshape(-1, vocab)),
+            labels.reshape(-1))
+    return loss_fn
 
 
 # bench.py:316-321: the single-device presets of bench_gpt

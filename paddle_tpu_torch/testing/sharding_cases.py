@@ -93,12 +93,14 @@ def gpt_feeds(seed: int = 0) -> Dict[str, np.ndarray]:
 
 def train_comm(weights, feed, dtype, steps, overlap="auto", zero3=False,
                fuse_mb=0.05, mesh_shape=None, return_exe=False,
-               constants=()):
+               constants=(), mp_shard=False):
     """GPT-tiny from ``weights`` and ``constants`` (paddle_tpu's, by
     position: the position embedding is recorded as a constant) through
     fleet + the static Executor with the given grad_comm wire dtype
     (None: no grad_comm) and overlap mode, as ``tools/comm_smoke.py``
-    trains it.  Returns the losses, the measured and predicted wire
+    trains it.  ``mp_shard`` cuts every 2-D weight on its output dim
+    over 'mp' (comm_smoke's hybrid rows).  Returns the losses, the
+    measured and predicted wire
     bytes a step (total and per axis), the compile count, the bucket
     count and algorithms, the residual buckets and the perf split."""
     import paddle_tpu_torch as paddle
@@ -137,6 +139,14 @@ def train_comm(weights, feed, dtype, steps, overlap="auto", zero3=False,
             opt = f.distributed_optimizer(
                 optimizer.AdamW(learning_rate=1e-3))
             opt.minimize(loss)
+        # fleet.init derives the mesh from the strategy: pin the asked one
+        init_mesh(mesh_shape)
+        if mp_shard:
+            import re
+            main._sharding_rules = [
+                (re.escape(p.name) + "$", (None, "mp"))
+                for p in main.parameters() if len(p.shape) == 2
+            ] + [(r".*", ())]
         exe = paddle.static.Executor()
         enable_perf(sample_every=1, memory=False)
         w0 = monitor.get_stat("comm.wire_bytes") or 0
@@ -178,6 +188,9 @@ def train_comm(weights, feed, dtype, steps, overlap="auto", zero3=False,
             "predicted_wire_bytes": comm["wire_bytes_per_step"],
             "predicted_fp32_wire_bytes": comm["fp32_wire_bytes_per_step"],
             "axis_dp_wire_bytes": ax["comm.axis.dp.wire_bytes"],
+            "axis_mp_wire_bytes": ax["comm.axis.mp.wire_bytes"],
+            "predicted_axis_mp": (comm.get("axis_wire_bytes") or {}).get(
+                "mp", 0),
             "predicted_axis_dp": (comm.get("axis_wire_bytes") or {}).get(
                 "dp", 0),
             "gather_wire_bytes_per_step": ax["comm.gather.wire_bytes"],

@@ -587,14 +587,17 @@ def test_spmd_scaler_skips_an_overflow_on_every_rank(ranks):
 def test_strategy_toggles_not_ported_raise_naming_them():
     from paddle_tpu_torch.distributed.strategy import (DistributedStrategy,
                                                        validate_toggles)
-    for name in ("gradient_merge", "recompute", "amp", "pipeline",
-                 "localsgd", "adaptive_localsgd", "dgc", "a_sync"):
+    # dgc and a_sync are not carried, as in paddle_tpu
+    for name in ("dgc", "a_sync"):
         s = DistributedStrategy()
         setattr(s, name, True)
         with pytest.raises(NotImplementedError, match=name):
             validate_toggles(s)
-    # ZeRO and the grad_comm stage are ported (slice A5a)
-    for name in ("sharding", "fp16_allreduce"):
+    # ZeRO and the grad_comm stage are ported (slice A5a), gradient
+    # merge, recompute, amp, pipeline and LocalSGD too (slice A5b)
+    for name in ("sharding", "fp16_allreduce", "gradient_merge",
+                 "recompute", "amp", "pipeline", "localsgd",
+                 "adaptive_localsgd"):
         s = DistributedStrategy()
         setattr(s, name, True)
         validate_toggles(s)

@@ -88,9 +88,10 @@ def test_fleet_init_keeps_a_pinned_mesh():
 
 
 def test_distributed_optimizer_validates_the_strategy():
-    """Degrees that do not divide the job, an unknown wire dtype and the
-    toggles of slice A5b raise at ``distributed_optimizer``, as
-    paddle_tpu's validation does (dgc and a_sync raise on both)."""
+    """Degrees that do not divide the job, an unknown wire dtype, dgc,
+    a_sync and the F-then-B schedule raise at ``distributed_optimizer``,
+    as paddle_tpu's validation does; the toggles of slice A5b
+    (pipeline, LocalSGD) pass it."""
     from paddle_tpu_torch.core.enforce import InvalidArgumentError
     net = nn.Linear(4, 2)
     f = dist.fleet
@@ -102,10 +103,21 @@ def test_distributed_optimizer_validates_the_strategy():
         f.distributed_optimizer(optimizer.SGD(
             0.1, parameters=net.parameters()))
     for name, match in (("dgc", "dgc"), ("a_sync", "a_sync"),
-                        ("pipeline", "A5b"), ("localsgd", "A5b")):
+                        ("pipeline", "F-then-B"), ("localsgd", None)):
         s = dist.DistributedStrategy()
         setattr(s, name, True)
+        if name == "pipeline":
+            s.pipeline_configs.schedule_mode = "F-then-B"
+        if match is None:
+            opt = f.distributed_optimizer(optimizer.SGD(
+                0.1, parameters=net.parameters()), strategy=s)
+            assert opt._dist_strategy is s
+            continue
         with pytest.raises(NotImplementedError, match=match):
+            f.distributed_optimizer(optimizer.SGD(
+                0.1, parameters=net.parameters()), strategy=s)
+        if name == "pipeline":
+            s.pipeline_configs.schedule_mode = "1F1B"
             f.distributed_optimizer(optimizer.SGD(
                 0.1, parameters=net.parameters()), strategy=s)
     s = dist.DistributedStrategy()
@@ -117,8 +129,9 @@ def test_distributed_optimizer_validates_the_strategy():
 
 def test_get_train_step_and_localsgd_route():
     """``get_train_step`` builds the strategy's SpmdTrainStep (ZeRO-3 at
-    one rank trains as the plain step); LocalSGD's route names slice
-    A5b."""
+    one rank trains as the plain step); under ``strategy.localsgd`` it
+    routes to LocalSGDTrainStep (``test_fleet_routes_localsgd``: the
+    loss falls), and ``save_persistables`` writes the synced weights."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.parallel import SpmdTrainStep
     F = pt.nn.functional
@@ -149,8 +162,18 @@ def test_get_train_step_and_localsgd_route():
     f2 = dist.Fleet()
     f2.init(strategy=s)
     f2._optimizer = optimizer.SGD(0.1, parameters=net.parameters())
-    with pytest.raises(NotImplementedError, match="A5b"):
-        f2.get_train_step(net, lambda o, l: F.mse_loss(o, l))
+    from paddle_tpu_torch.parallel import LocalSGDTrainStep
+    step = f2.get_train_step(net, lambda o, l: F.mse_loss(o, l))
+    assert isinstance(step, LocalSGDTrainStep)
+    l0, l1 = float(step(x, y)), float(step(x, y))
+    assert l1 < l0
+    f2.distributed_model(net)
+    step._model_dirty = True
+    seen = []
+    orig = step.sync_to_model
+    step.sync_to_model = lambda: (seen.append(1), orig())
+    f2.save_persistables()
+    assert seen == [1]
 
 
 def test_fleet_save_inference_model_and_persistables(tmp_path):

@@ -28,7 +28,8 @@ The running half needs ranks: one gloo world of 4 CPU ranks per module
   telescoping on the gathered and the FSDP routes.
 
 The overlap timing gate of comm_smoke (1.15x) is not asserted: the
-ranks share this host's cores.  The hybrid {dp, mp} legs are slice A5b's.
+ranks share this host's cores.  The hybrid {dp, mp} legs run in
+``tests/test_torch_pipeline_parallel.py``'s world.
 """
 import json
 import os

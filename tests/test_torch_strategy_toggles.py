@@ -1,9 +1,8 @@
-"""The strategy toggles of slice A5a held to
-``tests/test_strategy_toggles.py``: ``sharding``, ``fp16_allreduce``
-and ``grad_comm`` work or raise paddle_tpu's errors; the knobs validate
-as paddle_tpu's; the toggles of slice A5b (gradient merge, recompute,
-amp, pipeline, LocalSGD) still raise, naming A5b; dgc and a_sync raise
-for good.  The multi-rank numerics of these toggles are asserted on gloo
+"""The strategy toggles held to ``tests/test_strategy_toggles.py``:
+``sharding``, ``fp16_allreduce`` and ``grad_comm`` work or raise
+paddle_tpu's errors; the knobs validate as paddle_tpu's; gradient
+merge, recompute, amp, pipeline and LocalSGD (slice A5b) run, each
+where paddle_tpu wires it; dgc and a_sync raise for good.  The multi-rank numerics of these toggles are asserted on gloo
 ranks in ``tests/test_torch_sharding.py`` and
 ``tests/test_torch_grad_comm.py``; here each case runs at one rank or
 with a stand-in mesh, on both packages where paddle_tpu has the case.
@@ -126,7 +125,7 @@ def test_grad_comm_hybrid_degree_combos_validate():
     """``test_grad_comm_hybrid_degree_combos_validate``: ZeRO-3 + mp +
     grad_comm validates and composes {dp: 4, mp: 2} on 8 devices; pp
     and sp raise naming the toggle (the alias too, 'cross-stage');
-    without grad_comm the pp strategy's only refusal is slice A5b's."""
+    without grad_comm the pp strategy validates and shapes the mesh."""
     s = TS()
     s.grad_comm = {"dtype": "int8"}
     s.sharding = True
@@ -148,20 +147,58 @@ def test_grad_comm_hybrid_degree_combos_validate():
         validate_toggles(s)
     s = TS()
     s.pipeline = True
-    with pytest.raises(NotImplementedError, match="A5b"):
-        validate_toggles(s)
+    s.pipeline_configs = {"pp_degree": 2}
+    validate_toggles(s, n_devices=8)
+    assert s.infer_mesh_shape(8) == {"pp": 2, "dp": 4}
 
 
 @pytest.mark.parametrize("name", ["gradient_merge", "recompute", "amp",
                                   "pipeline", "localsgd",
                                   "adaptive_localsgd"])
 def test_toggles_of_the_next_slice_raise_naming_it(name):
-    """The strategy machinery of slice A5b raises NotImplementedError
-    naming the toggle and A5b, never a silent no-op."""
+    """The strategy machinery of slice A5b, which raised naming it,
+    now runs, never a silent no-op: each toggle validates and takes
+    effect where paddle_tpu wires it (SpmdTrainStep's accumulation,
+    recompute and autocast; the pipeline's mesh axis; fleet's LocalSGD
+    route, whose step at one rank trains as the plain step)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.parallel import LocalSGDTrainStep
     s = TS()
     setattr(s, name, True)
-    with pytest.raises(NotImplementedError, match=f"{name}.*A5b"):
-        validate_toggles(s)
+    validate_toggles(s)
+    net, x, y, loss_fn = _toy()
+    init = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    opt = pt.optimizer.SGD(0.1, parameters=net.parameters())
+    if name == "pipeline":
+        s.pipeline_configs = {"pp_degree": 4}
+        assert s.infer_mesh_shape(8) == {"pp": 4, "dp": 2}
+        return
+    if name in ("localsgd", "adaptive_localsgd"):
+        f = dist.Fleet()
+        f.init(strategy=s)
+        f.distributed_optimizer(opt)
+        step = f.get_train_step(net, loss_fn)
+        assert isinstance(step, LocalSGDTrainStep)
+        assert step.adaptive == (name == "adaptive_localsgd")
+    else:
+        if name == "gradient_merge":
+            s.gradient_merge_configs = {"k_steps": 2}
+        step = SpmdTrainStep(net, loss_fn, opt, strategy=s)
+        assert {"gradient_merge": step.accumulate_steps == 2,
+                "recompute": step._recompute,
+                "amp": step.amp_level == "O1"
+                and net._amp_dtype == "bfloat16"}[name]
+    got = [float(step(x, y)) for _ in range(3)]
+    net.set_state_dict(init)
+    base = TrainStep(net, loss_fn, pt.optimizer.SGD(
+        0.1, parameters=net.parameters()),
+        accumulate_steps=2 if name == "gradient_merge" else 1)
+    want = [float(base(x, y)) for _ in range(3)]
+    # bf16 autocast rounds the matmuls (3 decimal digits): close to the
+    # f32 step's losses, and not equal to them
+    np.testing.assert_allclose(got, want,
+                               rtol=2e-2 if name == "amp" else 1e-6)
+    assert (got != want) == (name == "amp")
 
 
 @pytest.mark.parametrize("name", ["dgc", "a_sync"])

@@ -57,6 +57,14 @@ UNLISTED = {
         LeNet MobileNetV1 MobileNetV2 ResNet VGG mobilenet_v1 mobilenet_v2
         resnet18 resnet34 resnet50 resnet101 resnet152 vgg11 vgg13 vgg16
         vgg19""", ""),
+    "paddle_tpu.parallel": ("""
+        ColumnParallelLinear DataParallel LocalSGDTrainStep
+        ParallelCrossEntropy Pipeline PipelineStage RowParallelLinear
+        ShardedEmbedding SpmdTrainStep VocabParallelEmbedding
+        get_placement pipeline_train_fn pipelined_fn recompute
+        recompute_sequential reference_attention ring_attention
+        ring_attention_per_device set_placement split
+        stack_stage_params""", ""),
 }
 
 
