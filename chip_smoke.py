@@ -1557,12 +1557,45 @@ def _static_param_shapes(cfg):
     return [(v, h)] + layer * cfg["layers"] + [(h, v), (v,)]
 
 
+def _adam_skip_check(torch, kern, sides, lr, step):
+    """The anomaly sentry's skip flag on K3: a flagged launch (a device
+    int 1) against the plain version with the same flag: p, m and v of
+    both bitwise unchanged; then an unflagged one (a device int 0)
+    against the plain version, within ADAM_TOL; the flagged and the
+    flag-0 launch timed beside the flagless one."""
+    from paddle_tpu_torch.ops.fused_adam import fused_adam_reference_
+    one = torch.ones((), dtype=torch.int32, device="cuda")
+    zero = torch.zeros((), dtype=torch.int32, device="cuda")
+    held = [t for side in ("kernel", "plain") for i in (0, 2, 3)
+            for t in sides[side][i]]
+    before = [t.clone() for t in held]
+    kern(lr, step, skip=one)
+    fused_adam_reference_(*sides["plain"], lr, step, skip=one)
+    torch.cuda.synchronize()
+    unchanged = all(torch.equal(a, b) for a, b in zip(held, before))
+    del before
+    kern(lr, step, skip=zero)
+    fused_adam_reference_(*sides["plain"], lr, step, skip=zero)
+    torch.cuda.synchronize()
+    err = max(max((a - b).abs().max().item() for a, b in zip(la, lb))
+              for la, lb in zip(sides["kernel"], sides["plain"]))
+    out = {"flagged_unchanged": unchanged, "flag0_max_abs_err": err,
+           "tol": ADAM_TOL,
+           "flagged_ms": cuda_ms(lambda i: kern(lr, step, skip=one), 20),
+           "flag0_ms": cuda_ms(lambda i: kern(lr, step, skip=zero), 20)}
+    log("ADAM_SKIP_CHECK " + json.dumps(out))
+    if not unchanged or not err <= ADAM_TOL:
+        raise AssertionError(f"fused_adam skip flag: {out}")
+    return out
+
+
 def _adam_phase(torch, gen, shapes=None):
     """K3 over ``shapes`` (default: the full-width static BERT's
     parameters): 5 steps against the plain version, then times;
     torch._fused_adam_ timed beside it."""
     from paddle_tpu_torch.ops.fused_adam import (FusedAdam,
                                                  fused_adam_reference_)
+    default_shapes = shapes is None
     shapes = shapes or _static_param_shapes(STATIC_CHIP)
     numel = sum(math.prod(s) for s in shapes)
     ps = [torch.randn(s, generator=gen, device="cuda") * 0.02
@@ -1589,6 +1622,8 @@ def _adam_phase(torch, gen, shapes=None):
               for la, lb in zip(sides["kernel"], sides["plain"]))
     if not err <= ADAM_TOL:
         raise AssertionError(f"fused_adam: max abs err {err} > {ADAM_TOL}")
+    flagged = _adam_skip_check(torch, kern, sides, lr, step) \
+        if default_shapes else None
     ms = cuda_ms(lambda i: kern(lr, step), 20)
     plain_ms = cuda_ms(lambda i: fused_adam_reference_(*sides["plain"], lr,
                                                         step), 5)
@@ -1607,6 +1642,8 @@ def _adam_phase(torch, gen, shapes=None):
            "bytes": nbytes, "achieved_GBps": nbytes / (ms * 1e-3) / 1e9,
            "library_ms": lib_ms,
            "library_call": "torch._fused_adam_ over the same lists"}
+    if flagged is not None:
+        row["skip_flag"] = flagged
     log("KERNEL " + json.dumps(row))
     del sides, ps, grads, steps, kern
     torch.cuda.empty_cache()
@@ -2413,6 +2450,7 @@ def phase_multicard(steps=3):
     if n == 4:
         out["fleet"] = _multicard_fleet(n)
         out["a5b"] = _multicard_pipeline_hybrid(n)
+        out["sentry"] = _multicard_sentry(n)
     return out
 
 
@@ -3814,6 +3852,53 @@ def _analyzer(main, loss, batch, steps, seconds):
             "achieved_gflops_per_sec": train * steps / seconds / 1e9}
 
 
+def _static_sentry_micro(main, loss, exe, feed, build, mc):
+    """``bench_static``'s sentry micro (bench.py:701-745): the static MLP
+    with ``FLAGS_anomaly_sentry`` built in (a second program of the same
+    build) timed against the sentry-less one, round for round, one sync
+    a round; its device ``skipped_steps`` must stay 0 on clean data.
+    The micro is the sentry's worst case: host and small device work
+    dominate the step."""
+    from paddle_tpu_torch import set_flags, static
+    main3, loss3 = build(mc["hidden"], mc["depth"])
+    exe3 = static.Executor("cuda")
+    set_flags({"anomaly_sentry": True})
+    try:
+        for _ in range(3):
+            last3 = exe3.run(main3, feed=feed, fetch_list=[loss3],
+                             return_numpy=False)[0]
+        float(last3)
+    finally:
+        set_flags({"anomaly_sentry": False})
+    dt_on = dt_off = 0.0
+    rounds, steps = mc["rounds"], mc["steps"]
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            last = exe.run(main, feed=feed, fetch_list=[loss],
+                           return_numpy=False)[0]
+        float(last)
+        dt_off += time.perf_counter() - t0
+        set_flags({"anomaly_sentry": True})
+        try:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                last3 = exe3.run(main3, feed=feed, fetch_list=[loss3],
+                                 return_numpy=False)[0]
+            float(last3)
+            dt_on += time.perf_counter() - t0
+        finally:
+            set_flags({"anomaly_sentry": False})
+    out = {"skipped_steps": exe3.sentry_stats(main3)["skipped_steps"],
+           "overhead_pct": 100.0 * (dt_on / dt_off - 1.0),
+           "step_time_ms_on": 1e3 * dt_on / (rounds * steps),
+           "step_time_ms_off": 1e3 * dt_off / (rounds * steps),
+           "rounds": rounds, "steps_a_round": steps,
+           "builds_on": exe3.compile_count}
+    exe3.close()
+    return out
+
+
 def phase_static_bench():
     """``bench_static``'s two entries at its chip config: the static MLP
     (hidden 1024, depth 8, batch 256; 3 warm-up runs, then 3 rounds of
@@ -3861,6 +3946,9 @@ def phase_static_bench():
             final = float(last)                    # one sync a round
             dt += time.perf_counter() - t0
         launches[name] = dict(support.launch_counts)
+        if name == "mlp":
+            out["sentry"] = _static_sentry_micro(
+                main, loss, exe, feed, build_static_mlp, mc)
         n = rounds * steps
         out[name] = {"steps_per_sec": n / dt, "step_time_ms": 1e3 * dt / n,
                      "timed_runs": n, "batch": batch,
@@ -3877,9 +3965,13 @@ def phase_static_bench():
     out["cut"] = {
         "speedup_vs_legacy_executor": "Executor._run_legacy is the JAX "
         "package's loop from before its donated fast path; the port has "
-        "no earlier loop",
-        "sentry": "the anomaly sentry comes with ROADMAP A5"}
+        "no earlier loop"}
     log("STATIC_BENCH " + json.dumps(out))
+    sen = out["sentry"]
+    log("SENTRY_MICRO_CHECK " + json.dumps(
+        {"skipped_steps": sen["skipped_steps"], "want": 0}))
+    if sen["skipped_steps"] != 0:
+        raise AssertionError(f"the sentry skipped clean runs: {sen}")
     for name in ("mlp", "lenet"):
         r = out[name]
         if r["compile_count"] != 1 or r["host_feed_converts"] != 0:
@@ -8995,6 +9087,286 @@ def _instance_row(row):
         "library_ms", "library_call", "max_abs_err", "chains") if k in row}
 
 
+# --------------------------------------------------------------- phase 71
+# the supervised static BERT: bench_pallas's static BERT (bench.py:1108,
+# f32) trained by a TrainingSupervisor child with the anomaly sentry on
+# and an AnomalyPolicy installed, snapshots every 2 steps; the first
+# child takes a NaN in its gradients at run 3 and hangs at run 6, the
+# second crashes after 2 runs.  The watchdog's floor is 10 s: a
+# snapshot's capture (the 1.6 GB of parameters and Adam slots) lies
+# between two beats.
+SUPERVISED_BERT = dict(steps=8, save_every=2, nan_run=3, hang_run=6,
+                       crash_after=2, min_deadline_s=10.0)
+SENTRY_OVERHEAD_PAIRS = 4
+
+
+def phase_static_sentry_overhead(run, pairs=SENTRY_OVERHEAD_PAIRS, runs=3):
+    """Phase 12's static BERT step with the anomaly sentry built in
+    against without, on phase 12's Executor: ``pairs`` rounds of
+    ``runs`` runs each way in turns (off first), each run ending in a
+    synchronize; the first round (the sentry step's build) is left out.
+    The sentry must skip nothing on clean data."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import set_flags
+    exe, main, loss, feed = run
+    ms = {False: [], True: []}
+    try:
+        for i in range(pairs + 1):
+            for on in (False, True):
+                set_flags({"anomaly_sentry": on})
+                for _ in range(runs):
+                    t0 = time.perf_counter()
+                    exe.run(main, feed=feed, fetch_list=[loss],
+                            return_numpy=False)
+                    torch.cuda.synchronize()
+                    if i:
+                        ms[on].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        set_flags({"anomaly_sentry": False})
+    off, on = (float(np.median(ms[k])) for k in (False, True))
+    out = {"step_ms_off_p50": off, "step_ms_on_p50": on,
+           "overhead_pct": 100.0 * (on / off - 1.0),
+           "runs_each": len(ms[True]),
+           "skipped_steps": exe.sentry_stats(main)["skipped_steps"],
+           "builds": exe.compile_count}
+    log("SENTRY_BERT " + json.dumps(out))
+    if out["skipped_steps"] != 0 or out["builds"] != 2:
+        raise AssertionError(f"static BERT sentry overhead run: {out}")
+    return out
+
+
+def phase_supervised_static_bert():
+    """The slice's main path: ``testing.chaos.supervise_main`` with the
+    static BERT on the card.  Checks: the NaN run was skipped (the
+    sentry's counter 1, the policy's 'skip', parameters, slots and the
+    update counter bitwise unchanged), the watchdog killed the hang and
+    the supervisor restarted after it and after the crash, the assembled
+    losses equal the uninterrupted run's bit for bit, and every run of
+    every child launched K2f, K2b, K1f, K1b and K3 the static step's
+    count.  Returns the children's launches."""
+    import torch
+    from paddle_tpu_torch.testing import chaos
+    res = {}
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_supervised_")
+    t0 = time.perf_counter()
+    try:
+        rc = chaos.supervise_main(model="bert_static", device="cuda",
+                                  workdir=workdir, result=res,
+                                  **SUPERVISED_BERT)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    flagged = res.get("flagged_runs", [])
+    sen = (flagged[0].get("sentry") or {}) if flagged else {}
+    checks = {
+        "SUPERVISED_SKIP_CHECK": {
+            "flagged_runs": len(flagged), "want": 1,
+            "skipped_steps": sen.get("skipped_steps"),
+            "last_nonfinite": sen.get("last_nonfinite"),
+            "bitwise_noop": bool(flagged and flagged[0]["noop"]),
+            "policy_action": flagged[0]["action"] if flagged else None},
+        "SUPERVISED_WATCHDOG_CHECK": {
+            "deadline_s": res.get("watchdog_deadline_s"),
+            "predicted_step_s": res.get("predicted_step_s"),
+            "multiplier": 8.0,
+            "min_deadline_s": SUPERVISED_BERT["min_deadline_s"]},
+        "SUPERVISED_EXITS_CHECK": {
+            "exit_history": [{k: r[k] for k in ("attempt", "exit_code",
+                                                "reason", "last_step",
+                                                "runtime_s")}
+                             for r in res.get("exit_history", [])],
+            "want": ["hang", "crash(exit=7)"],
+            "supervisor_stats": res.get("supervisor_stats")},
+        "SUPERVISED_LOSS_CHECK": {
+            "losses": res.get("losses"),
+            "uninterrupted": res.get("reference_losses"),
+            "bitwise_equal": res.get("losses_equal")},
+        "SUPERVISED_LAUNCH_CHECK": {
+            "runs": res.get("runs"), "launches": res.get("launches"),
+            "want": res.get("launches_want"),
+            "per_run": res.get("launches_per_run"),
+            "per_run_want": STATIC_PER_STEP},
+        "SUPERVISED_RESTART": {
+            "parts": res.get("restart_parts"),
+            "reference_s": res.get("reference_s"),
+            "supervised_s": res.get("supervised_s"), "seconds": seconds}}
+    for name, body in checks.items():
+        log(name + " " + json.dumps(body, default=str))
+    problems = list(res.get("problems", []))
+    if res.get("launches_per_run") != STATIC_PER_STEP:
+        problems.append("a reference run did not launch the static step's "
+                        "kernels")
+    if rc != 0 or problems:
+        raise AssertionError(f"supervised static BERT: {problems}")
+    return res["launches"]
+
+
+# --------------------------------------------------------------- phase 72
+def phase_swap_supervised():
+    """``testing.chaos.swap_main`` with the dyadic model on the card:
+    three live swaps under traffic and a rejected corrupted snapshot,
+    then a ``ServingSupervisor`` replica (a child serving the version-0
+    artifact on this card) killed mid-traffic, restarted, ready again,
+    every answer bitwise one version's."""
+    from paddle_tpu_torch.testing import chaos
+    from paddle_tpu_torch.utils import monitor
+    t0 = time.perf_counter()
+    rc = chaos.swap_main(requests=8, clients=2, supervised=True)
+    out = {"rc": rc, "seconds": time.perf_counter() - t0, **{
+        k: monitor.get_stat(k) for k in (
+            "supervisor.serving.starts", "supervisor.serving.restarts",
+            "supervisor.serving.ready_up", "client.reconnects",
+            "serving.swap.applied", "serving.swap.rejected")}}
+    log("SWAP_SUPERVISED_CHECK " + json.dumps(out))
+    if rc != 0:
+        raise AssertionError(f"supervised swap drill failed: {out}")
+
+
+# --------------------------------------------------------------- phase 73
+def phase_shardcheck_gpt():
+    """Shardcheck on phase 65's program (the static GPT through fleet,
+    ZeRO-3 and the int8 grad_comm) at an abstract {dp: 4, mp: 2} mesh:
+    ``Program.verify(sharding=plan)`` finds no error, and the wire
+    audit's independent bytes equal ``analyze(sharding=plan)``'s
+    prediction."""
+    import torch
+    from paddle_tpu_torch import distributed as dist, optimizer, static
+    from paddle_tpu_torch.static.analysis import AbstractMesh
+    from paddle_tpu_torch.static.analysis.shardcheck import (
+        _derive_gplan, audit_wire_bytes)
+    from paddle_tpu_torch.testing.models import build_gpt_static
+    t0 = time.perf_counter()
+    strategy = dist.DistributedStrategy()
+    strategy.sharding = True
+    strategy.sharding_configs = {"stage": 3}
+    strategy.fuse_grad_size_in_MB = FLEET_FUSE_MB
+    strategy.grad_comm = dict(FLEET_GC)
+    dist.fleet.init(is_collective=True, strategy=strategy)
+
+    def minimize(loss):
+        opt = dist.fleet.distributed_optimizer(
+            optimizer.AdamW(learning_rate=1e-4))
+        opt.minimize(loss)
+
+    main, loss, _ = build_gpt_static(**GPT_STATIC_CHIP, device="cuda",
+                                     minimize=minimize)
+    prev = dist.get_mesh()
+    shape = {"dp": 4, "mp": 2}
+    dist.set_mesh(AbstractMesh(shape))
+    try:
+        plan = static.Executor("cuda")._plan_for(main, main.parameters())
+        diags = main.verify(fetch_list=[loss], sharding=plan,
+                            raise_on_error=False)
+        audit = audit_wire_bytes(_derive_gplan(main, plan))
+        comm = main.analyze(fetch_list=[loss], chip="h100",
+                            sharding=plan).totals["comm"]
+    finally:
+        dist.set_mesh(prev)
+    # shardcheck's own verdicts; the hazard passes' (the causal mask
+    # baked in as a constant) are listed beside them
+    errors = [str(d) for d in diags if d.severity == "error"
+              and d.pass_name.startswith("shard-")]
+    out = {"mesh": shape, "params": len(main.parameters()),
+           "errors": errors,
+           "diagnostics": sorted({(d.pass_name, d.severity)
+                                  for d in diags}),
+           "audit_wire_bytes_per_step": audit["wire_bytes_per_step"],
+           "analyze_wire_bytes_per_step": comm["wire_bytes_per_step"],
+           "audit_collectives": audit["collectives_per_step"],
+           "analyze_collectives": comm["collectives_per_step"],
+           "audit_axis_wire_bytes": audit["axis_wire_bytes"],
+           "seconds": time.perf_counter() - t0}
+    log("SHARDCHECK_CHECK " + json.dumps(out))
+    del main, loss
+    torch.cuda.empty_cache()
+    if errors or (out["audit_wire_bytes_per_step"]
+                  != out["analyze_wire_bytes_per_step"]) or (
+            out["audit_collectives"] != out["analyze_collectives"]):
+        raise AssertionError(f"shardcheck on the static GPT: {out}")
+
+
+def _multicard_sentry(n):
+    """Four NCCL ranks started by the port's launch CLI (``python -m
+    paddle_tpu_torch.distributed.launch``, each rank this script with
+    ``--sentry-rank``): ``testing.anomaly_cases``' mesh agreement (one
+    rank's NaN row makes all four skip, bitwise), the int8
+    error-feedback skip oracle, the corrupted wire scale and the
+    gradients poisoned on the overlapped path, over NCCL."""
+    import numpy as np
+    from paddle_tpu_torch.distributed.launch import free_port
+    from paddle_tpu_torch.testing import anomaly_cases
+    outdir = os.path.join(ROOT, "build", "chip_smoke_sentry")
+    shutil.rmtree(outdir, ignore_errors=True)
+    os.makedirs(outdir)
+    rng = np.random.RandomState(23)
+    data = {f"p{i}": (rng.standard_normal(s) * 0.3).astype(np.float32)
+            for i, s in enumerate(((8, 8), (8,), (8, 1), (1,)))}
+    for name, seed in (("b1", 3), ("b2", 4), ("m", 1), ("r", 5)):
+        x, y = anomaly_cases.int8_feed(np.random.RandomState(seed))
+        data[name + "x"], data[name + "y"] = x, y
+    np.savez(os.path.join(outdir, "inputs.npz"), **data)
+    cases = ["mesh_nan", "ef_oracle", "wire", "grads"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", str(n), "--master_port", str(free_port()),
+         "--log_dir", os.path.join(outdir, "logs"), "--timeout", "300",
+         os.path.abspath(__file__), "--sentry-rank", outdir,
+         ",".join(cases)],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), timeout=400)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        logs = "".join(open(os.path.join(outdir, "logs", f)).read()[-2000:]
+                       for f in sorted(os.listdir(os.path.join(outdir,
+                                                               "logs"))))
+        raise AssertionError(f"sentry ranks exited {proc.returncode}: "
+                             f"{logs}")
+    res = [dict(np.load(os.path.join(outdir, f"rank{r}.npz")))
+           for r in range(n)]
+
+    def same(r, case, a, b):
+        keys = sorted(k for k in r if k.startswith(f"{case}/{a}."))
+        return all(np.array_equal(r[k], r[k.replace(f"/{a}.", f"/{b}.")])
+                   for k in keys if not k.endswith((".skipped",
+                                                    ".losses")))
+
+    out = {"ranks": n, "seconds": seconds, "by_rank": [{
+        "mesh_nan_skipped": int(r["mesh_nan/skipped"]),
+        "mesh_nan_noop": bool(same(r, "mesh_nan", "before", "after")
+                              and int(r["mesh_nan/step_before"])
+                              == int(r["mesh_nan/step_after"])),
+        "ef_oracle_skipped": int(r["ef_oracle/got.skipped"]),
+        "ef_oracle_bitwise": bool(same(r, "ef_oracle", "got", "ref")),
+        "wire_skipped": int(r["wire/skipped"]),
+        "wire_noop": bool(int(r["wire/noop"])),
+        "grads_skipped": int(r["grads/skipped"]),
+        "grads_noop": bool(int(r["grads/noop"]))} for r in res]}
+    out["params_equal_across_ranks"] = all(
+        np.array_equal(r[k], res[0][k]) for r in res for k in res[0]
+        if k.startswith("mesh_nan/after.p"))
+    log("MULTICARD_SENTRY_CHECK " + json.dumps(out))
+    ok = out["params_equal_across_ranks"] and all(
+        b["mesh_nan_skipped"] == 1 and b["mesh_nan_noop"]
+        and b["ef_oracle_skipped"] == 1 and b["ef_oracle_bitwise"]
+        and b["wire_skipped"] == 1 and b["wire_noop"]
+        and b["grads_skipped"] == 1 and b["grads_noop"]
+        for b in out["by_rank"])
+    if not ok:
+        raise AssertionError(f"multi-card sentry: {out}")
+    return out
+
+
+def main_sentry_rank(outdir, cases):
+    """``--sentry-rank OUTDIR CASES``: one rank of
+    :func:`_multicard_sentry`'s job (the launch CLI set its rendezvous
+    environment)."""
+    from paddle_tpu_torch.testing import anomaly_cases
+    anomaly_cases.run(outdir, cases.split(","), device="cuda")
+    return 0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -9031,6 +9403,7 @@ def main():
     timed("static_small", phase_static_small_parity)
     static_launches, run = timed("static_training", phase_static_training)
     timed("static_anatomy", phase_static_anatomy, run)
+    timed("static_sentry_overhead", phase_static_sentry_overhead, run)
     del run
     torch.cuda.empty_cache()
     cmm_row = timed("chunk_matmul_kernel", phase_chunk_matmul)
@@ -9124,6 +9497,10 @@ def main():
                                      phase_pipeline_gpt_training)
     lsgd_launches = timed("localsgd_bert", phase_localsgd_bert)
     timed("sharded_embedding", phase_sharded_embedding)
+    sup_launches = timed("supervised_static_bert",
+                         phase_supervised_static_bert)
+    timed("swap_supervised", phase_swap_supervised)
+    timed("shardcheck_gpt", phase_shardcheck_gpt)
     seconds["total"] = time.perf_counter() - t0
     log("PHASE_SECONDS " + json.dumps(seconds))
     f32_err = max(r["max_abs_err"] for r in kernel_rows
@@ -9163,7 +9540,9 @@ def main():
                    "capi bert": capi_bert.get(name, 0),
                    "hotswap bert": hot.get(name, 0),
                    "fleet static gpt (ZeRO-3)":
-                       fleet_launches.get(name, 0)}
+                       fleet_launches.get(name, 0),
+                   "supervised static bert (children)":
+                       sup_launches.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",
@@ -9226,7 +9605,9 @@ def main():
                       for p, n in bench_launches.items()},
                    "ops.pallas": pallas_launches.get(name, 0),
                    "predictor bert": pred_bert.get(name, 0),
-                   "predictor static bert": pred_static.get(name, 0)}
+                   "predictor static bert": pred_static.get(name, 0),
+                   "supervised static bert (children)":
+                       sup_launches.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"paddle_tpu_torch/ops/cuda/csrc/{src}",
@@ -9301,6 +9682,8 @@ if __name__ == "__main__":
             sys.exit(main_phase7(int(sys.argv[2])))
         if sys.argv[1:2] == ["--multicard"]:
             sys.exit(main_multicard())
+        if sys.argv[1:2] == ["--sentry-rank"]:
+            sys.exit(main_sentry_rank(sys.argv[2], sys.argv[3]))
         code = main()
     except Exception:                  # noqa: BLE001 - report, exit 1
         import traceback

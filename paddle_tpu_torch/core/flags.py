@@ -136,8 +136,9 @@ define_flag("static_verify", False,
             "at record time.  Off by default: verification replays "
             "every op on meta tensors once.")
 define_flag("shard_verify", False,
-            "Run the shardcheck SPMD safety passes before the first "
-            "sharded build. " + _LATER)
+            "Run the shardcheck SPMD safety passes "
+            "(Program.verify(sharding=plan)) once per plan before the "
+            "static Executor's first sharded build.")
 define_flag("static_anchors", False,
             "Record a file:line source anchor on every op Program.record "
             "appends (one frame walk per recorded op, no verification), "
@@ -150,10 +151,11 @@ define_flag("profiler_sync_ops", False,
             "Profiler op timing blocks on device completion per op. "
             + _LATER)
 define_flag("fault_spec", "",
-            "Deterministic fault-injection spec (testing.fault grammar). "
-            + _LATER)
+            "Deterministic fault-injection spec (testing.fault grammar), "
+            "armed from the environment at import or by "
+            "testing.fault.arm_from_flags().")
 define_flag("fault_seed", 0,
-            "Seed for the fault injector's RNG. " + _LATER)
+            "Seed for the fault injector's RNG.")
 define_flag("fs_retry_times", 4,
             "Max attempts for a filesystem op that fails with a "
             "transient error. " + _LATER)
@@ -222,18 +224,16 @@ define_flag("xla_latency_hiding", False,
             "at import.")
 define_flag("anomaly_sentry", False,
             "Fuse the data-plane anomaly sentry into the static "
-            "Executor's step. " + _LATER)
+            "Executor's step: a run with a non-finite gradient, loss or "
+            "gradient norm updates nothing (decided on the device).")
 define_flag("anomaly_skip_budget", 2,
-            "AnomalyPolicy: consecutive flagged steps tolerated. "
-            + _LATER)
+            "AnomalyPolicy: consecutive flagged steps tolerated.")
 define_flag("anomaly_rollback_budget", 1,
-            "AnomalyPolicy: snapshot rollbacks attempted. " + _LATER)
+            "AnomalyPolicy: snapshot rollbacks attempted.")
 define_flag("anomaly_spike_window", 32,
-            "AnomalyPolicy rolling window for the loss-spike detector. "
-            + _LATER)
+            "AnomalyPolicy rolling window for the loss-spike detector.")
 define_flag("anomaly_spike_factor", 10.0,
-            "AnomalyPolicy: loss-spike factor over the window's median. "
-            + _LATER)
+            "AnomalyPolicy: loss-spike factor over the window's median.")
 define_flag("compile_cache_dir", "",
             "The persistent cache of serialized XLA executables.")
 define_flag("metrics_dump_max_mb", 0.0,

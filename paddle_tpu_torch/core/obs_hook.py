@@ -5,8 +5,11 @@ Hot paths (eager dispatch, ``Executor.run``, the serving dispatchers)
 read ``obs_hook._tracer`` (and the other slots) directly and touch the
 object only when it is not None, so an uninstrumented process pays one
 module-attribute None-check per site.  The crash hook ``_crash`` gates
-the flight recorder the same way.  The heartbeat and anomaly slots have
-no writer in this package yet (ROADMAP A5): they stay None.
+the flight recorder the same way.  ``_heartbeat`` is a supervised
+child's ``distributed.supervisor.HeartbeatWriter`` (the Executor and
+the serving engines beat it), ``_anomaly`` an installed
+``distributed.AnomalyPolicy`` (the Executor hands it each sentry
+scan).
 
 This module must stay import-free: core, utils, io and serving all
 pull it in, and a single stray import here would cycle."""

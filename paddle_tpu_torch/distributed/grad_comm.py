@@ -45,6 +45,20 @@ bucket, a gather brought, so its result is the same on every run,
 every backend and every path (NCCL and gloo promise no reduction
 order); the ring path and the fused path are therefore bitwise equal
 at fp32.
+
+The anomaly sentry (``reduce_gradients(..., sentry=True)``, the static
+Executor's ``FLAGS_anomaly_sentry``): each bucket's flat gradient is
+scanned once for non-finite values before its reduction and the
+reduced result once after; on the int8 routes a non-finite value is
+counted by block and masked to zero before quantization, so it never
+reaches an int8 payload, its block scale or the error-feedback
+residual, and the received chunks are checked and masked again before
+the requantize.  The counts and the squared norm of the reduced
+gradients go back to the caller, summed over the group in one
+collective issued after the buckets, in the same order on every rank,
+so every replica takes the same skip decision.  ``step`` (the
+program's run counter) enables the ``grad_comm.wire`` corruption point
+on the int8 payload (``bucket.<i>.q`` and ``bucket.<i>.scales``).
 """
 from __future__ import annotations
 
@@ -907,11 +921,18 @@ class _Payload:
     ``q``, ``s``).  The overlapped path builds it in the backward hook
     and the reduction reuses it."""
 
-    __slots__ = ("flat", "carry", "sent", "padded", "q", "s")
+    __slots__ = ("flat", "carry", "sent", "padded", "q", "s", "pre_nf",
+                 "blocks_nf")
 
-    def __init__(self, flat, residual, bucket: Bucket, plan: "GradCommPlan"):
+    def __init__(self, flat, residual, bucket: Bucket, plan: "GradCommPlan",
+                 sentry: bool = False, step=None, label: str = ""):
         self.flat = flat
         self.carry = self.sent = self.padded = self.q = self.s = None
+        # the sentry's local counts: non-finite elements of the flat
+        # gradient, and (int8 wire) the blocks the quantizer masked
+        self.pre_nf = (torch.isfinite(flat).logical_not().sum()
+                       if sentry else None)
+        self.blocks_nf = None
         if bucket.algorithm == "none":
             return
         carry = flat + residual if residual is not None else flat
@@ -922,11 +943,27 @@ class _Payload:
             return
         block = plan.cfg.block_size
         n = carry.shape[0]
+        if sentry:
+            # a non-finite value would poison its block's absmax scale
+            # and the residual: count its blocks, mask it to zero (the
+            # flagged step's update is dropped anyway)
+            finite = torch.isfinite(carry)
+            bad = torch.nn.functional.pad(
+                finite.logical_not(), (0, (-n) % (plan.dp * block)))
+            self.blocks_nf = bad.reshape(-1, block).any(dim=1).sum()
+            carry = torch.where(finite, carry, torch.zeros_like(carry))
+            self.carry = carry
         # an FSDP bucket's shard-major layout is block-padded already
         self.padded = (carry if bucket.algorithm == "rscatter"
                        else torch.nn.functional.pad(
                            carry, (0, _padded_numel(n, plan.dp * block) - n)))
         self.q, self.s = quantize_int8_blocks(self.padded, block)
+        if step is not None:
+            from ..testing import fault
+            self.q = fault.corrupt_in_graph("grad_comm.wire", self.q, step,
+                                            tensor=f"{label}.q")
+            self.s = fault.corrupt_in_graph("grad_comm.wire", self.s, step,
+                                            tensor=f"{label}.scales")
 
 
 def _int8_first(pl: _Payload, g, dp: int, block: int, ring: bool,
@@ -939,26 +976,39 @@ def _int8_first(pl: _Payload, g, dp: int, block: int, ring: bool,
     return qq, ss
 
 
+def _wire_guard(red_chunk, sentry: bool):
+    """The sentry's check of a received int8 chunk: a corrupted wire
+    value would be laundered by the requantize (a NaN absmax reads as
+    scale 1 and casts to 0) and poison the residual, so it is counted
+    (this rank's count) and masked.  Returns (chunk, count or None)."""
+    if not sentry:
+        return red_chunk, None
+    bad = torch.isfinite(red_chunk).logical_not()
+    return (torch.where(bad, torch.zeros_like(red_chunk), red_chunk),
+            bad.sum())
+
+
 def _reduce_int8_scatter(pl: _Payload, g, dp: int, block: int,
                          error_feedback: bool, ring: bool = False,
-                         first=None):
+                         first=None, sentry: bool = False):
     """The two-shot block-scaled int8 reduction of the residual-
     corrected flat carry.  Returns (reduced sum f32, per-rank residual
-    or None).  ``first`` is shot one's exchange when it was already
-    issued (the overlapped path)."""
+    or None, the wire guard's count or None).  ``first`` is shot one's
+    exchange when it was already issued (the overlapped path)."""
     n = pl.carry.shape[0]
     np_ = pl.padded.shape[0]
     chunk = np_ // dp
     qq, ss = (_int8_first(pl, g, dp, block, ring) if first is None
               else first)
     red_chunk = _ascending_sum(qq.to(torch.float32) * ss, dp).reshape(-1)
+    red_chunk, wire_nf = _wire_guard(red_chunk, sentry)
     q2, s2 = quantize_int8_blocks(red_chunk, block)
     qg = _all_gather_rows(q2.reshape(-1), g, ring)
     sg = _all_gather_rows(s2.reshape(-1), g, ring)
     total = dequantize_int8_blocks(qg.reshape(-1, block),
                                    sg.reshape(-1, 1), n)
     if not error_feedback:
-        return total, None
+        return total, None, wire_nf
     # residual: my local quantize error everywhere, plus the requantize
     # error on the chunk I own (only I know it; the next step's sum
     # recovers it exactly once)
@@ -966,63 +1016,67 @@ def _reduce_int8_scatter(pl: _Payload, g, dp: int, block: int,
     e2 = red_chunk - dequantize_int8_blocks(q2, s2, chunk)
     idx = g.rank
     e1[idx * chunk:(idx + 1) * chunk] += e2
-    return total, e1[:n]
+    return total, e1[:n], wire_nf
 
 
 def _reduce_int8_rscatter(pl: _Payload, g, dp: int, block: int,
                           error_feedback: bool, ring: bool = False,
-                          first=None):
+                          first=None, sentry: bool = False):
     """One-shot block-scaled int8 reduce-scatter for FSDP buckets: each
     rank keeps its own chunk, so there is no second shot and no
-    requantize error.  Returns (my reduced chunk f32, residual or
-    None)."""
+    requantize error.  Returns (my reduced chunk f32, residual or None,
+    the wire guard's count or None)."""
     n = pl.carry.shape[0]
     qq, ss = (_int8_first(pl, g, dp, block, ring) if first is None
               else first)
     red_chunk = _ascending_sum(qq.to(torch.float32) * ss, dp).reshape(-1)
+    red_chunk, wire_nf = _wire_guard(red_chunk, sentry)
     if not error_feedback:
-        return red_chunk, None
-    return red_chunk, pl.carry - dequantize_int8_blocks(pl.q, pl.s, n)
+        return red_chunk, None, wire_nf
+    return (red_chunk, pl.carry - dequantize_int8_blocks(pl.q, pl.s, n),
+            wire_nf)
 
 
 def _reduce_bucket_fsdp(pl: _Payload, residual, g, bucket: Bucket,
                         plan: "GradCommPlan", ring: bool = False,
-                        first=None):
+                        first=None, sentry: bool = False):
     """Reduce one FSDP (``'rscatter'``) bucket: returns (my mean chunk
-    f32, new residual or None)."""
+    f32, new residual or None, the wire guard's count or None)."""
     dp = plan.dp
     wire = bucket.wire_dtype
     if wire == "fp32":
         chunk = (_rs_only(pl.sent, g, dp, ring) if first is None
                  else _ascending_sum(first, dp))
         new_res = None if residual is None else torch.zeros_like(residual)
-        return chunk / dp, new_res
+        return chunk / dp, new_res, None
     if wire == "bf16":
         chunk = (_rs_only(pl.sent, g, dp, ring) if first is None
                  else _ascending_sum(first, dp)).to(torch.float32)
         new_res = (pl.carry - pl.sent.to(torch.float32)
                    if bucket.carries_residual and residual is not None
                    else None)
-        return chunk / dp, new_res
-    chunk, new_res = _reduce_int8_rscatter(
+        return chunk / dp, new_res, None
+    chunk, new_res, wire_nf = _reduce_int8_rscatter(
         pl, g, dp, plan.cfg.block_size,
         bucket.carries_residual and residual is not None, ring=ring,
-        first=first)
-    return chunk / dp, new_res
+        first=first, sentry=sentry)
+    return chunk / dp, new_res, wire_nf
 
 
 def _reduce_bucket(pl: _Payload, residual, g, bucket: Bucket,
-                   plan: "GradCommPlan", ring: bool = False, first=None):
+                   plan: "GradCommPlan", ring: bool = False, first=None,
+                   sentry: bool = False):
     """Reduce one bucket's payload over the dp group following the
     plan.  Returns (mean f32 vector, or my mean chunk for an
-    ``'rscatter'`` bucket; new residual or None).  Latency-bound psum
-    buckets stay one fused gather on every path."""
+    ``'rscatter'`` bucket; new residual or None; the int8 wire guard's
+    count or None).  Latency-bound psum buckets stay one fused gather
+    on every path."""
     dp = plan.dp
     if bucket.algorithm == "none":
-        return pl.flat, residual
+        return pl.flat, residual, None
     if bucket.algorithm == "rscatter":
         return _reduce_bucket_fsdp(pl, residual, g, bucket, plan,
-                                   ring=ring, first=first)
+                                   ring=ring, first=first, sentry=sentry)
     wire = bucket.wire_dtype
     if wire in ("fp32", "bf16"):
         sent = pl.sent
@@ -1043,12 +1097,12 @@ def _reduce_bucket(pl: _Payload, residual, g, bucket: Bucket,
             new_res = (pl.carry - sent.to(torch.float32)
                        if bucket.carries_residual and residual is not None
                        else None)
-        return total / dp, new_res
-    total, new_res = _reduce_int8_scatter(
+        return total / dp, new_res, None
+    total, new_res, wire_nf = _reduce_int8_scatter(
         pl, g, dp, plan.cfg.block_size,
         bucket.carries_residual and residual is not None, ring=ring,
-        first=first)
-    return total / dp, new_res
+        first=first, sentry=sentry)
+    return total / dp, new_res, wire_nf
 
 
 def _issue_first(pl: _Payload, g, bucket: Bucket, plan: "GradCommPlan"):
@@ -1080,7 +1134,8 @@ def _flatten(grads, bucket: Bucket, plan: "GradCommPlan"):
 
 def reduce_gradients(grads: Sequence, *, plan: "GradCommPlan",
                      group=DP_AXIS, residuals: Optional[Sequence] = None,
-                     mode: Optional[str] = None, issued=None):
+                     mode: Optional[str] = None, issued=None,
+                     sentry: bool = False, step=None):
     """Reduce this rank's gradients to their dp-mean following ``plan``.
 
     ``grads`` are the local gradients, one per trainable param in
@@ -1093,13 +1148,25 @@ def reduce_gradients(grads: Sequence, *, plan: "GradCommPlan",
     :class:`BucketReducer` already built and issued during backward
     (the payload and its first collective), which is not built again.
 
-    Returns ``(reduced grads, new residuals)``: replicated means in the
-    original order, shape and dtype, except params in ``'rscatter'``
-    buckets, whose entries are this rank's dim-0 shard of the mean."""
+    ``sentry=True`` also returns the anomaly sentry's scan, every entry
+    the same on every rank: ``{"pre": [nb] int32`` (non-finite elements
+    of the local gradients, summed over the group), ``"post": [nb]
+    int32`` (non-finite in the reduced result, with the int8 wire
+    guard's counts), ``"blocks": int32`` (int8 blocks the quantizer
+    masked, summed), ``"norm2": f32}`` (the squared norm of the reduced
+    gradients).  ``step`` enables the ``grad_comm.wire`` corruption
+    point.
+
+    Returns ``(reduced grads, new residuals)`` (and the scan):
+    replicated means in the original order, shape and dtype, except
+    params in ``'rscatter'`` buckets, whose entries are this rank's
+    dim-0 shard of the mean."""
     mode = plan.overlap_path if mode is None else mode
     g = _resolve(group)
     out = list(grads)
     new_res: List = []
+    pre, post, post_local, norm_rep = [], [], [], []
+    blocks, norm_local = [], []
     ri = 0
     for bi, bucket in enumerate(plan.buckets):
         res = None
@@ -1109,10 +1176,27 @@ def reduce_gradients(grads: Sequence, *, plan: "GradCommPlan",
             pl, pending = issued[bi]
             first = pending()
         else:
-            pl = _Payload(_flatten(grads, bucket, plan), res, bucket, plan)
+            pl = _Payload(_flatten(grads, bucket, plan), res, bucket, plan,
+                          sentry=sentry, step=step, label=f"bucket.{bi}")
             first = None
-        red, r2 = _reduce_bucket(pl, res, g, bucket, plan,
-                                 ring=(mode == "ring"), first=first)
+        red, r2, wire_nf = _reduce_bucket(
+            pl, res, g, bucket, plan, ring=(mode == "ring"), first=first,
+            sentry=sentry)
+        if sentry:
+            pre.append(pl.pre_nf)
+            if pl.blocks_nf is not None:
+                blocks.append(pl.blocks_nf)
+            nf = torch.isfinite(red).logical_not().sum()
+            nrm = red.to(torch.float32).square().sum()
+            # an rscatter bucket's chunk differs by rank: its count and
+            # norm are summed over the group below; the wire guard's
+            # counts are this rank's chunk's too
+            fsdp = bucket.algorithm == "rscatter"
+            post.append(torch.zeros_like(nf) if fsdp else nf)
+            post_local.append(
+                (nf if fsdp else torch.zeros_like(nf))
+                + (wire_nf if wire_nf is not None else 0))
+            (norm_local if fsdp else norm_rep).append(nrm)
         if residuals is not None and bucket.carries_residual:
             new_res.append(r2 if r2 is not None
                            else torch.zeros_like(pl.flat))
@@ -1122,7 +1206,24 @@ def reduce_gradients(grads: Sequence, *, plan: "GradCommPlan",
                   else unflatten_bucket(red, bucket, grads))
         for i, gr in pieces:
             out[i] = gr
-    return out, new_res
+    if not sentry:
+        return out, new_res
+    nb = len(plan.buckets)
+    zero = torch.zeros((), dtype=torch.float32, device=pre[0].device)
+    # ONE collective after the buckets, the same on every rank: the
+    # counts that differ by rank and the rscatter norms
+    local = torch.cat([
+        torch.stack(pre).double(), torch.stack(post_local).double(),
+        sum(blocks, zero).double().reshape(1),
+        sum(norm_local, zero).double().reshape(1)])
+    tot = _psum(local, g) if g.nranks > 1 else local
+    info = {
+        "pre": tot[:nb].to(torch.int32),
+        "post": (torch.stack(post) + tot[nb:2 * nb]).to(torch.int32),
+        "blocks": tot[2 * nb].to(torch.int32),
+        "norm2": sum(norm_rep, zero) + tot[2 * nb + 1].to(torch.float32),
+    }
+    return out, new_res, info
 
 
 class BucketReducer:
@@ -1135,8 +1236,11 @@ class BucketReducer:
     :func:`reduce_gradients` takes to finish the buckets."""
 
     def __init__(self, plan: "GradCommPlan", group=DP_AXIS,
-                 residuals: Optional[Sequence] = None):
+                 residuals: Optional[Sequence] = None, sentry: bool = False,
+                 step=None):
         self.plan = plan
+        self.sentry = sentry
+        self.step = step
         self.g = _resolve(group)
         self.grads: Dict[int, torch.Tensor] = {}
         self._res = {}
@@ -1157,7 +1261,9 @@ class BucketReducer:
                                             for j in b.indices):
                 return
             pl = _Payload(_flatten(self.grads, b, self.plan),
-                          self._res.get(self._next), b, self.plan)
+                          self._res.get(self._next), b, self.plan,
+                          sentry=self.sentry, step=self.step,
+                          label=f"bucket.{self._next}")
             self.issued[self._next] = (pl, _issue_first(pl, self.g, b,
                                                         self.plan))
             self._next += 1

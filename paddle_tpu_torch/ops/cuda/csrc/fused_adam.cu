@@ -10,6 +10,13 @@
 //   trajectory follows paddle_tpu's; lr and step are read from device
 //   memory (no per-step upload).
 //
+// The anomaly sentry's skip flag: an optional device int.  When it is
+// not 0, every block returns before it writes anything, so a flagged
+// step leaves p, m and v bitwise as they were (the TPU step selects
+// the old arrays after the update; an in-place update cannot, and a
+// copy of the whole state first would move the state twice over).  The
+// flag is read on the device, so the host never waits for it.
+//
 // Bound on this card: bytes.  Each element reads p, g, m, v and writes
 // p, m, v: 28 bytes and ~15 operations, so the whole BERT-base update
 // (131,966,778 parameters) is 3.70 GB, 1.10 ms at 3.35 TB/s.
@@ -57,7 +64,9 @@ __global__ void __launch_bounds__(kThreads)
                 const int* __restrict__ blk_entry,
                 const long long* __restrict__ blk_start,
                 const float* __restrict__ lr_p,
-                const float* __restrict__ step_p, Consts c) {
+                const float* __restrict__ step_p,
+                const int* __restrict__ skip_p, Consts c) {
+  if (skip_p != nullptr && *skip_p != 0) return;
   const Entry e = table[blk_entry[blockIdx.x]];
   const long long start = blk_start[blockIdx.x];
   const long long end = min(start + kChunk, e.n);
@@ -94,16 +103,19 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" long long ptt_adam_chunk() { return kChunk; }
 
-// table: [n_entries] Entry rows; blk_entry / blk_start: [n_blocks]
+// table: [n_entries] Entry rows; blk_entry / blk_start: [n_blocks];
+// skip: the sentry's device flag, or null
 extern "C" int ptt_fused_adam(const void* table, const int* blk_entry,
                               const long long* blk_start, int n_blocks,
-                              const float* lr, const float* step, float b1,
+                              const float* lr, const float* step,
+                              const int* skip, float b1,
                               float b2, float one_m_b1, float one_m_b2,
                               float log_b1, float log_b2, float eps,
                               void* stream) {
   if (n_blocks <= 0) return 0;
   const Consts c{b1, b2, one_m_b1, one_m_b2, log_b1, log_b2, eps};
   adam_kernel<<<n_blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const Entry*>(table), blk_entry, blk_start, lr, step, c);
+      static_cast<const Entry*>(table), blk_entry, blk_start, lr, step,
+      skip, c);
   return (int)cudaGetLastError();
 }

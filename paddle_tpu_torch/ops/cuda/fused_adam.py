@@ -6,7 +6,9 @@ count, ``fused_adam``: :class:`AdamTable` holds the device table of
 ``(p, g, m, v)`` rows for a fixed list of tensors (built once, by the
 static Executor once per compiled step), and :func:`fused_adam` updates
 every tensor of it in place in one launch, reading ``lr`` and ``step``
-from device scalars.
+from device scalars and, when given, the anomaly sentry's ``skip`` flag
+(a device int32 scalar: not 0 makes every block return before it
+writes, so a flagged step leaves every p, m and v bitwise as it was).
 
 Every tensor must be a contiguous f32 CUDA tensor on one device, each
 quartet of one shape; anything else raises ``ValueError``.
@@ -14,7 +16,7 @@ quartet of one shape; anything else raises ``ValueError``.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -72,20 +74,29 @@ class AdamTable:
 
 def fused_adam(table: AdamTable, lr: torch.Tensor, step: torch.Tensor, *,
                beta1: float = 0.9, beta2: float = 0.999,
-               eps: float = 1e-8) -> None:
+               eps: float = 1e-8, skip: Optional[torch.Tensor] = None
+               ) -> None:
     """One Adam step over every quartet of ``table``, in place; ``lr``
-    and ``step`` are f32 scalars on the table's device."""
+    and ``step`` are f32 scalars on the table's device, ``skip`` (None,
+    or an int32 scalar there) the sentry's flag: not 0 = write
+    nothing."""
     fn = KERNELS[0]
     for name, t in (("lr", lr), ("step", step)):
         if (t.device != table.device or t.dtype != torch.float32
                 or t.numel() != 1):
             raise ValueError(f"{fn}: {name} must be an f32 scalar on "
                              f"{table.device}")
+    if skip is not None and (skip.device != table.device
+                             or skip.dtype != torch.int32
+                             or skip.numel() != 1):
+        raise ValueError(f"{fn}: skip must be an int32 scalar on "
+                         f"{table.device}")
     lib = support.load_library()
     rc = lib.ptt_fused_adam(
         table.table.data_ptr(), table.blk_entry.data_ptr(),
         table.blk_start.data_ptr(), table.n_blocks, lr.data_ptr(),
-        step.data_ptr(), float(beta1), float(beta2), float(1.0 - beta1),
+        step.data_ptr(), None if skip is None else skip.data_ptr(),
+        float(beta1), float(beta2), float(1.0 - beta1),
         float(1.0 - beta2), math.log(beta1), math.log(beta2), float(eps),
         torch.cuda.current_stream(table.device).cuda_stream)
     if rc != 0:

@@ -121,7 +121,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     # fused Adam: table, block maps, n_blocks, lr, step, seven floats,
     # stream
     fn = lib.ptt_fused_adam
-    fn.argtypes = [vp, vp, vp, i32, vp, vp] + [ctypes.c_float] * 7 + [vp]
+    fn.argtypes = [vp, vp, vp, i32, vp, vp, vp] + [ctypes.c_float] * 7 \
+        + [vp]
     fn.restype = i32
     lib.ptt_adam_chunk.argtypes = []
     lib.ptt_adam_chunk.restype = i64

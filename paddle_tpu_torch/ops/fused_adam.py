@@ -11,6 +11,12 @@ Two versions of one update, chosen by where the tensors lie:
 - the hand-written CUDA kernel of :mod:`.cuda.fused_adam` (K3): one
   launch over a device table of every quartet, for CUDA tensors.
 
+Both take the anomaly sentry's optional ``skip`` flag (an int32 scalar
+tensor, read where it lies): when it is not 0 the step writes nothing,
+so p, m and v stay bitwise as they were.  The kernel returns before it
+writes; the plain version selects the old values elementwise
+(``torch.where``), so neither reads the flag on the host.
+
 :func:`fused_update_for` is the static Executor's opt-in, with
 paddle_tpu's eligibility: it returns a :class:`FusedAdam` over the given
 tensors only for a plain f32 ``Adam`` whose semantics the kernel
@@ -39,15 +45,24 @@ def fused_adam_supported(shape, dtype) -> bool:
 
 
 def fused_adam_reference_(params, grads, ms, vs, lr, step, *,
-                          beta1=0.9, beta2=0.999, eps=1e-8) -> None:
+                          beta1=0.9, beta2=0.999, eps=1e-8,
+                          skip=None) -> None:
     """Plain version of the kernel, in place over lists of f32 tensors;
-    ``lr`` and ``step`` are f32 scalar tensors."""
+    ``lr`` and ``step`` are f32 scalar tensors, ``skip`` None or an
+    int32 scalar tensor (not 0: every tensor keeps its value)."""
     bc1 = 1.0 - torch.exp(step * math.log(beta1))
     bc2 = 1.0 - torch.exp(step * math.log(beta2))
     for p, g, m, v in zip(params, grads, ms, vs):
-        m.copy_(beta1 * m + (1.0 - beta1) * g)
-        v.copy_(beta2 * v + (1.0 - beta2) * g * g)
-        p.copy_(p - lr * (m / bc1) / (torch.sqrt(v / bc2) + eps))
+        m2 = beta1 * m + (1.0 - beta1) * g
+        v2 = beta2 * v + (1.0 - beta2) * g * g
+        p2 = p - lr * (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
+        if skip is not None:
+            keep = skip != 0
+            m2, v2, p2 = (torch.where(keep, m, m2), torch.where(keep, v, v2),
+                          torch.where(keep, p, p2))
+        m.copy_(m2)
+        v.copy_(v2)
+        p.copy_(p2)
 
 
 class FusedAdam:
@@ -67,11 +82,13 @@ class FusedAdam:
                       else None)
 
     @torch.no_grad()
-    def __call__(self, lr: torch.Tensor, step: torch.Tensor) -> None:
+    def __call__(self, lr: torch.Tensor, step: torch.Tensor,
+                 skip: Optional[torch.Tensor] = None) -> None:
         if self.table is not None:
-            _cuda.fused_adam(self.table, lr, step, **self.kw)
+            _cuda.fused_adam(self.table, lr, step, skip=skip, **self.kw)
         else:
-            fused_adam_reference_(*self.lists, lr, step, **self.kw)
+            fused_adam_reference_(*self.lists, lr, step, skip=skip,
+                                  **self.kw)
 
 
 def fused_adam_update(p, g, m, v, lr, step, *, beta1=0.9, beta2=0.999,

@@ -509,6 +509,14 @@ class InferenceEngine:
                         else h.shape[0] == target)
                    for j, h in enumerate(host)]
         now = time.monotonic()
+        # the counters move before any future resolves: a caller that
+        # reads stats() after its answer sees its batch counted
+        with self._cv:      # stats() snapshots under this lock; keep
+            self._c["responses"] += len(batch)   # its view consistent
+            self._c["batches"] += 1
+            self._c["rows"] += rows
+            self._c["padded_rows"] += target - rows
+            self._occ_sum += rows / target
         off = 0
         for r in batch:
             # every request gets its OWN arrays (incl. non-batched
@@ -520,12 +528,6 @@ class InferenceEngine:
             lat_ms = (now - r.t_enq) * 1000.0
             self._reg.observe("latency_ms", lat_ms)
             self._mobs("latency_ms", lat_ms)
-        with self._cv:      # stats() snapshots under this lock; keep
-            self._c["responses"] += len(batch)   # its view consistent
-            self._c["batches"] += 1
-            self._c["rows"] += rows
-            self._c["padded_rows"] += target - rows
-            self._occ_sum += rows / target
         self._madd("batches")
         self._madd("rows", rows)
         self._madd("padded_rows", target - rows)

@@ -514,9 +514,9 @@ class ReplicaSet:
     ``ready``, ``exit_history`` and ``health_url`` feed
     :meth:`describe`) run on its own thread; ``scale_to(n)`` spawns or
     stops supervisors to match.  ``factory(index)`` must return an
-    UNSTARTED supervisor — the set owns ``run()``/``stop()``.  The JAX
-    package's ``ServingSupervisor`` is such an object; the port's is
-    ROADMAP A5's, so callers bring their own."""
+    UNSTARTED supervisor — the set owns ``run()``/``stop()``:
+    ``distributed.ServingSupervisor`` is one (a replica process, probed
+    on its ``/healthz``, restarted when it crashes or hangs)."""
 
     def __init__(self, factory: Callable[[int], object],
                  name: str = "model"):

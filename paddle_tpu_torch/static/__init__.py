@@ -32,8 +32,8 @@ serves.  ``BuildStrategy`` and ``CompiledProgram`` are as thin as in
 paddle_tpu: a toggle the port's design satisfies is accepted, one it
 has no counterpart for raises.
 
-Not ported yet: shardcheck (A5).  Control flow is ``static.nn.cond``,
-``case``, ``switch_case`` and ``while_loop``.
+Control flow is ``static.nn.cond``, ``case``, ``switch_case`` and
+``while_loop``.
 """
 from __future__ import annotations
 

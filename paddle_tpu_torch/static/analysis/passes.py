@@ -20,8 +20,9 @@ package's.  The defects:
   recording), found by replaying every op on ``meta`` tensors;
 - two distinct Variables sharing a name.
 
-The sharding arguments of :func:`check` and :func:`verify` (shardcheck)
-raise NotImplementedError: they come with ROADMAP A5.
+With a plan in scope (``sharding=``, or ``mesh_shape=`` with
+``sharding_rules=`` / ``strategy=``), :func:`check` and :func:`verify`
+add the shardcheck passes (:mod:`.shardcheck`).
 """
 from __future__ import annotations
 
@@ -311,25 +312,31 @@ PASS_REGISTRY = {cls.name: cls for cls in (
     ShapeDtypeConsistencyPass, NameCollisionPass)}
 
 
-def _no_shardcheck(sharding, mesh_shape, sharding_rules, strategy):
-    if any(a is not None for a in (sharding, mesh_shape, sharding_rules,
-                                   strategy)):
-        raise NotImplementedError(
-            "shardcheck (sharding=, mesh_shape=, sharding_rules=, "
-            "strategy=) is not ported yet: it comes with ROADMAP A5")
-
-
 def check(program: Program, fetch_list: Optional[Sequence] = None,
           passes: Optional[Sequence[AnalysisPass]] = None,
           sharding=None, mesh_shape=None, sharding_rules=None,
           strategy=None) -> List[Diagnostic]:
     """Run the verifier and hazard passes (or ``passes``, which replace
-    the whole pipeline); return every diagnostic without raising."""
+    the whole pipeline, shardcheck's too); return every diagnostic
+    without raising.  Shardcheck (:mod:`.shardcheck`) runs when a plan
+    is in scope: ``sharding=`` a concrete or abstract plan, or
+    ``mesh_shape=`` an ``{axis: size}`` dict (with ``sharding_rules=`` /
+    ``strategy=``) resolved as an abstract plan, with no devices."""
     from .hazards import hazard_passes
-    _no_shardcheck(sharding, mesh_shape, sharding_rules, strategy)
     graph = DefUseGraph(program)
+    plan = sharding
+    shard_pipeline: List[AnalysisPass] = []
+    if passes is None:
+        if plan is None and mesh_shape is not None:
+            from .shardcheck import build_abstract_plan
+            plan = build_abstract_plan(program, mesh_shape,
+                                       rules=sharding_rules,
+                                       strategy=strategy)
+        if plan is not None:
+            from .shardcheck import shardcheck_passes
+            shard_pipeline = shardcheck_passes(plan)
     pipeline = (passes if passes is not None
-                else default_passes() + hazard_passes())
+                else default_passes() + hazard_passes() + shard_pipeline)
     out: List[Diagnostic] = []
     for p in pipeline:
         out.extend(p.run(graph, fetch_list))

@@ -97,11 +97,38 @@ cause string.
 :meth:`Executor.sharded_state` is the program's state as a
 ``ShardedState`` for ``SnapshotStore``.
 
+The anomaly sentry (``FLAGS_anomaly_sentry``, part of the build key:
+a flip rebuilds, attributed ``new_sentry``).  A training run scans its
+gradients once (the count of non-finite elements and the squared norm,
+per bucket under a plan) and the loss's finiteness, and collapses them
+into one int32 flag on the device; no host read happens per step.  A
+flagged run is a bitwise no-op on the carried state: parameters,
+optimizer slots, the update counter (``state.step``) and the
+error-feedback residuals keep their values, while the run counter
+still advances (so dropout draws move on).  The fused Adam kernel
+takes the flag and writes nothing; the plain update and the update
+under a plan select the old values with ``torch.where``.  Under a plan
+the flag's counts are summed over the dp group in one collective, so
+every rank takes the same branch.  A device ``skipped`` counter rides
+the program's state and :meth:`Executor.sharded_state`;
+:meth:`Executor.sentry_stats` reads it (one sync).  An installed
+``distributed.AnomalyPolicy`` is handed each run's scan.  The in-step
+corruption points ``executor.grads`` (each gradient, labelled by its
+parameter's name) and, with the sentry, ``grad_comm.wire`` are listed
+when a step is built (``testing.fault``); the ``executor.step_hang``
+point fires once a run, after the run counter moves.
+
+Supervision: with a heartbeat writer installed (a child of
+``distributed.TrainingSupervisor``), every run stamps a beat carrying
+the build's ``predicted`` record; unsupervised it costs one None check.
+With ``FLAGS_shard_verify``, a program under a plan is checked by
+shardcheck (``Program.verify(sharding=plan)``) once per plan
+fingerprint before its first build.
+
 Not ported: the ``_ExecState`` binding and escape machinery (torch
-tensors update in place), the anomaly sentry with ``sentry_stats`` and
-the supervised heartbeat (A5c), ``_run_legacy`` (the JAX package's loop
-from before its donated fast path; the port has no earlier loop), and
-the persistent compile cache (ROADMAP §C).
+tensors update in place), ``_run_legacy`` (the JAX package's loop from
+before its donated fast path; the port has no earlier loop), and the
+persistent compile cache (ROADMAP §C).
 """
 from __future__ import annotations
 
@@ -167,6 +194,38 @@ def _interp(nodes, env: Dict[int, torch.Tensor], pmap: Dict[int, object]):
     return env
 
 
+def _sentry_scan(loss: torch.Tensor, grads: List[torch.Tensor]):
+    """The anomaly sentry's scan of an unsharded run, on the device:
+    ``(flag, (flag, [nf], 0, norm2))`` where ``nf`` counts the
+    gradients' non-finite elements, ``norm2`` is their squared norm and
+    ``flag`` (int32) is 1 when ``nf``, the loss's own non-finite count
+    or a non-finite ``norm2`` says the update must not happen."""
+    dev = loss.device
+    nf = torch.zeros((), dtype=torch.int64, device=dev)
+    norm2 = torch.zeros((), dtype=torch.float32, device=dev)
+    if grads:
+        # one flat copy: a handful of launches whatever the number of
+        # parameters (one scan each would be two launches a parameter)
+        flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
+        nf = flat.numel() - torch.isfinite(flat).sum()
+        norm2 = torch.dot(flat, flat)
+    loss_nf = torch.isfinite(loss.detach()).logical_not().sum()
+    flag = ((nf + loss_nf > 0)
+            | torch.isfinite(norm2).logical_not()).to(torch.int32)
+    return flag, (flag, nf.to(torch.int32).reshape(1),
+                  torch.zeros((), dtype=torch.int32, device=dev), norm2)
+
+
+def _select_kept(flag, new_p, old_p, new_s, old_s):
+    """A flagged run's update made a no-op elementwise: the old value
+    where ``flag`` is set, the new one elsewhere (no host read)."""
+    keep = flag != 0
+    new_p = [torch.where(keep, o, n) for n, o in zip(new_p, old_p)]
+    new_s = [{k: torch.where(keep, o[k], t) for k, t in n.items()}
+             for n, o in zip(new_s, old_s)]
+    return new_p, new_s
+
+
 class _Step:
     """One built step: the node list it runs and what it updates."""
 
@@ -182,6 +241,10 @@ class _Step:
         self.perf_identity = ""      # the perf observatory's key
         self.dist: Optional["_DistStep"] = None   # dp > 1 under a plan
         self.comm_record: Optional[dict] = None
+        self.sentry = False          # the anomaly sentry is on
+        # (point, tensor label, rule) of the in-step corruption sites
+        # armed when this step was built
+        self.graph_corrupts: list = []
 
 
 class _DistStep:
@@ -222,6 +285,10 @@ class _State:
                                device=dev)
         self.lr = torch.zeros((), dtype=torch.float32, device=dev)
         self.lr_value: Optional[float] = None
+        # the sentry's device counter of skipped runs (None until a
+        # sentry step ran) and the last run's (run, scan)
+        self.skipped: Optional[torch.Tensor] = None
+        self.last_sentry = None
 
     def export_slots(self) -> Dict[str, dict]:
         """The optimizer slots keyed by the param's position in
@@ -241,6 +308,8 @@ class Executor:
         self._cache: Dict[tuple, _Step] = {}
         self._states: Dict[int, _State] = {}
         self._verified: set = set()     # (serial, version) checked
+        # (serial, version, plan fingerprint) shardcheck accepted
+        self._shard_verified: set = set()
         self._compile_count = 0
         self._host_feed_converts = 0
         self._run_counts: Dict[int, int] = {}   # program serial -> runs
@@ -275,7 +344,30 @@ class Executor:
         self._cache.clear()
         self._states.clear()
         self._verified.clear()
+        self._shard_verified.clear()
         self._plans.clear()
+
+    def sentry_stats(self, program=None) -> Optional[dict]:
+        """The anomaly sentry's counters for a program's state (one
+        sync), or None when no sentry step has run: ``skipped_steps``
+        (device counter) and the last run's flag, per-bucket non-finite
+        counts, extra (masked int8 blocks) count and gradient norm."""
+        if program is None:
+            program = default_main_program()
+        state = self._states.get(program._serial)
+        if state is None or state.skipped is None:
+            return None
+        if state.last_sentry is None:
+            return {"skipped_steps": int(state.skipped)}
+        run_i, (flag, nf, extra, norm2) = state.last_sentry
+        # one copy to the host: skipped, flag, extra, norm2, the counts
+        vals = torch.cat([t.reshape(-1).double() for t in
+                          (state.skipped, flag, extra, norm2, nf)]).cpu()
+        return {"skipped_steps": int(vals[0]), "last_step": run_i,
+                "last_flag": int(vals[1]),
+                "last_nonfinite": [int(v) for v in vals[4:]],
+                "last_nonfinite_extra": int(vals[2]),
+                "last_grad_norm": float(np.sqrt(float(vals[3])))}
 
     def sync_params(self, program=None):
         """Give the program's ZeRO-3 parameters (default: every one this
@@ -397,12 +489,17 @@ class Executor:
                     out["slots"].setdefault(_key(int(k)), {
                         sk: torch.as_tensor(np.asarray(v))
                         for sk, v in sl.items()})
+                # the update count: the device counter when a state
+                # exists (a sentry-skipped run does not move it)
+                step_n = (int(state.step) if state is not None
+                          else opt._step_count)
                 out["aux"] = {
                     "run": torch.tensor(
                         self._run_counts.get(program._serial, 0),
                         dtype=torch.int32),
-                    "step": torch.tensor(opt._step_count,
-                                         dtype=torch.int32)}
+                    "step": torch.tensor(step_n, dtype=torch.int32)}
+                if state is not None and state.skipped is not None:
+                    out["aux"]["skipped"] = state.skipped.detach().cpu()
             return {k: v for k, v in out.items() if v}
 
         def setter(tree):
@@ -479,6 +576,9 @@ class Executor:
                 self._run_counts[program._serial] = int(aux.get("run", 0))
                 if state is not None:
                     state.step.fill_(float(opt._step_count))
+                    if "skipped" in aux:
+                        state.skipped = torch.as_tensor(
+                            aux["skipped"]).to(self.place, torch.int32)
 
         def specs(name):
             parts = name.split("/")
@@ -572,14 +672,19 @@ class Executor:
         trc = obs_hook._tracer
         if trc is not None:
             trc.set_step(run_i)
+        # a sleep rule here wedges the run without raising: the hang a
+        # supervisor's watchdog exists to clear
+        fault.point("executor.step_hang", program._serial, f"step={run_i}")
         plan = self._plan_for(program, params)
         # as in paddle_tpu, the kernel tier (epilogue fusion, fused
         # Adam) is off under a sharding plan
         tier = bool(get_flag("use_pallas_kernels")) and plan is None
+        sentry = (bool(get_flag("anomaly_sentry"))
+                  and program._optimizer is not None)
         key = (program._serial, program._version, feed_names,
                tuple((tuple(t.shape), t.dtype) for t in feeds),
                tuple(fetch_names), program._optimizer is not None, tier,
-               None if plan is None else plan.fingerprint())
+               sentry, None if plan is None else plan.fingerprint())
         step = self._cache.get(key)
         built = step is None
         if built:
@@ -591,8 +696,16 @@ class Executor:
             if get_flag("static_verify") and vkey not in self._verified:
                 program.verify(fetch_list=fetch_list)
                 self._verified.add(vkey)
+            if plan is not None and get_flag("shard_verify"):
+                # shardcheck preflight: what the build below would
+                # refuse fails here as a GraphVerificationError with
+                # the same cause string, before any rank builds
+                skey = vkey + (plan.fingerprint(),)
+                if skey not in self._shard_verified:
+                    program.verify(fetch_list=fetch_list, sharding=plan)
+                    self._shard_verified.add(skey)
             step = self._build(program, params, feed_names, feeds,
-                               fetch_names, tier, plan)
+                               fetch_names, tier, plan, sentry)
             self._cache[key] = step
             self._compile_count += 1
             shapes = ";".join("x".join(map(str, t.shape)) for t in feeds)
@@ -612,6 +725,7 @@ class Executor:
                 "fetch_set": tuple(fetch_names),
                 "optimizer": program._optimizer is not None,
                 "pallas": tier,
+                "sentry": sentry,
             }, predicted=step.predicted, kernels=step.kernels,
                 comm=step.comm_record)
             if plan is not None:
@@ -628,21 +742,39 @@ class Executor:
                   if perf is not None and not built else None)
         t_d0 = time.perf_counter() if perf is not None else 0.0
         env = {id(v): t for v, t in zip(step.feed_vars, feeds)}
+        scan = None
         if program._optimizer is None:
             with torch.no_grad():
                 _interp(step.nodes, env, {id(p): p for p in params})
         else:
-            self._train(program, params, step, env, feeds)
+            scan = self._train(program, params, step, env, feeds, run_i)
         if step.dist is not None and program._optimizer is not None:
             fetches = self._dist_fetches(step, env)
         else:
             fetches = [env[id(v)].detach() for v in step.fetch_vars]
+        if step.graph_corrupts:
+            # the host's count of the fires the step took
+            fault.mirror_graph_fires(step.graph_corrupts, run_i)
+        if scan is not None:
+            self._states[program._serial].last_sentry = (run_i, scan)
+            pol = obs_hook._anomaly
+            if pol is not None:
+                # the policy may sync, count, quarantine, roll the state
+                # back through its SnapshotStore, or raise
+                # AnomalyEscalation (the supervisor's restart rung)
+                pol.on_step(self, program, run_i, scan, fetch_names,
+                            fetches)
         # the building run is left out of the anatomy (its wall is the
         # build); a sampled step waits for its end event here
         if perf is not None and not built:
             perf.step("executor", step.perf_identity, t_h0, t_h1 - t_h0,
                       t_d0, time.perf_counter() - t_d0,
                       predicted=step.predicted, sample=sample)
+        # supervised training: the liveness beat, with the build's
+        # predicted step time for the parent's watchdog deadline
+        hb = obs_hook._heartbeat
+        if hb is not None:
+            hb.beat(run_i, step.predicted, fresh_compile=built)
         # fleet telemetry: the exporter flushes at most once an interval
         exp = obs_hook._export
         if exp is not None:
@@ -696,27 +828,39 @@ class Executor:
                 opt._static_pending_slots = None
         return [state.slots[id(p)] for p in tparams]
 
-    def _train(self, program, params, step: _Step, env, feeds=()):
+    def _train(self, program, params, step: _Step, env, feeds=(),
+               run_i: int = 0):
+        """One training run; returns the sentry's scan (device tensors:
+        flag, per-bucket non-finite counts, extra count, squared norm)
+        when the sentry is on, else None."""
         opt = program._optimizer[0]
         state = self._state_for(program, opt)
         tparams = [params[i] for i in step.t_idx]
         if step.dist is not None:
             return self._train_dist(program, opt, state, params, tparams,
-                                    step, env, feeds)
+                                    step, env, feeds, run_i)
         t_ids = {id(p) for p in tparams}
         pmap = {id(p): (p if id(p) in t_ids else p.detach()) for p in params}
         with torch.enable_grad():
             _interp(step.nodes, env, pmap)
             loss = env[id(step.loss_var)]
             grads = torch.autograd.grad(loss, tparams, allow_unused=True)
+        grads = self._corrupt_grads(step, tparams, grads, run_i)
         opt._step_count += 1
         lr = float(opt.get_lr())
         with torch.no_grad():
+            scan = flag = None
+            if step.sentry:
+                flag, scan = _sentry_scan(
+                    loss, [g for g in grads if g is not None])
+                self._count_skip(state, flag)
+            # the update count moves only on a run that updates
+            ok = None if flag is None else (1 - flag).to(torch.float32)
             if step.fused is not None:
                 if lr != state.lr_value:     # uploaded when it moves
                     state.lr.fill_(lr)
                     state.lr_value = lr
-                state.step.add_(1.0)
+                state.step.add_(1.0 if ok is None else ok)
                 gbufs = [state.gbufs[id(p)] for p in tparams]
                 for b, g in zip(gbufs, grads):
                     if g is None:
@@ -724,19 +868,43 @@ class Executor:
                 torch._foreach_copy_(
                     [b for b, g in zip(gbufs, grads) if g is not None],
                     [g for g in grads if g is not None])
-                step.fused(state.lr, state.step)
+                # a flagged run: the kernel writes nothing
+                step.fused(state.lr, state.step, skip=flag)
             else:
-                state.step.add_(1.0)
                 slots = self._slots(state, opt, tparams)
                 grads = [torch.zeros_like(p) if g is None else g
                          for p, g in zip(tparams, grads)]
+                olds = [p.detach() for p in tparams]
+                # with the sentry, bias correction reads the device
+                # update count (a skipped run did not move it)
+                count = opt._step_count if ok is None else state.step + 1.0
                 new_p, new_s = opt.functional_update(
-                    [p.detach() for p in tparams], grads, slots, lr,
-                    opt._step_count, params_meta=tparams)
-                torch._foreach_copy_([p.detach() for p in tparams], new_p)
+                    olds, grads, slots, lr, count, params_meta=tparams)
+                state.step.add_(1.0 if ok is None else ok)
+                if flag is not None:
+                    new_p, new_s = _select_kept(flag, new_p, olds, new_s,
+                                                slots)
+                torch._foreach_copy_(olds, new_p)
                 for old, new in zip(slots, new_s):
                     for k, t in new.items():
                         old[k].copy_(t)
+        return scan
+
+    @staticmethod
+    def _corrupt_grads(step: _Step, tparams, grads, run_i):
+        """The ``executor.grads`` corruption point on each gradient
+        (identity unless a corrupt rule was armed at build time)."""
+        if not step.graph_corrupts:
+            return grads
+        return [None if g is None else fault.corrupt_in_graph(
+            "executor.grads", g, run_i, tensor=p.name)
+            for g, p in zip(grads, tparams)]
+
+    def _count_skip(self, state: _State, flag: torch.Tensor) -> None:
+        if state.skipped is None:
+            state.skipped = torch.zeros((), dtype=torch.int32,
+                                        device=self.place)
+        state.skipped.add_(flag)
 
     # -- the step under a sharding plan at dp > 1 --------------------------
     @staticmethod
@@ -751,7 +919,7 @@ class Executor:
         return out
 
     def _train_dist(self, program, opt, state, params, tparams, step,
-                    env, feeds):
+                    env, feeds, run_i=0):
         """One training run on this rank's dp slice: backward, the
         grad_comm stage and the update, which writes only this rank's
         rows of a dp-sharded param."""
@@ -782,9 +950,20 @@ class Executor:
             if path == "xla":
                 # each bucket's first collective is issued as soon as its
                 # last gradient lands, beside the rest of backward
-                reducer = _gc.BucketReducer(gplan, d.g, residuals)
+                reducer = _gc.BucketReducer(
+                    gplan, d.g, residuals, sentry=step.sentry,
+                    step=run_i if step.sentry else None)
+
+                def landed(t, k):
+                    # the executor.grads point acts before the bucket
+                    # is built from the gradient
+                    if step.graph_corrupts:
+                        t.grad = self._corrupt_grads(
+                            step, [tparams[k]], [t.grad], run_i)[0]
+                    reducer.arrived(k, t.grad)
+
                 hooks = [leaf.register_post_accumulate_grad_hook(
-                    lambda t, k=k: reducer.arrived(k, t.grad))
+                    lambda t, k=k: landed(t, k))
                     for k, leaf in enumerate(leaves)]
                 try:
                     torch.autograd.backward(loss, inputs=leaves)
@@ -793,19 +972,40 @@ class Executor:
                         h.remove()
                 grads = [leaf.grad for leaf in leaves]
             else:
-                grads = list(torch.autograd.grad(loss, leaves,
-                                                 allow_unused=True))
+                grads = self._corrupt_grads(
+                    step, tparams, list(torch.autograd.grad(
+                        loss, leaves, allow_unused=True)), run_i)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(tparams, grads)]
-        red, new_res = _gc.reduce_gradients(
+        out = _gc.reduce_gradients(
             grads, plan=gplan, group=d.g, residuals=residuals, mode=path,
-            issued=None if reducer is None else reducer.issued)
+            issued=None if reducer is None else reducer.issued,
+            sentry=step.sentry, step=run_i if step.sentry else None)
+        red, new_res = out[0], out[1]
+        scan = flag = None
+        if step.sentry:
+            info = out[2]
+            # one flag every rank computes from the same sums: non-finite
+            # anywhere (local gradients, wire, masked blocks, the loss)
+            # or an overflowed norm
+            loss_nf = _gc._psum(torch.isfinite(loss.detach()).logical_not()
+                                .sum().reshape(1).double(), d.g)[0]
+            nf = info["pre"] + info["post"]
+            flag = ((nf.sum() + info["blocks"] + loss_nf.to(torch.int32) > 0)
+                    | torch.isfinite(info["norm2"]).logical_not()
+                    ).to(torch.int32)
+            scan = (flag, nf, info["blocks"], info["norm2"])
+            self._count_skip(state, flag)
         if residuals is not None:
-            state.ef = list(new_res)
+            state.ef = (list(new_res) if flag is None else
+                        [torch.where(flag != 0, o, n)
+                         for n, o in zip(new_res, residuals)])
         opt._step_count += 1
         lr = float(opt.get_lr())
         with torch.no_grad():
-            state.step.add_(1.0)
+            ok = None if flag is None else (1 - flag).to(torch.float32)
+            count = opt._step_count if ok is None else state.step + 1.0
+            state.step.add_(1.0 if ok is None else ok)
             # a dp-sharded param's update writes this rank's rows, an
             # mp-cut one's its chunk, which they rest as until the next
             # run gathers them
@@ -823,8 +1023,10 @@ class Executor:
                     targets.append(p.detach())
             slots = self._slots(state, opt, tparams, targets)
             new_p, new_s = opt.functional_update(
-                targets, red, slots, lr, opt._step_count,
-                params_meta=tparams)
+                targets, red, slots, lr, count, params_meta=tparams)
+            if flag is not None:
+                new_p, new_s = _select_kept(flag, new_p, targets, new_s,
+                                            slots)
             torch._foreach_copy_(targets, new_p)
             for old, new in zip(slots, new_s):
                 for key, t in new.items():
@@ -834,6 +1036,7 @@ class Executor:
             from ..utils import monitor
             for name, val in d.comm_stats:
                 monitor.stat_add(name, val)
+        return scan
 
     def _dist_fetches(self, step: _Step, env) -> List[torch.Tensor]:
         """The global fetches from this rank's: the mean over dp of a
@@ -854,7 +1057,7 @@ class Executor:
 
     # -- building ----------------------------------------------------------
     def _build(self, program, params, feed_names, feeds, fetch_names,
-               tier, plan=None) -> _Step:
+               tier, plan=None, sentry=False) -> _Step:
         from .analysis.graph import DefUseGraph
         graph = DefUseGraph(program)
         feed_vars = []
@@ -899,7 +1102,9 @@ class Executor:
                       if p.requires_grad and id(p) not in deny
                       and (allow is None or id(p) in allow)]
         step.loss_var = loss_var
+        step.sentry = sentry
         tparams = [params[i] for i in step.t_idx]
+        sites = [("executor.grads", p.name) for p in tparams]
         if tier and tparams and fused_adam_eligible(opt, tparams):
             state = self._state_for(program, opt)
             slots = self._slots(state, opt, tparams)
@@ -912,6 +1117,14 @@ class Executor:
             kernels.append("fused_adam")
         if plan is not None:
             self._build_dist(program, params, plan, step, feeds, graph)
+        if sentry and step.dist is not None:
+            # the wire point lowers only with the sentry (it passes the
+            # run counter to the reduction)
+            for i, b in enumerate(step.dist.gplan.buckets):
+                if b.wire_dtype == "int8":
+                    sites += [("grad_comm.wire", f"bucket.{i}.q"),
+                              ("grad_comm.wire", f"bucket.{i}.scales")]
+        step.graph_corrupts = fault.graph_corrupt_sites(sites)
         return step
 
     def _build_dist(self, program, params, plan, step: _Step, feeds,

@@ -274,8 +274,9 @@ class Program:
         dtype drift, and, with ``fetch_list`` roots, dead ops and unused
         feeds.  Raises ``core.enforce.GraphVerificationError`` on an
         error unless ``raise_on_error=False``; returns the diagnostics.
-        The sharding arguments (shardcheck) raise NotImplementedError:
-        they come with ROADMAP A5."""
+        With ``sharding=`` a plan, or ``mesh_shape=`` (and
+        ``sharding_rules=`` / ``strategy=``) an abstract one, the
+        shardcheck passes run too (``static.analysis.shardcheck``)."""
         from .analysis import verify as _verify
         return _verify(self, fetch_list=fetch_list,
                        raise_on_error=raise_on_error, sharding=sharding,
@@ -289,8 +290,8 @@ class Program:
         peak bytes, a roofline per chip spec, the hazards, and the top-k
         fusion candidates with what the Executor realizes.
         ``batch_size`` stands in for every dynamic feed dim and
-        ``feed_shapes`` sets feeds exactly.  ``sharding`` raises
-        NotImplementedError (ROADMAP A5)."""
+        ``feed_shapes`` sets feeds exactly.  ``sharding`` (a plan)
+        prices each rank's share and the plan's wire bytes."""
         from .analysis import analyze as _analyze
         return _analyze(self, fetch_list=fetch_list,
                         feed_shapes=feed_shapes, batch_size=batch_size,

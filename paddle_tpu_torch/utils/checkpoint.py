@@ -34,8 +34,19 @@ The fault points are paddle_tpu's: ``ckpt.publish``, ``ckpt.save``,
 ``fs.open_write``, ``fs.mkdir``, ``fs.remove``, ``fs.list`` and
 ``fs.mv``.  Paths are local: a ``scheme://`` path raises
 ``NotImplementedError`` (paddle_tpu's ``utils/fs``, ROADMAP A6, is not
-ported).  ``TrainEpochRange``, ``train_epoch_range`` and the preemption
-handler stay with A6 too.
+ported).
+
+:class:`TrainEpochRange` (``train_epoch_range``) is the epoch loop that
+snapshots its registered objects and resumes after a restart.  With
+``save_every_steps`` / ``save_every_s`` the loop calls
+:meth:`TrainEpochRange.step` once a step; due snapshots are captured on
+the step thread and published on the store's background thread, and
+after a restart :attr:`TrainEpochRange.resume_step` is the global step
+to continue from.  :func:`install_preemption_handler` chains a SIGTERM
+handler: while a range iterates, SIGTERM (a supervisor's kill, a
+preemption notice) asks for a snapshot at the next step boundary (with
+a cadence) or epoch boundary, which is published before the process
+exits with ``SystemExit(0)``.
 """
 from __future__ import annotations
 
@@ -44,9 +55,11 @@ import json
 import os
 import queue
 import shutil
+import signal
 import threading
+import time
 import warnings
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 from . import monitor
 from ..core import flags as _flags
@@ -55,11 +68,46 @@ from ..framework_io import dumps as _dumps
 from ..framework_io import loads as _loads
 from ..testing import fault
 
-__all__ = ["CheckpointError", "SnapshotStore", "write_atomic"]
+__all__ = ["CheckpointError", "SnapshotStore", "TrainEpochRange",
+           "install_preemption_handler", "train_epoch_range",
+           "write_atomic"]
 
 
 class CheckpointError(RuntimeError):
     """No intact snapshot could be restored (corrupt/missing state)."""
+
+
+def install_preemption_handler(on_term):
+    """Install a SIGTERM handler that calls ``on_term()`` then chains to
+    the previous Python handler.  Returns a ``restore()`` callable, or
+    None when installation isn't possible (non-main thread, or the
+    previous handler was installed by non-Python code — ``getsignal``
+    returns None — which we could neither chain nor restore)."""
+    if threading.current_thread() is not threading.main_thread():
+        return None
+    prev = signal.getsignal(signal.SIGTERM)
+    if prev is None:
+        return None
+
+    def _handler(signum, frame):
+        on_term()
+        # chain: give outer handlers (fleet agents) their notice too
+        if callable(prev) and prev not in (signal.SIG_IGN,
+                                           signal.SIG_DFL):
+            prev(signum, frame)
+
+    try:
+        signal.signal(signal.SIGTERM, _handler)
+    except ValueError:      # non-main interpreter thread raced us
+        return None
+
+    def restore():
+        try:
+            signal.signal(signal.SIGTERM, prev)
+        except (ValueError, TypeError):
+            pass
+
+    return restore
 
 
 def _local(path: str) -> str:
@@ -482,3 +530,174 @@ class SnapshotStore:
                               f"'{name}' failed to decode: {e}")
                 return None
         return out
+
+
+class TrainEpochRange:
+    """Iterable of epoch indices with save-on-epoch-end and auto-resume.
+
+    Usage::
+
+        r = TrainEpochRange(10, "ckpt/run1", model=model, opt=opt)
+        for epoch in r:          # resumes after the last finished epoch
+            train_one_epoch(...)
+
+    ``keep_checkpoint_max`` snapshots are retained (default
+    ``FLAGS_checkpoint_keep_max``); restore verifies sha256 digests and
+    falls back across them.  While iterating (main thread), SIGTERM (a
+    preemption notice, or a supervisor's kill) requests a snapshot at
+    the next epoch boundary, publishes it, then exits via
+    ``SystemExit(0)`` (disable with ``handle_preemption=False``).
+
+    Step cadence: with ``save_every_steps`` and/or ``save_every_s``
+    set, call :meth:`step` once per training step.  Due snapshots are
+    captured on the step thread and published on the store's
+    background thread (``async_publish=False`` keeps them fully
+    synchronous); a pending SIGTERM then saves at the next **step**
+    boundary instead of waiting for the epoch to end.  After a
+    restart, :attr:`resume_step` is the global step to continue from
+    (the restored snapshot's step count)."""
+
+    def __init__(self, max_epoch_num: int, checkpoint_dir: str,
+                 save_checkpoint_inter: int = 1,
+                 keep_checkpoint_max: Optional[int] = None,
+                 verify: bool = True, handle_preemption: bool = True,
+                 save_every_steps: Optional[int] = None,
+                 save_every_s: Optional[float] = None,
+                 async_publish: bool = True,
+                 **objects):
+        self.max_epoch = int(max_epoch_num)
+        self.dir = checkpoint_dir
+        self.interval = max(1, int(save_checkpoint_inter))
+        self.handle_preemption = handle_preemption
+        self.save_every_steps = (None if save_every_steps is None
+                                 else max(1, int(save_every_steps)))
+        self.save_every_s = (None if save_every_s is None
+                             else float(save_every_s))
+        self.async_publish = async_publish
+        self._objects: Dict[str, object] = dict(objects)
+        self._store = SnapshotStore(checkpoint_dir,
+                                    keep_max=keep_checkpoint_max,
+                                    verify=verify)
+        self._preempted = threading.Event()
+        self._global_step = 0
+        self._resume_step = 0
+        self._cur_epoch = 0
+        self._last_save_step = 0
+        self._last_save_t = time.monotonic()
+
+    def register(self, name: str, obj):
+        """Add a state_dict-bearing object to the snapshot set."""
+        self._objects[name] = obj
+        return self
+
+    # -- persistence -------------------------------------------------------
+    def _save(self, epoch: int):
+        self._store.save(epoch, self._objects)
+        self._last_save_step = self._global_step
+        self._last_save_t = time.monotonic()
+
+    def _restore(self) -> int:
+        start = self._store.restore(self._objects)
+        snap = self._store.last_restored or {}
+        self._global_step = self._resume_step = int(snap.get("step") or 0)
+        self._last_save_step = self._global_step
+        self._last_save_t = time.monotonic()
+        return start
+
+    def _load_meta(self) -> Optional[dict]:
+        return self._store.load_meta()
+
+    # -- step cadence ------------------------------------------------------
+    @property
+    def resume_step(self) -> int:
+        """Global step to continue from after restore (0 = fresh)."""
+        return self._resume_step
+
+    @property
+    def global_step(self) -> int:
+        return self._global_step
+
+    def _save_step_snapshot(self, sync: bool) -> None:
+        if sync:
+            self._store.save(self._cur_epoch, self._objects,
+                             step=self._global_step, kind="step")
+        else:
+            self._store.save_async(self._cur_epoch, self._objects,
+                                   step=self._global_step, kind="step")
+        self._last_save_step = self._global_step
+        self._last_save_t = time.monotonic()
+        monitor.stat_add("checkpoint.step_saves")
+
+    def step(self) -> int:
+        """Mark one training step complete; returns the global step.
+
+        Drives the step-cadence snapshots and — when a SIGTERM arrived
+        — the step-boundary preemption save (synchronous publish, then
+        ``SystemExit(0)``), so a preempted or supervisor-killed run
+        loses at most the in-flight step instead of the epoch."""
+        self._global_step += 1
+        if self.handle_preemption and self._preempted.is_set():
+            self._save_step_snapshot(sync=True)
+            monitor.stat_add("checkpoint.preempt_saves")
+            raise SystemExit(0)
+        due = (self.save_every_steps is not None
+               and self._global_step - self._last_save_step
+               >= self.save_every_steps)
+        if not due and self.save_every_s is not None:
+            due = (time.monotonic() - self._last_save_t
+                   >= self.save_every_s)
+        if due:
+            self._save_step_snapshot(sync=not self.async_publish)
+        return self._global_step
+
+    # -- preemption --------------------------------------------------------
+    @property
+    def preempted(self) -> bool:
+        """True once a SIGTERM asked for a boundary save + clean exit."""
+        return self._preempted.is_set()
+
+    def _on_preempt(self):
+        self._preempted.set()
+        monitor.stat_add("checkpoint.preempt_requests")
+        trc = _obs_hook._tracer
+        if trc is not None:
+            trc.emit("checkpoint", "preempt_request",
+                     args={"dir": self.dir})
+
+    # -- iteration ---------------------------------------------------------
+    def __iter__(self) -> Iterator[int]:
+        start = self._restore()
+        restore_handler = (install_preemption_handler(self._on_preempt)
+                           if self.handle_preemption else None)
+        try:
+            for epoch in range(start, self.max_epoch):
+                self._cur_epoch = epoch
+                yield epoch
+                # body finished without raising: snapshot this epoch
+                if (self._preempted.is_set()
+                        or (epoch + 1) % self.interval == 0
+                        or epoch == self.max_epoch - 1):
+                    self._save(epoch)
+                if self._preempted.is_set():
+                    monitor.stat_add("checkpoint.preempt_saves")
+                    raise SystemExit(0)
+        finally:
+            # queued background publishes land before the loop returns
+            # (or unwinds) — a completed range never leaves a captured
+            # snapshot unpublished
+            self._store.flush()
+            if restore_handler is not None:
+                restore_handler()
+
+    @property
+    def next_epoch(self) -> int:
+        meta = self._load_meta()
+        return 0 if meta is None else int(meta["finished_epoch"]) + 1
+
+
+def train_epoch_range(max_epoch_num: int, checkpoint_dir: str = "./acp",
+                      save_checkpoint_inter: int = 1,
+                      **objects) -> TrainEpochRange:
+    """reference: auto_checkpoint.py train_epoch_range:71."""
+    return TrainEpochRange(max_epoch_num, checkpoint_dir,
+                           save_checkpoint_inter, **objects)

@@ -10,9 +10,10 @@ two packages write the same wire format, so the published metas —
 digests included — must be equal, and so must the fault points, the
 verdicts and the restored weights (exactly).
 
-Not twinned: the ``TrainEpochRange`` / ``train_epoch_range`` loops, the
-preemption handler and the sharded ``shard_state`` protocol (ROADMAP
-A6); the cases here drive the store those loops sit on directly.
+The ``TrainEpochRange`` / ``train_epoch_range`` loops and the
+preemption handler are twinned in ``test_torch_fault_tolerance.py``;
+the sharded ``shard_state`` protocol in the sharding and anomaly
+modules' gloo worlds.  The cases here drive the store directly.
 """
 import json
 import os

@@ -4,8 +4,12 @@
   ``fused_adam_update``) against paddle_tpu's Pallas kernel in interpret
   mode, at the two ragged shapes of paddle_tpu's test; within 1e-6.
 - Eligibility as paddle_tpu's ``fused_update_for`` has it.
+- The anomaly sentry's skip flag: a flagged step of the plain version
+  leaves p, m and v bitwise as they were, an unflagged one equals the
+  flagless update bitwise.
 - ``cuda``-marked: the CUDA kernel (K3, one multi-tensor launch)
-  against the plain version on the card.
+  against the plain version on the card, and a flagged launch that
+  writes nothing.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -87,6 +91,28 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch_cuda.support.launch_counts == before
 
 
+@pytest.mark.parametrize("flag", [0, 1])
+def test_skip_flag_plain_version(flag):
+    """``skip`` (an int32 scalar tensor): 1 keeps every tensor bitwise,
+    0 gives the flagless update bitwise, with no host read of it."""
+    r = np.random.RandomState(1)
+    shapes = [(7,), (5, 3)]
+    p, g, m, v = ([torch.from_numpy(r.randn(*s).astype(np.float32))
+                   for s in shapes] for _ in range(4))
+    m, v = [t.abs() for t in m], [t.abs() for t in v]
+    before = [[t.clone() for t in ts] for ts in (p, g, m, v)]
+    flagless = [[t.clone() for t in ts] for ts in (p, g, m, v)]
+    lr, step = torch.tensor(1e-2), torch.tensor(3.0)
+    fa.FusedAdam(p, g, m, v)(lr, step,
+                             skip=torch.tensor(flag, dtype=torch.int32))
+    fa.fused_adam_reference_(*flagless, lr, step)
+    want = before if flag else flagless
+    for got, ref in zip((p, m, v), (want[0], want[2], want[3])):
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert not any(torch.equal(a, b) for a, b in zip(before[0],
+                                                     flagless[0]))
+
+
 def test_kernel_table_refuses_cpu_tensors():
     t = [torch.zeros(4)]
     with pytest.raises(ValueError, match="CUDA"):
@@ -128,3 +154,32 @@ def test_cuda_kernel_matches_the_plain_version():
     for a, b in zip(sides[0], sides[1]):
         for x, y in zip(a, b):
             assert (x - y).abs().max().item() < 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_skip_flag_writes_nothing():
+    """A flagged launch (the sentry's device int): p, m and v bitwise
+    unchanged; an unflagged one equals the plain version; both count a
+    launch."""
+    _cuda()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    shapes = [(7,), (130, 33), (70001,)]
+    ps = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    gs = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    ms = [torch.randn(s, generator=gen, device="cuda").abs() for s in shapes]
+    vs = [torch.randn(s, generator=gen, device="cuda").abs() for s in shapes]
+    before = [t.clone() for t in ps + ms + vs]
+    kern = fa.FusedAdam(ps, gs, ms, vs)
+    lr = torch.full((), 1e-3, device="cuda")
+    step = torch.full((), 4.0, device="cuda")
+    n0 = torch_cuda.support.launch_counts.get("fused_adam", 0)
+    kern(lr, step, skip=torch.ones((), dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(ps + ms + vs, before))
+    ref = [[t.clone() for t in ts] for ts in (ps, gs, ms, vs)]
+    kern(lr, step, skip=torch.zeros((), dtype=torch.int32, device="cuda"))
+    fa.fused_adam_reference_(*ref, lr, step)
+    torch.cuda.synchronize()
+    assert torch_cuda.support.launch_counts["fused_adam"] == n0 + 2
+    for a, b in zip(ps + ms + vs, ref[0] + ref[2] + ref[3]):
+        assert (a - b).abs().max().item() < 1e-6

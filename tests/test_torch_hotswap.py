@@ -15,8 +15,10 @@ are equal.
 Beyond the twins: the port refuses a snapshot carrying a paddle_tpu
 artifact before any commit, ``ModelRegistry.load(weights_dir=...)`` and
 the ``serve`` CLI's ``--weights-dir`` swap what they serve, and
-``testing.chaos.swap_main(supervised=False)`` passes at a small size.
-The gate's supervised leg waits for ROADMAP A5's ``ServingSupervisor``.
+``testing.chaos.swap_main`` passes at a small size, its supervised leg
+too: a ``ServingSupervisor`` replica (a child process) crashes hard
+mid-traffic, restarts, goes ready again, and every answer is the
+version-0 model's bitwise.
 A swap on the card is ``tests/test_torch_hotswap_cuda.py``'s.
 """
 import json
@@ -560,11 +562,11 @@ def test_serve_cli_weights_dir_swaps_the_served_model(tmp_path, artifacts):
 
 
 def test_swap_main_in_process_small():
-    """``chaos.swap_main(supervised=False)``: three live swaps under
-    concurrent traffic, one corrupted snapshot rejected."""
+    """``chaos.swap_main``: three live swaps under concurrent traffic,
+    one corrupted snapshot rejected, then (``supervised=True``) a
+    supervised replica killed mid-traffic, restarted, ready again, its
+    answers bitwise version 0's."""
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         assert chaos.swap_main(requests=8, clients=2,
-                               supervised=False) == 0
-    with pytest.raises(NotImplementedError, match="A5"):
-        chaos.swap_main(supervised=True)
+                               supervised=True) == 0

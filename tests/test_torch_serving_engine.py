@@ -402,7 +402,7 @@ def test_fault_rule_actions():
         assert fault.fire_count() == 1
     assert not fault.is_armed()
     with pytest.raises(ValueError, match="action"):
-        fault.arm("x:action=corrupt")
+        fault.arm("x:action=explode")
     r = subprocess.run(
         [sys.executable, "-c",
          "from paddle_tpu_torch.testing import fault\n"

@@ -380,8 +380,11 @@ def test_roofline_rows_are_the_cpu_and_the_h100():
     assert rep.totals["mesh_devices"] == 1
     assert rep.memory_per_shard.peak_bytes_donated \
         == rep.memory.peak_bytes_donated
-    with pytest.raises(NotImplementedError, match="A5"):
-        main.verify(fetch_list=[loss], mesh_shape={"dp": 2})
+    # shardcheck on an abstract mesh: no errors for a plain program
+    # (tests/test_torch_shardcheck.py holds its diagnostics to
+    # paddle_tpu's)
+    diags = main.verify(fetch_list=[loss], mesh_shape={"dp": 2})
+    assert not [d for d in diags if d.severity == "error"]
 
 
 def test_perf_chip_flag_and_auto_choice():

@@ -23,10 +23,7 @@ NOT_YET_PORTED = {
         Model summary
     """,
     "paddle_tpu.amp": "",
-    "paddle_tpu.distributed": """
-        AnomalyEscalation AnomalyPolicy ProcessSupervisor ServingSupervisor
-        StepWatchdog SupervisorGaveUp SupervisorResult TrainingSupervisor
-    """,
+    "paddle_tpu.distributed": "",
     "paddle_tpu.distributed.fleet": """
         DatasetFactory InMemoryDataset QueueDataset
     """,
@@ -43,7 +40,7 @@ NOT_YET_PORTED = {
     "paddle_tpu.serving": "",
     "paddle_tpu.static": "",
     "paddle_tpu.utils": """
-        register_custom_op train_epoch_range
+        register_custom_op
     """,
 }
 
