@@ -360,6 +360,16 @@ kernel from the sources in this checkout.  Phases, each fatal:
     503 ``degraded``, then recover and scale down once the objective
     is raised.
 
+Phases 65-73 (fleet, the grad_comm stage, the pipelined GPT, LocalSGD,
+the sharded embedding, the supervised static BERT, the supervised swap,
+shardcheck) are described at their functions.  74: BERT-base fitted by
+``paddle.Model`` from a seeded corpus tokenized by the native WordPiece
+tokenizer in 4 DataLoader worker processes, held to a hand-written
+``TrainStep`` loop, with the Checkpoint, MetricsDump and LRScheduler
+callbacks, ``evaluate``, ``predict``, ``save``/``load`` and
+``summary``; 75: ResNet-50 fitted by ``paddle.Model`` from
+``DatasetFolder`` images through the vision transforms in 2 workers.
+
 Phases 46-64 each log their number and name, print every compared
 quantity beside its limit, put back in a ``finally`` the global state
 they may touch (flags, dygraph mode, default dtype and device, the RNG
@@ -9287,6 +9297,401 @@ def phase_shardcheck_gpt():
         raise AssertionError(f"shardcheck on the static GPT: {out}")
 
 
+# ---------------------------------------------------------- phases 74-75
+# bench_bert's chip config (bench.py:155-200) fitted by hapi.Model from a
+# tokenized corpus through DataLoader worker processes: 768 documents are
+# one epoch of 12 batches of 64, the first 2 steps the warm-up
+HAPI_BERT = dict(BERT_CHIP, docs=768, warmup=2, workers=4, eval_batches=2,
+                 seed=2024, corpus_seed=0)
+# the vision leg: ResNet-50 at batch 32 on 224 x 224 crops of seeded .npy
+# images (the card's machine has no PIL), 3 steps through 2 workers
+HAPI_VISION = dict(batch=32, steps=3, hw=224, resize=256, workers=2,
+                   classes=2, lr=1e-3, momentum=0.9, seed=2024)
+
+
+def _fit_clock(torch, Callback):
+    """A callback that clocks every ``fit`` step: host time from batch
+    begin to batch end (``train_batch`` reads the loss, so the step's
+    work is done), the wait on the loader before it (the previous end to
+    this begin), CUDA events at both ends on the step's stream, and the
+    loss."""
+
+    class FitClock(Callback):
+        def __init__(self):
+            super().__init__()
+            self.begin, self.end, self.events, self.losses = [], [], [], []
+
+        def on_train_batch_begin(self, step, logs=None):
+            self.begin.append(time.perf_counter())
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events.append([ev, None])
+
+        def on_train_batch_end(self, step, logs=None):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events[-1][1] = ev
+            self.end.append(time.perf_counter())
+            self.losses.append(logs["loss"])
+
+        def summary(self, np, warmup):
+            torch.cuda.synchronize()
+            step = [(e - b) * 1e3 for b, e in zip(self.begin, self.end)]
+            wait = [(b - e) * 1e3 for b, e in zip(self.begin[1:],
+                                                  self.end[:-1])]
+            span = [a.elapsed_time(b) for a, b in self.events]
+            timed = step[warmup:]
+            wall = (self.end[-1] - self.end[warmup - 1]) * 1e3
+            return {"step_ms": timed, "step_ms_p50": float(np.median(timed)),
+                    "step_ms_mean": float(np.mean(timed)),
+                    "first_steps_ms": step[:warmup],
+                    "loader_wait_ms": wait[warmup - 1:],
+                    "loader_wait_ms_mean": float(np.mean(wait[warmup - 1:])),
+                    "device_span_ms": span[warmup:],
+                    "timed_wall_ms": wall,
+                    "device_idle_share": max(
+                        0.0, 1.0 - sum(span[warmup:]) / wall)}
+
+    return FitClock()
+
+
+def _batch_digest(np, batch):
+    h = hashlib.sha256()
+    for t in batch:
+        a = t.numpy()
+        h.update(str((a.dtype.str, a.shape)).encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
+
+
+def _flash_ms_per_launch(torch, one_step, layers, steps=2):
+    """Device ms a launch of each flash kernel (profiler kernel time)
+    over ``steps`` calls of ``one_step`` after one untraced call: a trace
+    that caught fewer than ``layers`` launches a step of a kernel is
+    taken again (the tracer at times drops records), up to three
+    times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    one_step()
+    torch.cuda.synchronize()
+    names = {"flash_attention_fwd": "flash_fwd_",
+             "flash_attention_bwd_dq": "flash_bwd_dq_",
+             "flash_attention_bwd_dkv": "flash_bwd_dkv_"}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                one_step()
+            torch.cuda.synchronize()
+        tot = {n: [0.0, 0] for n in names}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            for n, m in names.items():
+                if m in e.key:
+                    tot[n][0] += e.self_device_time_total
+                    tot[n][1] += e.count
+        del prof
+        gc.collect()
+        if all(c == layers * steps for _, c in tot.values()):
+            break
+    return {n: (t / c / 1e3 if c else None) for n, (t, c) in tot.items()}
+
+
+def _hapi_bert_model(paddle, cfg):
+    """bench_bert's chip model and optimizer, O2, with a PiecewiseDecay
+    that holds lr 1e-4 over the run (so the LRScheduler callback has a
+    scheduler to step)."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.testing.models import build_model, mlm_loss
+    paddle.seed(cfg["seed"])
+    net = build_model(cfg["vocab"], cfg["hidden"], cfg["layers"],
+                      cfg["heads"], cfg["ffn"], cfg["seq"], cfg["dropout"])
+    sched = optimizer.lr.PiecewiseDecay([10 ** 6], [1e-4, 1e-5])
+    opt = optimizer.AdamW(learning_rate=sched, parameters=net.parameters(),
+                          weight_decay=0.01,
+                          grad_clip=optimizer.ClipGradByGlobalNorm(1.0),
+                          multi_precision=True)
+    net, opt = amp.decorate(net, opt, level="O2", dtype="bfloat16")
+    return net, opt, sched, mlm_loss(net)
+
+
+def phase_hapi_bert():
+    """74. BERT-base (bench_bert's chip config, bf16 O2, AdamW 1e-4,
+    global-norm clip 1.0, the fused linear cross entropy) fitted by
+    ``paddle.Model`` from a seeded synthetic corpus tokenized by the
+    native WordPiece tokenizer in 4 DataLoader worker processes: (a)
+    every loss finite, the first near ln(vocab); (b) the losses those of
+    a hand-written ``jit.TrainStep`` loop over the same batches from the
+    same seed; (c) every batch of the 4-worker loader the synchronous
+    loader's, by checksum; (d) no worker made a CUDA context; (e) the
+    tokenizer native; (f) ``Model.save``/``load`` keep the ``evaluate``
+    loss; with Checkpoint, MetricsDump and LRScheduler callbacks, then
+    ``evaluate``, ``predict`` and ``summary``.  12 K1f and 12 of each
+    K1b launches a fit step.  Times: the step p50 and mean, the loader
+    wait, tokens/s and the card's idle share (CUDA events against the
+    host clock)."""
+    import contextlib
+    import functools
+    import io as _io
+
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import io, jit
+    from paddle_tpu_torch.hapi import (Callback, Checkpoint, LRScheduler,
+                                       MetricsDump)
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.testing import corpus
+    cfg = HAPI_BERT
+    steps = cfg["docs"] // cfg["batch"]
+    work = tempfile.mkdtemp(prefix="chip_smoke_hapi_")
+    try:
+        t0 = time.perf_counter()
+        probe = os.path.join(work, "probe")
+        os.makedirs(probe)
+        vocab, docs = corpus.write_corpus(work, cfg["docs"], cfg["vocab"],
+                                          seed=cfg["corpus_seed"])
+        ds = corpus.MaskedLMCorpus(vocab, docs, cfg["seq"], probe_dir=probe)
+        if not ds.tokenizer().is_native:                          # (e)
+            raise AssertionError("the WordPiece tokenizer is not native")
+        if len(ds.tokenizer()) != cfg["vocab"]:
+            raise AssertionError(f"vocab {len(ds.tokenizer())}")
+        data_s = time.perf_counter() - t0
+        init = functools.partial(corpus.report_worker, probe)
+
+        def loader(shuffle, workers):
+            return io.DataLoader(ds, batch_size=cfg["batch"],
+                                 shuffle=shuffle, num_workers=workers,
+                                 worker_init_fn=init if workers else None)
+
+        # (c): the worker path against the synchronous one, over the
+        # order one seed draws; the worker loader's pool (made here, its
+        # start timed to the first batch) serves fit and the reference
+        # loop too
+        fit_loader = loader(True, cfg["workers"])
+        paddle.seed(cfg["seed"])
+        t0 = time.perf_counter()
+        it = iter(fit_loader)
+        mp = [_batch_digest(np, next(it))]
+        pool_s = time.perf_counter() - t0
+        mp += [_batch_digest(np, b) for b in it]
+        mp_epoch_s = time.perf_counter() - t0
+        paddle.seed(cfg["seed"])
+        t0 = time.perf_counter()
+        sync = [_batch_digest(np, b) for b in loader(True, 0)]
+        sync_epoch_s = time.perf_counter() - t0
+        if sync != mp or len(sync) != steps:
+            raise AssertionError(f"worker batches differ from the "
+                                 f"synchronous loader's: {sync} {mp}")
+        first = next(iter(loader(False, 0)))
+        if (first[0].dtype != torch.int32 or first[1].dtype != torch.int64
+                or list(first[0].shape) != [cfg["batch"], cfg["seq"]]):
+            raise AssertionError(f"batch {first[0].dtype} "
+                                 f"{first[1].dtype} {first[0].shape}")
+
+        # the hapi path
+        net, opt, sched, loss_fn = _hapi_bert_model(paddle, cfg)
+        model = paddle.Model(net)
+        model.prepare(opt, loss_fn)
+        clock = _fit_clock(torch, Callback)
+        ckpt_dir = os.path.join(work, "ckpt")
+        dump = os.path.join(work, "metrics.jsonl")
+        gc.collect()
+        torch.cuda.synchronize()
+        support.reset_launch_counts()
+        t0 = time.perf_counter()
+        model.fit(fit_loader, epochs=1, log_freq=1, verbose=0,
+                  callbacks=[clock, Checkpoint(ckpt_dir,
+                                               keep_checkpoint_max=1),
+                             MetricsDump(dump), LRScheduler()])
+        fit_s = time.perf_counter() - t0
+        launches = {n: support.launch_counts.get(n, 0)
+                    for n in FLASH_KERNELS}
+        others = {n: c for n, c in support.launch_counts.items()
+                  if n not in FLASH_KERNELS and c}
+        times = clock.summary(np, cfg["warmup"])
+        losses = clock.losses
+        # the flash kernels' device ms a launch on this path (more
+        # train_batch steps on the first batch, before evaluate and save)
+        ids, labels = first
+        per_launch = _flash_ms_per_launch(
+            torch, lambda: model.train_batch([ids], [labels]),
+            cfg["layers"])
+        meta = json.load(open(os.path.join(ckpt_dir, "range_meta.json")))
+        dumped = open(dump).read().splitlines()
+
+        # evaluate, predict, save/load, summary
+        evald = io.Subset(ds, range(cfg["eval_batches"] * cfg["batch"]))
+        eval_loader = io.DataLoader(evald, batch_size=cfg["batch"])
+        support.reset_launch_counts()
+        ev = model.evaluate(eval_loader, verbose=0)
+        preds = model.predict(io.DataLoader(evald, batch_size=cfg["batch"]))
+        eval_launches = {n: support.launch_counts.get(n, 0)
+                         for n in FLASH_KERNELS}
+        pred_ok = all(list(p.shape) == [cfg["batch"], cfg["seq"],
+                                        cfg["hidden"]]
+                      and bool(torch.isfinite(p.float()).all())
+                      for p in preds)
+        t0 = time.perf_counter()
+        path = os.path.join(work, "bert")
+        model.save(path)
+        save_s = time.perf_counter() - t0
+        state = {k: v.detach().float().cpu()
+                 for k, v in net.state_dict().items()}
+        del model, net, opt, preds
+        torch.cuda.empty_cache()
+        net2, opt2, _, loss2 = _hapi_bert_model(paddle, dict(cfg, seed=7))
+        m2 = paddle.Model(net2)
+        m2.prepare(opt2, loss2)
+        m2.load(path)
+        ev2 = m2.evaluate(eval_loader, verbose=0)
+        same_state = all(torch.equal(state[k], v.detach().float().cpu())
+                         for k, v in net2.state_dict().items())
+        with contextlib.redirect_stdout(_io.StringIO()) as text:
+            info = paddle.summary(net2)
+        del m2, net2, opt2, state
+        torch.cuda.empty_cache()
+
+        # (b): a hand-written TrainStep loop over the same batches
+        net3, opt3, sched3, loss3 = _hapi_bert_model(paddle, cfg)
+        step = jit.TrainStep(net3, loss3, opt3, n_inputs=1)
+        ref = []
+        for ids, labels in fit_loader:
+            ref.append(float(step(ids, labels)))
+            sched3.step()
+        fit_loader._mp_pool.close()
+        del net3, opt3, step
+        torch.cuda.empty_cache()
+        # the workers' reports (this process serves the synchronous
+        # loader's samples, on a machine whose card it uses)
+        reports = [(n, r) for n, r in corpus.worker_reports(probe)
+                   if r["pid"] != os.getpid()]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    worker_cuda = sorted({(n.split("-")[0], r["cuda_initialized"])
+                          for n, r in reports})
+    diff = max(abs(a - b) for a, b in zip(losses, ref))
+    tokens = cfg["batch"] * cfg["seq"]
+    out = {"config": cfg, "steps": steps, "losses": losses,
+           "reference_losses": ref, "bitwise_equal_to_train_step":
+           losses == ref, "max_abs_loss_diff": diff,
+           **times,
+           "tokens_per_s": tokens / (times["step_ms_mean"] / 1e3),
+           "tokens_per_s_with_loader_wait": tokens / (
+               (times["step_ms_mean"] + times["loader_wait_ms_mean"]) / 1e3),
+           "flash_launches": launches, "other_launches": others,
+           "flash_device_ms_per_launch": per_launch,
+           "eval_predict_flash_launches": eval_launches,
+           "evaluate": ev, "evaluate_after_load": ev2,
+           "state_round_trip_equal": same_state,
+           "predict_outputs_ok": pred_ok,
+           "summary_total_params": info["total_params"],
+           "summary_lines": len(text.getvalue().splitlines()),
+           "checkpoint_snapshots": [s["dir"] for s in meta["snapshots"]],
+           "metrics_dump_lines": len(dumped),
+           "batch_digests": sync[:3], "worker_probe": worker_cuda,
+           "workers_reported": len({r["pid"] for _, r in reports}),
+           "seconds": {"data": data_s, "pool_start_to_first_batch":
+                       pool_s, "worker_epoch": mp_epoch_s,
+                       "synchronous_epoch": sync_epoch_s,
+                       "fit": fit_s, "save": save_s}}
+    log("HAPI_BERT " + json.dumps(out))
+    want = cfg["layers"] * steps
+    problems = []
+    if not all(math.isfinite(v) for v in losses + ref):             # (a)
+        problems.append("non-finite loss")
+    if abs(losses[0] - math.log(cfg["vocab"])) > 0.5:
+        problems.append(f"first loss {losses[0]} not near ln(vocab)")
+    if len(losses) != steps or diff > 0.0:                          # (b)
+        problems.append(f"fit losses differ from TrainStep's by {diff}")
+    if any(cuda for _, cuda in worker_cuda) or not reports:         # (d)
+        problems.append(f"worker CUDA contexts: {worker_cuda}")
+    if ev.get("loss") != ev2.get("loss") or not same_state:         # (f)
+        problems.append(f"save/load: {ev} against {ev2}")
+    if any(c != want for c in launches.values()) or others:
+        problems.append(f"launches {launches} {others}, want {want} "
+                        f"of each flash kernel")
+    if not pred_ok or len(dumped) != 2 or len(meta["snapshots"]) != 1:
+        problems.append("predict, MetricsDump or Checkpoint")
+    if problems:
+        raise AssertionError(f"hapi BERT: {problems}")
+    return {n: launches[n] + eval_launches[n] for n in FLASH_KERNELS}
+
+
+def phase_hapi_vision():
+    """75. ResNet-50 fitted by ``paddle.Model`` for 3 steps at batch 32
+    from ``vision.datasets.DatasetFolder`` over seeded 224 x 224 x 3
+    uint8 ``.npy`` images through ``Resize``, ``RandomCrop``,
+    ``Normalize`` and ``Transpose`` in 2 DataLoader workers: losses
+    finite, ``ImageFolder`` sees every image, and no hand kernel
+    launched."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import io, optimizer
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.vision import transforms as T
+    from paddle_tpu_torch.vision.datasets import DatasetFolder, ImageFolder
+    from paddle_tpu_torch.vision.models import resnet50
+    cfg = HAPI_VISION
+    n = cfg["batch"] * cfg["steps"]
+    root = tempfile.mkdtemp(prefix="chip_smoke_images_")
+    try:
+        rng = np.random.RandomState(cfg["seed"])
+        for c in range(cfg["classes"]):
+            d = os.path.join(root, f"class{c}")
+            os.makedirs(d)
+            for i in range(n // cfg["classes"]):
+                np.save(os.path.join(d, f"{i}.npy"),
+                        rng.randint(0, 256, (cfg["hw"], cfg["hw"], 3),
+                                    dtype=np.uint8))
+        tf = T.Compose([T.Resize(cfg["resize"]), T.RandomCrop(cfg["hw"]),
+                        T.Normalize(mean=[123.675, 116.28, 103.53],
+                                    std=[58.395, 57.12, 57.375],
+                                    data_format="HWC"),
+                        T.Transpose()])
+        ds = DatasetFolder(root, transform=tf)
+        flat = len(ImageFolder(root))
+        x0, y0 = ds[0]
+        loader = io.DataLoader(ds, batch_size=cfg["batch"], shuffle=True,
+                               num_workers=cfg["workers"], drop_last=True)
+        paddle.seed(cfg["seed"])
+        net = resnet50(num_classes=cfg["classes"])
+        model = paddle.Model(net)
+        model.prepare(optimizer.Momentum(
+            learning_rate=cfg["lr"], momentum=cfg["momentum"],
+            parameters=net.parameters()), F.cross_entropy)
+        losses = []
+
+        class Losses(paddle.hapi.Callback):
+            def on_train_batch_end(self, step, logs=None):
+                losses.append(logs["loss"])
+
+        support.reset_launch_counts()
+        t0 = time.perf_counter()
+        model.fit(loader, epochs=1, log_freq=1, verbose=0,
+                  callbacks=[Losses()])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {k: c for k, c in support.launch_counts.items() if c}
+        loader._mp_pool.close()
+        del model, net
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"config": cfg, "images": n, "image_folder_len": flat,
+           "sample": [list(x0.shape), str(x0.dtype), int(y0)],
+           "losses": losses, "fit_s": fit_s, "hand_kernel_launches":
+           launches}
+    log("HAPI_VISION " + json.dumps(out))
+    if (len(losses) != cfg["steps"]
+            or not all(math.isfinite(v) for v in losses) or flat != n
+            or list(x0.shape) != [3, cfg["hw"], cfg["hw"]]
+            or x0.dtype != np.float32 or launches):
+        raise AssertionError(f"hapi vision: {out}")
+
+
 def _multicard_sentry(n):
     """Four NCCL ranks started by the port's launch CLI (``python -m
     paddle_tpu_torch.distributed.launch``, each rank this script with
@@ -9501,6 +9906,8 @@ def main():
                          phase_supervised_static_bert)
     timed("swap_supervised", phase_swap_supervised)
     timed("shardcheck_gpt", phase_shardcheck_gpt)
+    hapi_launches = timed("hapi_bert", phase_hapi_bert)
+    timed("hapi_vision", phase_hapi_vision)
     seconds["total"] = time.perf_counter() - t0
     log("PHASE_SECONDS " + json.dumps(seconds))
     f32_err = max(r["max_abs_err"] for r in kernel_rows
@@ -9542,7 +9949,9 @@ def main():
                    "fleet static gpt (ZeRO-3)":
                        fleet_launches.get(name, 0),
                    "supervised static bert (children)":
-                       sup_launches.get(name, 0)}
+                       sup_launches.get(name, 0),
+                   "hapi Model bert (fit, evaluate, predict)":
+                       hapi_launches[name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",

@@ -88,6 +88,15 @@ These slices are in:
   attribution, Prometheus, the flight recorder, the performance
   observatory, SLO monitors, the fleet spool and views).
 
+- the data pipeline and the high-level API: :mod:`.io` (datasets,
+  samplers, the ``DataLoader`` with worker processes over shared memory
+  and the fleet's ``InMemoryDataset``/``QueueDataset``), :mod:`.hapi`
+  (:class:`Model`, the callbacks, :func:`summary`), ``vision.datasets``
+  and ``vision.transforms``, :mod:`.text` (the text datasets and the
+  native WordPiece tokenizer), :mod:`.distribution`, and ``utils.fs``,
+  ``utils.crypto`` and ``utils.native_build`` (``save``/``load`` through
+  registered filesystems, encrypted).
+
 Models, pools, engines, static parameters and new tensors go to the
 current CUDA device unless the caller passes ``device=`` / ``place=``
 (e.g. ``"cpu"``) or calls ``set_device``; with no GPU and neither, they
@@ -99,9 +108,10 @@ import builtins as _builtins
 
 __version__ = "0.1.0"
 
-from . import (amp, core, distributed, framework_io, inference,  # noqa
-               jit, metric, nn, observability, ops, optimizer, parallel,
-               serving, static, testing, utils, vision)
+from . import (amp, core, distributed, distribution,  # noqa: F401
+               framework_io, hapi, inference, io, jit, metric, nn,
+               observability, ops, optimizer, parallel, serving, static,
+               testing, text, utils, vision)
 from .core.autograd import (enable_grad, grad, is_grad_enabled,  # noqa
                             no_grad)
 from .core.dispatch import apply  # noqa: F401
@@ -124,6 +134,7 @@ from .device import (device_count, get_all_devices,  # noqa: F401
                      is_compiled_with_tpu, is_compiled_with_xpu,
                      set_device)
 from .framework_io import load, save  # noqa: F401
+from .hapi import Model, summary  # noqa: F401
 from .nn.layer_base import ParamAttr  # noqa: F401
 from .ops import linalg, monkey_patch_tensor  # noqa: F401
 from .nn.functional import as_array  # noqa: F401
@@ -141,8 +152,9 @@ from .ops.random import *  # noqa: F401,F403
 from .ops.reduction import *  # noqa: F401,F403
 from .optimizer import regularizer  # noqa: F401
 
-__all__ = (["amp", "core", "distributed", "framework_io", "inference",
-            "jit", "metric", "nn", "observability",
+__all__ = (["amp", "core", "distributed", "distribution",
+            "framework_io", "hapi", "inference", "io", "jit", "metric",
+            "nn", "observability", "text", "Model", "summary",
             "ops", "optimizer", "parallel", "serving", "static", "testing",
             "utils", "vision", "device", "seed", "get_rng_state",
             "set_rng_state", "set_device", "get_device", "ParamAttr",

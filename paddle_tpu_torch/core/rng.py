@@ -40,9 +40,9 @@ from typing import Dict, Iterator, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-__all__ = ["seed", "get_rng_state", "set_rng_state", "RngState",
-           "generator", "next_seed", "next_key", "fold_in", "mul32",
-           "fmix32", "dropout_threshold", "StableDraw"]
+__all__ = ["seed", "default_generator", "get_rng_state", "set_rng_state",
+           "RngState", "generator", "next_seed", "next_key", "fold_in",
+           "mul32", "fmix32", "dropout_threshold", "StableDraw"]
 
 M32 = 0xFFFFFFFF
 
@@ -121,6 +121,30 @@ def set_rng_state(state: RngState) -> None:
         _host, _devices = host, devices
         _stash.clear()
         _stash.update(stash)
+
+
+class _GlobalGenerator:
+    """paddle_tpu's ``default_generator()`` over this module's one
+    stream: ``initial_seed`` is the seed :func:`seed` last set,
+    ``next_key`` a :func:`next_seed` draw."""
+
+    @property
+    def initial_seed(self) -> int:
+        return _seed
+
+    def manual_seed(self, s: int):
+        seed(s)
+        return self
+
+    def next_key(self) -> int:
+        return next_seed()
+
+
+_global_generator = _GlobalGenerator()
+
+
+def default_generator() -> _GlobalGenerator:
+    return _global_generator
 
 
 def generator(device: Union[str, torch.device]) -> torch.Generator:

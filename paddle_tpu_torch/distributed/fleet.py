@@ -11,18 +11,21 @@ Program it ``minimize``s then runs under a ``ShardingPlan`` in the
 builds one ``SpmdTrainStep`` from the strategy.
 
 The fleet dataset entry points (``DatasetFactory``, ``InMemoryDataset``,
-``QueueDataset``) come with the data pipeline (slice A6).
+``QueueDataset``) are ``io.dataset_dist``'s.
 """
 from __future__ import annotations
 
 import os
 from typing import Optional
 
+from ..io.dataset_dist import (DatasetFactory, InMemoryDataset,
+                               QueueDataset)
 from .env import ParallelEnv, get_rank, get_world_size, init_parallel_env
 from .mesh import ensure_mesh, get_mesh, init_mesh
 from .strategy import DistributedStrategy
 
 __all__ = ["Fleet", "fleet", "DistributedStrategy", "ParallelEnv",
+           "DatasetFactory", "InMemoryDataset", "QueueDataset",
            "ensure_mesh", "get_mesh", "get_rank", "get_world_size",
            "init_mesh", "init_parallel_env"]
 

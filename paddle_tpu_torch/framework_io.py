@@ -8,9 +8,10 @@ pickle of a skeleton (nested dicts, lists and tuples whose leaves are
 value)``), then an ``npz`` payload of the arrays by key.  A file written
 by either package loads in the other.  A loaded tensor is a paddle
 Tensor on the device ``set_device`` chose (else the current CUDA
-device); bfloat16 tensors are written as float32.  Encryption and
-``scheme://`` paths (paddle_tpu's ``utils/crypto`` and ``utils/fs``)
-are not ported yet and raise ``NotImplementedError``.
+device); bfloat16 tensors are written as float32.  ``encryption_key``
+encrypts a file at rest (``utils.crypto``) and a ``scheme://`` path goes
+through that scheme's registered filesystem (``utils.fs``), as in
+paddle_tpu.
 
 paddle_tpu's layers and the port's share parameter names and layouts
 (``Linear.weight`` is ``[in, out]`` in both), so a paddle_tpu state
@@ -77,32 +78,33 @@ def _unflatten(spec, arrays, dev):
     return spec
 
 
-def _local(path: str, encryption_key) -> str:
-    if encryption_key is not None:
-        raise NotImplementedError(
-            "encrypted checkpoints (paddle_tpu's utils/crypto) are not "
-            "ported yet")
-    if "://" in str(path):
-        raise NotImplementedError(
-            f"{path!r}: filesystem schemes (paddle_tpu's utils/fs) are not "
-            f"ported yet; pass a local path")
-    return os.fspath(path)
-
-
-def dumps(obj: Any, protocol: int = 4) -> bytes:
-    """``obj`` in the wire format, in memory."""
+def dumps(obj: Any, protocol: int = 4, encryption_key=None) -> bytes:
+    """``obj`` in the wire format, in memory; with ``encryption_key``,
+    encrypted (``utils.crypto``, AES-256-GCM)."""
     arrays: dict = {}
     skeleton = _flatten(obj, "r", arrays)
     buf = _io.BytesIO()
     np.savez(buf, **arrays)
     sk = pickle.dumps(skeleton, protocol=protocol)
-    return _MAGIC + len(sk).to_bytes(8, "little") + sk + buf.getvalue()
+    payload = _MAGIC + len(sk).to_bytes(8, "little") + sk + buf.getvalue()
+    if encryption_key is not None:
+        from .utils import crypto
+        payload = crypto.encrypt(payload, encryption_key)
+    return payload
 
 
-def loads(payload: bytes, device=None) -> Any:
+def loads(payload: bytes, device=None, encryption_key=None,
+          source: str = "<bytes>") -> Any:
     """:func:`dumps`'s inverse; tensors go to ``device`` (default: the
-    device ``set_device`` chose, else the current CUDA device).  Bytes
-    without the magic are read as a plain pickle, as paddle_tpu does."""
+    device ``set_device`` chose, else the current CUDA device).  An
+    encrypted payload needs its ``encryption_key``.  Bytes without the
+    magic are read as a plain pickle, as paddle_tpu does."""
+    from .utils import crypto
+    if crypto.is_encrypted(payload[:8]):
+        if encryption_key is None:
+            raise ValueError(
+                f"'{source}' is encrypted — pass encryption_key= to load")
+        payload = crypto.decrypt(payload, encryption_key)
     f = _io.BytesIO(payload)
     if f.read(8) != _MAGIC:
         f.seek(0)
@@ -116,20 +118,23 @@ def loads(payload: bytes, device=None) -> Any:
 
 def save(obj: Any, path, protocol: int = 4, encryption_key=None, **configs):
     """``paddle.save``: a state dict, or nested dicts/lists/tuples of
-    tensors, arrays and Python values, to ``path``, written to a
-    temporary file and renamed, so a crash never leaves half a file."""
-    path = _local(path, encryption_key)
-    payload = dumps(obj, protocol=protocol)
-    tmp = f"{path}.tmp{os.getpid()}"
-    with open(tmp, "wb") as f:
-        f.write(payload)
-    os.replace(tmp, path)
+    tensors, arrays and Python values, to ``path`` (a local path or one
+    with a registered scheme, ``utils.fs``), written to a temporary file
+    and renamed, so a crash never leaves half a file; ``encryption_key``
+    encrypts it at rest (``utils.crypto``)."""
+    from .utils import fs
+    fs.write_atomic(os.fspath(path),
+                    dumps(obj, protocol=protocol,
+                          encryption_key=encryption_key))
 
 
 def load(path, encryption_key=None, **configs) -> Any:
     """``paddle.load``: what :func:`save` (of either package) wrote."""
-    with open(_local(path, encryption_key), "rb") as f:
-        return loads(f.read())
+    from .utils import fs
+    path = os.fspath(path)
+    with fs.open_read(path) as f:
+        payload = f.read()
+    return loads(payload, encryption_key=encryption_key, source=path)
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:

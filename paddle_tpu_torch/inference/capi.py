@@ -20,13 +20,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
-import subprocess
 import sys
 import sysconfig
 import threading
 from typing import List, Sequence
 
 import numpy as np
+
+from ..utils.native_build import build_shared_lib
 
 __all__ = ["load_capi", "CPredictor", "PT_Output", "DEVICE_ENV",
            "CSRC", "BUILD_DIR", "LIB_NAME", "python_link_flags"]
@@ -66,14 +67,13 @@ def _build() -> str:
     """Compile the shim into ``BUILD_DIR`` unless the built library
     matches the sources; returns its path."""
     so = os.path.join(BUILD_DIR, LIB_NAME)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = ["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
-           f"-I{sysconfig.get_path('include')}",
-           os.path.join(CSRC, "predictor_capi.cpp"), "-o", tmp,
-           *python_link_flags()]
+    prefix = ["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
+              f"-I{sysconfig.get_path('include')}"]
+    sources = [os.path.join(CSRC, "predictor_capi.cpp")]
+    link = python_link_flags()
     # the sources, the command and the interpreter: a library built for
     # another Python is built again
-    h = hashlib.sha256(" ".join(a for a in cmd if a != tmp).encode())
+    h = hashlib.sha256(" ".join(prefix + sources + link).encode())
     h.update(sys.version.encode())
     for name in _SOURCES:
         with open(os.path.join(CSRC, name), "rb") as f:
@@ -84,14 +84,9 @@ def _build() -> str:
         with open(stamp) as f:
             if f.read().strip() == digest:
                 return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(f"C ABI build failed ({r.returncode}): "
-                           f"{' '.join(cmd)}\n{r.stdout}{r.stderr}")
-    os.replace(tmp, so)            # atomic: concurrent builds agree
+    # compiled to a private file and renamed: concurrent builds agree
+    build_shared_lib(prefix, sources, so, what="C ABI build",
+                     link_flags=link)
     with open(f"{stamp}.{os.getpid()}", "w") as f:
         f.write(digest)
     os.replace(f"{stamp}.{os.getpid()}", stamp)

@@ -110,7 +110,8 @@ takes the flag and writes nothing; the plain update and the update
 under a plan select the old values with ``torch.where``.  Under a plan
 the flag's counts are summed over the dp group in one collective, so
 every rank takes the same branch.  A device ``skipped`` counter rides
-the program's state and :meth:`Executor.sharded_state`;
+the program's state (an accumulator: :meth:`Executor.sharded_state`
+neither saves nor restores it, as in paddle_tpu);
 :meth:`Executor.sentry_stats` reads it (one sync).  An installed
 ``distributed.AnomalyPolicy`` is handed each run's scan.  The in-step
 corruption points ``executor.grads`` (each gradient, labelled by its
@@ -498,8 +499,9 @@ class Executor:
                         self._run_counts.get(program._serial, 0),
                         dtype=torch.int32),
                     "step": torch.tensor(step_n, dtype=torch.int32)}
-                if state is not None and state.skipped is not None:
-                    out["aux"]["skipped"] = state.skipped.detach().cpu()
+                # the sentry's skipped counter is an accumulator, not
+                # state: a snapshot neither holds nor restores it, as in
+                # paddle_tpu
             return {k: v for k, v in out.items() if v}
 
         def setter(tree):
@@ -576,9 +578,6 @@ class Executor:
                 self._run_counts[program._serial] = int(aux.get("run", 0))
                 if state is not None:
                     state.step.fill_(float(opt._step_count))
-                    if "skipped" in aux:
-                        state.skipped = torch.as_tensor(
-                            aux["skipped"]).to(self.place, torch.int32)
 
         def specs(name):
             parts = name.split("/")

@@ -23,7 +23,10 @@ with ``FLAGS_anomaly_sentry`` on:
   every rank's payload): the wire guard flags the run and all ranks
   skip; the host mirror counts the fire;
 - ``grads``: every gradient poisoned (inf) at one run on the
-  overlapped path, where buckets are issued during backward.
+  overlapped path, where buckets are issued during backward;
+- ``chaos``: ``chaos.anomaly_main``'s drill (NaN feeds, an inf gradient
+  bucket, a NaN wire scale, a poisoned-feed burst) against the
+  fault-free run, gated by ``chaos.anomaly_problems``.
 """
 from __future__ import annotations
 
@@ -240,9 +243,95 @@ def case_grads(data, device) -> Dict[str, object]:
     return out
 
 
+def case_chaos(data, device) -> Dict[str, object]:
+    """``chaos.anomaly_main``'s drill on this rank: the fault-free run,
+    then the run under ``chaos.ANOMALY_CHAOS_SPEC`` with an
+    ``AnomalyPolicy`` (skip budget 2, one rollback) over a snapshot
+    store every ``save_every`` applied steps, both over
+    ``chaos.AnomalyDataset`` through ``DataLoader.fetch_batch``; what
+    ``chaos.anomaly_problems`` gates."""
+    import json
+    import paddle_tpu_torch as paddle
+    from .. import observability
+    from ..distributed import AnomalyPolicy
+    from ..io import DataLoader
+    from ..utils import monitor
+    from ..utils.checkpoint import SnapshotStore
+    from . import chaos, fault
+    steps = int(data.get("steps", 12))
+    save_every = int(data.get("save_every", 4))
+    shape = {"dp": torch.distributed.get_world_size()}
+    loader = DataLoader(chaos.AnomalyDataset(), batch_size=chaos.AN_BATCH,
+                        shuffle=False)
+    main, loss = _program(data, shape)
+    exe = paddle.static.Executor()
+    ref = chaos.anomaly_run(loader, exe, main, loss, steps)
+    ref_params, _, _ = _state(exe, main)
+    exe.close()
+    paddle.static.reset_default_programs()
+
+    monitor.stat_reset()
+    r = torch.distributed.get_rank()
+    flight = os.path.join(str(data["outdir"]), f"anomaly_flight{r}.json")
+    observability.enable(capacity=4096)
+    observability.install_flight_recorder(path=flight, catch_sigterm=False)
+    store = SnapshotStore(os.path.join(str(data["outdir"]), "anomaly_ckpt"))
+    fault.arm(chaos.ANOMALY_CHAOS_SPEC, seed=0)
+    policy = None
+    try:
+        main, loss = _program(data, shape)
+        exe = paddle.static.Executor()
+        objects = {"train": exe.sharded_state(main)}
+        policy = AnomalyPolicy(store=store, objects=objects, skip_budget=2,
+                               rollback_budget=1, sync=True).install()
+        got = chaos.anomaly_run(loader, exe, main, loss, steps,
+                                policy=policy, store=store, objects=objects,
+                                save_every=save_every)
+    finally:
+        fault.disarm()
+        if policy is not None:
+            policy.uninstall()
+        observability.uninstall_flight_recorder()
+        observability.disable()
+    res = policy.result()
+    stats = monitor.all_stats()
+    params, _, _ = _state(exe, main)
+    out = {"ref": ref, "got": got, "compiles": exe.compile_count,
+           "sentry_skipped": exe.sentry_stats(main)["skipped_steps"],
+           "skips": res["skips"], "quarantines": res["quarantines"],
+           "blamed": res["ledger"][0]["batch"] if res["ledger"] else -1,
+           "rollbacks": res["rollbacks"],
+           "resume_step": -1 if res["resume_step"] is None
+           else res["resume_step"],
+           "param_max_rel": max(
+               float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+               for a, b in zip(params, ref_params))}
+    for key, stat in (("stat_skips", "anomaly.skips"),
+                      ("stat_quarantines", "anomaly.quarantines"),
+                      ("stat_rollbacks", "anomaly.rollbacks"),
+                      ("nonfinite_blocks", "grad_comm.nonfinite_blocks"),
+                      ("fired_batch", "fault.fired.dataloader.batch"),
+                      ("fired_grads", "fault.fired.executor.grads"),
+                      ("fired_wire", "fault.fired.grad_comm.wire")):
+        out[key] = stats.get(stat, 0)
+    box = {}
+    if os.path.exists(flight):
+        with open(flight) as f:
+            box = json.load(f)
+    extra = box.get("extra") or {}
+    ledger = extra.get("ledger") or [{}]
+    out.update(flight_reason=str(box.get("reason")),
+               flight_blamed=ledger[0].get("batch", -1),
+               flight_resume_step=(extra.get("anomaly") or {}).get(
+                   "resume_step", -1))
+    exe.close()
+    paddle.static.reset_default_programs()
+    return out
+
+
 CASES = {"mesh_nan": case_mesh_nan, "ef_oracle": case_ef_oracle,
          "hybrid": case_hybrid, "rollback": case_rollback,
-         "wire": case_wire, "grads": case_grads}
+         "wire": case_wire, "grads": case_grads, "chaos": case_chaos}
 
 
 def run(outdir: str, cases, device: str = "cpu"):

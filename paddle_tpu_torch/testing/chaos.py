@@ -1,10 +1,11 @@
 """Chaos drills (the counterpart of ``paddle_tpu/testing/chaos.py``):
 the dyadic models, the swap-under-fire gate (:func:`swap_main`, with
-its supervised replica crash) and the supervised training drill
+its supervised replica crash), the supervised training drill
 (:func:`supervise_main`: an injected NaN step, hang and crash, with the
-supervisor's test fixtures ``_sv_*_entry``).  The other gates (the
-training preemption, resharding, anomaly, registry and fleet drills)
-are ROADMAP A6/A7's.
+supervisor's test fixtures ``_sv_*_entry``) and the data-plane anomaly
+drill (:func:`anomaly_main`, on gloo ranks).  The other gates (the
+training preemption, resharding, registry and fleet drills) are ROADMAP
+A7's.
 
 Weights that are small dyadic rationals, fed inputs that are dyadic
 too, make every product and partial sum exactly representable in
@@ -24,7 +25,8 @@ from typing import Optional
 import numpy as np
 
 __all__ = ["make_dyadic_model", "make_dyadic_lm", "swap_main",
-           "supervise_main"]
+           "supervise_main", "anomaly_main", "AnomalyDataset",
+           "ANOMALY_CHAOS_SPEC"]
 
 
 def make_dyadic_model(in_dim=8, hidden=16, out_dim=4):
@@ -1155,3 +1157,169 @@ def supervise_reshard_main(steps=8, save_every=2, crash_after=3,
     for p in problems:
         print(f"FAIL: {p}", file=sys.stderr)
     return 1 if problems else 0
+
+
+# ---------------------------------------------------------------------------
+# Data-plane anomaly drill: NaN feeds, a non-finite gradient bucket, a
+# corrupted int8 wire payload and a poisoned-feed burst, absorbed by the
+# sentry's skips, one quarantine and one rollback
+# ---------------------------------------------------------------------------
+
+ANOMALY_CHAOS_SPEC = (
+    "dataloader.batch:action=corrupt,mode=nan,count=1,match=batch=2;"
+    "executor.grads:action=corrupt,mode=inf,count=1,after=6;"
+    "grad_comm.wire:action=corrupt,mode=nan,count=1,after=8,"
+    "tensor=*scales*;"
+    "dataloader.batch:action=corrupt,mode=nan,count=3,match=batch=9;"
+    "dataloader.batch:action=corrupt,mode=inf,count=1,match=batch=10")
+
+AN_BATCH = 32          # rows per batch (divisible by every dp used)
+
+
+class AnomalyDataset:
+    """12 deterministic regression batches (module-level so any loader
+    path can pickle it)."""
+
+    def __init__(self, n_batches=12, batch=AN_BATCH, dim=8):
+        rng = np.random.RandomState(13)
+        self.x = rng.standard_normal(
+            (n_batches * batch, dim)).astype(np.float32)
+        self.y = (self.x @ rng.standard_normal((dim, 1))
+                  ).astype(np.float32)
+
+    def __len__(self):
+        return self.x.shape[0]
+
+    def __getitem__(self, i):
+        return self.x[i], self.y[i]
+
+
+def anomaly_run(loader, exe, main, loss, steps, policy=None, store=None,
+                objects=None, save_every=4, verbose=False):
+    """The loop both the fault-free and the chaos runs share: batch
+    ``k`` drives applied step ``k``; with a policy the loop follows its
+    ladder (re-deliver on a skip, move past a quarantined batch, rewind
+    to the restored step).  Returns the applied steps' losses."""
+    losses = {}
+    applied = cursor = 0
+    while applied < steps:
+        xb, yb = loader.fetch_batch(cursor)
+        if policy is not None:
+            policy.note_batch(cursor)
+        val = float(exe.run(main, feed={"x": xb.numpy(), "y": yb.numpy()},
+                            fetch_list=[loss])[0])
+        act = policy.poll() if policy is not None else "ok"
+        if verbose:
+            print(f"  step {applied} batch {cursor}: {act} "
+                  f"loss={val:.6f}")
+        if act == "ok":
+            losses[applied] = val
+            applied += 1
+            cursor += 1
+            if store is not None and applied % save_every == 0 \
+                    and applied < steps:
+                store.save(0, objects, step=applied, kind="step")
+        elif act == "skip":
+            continue
+        elif act == "quarantine":
+            cursor += 1
+        elif act == "rollback":
+            applied = cursor = policy.resume_step
+    return [losses[s] for s in range(steps)]
+
+
+def anomaly_problems(res) -> list:
+    """The drill's gates over one rank's results
+    (``testing.anomaly_cases``'s ``chaos`` case): what failed, empty
+    when the drill held."""
+    problems = []
+    got, ref = np.asarray(res["got"]), np.asarray(res["ref"])
+    if got.shape != ref.shape or not np.allclose(got, ref, rtol=1e-5):
+        problems.append(f"applied-step loss trajectory diverged from the "
+                        f"fault-free run: {got.tolist()} vs "
+                        f"{ref.tolist()}")
+    if int(res["compiles"]) != 1:
+        problems.append(f"the chaos run built {int(res['compiles'])}x "
+                        f"(want 1)")
+    if int(res["skips"]) != 5:
+        problems.append(f"anomaly skips={int(res['skips'])}, expected 5 "
+                        f"(NaN feed, inf grads, wire NaN, 2 burst skips)")
+    if int(res["quarantines"]) != 1 or int(res["blamed"]) != 9:
+        problems.append(f"quarantine ledger wrong: "
+                        f"{int(res['quarantines'])} blaming batch "
+                        f"{int(res['blamed'])} (expected batch 9 once)")
+    if int(res["rollbacks"]) != 1 or int(res["resume_step"]) != 8:
+        problems.append(f"expected 1 rollback to step 8, got "
+                        f"{int(res['rollbacks'])} to "
+                        f"{int(res['resume_step'])}")
+    for stat, want in (("stat_skips", 5), ("stat_quarantines", 1),
+                       ("stat_rollbacks", 1), ("fired_batch", 5)):
+        if int(res[stat]) != want:
+            problems.append(f"{stat}={int(res[stat])}, expected {want}")
+    for stat in ("nonfinite_blocks", "fired_grads", "fired_wire"):
+        if int(res[stat]) < 1:
+            problems.append(f"{stat} never counted")
+    if int(res["sentry_skipped"]) != 7:
+        problems.append(f"sentry skipped_steps="
+                        f"{int(res['sentry_skipped'])}, expected 7 (one "
+                        f"per flagged step)")
+    if float(res["param_max_rel"]) > 1e-5:
+        problems.append(f"final params diverged from the fault-free run "
+                        f"(max relative {float(res['param_max_rel']):.3e})")
+    if str(res["flight_reason"]) != "anomaly.rollback" \
+            or int(res["flight_blamed"]) != 9 \
+            or int(res["flight_resume_step"]) != 8:
+        problems.append(f"flight dump: reason {str(res['flight_reason'])!r},"
+                        f" blamed {int(res['flight_blamed'])}, resume "
+                        f"{int(res['flight_resume_step'])}")
+    return problems
+
+
+def anomaly_main(steps=12, save_every=4, verbose=False, workdir=None,
+                 world=4, device="cpu"):
+    """Data-plane fault-tolerance gate over ``world`` ranks of one
+    ``torch.distributed`` job (gloo on the CPU): returns 0 on success, 1
+    on failure.  Under injected NaN feeds, a non-finite gradient bucket,
+    one corrupted int8 wire payload and a poisoned-feed burst, an int8
+    error-feedback training run must finish with its applied-step losses
+    those of the fault-free run — through in-graph sentry skips, one
+    batch quarantine and one snapshot rollback, with no manual step —
+    and every decision auditable from the ``anomaly.*`` stats and the
+    rollback's flight dump (paddle_tpu runs it on 8 virtual devices of
+    one process)."""
+    from ..distributed.launch import spawn
+    from . import anomaly_cases
+    own_tmp = workdir is None
+    workdir = workdir or tempfile.mkdtemp(prefix="chaos_anomaly_")
+    try:
+        rng = np.random.RandomState(1234)
+        init = [rng.standard_normal((8, 8)) * 0.3, np.zeros(8),
+                rng.standard_normal((8, 1)) * 0.3, np.zeros(1)]
+        np.savez(os.path.join(workdir, "inputs.npz"),
+                 steps=steps, save_every=save_every,
+                 **{f"p{i}": a.astype(np.float32)
+                    for i, a in enumerate(init)})
+        spawn(anomaly_cases.run, (workdir, ["chaos"], device),
+              nprocs=world, init_method=f"file://{workdir}/store",
+              timeout=600)
+        problems = []
+        for r in range(world):
+            res = np.load(os.path.join(workdir, f"rank{r}.npz"))
+            res = {k.split("/", 1)[1]: res[k] for k in res.files}
+            problems += [f"rank {r}: {p}" for p in anomaly_problems(res)]
+            if verbose:
+                print(f"rank {r}: losses {res['got'].tolist()}")
+        if problems:
+            for p in problems:
+                print(f"FAIL: {p}", file=sys.stderr)
+            return 1
+        print("chaos anomaly OK: NaN feed, inf grad bucket and a "
+              "corrupted int8 wire payload were sentry-skipped "
+              "(bitwise no-ops), the poisoned-feed burst was "
+              "quarantined then rolled back to the step-8 snapshot, "
+              "and the applied-step loss trajectory matches the "
+              "fault-free run with zero manual intervention")
+        return 0
+    finally:
+        if own_tmp:
+            shutil.rmtree(workdir, ignore_errors=True)

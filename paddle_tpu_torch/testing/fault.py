@@ -83,6 +83,9 @@ def _resolve_exc(name: Union[str, type]) -> type:
     if name == "CheckpointError":
         from ..utils.checkpoint import CheckpointError
         return CheckpointError
+    if name in ("TransientFSError", "PermanentFSError"):
+        from ..utils import fs
+        return getattr(fs, name)
     exc = getattr(builtins, name, None)
     if isinstance(exc, type) and issubclass(exc, BaseException):
         return exc

@@ -59,7 +59,7 @@ __all__ = ["BertMLM", "build_model", "mlm_loss", "bench_flops_per_step",
            "nmt_flops_per_step", "sinusoid_positions"]
 
 
-class BertMLM(nn.Module):
+class BertMLM(pnn.Layer):
     def __init__(self, vocab, hidden, layers, heads, ffn, seq, dropout,
                  device=None):
         super().__init__()

@@ -32,9 +32,8 @@ barrier after a synchronous save.
 The fault points are paddle_tpu's: ``ckpt.publish``, ``ckpt.save``,
 ``ckpt.restore`` and the file operations' ``fs.open_read``,
 ``fs.open_write``, ``fs.mkdir``, ``fs.remove``, ``fs.list`` and
-``fs.mv``.  Paths are local: a ``scheme://`` path raises
-``NotImplementedError`` (paddle_tpu's ``utils/fs``, ROADMAP A6, is not
-ported).
+``fs.mv``.  A path with a registered scheme (``hdfs://...``,
+``utils.fs.register_fs``) goes through that scheme's filesystem.
 
 :class:`TrainEpochRange` (``train_epoch_range``) is the epoch loop that
 snapshots its registered objects and resumes after a restart.  With
@@ -54,13 +53,13 @@ import hashlib
 import json
 import os
 import queue
-import shutil
 import signal
 import threading
 import time
 import warnings
 from typing import Dict, Iterator, List, Optional, Sequence
 
+from . import fs as _fs
 from . import monitor
 from ..core import flags as _flags
 from ..core import obs_hook as _obs_hook
@@ -110,49 +109,35 @@ def install_preemption_handler(on_term):
     return restore
 
 
-def _local(path: str) -> str:
-    if "://" in str(path):
-        raise NotImplementedError(
-            f"{path!r}: filesystem schemes (paddle_tpu's utils/fs, ROADMAP "
-            f"A6) are not ported yet; pass a local path")
+def _local(path) -> str:
     return os.fspath(path)
 
 
-# the file operations, with paddle_tpu's ``fs.*`` fault points
+# the file operations, through the path's filesystem (``utils.fs``; a
+# local path takes ``LocalFS``, whose ``fs.*`` fault points are
+# paddle_tpu's)
 def _open_read(path):
-    fault.point("fs.open_read", path)
-    return open(path, "rb")
+    return _fs.get_fs(path).open_read(path)
 
 
 def _open_write(path):
-    fault.point("fs.open_write", path)
-    d = os.path.dirname(path)
-    if d:
-        os.makedirs(d, exist_ok=True)
-    return open(path, "wb")
+    return _fs.get_fs(path).open_write(path)
 
 
 def _mkdir(path):
-    fault.point("fs.mkdir", path)
-    os.makedirs(path, exist_ok=True)
+    _fs.get_fs(path).mkdir(path)
 
 
 def _remove(path):
-    fault.point("fs.remove", path)
-    if os.path.isdir(path):
-        shutil.rmtree(path)
-    elif os.path.exists(path):
-        os.remove(path)
+    _fs.get_fs(path).remove(path)
 
 
 def _list(path):
-    fault.point("fs.list", path)
-    return sorted(os.listdir(path)) if os.path.isdir(path) else []
+    return _fs.get_fs(path).list(path)
 
 
 def _mv(src, dst):
-    fault.point("fs.mv", src, dst)
-    os.replace(src, dst)
+    _fs.get_fs(src).mv(src, dst)
 
 
 def write_atomic(path: str, data: bytes) -> None:
@@ -166,8 +151,8 @@ def write_atomic(path: str, data: bytes) -> None:
         _mv(tmp, path)
     except BaseException:
         try:
-            os.remove(tmp)
-        except OSError:
+            _remove(tmp)
+        except Exception:
             pass
         raise
 

@@ -663,3 +663,20 @@ def test_sentry_wire_scale_corruption_skipped_by_all(world):
         assert int(r["wire/fires"]) == 1
         assert int(np.asarray(r["wire/post"]).sum()) > 0
         assert int(r["wire/skipped_after"]) == 1
+
+
+def test_chaos_anomaly_drill_on_four_ranks(world):
+    """``chaos.anomaly_main``'s drill (``tests/test_anomaly.py``'s
+    ``test_chaos_anomaly_scenario_in_process``, there on 8 virtual
+    devices): under NaN feeds, an inf gradient bucket, a NaN int8 wire
+    scale and a poisoned-feed burst, every rank skips 5 runs, blames
+    batch 9 once, rolls back to the step-8 snapshot and ends with the
+    fault-free run's losses (rtol 1e-5) and parameters; the sentry's
+    counter keeps every flagged run (7) across the restore, as
+    paddle_tpu's does."""
+    from paddle_tpu_torch.testing import chaos
+    _, res = world
+    for r in res:
+        got = {k.split("/", 1)[1]: r[k] for k in r if k.startswith("chaos/")}
+        assert chaos.anomaly_problems(got) == []
+        assert int(got["sentry_skipped"]) == 7

@@ -327,9 +327,32 @@ def test_a_store_written_by_one_package_restores_in_the_other(tmp_path):
                                   _weights(0)["weight"] + 2.0)
 
 
-def test_scheme_paths_are_not_ported():
-    with pytest.raises(NotImplementedError, match="A6"):
-        port_ckpt.SnapshotStore("hdfs://cluster/ckpt")
+def test_scheme_paths_are_not_ported(tmp_path):
+    """``scheme://`` directories go through the scheme's registered
+    filesystem (``utils.fs``) in both packages: the same snapshots, the
+    same meta, the same restore."""
+    from paddle_tpu.utils import fs as jax_fs
+    from paddle_tpu_torch.utils import fs as port_fs
+    for fs in (jax_fs, port_fs):
+        fs.register_fs("pfx", fs.PrefixStripFS(fs.LocalFS(), "pfx"))
+    try:
+        metas = {}
+        for name, side in PKGS.items():
+            d = f"pfx://{tmp_path}/{name}"
+            store, _ = _save_epochs(side, d, 3, keep_max=2)
+            metas[name] = store.load_meta()
+            lin = _linear(side, 9)
+            assert side.ckpt.SnapshotStore(d).restore({"model": lin}) == 3
+            np.testing.assert_array_equal(_np(lin)["weight"],
+                                          _weights(0)["weight"] + 3.0)
+        assert metas["port"] == metas["jax"]
+        assert sorted(os.listdir(tmp_path / "port")) == \
+            sorted(os.listdir(tmp_path / "jax"))
+        with pytest.raises(ValueError, match="register_fs"):
+            port_ckpt.SnapshotStore("nosuchscheme://cluster/ckpt")
+    finally:
+        for fs in (jax_fs, port_fs):
+            fs._REGISTRY.pop("pfx", None)
 
 
 def test_tracer_sees_saves_fallbacks_and_restores(tmp_path):

@@ -10,7 +10,9 @@ restart-recompile rule and the supervised drill.
 The pure-logic cases run on both packages and compare; the cases that
 spawn supervised children, deliver signals or train eager layers run
 the port (``set_device("cpu")``).  The filesystem, shell-filesystem,
-DataLoader and hapi-callback cases are ROADMAP A6's.
+DataLoader and hapi-callback cases are in ``test_torch_fs_crypto.py``,
+``test_torch_dataloader_mp.py``, ``test_torch_io.py`` and
+``test_torch_hapi.py``.
 
 Process cases give every timed clock a margin: the restart-recompile
 case's first child beats at step scale against a 1.5 s floor, and its
@@ -255,10 +257,31 @@ def test_clean_run_has_no_fault_or_recovery_noise(tmp_path):
     assert stats.get("checkpoint.fallbacks", 0) == 0
 
 
-def test_train_epoch_range_and_scheme_paths():
+def test_train_epoch_range_and_scheme_paths(tmp_path):
+    """``train_epoch_range`` over a registered ``scheme://`` directory:
+    the port's loop snapshots and resumes through the scheme's
+    filesystem, and its published epochs are paddle_tpu's."""
+    from paddle_tpu.utils import fs as jfs
+    from paddle_tpu.utils import train_epoch_range as jrange
+    from paddle_tpu_torch.utils import fs as tfs
     from paddle_tpu_torch.utils import train_epoch_range
-    with pytest.raises(NotImplementedError, match="A6"):
-        train_epoch_range(2, "hdfs://nowhere/acp")
+    for fs in (jfs, tfs):
+        fs.register_fs("pfx", fs.PrefixStripFS(fs.LocalFS(), "pfx"))
+    try:
+        metas = {}
+        for name, rng_fn in (("jax", jrange), ("torch", train_epoch_range)):
+            d = f"pfx://{tmp_path}/{name}"
+            assert list(rng_fn(2, d)) == [0, 1]
+            assert list(rng_fn(3, d)) == [2]
+            metas[name] = json.load(open(tmp_path / name /
+                                         "range_meta.json"))
+        assert [s["epoch"] for s in metas["torch"]["snapshots"]] == \
+            [s["epoch"] for s in metas["jax"]["snapshots"]]
+        assert metas["torch"]["finished_epoch"] == 2 == \
+            metas["jax"]["finished_epoch"]
+    finally:
+        for fs in (jfs, tfs):
+            fs._REGISTRY.pop("pfx", None)
 
 
 def _cadence_build(seed=1234):

@@ -199,7 +199,22 @@ def test_layer_and_optimizer_state_round_trip(cpu, tmp_path):
 
 
 def test_save_refuses_what_is_not_ported(cpu, tmp_path):
-    with pytest.raises(NotImplementedError):
-        cpu.save({"a": 1}, str(tmp_path / "x"), encryption_key=b"k" * 32)
-    with pytest.raises(NotImplementedError):
-        cpu.save({"a": 1}, "hdfs://host/x")
+    """Encrypted saves and ``scheme://`` paths are ported: an encrypted
+    file round-trips and loads in paddle_tpu with the same key, and a
+    ``hdfs://`` path goes to the ``hadoop`` CLI, whose absence both
+    packages report as a permanent filesystem error."""
+    from paddle_tpu.utils import fs as jfs
+    from paddle_tpu_torch.utils import fs
+    key = b"k" * 32
+    p = str(tmp_path / "x")
+    cpu.save({"a": 1, "w": np.arange(3.0)}, p, encryption_key=key)
+    for load in (cpu.load, paddle_tpu.load):
+        out = load(p, encryption_key=key)
+        assert out["a"] == 1
+        np.testing.assert_array_equal(np.asarray(out["w"]), np.arange(3.0))
+    with pytest.raises(ValueError, match="encrypted"):
+        cpu.load(p)
+    for save, err in ((cpu.save, fs.PermanentFSError),
+                      (paddle_tpu.save, jfs.PermanentFSError)):
+        with pytest.raises(err, match="CLI not found"):
+            save({"a": 1}, "hdfs://host/x")

@@ -19,14 +19,12 @@ SPEC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 
 # module -> the spec's module-level names the port lacks
 NOT_YET_PORTED = {
-    "paddle_tpu": """
-        Model summary
-    """,
+    "paddle_tpu": "",
     "paddle_tpu.amp": "",
     "paddle_tpu.distributed": "",
-    "paddle_tpu.distributed.fleet": """
-        DatasetFactory InMemoryDataset QueueDataset
-    """,
+    "paddle_tpu.distributed.fleet": "",
+    "paddle_tpu.distribution": "",
+    "paddle_tpu.io": "",
     "paddle_tpu.jit": "",
     "paddle_tpu.inference": "",
     "paddle_tpu.nn": "",
@@ -39,6 +37,9 @@ NOT_YET_PORTED = {
     "paddle_tpu.observability": "",
     "paddle_tpu.serving": "",
     "paddle_tpu.static": "",
+    "paddle_tpu.text.datasets": "",
+    "paddle_tpu.vision.datasets": "",
+    "paddle_tpu.vision.transforms": "",
     "paddle_tpu.utils": """
         register_custom_op
     """,
@@ -48,8 +49,14 @@ NOT_YET_PORTED = {
 # modules the spec does not list: the JAX package's public names (from
 # its ``__init__``) and, second, those the port lacks
 UNLISTED = {
-    "paddle_tpu.vision": ("datasets models ops transforms",
-                          "datasets ops transforms"),
+    "paddle_tpu.vision": ("datasets models ops transforms", "ops"),
+    "paddle_tpu.hapi": ("""
+        Callback Checkpoint EarlyStopping LRScheduler Model
+        ModelCheckpoint ProgBarLogger ReduceLROnPlateau VisualDL
+        callbacks summary""", ""),
+    "paddle_tpu.text": ("""
+        Conll05st FastWordPieceTokenizer Imdb Imikolov Movielens
+        UCIHousing WMT14 WMT16 datasets""", ""),
     "paddle_tpu.vision.models": ("""
         LeNet MobileNetV1 MobileNetV2 ResNet VGG mobilenet_v1 mobilenet_v2
         resnet18 resnet34 resnet50 resnet101 resnet152 vgg11 vgg13 vgg16
