@@ -369,6 +369,17 @@ tokenizer in 4 DataLoader worker processes, held to a hand-written
 callbacks, ``evaluate``, ``predict``, ``save``/``load`` and
 ``summary``; 75: ResNet-50 fitted by ``paddle.Model`` from
 ``DatasetFolder`` images through the vision transforms in 2 workers.
+76: R1 made int8 (``PTQ``, ``convert_to_int8``: ``torch._int_mm``) and
+served by the Predictor (12 K1f a run, 72 int8 graph nodes, equal to
+the eager int8 model, the artifact under 0.45x R1's), a run's anatomy,
+the batch-32 runs under ``paddle.profiler``, and a QAT leg (3 f32
+``TrainStep``s of phase 8's BERT-base with its encoder quantised);
+77: ResNet-50 through ``paddle.onnx.export`` rerun node by node on the
+card against its forward; 78: ``roi_align`` at Faster R-CNN R50-C4's
+box head and ``yolo_box`` + ``multiclass_nms`` at YOLOv3's COCO shapes
+on ResNet-50's features, each against its reference.
+``python3 chip_smoke.py --phases 76,77,78`` runs the named phases of
+this list alone, after the environment.
 
 Phases 46-64 each log their number and name, print every compared
 quantity beside its limit, put back in a ``finally`` the global state
@@ -6486,7 +6497,9 @@ def phase_predictor_bert(artifacts):
     _check("PREDICTOR_BERT_CHECK", quantities)
     del model, pred
     torch.cuda.empty_cache()
-    return {"flash_attention_fwd": launches}, k1f, prefix
+    r1 = {"artifact_bytes": sizes,
+          "latency_ms": {b: r["latency_ms"] for b, r in rows.items()}}
+    return {"flash_attention_fwd": launches}, k1f, prefix, r1
 
 
 def _static_forward(torch, main, feed_var, fetch_var, ids):
@@ -8087,7 +8100,9 @@ def _prom_families(re, text):
 
 
 OBS_COST_WINDOW_S = 3.0      # one timed window of a mode
-OBS_COST_PAIRS = 4           # off/on pairs, the order alternating
+# off/on pairs, the order alternating (two keep the alternation; each
+# pair more costs 12 s of the script's time limit)
+OBS_COST_PAIRS = 2
 
 
 def _paired_cost(measure, np, pairs=OBS_COST_PAIRS):
@@ -9692,6 +9707,584 @@ def phase_hapi_vision():
         raise AssertionError(f"hapi vision: {out}")
 
 
+# ------------------------------------------------------------ phases 76-78
+# 76: R1 made int8 (PTQ on 4 seeded batches of 8 x 512, then
+# convert_to_int8) and served at phase 53's batches; runs a batch
+QUANT_CALIB_BATCHES, QUANT_CALIB_ROWS = 4, 8
+QUANT_PRED_RUNS = {1: 10, 8: 4, 32: 3}
+# the JAX file's Predictor-vs-eager tolerance (tests/test_quantization.py)
+QUANT_PRED_RTOL, QUANT_PRED_ATOL = 2e-3, 1e-3
+# int8 encoder and f32 embeddings: ~0.39x R1 with the unused head saved
+QUANT_ARTIFACT_RATIO = 0.45
+# the QAT leg: its first loss against the plain attention's; looser than
+# FLASH_TOL: a fake-quant level that flips between the two attentions
+# moves the loss by more than the attention's own error
+QUANT_QAT_STEPS, QUANT_QAT_RTOL = 3, 1e-3
+# BERT-base's fc1 product at batch 32 x 512 tokens: M, K, N
+FC1_SHAPE = (16384, 768, 3072)
+INT8_PEAK_OPS = 1979e12      # dense int8 tensor-core ops/s (H100 SXM)
+# 78: Faster R-CNN R50-C4's box head on layer3 (stride 16) of a batch of
+# 2 at 800 x 1344; YOLOv3 heads on C3-C5 at 608 x 608, batch 8, COCO
+DET_RCNN = dict(batch=2, h=800, w=1344, rois=512, bins=14, sampling=2,
+                scale=1.0 / 16)
+DET_YOLO = dict(batch=8, size=608, classes=80, conf_thresh=0.005,
+                score_threshold=0.01, nms_top_k=1000, keep_top_k=100,
+                nms_threshold=0.45)
+# COCO anchors by the head's stride (yolov3.cfg's masks 0-2, 3-5, 6-8)
+YOLO_ANCHORS = {8: [10, 13, 16, 30, 33, 23], 16: [30, 61, 62, 45, 59, 119],
+                32: [116, 90, 156, 198, 373, 326]}
+YOLO_LOGIT_STD = 2.0
+DET_TOL = 1e-5
+
+
+def _quant_group(n):
+    return ("int8_gemm" if any(w in n for w in ("s8", "i8", "imma",
+                                                "int8")) else
+            _predictor_group(n))
+
+
+def _int8_graph_nodes(torch, prefix):
+    """``aten._int_mm`` nodes of a saved program."""
+    from paddle_tpu_torch.jit.save_load import _graph_modules, read_artifact
+    _, ep = read_artifact(prefix)
+    return sum(1 for gm in _graph_modules(ep) for n in gm.graph.nodes
+               if n.op == "call_function"
+               and n.target is torch.ops.aten._int_mm.default)
+
+
+def _int8_matmul_row(torch):
+    """``torch._int_mm`` at BERT-base's fc1 shape beside the f32
+    ``torch.matmul`` (TF32 off) of the same shape."""
+    M, K, N = FC1_SHAPE
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(76)
+    a8 = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    a32, w32 = a8.float(), w8.float()
+    exact = torch.equal(torch._int_mm(a8, w8).double(),
+                        (a32.double() @ w32.double()))
+    ms = cuda_ms(lambda i: torch._int_mm(a8, w8), 10)
+    f32_ms = cuda_ms(lambda i: torch.matmul(a32, w32), 5)
+    nbytes = M * K + K * N + 4 * M * N
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * M * K * N / INT8_PEAK_OPS * 1e3
+    return {"case": f"M={M} K={K} N={N}", "int_mm_ms": ms,
+            "f32_matmul_ms": f32_ms, "speedup": f32_ms / ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "int32_exact": exact}
+
+
+def _profiled_runs(np, paddle, pred, ids, runs, base_ms):
+    """The timed batch-32 runs again under ``paddle.profiler.Profiler``
+    (a ``torch.profiler`` session written as a Chrome trace) with each
+    run in ``RecordEvent("predictor.run")``: the trace names K1f's CUDA
+    kernel, the summary's top rows, and the profiler's cost a run."""
+    from paddle_tpu_torch import profiler
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_profiler_")
+    try:
+        prof = profiler.Profiler(trace_dir=trace_dir)
+        pred.run([ids])
+        prof.start()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            with profiler.RecordEvent("predictor.run"):
+                outs = pred.run([ids])
+        float(np.asarray(outs[0]).sum())
+        traced_ms = (time.perf_counter() - t0) / runs * 1e3
+        prof.stop()
+        with open(prof.trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sorted({_kernel_name(e["name"]) for e in events
+                          if e.get("cat") == "kernel"
+                          and "flash_fwd" in e.get("name", "")})
+        text = prof.summary(top_k=8)
+        return {"trace_bytes": os.path.getsize(prof.trace_path),
+                "trace_events": len(events), "flash_kernels": kernels,
+                "spans": prof._span_stats["predictor.run"][0],
+                "traced_ms_a_run": traced_ms, "plain_ms_a_run": base_ms,
+                "overhead_ms_a_run": traced_ms - base_ms,
+                "device_top": [[n[:60], c, round(ms, 4)] for n, c, ms
+                               in prof.device_table()[:8]],
+                "summary_lines": text.splitlines()[:24]}
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+
+
+def _qat_leg(np, torch, paddle):
+    """Phase 8's BERT-base (batch 64 x 512) trained 3 f32 TrainSteps
+    with ``QAT().quantize(model.encoder)`` (the encoder only:
+    ``mlm_loss`` reads ``model.head.weight``, which a wrapper does not
+    expose): 12 K1f and 12 of each K1b a step, finite losses, and the
+    first loss against the same step's forward with
+    ``use_pallas_kernels`` off.  Dropout 0, so both attentions see the
+    same (no) masks."""
+    from paddle_tpu_torch import jit, optimizer
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.testing.models import build_model, mlm_loss
+    cfg = dict(BERT_CHIP, dropout=0.0)
+    paddle.seed(2024)
+    model = build_model(cfg["vocab"], cfg["hidden"], cfg["layers"],
+                        cfg["heads"], cfg["ffn"], cfg["seq"],
+                        cfg["dropout"], device="cuda")
+    Q.QAT().quantize(model.encoder)
+    opt = optimizer.AdamW(learning_rate=1e-4,
+                          parameters=model.parameters(), weight_decay=0.01,
+                          grad_clip=optimizer.ClipGradByGlobalNorm(1.0))
+    step = jit.TrainStep(model, mlm_loss(model), opt, n_inputs=1,
+                         donate=True)
+    wrapped = sum(isinstance(m, Q.QuantizedLinear)
+                  for m in model.encoder.sublayers())
+    x, y = _bench_batch(torch, cfg, "cuda")
+    model.train()
+    paddle.set_flags({"use_pallas_kernels": False})
+    try:
+        with torch.no_grad():
+            plain = float(mlm_loss(model)(model(x), y))
+    finally:
+        paddle.set_flags({"use_pallas_kernels": True})
+    torch.cuda.empty_cache()
+    losses, step_ms, counts = _train_steps(torch, step, (x, y),
+                                           QUANT_QAT_STEPS)
+    del model, step
+    torch.cuda.empty_cache()
+    return {"config": cfg, "wrapped_linears": wrapped, "losses": losses,
+            "step_ms": step_ms, "plain_first_loss": plain,
+            "first_loss_rel_gap": abs(losses[0] - plain) / abs(plain),
+            "launches": {k: counts.get(k, 0) for k in FLASH_KERNELS},
+            "other_launches": sum(n for k, n in counts.items()
+                                  if k not in FLASH_KERNELS)}
+
+
+@_keeps_global_state
+def phase_quant_bert(r1=None):
+    """76 quant_bert: R1 (phase 53's BERT-base, f32, eval, seed 2024) made
+    int8 by ``PTQ().quantize`` (4 seeded calibration batches of 8 x
+    512), ``PTQ.convert`` and ``convert_to_int8``, saved by ``jit.save``
+    with ``InputSpec([None, 512], "int64")`` and served by the Predictor
+    at batches 1, 8 and 32: 12 K1f a run and no other hand kernel, the
+    graph's ``_int_mm`` nodes equal to the int8 linears the forward
+    calls (72), the Predictor against the same int8 model run eagerly on
+    the card, no non-finite output, the artifact at most 0.45x R1's;
+    printed: the error against the float R1 and against the eager run
+    with ``use_pallas_kernels`` off, each batch's latency beside phase
+    53's, a run's anatomy, ``_int_mm`` at fc1's shape beside the f32
+    product, and the batch-32 runs again under ``paddle.profiler``.
+    Then the QAT leg (:func:`_qat_leg`).  ``r1``: phase 53's artifact
+    bytes and latencies, when it ran."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.testing.models import build_model
+    cfg = BERT_CHIP
+    paddle.seed(2024)
+    model = build_model(cfg["vocab"], cfg["hidden"], cfg["layers"],
+                        cfg["heads"], cfg["ffn"], cfg["seq"],
+                        cfg["dropout"], device="cuda")
+    model.eval()
+    rs = np.random.RandomState(76)
+    ids = {b: rs.randint(0, cfg["vocab"], (b, cfg["seq"])).astype(np.int64)
+           for b in PRED_BERT_BATCHES}
+    dev_ids = {b: torch.from_numpy(v).cuda() for b, v in ids.items()}
+    with torch.no_grad():
+        ref = {b: model(v) for b, v in dev_ids.items()}
+    work = tempfile.mkdtemp(prefix="chip_smoke_quant_")
+    try:
+        if r1 is None:
+            jit.save(model, os.path.join(work, "r1"), input_spec=[
+                jit.InputSpec([None, cfg["seq"]], "int64")])
+            r1 = {"artifact_bytes": _file_bytes(os.path.join(work, "r1")),
+                  "latency_ms": {}}
+        t0 = time.perf_counter()
+        Q.PTQ().quantize(model)
+        with torch.no_grad():
+            for _ in range(QUANT_CALIB_BATCHES):
+                model(torch.from_numpy(rs.randint(0, cfg["vocab"], (
+                    QUANT_CALIB_ROWS, cfg["seq"]))).cuda())
+        torch.cuda.synchronize()
+        calib_s = time.perf_counter() - t0
+        Q.PTQ.convert(model)
+        Q.convert_to_int8(model)
+        int8 = [m for m in model.sublayers() if isinstance(m, Q.Int8Linear)]
+        called = set()
+        hooks = [m.register_forward_hook(
+            lambda mod, i, o: called.add(id(mod))) for m in int8]
+        with torch.no_grad():
+            model(dev_ids[1])
+        for h in hooks:
+            h.remove()
+        prefix = os.path.join(work, "int8")
+        t0 = time.perf_counter()
+        jit.save(model, prefix, input_spec=[
+            jit.InputSpec([None, cfg["seq"]], "int64")])
+        save_s = time.perf_counter() - t0
+        sizes = _file_bytes(prefix)
+        nodes = _int8_graph_nodes(torch, prefix)
+        pred = inference.create_predictor(inference.Config(prefix))
+        rows, quantities = {}, {}
+        for b in PRED_BERT_BATCHES:
+            support.reset_launch_counts()
+            out, = pred.run([ids[b]])
+            torch.cuda.synchronize()
+            counts = dict(support.launch_counts)
+            with torch.no_grad():
+                eager = model(dev_ids[b])
+            paddle.set_flags({"use_pallas_kernels": False})
+            try:
+                with torch.no_grad():
+                    plain = model(dev_ids[b])
+            finally:
+                paddle.set_flags({"use_pallas_kernels": True})
+            over = ((out - eager).abs() - QUANT_PRED_ATOL
+                    - QUANT_PRED_RTOL * eager.abs()).max().item()
+            ms = _serve_ms(np, pred, ids[b], QUANT_PRED_RUNS[b])
+            rows[b] = {"latency_ms": ms, "runs": QUANT_PRED_RUNS[b],
+                       "r1_latency_ms": r1["latency_ms"].get(b),
+                       "tokens_per_s": b * cfg["seq"] / (ms / 1e3),
+                       "launches": counts,
+                       "max_abs_vs_eager": (out - eager).abs().max().item(),
+                       "rel_err_vs_eager_plain": _rel_err(out, plain),
+                       "rel_err_vs_float_r1": _rel_err(out, ref[b]),
+                       "output_shape": list(out.shape)}
+            quantities[f"batch {b}: |flash_attention_fwd launches - 12|"] = (
+                abs(counts.get("flash_attention_fwd", 0) - cfg["layers"]), 0)
+            quantities[f"batch {b}: other kernels launched"] = (
+                sum(n for k, n in counts.items()
+                    if k != "flash_attention_fwd"), 0)
+            quantities[f"batch {b}: max(|pred - eager| - atol - rtol "
+                       f"|eager|)"] = (over, 0.0)
+            quantities[f"batch {b}: non-finite outputs"] = (
+                int((~torch.isfinite(out)).sum()), 0)
+        quantities["|int8 graph nodes - int8 linears called|"] = (
+            abs(nodes - len(called)), 0)
+        quantities["|int8 linears called - 72|"] = (
+            abs(len(called) - 6 * cfg["layers"]), 0)
+        r1_bytes = sum(r1["artifact_bytes"].values())
+        ratio = sum(sizes.values()) / r1_bytes
+        quantities["artifact bytes / R1's"] = (ratio, QUANT_ARTIFACT_RATIO)
+        _step_anatomy("QUANT_BERT_ANATOMY",
+                      lambda: pred.run([dev_ids[PRED_BERT_BATCHES[-1]]]), 2,
+                      _quant_group)
+        mm = _int8_matmul_row(torch)
+        quantities["_int_mm at fc1's shape: int32 not exact"] = (
+            int(not mm["int32_exact"]), 0)
+        last = PRED_BERT_BATCHES[-1]
+        prof = _profiled_runs(np, paddle, pred, dev_ids[last],
+                              QUANT_PRED_RUNS[last], rows[last]["latency_ms"])
+        quantities["profiler: K1f's kernel missing from the trace"] = (
+            int(not prof["flash_kernels"]), 0)
+        quantities["profiler: |predictor.run spans - runs|"] = (
+            abs(prof["spans"] - QUANT_PRED_RUNS[last]), 0)
+        del pred
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del model, ref, eager, plain
+    torch.cuda.empty_cache()
+    qat = _qat_leg(np, torch, paddle)
+    for k in FLASH_KERNELS:
+        quantities[f"QAT: |{k} launches - 12 a step|"] = (
+            abs(qat["launches"][k] - cfg["layers"] * QUANT_QAT_STEPS), 0)
+    quantities["QAT: other kernels launched"] = (qat["other_launches"], 0)
+    quantities["QAT: non-finite losses"] = (
+        sum(not math.isfinite(v) for v in qat["losses"]), 0)
+    quantities["QAT: first loss vs plain, relative"] = (
+        qat["first_loss_rel_gap"], QUANT_QAT_RTOL)
+    out = {"config": dict(cfg, dtype="int8 encoder, f32 embeddings",
+                          mode="eval"),
+           "calibration": {"batches": QUANT_CALIB_BATCHES,
+                           "rows": QUANT_CALIB_ROWS, "seconds": calib_s},
+           "int8_linears": len(int8), "int8_linears_called": len(called),
+           "graph_int_mm_nodes": nodes, "save_s": save_s,
+           "artifact_bytes": sizes, "r1_artifact_bytes": r1["artifact_bytes"],
+           "artifact_ratio": ratio, "batches": rows, "int_mm_fc1": mm,
+           "profiler": prof, "qat": qat, "nvidia_smi": nvidia_smi()}
+    log("QUANT_BERT " + json.dumps(out))
+    _check("QUANT_BERT_CHECK", quantities)
+    return {"flash_attention_fwd": sum(
+        r["launches"].get("flash_attention_fwd", 0) for r in rows.values())
+        + qat["launches"]["flash_attention_fwd"],
+        "flash_attention_bwd_dq": qat["launches"]["flash_attention_bwd_dq"],
+        "flash_attention_bwd_dkv":
+            qat["launches"]["flash_attention_bwd_dkv"]}
+
+
+@_keeps_global_state
+def phase_onnx_resnet50():
+    """77 onnx_resnet50: ``vision.models.resnet50`` (seeded weights, on
+    the card, eval) exported by ``paddle.onnx.export`` with
+    ``InputSpec([1, 3, 224, 224])``, the graph rerun node by node with
+    torch ops on the card (``testing.onnx_eval``): its output against
+    the model's forward within 1e-4 relative, every weight's bytes among
+    the initializers, no hand kernel launched; the node histogram, the
+    file's bytes and the export's seconds."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import onnx
+    from paddle_tpu_torch.jit import InputSpec
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.testing import onnx_eval
+    from paddle_tpu_torch.vision.models import resnet50
+    paddle.seed(77)
+    model = resnet50()
+    model.eval()
+    x = torch.from_numpy(np.random.RandomState(77).randn(
+        1, 3, 224, 224).astype(np.float32)).cuda()
+    with torch.no_grad():
+        want = model(x)
+    work = tempfile.mkdtemp(prefix="chip_smoke_onnx_")
+    try:
+        support.reset_launch_counts()
+        t0 = time.perf_counter()
+        path = onnx.export(model, os.path.join(work, "resnet50"),
+                           input_spec=[InputSpec([1, 3, 224, 224])])
+        export_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        graph = onnx_eval.load(path)
+        got, = onnx_eval.run(graph, [x])
+        torch.cuda.synchronize()
+        launches = dict(support.launch_counts)
+        eval_ms = cuda_ms(lambda i: onnx_eval.run(graph, [x]), 3, warmup=1)
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda i: model(x), 5)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    init = {a.tobytes() for a in graph["initializers"].values()}
+    state = list(model.named_parameters()) + list(model.named_buffers())
+    missing = [n for n, t in state
+               if t.detach().cpu().numpy().tobytes() not in init]
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    out = {"model": "resnet50", "input": [1, 3, 224, 224],
+           "export_s": export_s, "file_bytes": nbytes,
+           "nodes": len(graph["nodes"]),
+           "histogram": onnx_eval.histogram(graph),
+           "initializers": len(graph["initializers"]),
+           "weights": len(state), "rel_err_vs_forward": rel,
+           "onnx_eval_ms": eval_ms, "forward_ms": fwd_ms,
+           "hand_kernel_launches": launches}
+    log("ONNX_RESNET50 " + json.dumps(out))
+    _check("ONNX_RESNET50_CHECK", {
+        "rel err vs the forward": (rel, 1e-4),
+        "weights whose bytes no initializer holds": (len(missing), 0),
+        "hand kernel launches": (sum(launches.values()), 0),
+        "non-finite outputs": (int((~torch.isfinite(got)).sum()), 0)})
+    del model
+    torch.cuda.empty_cache()
+
+
+def _host_cpus():
+    """CPUs this process may use: the cgroup's quota (``cpu.max``) when
+    one is set, else its affinity mask."""
+    n = len(os.sched_getaffinity(0))
+    try:
+        with open("/sys/fs/cgroup/cpu.max") as f:
+            quota, period = f.read().split()
+        if quota != "max":
+            n = min(n, max(1, int(int(quota) // int(period))))
+    except (OSError, ValueError):
+        pass
+    return n
+
+
+def _roi_align_gather(torch, x, boxes, batch_idx, ph, pw, scale, S,
+                      chunk=16):
+    """paddle_tpu's ``_roi_align_fn`` (vision/ops.py:150-206, aligned)
+    transcribed in torch: rows gathered at the two taps along y, then
+    the two taps along x, averaged over the S x S samples; ``chunk``
+    RoIs at a time (the whole gather is ~10 GB at the R50-C4 head)."""
+    R = boxes.shape[0]
+    C, H, W = x.shape[1:]
+    b = boxes * scale
+    x1, y1 = b[:, 0] - 0.5, b[:, 1] - 0.5
+    bin_w, bin_h = (b[:, 2] - b[:, 0]) / pw, (b[:, 3] - b[:, 1]) / ph
+    sub = (torch.arange(S, device=x.device) + 0.5) / S
+    iy = torch.arange(ph, device=x.device)[:, None] + sub[None, :]
+    ix = torch.arange(pw, device=x.device)[:, None] + sub[None, :]
+    ys = y1[:, None, None] + iy[None] * bin_h[:, None, None]
+    xs = x1[:, None, None] + ix[None] * bin_w[:, None, None]
+
+    def taps(coord, size):
+        c = coord.clamp(0.0, size - 1.0)
+        lo = c.floor().long().clamp(0, size - 1)
+        hi = (lo + 1).clamp(max=size - 1)
+        return lo, hi, c - lo, ((coord >= -1.0) & (coord <= size)).float()
+
+    ylo, yhi, fy, vy = taps(ys, H)
+    xlo, xhi, fx, vx = taps(xs, W)
+    outs = []
+    for r0 in range(0, R, chunk):
+        r = slice(r0, min(R, r0 + chunk))
+        k = r.stop - r.start
+        bi = batch_idx[r][:, None, None]
+        top, bot = x[bi, :, ylo[r], :], x[bi, :, yhi[r], :]
+        rows = (top + (bot - top) * fy[r][..., None, None]) \
+            * vy[r][..., None, None]                      # [k,ph,S,C,W]
+
+        def along_x(idx):
+            i = idx[r].reshape(k, 1, 1, 1, pw * S).expand(k, ph, S, C,
+                                                           pw * S)
+            return torch.gather(rows, 4, i).reshape(k, ph, S, C, pw, S)
+
+        left, right = along_x(xlo), along_x(xhi)
+        vals = (left + (right - left) * fx[r][:, None, None, None]) \
+            * vx[r][:, None, None, None]
+        outs.append(vals.mean(dim=(2, 5)).permute(0, 2, 1, 3))
+    return torch.cat(outs)
+
+
+@_keeps_global_state
+def phase_detection_ops():
+    """78 detection_ops: ResNet-50's features at published detection
+    shapes.  ``roi_align`` at Faster R-CNN R50-C4's box head (layer3,
+    1024 channels, of a batch of 2 at 800 x 1344; 512 seeded RoIs an
+    image, 14 x 14 bins, sampling 2, scale 1/16) against a chunked
+    transcription of paddle_tpu's gather formula on the card;
+    ``yolo_box`` and ``multiclass_nms`` at YOLOv3's COCO shapes (three
+    1 x 1 heads of 255 channels on C3, C4 and C5 at 608 x 608, batch 8,
+    COCO's anchors): ``yolo_box`` against the port's CPU run of the same
+    head outputs, ``multiclass_nms`` index for index against its CPU run
+    on the card's boxes and scores; each op's time."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.vision import ops as V
+    from paddle_tpu_torch.vision.models import resnet50
+    paddle.seed(78)
+    net = resnet50()
+    net.eval()
+    rs = np.random.RandomState(78)
+    quantities, out = {}, {}
+    support.reset_launch_counts()
+
+    def stem(x):
+        return net.layer1(net.maxpool(net.relu(net.bn1(net.conv1(x)))))
+
+    c = DET_RCNN
+    with torch.no_grad():
+        img = torch.from_numpy(rs.randn(c["batch"], 3, c["h"], c["w"])
+                               .astype(np.float32)).cuda()
+        feat = net.layer3(net.layer2(stem(img)))
+        del img
+    n = c["rois"]
+    xy = rs.rand(c["batch"] * n, 2) * [c["w"] - 16, c["h"] - 16]
+    wh = rs.rand(c["batch"] * n, 2) * [c["w"] / 2, c["h"] / 2] + 16
+    boxes = torch.from_numpy(np.concatenate(
+        [xy, np.minimum(xy + wh, [c["w"], c["h"]])], 1).astype(
+            np.float32)).cuda()
+    num = torch.full((c["batch"],), n, dtype=torch.int64, device="cuda")
+    with torch.no_grad():
+        got = V.roi_align(feat, boxes, num, c["bins"],
+                          spatial_scale=c["scale"],
+                          sampling_ratio=c["sampling"])
+        batch_idx = torch.arange(c["batch"],
+                                 device="cuda").repeat_interleave(n)
+        want = _roi_align_gather(torch, feat, boxes, batch_idx, c["bins"],
+                                 c["bins"], c["scale"], c["sampling"])
+        ms = cuda_ms(lambda i: V.roi_align(
+            feat, boxes, num, c["bins"], spatial_scale=c["scale"],
+            sampling_ratio=c["sampling"]), 3, warmup=1)
+        gather_ms = cuda_ms(lambda i: _roi_align_gather(
+            torch, feat, boxes, batch_idx, c["bins"], c["bins"], c["scale"],
+            c["sampling"]), 1, warmup=0)
+    err = _rel_err(got, want)
+    out["roi_align"] = {"feature": list(feat.shape), "rois": list(
+        boxes.shape), "output": list(got.shape), "ms": ms,
+        "gather_formula_ms": gather_ms, "rel_err": err}
+    quantities["roi_align vs the gather formula"] = (err, DET_TOL)
+    del feat, got, want
+    torch.cuda.empty_cache()
+
+    y = DET_YOLO
+    with torch.no_grad():
+        img = torch.from_numpy(rs.randn(y["batch"], 3, y["size"], y["size"])
+                               .astype(np.float32)).cuda()
+        c3 = net.layer2(stem(img))
+        c4 = net.layer3(c3)
+        c5 = net.layer4(c4)
+        del img
+    heads = {8: (c3, paddle.nn.Conv2D(512, 255, 1)),
+             16: (c4, paddle.nn.Conv2D(1024, 255, 1)),
+             32: (c5, paddle.nn.Conv2D(2048, 255, 1))}
+    size = torch.full((y["batch"], 2), y["size"], dtype=torch.int64,
+                      device="cuda")
+    boxes, scores, yolo_err, yolo_ms = [], [], 0.0, 0.0
+    with torch.no_grad():
+        for stride, (f, conv) in sorted(heads.items(), reverse=True):
+            # the seeded head scaled so its logits have std 2, a trained
+            # head's range: at its Kaiming init on untrained features they
+            # reach std ~2000, every sigmoid saturates, and the 1.0 scores
+            # tied at the top-k cut keep ~11,000 candidates a class
+            h = conv(f)
+            scale = YOLO_LOGIT_STD / h.std()
+            conv.weight.mul_(scale)
+            conv.bias.mul_(scale)
+            h = conv(f)
+            args = (YOLO_ANCHORS[stride], y["classes"], y["conf_thresh"],
+                    stride)
+            b, s = V.yolo_box(h, size, *args)
+            yolo_ms += cuda_ms(lambda i: V.yolo_box(h, size, *args), 3)
+            cb, cs = V.yolo_box(h.cpu(), size.cpu(), *args)
+            yolo_err = max(yolo_err, _rel_err(b.cpu(), cb),
+                           _rel_err(s.cpu(), cs))
+            boxes.append(b)
+            scores.append(s)
+        del c3, c4, c5
+        boxes = torch.cat(boxes, 1)
+        scores = torch.cat(scores, 1).transpose(1, 2).contiguous()
+        kw = {k: y[k] for k in ("score_threshold", "nms_top_k",
+                                "keep_top_k", "nms_threshold")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = V.multiclass_nms(boxes, scores, **kw)
+        torch.cuda.synchronize()
+        nms_ms = (time.perf_counter() - t0) * 1e3
+        # the host reference with one thread a CPU of this process's
+        # share: torch's default pool (one a core of the whole host)
+        # oversubscribes a machine whose cgroup grants fewer
+        threads = torch.get_num_threads()
+        torch.set_num_threads(_host_cpus())
+        try:
+            t0 = time.perf_counter()
+            host = V.multiclass_nms(boxes.cpu(), scores.cpu(), **kw)
+            host_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.set_num_threads(threads)
+    same_index = torch.equal(card[1].cpu(), host[1])
+    same_rows = torch.equal(card[0].cpu(), host[0])
+    kept = card[2].cpu().tolist()
+    out["yolo"] = {"config": y, "boxes": list(boxes.shape),
+                   "scores": list(scores.shape),
+                   "yolo_box_ms_three_heads": yolo_ms,
+                   "yolo_box_rel_err_vs_cpu": yolo_err,
+                   "multiclass_nms_ms": nms_ms,
+                   "multiclass_nms_cpu_ms": host_ms,
+                   "cpu_threads": {"default": threads, "host_cpus":
+                                   _host_cpus(), "os_cpu_count":
+                                   os.cpu_count()}, "kept": kept,
+                   "positive_scores": int((scores > y["score_threshold"])
+                                          .sum()),
+                   "head_logit_std": YOLO_LOGIT_STD}
+    quantities["yolo_box vs its CPU run"] = (yolo_err, DET_TOL)
+    quantities["multiclass_nms index differs from its CPU run"] = (
+        int(not same_index), 0)
+    quantities["multiclass_nms rows differ from its CPU run"] = (
+        int(not same_rows), 0)
+    quantities["images with nothing kept"] = (sum(k == 0 for k in kept), 0)
+    out["hand_kernel_launches"] = dict(support.launch_counts)
+    quantities["hand kernel launches"] = (
+        sum(support.launch_counts.values()), 0)
+    log("DETECTION_OPS " + json.dumps(out))
+    _check("DETECTION_OPS_CHECK", quantities)
+    del net, boxes, scores
+    torch.cuda.empty_cache()
+
+
 def _multicard_sentry(n):
     """Four NCCL ranks started by the port's launch CLI (``python -m
     paddle_tpu_torch.distributed.launch``, each rank this script with
@@ -9879,7 +10472,7 @@ def main():
     pallas_launches = timed("ops_pallas", phase_ops_pallas)
     artifacts = tempfile.mkdtemp(prefix="chip_smoke_artifacts_")
     try:
-        pred_bert, pred_k1f, bert_prefix = timed(
+        pred_bert, pred_k1f, bert_prefix, r1 = timed(
             "predictor_bert", phase_predictor_bert, artifacts)
         pred_static = timed("predictor_static_bert",
                             phase_predictor_static_bert)
@@ -9908,6 +10501,9 @@ def main():
     timed("shardcheck_gpt", phase_shardcheck_gpt)
     hapi_launches = timed("hapi_bert", phase_hapi_bert)
     timed("hapi_vision", phase_hapi_vision)
+    quant_launches = timed("quant_bert", phase_quant_bert, r1)
+    timed("onnx_resnet50", phase_onnx_resnet50)
+    timed("detection_ops", phase_detection_ops)
     seconds["total"] = time.perf_counter() - t0
     log("PHASE_SECONDS " + json.dumps(seconds))
     f32_err = max(r["max_abs_err"] for r in kernel_rows
@@ -9951,7 +10547,9 @@ def main():
                    "supervised static bert (children)":
                        sup_launches.get(name, 0),
                    "hapi Model bert (fit, evaluate, predict)":
-                       hapi_launches[name]}
+                       hapi_launches[name],
+                   "int8 bert (Predictor runs, QAT steps)":
+                       quant_launches[name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",
@@ -10053,6 +10651,27 @@ def main():
     return 0
 
 
+def main_phases(names):
+    """``--phases 76,77,78``: the environment, then the named phases of
+    this slice alone (phase 76 saves its own float R1 for the artifact
+    ratio, with no phase 53 latencies beside its own)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    phases = {"76": phase_quant_bert, "77": phase_onnx_resnet50,
+              "78": phase_detection_ops}
+    phase_environment()
+    seconds = {}
+    for name in names.split(","):
+        t = time.perf_counter()
+        phases[name]()
+        seconds[name] = time.perf_counter() - t
+    log("PHASE_SECONDS " + json.dumps(seconds))
+    log(nvidia_smi())
+    return 0
+
+
 def main_phase7(runs):
     """``--phase7-runs N``: phase 7 alone, N times in this process (each
     run's ``BERT_PARITY`` line carries both sides' parameter
@@ -10089,6 +10708,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--phase7-runs"]:
             sys.exit(main_phase7(int(sys.argv[2])))
+        if sys.argv[1:2] == ["--phases"]:
+            sys.exit(main_phases(sys.argv[2]))
         if sys.argv[1:2] == ["--multicard"]:
             sys.exit(main_multicard())
         if sys.argv[1:2] == ["--sentry-rank"]:

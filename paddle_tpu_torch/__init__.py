@@ -97,6 +97,12 @@ These slices are in:
   ``utils.crypto`` and ``utils.native_build`` (``save``/``load`` through
   registered filesystems, encrypted).
 
+- detection, interop, int8 and profiling: ``vision.ops`` (NMS batched
+  over images and classes, separable ``roi_align``, the detection zoo),
+  :mod:`.onnx` (``export`` through ``torch.export``), :mod:`.quantization`
+  (QAT, PTQ, ``Int8Linear`` on ``torch._int_mm``) and :mod:`.profiler`
+  (``Profiler`` over ``torch.profiler``, ``RecordEvent``).
+
 Models, pools, engines, static parameters and new tensors go to the
 current CUDA device unless the caller passes ``device=`` / ``place=``
 (e.g. ``"cpu"``) or calls ``set_device``; with no GPU and neither, they
@@ -110,8 +116,9 @@ __version__ = "0.1.0"
 
 from . import (amp, core, distributed, distribution,  # noqa: F401
                framework_io, hapi, inference, io, jit, metric, nn,
-               observability, ops, optimizer, parallel, serving, static,
-               testing, text, utils, vision)
+               observability, onnx, ops, optimizer, parallel, profiler,
+               quantization, serving, static, testing, text, utils,
+               vision)
 from .core.autograd import (enable_grad, grad, is_grad_enabled,  # noqa
                             no_grad)
 from .core.dispatch import apply  # noqa: F401

@@ -20,8 +20,10 @@ point); a recorded node is never cast.
 
 With a tracer installed whose ``trace_ops`` is on
 (``observability.enable``), every eager op that runs here lands on it
-as one ``op`` event (its host duration); disabled, the op path pays one
-module-attribute None-check.  Ops that never pass through here (a
+as one ``op`` event (its host duration), and with a ``profiler.Profiler``
+running (``core.profiler_hook``) its host time lands in the Profiler's
+op table; disabled, the op path pays one module-attribute None-check
+for each.  Ops that never pass through here (a
 Tensor method or operator that calls torch directly) emit nothing
 (ROADMAP §C).
 
@@ -38,7 +40,7 @@ from typing import Callable, Optional
 from torch.nn import Parameter
 
 from ..amp import amp_active, amp_cast_inputs
-from . import obs_hook
+from . import obs_hook, profiler_hook
 from .enforce import with_op_hint
 from .static_hooks import current_replay
 from .tensor import wrap
@@ -68,11 +70,17 @@ def apply(fn: Callable, *inputs, op_name: str,
     if amp_active():
         inputs = amp_cast_inputs(op_name, inputs)
     trc = obs_hook._tracer
-    t0 = time.perf_counter() if trc is not None else 0.0
+    prof = profiler_hook._active
+    t0 = (time.perf_counter() if trc is not None or prof is not None
+          else 0.0)
     try:
         out = fn(*inputs, **attrs) if attrs else fn(*inputs)
     except Exception as e:
         raise with_op_hint(e, op_name)
+    if prof is not None:
+        if prof._sync_ops:
+            prof._sync(out)
+        prof._record(op_name, time.perf_counter() - t0)
     if trc is not None:
         trc.op(op_name, t0, time.perf_counter())
     return wrap(out)

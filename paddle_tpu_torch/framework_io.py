@@ -152,7 +152,11 @@ def state_dict_from_paddle_tpu(
     """``{name: np.ndarray}`` from a paddle_tpu layer
     (``{k: np.asarray(v.data) for k, v in layer.state_dict().items()}``)
     -> tensors on ``device``, ready for ``load_state_dict``.  With
-    ``model``, the names and shapes must be exactly the model's."""
+    ``model``, the names and shapes must be exactly the model's.  Each
+    array keeps its dtype, so a model paddle_tpu quantised (the int8
+    ``qweight``, the f32 ``w_scale`` and the 0-d ``act_scale`` of its
+    ``Int8Linear``/``Int8Conv2D``, a QAT wrapper's ``_inner.*`` and
+    ``act_scale``) loads into the port's model quantised the same way."""
     if model is not None:
         own = model.state_dict()
         missing = sorted(set(own) - set(np_state))

@@ -12,14 +12,16 @@ internals, each run on both packages where both can run it.
 - The tracer, flight recorder, metrics dump and rotation, engine
   labels and ``/healthz`` degradation behave alike.
 
-Left out, with the reason:
+Twinned elsewhere:
 - ``test_record_event_end_without_begin_is_noop``,
   ``test_record_event_exception_safe_and_nested_under_tracer`` and the
   ``RecordEvent`` half of ``test_tracer_records_ops_and_spans_with_
-  nesting``: the profiler's ``RecordEvent`` is ROADMAP A7's (the span
-  nesting is held through ``Tracer.span`` here).
-- ``test_metrics_dump_callback``: ``hapi.callbacks.MetricsDump`` is not
-  ported (the port has no ``hapi``).
+  nesting``: in ``tests/test_torch_profiler.py``, beside the profiler
+  (the span nesting is held through ``Tracer.span`` here);
+- ``test_metrics_dump_callback``: ``hapi.callbacks.MetricsDump`` is
+  held in ``tests/test_torch_hapi.py``.
+
+Left out, with the reason:
 - ``test_perf_report_cli_multiline_jsonl_and_flight`` and
   ``test_obs_smoke_in_process``: ``tools/perf_report.py`` and
   ``tools/obs_smoke.py`` are the JAX package's CLI and gate (A7); the

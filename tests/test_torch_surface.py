@@ -33,12 +33,16 @@ NOT_YET_PORTED = {
     "paddle_tpu.nn.initializer": "",
     "paddle_tpu.ops.pallas": "",
     "paddle_tpu.metric": "",
+    "paddle_tpu.onnx": "",
     "paddle_tpu.optimizer.lr": "",
     "paddle_tpu.observability": "",
+    "paddle_tpu.profiler": "",
+    "paddle_tpu.quantization": "",
     "paddle_tpu.serving": "",
     "paddle_tpu.static": "",
     "paddle_tpu.text.datasets": "",
     "paddle_tpu.vision.datasets": "",
+    "paddle_tpu.vision.ops": "",
     "paddle_tpu.vision.transforms": "",
     "paddle_tpu.utils": """
         register_custom_op
@@ -49,7 +53,7 @@ NOT_YET_PORTED = {
 # modules the spec does not list: the JAX package's public names (from
 # its ``__init__``) and, second, those the port lacks
 UNLISTED = {
-    "paddle_tpu.vision": ("datasets models ops transforms", "ops"),
+    "paddle_tpu.vision": ("datasets models ops transforms", ""),
     "paddle_tpu.hapi": ("""
         Callback Checkpoint EarlyStopping LRScheduler Model
         ModelCheckpoint ProgBarLogger ReduceLROnPlateau VisualDL
