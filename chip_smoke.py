@@ -377,8 +377,16 @@ the batch-32 runs under ``paddle.profiler``, and a QAT leg (3 f32
 77: ResNet-50 through ``paddle.onnx.export`` rerun node by node on the
 card against its forward; 78: ``roi_align`` at Faster R-CNN R50-C4's
 box head and ``yolo_box`` + ``multiclass_nms`` at YOLOv3's COCO shapes
-on ResNet-50's features, each against its reference.
-``python3 chip_smoke.py --phases 76,77,78`` runs the named phases of
+on ResNet-50's features, each against its reference.  79: the
+custom-op path: phase 8's BERT-base trained with its attention a
+``register_custom_op`` function calling the flash-attention entry (12
+launches of each flash kernel a step) and its GELU a registered op with
+a backward pair, its losses equal to phase 8's; ``paddle.summary`` of
+the model under ``DataParallel``; K3 against ``Adam.update_param``; the
+leaky-relu extension of tests/test_torch_custom_op.py built by
+``cpp_extension.load`` (in a thread started after phase 1) and run on
+CPU tensors, refusing a CUDA tensor.
+``python3 chip_smoke.py --phases 76,77,78,79`` runs the named phases of
 this list alone, after the environment.
 
 Phases 46-64 each log their number and name, print every compared
@@ -1323,7 +1331,7 @@ def phase_bert_training(warmup=2, steps=10):
     want = cfg["layers"] * (warmup + steps)
     if any(c != want for c in counts.values()):
         raise AssertionError(f"flash launches {counts}, want {want} each")
-    return counts, model, step, (x, y)
+    return counts, model, step, (x, y), out
 
 
 # ---------------------------------------------------------------- phase 9
@@ -2423,9 +2431,11 @@ def phase_multicard(steps=3):
     losses against a world-size-1 run of the same model and weights on
     this process's card, rtol 1e-4 (f32 sums over shards in other
     orders, then 3 AdamW steps).  On four cards it then runs the fleet
-    leg (:func:`_multicard_fleet`) and the pipeline and hybrid {dp, mp}
-    legs (:func:`_multicard_pipeline_hybrid`).  On one card it says it
-    did not run."""
+    leg (:func:`_multicard_fleet`), the pipeline and hybrid {dp, mp}
+    legs (:func:`_multicard_pipeline_hybrid`), the sentry's
+    (:func:`_multicard_sentry`) and ``DataParallel``'s
+    (:func:`_multicard_data_parallel`).  On one card it says it did not
+    run."""
     import numpy as np
     import torch
     from paddle_tpu_torch.distributed.launch import free_port, spawn
@@ -2472,7 +2482,68 @@ def phase_multicard(steps=3):
         out["fleet"] = _multicard_fleet(n)
         out["a5b"] = _multicard_pipeline_hybrid(n)
         out["sentry"] = _multicard_sentry(n)
+        out["data_parallel"] = _multicard_data_parallel(n)
     return out
+
+
+def _multicard_data_parallel(n):
+    """``n`` ranks on {"dp": n}, each on its share of the batch
+    (``testing.parallel_cases``' ``data_parallel`` and
+    ``dp_sparse_embedding`` cases, which the CPU tests run on 4 gloo
+    ranks): ``DataParallel`` (an ``nn.Layer``) averages each gradient
+    over the ranks in its post-accumulate hooks, so every rank holds the
+    whole batch's gradient of the mean loss (1e-6 of the same model on
+    the whole batch in the rank's own process) and 3 ``SpmdTrainStep``s
+    give the whole batch's losses (rtol 1e-6); a sparse embedding
+    gradient is gathered: its rows exactly the whole batch's, values
+    and the parameters after 2 lazy Adam steps within 1e-6, the
+    parameters bitwise equal on every rank."""
+    import numpy as np
+    from paddle_tpu_torch.distributed.launch import free_port, spawn
+    from paddle_tpu_torch.testing import parallel_cases
+    outdir = os.path.join(ROOT, "build", "chip_smoke_data_parallel")
+    os.makedirs(outdir, exist_ok=True)
+    r = np.random.RandomState(18)
+    data = {"dx": r.randn(4 * n, 8).astype(np.float32),
+            "dy": r.randn(4 * n, 2).astype(np.float32),
+            "se_ids": r.randint(0, 30, (4 * n, 5)).astype(np.int64),
+            "se_y": r.randn(4 * n, 3).astype(np.float32),
+            "se.emb.weight": r.randn(40, 4).astype(np.float32),
+            "se.fc.weight": (0.5 * r.randn(4, 3)).astype(np.float32),
+            "se.fc.bias": (0.1 * r.randn(3)).astype(np.float32)}
+    np.savez(os.path.join(outdir, "inputs.npz"), **data)
+    t0 = time.perf_counter()
+    spawn(parallel_cases.run,
+          (outdir, ["data_parallel", "dp_sparse_embedding"], "cuda"),
+          nprocs=n, init_method=f"tcp://localhost:{free_port()}",
+          timeout=300)
+    spawn_s = time.perf_counter() - t0
+    res = [dict(np.load(os.path.join(outdir, f"rank{i}.npz")))
+           for i in range(n)]
+    d = lambda k, i: res[i]["data_parallel/" + k]  # noqa: E731
+    e = lambda k, i: res[i]["dp_sparse_embedding/" + k]  # noqa: E731
+    q = {}
+    for i in range(n):
+        q[f"rank{i}.grad_err"] = (float(d("grad_err", i)), 1e-6)
+        q[f"rank{i}.loss_rel_err"] = (float(np.abs(
+            d("losses", i) - d("oracle", i)).max()
+            / np.abs(d("oracle", i)).max()), 1e-6)
+        q[f"rank{i}.sparse_rows_differ"] = (int(not np.array_equal(
+            e("dp.rows", i), e("oracle.rows", i))), 0)
+        q[f"rank{i}.sparse_values_err"] = (float(np.abs(
+            e("dp.values", i) - e("oracle.values", i)).max()), 1e-6)
+        for k in ("emb.weight", "fc.weight", "fc.bias"):
+            q[f"rank{i}.{k}_err"] = (float(np.abs(
+                e(f"dp.param.{k}", i) - e(f"oracle.param.{k}", i)).max()),
+                1e-6)
+            q[f"rank{i}.{k}_differs_from_rank0"] = (int(not np.array_equal(
+                e(f"dp.param.{k}", i), e(f"dp.param.{k}", 0))), 0)
+    log("MULTICARD_DATA_PARALLEL " + json.dumps({
+        "ranks": n, "spawn_s": spawn_s,
+        "losses_rank0": d("losses", 0).tolist(),
+        "oracle_rank0": d("oracle", 0).tolist()}))
+    _check("MULTICARD_DATA_PARALLEL_CHECK", q)
+    return {k: v for k, (v, _) in q.items()}
 
 
 def _multicard_pipeline_hybrid(n, steps=3):
@@ -10285,6 +10356,262 @@ def phase_detection_ops():
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- phase 79
+CUSTOM_OP_BERT = dict(warmup=2, steps=3)
+EXT_SRC = os.path.join(ROOT, "paddle_tpu_torch", "testing", "csrc",
+                       "leaky_relu_ext.cpp")
+EXT_FUNCTIONS = {"leaky_fwd": {"symbol": "LeakyReluFwd", "out": "like:0"},
+                 "leaky_bwd": {"symbol": "LeakyReluBwd", "out": "like:0"}}
+
+
+def _start_extension_build():
+    """``cpp_extension.load`` of the leaky-relu extension of
+    tests/test_torch_custom_op.py (one ``g++`` run against this torch's
+    headers, into a fresh directory) in a thread beside the other
+    phases; returns the function that waits for it and gives (the
+    loaded namespace, the load's seconds)."""
+    from paddle_tpu_torch.utils import cpp_extension
+    work = tempfile.mkdtemp(prefix="chip_smoke_ext_")
+    box = {}
+
+    def build():
+        t0 = time.perf_counter()
+        try:
+            box["ext"] = cpp_extension.load("leaky_ext", [EXT_SRC],
+                                            EXT_FUNCTIONS,
+                                            build_directory=work)
+        except BaseException as e:        # noqa: BLE001 - raised at join
+            box["error"] = e
+        box["seconds"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=build, name="extension_build",
+                              daemon=True)
+    thread.start()
+
+    def result():
+        thread.join()
+        shutil.rmtree(work, ignore_errors=True)
+        if "error" in box:
+            raise box["error"]
+        return box["ext"], box["seconds"]
+    return result
+
+
+def _registered_bert_ops(torch):
+    """The two user ops of phase 79: the attention, a function of q, k,
+    v calling the port's ``flash_attention`` entry (K1f forward, K1b
+    backward through autograd), drawing its dropout seed as ``F.
+    scaled_dot_product_attention`` does; and GELU with a backward pair
+    (aten's ``gelu_backward``, the function autograd calls)."""
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.ops.flash_attention import flash_attention
+    from paddle_tpu_torch.utils import register_custom_op
+
+    def attention(q, k, v, *, dropout_p, training):
+        p = dropout_p if training else 0.0
+        return flash_attention(q, k, v, dropout_p=p,
+                               seed=rng.next_seed() if p > 0.0 else None)
+
+    attn = register_custom_op("user_flash_attention", attention)
+    gelu = register_custom_op(
+        "user_gelu", lambda x: torch.nn.functional.gelu(x),
+        backward=lambda res, g: (torch.ops.aten.gelu_backward(g, res[0]),))
+    return attn, gelu
+
+
+def _use_registered_ops(model, attn, gelu):
+    """Every encoder layer of ``model`` runs its attention through
+    ``attn`` (``MultiHeadAttention.forward`` without a mask or cache,
+    its projections as they were) and its activation through
+    ``gelu``."""
+    import types
+
+    def forward(self, query, key=None, value=None, attn_mask=None,
+                cache=None):
+        if attn_mask is not None or cache is not None:
+            raise NotImplementedError("phase 79's attention: no mask or "
+                                      "cache")
+        key = query if key is None else key
+        value = key if value is None else value
+        out = attn(self._heads(self.q_proj, query),
+                   self._heads(self.k_proj, key),
+                   self._heads(self.v_proj, value),
+                   dropout_p=self.dropout, training=self.training)
+        return self.out_proj(out.reshape(query.shape[0], -1,
+                                         self.embed_dim))
+
+    for layer in model.encoder.layers:
+        layer.self_attn.forward = types.MethodType(forward, layer.self_attn)
+        layer.activation = gelu
+
+
+def _bert_runs(torch, step, batch, n):
+    """``n`` clocked steps, the flash launches of each: (losses, ms,
+    [{kernel: launches} a step])."""
+    from paddle_tpu_torch.ops.cuda import support
+    x, y = batch
+    losses, ms, launches = [], [], []
+    for _ in range(n):
+        support.reset_launch_counts()
+        loss, t = _clocked_step(torch, lambda: step(x, y))
+        losses.append(float(loss))
+        ms.append(t)
+        launches.append({k: support.launch_counts.get(k, 0)
+                         for k in FLASH_KERNELS})
+    return losses, ms, launches
+
+
+def _adam_update_param_hold(torch, gen):
+    """K3 against ``Adam.update_param`` (the plain per-tensor arithmetic)
+    on CUDA tensors, 6 steps at lr 1e-3: tests/test_pallas.py:292-313's
+    ragged shapes (p and g standard normal) and one slab of the static
+    BERT-base's parameter count (p at BERT's init scale, 0.02); p, m and
+    v within ADAM_TOL, and K3 launched once a step (``update_param``
+    none)."""
+    from paddle_tpu_torch.ops.cuda import support
+    from paddle_tpu_torch.ops.fused_adam import FusedAdam
+    from paddle_tpu_torch.optimizer import Adam
+    opt = Adam(learning_rate=1e-3)
+    slab = sum(math.prod(s) for s in _static_param_shapes(STATIC_CHIP))
+    rows = []
+    for shape, scale in (((7,), 1.0), ((130, 33), 1.0), ((slab,), 0.02)):
+        p = torch.randn(shape, generator=gen, device="cuda") * scale
+        g = torch.empty_like(p)
+        kp, km, kv = p.clone(), torch.zeros_like(p), torch.zeros_like(p)
+        kern = FusedAdam([kp], [g], [km], [kv])
+        rp, rs = p, opt.init_slots(p)
+        lr = torch.full((), 1e-3, device="cuda")
+        step = torch.zeros((), device="cuda")
+        support.reset_launch_counts()
+        for _ in range(6):
+            g.normal_(generator=gen)
+            step += 1
+            kern(lr, step)
+            rp, rs = opt.update_param(rp, g, rs, lr, step.clone())
+        torch.cuda.synchronize()
+        err = max((a - b).abs().max().item() for a, b in
+                  ((kp, rp), (km, rs["m"]), (kv, rs["v"])))
+        rows.append({"shape": list(shape), "max_abs_err": err,
+                     "k3_launches": support.launch_counts.get(
+                         "fused_adam", 0)})
+        del p, g, kp, km, kv, rp, rs, kern
+    torch.cuda.empty_cache()
+    return rows
+
+
+@_keeps_global_state
+def phase_custom_op_bert(reference, extension):
+    """79 custom_op_bert: A7's custom-op path on the card.  (a) phase 8's
+    BERT-base (its config, seed 2024, batch, AdamW + clip, O2) trained
+    through ``jit.TrainStep`` for 2 warm-up and 3 counted steps with its
+    attention a ``register_custom_op`` function calling the
+    ``flash_attention`` entry and its GELU a registered op with a
+    backward pair: 12 launches of each flash kernel every step, each op
+    12 times a step in the profiler's op table, the losses equal to the
+    unregistered model's at the same seed (``reference``: phase 8's,
+    else trained here), and the step time beside phase 8's;
+    ``paddle.summary`` of ``DataParallel(bert)`` counting the bare
+    model's parameters.  (b) K3 held to ``Adam.update_param``
+    (:func:`_adam_update_param_hold`).  (c) the leaky-relu extension
+    built by ``cpp_extension.load`` with ``g++`` against this torch
+    (``extension``: :func:`_start_extension_build`'s result): right on
+    CPU tensors, refusing a CUDA tensor with an error naming the op."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import profiler
+    cfg, n = BERT_CHIP, CUSTOM_OP_BERT["warmup"] + CUSTOM_OP_BERT["steps"]
+    warmup = CUSTOM_OP_BERT["warmup"]
+    if reference is None:
+        paddle.seed(2024)
+        model, step = _bert_trainer(torch, cfg, "cuda", True)
+        ref_losses, ref_ms, _ = _bert_runs(
+            torch, step, _bench_batch(torch, cfg, "cuda"), n)
+        reference = {"losses": ref_losses, "step_ms": ref_ms[warmup:],
+                     "source": "trained in this phase"}
+        del model, step
+        torch.cuda.empty_cache()
+    attn, gelu = _registered_bert_ops(torch)
+    paddle.seed(2024)
+    model, step = _bert_trainer(torch, cfg, "cuda", True)
+    _use_registered_ops(model, attn, gelu)
+    batch = _bench_batch(torch, cfg, "cuda")
+    losses, step_ms, launches = _bert_runs(torch, step, batch, warmup)
+    with profiler.Profiler(timer_only=True) as prof:
+        more = _bert_runs(torch, step, batch, n - warmup)
+    losses, step_ms, launches = (losses + more[0], step_ms + more[1],
+                                 launches + more[2])
+    rows = {name: calls for name, calls, _ in prof.key_averages()}
+    ref = reference["losses"][:n]
+    diff = max(abs(a - b) for a, b in zip(losses, ref))
+    want = cfg["layers"]
+    bad_steps = sum(any(c != want for c in per.values())
+                    for per in launches)
+    timed = step_ms[warmup:]
+    total = {k: sum(per[k] for per in launches) for k in FLASH_KERNELS}
+    numel = sum(p.numel() for p in model.parameters())
+    with contextlib.redirect_stdout(io.StringIO()):   # the two tables
+        dp_params = paddle.summary(paddle.DataParallel(model))[
+            "total_params"]
+        bare_params = paddle.summary(model)["total_params"]
+    del model, step, batch
+    torch.cuda.empty_cache()
+    hold = _adam_update_param_hold(
+        torch, torch.Generator(device="cuda").manual_seed(79))
+    ext, ext_s = extension()
+    x = torch.tensor([-2.0, -0.5, 0.0, 1.5])
+    ext_err = (ext.leaky_fwd(x, alpha=0.1)
+               - torch.where(x > 0, x, 0.1 * x)).abs().max().item()
+    try:
+        ext.leaky_fwd(x.cuda(), alpha=0.1)
+        refused = "ran"
+    except (NotImplementedError, RuntimeError) as e:
+        refused = str(e).splitlines()[0]
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[0]
+    out = {"config": cfg, "dtype": "bfloat16 O2, f32 master weights",
+           "warmup_steps": warmup, "timed_steps": n - warmup,
+           "losses": losses, "unregistered_losses": ref,
+           "unregistered_from": reference.get("source", "phase 8"),
+           "loss_max_abs_diff": diff, "step_ms": timed,
+           "step_ms_p50": float(np.median(timed)),
+           "step_ms_mean": sum(timed) / len(timed),
+           "phase8_step_ms_p50": float(np.median(reference["step_ms"])),
+           "phase8_step_ms_mean": (sum(reference["step_ms"])
+                                   / len(reference["step_ms"])),
+           "flash_launches_per_step": launches, "flash_launches": total,
+           "profiler_op_calls": {k: rows.get(k, 0) for k in (
+               "user_flash_attention", "user_gelu")},
+           "params": numel, "summary_dataparallel_params": dp_params,
+           "summary_bare_params": bare_params,
+           "adam_update_param_hold": hold, "extension": {
+               "load_s": ext_s, "torch": torch.__version__, "gxx": gxx,
+               "so": os.path.basename(ext.__so_path__),
+               "cpu_max_abs_err": ext_err, "cuda_tensor": refused}}
+    log("CUSTOM_OP_BERT " + json.dumps(out))
+    counted = n - warmup
+    _check("CUSTOM_OP_BERT_CHECK", {
+        "loss max abs diff vs the unregistered model": (diff, 0.0),
+        "non-finite losses": (sum(not math.isfinite(v) for v in losses), 0),
+        "steps without 12 launches of each flash kernel": (bad_steps, 0),
+        "user_flash_attention op events off 12 a counted step": (
+            abs(rows.get("user_flash_attention", 0) - want * counted), 0),
+        "user_gelu op events off 12 a counted step": (
+            abs(rows.get("user_gelu", 0) - want * counted), 0),
+        "summary(DataParallel) params off the bare model's": (
+            abs(dp_params - numel) + abs(bare_params - numel), 0),
+        "K3 vs Adam.update_param max abs err": (
+            max(r["max_abs_err"] for r in hold), ADAM_TOL),
+        "K3 launches off 6 a shape (update_param launched any)": (
+            sum(abs(r["k3_launches"] - 6) for r in hold), 0),
+        "extension max abs err on CPU tensors": (ext_err, 1e-6),
+        "extension ran on a CUDA tensor": (
+            int("LeakyReluFwd" not in refused), 0)})
+    return total, hold
+
+
 def _multicard_sentry(n):
     """Four NCCL ranks started by the port's launch CLI (``python -m
     paddle_tpu_torch.distributed.launch``, each rank this script with
@@ -10384,6 +10711,7 @@ def main():
         return out
 
     timed("environment", phase_environment)
+    extension = _start_extension_build()
     kernel_rows = timed("paged_kernel", phase_kernels)
     timed("small_model", phase_small_model_parity)
     launches, model, kv = timed("serving", phase_serving)
@@ -10392,8 +10720,8 @@ def main():
     torch.cuda.empty_cache()
     flash_rows = timed("flash_kernels", phase_flash_kernels)
     timed("small_bert", phase_small_bert_parity)
-    flash_launches, bert, step, batch = timed("bert_training",
-                                              phase_bert_training)
+    flash_launches, bert, step, batch, bert_train = timed(
+        "bert_training", phase_bert_training)
     timed("train_anatomy", phase_train_anatomy, step, batch)
     del bert, step, batch
     torch.cuda.empty_cache()
@@ -10504,6 +10832,8 @@ def main():
     quant_launches = timed("quant_bert", phase_quant_bert, r1)
     timed("onnx_resnet50", phase_onnx_resnet50)
     timed("detection_ops", phase_detection_ops)
+    custom_launches, adam_hold = timed(
+        "custom_op_bert", phase_custom_op_bert, bert_train, extension)
     seconds["total"] = time.perf_counter() - t0
     log("PHASE_SECONDS " + json.dumps(seconds))
     f32_err = max(r["max_abs_err"] for r in kernel_rows
@@ -10559,6 +10889,7 @@ def main():
                          + nmt_launches[name] + decode_launches
                          + lamb_launches[name] + pallas_launches[name]
                          + pipe_launches[name] + lsgd_launches[name]
+                         + custom_launches[name]
                          + sum(by_path.values())),
             "launches_by_entry": {"flash_attention": flash_launches[name],
                                   "flash_attention_block":
@@ -10577,6 +10908,8 @@ def main():
                                       pipe_launches[name],
                                   "flash_attention (LocalSGD bert)":
                                       lsgd_launches[name],
+                                  "register_custom_op attention (bert)":
+                                      custom_launches[name],
                                   "ops.pallas.flash_attention":
                                       pallas_launches[name]},
             "launches_by_path": by_path,
@@ -10631,7 +10964,9 @@ def main():
             "library_call": r.get("library_call"),
             **({"bf16": {k: r["bf16"][k] for k in (
                 "case", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "library_call")}} if "bf16" in r else {})})
+                "library_ms", "library_call")}} if "bf16" in r else {}),
+            **({"update_param_hold": adam_hold}
+               if name == "fused_adam" else {})})
     kernels.append({
         "name": "chunk_matmul", "route": "cuda",
         "source": "paddle_tpu_torch/ops/cuda/csrc/chunk_matmul.cu",
@@ -10652,16 +10987,19 @@ def main():
 
 
 def main_phases(names):
-    """``--phases 76,77,78``: the environment, then the named phases of
-    this slice alone (phase 76 saves its own float R1 for the artifact
-    ratio, with no phase 53 latencies beside its own)."""
+    """``--phases 76,77,78,79``: the environment, then the named phases
+    alone (phase 76 saves its own float R1 for the artifact ratio, with
+    no phase 53 latencies beside its own; phase 79 trains its
+    unregistered reference itself)."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    phases = {"76": phase_quant_bert, "77": phase_onnx_resnet50,
-              "78": phase_detection_ops}
     phase_environment()
+    extension = _start_extension_build()
+    phases = {"76": phase_quant_bert, "77": phase_onnx_resnet50,
+              "78": phase_detection_ops,
+              "79": lambda: phase_custom_op_bert(None, extension)}
     seconds = {}
     for name in names.split(","):
         t = time.perf_counter()

@@ -16,6 +16,9 @@
   the dp ranks' masks differ and the ranks of one dp group share
   theirs; ``TrainStep``'s microbatches each draw from a stream of their
   own inside it.
+- :func:`seed_scope` runs a block on the stream of one seed and puts
+  the state back after it (``StaticFunction.concrete``'s pure function
+  takes its draws from the int key it is given).
 - :func:`get_rng_state` / :func:`set_rng_state` take and put back every
   draw's state: the active stream, the host generator's and every
   device generator's state, and the fold_in streams not in use.
@@ -41,7 +44,8 @@ from typing import Dict, Iterator, NamedTuple, Optional, Tuple, Union
 import torch
 
 __all__ = ["seed", "default_generator", "get_rng_state", "set_rng_state",
-           "RngState", "generator", "next_seed", "next_key", "fold_in",
+           "RngState", "generator", "next_seed", "next_key", "seed_scope",
+           "fold_in",
            "mul32", "fmix32", "dropout_threshold", "StableDraw"]
 
 M32 = 0xFFFFFFFF
@@ -176,6 +180,20 @@ def next_seed() -> int:
 # the JAX package's name (its ``next_key`` gives a threefry key, the
 # port an int32 seed)
 next_key = next_seed
+
+
+@contextlib.contextmanager
+def seed_scope(key: int) -> Iterator[None]:
+    """Inside the block every draw comes from the stream :func:`seed`
+    starts at ``key``; every draw's state from before is put back on
+    exit (the counterpart of paddle_tpu's ``seed_scope``, which routes
+    draws through a threefry key): one ``key`` gives one set of draws."""
+    saved = get_rng_state()
+    seed(int(key))
+    try:
+        yield
+    finally:
+        set_rng_state(saved)
 
 
 @contextlib.contextmanager

@@ -88,6 +88,22 @@ class InputSpec:
         return f"InputSpec(shape={self.shape}, dtype={self.dtype})"
 
 
+def _flatten(obj, leaves: list):
+    """The leaves of ``obj`` (lists, tuples and dicts opened, dicts by
+    sorted key as in :func:`_structure`) appended to ``leaves``; returns
+    the function that rebuilds ``obj`` from an iterator of leaves."""
+    if isinstance(obj, (list, tuple)):
+        parts = [_flatten(x, leaves) for x in obj]
+        kind = type(obj)
+        return lambda it: kind(p(it) for p in parts)
+    if isinstance(obj, dict):
+        keys = sorted(obj, key=repr)
+        parts = [_flatten(obj[k], leaves) for k in keys]
+        return lambda it: {k: p(it) for k, p in zip(keys, parts)}
+    leaves.append(obj)
+    return lambda it: next(it)
+
+
 def _find_layer(fn) -> Optional[object]:
     if isinstance(fn, torch.nn.Module):
         return fn
@@ -152,6 +168,56 @@ class StaticFunction:
         sig["training"] = training
         from ..observability import record_compile
         record_compile("jit", self._serial, sig)
+
+    def concrete(self, *example_args, **example_kwargs):
+        """``(pure_fn, tensor_args)``, paddle_tpu's pair for export.
+
+        ``pure_fn(key, *params, *buffers, *inputs)`` returns ``(outputs,
+        new_buffers)``: the function on ``inputs`` (the call's tensors,
+        in the order of ``tensor_args``; its other arguments are the
+        example call's) with the layer's parameters and buffers bound to
+        the given tensors (:func:`.bind.bind`, in ``named_parameters()``
+        / ``named_buffers()`` order), every random draw from the stream
+        of the int seed ``key`` (``F.next_key()`` gives one; paddle_tpu's
+        key is a threefry key), and no gradient recorded.  The buffers
+        given are not written: ``new_buffers`` are copies holding the
+        call's updates (batch norm's running statistics in training
+        mode).  ``tensor_args`` are the example call's tensors.
+
+        The port compiles nothing ahead of time: ``pure_fn`` runs the
+        function eagerly, as a ``to_static`` call does."""
+        from ..core import rng
+        from .bind import bind, buffer_names, param_list
+        leaves: list = []
+        rebuild = _flatten((example_args, example_kwargs), leaves)
+        tensor_args = [x for x in leaves if isinstance(x, torch.Tensor)]
+        fixed = [_TENSOR_LEAF if isinstance(x, torch.Tensor) else x
+                 for x in leaves]
+        layer, fn = self._layer, self._fn
+        n_p = len(param_list(layer)) if layer is not None else 0
+        bnames = buffer_names(layer) if layer is not None else []
+        n_b = len(bnames)
+
+        def pure_fn(key, *arrays):
+            if len(arrays) != n_p + n_b + len(tensor_args):
+                raise TypeError(
+                    f"concrete: {len(arrays)} tensors for {n_p} parameters"
+                    f", {n_b} buffers and {len(tensor_args)} inputs")
+            params = list(arrays[:n_p])
+            buffers = [b.clone() for b in arrays[n_p:n_p + n_b]]
+            inputs = iter(arrays[n_p + n_b:])
+            args, kwargs = rebuild(iter(
+                next(inputs) if x is _TENSOR_LEAF else x for x in fixed))
+            with torch.no_grad(), rng.seed_scope(int(key)), \
+                    to_static_scope():
+                if layer is None:
+                    return fn(*args, **kwargs), ()
+                with bind(layer, params, buffers) as res:
+                    out = fn(*args, **kwargs)
+            return out, tuple(res.new_buffers.get(n, b)
+                              for n, b in zip(bnames, buffers))
+
+        return pure_fn, tensor_args
 
     def __get__(self, instance, owner=None):
         """``@to_static`` on a method binds per instance."""

@@ -97,6 +97,14 @@ class TrainStep:
         st = self._scaler_state
         return None if st is None else float(st["scale"])
 
+    def sync_params(self):
+        """Give the model the weights the step holds (nothing to do
+        here: this step updates the parameters in place).  The steps
+        that hold weights elsewhere override it (ZeRO-3 rows,
+        ``SpmdTrainStep``; LocalSGD replicas), and ``Layer.state_dict``
+        calls it through ``_param_owner_step``, as paddle_tpu's
+        ``TrainStep.sync_params``."""
+
     def _amp_scope(self):
         if self.amp_level is None:
             return contextlib.nullcontext()

@@ -118,8 +118,8 @@ class Layer(nn.Module):
 
     def __init__(self, name_scope=None, dtype="float32"):
         super().__init__()
-        self._full_name = unique_name(name_scope
-                                      or type(self).__name__.lower())
+        self._name_scope = name_scope or type(self).__name__.lower()
+        self._full_name = unique_name(self._name_scope)
         self._dtype = convert_dtype(dtype)
         self._param_suffix_counts: Dict[str, int] = {}
 
@@ -276,4 +276,6 @@ class Layer(nn.Module):
             p.grad = None
 
     def full_name(self) -> str:
-        return self._full_name
+        """The layer's name scope (``'linear'``), as paddle_tpu gives it;
+        its parameters are named after the unique ``linear_N``."""
+        return self._name_scope

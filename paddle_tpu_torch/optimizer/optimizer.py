@@ -99,6 +99,17 @@ class Optimizer:
         """Pure: (new params, new slots) for same-dtype lists."""
         raise NotImplementedError
 
+    def update_param(self, p: torch.Tensor, g: torch.Tensor,
+                     slots: Dict[str, torch.Tensor], lr, step):
+        """paddle_tpu's per-tensor update: ``(new_p, new_slots)`` for one
+        parameter, its gradient and its slots (:meth:`init_slots`), the
+        list-wise :meth:`update` on a list of one.  Pure: ``p``, ``g``
+        and ``slots`` are left as they were.  ``lr`` and ``step`` are
+        Python numbers or 0-d tensors.  No clip, weight decay or master
+        copy: those wrap the update in :meth:`functional_update`."""
+        new_ps, new_ss = self.update([p], [g], [slots], lr, step)
+        return new_ps[0], new_ss[0]
+
     def _decoupled(self) -> bool:
         return False                 # AdamW overrides
 

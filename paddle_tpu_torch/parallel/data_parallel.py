@@ -15,17 +15,23 @@ it is not summed but gathered: the slot then holds every rank's rows,
 each value divided by the number of ranks, which is the whole batch's
 sparse gradient of the mean loss.  SGD and ``Adam(lazy_mode=True)``
 then update the same rows on every rank.
+
+The wrapper is an ``nn.Layer``, as paddle_tpu's is: the wrapped layer
+is its sublayer ``_layers``, so ``parameters()``, ``sublayers()``,
+``paddle.summary`` and ``paddle.Model`` see the wrapped layer's own,
+while ``state_dict``, ``set_state_dict`` and ``load_dict`` go to the
+wrapped layer (its keys, without a ``_layers.`` prefix).
 """
 from __future__ import annotations
 
 from typing import List
 
 import torch
-from torch import nn
 
 from ..core.tensor import raw_grad
 from ..distributed.collective import ReduceOp, _resolve, all_gather, all_reduce
 from ..distributed.mesh import DP_AXIS
+from ..nn.layer_base import Layer
 
 __all__ = ["DataParallel", "allreduce_gradients"]
 
@@ -61,7 +67,7 @@ def _gather_rows(g: torch.Tensor, group) -> torch.Tensor:
         check_invariants=False)
 
 
-class DataParallel(nn.Module):
+class DataParallel(Layer):
     def __init__(self, layers, strategy=None, comm_buffer_size=25,
                  last_comm_buffer_size=1, find_unused_parameters=False,
                  group=None):
@@ -98,4 +104,10 @@ class DataParallel(nn.Module):
         return self._layers.state_dict(*args, **kwargs)
 
     def set_state_dict(self, state_dict, *args, **kwargs):
-        return self._layers.load_state_dict(state_dict, *args, **kwargs)
+        inner = getattr(self._layers, "set_state_dict", None)
+        if inner is None:                  # a plain torch module
+            return self._layers.load_state_dict(state_dict, *args, **kwargs)
+        return inner(state_dict, *args, **kwargs)
+
+    load_dict = set_state_dict
+    set_dict = set_state_dict

@@ -43,6 +43,7 @@ import os
 import sys
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..core.dispatch import Symbolic
@@ -51,6 +52,7 @@ from ..core.flags import get_flag
 from ..core.placement import device as _resolve_device
 from ..core.static_hooks import current_replay, replay_scope  # noqa: F401
 from ..ops import symbolic_methods
+from ..ops.creation import clone as _clone
 
 __all__ = ["Program", "Variable", "data", "program_guard",
            "default_main_program", "default_startup_program",
@@ -76,6 +78,11 @@ def _caller_loc():
             return (f.f_code.co_filename, f.f_lineno)
         f = f.f_back
     return None
+
+
+class _NoHook:
+    def remove(self):
+        pass
 
 
 class Variable(Symbolic):
@@ -116,6 +123,76 @@ class Variable(Symbolic):
                 f"dtype={self.dtype})")
 
     __hash__ = object.__hash__
+
+    # -- the eager Tensor's members, as paddle_tpu's Variable answers them
+    # (it inherits them from its Tensor, whose value is the abstract
+    # shape and dtype while a Program is built).  Only ``clone`` records
+    # a node; ``meta`` is the port's abstract value.
+    def clone(self):
+        """A ``clone`` node: the Executor runs it as a copy."""
+        return _clone(self)
+
+    def numpy(self):
+        """The abstract value, as a 0-d object array holding ``meta``."""
+        out = np.empty((), dtype=object)
+        out[()] = self.meta
+        return out
+
+    def item(self, *args):
+        return self.meta
+
+    def tolist(self):
+        return self.meta
+
+    def _no_value(self, member):
+        raise TypeError(
+            f"static.Variable.{member}: {self.name} is symbolic while the "
+            "Program is built and holds no value; fetch it with "
+            "Executor.run")
+
+    def detach(self):
+        self._no_value("detach")
+
+    def cpu(self):
+        self._no_value("cpu")
+
+    def backward(self, grad_tensor=None, retain_graph=False):
+        """Nothing to run on a scalar (the Program's gradients come from
+        ``optimizer.minimize``); a non-scalar without ``grad_tensor``
+        raises, as the eager Tensor's does."""
+        if grad_tensor is None and self.meta.numel() != 1:
+            raise RuntimeError("grad must be provided for non-scalar "
+                               "tensor.backward()")
+
+    def clear_grad(self):
+        return None
+
+    clear_gradient = clear_grad
+
+    def register_hook(self, hook):
+        """A handle whose ``remove()`` does nothing: a symbolic Variable
+        has no gradient to pass ``hook``, so it is never called, as in
+        paddle_tpu."""
+        return _NoHook()
+
+    def cuda(self, *args, **kwargs):
+        return self
+
+    def pin_memory(self):
+        return self
+
+    def set_value(self, value):
+        shape = tuple(np.shape(value))
+        if shape != tuple(self.meta.shape):
+            raise ValueError(f"set_value shape mismatch: {list(shape)} vs "
+                             f"{self.shape}")
+        return self
+
+    def zero_(self):
+        return self
+
+    def fill_(self, value):
+        return self
 
 
 for _name, _fn in symbolic_methods().items():
